@@ -1,0 +1,85 @@
+"""Carry graphs and stepper state in from the JAX package, as numpy.
+
+The port never imports the reference; a caller that holds a reference
+``Graph`` or ``BatchState`` passes its arrays as a dict of numpy arrays
+(``np.asarray`` of each field) and gets the port's counterpart, with no
+recomputation. The tests use this to start both packages from one
+mid-solve state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import Graph
+from repro_torch.core.static_engine import BatchState
+from repro_torch.kernels.config import resolve_device
+
+_GRAPH_FIELDS = {
+    "src": np.int32, "dst": np.int32, "w": np.float32,
+    "in_min_static": np.float32, "out_min_static": np.float32,
+}
+# Fields a reference BatchState carries only for modes the port does not
+# run yet; they must be absent or None.
+_UNPORTED_STATE_FIELDS = (
+    "crit_keys", "keys_valid", "dist_true", "fringe_trace", "relax_trace",
+    "attr_trace", "delta", "target",
+)
+
+
+def _tensor(x, dtype, dev) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype != dtype:
+        raise TypeError(f"want {np.dtype(dtype)}; got {arr.dtype}")
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+
+def graph_from_numpy(fields: dict, device=None) -> Graph:
+    """The port's :class:`Graph` from a reference graph's fields
+    (``src, dst, w, in_min_static, out_min_static, n, m``) on ``device``
+    (None = the CUDA card). The static minima are taken as given."""
+    dev = resolve_device(device)
+    arrays = {k: _tensor(fields[k], t, dev) for k, t in _GRAPH_FIELDS.items()}
+    return Graph(n=int(fields["n"]), m=int(fields["m"]), **arrays)
+
+
+def combine_limbs(lo, hi) -> np.ndarray:
+    """A two-limb (u32 low, i32 high) counter as int64, the way the
+    reference's ``combine_limbs`` folds it."""
+    lo64 = np.asarray(lo).astype(np.int64)
+    hi64 = np.asarray(hi).astype(np.int64)
+    return (hi64 << np.int64(32)) + lo64
+
+
+def state_from_numpy(fields: dict, device=None) -> BatchState:
+    """The port's :class:`BatchState` from a reference state's fields on
+    ``device`` (None = the CUDA card).
+
+    Two-limb counters (``sum_fringe``/``sum_fringe_hi``,
+    ``relax_edges``/``relax_edges_hi``) fold into int64. Fields of modes
+    the port does not run (dynamic keys, oracle rows, telemetry rings,
+    delta, targets) must be absent or None.
+    """
+    dev = resolve_device(device)
+    extra = [k for k in _UNPORTED_STATE_FIELDS if fields.get(k) is not None]
+    if extra:
+        raise NotImplementedError(
+            f"state carries fields of modes not ported yet: {extra} "
+            "(ROADMAP Queue 1 item 5)"
+        )
+
+    def counter(name):
+        folded = combine_limbs(fields[name], fields[name + "_hi"])
+        return torch.from_numpy(folded).to(dev)
+
+    return BatchState(
+        dist=_tensor(fields["dist"], np.float32, dev),
+        status=_tensor(fields["status"], np.int32, dev),
+        trips=_tensor(np.asarray(fields["trips"]).reshape(()), np.int32, dev),
+        phases=_tensor(fields["phases"], np.int32, dev),
+        sum_fringe=counter("sum_fringe"),
+        relax_edges=counter("relax_edges"),
+        out_deg=_tensor(fields["out_deg"], np.int32, dev),
+        settled_trace=_tensor(fields["settled_trace"], np.int32, dev),
+        criterion=str(fields["criterion"]),
+    )

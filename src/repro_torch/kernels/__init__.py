@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels for the phased-SSSP hot spots (``csrc/``),
+their plain PyTorch twins (``ref.py``) and the padding wrappers the engines
+call (``ops.py``). Kernels build with ``nvcc`` at first use
+(``_build.py``)."""
+from repro_torch.kernels.ops import (
+    crit_thresholds_batch,
+    pad_lane_batch,
+    relax_settled,
+    relax_settled_batch,
+    static_thresholds,
+    static_thresholds_batch,
+)
+
+__all__ = [
+    "crit_thresholds_batch",
+    "pad_lane_batch",
+    "relax_settled",
+    "relax_settled_batch",
+    "static_thresholds",
+    "static_thresholds_batch",
+]

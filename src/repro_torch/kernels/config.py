@@ -1,0 +1,49 @@
+"""Device resolution and launch geometry for the CUDA kernel layer.
+
+The reference's execution config (interpret/compiled modes, VMEM budgets,
+tuning ledger, scan fusion) has no meaning on a Hopper card yet; this
+module keeps only what the port's kernels need: which device an entry
+point runs on, and the fixed launch shapes of the two kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+# ell_relax_batch: threads per block (a multiple of 32).
+RELAX_THREADS = 256
+
+# frontier_crit_lanes_batch: threads per block, elements per thread in the
+# first pass, and the most OUT lanes a plan can ask for (must match KMAX in
+# csrc/frontier_crit.cu; the registry's plans need at most 4).
+CRIT_THREADS = 256
+CRIT_ITEMS = 8
+CRIT_MAX_KEYS = 8
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means the CUDA card.
+
+    Raises when a CUDA device is asked for and none is present: the port
+    never continues on the host unless the caller asked for the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch twins on the host"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu'; got {dev}")
+    return dev
+
+
+def relax_threads_per_row(d_pad: int) -> int:
+    """Threads that share one ELL row: the smallest power of two covering
+    the row width, capped at a warp (wide rows loop over the warp)."""
+    tpr = 1
+    while tpr < min(d_pad, 32):
+        tpr *= 2
+    return tpr

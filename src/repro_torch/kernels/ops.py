@@ -1,0 +1,83 @@
+"""Public wrappers around the kernels (counterpart of ``repro.kernels.ops``).
+
+Every wrapper accepts ``use_kernels`` (the port's name for the reference's
+``use_pallas``): the False path runs the plain twin from ``ref.py`` through
+the same padding and masking code as the kernel path, so the two can never
+drift apart bitwise. Engines select the path and never pad themselves:
+this module is the one home of the sentinel convention.
+
+The engines consume the batched entry points; the 1-D ``relax_settled`` /
+``static_thresholds`` wrappers are the reference surfaces the tests pin the
+batched ones against.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
+from repro_torch.kernels.frontier_crit import (
+    frontier_crit,
+    frontier_crit_batch,
+    frontier_crit_lanes_batch,
+)
+
+INF = float("inf")
+
+
+def pad_lane_batch(x: torch.Tensor, fill=INF) -> torch.Tensor:
+    """(B, n) -> (B, n + 1) with ``fill`` in column n.
+
+    THE sentinel convention of the ELL gather kernels: one extra slot for
+    the sentinel neighbour id n, carrying a min-neutral fill. (The
+    reference also rounds to a 128-lane multiple, a TPU layout artifact the
+    card does not need; the values read are the same.)
+    """
+    b, n = x.shape
+    out = torch.full((b, n + 1), fill, dtype=torch.float32, device=x.device)
+    out[:, :n] = x
+    return out
+
+
+def relax_settled(d, settle_mask, ell_cols, ell_ws, *, use_kernels=True):
+    """Candidate-update vector (n,): upd[v] = min over in-edges from
+    settled sources."""
+    dmask = pad_lane_batch(torch.where(settle_mask, d, INF)[None])[0]
+    if not use_kernels:
+        return kref.ell_relax_ref(dmask, ell_cols, ell_ws)
+    return ell_relax(dmask, ell_cols, ell_ws)
+
+
+def static_thresholds(d, status, out_min_static, *, use_kernels=True):
+    """(min_F d, L_out, |F|) for the INSTATIC/OUTSTATIC criteria, fused."""
+    if not use_kernels:
+        return kref.frontier_crit_ref(d, status, out_min_static)
+    return frontier_crit(d, status, out_min_static)
+
+
+def relax_settled_batch(d, settle_mask, ell_cols, ell_ws, *,
+                        use_kernels=True):
+    """Batched candidate updates (B, n); one adjacency load serves all
+    lanes."""
+    dmask = pad_lane_batch(torch.where(settle_mask, d, INF))
+    if not use_kernels:
+        return kref.ell_relax_batch_ref(dmask, ell_cols, ell_ws)
+    return ell_relax_batch(dmask, ell_cols, ell_ws)
+
+
+def static_thresholds_batch(d, status, out_min_static, *, use_kernels=True):
+    """Per-lane (min_F d, L_out, |F|), each (B,), in one fused pass."""
+    if not use_kernels:
+        return kref.frontier_crit_batch_ref(d, status, out_min_static)
+    return frontier_crit_batch(d, status, out_min_static)
+
+
+def crit_thresholds_batch(d, status, keys, *, use_kernels=True):
+    """Plan-lane thresholds: (mins (1+K, B), |F| (B,)) in one fused pass.
+
+    ``keys`` is (K, n) shared, (K, B, n) per-lane or None; ``mins[0]`` is
+    min_F d, ``mins[1+k]`` the OUT lane for ``keys[k]``.
+    """
+    if not use_kernels:
+        return kref.frontier_crit_lanes_batch_ref(d, status, keys)
+    return frontier_crit_lanes_batch(d, status, keys)
