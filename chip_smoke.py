@@ -21,7 +21,19 @@ failure raises, exits non-zero and prints no ``ok`` line:
   5. an independent check of one row against scipy's Dijkstra (f64, host);
   6. kernel times at the main shape, on the inputs of one real phase of
      the B = 8 solve (CUDA events, median per launch), beside the twin's
-     time and the least time the card could take for that input.
+     time and the least time the card could take for that input;
+  7. the dynamic-key kernels at full width: the outgoing ELL on the card,
+     then each key kernel against its twin on dense seeded key gates, bit
+     for bit;
+  8. the paper's strengthened ``in|out`` criterion, serving: a StaticBackend
+     with 8 lanes answers 16 requests, counts set to 0 just before;
+  9. ``in|out`` end to end: the B = 8 solve with the kernels and with
+     use_kernels=False bit-equal, the served rows equal to it, one row
+     against scipy's Dijkstra;
+ 10. ``insimple|outsimple`` at full width, 64 trips, kernels against twins
+     on every state field (the path of ``ell_gather_min_batch``);
+ 11. the key kernels' times on the inputs of one real phase of the ``in|out``
+     solve.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +59,8 @@ LANES = 8
 REQUESTS = 16
 CHUNK = 64  # phases per step call in the serving loop
 MID_PHASE = 200  # the phase whose kernel inputs phase 6 times
+DYN_TRIPS = 64  # trips of the insimple|outsimple check (phase 10)
+INF = float("inf")
 
 
 def log(msg: str):
@@ -99,6 +113,15 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def finite_slots(rows, cols_long) -> int:
+    """Lane-slots ``rows[l, cols[r, j]]`` that are finite, over every lane:
+    the adds and mins the data needs (a NaN or +inf slot needs none)."""
+    import torch
+
+    return int(sum(torch.isfinite(rows[i][cols_long]).sum()
+                   for i in range(rows.shape[0])))
+
+
 def seeded_state(rng, b: int, n: int, dev):
     """(d, status) with a U/F/S mix and +inf holes, made on the host."""
     import torch
@@ -116,7 +139,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import KEEP_LANE, to_ell_in
+    from repro_torch.core import KEEP_LANE, to_ell_in, to_ell_out
     from repro_torch.core import criteria as C
     from repro_torch.core.static_engine import (
         init_batch_state,
@@ -126,9 +149,63 @@ def main() -> int:
     from repro_torch.graphs import grid_road, uniform_gnp
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
     from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
+    from repro_torch.kernels.ell_relax_keys import (
+        ell_gather_min_batch,
+        ell_keys_dep_batch,
+        ell_relax_keys_batch,
+    )
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
     from repro_torch.serving import StaticBackend
+
+    counted = {f.__name__: f for f in (
+        ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
+        ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch)}
+
+    def zero_counts():
+        for f in counted.values():
+            f.launches = 0
+
+    def read_counts() -> dict:
+        return {name: f.launches for name, f in counted.items()}
+
+    def serve(backend, sources) -> tuple:
+        """16 requests through 8 lanes: reset_lanes -> step -> peek ->
+        take_row, counts set to 0 just before and read just after."""
+        state = backend.init(LANES)
+        lane_req = [None] * LANES
+        pending = list(range(REQUESTS))
+        rows, req_phases = {}, {}
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        steps = 0
+        while pending or any(r is not None for r in lane_req):
+            admit = np.full(LANES, KEEP_LANE, np.int64)
+            for lane in range(LANES):
+                if lane_req[lane] is None and pending:
+                    lane_req[lane] = pending.pop(0)
+                    admit[lane] = sources[lane_req[lane]]
+            if (admit != KEEP_LANE).any():
+                state = backend.reset_lanes(state, admit)
+            state = backend.step(state, CHUNK, stop_on_lane_finish=True)
+            steps += 1
+            _, active, phases = backend.peek(state)
+            for lane in range(LANES):
+                r = lane_req[lane]
+                if r is not None and not active[lane]:
+                    rows[r] = backend.take_row(state, lane)
+                    req_phases[r] = int(phases[lane])
+                    lane_req[lane] = None
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_counts()
+        trips = int(state.trips)
+        if len(rows) != REQUESTS:
+            raise SystemExit(f"{backend.criterion} serving did not answer "
+                             "every request")
+        return rows, req_phases, counts, serve_s, steps, trips
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # nothing here multiplies;
@@ -230,49 +307,16 @@ def main() -> int:
 
     # ---- 3. the main path, serving ---------------------------------------
     sources = np.random.default_rng(1).integers(0, g.n, REQUESTS)
-    backend = StaticBackend(g, device=dev)
-    state = backend.init(LANES)
-    lane_req = [None] * LANES
-    pending = list(range(REQUESTS))
-    rows, req_phases = {}, {}
-    ell_relax_batch.launches = 0
-    frontier_crit_lanes_batch.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = 0
-    while pending or any(r is not None for r in lane_req):
-        admit = np.full(LANES, KEEP_LANE, np.int64)
-        for lane in range(LANES):
-            if lane_req[lane] is None and pending:
-                lane_req[lane] = pending.pop(0)
-                admit[lane] = sources[lane_req[lane]]
-        if (admit != KEEP_LANE).any():
-            state = backend.reset_lanes(state, admit)
-        state = backend.step(state, CHUNK, stop_on_lane_finish=True)
-        steps += 1
-        _, active, phases = backend.peek(state)
-        for lane in range(LANES):
-            r = lane_req[lane]
-            if r is not None and not active[lane]:
-                rows[r] = backend.take_row(state, lane)
-                req_phases[r] = int(phases[lane])
-                lane_req[lane] = None
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {"ell_relax_batch": ell_relax_batch.launches,
-                "frontier_crit_lanes_batch": frontier_crit_lanes_batch.launches}
-    trips = int(state.trips)
+    rows, req_phases, launches, serve_s, steps, trips = serve(
+        StaticBackend(g, device=dev), sources)
     log(f"serving: {len(rows)} requests answered in {serve_s:.3f} s "
         f"({len(rows) / serve_s:.2f} queries/s), {steps} step calls, "
         f"{trips} trips; phases per request "
         f"{[req_phases[r] for r in range(REQUESTS)]}")
     log(f"serving launches: {launches}")
-    if len(rows) != REQUESTS:
-        raise SystemExit("serving did not answer every request")
-    for name, cnt in launches.items():
-        if cnt <= 0:
+    for name in ("ell_relax_batch", "frontier_crit_lanes_batch"):
+        if launches[name] <= 0:
             raise SystemExit(f"the main path never launched {name}")
-    del state
 
     # ---- 4. end-to-end parity on the card --------------------------------
     src8 = sources[:LANES]
@@ -377,11 +421,254 @@ def main() -> int:
         f"{b_v:.4f} ms")
     log(f"ell_relax_batch on the seeded parity input (a third of dmask "
         f"finite): {dense_ms:.4f} ms")
+    del st_mid, dmask_mid, settle_mid, d_mid, s_mid
+
+    # ---- 7. the dynamic-key kernels at full width ------------------------
+    t0 = time.perf_counter()
+    cols_o, ws_o = to_ell_out(g)
+    torch.cuda.synchronize()
+    ell_out_bytes = cols_o.numel() * 4 + ws_o.numel() * 4
+    log(f"out-ELL: D_out={cols_o.shape[1]}, {ell_out_bytes / 1e9:.3f} GB, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    spec = {k.name: k for k in C.plan_for("insimple|in|outweak|out").keys}
+
+    def gate(name, status, graph=g):
+        return C.key_gate(spec[name], status, graph.in_min_static,
+                          graph.out_min_static, {})
+
+    def check(name, label, got, twin):
+        got = got if isinstance(got, tuple) else (got,)
+        twin = twin if isinstance(twin, tuple) else (twin,)
+        torch.cuda.synchronize()
+        ok = all(same_bits(a, b) for a, b in zip(got, twin))
+        errs[name] = max([errs.get(name, 0.0)]
+                         + [max_abs_err(a, b) for a, b in zip(got, twin)])
+        log(f"parity {name} [{label}]: {'bits equal' if ok else 'DIFFER'} "
+            f"(NaN out: {sum(int(torch.isnan(a).sum()) for a in got)})")
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its twin: {label}")
+
+    # dense seeded gates, as real key gates are: 0 on F, a slack on U
+    gate8 = kops.pad_lane_batch(gate("in_full", st8))
+    gate_nan = gate8.clone()
+    gate_nan[3, int(cols[5, 0])] = float("nan")  # reaches row 5 of lane 3
+    gate13 = kops.pad_lane_batch(gate("in_full", st13, gr))
+    for label, (gt_, c, w) in {
+        "gnp B=8": (gate8, cols, ws),
+        "gnp B=1": (gate8[:1].contiguous(), cols, ws),
+        "gnp B=3": (gate8[:3].contiguous(), cols, ws),
+        "gnp B=8 NaN": (gate_nan, cols, ws),
+        "grid_road D=8 B=13": (gate13, cols_r, ws_r),
+    }.items():
+        check("ell_key_min_batch", label, ell_key_min_batch(gt_, c, w),
+              ref.ell_key_min_batch_ref(gt_, c, w))
+    row4 = gate8[4].contiguous()
+    check("ell_key_min_batch", "gnp 1-D view ell_key_min",
+          ell_key_min(row4, cols, ws), ref.ell_key_min_ref(row4, cols, ws))
+    del gate_nan, gate13, row4
+    g_dyn, g_weak = gate("out_dyn", st8), gate("out_weak", st8)
+    for label, vecs in {"out-ELL V=1": g_dyn[None],
+                        "out-ELL V=2": torch.stack([g_dyn, g_weak])}.items():
+        check("ell_gather_min_batch", label,
+              ell_gather_min_batch(vecs, cols_o, ws_o),
+              ref.ell_gather_min_batch_ref(vecs, cols_o, ws_o))
+    settle8 = (st8 == 1) & torch.from_numpy(
+        rng.random((LANES, n)) < 0.3).to(dev)
+    dm8 = torch.where(settle8, d8, INF)
+    parts = [C.in_scan_gate_parts(spec[nm], st8, settle8, g.in_min_static[None])
+             for nm in ("in_full", "in_dyn")]
+    for k in (1, 2):
+        ga, gb, gc = (torch.stack([p[i] for p in parts[:k]]) for i in range(3))
+        label = f"in-ELL K={k}"
+        if k == 2:
+            ga[1, 2, min(int(cols[11, 0]), n - 1)] = float("nan")
+            label += " NaN in ga"
+        check("ell_relax_keys_batch", label,
+              ell_relax_keys_batch(dm8, ga, gb, gc, cols, ws),
+              ref.ell_relax_keys_batch_ref(dm8, ga, gb, gc, cols, ws))
+    del parts, ga, gb, gc, dm8, settle8
+    dga8, dgb8 = C.dep_gate_parts(spec["out_full"], st8)
+    for label, (gates, dep) in {
+        "out-ELL K0=1 dep_idx=0": (g_dyn[None], 0),
+        "out-ELL K0=2 dep_idx=1": (torch.stack([g_weak, g_dyn]), 1),
+    }.items():
+        check("ell_keys_dep_batch", label,
+              ell_keys_dep_batch(gates, dga8, dgb8, cols_o, ws_o, dep_idx=dep),
+              ref.ell_keys_dep_batch_ref(gates, dga8, dgb8, dep, cols_o, ws_o))
+    del g_dyn, g_weak, gates, dga8, dgb8
+
+    # ---- 8. in|out, serving ---------------------------------------------
+    rows_io, req_phases_io, launches_io, serve_io_s, steps_io, trips_io = \
+        serve(StaticBackend(g, criterion="in|out", device=dev), sources)
+    log(f"in|out serving: {len(rows_io)} requests answered in "
+        f"{serve_io_s:.3f} s ({len(rows_io) / serve_io_s:.2f} queries/s), "
+        f"{steps_io} step calls, {trips_io} trips; phases per request "
+        f"{[req_phases_io[r] for r in range(REQUESTS)]}")
+    log(f"in|out serving launches: {launches_io}")
+    for name in ("ell_keys_dep_batch", "ell_relax_keys_batch",
+                 "ell_key_min_batch", "frontier_crit_lanes_batch"):
+        if launches_io[name] <= 0:
+            raise SystemExit(f"the in|out path never launched {name}")
+    if launches_io["ell_relax_batch"] != 0:
+        raise SystemExit("the in|out path launched ell_relax_batch")
+
+    # ---- 9. in|out end to end ---------------------------------------------
+    io_kw = dict(ell=(cols, ws), ell_out=(cols_o, ws_o), criterion="in|out",
+                 device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_io = run_phased_static_batch(g, src8, **io_kw)
+    torch.cuda.synchronize()
+    solve_io_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_io_p = run_phased_static_batch(g, src8, use_kernels=False, **io_kw)
+    torch.cuda.synchronize()
+    plain_io_s = time.perf_counter() - t0
+    for field in ("dist", "status", "phases", "total_phases"):
+        if not same_bits(getattr(res_io, field), getattr(res_io_p, field)):
+            raise SystemExit(f"in|out kernel and plain solves differ in {field}")
+    for field in ("sum_fringe", "relax_edges"):
+        if not np.array_equal(getattr(res_io, field), getattr(res_io_p, field)):
+            raise SystemExit(f"in|out kernel and plain solves differ in {field}")
+    del res_io_p
+    total_io = int(res_io.total_phases)
+    log(f"in|out e2e: B={LANES} solve with kernels {solve_io_s:.3f} s "
+        f"({LANES / solve_io_s:.2f} queries/s, {total_io} phases, "
+        f"{solve_io_s / total_io * 1e3:.3f} ms/phase); plain twins "
+        f"{plain_io_s:.3f} s; every BatchedResult field bit-equal")
+    log(f"in|out e2e: phases per row {res_io.phases.tolist()} (instatic|"
+        f"outstatic: {res_k.phases.tolist()}), sum_fringe "
+        f"{res_io.sum_fringe.tolist()}")
+    dist_io = res_io.dist.cpu().numpy()
+    for i in range(LANES):
+        if not np.array_equal(rows_io[i].view(np.int32),
+                              dist_io[i].view(np.int32)):
+            raise SystemExit(f"in|out served row {i} differs from the solve")
+    log("in|out e2e: the 8 served rows equal the batch solve's rows bit for "
+        "bit")
+    got = dist_io[0]
+    same_set = bool((np.isfinite(got) == fin).all())
+    close = bool(np.allclose(got[fin], want[fin], rtol=1e-5))
+    rel = np.abs(got[fin] - want[fin]) / np.maximum(want[fin], 1e-30)
+    log(f"in|out scipy: row 0 same reachable set {same_set}, rtol 1e-5 "
+        f"{close}, max rel err {float(rel.max()):.3e}")
+    if not (same_set and close):
+        raise SystemExit("in|out row 0 disagrees with scipy's Dijkstra")
+    log(f"finding: in|out and instatic|outstatic dist rows bit-equal: "
+        f"{np.array_equal(dist_io.view(np.int32), dist_k.view(np.int32))}")
+
+    # ---- 10. insimple|outsimple at full width, DYN_TRIPS trips ------------
+    st0 = init_batch_state(g, src8, criterion="insimple|outsimple", device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    st_k = step_batch(g, st0, DYN_TRIPS, ell=(cols, ws), ell_out=(cols_o, ws_o))
+    torch.cuda.synchronize()
+    simple_s = time.perf_counter() - t0
+    launches_ss = read_counts()
+    st_p = step_batch(g, st0, DYN_TRIPS, ell=(cols, ws), ell_out=(cols_o, ws_o),
+                      use_kernels=False)
+    for field in ("dist", "status", "trips", "phases", "sum_fringe",
+                  "relax_edges", "settled_trace", "crit_keys"):
+        if not same_bits(getattr(st_k, field), getattr(st_p, field)):
+            raise SystemExit(f"insimple|outsimple kernel and plain states "
+                             f"differ in {field}")
+    if st_k.keys_valid is not st_p.keys_valid:
+        raise SystemExit("insimple|outsimple keys_valid differs")
+    log(f"insimple|outsimple: {int(st_k.trips)} trips in {simple_s:.3f} s "
+        f"({simple_s / int(st_k.trips) * 1e3:.3f} ms/phase); every state "
+        f"field bit-equal to the plain twins; launches {launches_ss}")
+    if launches_ss["ell_gather_min_batch"] <= 0:
+        raise SystemExit("insimple|outsimple never launched "
+                         "ell_gather_min_batch")
+    del st0, st_k, st_p
+
+    # ---- 11. key kernels' times on one real phase of the in|out solve -----
+    st_io = init_batch_state(g, src8, criterion="in|out", device=dev)
+    st_io = step_batch(g, st_io, total_io // 2, ell=(cols, ws),
+                       ell_out=(cols_o, ws_o))
+    d_io, s_io = st_io.dist, st_io.status
+    g_od = gate("out_dyn", s_io)[None]  # the out-scan's independent gate
+    dga_io, dgb_io = C.dep_gate_parts(spec["out_full"], s_io)
+    keys_io = ell_keys_dep_batch(g_od, dga_io, dgb_io, cols_o, ws_o)
+    thr_keys = keys_io[1][None].contiguous()  # per-lane out_full lanes
+    mins_io, nf_io = frontier_crit_lanes_batch(d_io, s_io, thr_keys)
+    settle_io = C.plan_union_mask(
+        st_io.plan, d_io, s_io == 1, mins_io,
+        {"in_full": st_io.crit_keys[0], "out_dyn": keys_io[0],
+         "out_full": keys_io[1]}, g.in_min_static, None)
+    dmask_io = torch.where(settle_io, d_io, INF)
+    ga_io, gb_io, gc_io = (p[None].contiguous() for p in C.in_scan_gate_parts(
+        spec["in_full"], s_io, settle_io, g.in_min_static[None]))
+    gate_io = kops.pad_lane_batch(gate("in_full", s_io))
+    upd_io, _ = ell_relax_keys_batch(dmask_io, ga_io, gb_io, gc_io, cols, ws)
+    fin_io = torch.where(upd_io < INF, 0.0, INF)
+    gate1_io = torch.minimum(ga_io[0], torch.minimum(gb_io[0], gc_io[0] + fin_io))
+    cl_in, cl_out = cols.long(), cols_o.long()
+    pad = kops.pad_lane_batch
+    fs_km = finite_slots(gate_io, cl_in)
+    fs_ga = finite_slots(pad(g_od[0]), cl_out)
+    fs_rk = finite_slots(pad(dmask_io), cl_in) + finite_slots(pad(gate1_io),
+                                                              cl_in)
+    dep_gate = torch.minimum(dga_io, dgb_io + keys_io[0])
+    fs_kd = fs_ga + finite_slots(pad(dep_gate), cl_out)
+    del cl_in, cl_out, fin_io, gate1_io, dep_gate, upd_io
+    log(f"key timing inputs: phase {int(st_io.trips)} of the in|out B="
+        f"{LANES} solve: {int(settle_io.sum())} settled, {int(nf_io.sum())} "
+        f"on the fringe; finite lane-slots: key_min {fs_km}, gather "
+        f"{fs_ga}, relax_keys {fs_rk}, keys_dep {fs_kd}")
+    bn = LANES * n * 4  # bytes of one (B, n) f32 vector
+    timed = {
+        "ell_key_min_batch": (
+            lambda: ell_key_min_batch(gate_io, cols, ws),
+            lambda: ref.ell_key_min_batch_ref(gate_io, cols, ws),
+            bound(ell_bytes + gate_io.numel() * 4 + bn, 2.0 * fs_km)),
+        "ell_gather_min_batch": (
+            lambda: ell_gather_min_batch(g_od, cols_o, ws_o),
+            lambda: ref.ell_gather_min_batch_ref(g_od, cols_o, ws_o),
+            bound(ell_out_bytes + 2 * bn, 2.0 * fs_ga)),
+        "ell_relax_keys_batch": (
+            lambda: ell_relax_keys_batch(dmask_io, ga_io, gb_io, gc_io, cols,
+                                         ws),
+            lambda: ref.ell_relax_keys_batch_ref(dmask_io, ga_io, gb_io,
+                                                 gc_io, cols, ws),
+            bound(ell_bytes + 6 * bn, 2.0 * fs_rk)),
+        "ell_keys_dep_batch": (
+            lambda: ell_keys_dep_batch(g_od, dga_io, dgb_io, cols_o, ws_o),
+            lambda: ref.ell_keys_dep_batch_ref(g_od, dga_io, dgb_io, 0,
+                                               cols_o, ws_o),
+            bound(ell_out_bytes + 5 * bn, 2.0 * fs_kd)),
+    }
+    times = {}
+    for name, (kern, plain, (b_ms, b_by)) in timed.items():
+        times[name] = (time_ms(kern, reps=20), time_ms(plain, reps=3, warmup=1),
+                       b_ms, b_by)
+        log(f"{name}: {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    row_io = gate_io[0].contiguous()
+    km_view_ms = time_ms(lambda: ell_key_min(row_io, cols, ws), reps=20)
+    km_view_plain_ms = time_ms(lambda: ref.ell_key_min_ref(row_io, cols, ws),
+                               reps=3, warmup=1)
+    b_kv, by_kv = bound(ell_bytes + row_io.numel() * 4 + n * 4,
+                        2.0 * finite_slots(row_io[None], cols.long()))
+    log(f"ell_key_min (B = 1 view, lane 0 of the key timing inputs, not on "
+        f"the main path): {km_view_ms:.4f} ms, plain {km_view_plain_ms:.4f} "
+        f"ms, bound {b_kv:.4f} ms ({by_kv})")
+    pl_ms = time_ms(lambda: frontier_crit_lanes_batch(d_io, s_io, thr_keys),
+                    reps=50)
+    log(f"frontier_crit_lanes_batch with per-lane (1, B, n) keys on the same "
+        f"inputs: {pl_ms:.4f} ms")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"card: {smi}")
+    new_kernels = {
+        "ell_key_min_batch": "src/repro/kernels/ell_key_min.py:86",
+        "ell_gather_min_batch": "src/repro/kernels/ell_relax_keys.py:93",
+        "ell_relax_keys_batch": "src/repro/kernels/ell_relax_keys.py:182",
+        "ell_keys_dep_batch": "src/repro/kernels/ell_relax_keys.py:482",
+    }
     kernels = [
         {"name": "ell_relax_batch", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ell_relax.cu",
+         "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
          "replaces": "src/repro/kernels/ell_relax.py:97",
          "launches": launches["ell_relax_batch"],
          "max_abs_err": errs["ell_relax_batch"], "ms": out_ms_r,
@@ -394,6 +681,17 @@ def main() -> int:
          "max_abs_err": errs["frontier_crit_lanes_batch"], "ms": out_ms_c,
          "plain_ms": plain_ms_c, "bound_ms": b_c, "bound_by": by_c,
          "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
+         "replaces": replaces,
+         # the gather runs on the insimple|outsimple path, the rest on in|out
+         "launches": (launches_ss if name == "ell_gather_min_batch"
+                      else launches_io)[name],
+         "max_abs_err": errs[name], "ms": times[name][0],
+         "plain_ms": times[name][1], "bound_ms": times[name][2],
+         "bound_by": times[name][3], "library_ms": None}
+        for name, replaces in new_kernels.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -175,6 +175,60 @@ def _plan_for_canonical(criterion: str) -> CritPlan:
     )
 
 
+def key_gate(spec: KeySpec, status: torch.Tensor, in_min_static: torch.Tensor,
+             out_min_static: torch.Tensor, keys: dict) -> torch.Tensor:
+    """The elementwise gate vector of a dynamic key, shaped like ``status``
+    (``(n,)`` static minima broadcast over ``(B, n)`` status). ``keys`` maps
+    already-computed key names to tensors (the ``out_full`` dependency)."""
+    if spec.gate == "unsettled":
+        return torch.where(status < S, 0.0, INF).to(torch.float32)
+    if spec.aux == "in_static":
+        aux = in_min_static
+    elif spec.aux == "out_static":
+        aux = out_min_static
+    else:
+        aux = keys[spec.aux]
+    return torch.where(
+        status == F, 0.0, torch.where(status == U, aux, INF)
+    ).to(torch.float32)
+
+
+def in_scan_gate_parts(spec: KeySpec, status: torch.Tensor,
+                       settle: torch.Tensor, in_min_static: torch.Tensor):
+    """Gate parts ``(ga, gb, gc)`` of the fused in-scan's sweep-1 keys.
+
+    The fused scan evaluates the key gate on the *post-phase* status as
+    ``min(ga, gb, gc + fin)``, ``fin[u] = 0`` iff the relax update of u is
+    finite (u joins the fringe) else +inf:
+
+      unsettled gate: ga = +inf on settle | S, 0 elsewhere; gb = gc = +inf.
+      twohop gate (aux static): ga = 0 on F & ~settle; gb = aux on U;
+        gc = 0 on U.
+
+    Every branch value is exact and min does not round, so the result is
+    bit-identical to :func:`key_gate` on the materialised new status.
+    """
+    if spec.gate == "unsettled":
+        ga = torch.where(settle | (status == S), INF, 0.0).to(torch.float32)
+        gb = torch.full_like(ga, INF)
+        return ga, gb, gb
+    assert spec.aux == "in_static", spec  # guarded at plan time
+    ga = torch.where((status == F) & ~settle, 0.0, INF).to(torch.float32)
+    gb = torch.where(status == U, in_min_static, INF).to(torch.float32)
+    gc = torch.where(status == U, 0.0, INF).to(torch.float32)
+    return ga, gb, gc
+
+
+def dep_gate_parts(spec: KeySpec, status: torch.Tensor):
+    """Gate parts ``(dga, dgb)`` of the fused out-scan's dependent key:
+    ``key_gate(spec, status) == min(dga, dgb + aux_key)`` elementwise (0 on
+    F, ``aux_key`` on U, +inf on S; exact for ``aux_key >= 0`` incl. +inf)."""
+    assert spec.gate == "twohop" and spec.aux in _KEY_SPECS, spec
+    dga = torch.where(status == F, 0.0, INF).to(torch.float32)
+    dgb = torch.where(status == U, 0.0, INF).to(torch.float32)
+    return dga, dgb
+
+
 def attribution_terms(plan: CritPlan) -> tuple[str, ...]:
     """Names of the plan's settle-attribution slots, in recorded order:
     one per member (IN family, OUT family, oracle), plus

@@ -3,16 +3,25 @@
 
 A :class:`PhasePolicy` decides which fringe vertices a phase settles; the
 stepper (``repro_torch.core.static_engine``) owns lane admission, the trip
-loop, the work counters and the ring. This slice ports
-:class:`CriterionPolicy` for plans with no dynamic keys and no oracle:
-``dijk``, ``instatic``, ``outstatic`` and their disjunctions, the default
-``instatic|outstatic`` among them. Each phase of such a plan runs the two
-kernels of the main path, ``frontier_crit_lanes_batch`` (through
-``crit_thresholds_batch``) and ``ell_relax_batch`` (through
-``relax_settled_batch``); the rest is elementwise glue.
+loop, the work counters and the ring. :class:`CriterionPolicy` runs every
+plan without the oracle. Per phase:
+
+  * plans with out-side dynamic keys scan the outgoing ELL once
+    (``out_scan_keys_batch``: ``ell_gather_min_batch``, or
+    ``ell_keys_dep_batch`` when ``out_full`` depends on ``out_dyn``);
+  * every plan reduces the fringe once (``frontier_crit_lanes_batch``,
+    with shared static keys or per-lane dynamic ones);
+  * plans with in-side keys relax through the fused in-scan
+    (``ell_relax_keys_batch``), which also emits the next phase's in-side
+    keys; the others, the default ``instatic|outstatic`` among them, relax
+    through ``ell_relax_batch`` and carry no keys (``crit_keys`` is None).
+
+Carried in-side keys are re-primed (``ell_key_min_batch``) once per
+``step_batch`` call after admission touched a lane.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -32,6 +41,7 @@ class PhaseOutcome(NamedTuple):
 
     dist: torch.Tensor  # (B, n) f32 post-phase tentative distances
     status: torch.Tensor  # (B, n) int32 post-phase status (0=U, 1=F, 2=S)
+    crit_keys: torch.Tensor | None  # (K, B, n) f32 carried stack (or None)
     n_fringe: torch.Tensor  # (B,) int32 |F| at phase entry (the live gauge)
     n_settled: torch.Tensor  # (B,) int32 vertices settled this phase
     relax_inc: torch.Tensor  # (B,) int64 out-edges relaxed this phase
@@ -42,55 +52,195 @@ class PhasePolicy:
     spec by :func:`policy_for` and hold no state beyond their plan."""
 
     spec: str  # canonical spec string (== BatchState.criterion)
+    needs_out_adjacency: bool = False  # phase reads the outgoing ELL
+
+    def num_key_slots(self) -> int:
+        """Depth K of the carried ``crit_keys`` stack (0 = no stack)."""
+        raise NotImplementedError
+
+    def fresh_keys(self, b: int, n: int, device) -> torch.Tensor | None:
+        """(K, B, n) carried-stack values of a freshly admitted lane."""
+        raise NotImplementedError
+
+    def init_keys_valid(self) -> bool | None:
+        """Initial ``keys_valid`` flag (None when the policy never primes)."""
+        return None
 
     def phase_cap(self, n: int) -> int:
         """Default safety cap on loop trips for a full solve over n vertices."""
         raise NotImplementedError
 
-    def phase(self, g: Graph, ell_in, s, use_kernels: bool) -> PhaseOutcome:
+    def prime(self, g: Graph, ell_in, state, use_kernels: bool):
+        """Once-per-chunk invariant repair before entering the loop."""
+        return state
+
+    def phase(self, g: Graph, ell_in, ell_out, s,
+              use_kernels: bool) -> PhaseOutcome:
         """Advance state ``s`` by one phase."""
         raise NotImplementedError
 
 
-def _threshold_keys(plan: C.CritPlan, g: Graph):
-    """Key stack for the fused lane reduction: None (no OUT members) or the
-    shared ``(K, n)`` static stack (all OUT members static)."""
+def _spec_by_name(plan: C.CritPlan, name: str) -> C.KeySpec:
+    return plan.keys[[k.name for k in plan.keys].index(name)]
+
+
+def _compute_out_keys(plan: C.CritPlan, g: Graph, status, ell_out,
+                      use_kernels: bool) -> dict:
+    """The plan's out-side dynamic keys for the current status, from ONE
+    fused scan over the outgoing adjacency: name -> (B, n) f32.
+
+    Independent keys (elementwise gates) share the scan; the dependent
+    ``out_full`` adds the second sweep, gated by the ``out_dyn`` the first
+    sweep produced (paper Eq. 2's two-hop slack).
+    """
+    if not (plan.out_scan_keys or plan.out_scan_dep):
+        return {}
+    gates = torch.stack([
+        C.key_gate(_spec_by_name(plan, nm), status, g.in_min_static,
+                   g.out_min_static, {})
+        for nm in plan.out_scan_keys
+    ])
+    dep_parts = None
+    names = list(plan.out_scan_keys)
+    if plan.out_scan_dep is not None:
+        spec = _spec_by_name(plan, plan.out_scan_dep)
+        dga, dgb = C.dep_gate_parts(spec, status)
+        dep_parts = (dga, dgb, plan.out_scan_keys.index(spec.aux))
+        names.append(plan.out_scan_dep)
+    keys = kops.out_scan_keys_batch(gates, dep_parts, ell_out,
+                                    use_kernels=use_kernels)
+    return {nm: keys[i] for i, nm in enumerate(names)}
+
+
+def _recompute_in_keys(plan: C.CritPlan, g: Graph, status, ell_in,
+                       use_kernels: bool) -> torch.Tensor:
+    """(K_in, B, n) in-side keys for the *current* status via key-min
+    passes: the priming path after admission; the steady state carries
+    them out of the fused in-scan instead."""
+    return torch.stack([
+        kops.key_min_batch_any(
+            C.key_gate(_spec_by_name(plan, nm), status, g.in_min_static,
+                       g.out_min_static, {}),
+            ell_in, use_kernels=use_kernels,
+        )
+        for nm in plan.in_scan_keys
+    ])
+
+
+def _in_slot_indices(plan: C.CritPlan) -> list[int]:
+    """Positions of the in-scan keys inside the ``plan.keys`` stack."""
+    order = [k.name for k in plan.keys]
+    return [order.index(nm) for nm in plan.in_scan_keys]
+
+
+def _threshold_keys(plan: C.CritPlan, g: Graph, keys: dict, b: int):
+    """Key stack for the fused lane reduction: None (no OUT members),
+    ``(K, n)`` shared (all static: the default plan pays no per-lane key
+    traffic), or ``(K, B, n)`` per-lane (any dynamic OUT key)."""
     if not plan.out_terms:
         return None
-    return g.out_min_static[None]
+    if all(t == "static" for t in plan.out_terms):
+        return g.out_min_static[None]
+    return torch.stack([
+        g.out_min_static.expand(b, g.n) if t == "static" else keys[t]
+        for t in plan.out_terms
+    ])
 
 
 class CriterionPolicy(PhasePolicy):
-    """Settle policy executing a compiled :class:`~repro_torch.core.criteria.CritPlan`
-    with no dynamic keys: the phase body is the reference's, op for op."""
+    """Settle policy executing a compiled
+    :class:`~repro_torch.core.criteria.CritPlan`; the phase body is the
+    reference's, op for op.
+
+    The carried ``crit_keys`` stack holds the plan's dynamic keys (ordered
+    like ``plan.keys``); in-side slots come out of the fused in-scan and
+    are re-primed once per chunk when admission invalidated them
+    (``keys_valid``). Oracle plans are not ported and raise.
+    """
 
     def __init__(self, plan: C.CritPlan):
-        if plan.keys or plan.needs_oracle:
+        if plan.needs_oracle:
             raise NotImplementedError(
-                f"criterion {plan.criterion!r} needs dynamic keys or the "
-                "oracle; the port runs only dijk/instatic/outstatic plans so "
-                "far (ROADMAP Queue 1 item 5)"
+                f"criterion {plan.criterion!r} needs the oracle (dist_true "
+                "rows); oracle plans are not ported to the PyTorch package "
+                "yet (ROADMAP Queue 1 item 5)"
             )
         self.plan = plan
         self.spec = plan.criterion
+
+    @property
+    def needs_out_adjacency(self) -> bool:
+        return self.plan.needs_out_adjacency
+
+    def num_key_slots(self) -> int:
+        return len(self.plan.keys)
+
+    def fresh_keys(self, b: int, n: int, device) -> torch.Tensor | None:
+        k = self.num_key_slots()
+        if not k:
+            return None
+        return torch.zeros((k, b, n), dtype=torch.float32, device=device)
+
+    def init_keys_valid(self) -> bool | None:
+        return False if self.plan.in_scan_keys else None
 
     def phase_cap(self, n: int) -> int:
         # every live lane settles >= 1 vertex per phase under any criterion
         return n + 1
 
-    def phase(self, g: Graph, ell_in, s, use_kernels: bool) -> PhaseOutcome:
+    def prime(self, g: Graph, ell_in, state, use_kernels: bool):
+        in_slots = _in_slot_indices(self.plan)
+        if not in_slots:
+            return state
+        keys = state.crit_keys
+        if not state.keys_valid:
+            # admission (init / reset) touches status without scanning the
+            # adjacency, so the carried slots may be stale. Recomputing
+            # equals the carried values bitwise wherever they were valid
+            # (exact min), so once per chunk restores the invariant the
+            # phase relies on: in-side slots match the status.
+            keys = keys.clone()
+            keys[in_slots] = _recompute_in_keys(self.plan, g, state.status,
+                                                ell_in, use_kernels)
+        return dataclasses.replace(state, crit_keys=keys, keys_valid=True)
+
+    def phase(self, g: Graph, ell_in, ell_out, s,
+              use_kernels: bool) -> PhaseOutcome:
         plan = self.plan
+        b = s.num_lanes
+        in_slots = _in_slot_indices(plan)
         d, status = s.dist, s.status
         fringe = status == 1
+        # --- out-scan: every out-side dynamic key from one kernel call
+        keys = _compute_out_keys(plan, g, status, ell_out, use_kernels)
+        # in-side keys ride in from the previous phase's in-scan (or the
+        # pre-loop priming); by invariant they match the current status
+        for i, nm in zip(in_slots, plan.in_scan_keys):
+            keys[nm] = s.crit_keys[i]
         mins, n_f = kops.crit_thresholds_batch(
-            d, status, _threshold_keys(plan, g), use_kernels=use_kernels
+            d, status, _threshold_keys(plan, g, keys, b),
+            use_kernels=use_kernels,
         )
         settle = C.plan_union_mask(
-            plan, d, fringe, mins, {}, g.in_min_static, None
+            plan, d, fringe, mins, keys, g.in_min_static, None
         )
-        upd = kops.relax_settled_batch(
-            d, settle, ell_in[0], ell_in[1], use_kernels=use_kernels
-        )
+        # --- in-scan: relax this phase; plans with in-side keys also emit
+        # the NEXT phase's keys from the same kernel call
+        next_in = None
+        if in_slots:
+            # key gates encode the post-settle status
+            parts = [
+                C.in_scan_gate_parts(_spec_by_name(plan, nm), status, settle,
+                                     g.in_min_static[None])
+                for nm in plan.in_scan_keys
+            ]
+            upd, next_in = kops.in_scan_relax_keys_batch(
+                d, settle, parts, ell_in, use_kernels=use_kernels
+            )
+        else:
+            upd = kops.relax_settled_batch(
+                d, settle, ell_in[0], ell_in[1], use_kernels=use_kernels
+            )
         new_d = torch.minimum(d, upd)
         new_status = torch.where(
             settle, 2, torch.where((status == 0) & (upd < INF), 1, status)
@@ -99,9 +249,14 @@ class CriterionPolicy(PhasePolicy):
         relax_inc = torch.where(settle, s.out_deg[None], 0).sum(
             dim=1, dtype=torch.int64
         )
+        crit_keys = s.crit_keys
+        if plan.keys:
+            crit_keys = torch.stack([keys[k.name] for k in plan.keys])
+            for j, i in enumerate(in_slots):
+                crit_keys[i] = next_in[j]
         return PhaseOutcome(
-            dist=new_d, status=new_status, n_fringe=n_f,
-            n_settled=n_settled, relax_inc=relax_inc,
+            dist=new_d, status=new_status, crit_keys=crit_keys,
+            n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc,
         )
 
 

@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.core import criteria as C
 from repro_torch.core import policies as P
-from repro_torch.core.graph import Graph, out_degrees, to_ell_in
+from repro_torch.core.graph import Graph, out_degrees, to_ell_in, to_ell_out
 from repro_torch.core.phased import PhasedResult
 from repro_torch.kernels.config import resolve_device
 
@@ -61,6 +61,11 @@ class BatchState:
     sum_fringe: torch.Tensor  # (B,) int64: per-lane sum over live phases of |F|
     relax_edges: torch.Tensor  # (B,) int64: per-lane out-edges relaxed
     out_deg: torch.Tensor  # (n,) int32: graph out-degrees (for the counters)
+    crit_keys: torch.Tensor | None  # (K, B, n) f32 policy-owned carried
+    #   stack (the plan's dynamic keys, ordered like plan.keys), or None
+    keys_valid: bool | None  # whether the in-side slots of crit_keys match
+    #   status (None: the plan carries none); a host bool, so checking it
+    #   costs no device sync
     settled_trace: torch.Tensor  # (B, trace_len) int32 ring of per-phase
     #   settle counts: phase p of a lane's query lands in slot p % trace_len
     criterion: str  # canonical policy spec
@@ -200,17 +205,19 @@ def init_batch_state(
         sum_fringe=zeros_i64,
         relax_edges=zeros_i64,
         out_deg=out_degrees(g),
+        crit_keys=policy.fresh_keys(b, g.n, dev),
+        keys_valid=policy.init_keys_valid(),
         settled_trace=torch.zeros((b, int(trace_len)), dtype=torch.int32,
                                   device=dev),
         criterion=policy.spec,
     )
 
 
-def _phase(g: Graph, ell_in, s: BatchState, policy: P.PhasePolicy,
+def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
            use_kernels: bool) -> BatchState:
     """One trip of the loop: the policy's phase plus the chassis' ring and
     counter writes, gated per lane on ``n_fringe > 0``."""
-    out = policy.phase(g, ell_in, s, use_kernels)
+    out = policy.phase(g, ell_in, ell_out, s, use_kernels)
     lane_on = out.n_fringe > 0  # finished/empty lanes stop counting
     rows = torch.arange(s.num_lanes, device=s.device)
     idx = (s.phases % s.settled_trace.shape[1]).long()
@@ -226,14 +233,16 @@ def _phase(g: Graph, ell_in, s: BatchState, policy: P.PhasePolicy,
         sum_fringe=s.sum_fringe + out.n_fringe.to(torch.int64),
         relax_edges=s.relax_edges + out.relax_inc,
         out_deg=s.out_deg,
+        crit_keys=out.crit_keys,
+        keys_valid=s.keys_valid,
         settled_trace=trace,
         criterion=s.criterion,
     )
 
 
-def _check_ell(g: Graph, ell):
+def _check_ell(g: Graph, ell, build=to_ell_in):
     if ell is None:
-        return to_ell_in(g)
+        return build(g)
     if hasattr(ell, "slices"):
         raise not_ported("the degree-sliced ELL layout", "Queue 1 item 5")
     return ell
@@ -246,14 +255,19 @@ def step_batch(
     ell=None,
     use_kernels: bool = True,
     stop_on_lane_finish: bool = False,
+    ell_out=None,
 ) -> BatchState:
     """Advance the phase loop by up to ``k_phases`` more trips.
 
     Returns after ``k_phases`` trips, or earlier when every lane's fringe is
     empty (possibly at once), or, with ``stop_on_lane_finish``, as soon as
     a lane that was live on entry terminates. ``ell`` is the padded
-    ``(cols, ws)`` incoming view (default ``to_ell_in(g)``).
-    ``use_kernels=False`` runs the plain twins: bit-identical results.
+    ``(cols, ws)`` incoming view (default ``to_ell_in(g)``); ``ell_out``
+    the outgoing one, read only by plans with out-side dynamic keys
+    (default the memoised ``to_ell_out(g)``). Before the loop, even one
+    that runs no trip, the policy re-primes carried keys that admission
+    made stale. ``use_kernels=False`` runs the plain twins: bit-identical
+    results.
     """
     ell = _check_ell(g, ell)
     if state.device != g.device:
@@ -261,8 +275,10 @@ def step_batch(
             f"state lives on {state.device}, the graph on {g.device}"
         )
     policy = P.policy_for(state.criterion)
+    ell_out = (_check_ell(g, ell_out, to_ell_out)
+               if policy.needs_out_adjacency else None)
     live0 = torch.any(state.status == 1, dim=1)  # (B,) lanes live at entry
-    s = state
+    s = policy.prime(g, ell, state, use_kernels)
     for _ in range(max(int(k_phases), 0)):
         live = torch.any(s.status == 1, dim=1)  # lanes never revive
         go = torch.any(live)
@@ -270,7 +286,7 @@ def step_batch(
             go = go & torch.all(live == live0)
         if not bool(go):  # the one host sync of a trip
             break
-        s = _phase(g, ell, s, policy, use_kernels)
+        s = _phase(g, ell, ell_out, s, policy, use_kernels)
     return s
 
 
@@ -299,12 +315,19 @@ def reset_lanes(state: BatchState, sources, dist_true=None,
         raise ValueError(
             f"criterion {state.criterion!r} does not read dist_true"
         )
-    return _reset_lanes(state, torch.from_numpy(src_np).to(state.device))
+    return _reset_lanes(state, torch.from_numpy(src_np).to(state.device),
+                        bool((src_np >= EMPTY_LANE).any()))
 
 
-def _reset_lanes(state: BatchState, sources: torch.Tensor) -> BatchState:
+def _reset_lanes(state: BatchState, sources: torch.Tensor,
+                 any_touched: bool) -> BatchState:
     touch = sources >= EMPTY_LANE  # KEEP_LANE rows pass through unchanged
     fresh_d, fresh_s = _fresh_rows(sources, state.n)
+    crit_keys = state.crit_keys
+    if crit_keys is not None:
+        fresh_k = P.policy_for(state.criterion).fresh_keys(
+            state.num_lanes, state.n, state.device)
+        crit_keys = torch.where(touch[None, :, None], fresh_k, crit_keys)
 
     def ctr(old):
         return torch.where(touch, 0, old)
@@ -317,6 +340,11 @@ def _reset_lanes(state: BatchState, sources: torch.Tensor) -> BatchState:
         sum_fringe=ctr(state.sum_fringe),
         relax_edges=ctr(state.relax_edges),
         out_deg=state.out_deg,
+        crit_keys=crit_keys,
+        # a touched lane's in-side key slots no longer match its status;
+        # the next step_batch re-primes them before its loop
+        keys_valid=(None if state.keys_valid is None
+                    else state.keys_valid and not any_touched),
         settled_trace=torch.where(touch[:, None], 0, state.settled_trace),
         criterion=state.criterion,
     )
@@ -338,7 +366,7 @@ def reset_lane(state: BatchState, lane: int, source: int = EMPTY_LANE,
     vec = torch.full((state.num_lanes,), KEEP_LANE, dtype=torch.int32,
                      device=state.device)
     vec[lane] = source
-    return _reset_lanes(state, vec)
+    return _reset_lanes(state, vec, True)
 
 
 def lanes_active(state: BatchState) -> np.ndarray:
@@ -386,6 +414,7 @@ def run_phased_static(
     delta: float | None = None,
     target: int | None = None,
     device=None,
+    ell_out=None,
 ) -> PhasedResult:
     """Phased SSSP from one source on the B = 1 stepper.
 
@@ -405,7 +434,8 @@ def run_phased_static(
         trace_len=trace_len, delta=delta,
         targets=None if target is None else [int(target)], device=device,
     )
-    state = step_batch(g, state, cap, ell=ell, use_kernels=use_kernels)
+    state = step_batch(g, state, cap, ell=ell, use_kernels=use_kernels,
+                       ell_out=ell_out)
     return PhasedResult(
         dist=state.dist[0],
         status=state.status[0].to(torch.int8),
@@ -430,13 +460,15 @@ def run_phased_static_batch(
     delta: float | None = None,
     targets=None,
     device=None,
+    ell_out=None,
 ) -> BatchedResult:
     """Batched phased SSSP: B sources, one graph, one phase loop.
 
     Row ``i`` of the result equals ``run_phased_static(g, sources[i])``
     exactly. ``use_kernels=False`` runs the plain twins (bit-identical);
     ``max_phases`` caps the trips (default n + 1); ``device`` (None = the
-    CUDA card) must be the graph's device.
+    CUDA card) must be the graph's device; ``ell_out`` is the outgoing view
+    plans with out-side dynamic keys read (default ``to_ell_out(g)``).
     """
     ell = _resolve_layout(g, ell, layout)
     src_np = validate_sources(sources, g.n, 0, f"in [0, {g.n})")
@@ -447,5 +479,6 @@ def run_phased_static_batch(
         trace_len=trace_len, telemetry=telemetry, delta=delta,
         targets=targets, device=device,
     )
-    state = step_batch(g, state, cap, ell=ell, use_kernels=use_kernels)
+    state = step_batch(g, state, cap, ell=ell, use_kernels=use_kernels,
+                       ell_out=ell_out)
     return harvest(state)

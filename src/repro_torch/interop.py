@@ -22,8 +22,8 @@ _GRAPH_FIELDS = {
 # Fields a reference BatchState carries only for modes the port does not
 # run yet; they must be absent or None.
 _UNPORTED_STATE_FIELDS = (
-    "crit_keys", "keys_valid", "dist_true", "fringe_trace", "relax_trace",
-    "attr_trace", "delta", "target",
+    "dist_true", "fringe_trace", "relax_trace", "attr_trace", "delta",
+    "target",
 )
 
 
@@ -56,8 +56,10 @@ def state_from_numpy(fields: dict, device=None) -> BatchState:
     ``device`` (None = the CUDA card).
 
     Two-limb counters (``sum_fringe``/``sum_fringe_hi``,
-    ``relax_edges``/``relax_edges_hi``) fold into int64. Fields of modes
-    the port does not run (dynamic keys, oracle rows, telemetry rings,
+    ``relax_edges``/``relax_edges_hi``) fold into int64. The carried key
+    stack ``crit_keys`` and its ``keys_valid`` flag (a host bool here) come
+    over as they are, so both packages continue from one mid-solve state.
+    Fields of modes the port does not run (oracle rows, telemetry rings,
     delta, targets) must be absent or None.
     """
     dev = resolve_device(device)
@@ -80,6 +82,10 @@ def state_from_numpy(fields: dict, device=None) -> BatchState:
         sum_fringe=counter("sum_fringe"),
         relax_edges=counter("relax_edges"),
         out_deg=_tensor(fields["out_deg"], np.int32, dev),
+        crit_keys=(None if fields.get("crit_keys") is None
+                   else _tensor(fields["crit_keys"], np.float32, dev)),
+        keys_valid=(None if fields.get("keys_valid") is None
+                    else bool(np.asarray(fields["keys_valid"]))),
         settled_trace=_tensor(fields["settled_trace"], np.int32, dev),
         criterion=str(fields["criterion"]),
     )

@@ -4,6 +4,10 @@ call (``ops.py``). Kernels build with ``nvcc`` at first use
 (``_build.py``)."""
 from repro_torch.kernels.ops import (
     crit_thresholds_batch,
+    in_scan_relax_keys_batch,
+    key_min_batch,
+    key_min_batch_any,
+    out_scan_keys_batch,
     pad_lane_batch,
     relax_settled,
     relax_settled_batch,
@@ -13,6 +17,10 @@ from repro_torch.kernels.ops import (
 
 __all__ = [
     "crit_thresholds_batch",
+    "in_scan_relax_keys_batch",
+    "key_min_batch",
+    "key_min_batch_any",
+    "out_scan_keys_batch",
     "pad_lane_batch",
     "relax_settled",
     "relax_settled_batch",

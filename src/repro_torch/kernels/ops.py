@@ -15,7 +15,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ell_key_min import ell_key_min_batch
 from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
+from repro_torch.kernels.ell_relax_keys import (
+    ell_gather_min_batch,
+    ell_keys_dep_batch,
+    ell_relax_keys_batch,
+)
 from repro_torch.kernels.frontier_crit import (
     frontier_crit,
     frontier_crit_batch,
@@ -81,3 +87,68 @@ def crit_thresholds_batch(d, status, keys, *, use_kernels=True):
     if not use_kernels:
         return kref.frontier_crit_lanes_batch_ref(d, status, keys)
     return frontier_crit_lanes_batch(d, status, keys)
+
+
+def _padded_pair(ell):
+    """The (cols, ws) pair of a padded ELL; the sliced layout raises."""
+    if hasattr(ell, "slices"):
+        raise NotImplementedError(
+            "the degree-sliced ELL layout is not ported to the PyTorch "
+            "package yet (ROADMAP Queue 1 item 5)"
+        )
+    return ell
+
+
+def key_min_batch(gate, ell_cols, ell_ws, *, use_kernels=True):
+    """Dynamic criterion key (B, n): per-lane min of gate[neighbour] + w.
+
+    Pads the gate with the +inf sentinel slot, as
+    :func:`relax_settled_batch` pads ``dmask`` (both paths).
+    """
+    padded = pad_lane_batch(gate)
+    if not use_kernels:
+        return kref.ell_key_min_batch_ref(padded, ell_cols, ell_ws)
+    return ell_key_min_batch(padded, ell_cols, ell_ws)
+
+
+def key_min_batch_any(gate, ell, *, use_kernels=True):
+    """:func:`key_min_batch` over an adjacency view (the padded pair only)."""
+    cols, ws = _padded_pair(ell)
+    return key_min_batch(gate, cols, ws, use_kernels=use_kernels)
+
+
+def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
+                             use_kernels=True):
+    """The fused in-scan: ``(upd (B, n), keys (K, B, n))``.
+
+    ``upd`` is this phase's relax update; ``keys[k]`` is the k-th in-side
+    dynamic key on the *post-phase* status through the gate
+    ``min(ga, gb, gc + fin(upd))`` (``criteria.in_scan_gate_parts``).
+    ``gate_parts`` holds one ``(ga, gb, gc)`` triple per key. On the card
+    the two sweeps always run as one kernel call; it is bit-identical to
+    the split form the reference may choose.
+    """
+    cols, ws = _padded_pair(ell)
+    dmask = torch.where(settle_mask, d, INF)
+    ga, gb, gc = (torch.stack([p[i] for p in gate_parts]) for i in range(3))
+    if not use_kernels:
+        return kref.ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws)
+    return ell_relax_keys_batch(dmask, ga, gb, gc, cols, ws)
+
+
+def out_scan_keys_batch(gates, dep_parts, ell, *, use_kernels=True):
+    """The fused out-scan: keys ``(K0 [+1], B, n)``.
+
+    Every independent out-side key rides one multi-vector gather; a
+    dependent key (``dep_parts = (dga, dgb, dep_idx)``, the ``out_full``
+    of paper Eq. 2) adds the second sweep of the same kernel call.
+    """
+    cols, ws = _padded_pair(ell)
+    if dep_parts is None:
+        if not use_kernels:
+            return kref.ell_gather_min_batch_ref(gates, cols, ws)
+        return ell_gather_min_batch(gates, cols, ws)
+    dga, dgb, dep_idx = dep_parts
+    if not use_kernels:
+        return kref.ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws)
+    return ell_keys_dep_batch(gates, dga, dgb, cols, ws, dep_idx=dep_idx)

@@ -25,6 +25,77 @@ def ell_relax_batch_ref(dmask: torch.Tensor, cols: torch.Tensor,
     return torch.amin(dmask[:, cols.long()] + ws[None], dim=-1)
 
 
+def ell_key_min_ref(gate: torch.Tensor, cols: torch.Tensor,
+                    ws: torch.Tensor) -> torch.Tensor:
+    """key[v] = min_j gate[cols[v, j]] + ws[v, j] (dynamic criterion key)."""
+    return torch.amin(gate[cols.long()] + ws, dim=1)
+
+
+def ell_key_min_batch_ref(gate: torch.Tensor, cols: torch.Tensor,
+                          ws: torch.Tensor) -> torch.Tensor:
+    """key[b, v] = min_j gate[b, cols[v, j]] + ws[v, j]; adjacency shared."""
+    return torch.amin(gate[:, cols.long()] + ws[None], dim=-1)
+
+
+def pad_idx(vec: torch.Tensor, idx_pad: int) -> torch.Tensor:
+    """The fused kernels' index-space convention: the trailing axis padded
+    with min-neutral +inf up to ``idx_pad`` (the sentinel id n reads +inf)."""
+    pad = idx_pad - vec.shape[-1]
+    if pad <= 0:
+        return vec
+    fill = torch.full(vec.shape[:-1] + (pad,), INF, dtype=vec.dtype,
+                      device=vec.device)
+    return torch.cat([vec, fill], dim=-1)
+
+
+def ell_gather_min_batch_ref(vecs: torch.Tensor, cols: torch.Tensor,
+                             ws: torch.Tensor) -> torch.Tensor:
+    """out[v, b, r] = min_j vecs[v, b, cols[r, j]] + ws[r, j].
+
+    Takes the UNPADDED (V, B, n) vectors, as the kernel wrapper does, and
+    appends the +inf column of the sentinel id n here.
+    """
+    vecs = pad_idx(vecs, vecs.shape[-1] + 1)
+    return torch.amin(vecs[:, :, cols.long()] + ws[None, None], dim=-1)
+
+
+def ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws):
+    """Fused in-scan twin: (upd (B, n), keys (K, B, n)).
+
+    ``upd`` is :func:`ell_relax_batch_ref` on ``dmask``; ``keys[k]`` is the
+    key-min over the post-phase gate ``min(ga[k], gb[k], gc[k] + fin)``,
+    ``fin`` 0 where ``upd`` is finite and +inf elsewhere, the sentinel
+    included. Inputs are unpadded (B, n) / (K, B, n).
+    """
+    n_rows = cols.shape[0]
+    idx_pad = dmask.shape[-1] + 1
+    dmask, ga, gb, gc = (pad_idx(x, idx_pad) for x in (dmask, ga, gb, gc))
+    c = cols.long()
+    upd = torch.amin(dmask[:, c] + ws[None], dim=-1)  # (B, n)
+    fin = torch.full(dmask.shape, INF, dtype=torch.float32,
+                     device=dmask.device)
+    fin[:, :n_rows] = torch.where(upd < INF, 0.0, INF)
+    gate = torch.minimum(ga, torch.minimum(gb, gc + fin[None]))
+    keys = torch.amin(gate[:, :, c] + ws[None, None], dim=-1)
+    return upd, keys
+
+
+def ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws):
+    """Fused out-scan twin: keys (K0 + 1, B, n); row K0 is the dependent key
+    reduced through ``min(dga, dgb + keys[dep_idx])``. Inputs unpadded."""
+    n_rows = cols.shape[0]
+    idx_pad = gates.shape[-1] + 1
+    c = cols.long()
+    keys0 = torch.amin(pad_idx(gates, idx_pad)[:, :, c] + ws[None, None],
+                       dim=-1)
+    dep = torch.full((gates.shape[1], idx_pad), INF, dtype=torch.float32,
+                     device=gates.device)
+    dep[:, :n_rows] = keys0[dep_idx]
+    gate = torch.minimum(pad_idx(dga, idx_pad), pad_idx(dgb, idx_pad) + dep)
+    dep_key = torch.amin(gate[:, c] + ws[None], dim=-1)
+    return torch.cat([keys0, dep_key[None]], dim=0)
+
+
 def frontier_crit_ref(d: torch.Tensor, status: torch.Tensor,
                       out_min: torch.Tensor):
     """(min_F d, min_F (d + out_min), |F|) over one (n,) row."""

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import policies as P
-from repro_torch.core.graph import Graph, to_ell_in
+from repro_torch.core.graph import Graph, to_ell_in, to_ell_out
 from repro_torch.core.static_engine import (
     DEFAULT_CRITERION,
     EMPTY_LANE,
@@ -72,8 +72,9 @@ class StaticBackend:
     ``device`` (None = the CUDA card) must be the graph's device.
     ``use_kernels=False`` runs the plain twins. ``donate`` is accepted for
     the :class:`EngineBackend` seam and changes nothing: the port's stepper
-    never aliases the state it is given. The sliced layout, delta-stepping
-    and point queries are not ported yet and raise.
+    never aliases the state it is given. Plans with out-side dynamic keys
+    build the outgoing ELL once, here. The sliced layout, delta-stepping,
+    oracle plans and point queries are not ported yet and raise.
     """
 
     def __init__(self, g: Graph, ell=None, use_kernels: bool = True,
@@ -98,6 +99,8 @@ class StaticBackend:
         self.device = graph_device(g, device)
         self.g = g
         self.ell = to_ell_in(g) if ell is None else ell
+        # built once: rebuilding per step would re-sort every arc per chunk
+        self.ell_out = to_ell_out(g) if pol.needs_out_adjacency else None
         self.use_kernels = bool(use_kernels)
         self.criterion = pol.spec
 
@@ -115,7 +118,7 @@ class StaticBackend:
         return step_batch(
             self.g, state, k_phases, ell=self.ell,
             use_kernels=self.use_kernels,
-            stop_on_lane_finish=stop_on_lane_finish,
+            stop_on_lane_finish=stop_on_lane_finish, ell_out=self.ell_out,
         )
 
     def reset_lanes(self, state, sources, *, donate=False, targets=None):

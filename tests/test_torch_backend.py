@@ -90,7 +90,7 @@ def test_static_backend_contract():
     with pytest.raises(ValueError, match="delta"):
         StaticBackend(gt, delta=0.5, device="cpu")
     for kw in ({"layout": "sliced"}, {"point_queries": True},
-               {"policy": "delta"}, {"criterion": "in|out"}):
+               {"policy": "delta"}, {"criterion": "in|out|oracle"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             StaticBackend(gt, device="cpu", **kw)
     if not torch.cuda.is_available():

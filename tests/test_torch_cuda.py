@@ -16,7 +16,14 @@ import torch
 from repro_torch.core import run_phased_static_batch, to_ell_in
 from repro_torch.graphs import uniform_gnp
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
 from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
+from repro_torch.kernels.ell_relax_keys import (
+    ell_gather_min_batch,
+    ell_keys_dep_batch,
+    ell_relax_keys,
+    ell_relax_keys_batch,
+)
 from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
 
 pytestmark = pytest.mark.cuda
@@ -124,9 +131,111 @@ def test_solve_with_kernels_matches_plain_solve(cuda):
     assert cols.device.type == "cuda"
 
 
+def _dense(rng, shape, nan=False):
+    """Key-gate-like values: dense, with some +inf and optionally a NaN."""
+    x = rng.uniform(0, 3, shape).astype(np.float32)
+    x[rng.random(shape) < 0.2] = np.inf
+    if nan:
+        x.reshape(-1)[7] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 300, 8), (3, 777, 33), (8, 5000, 40),
+                                   (13, 700, 5), (8, 2000, 200)])
+def test_ell_key_min_batch_matches_twin(cuda, b, n, d):
+    rng = np.random.default_rng(b * 7 + n + d)
+    cols, ws = _ell(rng, n, d, n + 1)
+    gate = _t(_dense(rng, (b, n + 1), nan=b == 3), cuda)
+    args = (gate, _t(cols, cuda), _t(ws, cuda))
+    before = ell_key_min_batch.launches
+    got = ell_key_min_batch(*args)
+    assert ell_key_min_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_key_min_batch_ref(*args))
+    row = gate[b - 1].contiguous()
+    assert _same_bits(ell_key_min(row, *args[1:]),
+                      ref.ell_key_min_ref(row, *args[1:]))
+
+
+@pytest.mark.parametrize("v,b,n,rows,d", [(1, 8, 3000, 3000, 40),
+                                          (2, 8, 3000, 3000, 40),
+                                          (3, 5, 900, 411, 9),
+                                          (2, 1, 64, 64, 3)])
+def test_ell_gather_min_batch_matches_twin(cuda, v, b, n, rows, d):
+    rng = np.random.default_rng(v + b + n + d)
+    cols, ws = _ell(rng, rows, d, n + 1)  # ids up to the sentinel n
+    vecs = _t(_dense(rng, (v, b, n), nan=v == 2), cuda)
+    args = (vecs, _t(cols, cuda), _t(ws, cuda))
+    before = ell_gather_min_batch.launches
+    got = ell_gather_min_batch(*args)
+    assert ell_gather_min_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_gather_min_batch_ref(*args))
+
+
+@pytest.mark.parametrize("k,b,n,d", [(1, 8, 3000, 40), (2, 8, 3000, 40),
+                                     (2, 3, 777, 33), (1, 1, 500, 8),
+                                     (3, 13, 700, 5)])
+def test_ell_relax_keys_batch_matches_twin(cuda, k, b, n, d):
+    rng = np.random.default_rng(k * 100 + b + n + d)
+    cols, ws = _ell(rng, n, d, n + 1)
+    dm = np.full((b, n), np.inf, np.float32)  # sparse, as on the engine's path
+    live = rng.random((b, n)) < 0.05
+    dm[live] = rng.uniform(0, 10, live.sum()).astype(np.float32)
+    parts = [_t(_dense(rng, (k, b, n), nan=(i == 1 and k == 2)), cuda)
+             for i in range(3)]
+    args = (_t(dm, cuda), *parts, _t(cols, cuda), _t(ws, cuda))
+    before = ell_relax_keys_batch.launches
+    upd, keys = ell_relax_keys_batch(*args)
+    assert ell_relax_keys_batch.launches == before + 1
+    w_upd, w_keys = ref.ell_relax_keys_batch_ref(*args)
+    assert _same_bits(upd, w_upd) and _same_bits(keys, w_keys)
+    one = (args[0][0].contiguous(), *(p[:, 0].contiguous() for p in parts),
+           *args[4:])
+    u1, k1 = ell_relax_keys(*one)
+    assert _same_bits(u1, w_upd[0]) and _same_bits(k1, w_keys[:, 0])
+
+
+@pytest.mark.parametrize("k0,dep_idx,b,n,d", [(1, 0, 8, 3000, 40),
+                                              (2, 1, 8, 3000, 40),
+                                              (2, 0, 5, 901, 17),
+                                              (3, 2, 1, 400, 8)])
+def test_ell_keys_dep_batch_matches_twin(cuda, k0, dep_idx, b, n, d):
+    rng = np.random.default_rng(k0 * 10 + dep_idx + b + n + d)
+    cols, ws = _ell(rng, n, d, n + 1)
+    gates = _t(_dense(rng, (k0, b, n)), cuda)
+    dga = _t(_dense(rng, (b, n), nan=k0 == 2), cuda)
+    dgb = _t(_dense(rng, (b, n)), cuda)
+    tc, tw = _t(cols, cuda), _t(ws, cuda)
+    before = ell_keys_dep_batch.launches
+    got = ell_keys_dep_batch(gates, dga, dgb, tc, tw, dep_idx=dep_idx)
+    assert ell_keys_dep_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_keys_dep_batch_ref(gates, dga, dgb,
+                                                      dep_idx, tc, tw))
+
+
+@pytest.mark.parametrize("criterion", ["in|out", "insimple|outsimple",
+                                       "outweak"])
+def test_dynamic_solve_with_kernels_matches_plain_solve(cuda, criterion):
+    g = uniform_gnp(3000, 3e-3, seed=4, device=cuda)
+    sources = [0, 11, 2999, 5, 77]
+    a = run_phased_static_batch(g, sources, trace_len=16, criterion=criterion)
+    b = run_phased_static_batch(g, sources, trace_len=16, criterion=criterion,
+                                use_kernels=False)
+    for f in ("dist", "status", "phases", "total_phases", "settled_per_phase"):
+        assert _same_bits(getattr(a, f), getattr(b, f)), f
+    assert np.array_equal(a.sum_fringe, b.sum_fringe)
+    assert np.array_equal(a.relax_edges, b.relax_edges)
+
+
 def test_cuda_tensors_never_fall_back(cuda):
     dm = ops.pad_lane_batch(torch.zeros((2, 4), device=cuda))
     cols = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
     ws = torch.zeros((4, 2), dtype=torch.float32)  # on the host: refused
     with pytest.raises(ValueError, match="different devices"):
         ell_relax_batch(dm, cols, ws)
+    v = torch.zeros((1, 2, 4), device=cuda)
+    for call in (lambda: ell_key_min_batch(dm, cols, ws),
+                 lambda: ell_gather_min_batch(v, cols, ws),
+                 lambda: ell_relax_keys_batch(v[0], v, v, v, cols, ws),
+                 lambda: ell_keys_dep_batch(v, v[0], v[0], cols, ws)):
+        with pytest.raises(ValueError, match="different devices"):
+            call()

@@ -253,7 +253,7 @@ def test_input_validation_matches_reference():
 
 def test_unported_modes_raise_naming_the_roadmap():
     _, gt = _graphs("gnp")
-    for kw in ({"criterion": "in|out"}, {"criterion": "oracle"},
+    for kw in ({"criterion": "oracle"}, {"criterion": "in|oracle"},
                {"criterion": "delta"}, {"layout": "sliced"},
                {"telemetry": True}, {"targets": [3]}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

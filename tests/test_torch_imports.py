@@ -29,8 +29,10 @@ def _banned(module: str) -> bool:
 
 def test_port_files_exist():
     names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "static_engine.py", "ell_relax.py",
-            "frontier_crit.py"} <= names
+    assert {"chip_smoke.py", "static_engine.py", "policies.py", "criteria.py",
+            "ell_relax.py", "frontier_crit.py", "ell_key_min.py",
+            "ell_relax_keys.py", "ops.py", "ref.py", "backends.py",
+            "interop.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
