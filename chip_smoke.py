@@ -33,7 +33,23 @@ failure raises, exits non-zero and prints no ``ok`` line:
  10. ``insimple|outsimple`` at full width, 64 trips, kernels against twins
      on every state field (the path of ``ell_gather_min_batch``);
  11. the key kernels' times on the inputs of one real phase of the ``in|out``
-     solve.
+     solve;
+ 12. the skewed graph: ``kronecker(20)`` (Graph500 initiator, ~9.1e7 arcs,
+     largest in-degree ~3.8e5, so no padded layout fits) and its degree-sliced
+     in- and out-views on the card, with their sizes;
+ 13. the three sliced kernels against their twins at full width, bit for bit
+     (sparse dmask with the skip on, dense V = 2 gates, K = 1 and 2,
+     dep_idx 0 and 1, NaN cases);
+ 14. sliced serving: a StaticBackend(layout="sliced") with 8 lanes answers 16
+     requests under ``instatic|outstatic``, then ``in|out``, counts set to 0
+     just before: the sliced kernels run, the padded gathers do not;
+ 15. sliced end to end: on kronecker(20) the B = 8 kernel and plain solves
+     bit-equal for both plans, the served rows equal, one row against
+     scipy's Dijkstra; on G(10^6, 10^-4) layout="sliced" bit-equal to the
+     padded solves of phases 4 and 9;
+ 16. the sliced kernels' times on the inputs of one real phase, and
+     ms/phase, phases per query and queries/s of the sliced solves and
+     serving.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +76,7 @@ REQUESTS = 16
 CHUNK = 64  # phases per step call in the serving loop
 MID_PHASE = 200  # the phase whose kernel inputs phase 6 times
 DYN_TRIPS = 64  # trips of the insimple|outsimple check (phase 10)
+KRON_K = 20  # kronecker(20): the skewed graph of phases 12-16
 INF = float("inf")
 
 
@@ -139,14 +156,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import KEEP_LANE, to_ell_in, to_ell_out
+    from repro_torch.core import (
+        KEEP_LANE,
+        out_degrees,
+        to_ell_in,
+        to_ell_in_sliced,
+        to_ell_out,
+        to_ell_out_sliced,
+    )
     from repro_torch.core import criteria as C
     from repro_torch.core.static_engine import (
         init_batch_state,
         run_phased_static_batch,
         step_batch,
     )
-    from repro_torch.graphs import grid_road, uniform_gnp
+    from repro_torch.graphs import grid_road, kronecker, uniform_gnp
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
@@ -156,12 +180,19 @@ def main() -> int:
         ell_keys_dep_batch,
         ell_relax_keys_batch,
     )
+    from repro_torch.kernels.ell_sliced import (
+        ell_sliced_gather_min_batch,
+        ell_sliced_keys_dep_batch,
+        ell_sliced_relax_keys_batch,
+    )
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
     from repro_torch.serving import StaticBackend
 
     counted = {f.__name__: f for f in (
         ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
-        ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch)}
+        ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch,
+        ell_sliced_gather_min_batch, ell_sliced_relax_keys_batch,
+        ell_sliced_keys_dep_batch)}
 
     def zero_counts():
         for f in counted.values():
@@ -658,8 +689,294 @@ def main() -> int:
                     reps=50)
     log(f"frontier_crit_lanes_batch with per-lane (1, B, n) keys on the same "
         f"inputs: {pl_ms:.4f} ms")
+    del st_io, d_io, s_io, g_od, dga_io, dgb_io, keys_io, thr_keys, mins_io
+    del settle_io, dmask_io, ga_io, gb_io, gc_io, gate_io, row_io
+
+    # ---- 12. the skewed graph and its sliced views -------------------------
+    t0 = time.perf_counter()
+    gk = kronecker(KRON_K, seed=SEED, device=dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sl_in, sl_out = to_ell_in_sliced(gk), to_ell_out_sliced(gk)
+    torch.cuda.synchronize()
+    log(f"kronecker({KRON_K}) seed {SEED}: n={gk.n}, m={gk.num_real_edges} "
+        f"arcs, generated in {gen_s:.1f} s (host numpy), views built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for side, view, real_to in (("in", sl_in, gk.dst), ("out", sl_out, gk.src)):
+        deg = torch.bincount(real_to[torch.isfinite(gk.w)].long(),
+                             minlength=gk.n)
+        d_max = int(deg.max())
+        padded_bytes = gk.n * (-(-d_max // 8) * 8) * 8
+        log(f"  {side}-view: widths {view.widths}, rows per bucket "
+            f"{[int(s.rows.shape[0]) for s in view.slices]}, padded slots "
+            f"{view.padded_slots} ({view.padded_slots * 8 / 1e9:.3f} GB), "
+            f"C={view.merge_idx.shape[1]} (merge_idx "
+            f"{view.merge_idx.numel() * 4 / 1e9:.3f} GB, compact form "
+            f"{(view.merge_ptr.numel() * 8 + view.merge_pos.numel() * 4) / 1e9:.3f}"
+            f" GB); {int((deg == 0).sum())} vertices of degree 0, max degree "
+            f"{d_max}: the padded layout would need {padded_bytes:.3e} bytes")
+    sl_bytes = sl_in.padded_slots * 8
+    sl_out_bytes = sl_out.padded_slots * 8
+
+    def merge_bytes(view):
+        return view.merge_ptr.numel() * 8 + view.merge_pos.numel() * 4
+
+    def sliced_finite(vecs, view):
+        """Finite lane-slots of a (lanes, n) vector over every bucket."""
+        padded = kops.pad_lane_batch(vecs.reshape(-1, vecs.shape[-1]))
+        return sum(finite_slots(padded, s.cols.long()) for s in view.slices)
+
+    # ---- 13. sliced kernel parity at full width -----------------------------
+    nk = gk.n
+    rng = np.random.default_rng(13)
+    dk, stk = seeded_state(rng, LANES, nk, dev)
+    settle_k = (stk == 1) & torch.from_numpy(rng.random((LANES, nk)) < 0.01).to(dev)
+    dmask_k = torch.where(settle_k, dk, INF)[None].contiguous()
+    dmask_k_nan = dmask_k.clone()
+    dmask_k_nan[0, 3, min(int(sl_in.slices[-1].cols[0, 0]), nk - 1)] = \
+        float("nan")
+    kspec = {k.name: k for k in C.plan_for("insimple|in|outweak|out").keys}
+
+    def kgate(name, status):
+        return C.key_gate(kspec[name], status, gk.in_min_static,
+                          gk.out_min_static, {})
+
+    k_dyn, k_weak = kgate("out_dyn", stk), kgate("out_weak", stk)
+    for label, (vecs, view, sparse) in {
+        "in-view sparse dmask (skip on)": (dmask_k, sl_in, True),
+        "in-view sparse dmask NaN (skip on)": (dmask_k_nan, sl_in, True),
+        "out-view dense V=2 gates": (torch.stack([k_dyn, k_weak]), sl_out,
+                                     False),
+    }.items():
+        check("ell_sliced_gather_min_batch", label,
+              ell_sliced_gather_min_batch(vecs, view, sparse=sparse),
+              ref.ell_sliced_gather_min_batch_ref(vecs, view))
+    del dmask_k_nan
+    kparts = [C.in_scan_gate_parts(kspec[nm], stk, settle_k,
+                                   gk.in_min_static[None])
+              for nm in ("in_full", "in_dyn")]
+    for k in (1, 2):
+        ga, gb, gc = (torch.stack([p[i] for p in kparts[:k]]) for i in range(3))
+        label = f"in-view K={k}"
+        if k == 2:
+            ga[1, 2, min(int(sl_in.slices[0].cols[0, 0]), nk - 1)] = \
+                float("nan")
+            label += " NaN in ga"
+        check("ell_sliced_relax_keys_batch", label,
+              ell_sliced_relax_keys_batch(dmask_k[0], ga, gb, gc, sl_in),
+              ref.ell_sliced_relax_keys_batch_ref(dmask_k[0], ga, gb, gc,
+                                                  sl_in))
+    del kparts, ga, gb, gc
+    kdga, kdgb = C.dep_gate_parts(kspec["out_full"], stk)
+    kdga_nan = kdga.clone()
+    kdga_nan[4, min(int(sl_out.slices[0].cols[0, 0]), nk - 1)] = float("nan")
+    for label, (gates, dep, dga_) in {
+        "out-view K0=1 dep_idx=0": (k_dyn[None], 0, kdga),
+        "out-view K0=2 dep_idx=1": (torch.stack([k_weak, k_dyn]), 1, kdga),
+        "out-view K0=2 dep_idx=0 NaN in dga": (torch.stack([k_dyn, k_weak]), 0,
+                                               kdga_nan),
+    }.items():
+        check("ell_sliced_keys_dep_batch", label,
+              ell_sliced_keys_dep_batch(gates, dga_, kdgb, sl_out, dep_idx=dep),
+              ref.ell_sliced_keys_dep_batch_ref(gates, dga_, kdgb, dep, sl_out))
+    del dk, stk, settle_k, dmask_k, k_dyn, k_weak, kdga, kdgb, kdga_nan, gates
+
+    # ---- 14. sliced serving on the skewed graph ----------------------------
+    has_out = torch.nonzero(out_degrees(gk) >= 1).squeeze(1).cpu().numpy()
+    src_k = np.random.default_rng(2).choice(has_out, REQUESTS)
+    padded_gathers = ("ell_relax_batch", "ell_key_min_batch",
+                      "ell_gather_min_batch", "ell_relax_keys_batch",
+                      "ell_keys_dep_batch")
+    served_k, sliced_serve = {}, {}
+    for crit, must in (("instatic|outstatic", ("ell_sliced_gather_min_batch",)),
+                       ("in|out", ("ell_sliced_gather_min_batch",
+                                   "ell_sliced_relax_keys_batch",
+                                   "ell_sliced_keys_dep_batch"))):
+        rows_s, ph_s, l_s, s_s, steps_s, trips_s = serve(
+            StaticBackend(gk, criterion=crit, layout="sliced", device=dev),
+            src_k)
+        served_k[crit] = rows_s
+        sliced_serve[crit] = (l_s, s_s, ph_s)
+        log(f"sliced serving {crit} on kronecker({KRON_K}): {REQUESTS} "
+            f"requests in {s_s:.3f} s ({REQUESTS / s_s:.2f} queries/s), "
+            f"{steps_s} step calls, {trips_s} trips; phases per request "
+            f"{[ph_s[r] for r in range(REQUESTS)]}")
+        log(f"sliced serving {crit} launches: {l_s}")
+        for name in must + ("frontier_crit_lanes_batch",):
+            if l_s[name] <= 0:
+                raise SystemExit(f"sliced {crit} serving never launched {name}")
+        if any(l_s[name] for name in padded_gathers):
+            raise SystemExit(f"sliced {crit} serving launched a padded gather")
+
+    # ---- 15. end-to-end parity on the sliced layout -------------------------
+    src8_k = src_k[:LANES]
+    real_k = torch.isfinite(gk.w)
+    ek_src, ek_dst, ek_w = gk.src[real_k], gk.dst[real_k], gk.w[real_k]
+    order_k = torch.sort(ek_src.long(), stable=True).indices
+    indptr_k = torch.zeros(gk.n + 1, dtype=torch.int64, device=dev)
+    indptr_k[1:] = torch.cumsum(torch.bincount(ek_src.long(), minlength=gk.n), 0)
+    csr_k = sp.csr_matrix(
+        (ek_w[order_k].double().cpu().numpy(), ek_dst[order_k].cpu().numpy(),
+         indptr_k.cpu().numpy()), shape=(gk.n, gk.n))
+    del real_k, ek_src, ek_dst, ek_w, order_k, indptr_k
+    t0 = time.perf_counter()
+    want_k = dijkstra(csr_k, directed=True, indices=int(src8_k[0]))
+    scipy_k_s = time.perf_counter() - t0
+    del csr_k
+    fin_k = np.isfinite(want_k)
+    sliced_solve = {}
+    for crit in ("instatic|outstatic", "in|out"):
+        kw = dict(criterion=crit, layout="sliced", device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_s = run_phased_static_batch(gk, src8_k, **kw)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_sp = run_phased_static_batch(gk, src8_k, use_kernels=False, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for field in ("dist", "status", "phases", "total_phases"):
+            if not same_bits(getattr(res_s, field), getattr(res_sp, field)):
+                raise SystemExit(f"sliced {crit} kernel and plain solves "
+                                 f"differ in {field}")
+        for field in ("sum_fringe", "relax_edges"):
+            if not np.array_equal(getattr(res_s, field), getattr(res_sp, field)):
+                raise SystemExit(f"sliced {crit} kernel and plain solves "
+                                 f"differ in {field}")
+        del res_sp
+        dist_s = res_s.dist.cpu().numpy()
+        for i in range(LANES):
+            if not np.array_equal(served_k[crit][i].view(np.int32),
+                                  dist_s[i].view(np.int32)):
+                raise SystemExit(f"sliced {crit} served row {i} differs from "
+                                 "the solve")
+        got = dist_s[0]
+        same_set = bool((np.isfinite(got) == fin_k).all())
+        close = bool(np.allclose(got[fin_k], want_k[fin_k], rtol=1e-5))
+        rel = np.abs(got[fin_k] - want_k[fin_k]) / np.maximum(want_k[fin_k],
+                                                              1e-30)
+        total_s = int(res_s.total_phases)
+        sliced_solve[crit] = (solve_s, total_s, res_s.phases.tolist())
+        log(f"sliced e2e {crit} on kronecker({KRON_K}): B={LANES} solve with "
+            f"kernels {solve_s:.3f} s ({LANES / solve_s:.2f} queries/s, "
+            f"{total_s} phases, {solve_s / total_s * 1e3:.3f} ms/phase; phases "
+            f"per row {res_s.phases.tolist()}); plain twins {plain_s:.3f} s; "
+            f"every BatchedResult field bit-equal; the 8 served rows equal")
+        log(f"sliced e2e {crit} scipy: row 0 (source {int(src8_k[0])}) "
+            f"reachable {int(fin_k.sum())}, same reachable set {same_set}, "
+            f"rtol 1e-5 {close}, max rel err {float(rel.max()):.3e} (scipy "
+            f"{scipy_k_s:.1f} s)")
+        if not (same_set and close):
+            raise SystemExit(f"sliced {crit} row 0 disagrees with scipy")
+        if crit == "instatic|outstatic":
+            st_k16 = init_batch_state(gk, src8_k, device=dev)
+            st_k16 = step_batch(gk, st_k16, total_s // 2, ell=sl_in)
+        del res_s
+    for crit, padded_res in (("instatic|outstatic", res_k), ("in|out", res_io)):
+        res_g = run_phased_static_batch(g, src8, criterion=crit,
+                                        layout="sliced", device=dev)
+        for field in ("dist", "status", "phases", "total_phases"):
+            if not same_bits(getattr(res_g, field), getattr(padded_res, field)):
+                raise SystemExit(f"gnp sliced {crit} differs from padded in "
+                                 f"{field}")
+        for field in ("sum_fringe", "relax_edges"):
+            if not np.array_equal(getattr(res_g, field),
+                                  getattr(padded_res, field)):
+                raise SystemExit(f"gnp sliced {crit} differs from padded in "
+                                 f"{field}")
+        del res_g
+    sl_g = to_ell_in_sliced(g)
+    log(f"sliced e2e on G(n={N}, p={P}): in-view widths {sl_g.widths}, "
+        f"C={sl_g.merge_idx.shape[1]}, {sl_g.padded_slots * 8 / 1e9:.3f} GB "
+        f"of slots; layout='sliced' bit-equal to the padded solve on every "
+        f"field, instatic|outstatic and in|out")
+    del sl_g
+
+    # ---- 16. sliced kernel times on one real phase --------------------------
+    # relax sweep: the settle mask of phase total // 2 of the B = 8
+    # instatic|outstatic solve; fused scans: phase total // 2 of in|out
+    dm16, st16 = st_k16.dist, st_k16.status
+    mins16, nf16 = kops.crit_thresholds_batch(dm16, st16,
+                                              gk.out_min_static[None])
+    settle16 = C.plan_union_mask(st_k16.plan, dm16, st16 == 1, mins16, {},
+                                 gk.in_min_static, None)
+    relax16 = torch.where(settle16, dm16, INF)[None].contiguous()
+    st_kio = init_batch_state(gk, src8_k, criterion="in|out", device=dev)
+    st_kio = step_batch(gk, st_kio, sliced_solve["in|out"][1] // 2, ell=sl_in,
+                        ell_out=sl_out)
+    d_kio, s_kio = st_kio.dist, st_kio.status
+    god16 = kgate("out_dyn", s_kio)[None].contiguous()
+    dga16, dgb16 = C.dep_gate_parts(kspec["out_full"], s_kio)
+    keys16 = ell_sliced_keys_dep_batch(god16, dga16, dgb16, sl_out)
+    mins_io16, nf_io16 = frontier_crit_lanes_batch(
+        d_kio, s_kio, keys16[1][None].contiguous())
+    settle_io16 = C.plan_union_mask(
+        st_kio.plan, d_kio, s_kio == 1, mins_io16,
+        {"in_full": st_kio.crit_keys[0], "out_dyn": keys16[0],
+         "out_full": keys16[1]}, gk.in_min_static, None)
+    dmask_io16 = torch.where(settle_io16, d_kio, INF)
+    ga16, gb16, gc16 = (p[None].contiguous() for p in C.in_scan_gate_parts(
+        kspec["in_full"], s_kio, settle_io16, gk.in_min_static[None]))
+    upd16, _ = ell_sliced_relax_keys_batch(dmask_io16, ga16, gb16, gc16, sl_in)
+    gate1_16 = torch.minimum(ga16[0], torch.minimum(
+        gb16[0], gc16[0] + torch.where(upd16 < INF, 0.0, INF)))
+    dep16 = torch.minimum(dga16, dgb16 + keys16[0])
+    fs_r = sliced_finite(relax16, sl_in)
+    fs_rk = sliced_finite(dmask_io16, sl_in) + sliced_finite(gate1_16, sl_in)
+    fs_kd = sliced_finite(god16, sl_out) + sliced_finite(dep16, sl_out)
+    del gate1_16, dep16, upd16
+    log(f"sliced timing inputs: phase {int(st_k16.trips)} of the "
+        f"instatic|outstatic B={LANES} solve ({int(settle16.sum())} settled, "
+        f"{int(nf16.sum())} on the fringe), phase {int(st_kio.trips)} of the "
+        f"in|out solve ({int(settle_io16.sum())} settled); finite lane-slots: "
+        f"relax {fs_r}, relax_keys {fs_rk}, keys_dep {fs_kd}")
+    bk = LANES * nk * 4  # bytes of one (B, n) f32 vector
+    sliced_timed = {
+        "ell_sliced_gather_min_batch": (
+            lambda: ell_sliced_gather_min_batch(relax16, sl_in, sparse=True),
+            lambda: ref.ell_sliced_gather_min_batch_ref(relax16, sl_in),
+            bound(sl_bytes + merge_bytes(sl_in) + 2 * bk, 2.0 * fs_r)),
+        "ell_sliced_relax_keys_batch": (
+            lambda: ell_sliced_relax_keys_batch(dmask_io16, ga16, gb16, gc16,
+                                                sl_in),
+            lambda: ref.ell_sliced_relax_keys_batch_ref(dmask_io16, ga16,
+                                                        gb16, gc16, sl_in),
+            bound(sl_bytes + merge_bytes(sl_in) + 6 * bk, 2.0 * fs_rk)),
+        "ell_sliced_keys_dep_batch": (
+            lambda: ell_sliced_keys_dep_batch(god16, dga16, dgb16, sl_out),
+            lambda: ref.ell_sliced_keys_dep_batch_ref(god16, dga16, dgb16, 0,
+                                                      sl_out),
+            bound(sl_out_bytes + merge_bytes(sl_out) + 5 * bk, 2.0 * fs_kd)),
+    }
+    for name, (kern, plain, (b_ms, b_by)) in sliced_timed.items():
+        times[name] = (time_ms(kern, reps=20), time_ms(plain, reps=3, warmup=1),
+                       b_ms, b_by)
+        log(f"{name}: {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    gdense = torch.stack([kgate("out_dyn", s_kio), kgate("out_weak", s_kio)])
+    dense_ms_s = time_ms(lambda: ell_sliced_gather_min_batch(gdense, sl_out),
+                         reps=20)
+    log(f"ell_sliced_gather_min_batch on dense V=2 out-view gates of the same "
+        f"in|out phase: {dense_ms_s:.4f} ms; the partials add "
+        f"{2 * LANES * sl_in.total_rows * 4 / 1e9:.4f} GB of traffic per "
+        f"8-lane sweep beyond the bound")
+    for crit in ("instatic|outstatic", "in|out"):
+        solve_s, total_s, ph = sliced_solve[crit]
+        l_s, s_s, ph_s = sliced_serve[crit]
+        log(f"sliced {crit} on kronecker({KRON_K}): solve "
+            f"{solve_s / total_s * 1e3:.3f} ms/phase, {np.mean(ph):.1f} "
+            f"phases per query, {LANES / solve_s:.2f} queries/s; serving "
+            f"{REQUESTS / s_s:.2f} queries/s, {np.mean(list(ph_s.values())):.1f}"
+            f" phases per request")
+    del st_k16, st_kio, relax16, dmask_io16, ga16, gb16, gc16, gdense
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"card: {smi}")
+    sliced_kernels = {
+        "ell_sliced_gather_min_batch": "src/repro/kernels/ell_relax_keys.py:311",
+        "ell_sliced_relax_keys_batch": "src/repro/kernels/ell_relax_keys.py:345",
+        "ell_sliced_keys_dep_batch": "src/repro/kernels/ell_relax_keys.py:394",
+    }
     new_kernels = {
         "ell_key_min_batch": "src/repro/kernels/ell_key_min.py:86",
         "ell_gather_min_batch": "src/repro/kernels/ell_relax_keys.py:93",
@@ -692,6 +1009,19 @@ def main() -> int:
          "plain_ms": times[name][1], "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None}
         for name, replaces in new_kernels.items()
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
+         "replaces": replaces,
+         # the gather's launches are the sliced instatic|outstatic serving
+         # run's, the fused scans' the sliced in|out run's
+         "launches": sliced_serve["instatic|outstatic" if name ==
+                                  "ell_sliced_gather_min_batch"
+                                  else "in|out"][0][name],
+         "max_abs_err": errs[name], "ms": times[name][0],
+         "plain_ms": times[name][1], "bound_ms": times[name][2],
+         "bound_by": times[name][3], "library_ms": None}
+        for name, replaces in sliced_kernels.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ builders give the reference's arrays element for element.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -110,12 +111,25 @@ def to_numpy_csr(g: Graph):
     return indptr, dst, w
 
 
+def _rank_in_group(keys: torch.Tensor, n: int):
+    """Stable sort of ``keys`` (ids in [0, n)): returns the order, the
+    sorted keys and each element's rank within its run of equal keys (the
+    reference's ``arange - searchsorted(sorted, sorted, 'left')``), as
+    ``position - run start`` with the run starts from a prefix sum of the
+    counts, which is the same number."""
+    order = torch.sort(keys, stable=True).indices
+    srt = keys[order]
+    count = torch.bincount(srt, minlength=n)
+    start = torch.cumsum(count, 0) - count
+    rank = torch.arange(srt.numel(), device=keys.device) - start[srt]
+    return order, srt, rank
+
+
 def _build_ell(from_ids, to_ids, w, n, pad_multiple):
     """(n, D) ELL rows keyed by ``to_ids`` holding (from_id, weight) pairs.
 
     The reference's slot of an edge is its rank within its row after a
-    stable sort by row; here the rank is ``position - row start``, with the
-    row starts from a prefix sum of the degrees, which is the same number.
+    stable sort by row (:func:`_rank_in_group`).
     """
     real = torch.isfinite(w)
     from_ids, to_ids, w = from_ids[real], to_ids[real], w[real]
@@ -127,10 +141,7 @@ def _build_ell(from_ids, to_ids, w, n, pad_multiple):
     dev = w.device
     cols = torch.full((n, d_pad), n, dtype=torch.int32, device=dev)
     ws = torch.full((n, d_pad), INF, dtype=torch.float32, device=dev)
-    order = torch.sort(to_long, stable=True).indices
-    to_s = to_long[order]
-    start = torch.cumsum(deg, 0) - deg
-    slot = torch.arange(to_s.numel(), device=dev) - start[to_s]
+    order, to_s, slot = _rank_in_group(to_long, n)
     cols[to_s, slot] = from_ids[order]
     ws[to_s, slot] = w[order]
     return cols, ws
@@ -173,6 +184,206 @@ def out_degrees(g: Graph) -> torch.Tensor:
         hit = torch.bincount(real_src, minlength=g.n).to(torch.int32)
         g.__dict__["_out_deg_cache"] = hit
     return hit
+
+
+class EllSlice(NamedTuple):
+    """One degree bucket of a sliced ELL view.
+
+    ``rows[i]`` is the vertex that slice-row ``i`` belongs to; a *split*
+    heavy vertex contributes several rows (same ``rows`` id, disjoint edge
+    chunks), merged back by the consumer's min, which is exact in any
+    order (f32 min has no rounding).
+    """
+
+    rows: torch.Tensor  # (R_b,) int32 vertex ids (repeats: split rows)
+    cols: torch.Tensor  # (R_b, D_b) int32 neighbour ids (sentinel id = n)
+    ws: torch.Tensor  # (R_b, D_b) f32, +inf padding
+
+
+class SlicedEll(NamedTuple):
+    """A degree-sliced ELL adjacency view: one :class:`EllSlice` per bucket.
+
+    Buckets pad rows only to their own width, and rows beyond the widest
+    bucket split into chunks, so one hub no longer makes every row pay
+    ``D_max`` slots. Zero-degree vertices appear in no slice: the merge's
+    +inf identity is their empty-min value.
+
+    ``merge_idx[v, c]`` is the position of v's c-th slice-row in the
+    row-major concatenation of all slices (sentinel = total rows, which
+    reads +inf), so ``merged[v] = min_c concat[merge_idx[v, c]]``; it is
+    the reference's array element for element. ``merge_ptr`` /
+    ``merge_pos`` are its compact form for the CUDA merge pass: the
+    non-sentinel entries of each row, in row-major order (CSR). A sentinel
+    reads +inf, the identity of min, so dropping it gives the same answer
+    for any ``merge_idx``. Build one with :func:`sliced_ell`.
+    """
+
+    slices: tuple[EllSlice, ...]
+    merge_idx: torch.Tensor  # (n, C) int32 positions into concat(slices)+[inf]
+    merge_ptr: torch.Tensor  # (n + 1,) int64 row starts into merge_pos
+    merge_pos: torch.Tensor  # (nnz,) int32 non-sentinel merge_idx entries
+
+    @property
+    def widths(self) -> tuple[int, ...]:
+        return tuple(int(s.cols.shape[1]) for s in self.slices)
+
+    @property
+    def padded_slots(self) -> int:
+        return sum(int(s.cols.numel()) for s in self.slices)
+
+    @property
+    def total_rows(self) -> int:
+        return sum(int(s.rows.shape[0]) for s in self.slices)
+
+
+def sliced_ell(slices, merge_idx: torch.Tensor) -> SlicedEll:
+    """A :class:`SlicedEll` from its slices and ``merge_idx``, with the
+    compact merge form derived once. Raises when a ``merge_idx`` entry lies
+    outside [0, total rows] (the sentinel is total rows)."""
+    slices = tuple(slices)
+    total = sum(int(s.rows.shape[0]) for s in slices)
+    if merge_idx.dim() != 2 or merge_idx.dtype != torch.int32:
+        raise ValueError(
+            f"want an (n, C) int32 merge_idx; got {tuple(merge_idx.shape)} "
+            f"{merge_idx.dtype}"
+        )
+    if merge_idx.numel() and (int(merge_idx.min()) < 0
+                              or int(merge_idx.max()) > total):
+        raise ValueError(
+            f"merge_idx entries must lie in [0, {total}] (total slice rows)"
+        )
+    keep = merge_idx != total
+    counts = keep.sum(dim=1)
+    merge_ptr = torch.zeros(merge_idx.shape[0] + 1, dtype=torch.int64,
+                            device=merge_idx.device)
+    torch.cumsum(counts, 0, out=merge_ptr[1:])
+    return SlicedEll(slices=slices, merge_idx=merge_idx, merge_ptr=merge_ptr,
+                     merge_pos=merge_idx[keep].contiguous())
+
+
+def default_slice_boundaries(deg: np.ndarray, pad_multiple: int = 8,
+                             max_slices: int = 4) -> tuple[int, ...]:
+    """Bucket widths for :func:`to_ell_in_sliced`: geometric (x4) from
+    ``pad_multiple`` up to the 95th-percentile degree, at most
+    ``max_slices`` buckets. Rows beyond the last width are split into
+    chunks of that width, so hubs never widen a bucket."""
+    deg = deg[deg > 0]
+    if deg.size == 0:
+        return (pad_multiple,)
+    p95 = int(np.percentile(deg, 95))
+    widths = [pad_multiple]
+    while widths[-1] < p95 and len(widths) < max_slices:
+        widths.append(widths[-1] * 4)
+    return tuple(widths)
+
+
+def _build_ell_sliced(from_ids, to_ids, w, n, pad_multiple, boundaries,
+                      split) -> SlicedEll:
+    """Slice rows keyed by ``to_ids`` into per-degree-bucket ELL tiles, on
+    the edges' device; the reference's arrays element for element."""
+    dev = w.device
+    real = torch.isfinite(w)
+    from_ids, to_ids, w = from_ids[real], to_ids[real], w[real]
+    deg = torch.bincount(to_ids.long(), minlength=n)
+    if boundaries is None:
+        boundaries = default_slice_boundaries(deg.cpu().numpy(), pad_multiple)
+    widths = sorted(
+        {max(pad_multiple, -(-int(b) // pad_multiple) * pad_multiple)
+         for b in boundaries}
+    )
+    if split is None:
+        split = widths[-1]
+    split = max(pad_multiple, -(-int(split) // pad_multiple) * pad_multiple)
+    if split < widths[-1]:
+        raise ValueError(
+            f"split threshold {split} below the widest bucket {widths[-1]}"
+        )
+    # per-edge slot within its row, after the reference's stable sort
+    order, to_s, slot = _rank_in_group(to_ids.long(), n)
+    from_s, w_s = from_ids[order], w[order]
+    slices = []
+    lo = 0
+    for width in widths:
+        last = width == widths[-1]
+        # the widest bucket also owns the split rows
+        vmask = (deg > lo) if last else (deg > lo) & (deg <= width)
+        verts = torch.nonzero(vmask).squeeze(1)
+        if verts.numel() == 0:
+            lo = width
+            continue
+        use_w = split if last else width
+        # vertex v of degree d gets ceil(d / use_w) rows; the edge in slot s
+        # lands in chunk s // use_w
+        chunks = (-(-deg[verts] // use_w) if last
+                  else torch.ones_like(verts))
+        rows = torch.repeat_interleave(verts, chunks).to(torch.int32)
+        first = torch.zeros(n, dtype=torch.int64, device=dev)
+        first[verts] = torch.cumsum(chunks, 0) - chunks
+        emask = vmask[to_s]
+        e_to, e_slot = to_s[emask], slot[emask]
+        r = first[e_to] + e_slot // use_w
+        c = e_slot % use_w
+        cols_b = torch.full((rows.numel(), use_w), n, dtype=torch.int32,
+                            device=dev)
+        ws_b = torch.full((rows.numel(), use_w), INF, dtype=torch.float32,
+                          device=dev)
+        cols_b[r, c] = from_s[emask]
+        ws_b[r, c] = w_s[emask]
+        slices.append(EllSlice(rows=rows, cols=cols_b, ws=ws_b))
+        lo = width
+    if not slices:  # edgeless graph: one empty well-formed slice
+        slices.append(EllSlice(
+            rows=torch.zeros((0,), dtype=torch.int32, device=dev),
+            cols=torch.full((0, widths[0]), n, dtype=torch.int32, device=dev),
+            ws=torch.full((0, widths[0]), INF, dtype=torch.float32,
+                          device=dev),
+        ))
+    # gather-based merge plan: position of each vertex's slice-rows in the
+    # row-major concatenation (sentinel = total rows -> the +inf slot)
+    all_rows = torch.cat([s.rows for s in slices]).long()
+    total = all_rows.numel()
+    order, srt, rank = _rank_in_group(all_rows, n)
+    occ = torch.bincount(all_rows, minlength=n)
+    c_max = max(int(occ.max()) if n > 0 else 1, 1)
+    merge_idx = torch.full((n, c_max), total, dtype=torch.int32, device=dev)
+    merge_idx[srt, rank] = order.to(torch.int32)
+    return sliced_ell(slices, merge_idx)
+
+
+def _sliced_view(g: Graph, side: str, pad_multiple, boundaries, split):
+    cache = g.__dict__.setdefault(f"_ell_{side}_sliced_cache", {})
+    key = (pad_multiple,
+           None if boundaries is None else tuple(int(b) for b in boundaries),
+           None if split is None else int(split))
+    hit = cache.get(key)
+    if hit is None:
+        from_ids, to_ids = (g.src, g.dst) if side == "in" else (g.dst, g.src)
+        hit = cache[key] = _build_ell_sliced(from_ids, to_ids, g.w, g.n,
+                                             pad_multiple, boundaries, split)
+    return hit
+
+
+def to_ell_in_sliced(g: Graph, pad_multiple: int = 8, boundaries=None,
+                     split: int | None = None) -> SlicedEll:
+    """Degree-sliced ELL view of the *incoming* adjacency.
+
+    ``boundaries`` are bucket widths (rounded up to ``pad_multiple``). The
+    port has no tuning ledger yet, so when they are omitted the view uses
+    :func:`default_slice_boundaries` of the in-degree distribution (the
+    reference reads its ledger first, and falls back to the same default
+    when the ledger holds nothing). Rows with degree beyond ``split``
+    (default: the widest bucket) are split into width-``split`` chunks
+    merged by the consumer. Memoised per Graph instance keyed by the full
+    parameter tuple, like :func:`to_ell_in`.
+    """
+    return _sliced_view(g, "in", pad_multiple, boundaries, split)
+
+
+def to_ell_out_sliced(g: Graph, pad_multiple: int = 8, boundaries=None,
+                      split: int | None = None) -> SlicedEll:
+    """Degree-sliced ELL view of the *outgoing* adjacency (the transpose
+    twin of :func:`to_ell_in_sliced`), memoised per Graph instance."""
+    return _sliced_view(g, "out", pad_multiple, boundaries, split)
 
 
 def transpose(g: Graph) -> Graph:

@@ -16,6 +16,10 @@ plan without the oracle. Per phase:
     keys; the others, the default ``instatic|outstatic`` among them, relax
     through ``ell_relax_batch`` and carry no keys (``crit_keys`` is None).
 
+On the degree-sliced layout each of these runs its sliced kernel instead
+(``ell_sliced_keys_dep_batch``, ``ell_sliced_relax_keys_batch``,
+``ell_sliced_gather_min_batch``); the ops layer picks it by the view's type.
+
 Carried in-side keys are re-primed (``ell_key_min_batch``) once per
 ``step_batch`` call after admission touched a lane.
 """
@@ -236,6 +240,10 @@ class CriterionPolicy(PhasePolicy):
             ]
             upd, next_in = kops.in_scan_relax_keys_batch(
                 d, settle, parts, ell_in, use_kernels=use_kernels
+            )
+        elif kops._is_sliced(ell_in):
+            upd = kops.relax_settled_batch_sliced(
+                d, settle, ell_in, use_kernels=use_kernels
             )
         else:
             upd = kops.relax_settled_batch(

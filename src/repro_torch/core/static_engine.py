@@ -38,9 +38,17 @@ import torch
 
 from repro_torch.core import criteria as C
 from repro_torch.core import policies as P
-from repro_torch.core.graph import Graph, out_degrees, to_ell_in, to_ell_out
+from repro_torch.core.graph import (
+    Graph,
+    out_degrees,
+    to_ell_in,
+    to_ell_in_sliced,
+    to_ell_out,
+    to_ell_out_sliced,
+)
 from repro_torch.core.phased import PhasedResult
 from repro_torch.kernels.config import resolve_device
+from repro_torch.kernels.ops import _is_sliced
 
 INF = float("inf")
 
@@ -240,14 +248,6 @@ def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
     )
 
 
-def _check_ell(g: Graph, ell, build=to_ell_in):
-    if ell is None:
-        return build(g)
-    if hasattr(ell, "slices"):
-        raise not_ported("the degree-sliced ELL layout", "Queue 1 item 5")
-    return ell
-
-
 def step_batch(
     g: Graph,
     state: BatchState,
@@ -261,22 +261,26 @@ def step_batch(
 
     Returns after ``k_phases`` trips, or earlier when every lane's fringe is
     empty (possibly at once), or, with ``stop_on_lane_finish``, as soon as
-    a lane that was live on entry terminates. ``ell`` is the padded
-    ``(cols, ws)`` incoming view (default ``to_ell_in(g)``); ``ell_out``
-    the outgoing one, read only by plans with out-side dynamic keys
-    (default the memoised ``to_ell_out(g)``). Before the loop, even one
-    that runs no trip, the policy re-primes carried keys that admission
-    made stale. ``use_kernels=False`` runs the plain twins: bit-identical
-    results.
+    a lane that was live on entry terminates. ``ell`` is the incoming view
+    (default ``to_ell_in(g)``); ``ell_out`` the outgoing one, read only by
+    plans with out-side dynamic keys (default the memoised ``to_ell_out(g)``,
+    or ``to_ell_out_sliced(g)`` when ``ell`` is sliced). Either may be the
+    padded ``(cols, ws)`` pair or a degree-sliced ``SlicedEll``: results
+    are bit-identical between layouts. Before the loop, even one that runs
+    no trip, the policy re-primes carried keys that admission made stale.
+    ``use_kernels=False`` runs the plain twins: bit-identical results.
     """
-    ell = _check_ell(g, ell)
+    if ell is None:
+        ell = to_ell_in(g)
     if state.device != g.device:
         raise ValueError(
             f"state lives on {state.device}, the graph on {g.device}"
         )
     policy = P.policy_for(state.criterion)
-    ell_out = (_check_ell(g, ell_out, to_ell_out)
-               if policy.needs_out_adjacency else None)
+    if not policy.needs_out_adjacency:
+        ell_out = None
+    elif ell_out is None:
+        ell_out = to_ell_out_sliced(g) if _is_sliced(ell) else to_ell_out(g)
     live0 = torch.any(state.status == 1, dim=1)  # (B,) lanes live at entry
     s = policy.prime(g, ell, state, use_kernels)
     for _ in range(max(int(k_phases), 0)):
@@ -394,11 +398,14 @@ def harvest(state: BatchState) -> BatchedResult:
 
 
 def _resolve_layout(g: Graph, ell, layout: str):
+    """The incoming view: ``ell`` as passed, else the one ``layout`` names.
+    The outgoing view is left to :func:`step_batch`, which builds one in the
+    same layout only for plans that read it."""
     if layout not in ("padded", "sliced"):
         raise ValueError(f"layout must be 'padded' or 'sliced'; got {layout!r}")
-    if layout == "sliced":
-        raise not_ported("the degree-sliced ELL layout", "Queue 1 item 5")
-    return _check_ell(g, ell)
+    if ell is None:
+        ell = to_ell_in_sliced(g) if layout == "sliced" else to_ell_in(g)
+    return ell
 
 
 def run_phased_static(
@@ -421,6 +428,8 @@ def run_phased_static(
     ``trace_len`` sizes the settled-per-phase ring; the default (None)
     covers the phase cap, so the result carries the full per-phase
     profile. ``device`` (None = the CUDA card) must be the graph's device.
+    ``layout``, ``ell`` and ``ell_out`` are as in
+    :func:`run_phased_static_batch`.
     """
     ell = _resolve_layout(g, ell, layout)
     policy = P.policy_for(criterion)
@@ -467,8 +476,10 @@ def run_phased_static_batch(
     Row ``i`` of the result equals ``run_phased_static(g, sources[i])``
     exactly. ``use_kernels=False`` runs the plain twins (bit-identical);
     ``max_phases`` caps the trips (default n + 1); ``device`` (None = the
-    CUDA card) must be the graph's device; ``ell_out`` is the outgoing view
-    plans with out-side dynamic keys read (default ``to_ell_out(g)``).
+    CUDA card) must be the graph's device; ``layout`` ("padded" or
+    "sliced") names the incoming view built when ``ell`` is None;
+    ``ell_out`` is the outgoing view plans with out-side dynamic keys read
+    (default: one in ``ell``'s layout, see :func:`step_batch`).
     """
     ell = _resolve_layout(g, ell, layout)
     src_np = validate_sources(sources, g.n, 0, f"in [0, {g.n})")

@@ -1,17 +1,19 @@
-"""Carry graphs and stepper state in from the JAX package, as numpy.
+"""Carry graphs, sliced adjacency views and stepper state in from the JAX
+package, as numpy.
 
 The port never imports the reference; a caller that holds a reference
-``Graph`` or ``BatchState`` passes its arrays as a dict of numpy arrays
-(``np.asarray`` of each field) and gets the port's counterpart, with no
-recomputation. The tests use this to start both packages from one
-mid-solve state.
+``Graph``, ``SlicedEll`` or ``BatchState`` passes its arrays as a dict of
+numpy arrays (``np.asarray`` of each field) and gets the port's
+counterpart, with no recomputation. The tests use this to start both
+packages from one mid-solve state, and to feed the reference's own sliced
+view to the port's kernels.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import EllSlice, Graph, SlicedEll, sliced_ell
 from repro_torch.core.static_engine import BatchState
 from repro_torch.kernels.config import resolve_device
 
@@ -41,6 +43,22 @@ def graph_from_numpy(fields: dict, device=None) -> Graph:
     dev = resolve_device(device)
     arrays = {k: _tensor(fields[k], t, dev) for k, t in _GRAPH_FIELDS.items()}
     return Graph(n=int(fields["n"]), m=int(fields["m"]), **arrays)
+
+
+def sliced_from_numpy(fields: dict, device=None) -> SlicedEll:
+    """The port's :class:`~repro_torch.core.graph.SlicedEll` from a
+    reference view's arrays on ``device`` (None = the CUDA card):
+    ``fields["slices"]`` holds one ``{"rows", "cols", "ws"}`` dict per
+    bucket (int32, int32, f32) and ``fields["merge_idx"]`` the (n, C)
+    int32 merge plan, taken as given; only its compact form is derived."""
+    dev = resolve_device(device)
+    slices = [
+        EllSlice(rows=_tensor(s["rows"], np.int32, dev),
+                 cols=_tensor(s["cols"], np.int32, dev),
+                 ws=_tensor(s["ws"], np.float32, dev))
+        for s in fields["slices"]
+    ]
+    return sliced_ell(slices, _tensor(fields["merge_idx"], np.int32, dev))
 
 
 def combine_limbs(lo, hi) -> np.ndarray:

@@ -4,6 +4,7 @@ call (``ops.py``). Kernels build with ``nvcc`` at first use
 (``_build.py``)."""
 from repro_torch.kernels.ops import (
     crit_thresholds_batch,
+    gather_min_batch_sliced,
     in_scan_relax_keys_batch,
     key_min_batch,
     key_min_batch_any,
@@ -11,12 +12,14 @@ from repro_torch.kernels.ops import (
     pad_lane_batch,
     relax_settled,
     relax_settled_batch,
+    relax_settled_batch_sliced,
     static_thresholds,
     static_thresholds_batch,
 )
 
 __all__ = [
     "crit_thresholds_batch",
+    "gather_min_batch_sliced",
     "in_scan_relax_keys_batch",
     "key_min_batch",
     "key_min_batch_any",
@@ -24,6 +27,7 @@ __all__ = [
     "pad_lane_batch",
     "relax_settled",
     "relax_settled_batch",
+    "relax_settled_batch_sliced",
     "static_thresholds",
     "static_thresholds_batch",
 ]

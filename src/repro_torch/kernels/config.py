@@ -9,8 +9,14 @@ from __future__ import annotations
 
 import torch
 
-# ell_relax_batch: threads per block (a multiple of 32).
+# The gather kernels (csrc/ell_gather.cu): threads per block (a multiple of
+# 32).
 RELAX_THREADS = 256
+
+# The sliced gather kernels: the most buckets with rows one launch takes
+# (must match MAX_SLICES in csrc/ell_gather.cu; the default boundaries give
+# at most 4).
+SLICED_MAX_BUCKETS = 16
 
 # frontier_crit_lanes_batch: threads per block, elements per thread in the
 # first pass, and the most OUT lanes a plan can ask for (must match KMAX in

@@ -16,7 +16,10 @@
 //     keys through the gate min(ga, min(gb, gc + fin(upd)));
 //   * ell_relax_keys.py::ell_keys_dep_batch: the fused out-scan, sweep 0 = the
 //     independent keys, sweep 1 = the dependent key through the gate
-//     min(dga, dgb + keys0[dep_idx]).
+//     min(dga, dgb + keys0[dep_idx]);
+//   * ell_relax_keys.py::ell_sliced_gather_min_batch,
+//     ell_sliced_relax_keys_batch and ell_sliced_keys_dep_batch: the same
+//     sweeps over a degree-sliced adjacency (the section at the end).
 //
 // What bounds them on an H100: memory. There are no multiplies and min-plus
 // has no tensor-core form; the least time is the bytes over the HBM rate:
@@ -168,19 +171,16 @@ __global__ void pack_kernel(PackSrc s, long long n_idx, int lanes,
   }
 }
 
-// Gather: grid over rows * tpr threads; out[l * n_rows + row] for every lane.
-// SKIP: leave out the gathers of columns whose bit in live_bits is clear
-// (+inf + w = +inf, the identity of min, for every w but -inf and NaN, which
-// are never skipped).
+// Gather body: thread `tid` of a grid over rows * tpr threads;
+// out[l * out_stride + row] for every lane. SKIP: leave out the gathers of
+// columns whose bit in live_bits is clear (+inf + w = +inf, the identity of
+// min, for every w but -inf and NaN, which are never skipped).
 template <int W, bool SKIP>
-__global__ void gather_min_kernel(const float* __restrict__ packed,
-                                  const unsigned* __restrict__ live_bits,
-                                  long long n_idx,
-                                  const int* __restrict__ cols,
-                                  const float* __restrict__ ws,
-                                  long long n_rows, int d_pad, int lanes,
-                                  int tpr, float* __restrict__ out) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void gather_rows(
+    const float* __restrict__ packed, const unsigned* __restrict__ live_bits,
+    long long n_idx, const int* __restrict__ cols,
+    const float* __restrict__ ws, long long n_rows, int d_pad, int lanes,
+    int tpr, float* __restrict__ out, long long out_stride, long long tid) {
   const long long row = tid / tpr;
   const int sub = (int)(tid % tpr);
   // Threads past the last row still take part in the shuffles below (the
@@ -234,10 +234,23 @@ __global__ void gather_min_kernel(const float* __restrict__ packed,
 #pragma unroll
       for (int k = 0; k < W; ++k) {
         const int l = t * W + k;
-        if (l < lanes) out[(long long)l * n_rows + row] = acc[k];
+        if (l < lanes) out[(long long)l * out_stride + row] = acc[k];
       }
     }
   }
+}
+
+template <int W, bool SKIP>
+__global__ void gather_min_kernel(const float* __restrict__ packed,
+                                  const unsigned* __restrict__ live_bits,
+                                  long long n_idx,
+                                  const int* __restrict__ cols,
+                                  const float* __restrict__ ws,
+                                  long long n_rows, int d_pad, int lanes,
+                                  int tpr, float* __restrict__ out) {
+  gather_rows<W, SKIP>(packed, live_bits, n_idx, cols, ws, n_rows, d_pad,
+                       lanes, tpr, out, n_rows,
+                       (long long)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 // The lane-tile width for `lanes` gather lanes: the next power of two, at
@@ -373,4 +386,262 @@ extern "C" int ell_keys_dep_launch(const float* gates, const float* dga,
   const PackSrc s1{dga, dgb, out + dep_idx * row, nullptr, n, lanes_b};
   return sweep<PACK_DEP_GATE, false>(s1, n + 1, lanes_b, g, packed, nullptr,
                                      out + k0 * row, s);
+}
+
+// ---------------------------------------------------------------------------
+// The degree-sliced layout (SlicedEll): every bucket in one gather launch,
+// then a merge pass.
+//
+// Replaces ell_relax_keys.py::ell_sliced_gather_min_batch,
+// ell_sliced_relax_keys_batch and ell_sliced_keys_dep_batch. On the TPU each
+// was one grid=() step with every bucket and the (n, C) merge plan resident
+// in VMEM, and the merge a take + min inside the body. Here a sweep is three
+// launches in stream order:
+//  * one pack of the gather vector (and, for the relax sweep, the bitmap),
+//    shared by every bucket;
+//  * one gather launch over a bucket table: each bucket starts at a block
+//    boundary, so a block (and each of its warps) has one threads-per-row;
+//    the launch writes each bucket's row-mins into a (lanes, R_total)
+//    partials scratch at the bucket's row offset in the concatenation;
+//    buckets without rows are left out, which keeps the concatenation order;
+//  * a merge pass, out[l, v] = min over v's positions in the partials, read
+//    from the compact form of merge_idx (its non-sentinel entries, CSR); a
+//    vertex with no entry gets +inf, the sentinel's value.
+// What bounds them on the card: bytes, as for the padded form: the slots of
+// every bucket (sum_b R_b * D_b * 8 bytes, ~0.98 GB a side at kronecker(20)),
+// plus the vectors, the partials written and read back and the merge plan
+// (~0.3 ms a sweep at 3.35 TB/s). A bucket narrower than a warp shares a
+// warp between rows, as a padded row of that width does; split rows of hubs
+// are ordinary rows of the widest bucket. The merge adds one pass over
+// (lanes, n) outputs and the merge plan, small next to the slots.
+
+#define MAX_SLICES 16
+
+struct SliceEntry {
+  const int* cols;
+  const float* ws;
+  long long n_rows;
+  long long first_block;  // first block of this bucket in the gather grid
+  long long row_offset;   // first row of this bucket in the concatenation
+  int d_pad;
+  int tpr;
+};
+
+struct SliceTable {
+  SliceEntry e[MAX_SLICES];
+  int count;
+};
+
+template <int W, bool SKIP>
+__global__ void sliced_gather_min_kernel(const float* __restrict__ packed,
+                                         const unsigned* __restrict__ live_bits,
+                                         long long n_idx, SliceTable tab,
+                                         int lanes, long long r_total,
+                                         float* __restrict__ partials) {
+  // constant indices only, so the table stays in parameter space
+  SliceEntry s = tab.e[0];
+#pragma unroll
+  for (int i = 1; i < MAX_SLICES; ++i) {
+    if (i < tab.count && (long long)blockIdx.x >= tab.e[i].first_block) {
+      s = tab.e[i];
+    }
+  }
+  const long long tid =
+      ((long long)blockIdx.x - s.first_block) * blockDim.x + threadIdx.x;
+  gather_rows<W, SKIP>(packed, live_bits, n_idx, s.cols, s.ws, s.n_rows,
+                       s.d_pad, lanes, s.tpr, partials + s.row_offset,
+                       r_total, tid);
+}
+
+// out[l, v] = min over merge_pos[merge_ptr[v] .. merge_ptr[v + 1]) of
+// partials[l, pos]; a position outside [0, r_total) reads NaN. Grid: (vertex
+// blocks, lanes).
+__global__ void merge_kernel(const float* __restrict__ partials,
+                             long long r_total,
+                             const long long* __restrict__ merge_ptr,
+                             const int* __restrict__ merge_pos, long long n,
+                             float* __restrict__ out) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n) return;
+  const float* prow = partials + (long long)blockIdx.y * r_total;
+  float acc = CUDART_INF_F;
+  const long long end = merge_ptr[v + 1];
+  for (long long p = merge_ptr[v]; p < end; ++p) {
+    const int q = merge_pos[p];
+    acc = nan_min(acc, (q >= 0 && q < r_total) ? prow[q] : CUDART_NAN_F);
+  }
+  out[(long long)blockIdx.y * n + v] = acc;
+}
+
+// The bucket table from the host array `table`, 5 int64 per bucket: cols,
+// ws, rows, width, threads per row. Buckets without rows are left out.
+// Returns 0, or cudaErrorInvalidValue when the table does not fit or its rows
+// do not add up to r_total.
+static int make_table(const long long* table, int n_slices, int threads,
+                      long long r_total, SliceTable* tab,
+                      long long* gather_blocks) {
+  tab->count = 0;
+  long long block = 0, row = 0;
+  for (int i = 0; i < n_slices; ++i) {
+    const long long* t = table + 5 * i;
+    const long long rows = t[2];
+    if (rows == 0) continue;
+    if (tab->count == MAX_SLICES) return (int)cudaErrorInvalidValue;
+    SliceEntry& e = tab->e[tab->count++];
+    e.cols = (const int*)t[0];
+    e.ws = (const float*)t[1];
+    e.n_rows = rows;
+    e.d_pad = (int)t[3];
+    e.tpr = (int)t[4];
+    e.first_block = block;
+    e.row_offset = row;
+    block += (rows * e.tpr + threads - 1) / threads;
+    row += rows;
+  }
+  if (row != r_total) return (int)cudaErrorInvalidValue;
+  *gather_blocks = block;
+  return 0;
+}
+
+struct SlicedGeometry {
+  SliceTable tab;
+  long long gather_blocks;
+  long long r_total;
+  const long long* merge_ptr;
+  const int* merge_pos;
+  int threads;
+};
+
+// One sliced sweep: pack `lanes` lanes of `src` over n_idx = n + 1 columns,
+// gather every bucket into `partials`, merge into out (lanes, n).
+template <int W, int MODE, bool SKIP>
+static int sliced_sweep_w(const PackSrc& src, long long n, int lanes,
+                          const SlicedGeometry& g, float* packed,
+                          unsigned* live_bits, float* partials, float* out,
+                          cudaStream_t stream) {
+  const long long n_idx = n + 1;
+  if (g.gather_blocks > 0) {
+    const long long blocks1 = (n_idx + g.threads - 1) / g.threads;
+    pack_kernel<W, MODE><<<(unsigned)blocks1, g.threads, 0, stream>>>(
+        src, n_idx, lanes, packed, SKIP ? live_bits : nullptr);
+    int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    sliced_gather_min_kernel<W, SKIP>
+        <<<(unsigned)g.gather_blocks, g.threads, 0, stream>>>(
+            packed, live_bits, n_idx, g.tab, lanes, g.r_total, partials);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  const dim3 grid((unsigned)((n + g.threads - 1) / g.threads),
+                  (unsigned)lanes);
+  merge_kernel<<<grid, g.threads, 0, stream>>>(partials, g.r_total,
+                                               g.merge_ptr, g.merge_pos, n,
+                                               out);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, bool SKIP>
+static int sliced_sweep(const PackSrc& src, long long n, int lanes,
+                        const SlicedGeometry& g, float* packed,
+                        unsigned* live_bits, float* partials, float* out,
+                        cudaStream_t stream) {
+  switch (ell_gather_lane_tile(lanes)) {
+    case 1:
+      return sliced_sweep_w<1, MODE, SKIP>(src, n, lanes, g, packed,
+                                           live_bits, partials, out, stream);
+    case 2:
+      return sliced_sweep_w<2, MODE, SKIP>(src, n, lanes, g, packed,
+                                           live_bits, partials, out, stream);
+    case 4:
+      return sliced_sweep_w<4, MODE, SKIP>(src, n, lanes, g, packed,
+                                           live_bits, partials, out, stream);
+    default:
+      return sliced_sweep_w<8, MODE, SKIP>(src, n, lanes, g, packed,
+                                           live_bits, partials, out, stream);
+  }
+}
+
+static int sliced_geometry(const long long* table, int n_slices,
+                           long long r_total, const long long* merge_ptr,
+                           const int* merge_pos, int threads,
+                           SlicedGeometry* g) {
+  g->r_total = r_total;
+  g->merge_ptr = merge_ptr;
+  g->merge_pos = merge_pos;
+  g->threads = threads;
+  return make_table(table, n_slices, threads, r_total, &g->tab,
+                    &g->gather_blocks);
+}
+
+// ell_sliced_gather_min_batch: `lanes` unpadded rows of n floats at `vecs`
+// (ids in [0, n], the sentinel n reads +inf) -> out (lanes, n). Scratch:
+// `packed` as for ell_gather_min_launch over n + 1 columns; `partials`
+// lanes * r_total floats; `live_bits` ceil((n + 1) / 32) words for a sparse
+// `vecs`, null turns the skip off.
+extern "C" int ell_sliced_gather_min_launch(
+    const float* vecs, long long n, int lanes, const long long* table,
+    int n_slices, long long r_total, const long long* merge_ptr,
+    const int* merge_pos, int threads, float* packed, unsigned* live_bits,
+    float* partials, float* out, void* stream) {
+  SlicedGeometry g;
+  int rc = sliced_geometry(table, n_slices, r_total, merge_ptr, merge_pos,
+                           threads, &g);
+  if (rc != 0) return rc;
+  const PackSrc src{vecs, nullptr, nullptr, nullptr, n, lanes};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (live_bits != nullptr) {
+    return sliced_sweep<PACK_ROWS, true>(src, n, lanes, g, packed, live_bits,
+                                         partials, out, s);
+  }
+  return sliced_sweep<PACK_ROWS, false>(src, n, lanes, g, packed, nullptr,
+                                        partials, out, s);
+}
+
+// ell_sliced_relax_keys_batch: dmask (B, n), ga/gb/gc (K, B, n) unpadded.
+// Writes upd (B, n) and keys (K, B, n). Scratch: `packed` for max(B, K * B)
+// lanes over n + 1 columns, `partials` for max(B, K * B) lanes, `live_bits`
+// ceil((n + 1) / 32) words.
+extern "C" int ell_sliced_relax_keys_launch(
+    const float* dmask, const float* ga, const float* gb, const float* gc,
+    long long n, int lanes_b, int k, const long long* table, int n_slices,
+    long long r_total, const long long* merge_ptr, const int* merge_pos,
+    int threads, float* packed, unsigned* live_bits, float* partials,
+    float* upd, float* keys, void* stream) {
+  SlicedGeometry g;
+  int rc = sliced_geometry(table, n_slices, r_total, merge_ptr, merge_pos,
+                           threads, &g);
+  if (rc != 0) return rc;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const PackSrc s0{dmask, nullptr, nullptr, nullptr, n, lanes_b};
+  rc = sliced_sweep<PACK_ROWS, true>(s0, n, lanes_b, g, packed, live_bits,
+                                     partials, upd, s);
+  if (rc != 0) return rc;
+  // the merge above is the barrier: the gate pack reads the merged upd
+  const PackSrc s1{ga, gb, gc, upd, n, lanes_b};
+  return sliced_sweep<PACK_IN_GATE, false>(s1, n, k * lanes_b, g, packed,
+                                           nullptr, partials, keys, s);
+}
+
+// ell_sliced_keys_dep_batch: gates (K0, B, n), dga/dgb (B, n) unpadded.
+// Writes out (K0 + 1, B, n): rows [:K0] from the gates, row K0 through
+// min(dga, dgb + out[dep_idx]). Scratch as above for max(K0 * B, B) lanes.
+extern "C" int ell_sliced_keys_dep_launch(
+    const float* gates, const float* dga, const float* dgb, long long n,
+    int lanes_b, int k0, int dep_idx, const long long* table, int n_slices,
+    long long r_total, const long long* merge_ptr, const int* merge_pos,
+    int threads, float* packed, float* partials, float* out, void* stream) {
+  SlicedGeometry g;
+  int rc = sliced_geometry(table, n_slices, r_total, merge_ptr, merge_pos,
+                           threads, &g);
+  if (rc != 0) return rc;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long row = (long long)lanes_b * n;
+  const PackSrc s0{gates, nullptr, nullptr, nullptr, n, lanes_b};
+  rc = sliced_sweep<PACK_ROWS, false>(s0, n, k0 * lanes_b, g, packed, nullptr,
+                                      partials, out, s);
+  if (rc != 0) return rc;
+  const PackSrc s1{dga, dgb, out + dep_idx * row, nullptr, n, lanes_b};
+  return sliced_sweep<PACK_DEP_GATE, false>(s1, n, lanes_b, g, packed,
+                                            nullptr, partials, out + k0 * row,
+                                            s);
 }

@@ -19,9 +19,9 @@ count (one per call that launched its kernel):
 Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. All
 three run on ``csrc/ell_gather.cu``, whose note says what bounds them on
 the card and how the two sweeps are ordered; the helpers below bind that
-library for every gather wrapper (``ell_relax``, ``ell_key_min`` too). A tensor on the CPU runs the
-plain twin in ``kernels/ref.py``; a CUDA tensor launches the kernel or
-raises.
+library for every gather wrapper (``ell_relax``, ``ell_key_min`` and
+``ell_sliced`` too). A tensor on the CPU runs the plain twin in
+``kernels/ref.py``; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -42,6 +42,17 @@ _SIGNATURES = {
         _I),
     "ell_keys_dep_launch": (
         [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P], _I),
+    # the sliced entry points (kernels/ell_sliced.py); after the vectors and
+    # sizes: bucket table, bucket count, total rows, merge_ptr, merge_pos,
+    # threads, then scratch and outputs
+    "ell_sliced_gather_min_launch": (
+        [_P, _LL, _I, _P, _I, _LL, _P, _P, _I, _P, _P, _P, _P, _P], _I),
+    "ell_sliced_relax_keys_launch": (
+        [_P, _P, _P, _P, _LL, _I, _I, _P, _I, _LL, _P, _P, _I, _P, _P, _P, _P,
+         _P, _P], _I),
+    "ell_sliced_keys_dep_launch": (
+        [_P, _P, _P, _LL, _I, _I, _I, _P, _I, _LL, _P, _P, _I, _P, _P, _P, _P],
+        _I),
 }
 
 

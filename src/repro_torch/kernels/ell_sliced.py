@@ -1,0 +1,235 @@
+"""Gather-min and the fused scans over a degree-sliced adjacency (CUDA
+kernels).
+
+Three kernels over a :class:`~repro_torch.core.graph.SlicedEll`, each with
+a ``.launches`` count (one per call that launched its kernels):
+
+  * :func:`ell_sliced_gather_min_batch`: V vectors x B lanes,
+    ``out[v, b, x] = min_c part[v, b, merge_idx[x, c]]`` where ``part`` is
+    the row-min ``min_j vecs[v, b, cols[r, j]] + ws[r, j]`` of every row of
+    every bucket (a split vertex owns several rows). With ``sparse`` (the
+    relax's ``dmask``) the gathers of all-+inf columns are skipped.
+  * :func:`ell_sliced_relax_keys_batch`: the fused in-scan, the sliced twin
+    of ``ell_relax_keys_batch``.
+  * :func:`ell_sliced_keys_dep_batch`: the fused out-scan, the sliced twin
+    of ``ell_keys_dep_batch``.
+
+Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. All three
+run on the sliced section of ``csrc/ell_gather.cu``, whose note says what
+bounds them on the card: one pack of the vector shared by every bucket, one
+gather launch over a bucket table, and a merge pass in the kernel. A tensor
+on the CPU runs the plain twin in ``kernels/ref.py``; a CUDA tensor launches
+the kernels or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.config import (
+    RELAX_THREADS,
+    SLICED_MAX_BUCKETS,
+    relax_threads_per_row,
+)
+from repro_torch.kernels.ell_relax_keys import (
+    check_inputs,
+    launch,
+    library,
+    live_bits_scratch,
+    packed_scratch,
+)
+
+MAX_GRID_Y = 65535  # lanes of one merge launch (its grid's second axis)
+
+
+def check_sliced(vecs: dict, sliced, n: int):
+    """:func:`check_inputs` for every bucket of ``sliced``, plus its merge
+    plan: ``merge_idx`` (n, C) int32 with its compact form, on the vectors'
+    device."""
+    if not sliced.slices:
+        raise ValueError("a sliced view needs at least one bucket")
+    for s in sliced.slices:
+        check_inputs(vecs, s.cols, s.ws)
+        if s.rows.dtype != torch.int32 or s.rows.shape != s.cols.shape[:1]:
+            raise ValueError(
+                f"want int32 rows ({s.cols.shape[0]},); got "
+                f"{tuple(s.rows.shape)} {s.rows.dtype}"
+            )
+    midx = sliced.merge_idx
+    if midx.dim() != 2 or midx.shape[0] != n or midx.dtype != torch.int32:
+        raise ValueError(
+            f"want an ({n}, C) int32 merge_idx; got {tuple(midx.shape)} "
+            f"{midx.dtype}"
+        )
+    ptr, pos = sliced.merge_ptr, sliced.merge_pos
+    if ptr.shape != (n + 1,) or ptr.dtype != torch.int64 \
+            or pos.dim() != 1 or pos.dtype != torch.int32:
+        raise ValueError("want the compact merge plan of sliced_ell: "
+                         "(n + 1,) int64 merge_ptr, (nnz,) int32 merge_pos")
+    plan = (midx, ptr, pos)
+    dev = next(iter(vecs.values())).device
+    if any(t.device != dev for t in (*plan, *(s.rows for s in sliced.slices))):
+        raise ValueError("the merge plan and the vectors are on different "
+                         "devices")
+
+
+class _Plan:
+    """What every launch over one sliced view passes to the C side: the
+    bucket table (host int64, five entries a bucket), the total rows and
+    the compact merge plan."""
+
+    def __init__(self, sliced):
+        live = [s for s in sliced.slices if s.rows.shape[0]]
+        if len(live) > SLICED_MAX_BUCKETS:
+            raise ValueError(
+                f"{len(live)} buckets with rows; one launch takes at most "
+                f"{SLICED_MAX_BUCKETS}"
+            )
+        entries = []
+        for s in live:
+            d_pad = s.cols.shape[1]
+            entries += [s.cols.data_ptr(), s.ws.data_ptr(), s.rows.shape[0],
+                        d_pad, relax_threads_per_row(d_pad)]
+        self.n_slices = len(live)
+        self.table = (ctypes.c_longlong * max(len(entries), 1))(*entries)
+        self.r_total = sliced.total_rows
+        self.merge_ptr = sliced.merge_ptr.data_ptr()
+        self.merge_pos = sliced.merge_pos.data_ptr()
+
+    def args(self):
+        return (ctypes.addressof(self.table), self.n_slices, self.r_total,
+                self.merge_ptr, self.merge_pos, RELAX_THREADS)
+
+    def partials(self, lanes: int, dev) -> torch.Tensor:
+        return torch.empty((max(lanes * self.r_total, 1),),
+                           dtype=torch.float32, device=dev)
+
+
+def _check_lanes(lanes: int):
+    if lanes > MAX_GRID_Y:
+        raise ValueError(f"{lanes} gather lanes; the merge takes at most "
+                         f"{MAX_GRID_Y}")
+
+
+def ell_sliced_gather_min_batch(vecs: torch.Tensor, sliced, *,
+                                sparse: bool = False) -> torch.Tensor:
+    """Returns (V, B, n) f32: per-vector per-lane mins of
+    ``vecs[v, b, cols] + ws`` over every bucket of ``sliced``, merged per
+    vertex.
+
+    ``vecs`` is (V, B, n) f32, unpadded; ids in [0, n] (n is the sentinel
+    and reads +inf). ``sparse`` (``vecs`` is +inf almost everywhere, as the
+    relax's ``dmask`` is) skips the gathers of all-+inf columns.
+    """
+    if vecs.dim() != 3:
+        raise ValueError(f"want vecs (V, B, n); got {tuple(vecs.shape)}")
+    v, b, n = vecs.shape
+    check_sliced({"vecs": vecs}, sliced, n)
+    if vecs.device.type == "cpu":
+        return ref.ell_sliced_gather_min_batch_ref(vecs, sliced)
+    out = torch.empty((v, b, n), dtype=torch.float32, device=vecs.device)
+    if out.numel() == 0:
+        return out
+    lanes, dev = v * b, vecs.device
+    _check_lanes(lanes)
+    plan = _Plan(sliced)
+    # scratch held in locals until the launch returns: a freed temporary
+    # could hand its memory to the next allocation while still in use
+    packed = packed_scratch(library(), lanes, n + 1, dev)
+    live_bits = live_bits_scratch(n + 1, dev) if sparse else None
+    partials = plan.partials(lanes, dev)
+    launch("ell_sliced_gather_min_batch", "ell_sliced_gather_min_launch",
+           dev, vecs.data_ptr(), n, lanes, *plan.args(), packed.data_ptr(),
+           None if live_bits is None else live_bits.data_ptr(),
+           partials.data_ptr(), out.data_ptr())
+    ell_sliced_gather_min_batch.launches += 1
+    return out
+
+
+ell_sliced_gather_min_batch.launches = 0  # kernel launches since the last reset
+
+
+def ell_sliced_relax_keys_batch(dmask, ga, gb, gc, sliced):
+    """Fused in-scan over a sliced view: ``(upd (B, n), keys (K, B, n))``.
+
+    ``upd`` is exactly :func:`ell_sliced_gather_min_batch` of ``dmask``
+    (B, n); ``keys[k]`` is the gather-min of the post-phase gate
+    ``min(ga[k], gb[k], gc[k] + fin(upd))`` over (K, B, n) gate parts, ``fin``
+    0 where ``upd`` is finite. K must be >= 1.
+    """
+    if ga.dim() != 3 or ga.shape[0] < 1:
+        raise ValueError(f"need a (K>=1, B, n) gate stack; got {tuple(ga.shape)}")
+    if dmask.dim() != 2 or not (ga.shape == gb.shape == gc.shape) \
+            or ga.shape[1:] != dmask.shape:
+        raise ValueError(
+            f"want dmask (B, n) and ga, gb, gc (K, B, n); got "
+            f"{tuple(dmask.shape)}, {tuple(ga.shape)}, {tuple(gb.shape)}, "
+            f"{tuple(gc.shape)}"
+        )
+    b, n = dmask.shape
+    check_sliced({"dmask": dmask, "ga": ga, "gb": gb, "gc": gc}, sliced, n)
+    if dmask.device.type == "cpu":
+        return ref.ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, sliced)
+    k, dev = ga.shape[0], dmask.device
+    upd = torch.empty((b, n), dtype=torch.float32, device=dev)
+    keys = torch.empty((k, b, n), dtype=torch.float32, device=dev)
+    if upd.numel() == 0:
+        return upd, keys
+    lanes = max(b, k * b)
+    _check_lanes(lanes)
+    plan = _Plan(sliced)
+    packed = packed_scratch(library(), lanes, n + 1, dev)
+    live_bits = live_bits_scratch(n + 1, dev)
+    partials = plan.partials(lanes, dev)
+    launch("ell_sliced_relax_keys_batch", "ell_sliced_relax_keys_launch", dev,
+           dmask.data_ptr(), ga.data_ptr(), gb.data_ptr(), gc.data_ptr(), n,
+           b, k, *plan.args(), packed.data_ptr(), live_bits.data_ptr(),
+           partials.data_ptr(), upd.data_ptr(), keys.data_ptr())
+    ell_sliced_relax_keys_batch.launches += 1
+    return upd, keys
+
+
+ell_sliced_relax_keys_batch.launches = 0  # kernel launches since the last reset
+
+
+def ell_sliced_keys_dep_batch(gates, dga, dgb, sliced, *, dep_idx: int = 0):
+    """Fused out-scan over a sliced view: keys ``(K0 + 1, B, n)``.
+
+    Rows ``[:K0]`` are the gather-mins of the (K0, B, n) ``gates``; row
+    ``K0`` is the gather-min of ``min(dga, dgb + keys[dep_idx])`` over the
+    (B, n) dependent-gate parts. All unpadded.
+    """
+    if gates.dim() != 3:
+        raise ValueError(f"want gates (K0, B, n); got {tuple(gates.shape)}")
+    k0, b, n = gates.shape
+    if not 0 <= dep_idx < k0:
+        raise ValueError(f"dep_idx {dep_idx} out of range for K0={k0}")
+    if dga.shape != (b, n) or dgb.shape != (b, n):
+        raise ValueError(
+            f"want dga and dgb ({b}, {n}); got {tuple(dga.shape)}, "
+            f"{tuple(dgb.shape)}"
+        )
+    check_sliced({"gates": gates, "dga": dga, "dgb": dgb}, sliced, n)
+    if gates.device.type == "cpu":
+        return ref.ell_sliced_keys_dep_batch_ref(gates, dga, dgb, dep_idx,
+                                                 sliced)
+    dev = gates.device
+    out = torch.empty((k0 + 1, b, n), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lanes = max(k0 * b, b)
+    _check_lanes(lanes)
+    plan = _Plan(sliced)
+    packed = packed_scratch(library(), lanes, n + 1, dev)
+    partials = plan.partials(lanes, dev)
+    launch("ell_sliced_keys_dep_batch", "ell_sliced_keys_dep_launch", dev,
+           gates.data_ptr(), dga.data_ptr(), dgb.data_ptr(), n, b, k0,
+           int(dep_idx), *plan.args(), packed.data_ptr(),
+           partials.data_ptr(), out.data_ptr())
+    ell_sliced_keys_dep_batch.launches += 1
+    return out
+
+
+ell_sliced_keys_dep_batch.launches = 0  # kernel launches since the last reset

@@ -6,6 +6,10 @@ the same padding and masking code as the kernel path, so the two can never
 drift apart bitwise. Engines select the path and never pad themselves:
 this module is the one home of the sentinel convention.
 
+Adjacency layouts: the wrappers that take an ``ell`` accept the padded
+``(cols, ws)`` pair (``to_ell_in``) or a degree-sliced ``SlicedEll``
+(``to_ell_in_sliced``); f32 min is exact, so both give the same bits.
+
 The engines consume the batched entry points; the 1-D ``relax_settled`` /
 ``static_thresholds`` wrappers are the reference surfaces the tests pin the
 batched ones against.
@@ -21,6 +25,11 @@ from repro_torch.kernels.ell_relax_keys import (
     ell_gather_min_batch,
     ell_keys_dep_batch,
     ell_relax_keys_batch,
+)
+from repro_torch.kernels.ell_sliced import (
+    ell_sliced_gather_min_batch,
+    ell_sliced_keys_dep_batch,
+    ell_sliced_relax_keys_batch,
 )
 from repro_torch.kernels.frontier_crit import (
     frontier_crit,
@@ -43,6 +52,12 @@ def pad_lane_batch(x: torch.Tensor, fill=INF) -> torch.Tensor:
     out = torch.full((b, n + 1), fill, dtype=torch.float32, device=x.device)
     out[:, :n] = x
     return out
+
+
+def _is_sliced(ell) -> bool:
+    """Layout test: a ``SlicedEll`` has ``slices``; the padded view is a
+    ``(cols, ws)`` pair."""
+    return hasattr(ell, "slices")
 
 
 def relax_settled(d, settle_mask, ell_cols, ell_ws, *, use_kernels=True):
@@ -71,6 +86,23 @@ def relax_settled_batch(d, settle_mask, ell_cols, ell_ws, *,
     return ell_relax_batch(dmask, ell_cols, ell_ws)
 
 
+def relax_settled_batch_sliced(d, settle_mask, sliced, *, use_kernels=True):
+    """Sliced-layout twin of :func:`relax_settled_batch` (bit-identical)."""
+    dmask = torch.where(settle_mask, d, INF)
+    return gather_min_batch_sliced(dmask[None], sliced, sparse=True,
+                                   use_kernels=use_kernels)[0]
+
+
+def gather_min_batch_sliced(vecs, sliced, *, sparse=False, use_kernels=True):
+    """(V, B, n) per-vector row-mins over a degree-sliced adjacency, merged
+    per vertex. On the card it is always the one-launch-per-pass kernel
+    (pack, gather over every bucket, merge), never per-bucket calls of
+    the padded gather; ``sparse`` turns its skip of all-+inf columns on."""
+    if not use_kernels:
+        return kref.ell_sliced_gather_min_batch_ref(vecs, sliced)
+    return ell_sliced_gather_min_batch(vecs, sliced, sparse=sparse)
+
+
 def static_thresholds_batch(d, status, out_min_static, *, use_kernels=True):
     """Per-lane (min_F d, L_out, |F|), each (B,), in one fused pass."""
     if not use_kernels:
@@ -89,16 +121,6 @@ def crit_thresholds_batch(d, status, keys, *, use_kernels=True):
     return frontier_crit_lanes_batch(d, status, keys)
 
 
-def _padded_pair(ell):
-    """The (cols, ws) pair of a padded ELL; the sliced layout raises."""
-    if hasattr(ell, "slices"):
-        raise NotImplementedError(
-            "the degree-sliced ELL layout is not ported to the PyTorch "
-            "package yet (ROADMAP Queue 1 item 5)"
-        )
-    return ell
-
-
 def key_min_batch(gate, ell_cols, ell_ws, *, use_kernels=True):
     """Dynamic criterion key (B, n): per-lane min of gate[neighbour] + w.
 
@@ -112,9 +134,11 @@ def key_min_batch(gate, ell_cols, ell_ws, *, use_kernels=True):
 
 
 def key_min_batch_any(gate, ell, *, use_kernels=True):
-    """:func:`key_min_batch` over an adjacency view (the padded pair only)."""
-    cols, ws = _padded_pair(ell)
-    return key_min_batch(gate, cols, ws, use_kernels=use_kernels)
+    """:func:`key_min_batch` over either adjacency layout."""
+    if _is_sliced(ell):
+        return gather_min_batch_sliced(gate[None], ell,
+                                       use_kernels=use_kernels)[0]
+    return key_min_batch(gate, ell[0], ell[1], use_kernels=use_kernels)
 
 
 def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
@@ -125,12 +149,16 @@ def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
     dynamic key on the *post-phase* status through the gate
     ``min(ga, gb, gc + fin(upd))`` (``criteria.in_scan_gate_parts``).
     ``gate_parts`` holds one ``(ga, gb, gc)`` triple per key. On the card
-    the two sweeps always run as one kernel call; it is bit-identical to
-    the split form the reference may choose.
+    the two sweeps always run as one kernel call, on either layout; it is
+    bit-identical to the split form the reference may choose.
     """
-    cols, ws = _padded_pair(ell)
     dmask = torch.where(settle_mask, d, INF)
     ga, gb, gc = (torch.stack([p[i] for p in gate_parts]) for i in range(3))
+    if _is_sliced(ell):
+        if not use_kernels:
+            return kref.ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, ell)
+        return ell_sliced_relax_keys_batch(dmask, ga, gb, gc, ell)
+    cols, ws = ell
     if not use_kernels:
         return kref.ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws)
     return ell_relax_keys_batch(dmask, ga, gb, gc, cols, ws)
@@ -143,7 +171,16 @@ def out_scan_keys_batch(gates, dep_parts, ell, *, use_kernels=True):
     dependent key (``dep_parts = (dga, dgb, dep_idx)``, the ``out_full``
     of paper Eq. 2) adds the second sweep of the same kernel call.
     """
-    cols, ws = _padded_pair(ell)
+    if _is_sliced(ell):
+        if dep_parts is None:
+            return gather_min_batch_sliced(gates, ell, use_kernels=use_kernels)
+        dga, dgb, dep_idx = dep_parts
+        if not use_kernels:
+            return kref.ell_sliced_keys_dep_batch_ref(gates, dga, dgb,
+                                                      dep_idx, ell)
+        return ell_sliced_keys_dep_batch(gates, dga, dgb, ell,
+                                         dep_idx=dep_idx)
+    cols, ws = ell
     if dep_parts is None:
         if not use_kernels:
             return kref.ell_gather_min_batch_ref(gates, cols, ws)

@@ -96,6 +96,66 @@ def ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws):
     return torch.cat([keys0, dep_key[None]], dim=0)
 
 
+def merge_parts(parts, merge_idx: torch.Tensor, lead) -> torch.Tensor:
+    """(..., R_b) bucket partials -> (..., n) through the gather-merge plan:
+    ``out[..., v] = min_c concat(parts, +inf)[..., merge_idx[v, c]]``.
+
+    The reference takes ``(..., n, C)`` at once; at C in the hundreds that
+    is tens of GB, so this loops over the columns and, in column c, reads
+    only the vertices whose entry is not the sentinel (it reads +inf, the
+    identity of min). A column holds each vertex once, so its update has
+    no conflicts; min is exact, so the order gives the same bits. ``lead``
+    is the leading shape (``parts`` may be empty: an edgeless graph).
+    """
+    dev = merge_idx.device
+    flat = torch.cat(
+        list(parts) + [torch.full(tuple(lead) + (1,), INF,
+                                  dtype=torch.float32, device=dev)], dim=-1)
+    sentinel = flat.shape[-1] - 1
+    out = torch.full(tuple(lead) + (merge_idx.shape[0],), INF,
+                     dtype=torch.float32, device=dev)
+    verts, col = torch.nonzero(merge_idx != sentinel, as_tuple=True)
+    by_col = torch.sort(col, stable=True).indices
+    verts = verts[by_col]
+    pos = merge_idx[verts, col[by_col]].long()
+    start = 0
+    for count in torch.bincount(col, minlength=merge_idx.shape[1]).tolist():
+        v, p = verts[start:start + count], pos[start:start + count]
+        # the kernel's nan_min, which keeps a NaN's bits (torch.minimum's
+        # vectorised CPU form returns another NaN payload)
+        m, x = out[..., v], flat[..., p]
+        out[..., v] = torch.where((x < m) | torch.isnan(x), x, m)
+        start += count
+    return out
+
+
+def ell_sliced_gather_min_batch_ref(vecs, sliced):
+    """(V, B, n) row-mins of ``vecs`` over every bucket of a sliced view,
+    merged by :func:`merge_parts`; buckets without rows are skipped, which
+    keeps the concatenation order."""
+    parts = [ell_gather_min_batch_ref(vecs, s.cols, s.ws)
+             for s in sliced.slices if s.rows.shape[0]]
+    return merge_parts(parts, sliced.merge_idx, vecs.shape[:-1])
+
+
+def ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, sliced):
+    """Sliced fused in-scan twin: ``(upd (B, n), keys (K, B, n))``, the
+    relax merge, then the key gather of ``min(ga, gb, gc + fin(upd))``."""
+    upd = ell_sliced_gather_min_batch_ref(dmask[None], sliced)[0]
+    fin = torch.where(upd < INF, 0.0, INF)
+    gates = torch.minimum(ga, torch.minimum(gb, gc + fin[None]))
+    return upd, ell_sliced_gather_min_batch_ref(gates, sliced)
+
+
+def ell_sliced_keys_dep_batch_ref(gates, dga, dgb, dep_idx, sliced):
+    """Sliced fused out-scan twin: keys (K0 + 1, B, n); row K0 is the
+    gather-min of ``min(dga, dgb + keys[dep_idx])``."""
+    keys0 = ell_sliced_gather_min_batch_ref(gates, sliced)
+    gate = torch.minimum(dga, dgb + keys0[dep_idx])
+    dep = ell_sliced_gather_min_batch_ref(gate[None], sliced)
+    return torch.cat([keys0, dep], dim=0)
+
+
 def frontier_crit_ref(d: torch.Tensor, status: torch.Tensor,
                       out_min: torch.Tensor):
     """(min_F d, min_F (d + out_min), |F|) over one (n,) row."""

@@ -18,7 +18,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import policies as P
-from repro_torch.core.graph import Graph, to_ell_in, to_ell_out
+from repro_torch.core.graph import (
+    Graph,
+    to_ell_in,
+    to_ell_in_sliced,
+    to_ell_out,
+    to_ell_out_sliced,
+)
 from repro_torch.core.static_engine import (
     DEFAULT_CRITERION,
     EMPTY_LANE,
@@ -67,14 +73,16 @@ class EngineBackend(Protocol):
 
 
 class StaticBackend:
-    """Adapter over the single-device stepper, on the padded incoming ELL.
+    """Adapter over the single-device stepper.
 
     ``device`` (None = the CUDA card) must be the graph's device.
     ``use_kernels=False`` runs the plain twins. ``donate`` is accepted for
     the :class:`EngineBackend` seam and changes nothing: the port's stepper
     never aliases the state it is given. Plans with out-side dynamic keys
-    build the outgoing ELL once, here. The sliced layout, delta-stepping,
-    oracle plans and point queries are not ported yet and raise.
+    build the outgoing ELL once, here. ``layout="sliced"`` builds the
+    degree-sliced in- and out-views instead of the padded ones (the same
+    bits). Delta-stepping, oracle plans and point queries are not ported
+    yet and raise.
     """
 
     def __init__(self, g: Graph, ell=None, use_kernels: bool = True,
@@ -86,8 +94,6 @@ class StaticBackend:
             raise ValueError(
                 f"layout must be 'padded' or 'sliced'; got {layout!r}"
             )
-        if layout == "sliced":
-            raise not_ported("the degree-sliced ELL layout", "Queue 1 item 5")
         if delta is not None:
             raise ValueError(
                 f"policy {pol.spec!r} does not take a delta bucket width; "
@@ -98,9 +104,14 @@ class StaticBackend:
                               "Queue 1 item 5")
         self.device = graph_device(g, device)
         self.g = g
-        self.ell = to_ell_in(g) if ell is None else ell
+        sliced = layout == "sliced"
+        if ell is None:
+            ell = to_ell_in_sliced(g) if sliced else to_ell_in(g)
+        self.ell = ell
         # built once: rebuilding per step would re-sort every arc per chunk
-        self.ell_out = to_ell_out(g) if pol.needs_out_adjacency else None
+        self.ell_out = None
+        if pol.needs_out_adjacency:
+            self.ell_out = to_ell_out_sliced(g) if sliced else to_ell_out(g)
         self.use_kernels = bool(use_kernels)
         self.criterion = pol.spec
 

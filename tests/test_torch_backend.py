@@ -89,8 +89,8 @@ def test_static_backend_contract():
         StaticBackend(gt, layout="dense", device="cpu")
     with pytest.raises(ValueError, match="delta"):
         StaticBackend(gt, delta=0.5, device="cpu")
-    for kw in ({"layout": "sliced"}, {"point_queries": True},
-               {"policy": "delta"}, {"criterion": "in|out|oracle"}):
+    for kw in ({"point_queries": True}, {"policy": "delta"},
+               {"criterion": "in|out|oracle"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             StaticBackend(gt, device="cpu", **kw)
     if not torch.cuda.is_available():

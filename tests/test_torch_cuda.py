@@ -13,8 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import run_phased_static_batch, to_ell_in
-from repro_torch.graphs import uniform_gnp
+from repro_torch.core import (
+    EllSlice,
+    from_coo,
+    run_phased_static_batch,
+    sliced_ell,
+    to_ell_in,
+    to_ell_in_sliced,
+    to_ell_out_sliced,
+)
+from repro_torch.graphs import kronecker, uniform_gnp
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
 from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
@@ -23,6 +31,11 @@ from repro_torch.kernels.ell_relax_keys import (
     ell_keys_dep_batch,
     ell_relax_keys,
     ell_relax_keys_batch,
+)
+from repro_torch.kernels.ell_sliced import (
+    ell_sliced_gather_min_batch,
+    ell_sliced_keys_dep_batch,
+    ell_sliced_relax_keys_batch,
 )
 from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
 
@@ -239,3 +252,119 @@ def test_cuda_tensors_never_fall_back(cuda):
                  lambda: ell_keys_dep_batch(v, v[0], v[0], cols, ws)):
         with pytest.raises(ValueError, match="different devices"):
             call()
+
+
+def _sliced_view(kind, dev):
+    """Sliced views with split rows, an empty middle bucket, or no edges."""
+    if kind == "edgeless":
+        g = from_coo(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                     np.zeros(0, np.float32), n=37, device=dev)
+        return to_ell_in_sliced(g)
+    g = kronecker(10, seed=3, device=dev)
+    if kind == "split":  # every row wider than 8 splits into chunks
+        return to_ell_in_sliced(g, boundaries=(8,), split=8)
+    if kind == "out_default":
+        return to_ell_out_sliced(g)
+    v = to_ell_in_sliced(g, boundaries=(8, 64))
+    empty = EllSlice(rows=v.slices[0].rows[:0],
+                     cols=torch.full((0, 16), g.n, dtype=torch.int32,
+                                     device=dev),
+                     ws=torch.full((0, 16), np.inf, dtype=torch.float32,
+                                   device=dev))
+    return sliced_ell((v.slices[0], empty, *v.slices[1:]), v.merge_idx)
+
+
+SLICED_KINDS = ["split", "out_default", "empty_middle", "edgeless"]
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("v,b", [(1, 8), (2, 8), (3, 5), (1, 1)])
+@pytest.mark.parametrize("kind", SLICED_KINDS)
+def test_ell_sliced_gather_min_batch_matches_twin(cuda, kind, v, b, sparse):
+    view = _sliced_view(kind, cuda)
+    n = view.merge_idx.shape[0]
+    rng = np.random.default_rng(v * 10 + b)
+    x = _dense(rng, (v, b, n), nan=v == 2)
+    if sparse:  # +inf but on ~2 % of the vertices, as the relax's dmask
+        x[rng.random(x.shape) > 0.02] = np.inf
+    vecs = _t(x, cuda)
+    before = ell_sliced_gather_min_batch.launches
+    got = ell_sliced_gather_min_batch(vecs, view, sparse=sparse)
+    assert ell_sliced_gather_min_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_sliced_gather_min_batch_ref(vecs, view))
+
+
+@pytest.mark.parametrize("k,b", [(1, 8), (2, 8), (2, 3), (3, 1)])
+@pytest.mark.parametrize("kind", SLICED_KINDS)
+def test_ell_sliced_relax_keys_batch_matches_twin(cuda, kind, k, b):
+    view = _sliced_view(kind, cuda)
+    n = view.merge_idx.shape[0]
+    rng = np.random.default_rng(k * 100 + b)
+    dm = np.full((b, n), np.inf, np.float32)
+    live = rng.random((b, n)) < 0.05
+    dm[live] = rng.uniform(0, 10, live.sum()).astype(np.float32)
+    parts = [_t(_dense(rng, (k, b, n), nan=(i == 0 and k == 2)), cuda)
+             for i in range(3)]
+    args = (_t(dm, cuda), *parts)
+    before = ell_sliced_relax_keys_batch.launches
+    upd, keys = ell_sliced_relax_keys_batch(*args, view)
+    assert ell_sliced_relax_keys_batch.launches == before + 1
+    w_upd, w_keys = ref.ell_sliced_relax_keys_batch_ref(*args, view)
+    assert _same_bits(upd, w_upd) and _same_bits(keys, w_keys)
+
+
+@pytest.mark.parametrize("k0,dep_idx,b", [(1, 0, 8), (2, 1, 8), (2, 0, 3),
+                                          (3, 2, 1)])
+@pytest.mark.parametrize("kind", SLICED_KINDS)
+def test_ell_sliced_keys_dep_batch_matches_twin(cuda, kind, k0, dep_idx, b):
+    view = _sliced_view(kind, cuda)
+    n = view.merge_idx.shape[0]
+    rng = np.random.default_rng(k0 * 10 + dep_idx + b)
+    gates = _t(_dense(rng, (k0, b, n)), cuda)
+    dga = _t(_dense(rng, (b, n), nan=k0 == 2), cuda)
+    dgb = _t(_dense(rng, (b, n)), cuda)
+    before = ell_sliced_keys_dep_batch.launches
+    got = ell_sliced_keys_dep_batch(gates, dga, dgb, view, dep_idx=dep_idx)
+    assert ell_sliced_keys_dep_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_sliced_keys_dep_batch_ref(
+        gates, dga, dgb, dep_idx, view))
+
+
+@pytest.mark.parametrize("criterion", ["instatic|outstatic", "in|out",
+                                       "insimple|outsimple"])
+def test_sliced_solve_with_kernels_matches_plain_and_padded(cuda, criterion):
+    g = kronecker(11, seed=4, device=cuda)
+    sources = [0, 11, 2047, 5, 77]
+    a = run_phased_static_batch(g, sources, trace_len=16, criterion=criterion,
+                                layout="sliced")
+    b = run_phased_static_batch(g, sources, trace_len=16, criterion=criterion,
+                                layout="sliced", use_kernels=False)
+    c = run_phased_static_batch(g, sources, trace_len=16, criterion=criterion)
+    for f in ("dist", "status", "phases", "total_phases", "settled_per_phase"):
+        assert _same_bits(getattr(a, f), getattr(b, f)), f
+        assert _same_bits(getattr(a, f), getattr(c, f)), f
+    for f in ("sum_fringe", "relax_edges"):
+        assert np.array_equal(getattr(a, f), getattr(b, f))
+        assert np.array_equal(getattr(a, f), getattr(c, f))
+
+
+def test_sliced_cuda_tensors_never_fall_back(cuda):
+    view = _sliced_view("split", cuda)
+    n = view.merge_idx.shape[0]
+    v = torch.zeros((1, 2, n))  # on the host: refused with a CUDA view
+    for call in (lambda: ell_sliced_gather_min_batch(v, view),
+                 lambda: ell_sliced_relax_keys_batch(v[0], v, v, v, view),
+                 lambda: ell_sliced_keys_dep_batch(v, v[0], v[0], view)):
+        with pytest.raises(ValueError, match="different devices"):
+            call()
+    # 17 buckets with rows (vertex i has in-degree 8 * (i + 1)) are more
+    # than one launch takes: the wrapper raises instead of running the twin
+    deg = 8 * np.arange(1, 18)
+    dst = np.repeat(np.arange(17), deg).astype(np.int32)
+    src = (np.arange(dst.size) % 150 + 17).astype(np.int32)
+    g = from_coo(src, dst, np.ones(dst.size, np.float32), n=200, device=cuda)
+    wide = to_ell_in_sliced(g, boundaries=tuple(deg))
+    assert len(wide.slices) == 17
+    with pytest.raises(ValueError, match="at most 16"):
+        ell_sliced_gather_min_batch(torch.zeros((1, 2, 200), device=cuda),
+                                    wide)

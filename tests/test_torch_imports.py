@@ -31,8 +31,8 @@ def test_port_files_exist():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "static_engine.py", "policies.py", "criteria.py",
             "ell_relax.py", "frontier_crit.py", "ell_key_min.py",
-            "ell_relax_keys.py", "ops.py", "ref.py", "backends.py",
-            "interop.py"} <= names
+            "ell_relax_keys.py", "ell_sliced.py", "ops.py", "ref.py",
+            "backends.py", "interop.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

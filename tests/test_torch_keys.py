@@ -27,6 +27,7 @@ from repro.kernels.ell_relax_keys import ell_relax_keys as j_ell_relax_keys
 from repro.kernels.ell_relax_keys import (
     ell_relax_keys_batch as j_ell_relax_keys_batch,
 )
+from repro_torch import interop
 from repro_torch.core import criteria as TC
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref
@@ -321,11 +322,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ell_gather_min_batch(torch.zeros((4, 3, 2)).transpose(0, 2), cols, ws)
     with pytest.raises(ValueError, match="at least one slot"):
         ell_gather_min_batch(v, cols[:, :0], ws[:, :0])
-    sliced = type("Sliced", (), {"slices": ()})()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tops.key_min_batch_any(v[0], sliced)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tops.out_scan_keys_batch(v, None, sliced)
+    # a sliced view routes to the sliced twins on the CPU
+    sl = interop.sliced_from_numpy(
+        {"slices": [{"rows": np.asarray(s.rows), "cols": np.asarray(s.cols),
+                     "ws": np.asarray(s.ws)}
+                    for s in R.fixture_sliced().slices],
+         "merge_idx": np.asarray(R.fixture_sliced().merge_idx)},
+        device="cpu")
+    g = T(R.fixture_rows((2, B, N)))
+    assert_bits(ref.ell_sliced_gather_min_batch_ref(g[:1], sl)[0],
+                tops.key_min_batch_any(g[0], sl))
+    assert_bits(ref.ell_sliced_gather_min_batch_ref(g, sl),
+                tops.out_scan_keys_batch(g, None, sl))
+    assert_bits(ref.ell_sliced_keys_dep_batch_ref(g, g[0], g[1], 1, sl),
+                tops.out_scan_keys_batch(g, (g[0], g[1], 1), sl))
 
 
 def test_cpu_tensors_run_the_twins_and_count_no_launch():
