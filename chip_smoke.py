@@ -33,7 +33,11 @@ failure raises, exits non-zero and prints no ``ok`` line:
  10. ``insimple|outsimple`` at full width, 64 trips, kernels against twins
      on every state field (the path of ``ell_gather_min_batch``);
  11. the key kernels' times on the inputs of one real phase of the ``in|out``
-     solve;
+     solve; the two fused scans (on the pipelined scan body) split by kernel
+     with ``torch.profiler``, and their sweeps each timed alone on the
+     single-sweep kernels (the body the fused scans ran on before the
+     pipelined one): the stream floor, the sparse relax sweep, the dense
+     gate sweeps;
  12. the skewed graph: ``kronecker(20)`` (Graph500 initiator, ~9.1e7 arcs,
      largest in-degree ~3.8e5, so no padded layout fits) and its degree-sliced
      in- and out-views on the card, with their sizes;
@@ -128,6 +132,45 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_summary(out: str) -> list[tuple[str, str]]:
+    """(kernel, "N registers, S bytes smem, spills") for each entry function
+    in ``nvcc -Xptxas -v`` output, names demangled by ``c++filt`` where the
+    host has it."""
+    rows, fn, spill = [], None, ""
+    for line in out.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            fn, spill = line.split("'")[1], ""
+        elif "spill stores" in line and fn is not None:
+            spill = line.split(",", 1)[1].strip()
+        elif line.startswith("ptxas info") and "Used" in line and fn:
+            rows.append((fn, line.split("Used", 1)[1].strip() + "; " + spill))
+            fn = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [r[0] for r in rows]  # mangled names say the same, less kindly
+    return [(nm.split("(")[0], info) for nm, (_, info) in zip(names, rows)]
+
+
+def device_split(fn, calls: int = 5) -> list[tuple[str, float]]:
+    """Device milliseconds a call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key.split("(")[0], e.device_time_total / calls / 1e3)
+            for e in prof.key_averages() if e.device_time_total > 0]
 
 
 def finite_slots(rows, cols_long) -> int:
@@ -257,9 +300,8 @@ def main() -> int:
     log(f"build: {sorted(_build.SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)")
     for name, out in sorted(outputs.items()):
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, info in ptxas_summary(out):
+            log(f"  ptxas {name}: {fn}: {info}")
 
     # ---- 2. kernel parity at full width ----------------------------------
     t0 = time.perf_counter()
@@ -643,7 +685,7 @@ def main() -> int:
                                                               cl_in)
     dep_gate = torch.minimum(dga_io, dgb_io + keys_io[0])
     fs_kd = fs_ga + finite_slots(pad(dep_gate), cl_out)
-    del cl_in, cl_out, fin_io, gate1_io, dep_gate, upd_io
+    del cl_in, cl_out, fin_io, upd_io
     log(f"key timing inputs: phase {int(st_io.trips)} of the in|out B="
         f"{LANES} solve: {int(settle_io.sum())} settled, {int(nf_io.sum())} "
         f"on the fringe; finite lane-slots: key_min {fs_km}, gather "
@@ -676,6 +718,37 @@ def main() -> int:
                        b_ms, b_by)
         log(f"{name}: {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
+    # The split of the two fused scans into their sweeps, each timed alone
+    # on the single-sweep kernels (the fused scans' earlier body): the
+    # stream floor (an all-+inf dmask, every gather skipped), #7's sparse
+    # relax sweep and dense gate sweep, #8's two dense gate sweeps.
+    inf_mask = torch.full_like(pad(dmask_io), INF)
+    split = {
+        "stream floor (in-ELL, every gather skipped)":
+            lambda: ell_relax_batch(inf_mask, cols, ws),
+        "sparse sweep (#7 sweep 0, the relax dmask)":
+            lambda: ell_relax_batch(pad(dmask_io), cols, ws),
+        "dense sweep (#7 sweep 1, the in_full gate)":
+            lambda: ell_gather_min_batch(gate1_io[None], cols, ws),
+        "dense sweep (#8 sweep 0, the out_dyn gate)":
+            lambda: ell_gather_min_batch(g_od, cols_o, ws_o),
+        "dense sweep (#8 sweep 1, the out_full gate)":
+            lambda: ell_gather_min_batch(dep_gate[None], cols_o, ws_o),
+    }
+    split_ms = {label: time_ms(fn, reps=20) for label, fn in split.items()}
+    for label, ms in split_ms.items():
+        log(f"split: {label}: {ms:.4f} ms (single-sweep kernel)")
+    sweeps = list(split_ms.values())
+    single_sweeps = {"ell_relax_keys_batch": sweeps[1] + sweeps[2],
+                   "ell_keys_dep_batch": sweeps[3] + sweeps[4]}
+    for name, ms in single_sweeps.items():
+        log(f"split: {name} {times[name][0]:.4f} ms against its two sweeps "
+            f"alone on the single-sweep body {ms:.4f} ms; two reads of the "
+            f"adjacency bound it at {2 * times[name][2]:.4f} ms")
+        log(f"split: {name} device ms a call by kernel: "
+            + "; ".join(f"{k} {t:.4f}" for k, t in
+                        device_split(timed[name][0])))
+    del inf_mask, gate1_io, dep_gate
     row_io = gate_io[0].contiguous()
     km_view_ms = time_ms(lambda: ell_key_min(row_io, cols, ws), reps=20)
     km_view_plain_ms = time_ms(lambda: ref.ell_key_min_ref(row_io, cols, ws),
@@ -1007,7 +1080,12 @@ def main() -> int:
                       else launches_io)[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": times[name][2],
-         "bound_by": times[name][3], "library_ms": None}
+         "bound_by": times[name][3], "library_ms": None,
+         # the fused scans: the adjacency read twice, and their two sweeps
+         # each timed alone on the single-sweep body (their earlier design)
+         **({"two_read_bound_ms": 2 * times[name][2],
+             "single_sweeps_ms": single_sweeps[name]}
+            if name in single_sweeps else {})}
         for name, replaces in new_kernels.items()
     ] + [
         {"name": name, "route": "cuda",

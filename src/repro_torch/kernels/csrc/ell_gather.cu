@@ -1,5 +1,5 @@
-// ell_gather: the one min-plus gather body of the port, and the entry points
-// built on it.
+// ell_gather: the min-plus gather bodies of the port, and the entry points
+// built on them.
 //
 //   out[l, r] = min_j vec[l, cols[r, j]] + ws[r, j]      (l = one gather lane)
 //
@@ -11,12 +11,14 @@
 //     B = 1 view): one gate row per lane, padded by the ops layer;
 //   * repro/kernels/ell_relax_keys.py::ell_gather_min_batch: V vectors x B
 //     lanes = V * B gather lanes over one adjacency;
-//   * ell_relax_keys.py::ell_relax_keys_batch (and ell_relax_keys): the fused
-//     in-scan, sweep 0 = the relax update, sweep 1 = the next phase's in-side
-//     keys through the gate min(ga, min(gb, gc + fin(upd)));
-//   * ell_relax_keys.py::ell_keys_dep_batch: the fused out-scan, sweep 0 = the
-//     independent keys, sweep 1 = the dependent key through the gate
-//     min(dga, dgb + keys0[dep_idx]);
+//   * ell_relax_keys.py::ell_relax_keys_batch (:182, and ell_relax_keys):
+//     the fused in-scan, sweep 0 = the relax update, sweep 1 = the next
+//     phase's in-side keys through the gate min(ga, min(gb, gc + fin(upd)));
+//   * ell_relax_keys.py::ell_keys_dep_batch (:482): the fused out-scan,
+//     sweep 0 = the independent keys, sweep 1 = the dependent key through the
+//     gate min(dga, dgb + keys0[dep_idx]).
+//     These two run on the pipelined scan body (its own section below, with
+//     its own note); the rest on the single-sweep body described here;
 //   * ell_relax_keys.py::ell_sliced_gather_min_batch,
 //     ell_sliced_relax_keys_batch and ell_sliced_keys_dep_batch: the same
 //     sweeps over a degree-sliced adjacency (the section at the end).
@@ -59,11 +61,12 @@
 // The two-sweep kernels need a grid-wide barrier: sweep 1 gathers from any
 // column of sweep 0's output. On the TPU that output stayed resident in VMEM
 // across a sequential (2, n_tiles) grid. Here each fused kernel is one C
-// entry point that issues pack 0, gather 0, pack 1 (which builds the gate),
-// gather 1 in order on one stream; stream order is the barrier. A cooperative
-// launch with grid.sync() would cap the grid at the blocks that fit on the
-// card at once (the gather pass has ~10^5 blocks at n = 1e6), and each sweep
-// already streams the adjacency once, so it would save only the launch gaps.
+// entry point that issues pack 0, scan 0, pack 1 (which builds the gate),
+// scan 1 in order on one stream; stream order is the barrier. The scan body's
+// grid is persistent (SMs x SCAN_BLOCKS_PER_SM blocks), so a cooperative
+// launch with grid.sync() between the four passes would fit; it could save
+// only the launch gaps, less than the ~0.07 ms a fused call's event time
+// exceeds its kernels' device time on the card, and is not built.
 //
 // Min semantics: jnp.min/jnp.minimum propagate NaN and fminf drops it, so
 // every fold and every gate min is an explicit compare that keeps a NaN from
@@ -344,6 +347,444 @@ extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
                                  s);
 }
 
+// ---------------------------------------------------------------------------
+// The pipelined scan body: the two fused scans of the paper's in|out plan.
+//
+// Replaces ell_relax_keys.py::ell_relax_keys_batch (:182; and
+// ell_relax_keys, its B = 1 view) and ell_relax_keys.py::ell_keys_dep_batch
+// (:482). Each is two sweeps over one padded adjacency, and sweep 1 reads
+// every column of sweep 0's output, so each reads the adjacency twice: at
+// n = 1e6, D = 152 the bytes bound is ~0.41 ms a fused call counting the
+// adjacency once, ~0.82 ms counting the two reads no two-sweep design
+// avoids. What bounds a sweep on an H100 is not those bytes but the random
+// reads: a dense 8-lane sweep reads one 32-byte sector of the packed table
+// for each of its ~1e8 real slots, and the L1 passes about one such
+// request a cycle, at a latency of an L2 hit; the sparse relax sweep reads
+// one bitmap word a slot instead. The single-sweep body above also
+// streamed cols and ws at ~1.1 TB/s (short blocks, one warp a row, a
+// dependent chain of loads each trip). What this body does:
+//  * persistent blocks: SCAN_BLOCKS_PER_SM blocks on each SM walk units of
+//    `rows` consecutive rows in a grid stride; the sparse relax sweep runs
+//    one larger block an SM instead, which holds its bitmap in shared memory
+//    (ScanShape below);
+//  * the adjacency through shared memory, by warp roles: one producer warp
+//    fills a ring of SCAN_STAGES stages, each the cols and ws of one unit
+//    (or a chunk of each of its rows, where a unit's rows do not fit a
+//    stage), by 1-D bulk copies (cp.async.bulk, the TMA's non-tensor form)
+//    that complete on the stage's `full` mbarrier; SCAN_WARPS consumer warps
+//    each wait for the stage alone and release it on its `empty` mbarrier,
+//    so one warp's gathers overlap another's wait. Alone, the ring streams
+//    at ~2.8 TB/s. The copies carry an L2 evict-first hint, so the stream
+//    does not push the packed table (32 MB at 8 lanes) out of the L2. A copy
+//    takes the 16-byte aligned span around its range (the bulk copy's
+//    alignment; such a span never leaves the pages of the range), and
+//    readers skip its head;
+//  * balanced slots and one request a slot: `tpr` threads a row (a power of
+//    two; a unit's rows * D slots fit a stage); at 8 lanes two neighbouring
+//    threads share each slot, 4 lanes each, so the slot's sector is one
+//    request of the pair; each thread issues SCAN_UNROLL gathers at a time
+//    from shared-memory cols;
+//  * kept from the body above: the lane-interleaved pack (one 32-byte sector
+//    a slot for 8 lanes), the bitmap skip on the sparse relax sweep only,
+//    nan_min, NaN for an id outside [0, n_idx).
+// The shape was chosen on the card against variants (tools/scan_variants.py
+// times them): deeper rings or more blocks leave the L1 too little room for
+// the gathers in flight; an L1-bypassing or no-allocate gather and an L2
+// evict-last hint on the table are slower or level. Two designs tried on
+// the way were slower and are gone: one block-wide barrier a unit (outputs
+// staged in shared memory) in place of the warp roles, and a coarse bitmap
+// in shared memory beside two blocks an SM (it took the L1's room).
+// The grid-wide barrier between the sweeps stays stream order: pack 0,
+// scan 0, pack 1 (which builds the gate from sweep 0's output), scan 1.
+// A fused call's event time exceeds its kernels' device time by ~0.07 ms
+// (chip_smoke.py phase 11): more than a cooperative launch could save.
+
+#define SCAN_WARPS 8                      // consumer warps a block
+#define SCAN_STAGES 2
+#define SCAN_CAP 5120                     // slots of one array a stage holds
+#define SCAN_STAGE_ELEMS (SCAN_CAP + 8)   // + the aligned spans' heads, tails
+#define SCAN_UNROLL 8
+#define SCAN_BLOCKS_PER_SM 2
+#define SCAN_SKIP_WARPS 16                // the sparse sweep: one block an SM
+
+// The launch shape of a sweep: a dense sweep runs SCAN_BLOCKS_PER_SM blocks
+// of SCAN_WARPS consumer warps on each SM; the sparse relax sweep (SKIP)
+// one block of SCAN_SKIP_WARPS, whose shared memory holds its bitmap whole
+// beside the ring where that fits (125 KB at n = 1e6), so the check of a
+// slot's column is a shared-memory read and not an L1 request.
+template <bool SKIP>
+struct ScanShape {
+  static constexpr int warps = SKIP ? SCAN_SKIP_WARPS : SCAN_WARPS;
+  static constexpr int threads = 32 * warps;  // consumer threads
+  static constexpr int blocks = SKIP ? 1 : SCAN_BLOCKS_PER_SM;
+};
+
+struct ScanGeometry {
+  const int* cols;
+  const float* ws;
+  long long n_rows;
+  long long units;  // ceil(n_rows / rows)
+  int d_pad;
+  int tpr;     // threads a row: a power of two, at most a warp
+  int rows;    // rows a unit: consumer threads / tpr
+  int chunk;   // slots of each row a stage holds: d_pad, or a chunk of it
+  int chunks;  // stages a unit takes for one lane tile
+  int bits_words;  // SKIP: the bitmap's words, when shared memory holds it
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The 16-byte aligned span around bytes [p, p + nbytes): its start, and
+// its length (a multiple of 16). p sits (p & 15) / 4 words into it.
+__device__ __forceinline__ void aligned_span(const void* p, long long nbytes,
+                                             unsigned long long* start,
+                                             unsigned* bytes) {
+  const unsigned long long a = (unsigned long long)p;
+  *start = a & ~15ull;
+  *bytes = (unsigned)(((a + nbytes + 15) & ~15ull) - *start);
+}
+
+// A block's walk over its items: units blockIdx.x + q * gridDim.x, each
+// for every lane tile, each tile in `chunks` stages.
+struct ScanCursor {
+  long long unit;
+  int tile;
+  int chunk;
+  __device__ __forceinline__ void next(const ScanGeometry& g, int tiles) {
+    if (++chunk == g.chunks) {
+      chunk = 0;
+      if (++tile == tiles) {
+        tile = 0;
+        unit += gridDim.x;
+      }
+    }
+  }
+};
+
+// The producer: the copies of one item into `stage`, completing on
+// `bars[stage]`. The smem layout of a stage: cols then ws, each
+// SCAN_STAGE_ELEMS 4-byte words; a chunked unit keeps row r at word
+// r * (chunk + 8).
+__device__ void scan_issue(const ScanGeometry& g, float* stages,
+                           unsigned long long* bars, const ScanCursor& it,
+                           int stage, unsigned long long policy) {
+  const long long r0 = it.unit * g.rows;
+  const int nr = (int)min((long long)g.rows, g.n_rows - r0);
+  const int j0 = it.chunk * g.chunk;
+  const int len = min(g.chunk, g.d_pad - j0);
+  const int copies = g.chunks == 1 ? 1 : nr;  // one span, or one a row
+  const long long nbytes = 4ll * (g.chunks == 1 ? (long long)nr * g.d_pad
+                                                : len);
+  float* dst_c = stages + (long long)stage * 2 * SCAN_STAGE_ELEMS;
+  float* dst_w = dst_c + SCAN_STAGE_ELEMS;
+  const unsigned bar = smem_u32(bars + stage);
+  unsigned total = 0;
+  for (int r = 0; r < copies; ++r) {
+    const long long off = (r0 + r) * g.d_pad + j0;
+    unsigned long long a;
+    unsigned b;
+    aligned_span(g.cols + off, nbytes, &a, &b);
+    total += b;
+    aligned_span(g.ws + off, nbytes, &a, &b);
+    total += b;
+  }
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(total) : "memory");
+  const int stride = g.chunks == 1 ? 0 : g.chunk + 8;
+  for (int r = 0; r < copies; ++r) {
+    const long long off = (r0 + r) * g.d_pad + j0;
+    const void* src[2] = {g.cols + off, g.ws + off};
+    float* dst[2] = {dst_c + r * stride, dst_w + r * stride};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      unsigned long long a;
+      unsigned b;
+      aligned_span(src[q], nbytes, &a, &b);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
+          :: "r"(smem_u32(dst[q])), "l"(a), "r"(b), "r"(bar), "l"(policy)
+          : "memory");
+    }
+  }
+}
+
+// One sweep of the pipelined body: out[l * n_rows + r] for every lane l.
+// The last warp is the producer: its lane 0 fills the stages in the
+// block's item order, each once every consumer warp has released it. The
+// other warps consume: warp w owns rows [w * rpw, (w + 1) * rpw) of each
+// unit, rpw = 32 / tpr, and waits for nothing but its stage, so one warp's
+// gathers overlap another's.
+template <int W, bool SKIP>
+__global__ void __launch_bounds__(ScanShape<SKIP>::threads + 32,
+                                  ScanShape<SKIP>::blocks)
+scan_kernel(const float* __restrict__ packed,
+            const unsigned* __restrict__ live_bits, long long n_idx,
+            ScanGeometry g, int lanes, float* __restrict__ out) {
+  constexpr int consumers = ScanShape<SKIP>::threads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      stages + SCAN_STAGES * 2 * SCAN_STAGE_ELEMS);
+  unsigned long long* empty = full + SCAN_STAGES;
+  const int tiles = (lanes + W - 1) / W;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SCAN_STAGES; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_u32(full + s)) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(empty + s)), "r"(ScanShape<SKIP>::warps)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the bitmap of a sparse sweep, copied whole into shared memory if it fits
+  const unsigned* bits = live_bits;
+  if (SKIP && g.bits_words > 0) {
+    unsigned* sbits = reinterpret_cast<unsigned*>(empty + SCAN_STAGES);
+    for (int i0 = 0; i0 < g.bits_words; i0 += 8 * blockDim.x) {
+      unsigned w[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = i0 + e * blockDim.x + threadIdx.x;
+        w[e] = i < g.bits_words ? __ldg(live_bits + i) : 0u;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = i0 + e * blockDim.x + threadIdx.x;
+        if (i < g.bits_words) sbits[i] = w[e];
+      }
+    }
+    bits = sbits;
+  }
+  __syncthreads();
+  if (threadIdx.x >= consumers) {  // the producer warp
+    if (threadIdx.x == consumers) {
+      unsigned long long policy;
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                   : "=l"(policy));
+      int stage = 0;
+      unsigned round = 0;
+      for (ScanCursor it{blockIdx.x, 0, 0}; it.unit < g.units;
+           it.next(g, tiles)) {
+        if (round > 0) {
+          mbar_wait(smem_u32(empty + stage), (round - 1) & 1u);
+        }
+        scan_issue(g, stages, full, it, stage, policy);
+        if (++stage == SCAN_STAGES) {
+          stage = 0;
+          ++round;
+        }
+      }
+    }
+    return;
+  }
+  // H threads share a slot, each folding WL of its W lanes: the slot's one
+  // 32-byte sector is then one request of the pair, not two of one thread
+  // (the L1 passes about one cache line a cycle, so a random gather costs a
+  // cycle a request)
+  constexpr int H = W > 4 ? W / 4 : 1;
+  constexpr int WL = W / H;
+  const int row_l = threadIdx.x / g.tpr;
+  const int sub = threadIdx.x % g.tpr;
+  const int part = sub % H;                  // which WL lanes of the tile
+  const int step = g.tpr / H;                // slot-parallel threads a row
+  int stage = 0;
+  unsigned parity = 0;
+  float acc[WL];
+  for (ScanCursor it{blockIdx.x, 0, 0}; it.unit < g.units;
+       it.next(g, tiles)) {
+    const long long r0 = it.unit * g.rows;
+    const int nr = (int)min((long long)g.rows, g.n_rows - r0);
+    if (it.chunk == 0) {
+#pragma unroll
+      for (int k = 0; k < WL; ++k) acc[k] = CUDART_INF_F;
+    }
+    mbar_wait(smem_u32(full + stage), parity);
+    if (row_l < nr) {
+      const int j0 = it.chunk * g.chunk;
+      const int len = min(g.chunk, g.d_pad - j0);
+      // where this row's slots start in the stage: the aligned span's head
+      // of the unit's (or the row's) copy, then the row
+      const long long off = g.chunks == 1 ? r0 * g.d_pad
+                                          : (r0 + row_l) * g.d_pad + j0;
+      const int lead = g.chunks == 1 ? row_l * g.d_pad : row_l * (g.chunk + 8);
+      const float* sbase = stages + stage * 2 * SCAN_STAGE_ELEMS;
+      const int* sc = reinterpret_cast<const int*>(sbase) + lead +
+                      (int)(((unsigned long long)(g.cols + off) & 15) >> 2);
+      const float* sw = sbase + SCAN_STAGE_ELEMS + lead +
+                        (int)(((unsigned long long)(g.ws + off) & 15) >> 2);
+      const float* ptile = packed + (long long)it.tile * n_idx * W + part * WL;
+      for (int j = sub / H; j < len; j += SCAN_UNROLL * step) {
+        int cu[SCAN_UNROLL];
+        float wu[SCAN_UNROLL];
+        float v[SCAN_UNROLL][WL];
+#pragma unroll
+        for (int u = 0; u < SCAN_UNROLL; ++u) {
+          const int jj = j + u * step;
+          const bool in_row = jj < len;
+          cu[u] = in_row ? sc[jj] : 0;
+          wu[u] = in_row ? sw[jj] : CUDART_INF_F;
+          bool take = in_row;
+          const bool valid = cu[u] >= 0 && (long long)cu[u] < n_idx;
+          if constexpr (SKIP) {
+            if (take && valid && wu[u] == wu[u] && wu[u] != -CUDART_INF_F) {
+              take = (bits[cu[u] >> 5] >> (cu[u] & 31)) & 1u;
+            }
+          }
+          if (take && valid) {
+            load_lanes<WL>(ptile + (long long)cu[u] * W, v[u]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < WL; ++k) {
+              v[u][k] = take ? CUDART_NAN_F : CUDART_INF_F;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < SCAN_UNROLL; ++u) {
+#pragma unroll
+          for (int k = 0; k < WL; ++k) {
+            acc[k] = nan_min(acc[k], v[u][k] + wu[u]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the warp has read its rows of the stage: release it
+    if ((threadIdx.x & 31) == 0) {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                   :: "r"(smem_u32(empty + stage)) : "memory");
+    }
+    if (++stage == SCAN_STAGES) {
+      stage = 0;
+      parity ^= 1u;
+    }
+    if (it.chunk == g.chunks - 1) {
+#pragma unroll
+      for (int k = 0; k < WL; ++k) {
+        for (int o = g.tpr >> 1; o >= H; o >>= 1) {
+          acc[k] = nan_min(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], o));
+        }
+      }
+      if (sub < H && row_l < nr) {
+#pragma unroll
+        for (int k = 0; k < WL; ++k) {
+          const int l = it.tile * W + part * WL + k;
+          if (l < lanes) out[(long long)l * g.n_rows + r0 + row_l] = acc[k];
+        }
+      }
+    }
+  }
+}
+
+struct Adjacency {
+  const int* cols;
+  const float* ws;
+  long long n_rows;
+  int d_pad;
+};
+
+// The geometry of the scan body over `a` for lane tiles of W.
+template <int W, bool SKIP>
+static ScanGeometry scan_geometry(const Adjacency& a) {
+  constexpr int threads = ScanShape<SKIP>::threads;
+  ScanGeometry g;
+  g.cols = a.cols;
+  g.ws = a.ws;
+  g.n_rows = a.n_rows;
+  g.d_pad = a.d_pad;
+  const int d_pad = a.d_pad;
+  g.tpr = W > 4 ? W / 4 : 1;  // the threads that share one slot's sector
+  while (g.tpr < 32 && (long long)(threads / g.tpr) * d_pad > SCAN_CAP) {
+    g.tpr *= 2;
+  }
+  g.rows = threads / g.tpr;
+  if ((long long)g.rows * d_pad <= SCAN_CAP) {
+    g.chunk = d_pad;
+  } else {  // rows wider than a stage: each row's chunks, row by row
+    g.chunk = (SCAN_CAP / g.rows - 8) & ~3;
+  }
+  g.chunks = (d_pad + g.chunk - 1) / g.chunk;
+  g.units = (a.n_rows + g.rows - 1) / g.rows;
+  g.bits_words = 0;
+  return g;
+}
+
+// Pack then scan: one sweep of a fused kernel on the pipelined body.
+template <int W, int MODE, bool SKIP>
+static int scan_sweep_w(const PackSrc& src, long long n_idx, int lanes,
+                        const Adjacency& a, float* packed,
+                        unsigned* live_bits, float* out, cudaStream_t stream) {
+  ScanGeometry g = scan_geometry<W, SKIP>(a);
+  constexpr int pack_threads = ScanShape<false>::threads;
+  const long long blocks1 = (n_idx + pack_threads - 1) / pack_threads;
+  pack_kernel<W, MODE><<<(unsigned)blocks1, pack_threads, 0, stream>>>(
+      src, n_idx, lanes, packed, SKIP ? live_bits : nullptr);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  size_t smem = sizeof(float) * SCAN_STAGES * 2 * SCAN_STAGE_ELEMS +
+                sizeof(unsigned long long) * 2 * SCAN_STAGES;
+  int dev = 0, sms = 0, smem_max = 0;
+  rc = (int)cudaGetDevice(&dev);
+  if (rc == 0) {
+    rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (rc == 0) {
+    rc = (int)cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (rc != 0) return rc;
+  const long long words = (n_idx + 31) / 32;
+  if (SKIP && (long long)smem + 4 * words <= smem_max) {
+    g.bits_words = (int)words;
+    smem += 4 * words;
+  }
+  rc = (int)cudaFuncSetAttribute(scan_kernel<W, SKIP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+  if (rc != 0) return rc;
+  // persistent: ScanShape<SKIP>::blocks blocks on each SM walk every unit
+  const long long fit = (long long)sms * ScanShape<SKIP>::blocks;
+  const long long grid = g.units < fit ? g.units : fit;
+  scan_kernel<W, SKIP>
+      <<<(unsigned)grid, ScanShape<SKIP>::threads + 32, smem, stream>>>(
+          packed, live_bits, n_idx, g, lanes, out);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, bool SKIP>
+static int scan_sweep(const PackSrc& src, long long n_idx, int lanes,
+                      const Adjacency& g, float* packed,
+                      unsigned* live_bits, float* out, cudaStream_t stream) {
+  switch (ell_gather_lane_tile(lanes)) {
+    case 1:
+      return scan_sweep_w<1, MODE, SKIP>(src, n_idx, lanes, g, packed,
+                                         live_bits, out, stream);
+    case 2:
+      return scan_sweep_w<2, MODE, SKIP>(src, n_idx, lanes, g, packed,
+                                         live_bits, out, stream);
+    case 4:
+      return scan_sweep_w<4, MODE, SKIP>(src, n_idx, lanes, g, packed,
+                                         live_bits, out, stream);
+    default:
+      return scan_sweep_w<8, MODE, SKIP>(src, n_idx, lanes, g, packed,
+                                         live_bits, out, stream);
+  }
+}
+
 // Fused in-scan (ell_relax_keys_batch): dmask (B, n), ga/gb/gc (K, B, n)
 // unpadded; cols/ws (n, D). Writes upd (B, n) and keys (K, B, n). Scratch:
 // `packed` as above for max(B, K * B) lanes over n + 1 columns; `live_bits`
@@ -352,18 +793,18 @@ extern "C" int ell_relax_keys_launch(const float* dmask, const float* ga,
                                      const float* gb, const float* gc,
                                      long long n, int lanes_b, int k,
                                      const int* cols, const float* ws,
-                                     int d_pad, int tpr, int threads,
-                                     float* packed, unsigned* live_bits,
-                                     float* upd, float* keys, void* stream) {
+                                     int d_pad, float* packed,
+                                     unsigned* live_bits, float* upd,
+                                     float* keys, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const Geometry g{cols, ws, n, d_pad, tpr, threads};
+  const Adjacency g{cols, ws, n, d_pad};
   const PackSrc s0{dmask, nullptr, nullptr, nullptr, n, lanes_b};
-  int rc = sweep<PACK_ROWS, true>(s0, n + 1, lanes_b, g, packed, live_bits,
-                                  upd, s);
+  int rc = scan_sweep<PACK_ROWS, true>(s0, n + 1, lanes_b, g, packed,
+                                       live_bits, upd, s);
   if (rc != 0) return rc;
   const PackSrc s1{ga, gb, gc, upd, n, lanes_b};
-  return sweep<PACK_IN_GATE, false>(s1, n + 1, k * lanes_b, g, packed,
-                                    nullptr, keys, s);
+  return scan_sweep<PACK_IN_GATE, false>(s1, n + 1, k * lanes_b, g, packed,
+                                         nullptr, keys, s);
 }
 
 // Fused out-scan (ell_keys_dep_batch): gates (K0, B, n), dga/dgb (B, n)
@@ -373,19 +814,18 @@ extern "C" int ell_relax_keys_launch(const float* dmask, const float* ga,
 extern "C" int ell_keys_dep_launch(const float* gates, const float* dga,
                                    const float* dgb, long long n, int lanes_b,
                                    int k0, int dep_idx, const int* cols,
-                                   const float* ws, int d_pad, int tpr,
-                                   int threads, float* packed, float* out,
-                                   void* stream) {
+                                   const float* ws, int d_pad, float* packed,
+                                   float* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const Geometry g{cols, ws, n, d_pad, tpr, threads};
+  const Adjacency g{cols, ws, n, d_pad};
   const long long row = (long long)lanes_b * n;
   const PackSrc s0{gates, nullptr, nullptr, nullptr, n, lanes_b};
-  int rc = sweep<PACK_ROWS, false>(s0, n + 1, k0 * lanes_b, g, packed,
-                                   nullptr, out, s);
+  int rc = scan_sweep<PACK_ROWS, false>(s0, n + 1, k0 * lanes_b, g, packed,
+                                        nullptr, out, s);
   if (rc != 0) return rc;
   const PackSrc s1{dga, dgb, out + dep_idx * row, nullptr, n, lanes_b};
-  return sweep<PACK_DEP_GATE, false>(s1, n + 1, lanes_b, g, packed, nullptr,
-                                     out + k0 * row, s);
+  return scan_sweep<PACK_DEP_GATE, false>(s1, n + 1, lanes_b, g, packed,
+                                          nullptr, out + k0 * row, s);
 }
 
 // ---------------------------------------------------------------------------

@@ -17,8 +17,11 @@ count (one per call that launched its kernel):
     paper Eq. 2).
 
 Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. All
-three run on ``csrc/ell_gather.cu``, whose note says what bounds them on
-the card and how the two sweeps are ordered; the helpers below bind that
+three run on ``csrc/ell_gather.cu``: the gather on its single-sweep body,
+the two fused scans on its pipelined scan body (persistent blocks, the
+adjacency through a ring of bulk copies into shared memory). Its notes say
+what bounds them on the card and how the two sweeps are ordered; the
+helpers below bind that
 library for every gather wrapper (``ell_relax``, ``ell_key_min`` and
 ``ell_sliced`` too). A tensor on the CPU runs the plain twin in
 ``kernels/ref.py``; a CUDA tensor launches the kernel or raises.
@@ -37,11 +40,11 @@ _SIGNATURES = {
     "ell_gather_lane_tile": ([_I], _I),
     "ell_gather_min_launch": (
         [_P, _LL, _LL, _I, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P], _I),
+    # the fused scans (the pipelined body sets its own launch shape)
     "ell_relax_keys_launch": (
-        [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-        _I),
+        [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P], _I),
     "ell_keys_dep_launch": (
-        [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P], _I),
+        [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _I, _P, _P, _P], _I),
     # the sliced entry points (kernels/ell_sliced.py); after the vectors and
     # sizes: bucket table, bucket count, total rows, merge_ptr, merge_pos,
     # threads, then scratch and outputs
@@ -193,14 +196,13 @@ def ell_relax_keys_batch(dmask, ga, gb, gc, cols, ws):
     keys = torch.empty((k, b, n), dtype=torch.float32, device=dev)
     if upd.numel() == 0:
         return upd, keys
-    d_pad = cols.shape[1]
     packed = packed_scratch(library(), max(b, k * b), n + 1, dev)
     live_bits = live_bits_scratch(n + 1, dev)
     launch("ell_relax_keys_batch", "ell_relax_keys_launch", dev,
            dmask.data_ptr(), ga.data_ptr(), gb.data_ptr(), gc.data_ptr(), n,
-           b, k, cols.data_ptr(), ws.data_ptr(), d_pad,
-           relax_threads_per_row(d_pad), RELAX_THREADS, packed.data_ptr(),
-           live_bits.data_ptr(), upd.data_ptr(), keys.data_ptr())
+           b, k, cols.data_ptr(), ws.data_ptr(), cols.shape[1],
+           packed.data_ptr(), live_bits.data_ptr(), upd.data_ptr(),
+           keys.data_ptr())
     ell_relax_keys_batch.launches += 1
     return upd, keys
 
@@ -247,13 +249,11 @@ def ell_keys_dep_batch(gates, dga, dgb, cols, ws, *, dep_idx: int = 0):
     out = torch.empty((k0 + 1, b, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    d_pad = cols.shape[1]
     packed = packed_scratch(library(), max(k0 * b, b), n + 1, dev)
     launch("ell_keys_dep_batch", "ell_keys_dep_launch", dev,
            gates.data_ptr(), dga.data_ptr(), dgb.data_ptr(), n, b, k0,
-           int(dep_idx), cols.data_ptr(), ws.data_ptr(), d_pad,
-           relax_threads_per_row(d_pad), RELAX_THREADS, packed.data_ptr(),
-           out.data_ptr())
+           int(dep_idx), cols.data_ptr(), ws.data_ptr(), cols.shape[1],
+           packed.data_ptr(), out.data_ptr())
     ell_keys_dep_batch.launches += 1
     return out
 

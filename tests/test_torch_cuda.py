@@ -225,6 +225,98 @@ def test_ell_keys_dep_batch_matches_twin(cuda, k0, dep_idx, b, n, d):
                                                       dep_idx, tc, tw))
 
 
+# The fused scans' pipelined body: widths at, under and over one stage
+# (4096 slots a row are chunked across stages), n off the row tile, odd D
+# (rows and copies off 16-byte boundaries).
+SCAN_SHAPES = [(1000, 8), (999, 40), (2001, 152), (37, 4096), (301, 1000),
+               (500, 5)]
+
+
+def _scan_ell(rng, n, d):
+    """An in-ELL with _build_ell's trailing (n, +inf) padding, rows that are
+    all padding, an interior sentinel followed by real slots, NaN and -inf
+    weights and ids outside [0, n]. Returns it and the twin's form of it:
+    the twin cannot index out of range, and the kernel reads NaN there,
+    which is what a NaN weight on an in-range id gives."""
+    cols = rng.integers(0, n + 1, size=(n, d)).astype(np.int32)
+    ws = rng.uniform(0, 1, size=(n, d)).astype(np.float32)
+    deg = rng.integers(0, d + 1, n)
+    deg[::7] = 0  # rows that are all padding
+    pad = np.arange(d)[None] >= deg[:, None]
+    cols[pad], ws[pad] = n, np.inf
+    real = np.nonzero(deg >= 2)[0]
+    cols[real[:3], 0], ws[real[:3], 0] = n, np.inf  # interior sentinels
+    ws[real[3], 0], ws[real[4], 1] = np.nan, -np.inf
+    cols[real[5], 1], cols[real[6], 0] = -3, n + 5  # ids out of range
+    bad = (cols < 0) | (cols > n)
+    return cols, ws, np.where(bad, 0, cols), np.where(bad, np.nan, ws)
+
+
+def _adjacency(cols, ws, dev):
+    """(cols, ws) on the card; with D odd, as contiguous views that start one
+    row into a larger buffer, so their data starts off a 16-byte boundary."""
+    if cols.shape[1] % 2 == 0:
+        return _t(cols, dev), _t(ws, dev)
+    return tuple(_t(np.concatenate([a[:1], a]), dev)[1:] for a in (cols, ws))
+
+
+@pytest.mark.parametrize("k,b", [(1, 1), (1, 8), (2, 8)])  # 1, 8, 16 lanes
+@pytest.mark.parametrize("n,d", SCAN_SHAPES)
+def test_ell_relax_keys_batch_pipelined_body(cuda, n, d, k, b):
+    rng = np.random.default_rng(n + d + 10 * k + b)
+    cols, ws, twin_cols, twin_ws = _scan_ell(rng, n, d)
+    dm = np.full((b, n), np.inf, np.float32)
+    live = rng.random((b, n)) < 0.03
+    dm[live] = rng.uniform(0, 10, live.sum()).astype(np.float32)
+    dm[0, 1] = np.nan
+    parts = [_t(_dense(rng, (k, b, n), nan=i == 1), cuda) for i in range(3)]
+    vecs = (_t(dm, cuda), *parts)
+    before = ell_relax_keys_batch.launches
+    upd, keys = ell_relax_keys_batch(*vecs, *_adjacency(cols, ws, cuda))
+    assert ell_relax_keys_batch.launches == before + 1
+    w_upd, w_keys = ref.ell_relax_keys_batch_ref(
+        *vecs, _t(twin_cols, cuda), _t(twin_ws, cuda))
+    assert torch.isnan(w_upd).any() and torch.isnan(w_keys).any()
+    assert _same_bits(upd, w_upd) and _same_bits(keys, w_keys)
+
+
+@pytest.mark.parametrize("n,d", [(300_001, 8), (4_500_000, 2)])
+def test_ell_relax_keys_batch_large_n(cuda, n, d):
+    """Many units a block of the persistent grid, and a sparse sweep whose
+    bitmap (37 KB, 562 KB) outgrows what the L1 keeps."""
+    rng = np.random.default_rng(n + d)
+    cols, ws, twin_cols, twin_ws = _scan_ell(rng, n, d)
+    dm = np.full((2, n), np.inf, np.float32)
+    live = rng.random((2, n)) < 0.002
+    dm[live] = rng.uniform(0, 10, live.sum()).astype(np.float32)
+    parts = [_t(_dense(rng, (1, 2, n)), cuda) for _ in range(3)]
+    vecs = (_t(dm, cuda), *parts)
+    upd, keys = ell_relax_keys_batch(*vecs, *_adjacency(cols, ws, cuda))
+    w_upd, w_keys = ref.ell_relax_keys_batch_ref(
+        *vecs, _t(twin_cols, cuda), _t(twin_ws, cuda))
+    assert torch.isfinite(w_upd).any()
+    assert _same_bits(upd, w_upd) and _same_bits(keys, w_keys)
+
+
+@pytest.mark.parametrize("k0,dep_idx,b", [(1, 0, 1), (1, 0, 8), (2, 0, 8),
+                                          (2, 1, 8)])
+@pytest.mark.parametrize("n,d", SCAN_SHAPES)
+def test_ell_keys_dep_batch_pipelined_body(cuda, n, d, k0, dep_idx, b):
+    rng = np.random.default_rng(n + d + 10 * k0 + dep_idx + b)
+    cols, ws, twin_cols, twin_ws = _scan_ell(rng, n, d)
+    gates = _t(_dense(rng, (k0, b, n), nan=True), cuda)
+    dga = _t(_dense(rng, (b, n), nan=True), cuda)
+    dgb = _t(_dense(rng, (b, n)), cuda)
+    before = ell_keys_dep_batch.launches
+    got = ell_keys_dep_batch(gates, dga, dgb, *_adjacency(cols, ws, cuda),
+                             dep_idx=dep_idx)
+    assert ell_keys_dep_batch.launches == before + 1
+    want = ref.ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx,
+                                      _t(twin_cols, cuda), _t(twin_ws, cuda))
+    assert torch.isnan(want).any()
+    assert _same_bits(got, want)
+
+
 @pytest.mark.parametrize("criterion", ["in|out", "insimple|outsimple",
                                        "outweak"])
 def test_dynamic_solve_with_kernels_matches_plain_solve(cuda, criterion):

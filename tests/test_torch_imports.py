@@ -1,6 +1,6 @@
 """Import hygiene of the PyTorch port: no module of ``src/repro_torch/``,
-nor ``chip_smoke.py``, imports ``jax`` or the reference package ``repro``
-(``repro_torch`` itself is allowed)."""
+nor ``chip_smoke.py`` or the port's ``tools/``, imports ``jax`` or the
+reference package ``repro`` (``repro_torch`` itself is allowed)."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
-]
+] + sorted((ROOT / "tools").glob("*.py"))
 BANNED = ("jax", "repro")
 
 

@@ -1,0 +1,268 @@
+#!/usr/bin/env python3
+"""Time variants of the fused scans' pipelined body on one CUDA card.
+
+    python3 tools/scan_variants.py [--variants a,b,...]
+
+Run from the root of a checkout on a machine with an NVIDIA H100 and
+``nvcc``. Builds ``src/repro_torch/kernels/csrc/ell_gather.cu`` once as it
+stands and once per variant (a changed ``#define`` or a small text edit,
+below), every ``nvcc`` at once, into the git-ignored ``build/variants/``.
+Then, on the inputs of phase 100 of the B = 8 ``in|out`` solve on
+G(10^6, 10^-4) (the inputs ``chip_smoke.py`` phase 11 times), it calls each
+library's ``ell_relax_keys_launch`` and ``ell_keys_dep_launch`` directly:
+every variant against the twins bit for bit (the two cuts excepted, which
+leave work out on purpose), CUDA-event medians in two rounds (forward, then
+backward), and each fused call's device time by kernel from
+``torch.profiler``. Last, the shipped build's out-scan on the first 1, 2, 4
+and 8 lanes (a packed table of 4-32 MB). Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+INF = float("inf")
+
+_LOAD = "            load_lanes<WL>(ptile + (long long)cu[u] * W, v[u]);\n"
+_ANCHOR = "// One sweep of the pipelined body: out[l * n_rows + r] for every lane l.\n"
+_ACC = "  int stage = 0;\n  unsigned parity = 0;\n  float acc[WL];\n"
+
+
+def _gather_with(asm_load: str, policy: str = "") -> list:
+    """Text edits that swap the scan's gather for a float4 load in inline
+    PTX (``asm_load`` reads %4 and, with ``policy``, the policy %5)."""
+    helper = (
+        "__device__ __forceinline__ void load4_x(const float* p, float* v, "
+        "unsigned long long pol) {\n"
+        f'  asm volatile("{asm_load}" : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), '
+        '"=f"(v[3]) : "l"(p), "l"(pol));\n}\n'
+        "template <int W>\n"
+        "__device__ __forceinline__ void load_x(const float* p, float* v, "
+        "unsigned long long pol) {\n"
+        "  if constexpr (W < 4) { load_lanes<W>(p, v); }\n"
+        "  else { for (int q = 0; q < W / 4; ++q) load4_x(p + 4 * q, v + 4 * q,"
+        " pol); }\n}\n")
+    make = (f'  unsigned long long pol = 0;\n  asm volatile("{policy}" : '
+            '"=l"(pol));\n') if policy else "  unsigned long long pol = 0;\n"
+    return [(_ANCHOR, helper + _ANCHOR), (_ACC, _ACC + make),
+            (_LOAD, _LOAD.replace("load_lanes<WL>(", "load_x<WL>(")
+             .replace("v[u]);", "v[u], pol);"))]
+
+
+# the sparse sweep with one thread a slot (its gathers are few, its checks
+# many)
+_SKIP_H1 = [("  constexpr int H = W > 4 ? W / 4 : 1;\n",
+             "  constexpr int H = W > 4 && !SKIP ? W / 4 : 1;\n"),
+            ("  g.tpr = W > 4 ? W / 4 : 1;",
+             "  g.tpr = W > 4 && !SKIP ? W / 4 : 1;")]
+
+# name -> ({macro: value}, [(old text, new text)], bits must equal the twin)
+VARIANTS = {
+    "shipped": ({}, [], True),
+    "stages3": ({"SCAN_STAGES": 3}, [], True),
+    "blocks3": ({"SCAN_BLOCKS_PER_SM": 3}, [], True),
+    "cap2560_blocks3": ({"SCAN_CAP": 2560, "SCAN_BLOCKS_PER_SM": 3}, [], True),
+    "unroll4": ({"SCAN_UNROLL": 4}, [], True),
+    "skip_warps8": ({"SCAN_SKIP_WARPS": 8}, [], True),
+    "skip_h1": ({}, _SKIP_H1, True),
+    "skip_h1_warps8": ({"SCAN_SKIP_WARPS": 8}, _SKIP_H1, True),
+    "skip_h1_warps12": ({"SCAN_SKIP_WARPS": 12}, _SKIP_H1, True),
+    "skip_bits_global": ({}, [
+        ("  if (SKIP && (long long)smem + 4 * words <= smem_max) {\n",
+         "  if (false) {\n")], True),
+    "no_evict_first": ({}, [
+        ('".L2::cache_hint [%0], [%1], %2, [%3], %4;"',
+         '" [%0], [%1], %2, [%3];"'),
+        (', "r"(bar), "l"(policy)\n', ', "r"(bar)\n')], True),
+    "gather_cg": ({}, _gather_with(
+        "ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];"), True),
+    "gather_no_allocate": ({}, _gather_with(
+        "ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"), True),
+    "gather_evict_last": ({}, _gather_with(
+        "ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;",
+        "createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"), True),
+    # cuts: the ring alone (consumers skip their rows), and the ring with
+    # the shared-memory reads and bitmap checks but no gathers
+    "cut_ring_only": ({}, [("    if (row_l < nr) {\n", "    if (false) {\n")],
+                      False),
+    "cut_no_gather": ({}, [("          if (take && valid) {\n",
+                            "          if (false) {\n")], False),
+}
+
+
+def variant_source(src: str, defines: dict, edits: list) -> str:
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise SystemExit(f"variant edit does not apply: {old!r}")
+        src = src.replace(old, new)
+    for name, value in defines.items():
+        src, count = re.subn(rf"#define {name} \S+", f"#define {name} {value}",
+                             src)
+        if count != 1:
+            raise SystemExit(f"no #define {name} in ell_gather.cu")
+    return src
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--variants", default=",".join(VARIANTS))
+    args = parser.parse_args()
+    names = args.variants.split(",")
+    if not torch.cuda.is_available():
+        print("scan_variants: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import criteria as C
+    from repro_torch.core import to_ell_in, to_ell_out
+    from repro_torch.core.static_engine import init_batch_state, step_batch
+    from repro_torch.graphs import uniform_gnp
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ell_relax_keys as erk
+    from repro_torch.kernels.ell_relax_keys import ell_keys_dep_batch
+    from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import ptxas_summary, same_bits, time_ms
+
+    src = (_build.CSRC / "ell_gather.cu").read_text()
+    out_dir = ROOT / "build" / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        defines, edits, _ = VARIANTS[name]
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(variant_source(src, defines, edits))
+        so = out_dir / f"{name}.so"
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name}:\n{text[-4000:]}")
+        for fn, info in ptxas_summary(text):
+            if fn.startswith("void scan_kernel<8"):
+                print(f"[{name}] ptxas {fn}: {info}")
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in erk._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[name] = lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    dev = torch.device("cuda", 0)
+    g = uniform_gnp(1_000_000, 1e-4, seed=0, device=dev)
+    cols, ws = to_ell_in(g)
+    cols_o, ws_o = to_ell_out(g)
+    sources = np.random.default_rng(1).integers(0, g.n, 16)[:8]
+    spec = {k.name: k for k in C.plan_for("insimple|in|outweak|out").keys}
+    st = init_batch_state(g, sources, criterion="in|out", device=dev)
+    st = step_batch(g, st, 100, ell=(cols, ws), ell_out=(cols_o, ws_o))
+    d, status = st.dist, st.status
+    g_od = C.key_gate(spec["out_dyn"], status, g.in_min_static,
+                      g.out_min_static, {})[None].contiguous()
+    dga, dgb = C.dep_gate_parts(spec["out_full"], status)
+    keys = ell_keys_dep_batch(g_od, dga, dgb, cols_o, ws_o)
+    mins, _ = frontier_crit_lanes_batch(d, status, keys[1][None].contiguous())
+    settle = C.plan_union_mask(
+        st.plan, d, status == 1, mins,
+        {"in_full": st.crit_keys[0], "out_dyn": keys[0], "out_full": keys[1]},
+        g.in_min_static, None)
+    dmask = torch.where(settle, d, INF)
+    ga, gb, gc = (p[None].contiguous() for p in C.in_scan_gate_parts(
+        spec["in_full"], status, settle, g.in_min_static[None]))
+    n, b = g.n, dmask.shape[0]
+    w_upd, w_keys = ref.ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws)
+    w_dep = ref.ell_keys_dep_batch_ref(g_od, dga, dgb, 0, cols_o, ws_o)
+    print(f"inputs: phase {int(st.trips)} of the in|out B={b} solve, "
+          f"{int(settle.sum())} settled")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def relax_keys(lib):
+        upd = torch.empty((b, n), device=dev)
+        k = torch.empty((1, b, n), device=dev)
+        packed = erk.packed_scratch(lib, b, n + 1, dev)
+        live = erk.live_bits_scratch(n + 1, dev)
+
+        def call():
+            rc = lib.ell_relax_keys_launch(
+                dmask.data_ptr(), ga.data_ptr(), gb.data_ptr(), gc.data_ptr(),
+                n, b, 1, cols.data_ptr(), ws.data_ptr(), cols.shape[1],
+                packed.data_ptr(), live.data_ptr(), upd.data_ptr(),
+                k.data_ptr(), stream())
+            if rc != 0:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+        return call, lambda: same_bits(upd, w_upd) and same_bits(k, w_keys)
+
+    def keys_dep(lib, lanes=b):
+        gates = g_od[:, :lanes].contiguous()
+        da, db = dga[:lanes].contiguous(), dgb[:lanes].contiguous()
+        out = torch.empty((2, lanes, n), device=dev)
+        packed = erk.packed_scratch(lib, lanes, n + 1, dev)
+
+        def call():
+            rc = lib.ell_keys_dep_launch(
+                gates.data_ptr(), da.data_ptr(), db.data_ptr(), n, lanes, 1, 0,
+                cols_o.data_ptr(), ws_o.data_ptr(), cols_o.shape[1],
+                packed.data_ptr(), out.data_ptr(), stream())
+            if rc != 0:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+        return call, lambda: same_bits(out, w_dep)
+
+    for rnd, order in enumerate((names, names[::-1])):
+        for name in order:
+            row = []
+            for label, (call, ok) in (("relax_keys", relax_keys(libs[name])),
+                                      ("keys_dep", keys_dep(libs[name]))):
+                call()
+                torch.cuda.synchronize()
+                same = ok()
+                if VARIANTS[name][2] and not same:
+                    raise SystemExit(f"{name} {label} differs from its twin")
+                row.append(f"{label} {time_ms(call, reps=20):.4f} ms "
+                           f"({'bits equal' if same else 'bits differ: a cut'})")
+            print(f"[{name}] round {rnd}: " + ", ".join(row))
+    for name in names:
+        for label, (call, _) in (("relax_keys", relax_keys(libs[name])),
+                                 ("keys_dep", keys_dep(libs[name]))):
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            parts = [(e.key.split("(")[0], e.device_time_total / 5e3)
+                     for e in prof.key_averages() if e.device_time_total > 0]
+            print(f"[{name}] {label} device ms a call: "
+                  + "; ".join(f"{k} {t:.4f}" for k, t in parts)
+                  + f"; sum {sum(t for _, t in parts):.4f}")
+    if "shipped" in libs:
+        for lanes in (1, 2, 4, 8):
+            call, _ = keys_dep(libs["shipped"], lanes)
+            print(f"[shipped] keys_dep on {lanes} lanes (packed table "
+                  f"{lanes * 4 * (n + 1) / 1e6:.0f} MB): "
+                  f"{time_ms(call, reps=20):.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
