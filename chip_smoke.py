@@ -10,21 +10,27 @@ failure raises, exits non-zero and prints no ``ok`` line:
   1. device and build: the card's name, count and power limit; builds every
      CUDA kernel of the path from ``src/repro_torch/kernels/csrc``;
   2. kernel parity at full width: the paper's G(n=10^6, p=10^-4) graph
-     (~10^8 arcs) and its incoming ELL on the card; each kernel against its
-     plain PyTorch twin on seeded inputs, compared bit for bit (every NaN
-     counts as one value: IEEE leaves NaN payloads open);
+     (~10^8 arcs) and its incoming and outgoing ELL on the card; each kernel
+     against its plain PyTorch twin on seeded inputs, compared bit for bit
+     (every NaN counts as one value: IEEE leaves NaN payloads open); the
+     push relax also against the pull (B = 1, 8, 13, 40, NaN lanes, a dense
+     dmask, grid_road);
   3. the main path, serving: a StaticBackend with 8 lanes answers 16
      requests (reset_lanes -> step -> peek -> take_row), with every
-     kernel's launch count set to 0 just before and read just after;
+     kernel's launch count set to 0 just before and read just after: the
+     relax is the push, no pull relax runs;
   4. end-to-end parity: run_phased_static_batch with the kernels and with
      use_kernels=False give bit-equal results;
   5. an independent check of one row against scipy's Dijkstra (f64, host);
   6. kernel times at the main shape, on the inputs of one real phase of
      the B = 8 solve (CUDA events, median per launch), beside the twin's
-     time and the least time the card could take for that input;
-  7. the dynamic-key kernels at full width: the outgoing ELL on the card,
-     then each key kernel against its twin on dense seeded key gates, bit
-     for bit;
+     time and the least time the card could take for that input (the
+     relax's bound counts the settled vertices' out-rows, dmask and upd);
+     push and pull on the same inputs in turns, the push's candidates and
+     atomics; then every phase of the default solve: active rows, push and
+     pull times, and the densest phase timed in turns;
+  7. the dynamic-key kernels at full width: each key kernel against its
+     twin on dense seeded key gates, bit for bit;
   8. the paper's strengthened ``in|out`` criterion, serving: a StaticBackend
      with 8 lanes answers 16 requests, counts set to 0 just before;
   9. ``in|out`` end to end: the B = 8 solve with the kernels and with
@@ -41,19 +47,22 @@ failure raises, exits non-zero and prints no ``ok`` line:
  12. the skewed graph: ``kronecker(20)`` (Graph500 initiator, ~9.1e7 arcs,
      largest in-degree ~3.8e5, so no padded layout fits) and its degree-sliced
      in- and out-views on the card, with their sizes;
- 13. the three sliced kernels against their twins at full width, bit for bit
+ 13. the sliced kernels against their twins at full width, bit for bit
      (sparse dmask with the skip on, dense V = 2 gates, K = 1 and 2,
-     dep_idx 0 and 1, NaN cases);
+     dep_idx 0 and 1, NaN cases); the sliced push along the out-view
+     against its twin and the sliced pull (B = 1, 8, 13, 40, NaN lanes);
  14. sliced serving: a StaticBackend(layout="sliced") with 8 lanes answers 16
      requests under ``instatic|outstatic``, then ``in|out``, counts set to 0
-     just before: the sliced kernels run, the padded gathers do not;
+     just before: the sliced kernels run (the sliced push on the default
+     plan), the padded ones do not;
  15. sliced end to end: on kronecker(20) the B = 8 kernel and plain solves
      bit-equal for both plans, the served rows equal, one row against
      scipy's Dijkstra; on G(10^6, 10^-4) layout="sliced" bit-equal to the
      padded solves of phases 4 and 9;
- 16. the sliced kernels' times on the inputs of one real phase, and
-     ms/phase, phases per query and queries/s of the sliced solves and
-     serving.
+ 16. the sliced kernels' times on the inputs of one real phase (the sliced
+     push and pull in turns), every phase of the sliced default solve as in
+     phase 6, and ms/phase, phases per query and queries/s of the sliced
+     solves and serving.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -173,6 +182,39 @@ def device_split(fn, calls: int = 5) -> list[tuple[str, float]]:
             for e in prof.key_averages() if e.device_time_total > 0]
 
 
+def repeat_wall(fn, first: float, runs: int = 3) -> list:
+    """Wall seconds of ``runs`` calls of ``fn``, each ended by a
+    synchronize: ``first`` (a call already made) and ``runs - 1`` more."""
+    import torch
+
+    walls = [first]
+    for _ in range(runs - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def busy_line(fn, wall_s: float, phases: int) -> str:
+    """The device time of one call of ``fn`` (its kernels summed, from
+    ``torch.profiler``) against a wall time: the device's busy share, and
+    the time a phase by kernel, PyTorch's own kernels (the phase glue)
+    summed apart (with the copies and memsets)."""
+    parts = device_split(fn, calls=1)
+    dev_ms = sum(t for _, t in parts)
+    ours = ("push_kernel", "push_mark_kernel", "crit_", "gather_min_kernel",
+            "scan_kernel", "pack_kernel", "merge_kernel")
+    glue = [(k, t) for k, t in parts if not any(o in k for o in ours)]
+    ours = sorted((p for p in parts if p not in glue), key=lambda p: -p[1])
+    split = "; ".join(f"{k} {t / phases:.4f}" for k, t in ours)
+    return (f"device busy {dev_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall "
+            f"({dev_ms / (wall_s * 1e3):.1%}; {dev_ms / phases:.3f} ms a "
+            f"phase on the device: {split}; PyTorch's kernels (the glue, "
+            f"{len(glue)} kinds) {sum(t for _, t in glue) / phases:.4f})")
+
+
 def finite_slots(rows, cols_long) -> int:
     """Lane-slots ``rows[l, cols[r, j]]`` that are finite, over every lane:
     the adds and mins the data needs (a NaN or +inf slot needs none)."""
@@ -180,6 +222,37 @@ def finite_slots(rows, cols_long) -> int:
 
     return int(sum(torch.isfinite(rows[i][cols_long]).sum()
                    for i in range(rows.shape[0])))
+
+
+def push_load(dmask, out_deg) -> tuple[int, int, int]:
+    """(active rows, candidates, bytes of their out-rows) of one relax
+    input: the vertices u whose dmask is not +inf in some lane, their
+    out-edges times those lanes, and 8 bytes a real out-slot of theirs
+    (rows are left-packed, so a row's real slots are its out-degree)."""
+    lanes = (dmask != float("inf")).sum(dim=0)
+    deg = out_deg.long()
+    return (int((lanes > 0).sum()), int((lanes * deg).sum()),
+            int(8 * deg[lanes > 0].sum()))
+
+
+def relax_bound(dmask, out_deg) -> tuple[float, str]:
+    """The least time of the relax on this input, push or pull (the same
+    function): the settled vertices' out-rows, dmask read and upd written
+    once, an add and a min a candidate."""
+    _, cand, row_bytes = push_load(dmask, out_deg)
+    return bound(row_bytes + 2 * dmask.numel() * 4, 2.0 * cand)
+
+
+def seeded_push_dmask(rng, b: int, n: int, live: float, dev):
+    """(B, n) relax input: d on a share ``live`` of the slots, +inf
+    elsewhere, and a NaN in every lane."""
+    import torch
+
+    dm = np.full((b, n), np.inf, np.float32)
+    on = rng.random((b, n)) < live
+    dm[on] = rng.uniform(0.0, 10.0, on.sum()).astype(np.float32)
+    dm[np.arange(b), rng.integers(0, n, b)] = np.nan
+    return torch.from_numpy(dm).to(dev)
 
 
 def seeded_state(rng, b: int, n: int, dev):
@@ -217,7 +290,11 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
-    from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
+    from repro_torch.kernels.ell_relax import (
+        ell_push_relax_batch,
+        ell_relax,
+        ell_relax_batch,
+    )
     from repro_torch.kernels.ell_relax_keys import (
         ell_gather_min_batch,
         ell_keys_dep_batch,
@@ -226,6 +303,7 @@ def main() -> int:
     from repro_torch.kernels.ell_sliced import (
         ell_sliced_gather_min_batch,
         ell_sliced_keys_dep_batch,
+        ell_sliced_push_relax_batch,
         ell_sliced_relax_keys_batch,
     )
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
@@ -235,7 +313,8 @@ def main() -> int:
         ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
         ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch,
         ell_sliced_gather_min_batch, ell_sliced_relax_keys_batch,
-        ell_sliced_keys_dep_batch)}
+        ell_sliced_keys_dep_batch, ell_push_relax_batch,
+        ell_sliced_push_relax_batch)}
 
     def zero_counts():
         for f in counted.values():
@@ -313,6 +392,13 @@ def main() -> int:
     log(f"graph: G(n={N}, p={P}) seed {SEED}: n={g.n}, m={g.m}, D={d_pad}, "
         f"ELL {ell_bytes / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cols_o, ws_o = to_ell_out(g)  # the default plan's relax pushes along it
+    torch.cuda.synchronize()
+    ell_out_bytes = cols_o.numel() * 4 + ws_o.numel() * 4
+    log(f"out-ELL: D_out={cols_o.shape[1]}, {ell_out_bytes / 1e9:.3f} GB, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    out_deg = out_degrees(g)
     gr = grid_road(1024, 1024, seed=0, device=dev)
     cols_r, ws_r = to_ell_in(gr)
     log(f"graph: grid_road seed 0: n={gr.n}, D={cols_r.shape[1]}")
@@ -364,6 +450,43 @@ def main() -> int:
     if not same_bits(got, want):
         raise SystemExit("ell_relax (the B = 1 view) disagrees with its twin")
     log("parity ell_relax [gnp 1-D view]: bits equal")
+
+    def check_push(name, label, dm, out_view, pull, deg):
+        """The push against its twin and against the pull on one input;
+        ``deg`` is the graph's out-degrees."""
+        push = (ell_push_relax_batch(dm, *out_view) if name ==
+                "ell_push_relax_batch"
+                else ell_sliced_push_relax_batch(dm, out_view))
+        twin = ref.ell_push_relax_batch_ref(dm, out_view)
+        torch.cuda.synchronize()
+        ok_twin, ok_pull = same_bits(push, twin), same_bits(push, pull)
+        errs[name] = max(errs.get(name, 0.0), max_abs_err(push, twin))
+        active, cand, _ = push_load(dm, deg)
+        log(f"parity {name} [{label}]: twin "
+            f"{'bits equal' if ok_twin else 'DIFFER'}, pull "
+            f"{'bits equal' if ok_pull else 'DIFFER'} ({active} active rows, "
+            f"{cand} candidates, NaN out: {int(torch.isnan(push).sum())})")
+        if not (ok_twin and ok_pull):
+            raise SystemExit(f"{name} disagrees with its twin or the pull: "
+                             f"{label}")
+
+    pad = kops.pad_lane_batch
+    prng = np.random.default_rng(15)
+    dm8u = torch.where(st8 == 1, d8, INF)  # a third of the slots finite
+    push_cases = {
+        "gnp B=8, a third of dmask finite (dense)": dm8u,
+        "gnp B=1": dm8u[:1].contiguous(),
+        "gnp B=13 NaN lanes": seeded_push_dmask(prng, 13, n, 0.003, dev),
+        "gnp B=40 NaN lanes": seeded_push_dmask(prng, 40, n, 0.001, dev),
+    }
+    for label, dm in push_cases.items():
+        check_push("ell_push_relax_batch", label, dm, (cols_o, ws_o),
+                   ell_relax_batch(pad(dm), cols, ws), out_deg)
+    dm13u = torch.where(st13 == 1, d13, INF)
+    check_push("ell_push_relax_batch", "grid_road B=13", dm13u,
+               to_ell_out(gr), ell_relax_batch(pad(dm13u), cols_r, ws_r),
+               out_degrees(gr))
+    del push_cases, dm13u
     for label, (d, st, k) in crit_cases.items():
         mins, cnt = frontier_crit_lanes_batch(d, st, k)
         w_mins, w_cnt = ref.frontier_crit_lanes_batch_ref(d, st, k)
@@ -387,9 +510,14 @@ def main() -> int:
         f"{trips} trips; phases per request "
         f"{[req_phases[r] for r in range(REQUESTS)]}")
     log(f"serving launches: {launches}")
-    for name in ("ell_relax_batch", "frontier_crit_lanes_batch"):
+    for name in ("ell_push_relax_batch", "frontier_crit_lanes_batch"):
         if launches[name] <= 0:
             raise SystemExit(f"the main path never launched {name}")
+    pulled = {nm: launches[nm] for nm in ("ell_relax_batch",
+                                          "ell_sliced_gather_min_batch",
+                                          "ell_sliced_push_relax_batch")}
+    if any(pulled.values()):
+        raise SystemExit(f"the main path launched another relax: {pulled}")
 
     # ---- 4. end-to-end parity on the card --------------------------------
     src8 = sources[:LANES]
@@ -410,10 +538,18 @@ def main() -> int:
         if not np.array_equal(getattr(res_k, field), getattr(res_p, field)):
             raise SystemExit(f"kernel and plain solves differ in {field}")
     total = int(res_k.total_phases)
-    log(f"e2e: B={LANES} solve with kernels {solve_s:.3f} s "
+
+    def solve_default():
+        return run_phased_static_batch(g, src8, ell=(cols, ws), device=dev)
+
+    walls = repeat_wall(solve_default, solve_s)
+    solve_s = float(np.median(walls))
+    log(f"e2e: B={LANES} solve with kernels, 3 runs "
+        + ", ".join(f"{w:.3f}" for w in walls) + f" s, median {solve_s:.3f} s "
         f"({LANES / solve_s:.2f} queries/s, {total} phases, "
         f"{solve_s / total * 1e3:.3f} ms/phase); plain twins {plain_s:.3f} s; "
         f"every BatchedResult field bit-equal")
+    log(f"e2e: {busy_line(solve_default, solve_s, total)}")
     log(f"e2e: phases per row {res_k.phases.tolist()}, sum_fringe "
         f"{res_k.sum_fringe.tolist()}, relax_edges {res_k.relax_edges.tolist()}")
     dist_k = res_k.dist.cpu().numpy()
@@ -468,10 +604,111 @@ def main() -> int:
     log(f"timing inputs: phase {int(st_mid.trips)} of the B={LANES} solve: "
         f"{int(settle_mid.sum())} settled, {fringe_mid} on the fringe, "
         f"{live_slots} of {LANES * n * d_pad} lane-slots finite")
-    out_ms_r = time_ms(lambda: ell_relax_batch(dmask_mid, cols, ws), reps=20)
+    # the relax, push and pull, on the same input in turns
+    dm_mid = torch.where(settle_mid, d_mid, INF)  # the push's (B, n) input
+    check_push("ell_push_relax_batch", f"phase {MID_PHASE} input", dm_mid,
+               (cols_o, ws_o), ell_relax_batch(dmask_mid, cols, ws), out_deg)
+    push_stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    ell_push_relax_batch(dm_mid, cols_o, ws_o, stats=push_stats)
+    active_mid, cand_mid, rows_mid = push_load(dm_mid, out_deg)
+    relax_turns = [
+        time_ms(lambda: ell_relax_batch(dmask_mid, cols, ws), reps=20),
+        time_ms(lambda: ell_push_relax_batch(dm_mid, cols_o, ws_o), reps=20),
+        time_ms(lambda: ell_push_relax_batch(dm_mid, cols_o, ws_o), reps=20),
+        time_ms(lambda: ell_relax_batch(dmask_mid, cols, ws), reps=20),
+    ]
+    out_ms_r = (relax_turns[0] + relax_turns[3]) / 2
+    push_ms = (relax_turns[1] + relax_turns[2]) / 2
     plain_ms_r = time_ms(
         lambda: ref.ell_relax_batch_ref(dmask_mid, cols, ws), reps=5,
         warmup=1)
+    push_plain_ms = time_ms(
+        lambda: ref.ell_push_relax_batch_ref(dm_mid, (cols_o, ws_o)), reps=5,
+        warmup=1)
+    b_r, by_r = relax_bound(dm_mid, out_deg)
+    stream_b_r, _ = bound(ell_bytes + dmask_mid.numel() * 4 + LANES * n * 4,
+                          2.0 * live_slots)
+    log(f"relax at phase {MID_PHASE}: {active_mid} active rows "
+        f"({active_mid / n:.2%} of the vertices), {cand_mid} candidates, "
+        f"{push_stats[1].item()} atomics issued (the kernel's count of "
+        f"candidates: {push_stats[0].item()}), out-rows "
+        f"{rows_mid / 1e6:.1f} MB")
+    log(f"relax at phase {MID_PHASE}, in turns (pull, push, push, pull): "
+        + ", ".join(f"{t:.4f}" for t in relax_turns) + f" ms; push "
+        f"{push_ms:.4f} ms, pull {out_ms_r:.4f} ms; bound (settled out-rows "
+        f"+ dmask + upd) {b_r:.4f} ms ({by_r}), the pull's stream of the "
+        f"whole in-ELL {stream_b_r:.4f} ms; plain push twin "
+        f"{push_plain_ms:.4f} ms, plain pull twin {plain_ms_r:.4f} ms")
+
+    def phase_profile(graph, srcs, ell_in, ell_out, push, pull, pull_prep,
+                      deg, label):
+        """Every phase of the B = 8 default solve on ``graph``: its relax
+        input rebuilt from two consecutive states (d before the phase where
+        the phase settled: a phase sets status 2 exactly on its settle
+        mask), its active rows and candidates, and one launch of the push
+        and of the pull on it, timed by CUDA events in alternating order.
+        Returns the densest phase's input and trip."""
+        st = init_batch_state(graph, srcs, device=dev)
+        act_rows, push_t, pull_t, lost = [], [], [], []
+        densest, dense_cand, dense_trip = None, -1, 0
+        while True:
+            nxt = step_batch(graph, st, 1, ell=ell_in, ell_out=ell_out)
+            if int(nxt.trips) == int(st.trips):
+                break
+            dm = torch.where((nxt.status == 2) & (st.status != 2), st.dist,
+                             INF)
+            active, cand, _ = push_load(dm, deg)
+            prepped = pull_prep(dm)
+            order = [("push", push, dm), ("pull", pull, prepped)]
+            if len(act_rows) % 2:
+                order.reverse()
+            t = {}
+            for nm, fn, arg in order:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(arg)
+                e1.record()
+                e1.synchronize()
+                t[nm] = e0.elapsed_time(e1)
+            act_rows.append(active)
+            push_t.append(t["push"])
+            pull_t.append(t["pull"])
+            if t["push"] >= t["pull"]:
+                lost.append((int(nxt.trips), active, t["push"], t["pull"]))
+            if cand > dense_cand:
+                densest, dense_cand, dense_trip = dm, cand, int(nxt.trips)
+            st = nxt
+        rows = np.array(act_rows)
+        log(f"{label}: {len(rows)} phases; active rows per phase median "
+            f"{int(np.median(rows))}, max {int(rows.max())} (phase "
+            f"{int(rows.argmax()) + 1}), mean {rows.mean():.1f}; one launch "
+            f"a phase: push {np.sum(push_t):.3f} ms in all (max "
+            f"{np.max(push_t):.4f}), pull {np.sum(pull_t):.3f} ms in all; the "
+            f"push was no faster than the pull in {len(lost)} phases"
+            + (": " + "; ".join(f"phase {p} ({a} rows) {x:.4f} vs {y:.4f} ms"
+                                for p, a, x, y in lost[:8]) if lost else ""))
+        log(f"{label}: densest phase {dense_trip} ({dense_cand} candidates)")
+        return densest, dense_trip, rows
+
+    dense_dm, dense_trip, act_rows_g = phase_profile(
+        g, src8, (cols, ws), (cols_o, ws_o),
+        lambda dm: ell_push_relax_batch(dm, cols_o, ws_o),
+        lambda dm: ell_relax_batch(dm, cols, ws), pad, out_deg,
+        f"relax profile G(n={N}, p={P}), instatic|outstatic")
+    dense_pad = pad(dense_dm)
+    dense_turns = [
+        time_ms(lambda: ell_relax_batch(dense_pad, cols, ws), reps=10),
+        time_ms(lambda: ell_push_relax_batch(dense_dm, cols_o, ws_o), reps=10),
+        time_ms(lambda: ell_push_relax_batch(dense_dm, cols_o, ws_o), reps=10),
+        time_ms(lambda: ell_relax_batch(dense_pad, cols, ws), reps=10),
+    ]
+    d_act, d_cand, _ = push_load(dense_dm, out_deg)
+    log(f"relax at the densest phase {dense_trip} ({d_act} active rows, "
+        f"{d_cand} candidates), in turns (pull, push, push, pull): "
+        + ", ".join(f"{t:.4f}" for t in dense_turns) + f" ms; bound "
+        f"{relax_bound(dense_dm, out_deg)[0]:.4f} ms")
+    del dense_dm, dense_pad
     out_ms_c = time_ms(
         lambda: frontier_crit_lanes_batch(d_mid, s_mid, keys_shared), reps=50)
     plain_ms_c = time_ms(
@@ -482,8 +719,8 @@ def main() -> int:
     view_plain_ms = time_ms(lambda: ref.ell_relax_ref(view, cols, ws),
                             reps=5, warmup=1)
     dense_ms = time_ms(lambda: ell_relax_batch(dmask8, cols, ws), reps=20)
-    b_r, by_r = bound(ell_bytes + dmask_mid.numel() * 4 + LANES * n * 4,
-                      2.0 * live_slots)
+    dense_push_ms = time_ms(lambda: ell_push_relax_batch(dm8u, cols_o, ws_o),
+                            reps=10)
     b_c, by_c = bound(
         d_mid.numel() * 4 + s_mid.numel() * 4 + keys_shared.numel() * 4
         + 2 * LANES * 4 + LANES * 4,
@@ -492,17 +729,12 @@ def main() -> int:
     log(f"ell_relax (B = 1 view, lane 0 of the timing inputs, not on the "
         f"main path): {view_ms:.4f} ms, plain {view_plain_ms:.4f} ms, bound "
         f"{b_v:.4f} ms")
-    log(f"ell_relax_batch on the seeded parity input (a third of dmask "
-        f"finite): {dense_ms:.4f} ms")
-    del st_mid, dmask_mid, settle_mid, d_mid, s_mid
+    log(f"relax on the seeded parity input (a third of dmask finite, "
+        f"{push_load(dm8u, out_deg)[0]} active rows): pull {dense_ms:.4f} ms, "
+        f"push {dense_push_ms:.4f} ms")
+    del st_mid, dmask_mid, settle_mid, d_mid, s_mid, dm8u, dm_mid
 
     # ---- 7. the dynamic-key kernels at full width ------------------------
-    t0 = time.perf_counter()
-    cols_o, ws_o = to_ell_out(g)
-    torch.cuda.synchronize()
-    ell_out_bytes = cols_o.numel() * 4 + ws_o.numel() * 4
-    log(f"out-ELL: D_out={cols_o.shape[1]}, {ell_out_bytes / 1e9:.3f} GB, "
-        f"built in {time.perf_counter() - t0:.1f} s")
     spec = {k.name: k for k in C.plan_for("insimple|in|outweak|out").keys}
 
     def gate(name, status, graph=g):
@@ -605,7 +837,16 @@ def main() -> int:
             raise SystemExit(f"in|out kernel and plain solves differ in {field}")
     del res_io_p
     total_io = int(res_io.total_phases)
-    log(f"in|out e2e: B={LANES} solve with kernels {solve_io_s:.3f} s "
+
+    def solve_io():
+        return run_phased_static_batch(g, src8, **io_kw)
+
+    walls_io = repeat_wall(solve_io, solve_io_s)
+    solve_io_s = float(np.median(walls_io))
+    log(f"in|out e2e: {busy_line(solve_io, solve_io_s, total_io)}")
+    log(f"in|out e2e: B={LANES} solve with kernels, 3 runs "
+        + ", ".join(f"{w:.3f}" for w in walls_io) + f" s, median "
+        f"{solve_io_s:.3f} s "
         f"({LANES / solve_io_s:.2f} queries/s, {total_io} phases, "
         f"{solve_io_s / total_io * 1e3:.3f} ms/phase); plain twins "
         f"{plain_io_s:.3f} s; every BatchedResult field bit-equal")
@@ -825,6 +1066,19 @@ def main() -> int:
               ell_sliced_gather_min_batch(vecs, view, sparse=sparse),
               ref.ell_sliced_gather_min_batch_ref(vecs, view))
     del dmask_k_nan
+    out_deg_k = out_degrees(gk)
+    for label, dm in {
+        "out-view B=8 sparse dmask": dmask_k[0],
+        "out-view B=1 NaN lane": seeded_push_dmask(prng, 1, nk, 0.01, dev),
+        "out-view B=8 NaN lanes": seeded_push_dmask(prng, 8, nk, 0.01, dev),
+        "out-view B=13 NaN lanes": seeded_push_dmask(prng, 13, nk, 0.003,
+                                                     dev),
+        "out-view B=40 NaN lanes": seeded_push_dmask(prng, 40, nk, 0.001,
+                                                     dev),
+    }.items():
+        check_push("ell_sliced_push_relax_batch", label, dm, sl_out,
+                   ell_sliced_gather_min_batch(dm[None], sl_in,
+                                               sparse=True)[0], out_deg_k)
     kparts = [C.in_scan_gate_parts(kspec[nm], stk, settle_k,
                                    gk.in_min_static[None])
               for nm in ("in_full", "in_dyn")]
@@ -859,12 +1113,18 @@ def main() -> int:
     src_k = np.random.default_rng(2).choice(has_out, REQUESTS)
     padded_gathers = ("ell_relax_batch", "ell_key_min_batch",
                       "ell_gather_min_batch", "ell_relax_keys_batch",
-                      "ell_keys_dep_batch")
+                      "ell_keys_dep_batch", "ell_push_relax_batch")
     served_k, sliced_serve = {}, {}
-    for crit, must in (("instatic|outstatic", ("ell_sliced_gather_min_batch",)),
-                       ("in|out", ("ell_sliced_gather_min_batch",
-                                   "ell_sliced_relax_keys_batch",
-                                   "ell_sliced_keys_dep_batch"))):
+    # the default plan relaxes by the sliced push and runs no sliced gather;
+    # in|out relaxes in the fused in-scan and pushes nothing
+    for crit, must, never in (
+            ("instatic|outstatic", ("ell_sliced_push_relax_batch",),
+             ("ell_sliced_gather_min_batch", "ell_sliced_relax_keys_batch",
+              "ell_sliced_keys_dep_batch")),
+            ("in|out", ("ell_sliced_gather_min_batch",
+                        "ell_sliced_relax_keys_batch",
+                        "ell_sliced_keys_dep_batch"),
+             ("ell_sliced_push_relax_batch",))):
         rows_s, ph_s, l_s, s_s, steps_s, trips_s = serve(
             StaticBackend(gk, criterion=crit, layout="sliced", device=dev),
             src_k)
@@ -879,7 +1139,9 @@ def main() -> int:
             if l_s[name] <= 0:
                 raise SystemExit(f"sliced {crit} serving never launched {name}")
         if any(l_s[name] for name in padded_gathers):
-            raise SystemExit(f"sliced {crit} serving launched a padded gather")
+            raise SystemExit(f"sliced {crit} serving launched a padded kernel")
+        if any(l_s[name] for name in never):
+            raise SystemExit(f"sliced {crit} serving launched one of {never}")
 
     # ---- 15. end-to-end parity on the sliced layout -------------------------
     src8_k = src_k[:LANES]
@@ -930,9 +1192,18 @@ def main() -> int:
         rel = np.abs(got[fin_k] - want_k[fin_k]) / np.maximum(want_k[fin_k],
                                                               1e-30)
         total_s = int(res_s.total_phases)
+
+        def solve_sliced(kw=kw):
+            return run_phased_static_batch(gk, src8_k, **kw)
+
+        walls_s = repeat_wall(solve_sliced, solve_s)
+        solve_s = float(np.median(walls_s))
         sliced_solve[crit] = (solve_s, total_s, res_s.phases.tolist())
+        log(f"sliced e2e {crit}: "
+            f"{busy_line(solve_sliced, solve_s, total_s)}")
         log(f"sliced e2e {crit} on kronecker({KRON_K}): B={LANES} solve with "
-            f"kernels {solve_s:.3f} s ({LANES / solve_s:.2f} queries/s, "
+            f"kernels, 3 runs " + ", ".join(f"{w:.3f}" for w in walls_s)
+            + f" s, median {solve_s:.3f} s ({LANES / solve_s:.2f} queries/s, "
             f"{total_s} phases, {solve_s / total_s * 1e3:.3f} ms/phase; phases "
             f"per row {res_s.phases.tolist()}); plain twins {plain_s:.3f} s; "
             f"every BatchedResult field bit-equal; the 8 served rows equal")
@@ -1005,11 +1276,62 @@ def main() -> int:
         f"in|out solve ({int(settle_io16.sum())} settled); finite lane-slots: "
         f"relax {fs_r}, relax_keys {fs_rk}, keys_dep {fs_kd}")
     bk = LANES * nk * 4  # bytes of one (B, n) f32 vector
+    # the relax, sliced push and sliced pull, on the same input in turns
+    dm16 = relax16[0]
+    check_push("ell_sliced_push_relax_batch", f"phase {int(st_k16.trips)} "
+               "input", dm16, sl_out,
+               ell_sliced_gather_min_batch(relax16, sl_in, sparse=True)[0],
+               out_deg_k)
+    push_stats.zero_()
+    ell_sliced_push_relax_batch(dm16, sl_out, stats=push_stats)
+    active16, cand16, rows16 = push_load(dm16, out_deg_k)
+    relax_turns_k = [
+        time_ms(lambda: ell_sliced_gather_min_batch(relax16, sl_in,
+                                                    sparse=True), reps=20),
+        time_ms(lambda: ell_sliced_push_relax_batch(dm16, sl_out), reps=20),
+        time_ms(lambda: ell_sliced_push_relax_batch(dm16, sl_out), reps=20),
+        time_ms(lambda: ell_sliced_gather_min_batch(relax16, sl_in,
+                                                    sparse=True), reps=20),
+    ]
+    pull_ms_k = (relax_turns_k[0] + relax_turns_k[3]) / 2
+    push_ms_k = (relax_turns_k[1] + relax_turns_k[2]) / 2
+    push_plain_ms_k = time_ms(
+        lambda: ref.ell_push_relax_batch_ref(dm16, sl_out), reps=3, warmup=1)
+    b_rk, by_rk = relax_bound(dm16, out_deg_k)
+    stream_b_rk, _ = bound(sl_bytes + merge_bytes(sl_in) + 2 * bk, 2.0 * fs_r)
+    log(f"sliced relax at phase {int(st_k16.trips)}: {active16} active rows "
+        f"({active16 / nk:.2%} of the vertices), {cand16} candidates, "
+        f"{push_stats[1].item()} atomics issued (the kernel's count of "
+        f"candidates: {push_stats[0].item()}), out-rows "
+        f"{rows16 / 1e6:.1f} MB")
+    log(f"sliced relax at phase {int(st_k16.trips)}, in turns (pull, push, "
+        f"push, pull): " + ", ".join(f"{t:.4f}" for t in relax_turns_k)
+        + f" ms; push {push_ms_k:.4f} ms, pull {pull_ms_k:.4f} ms; bound "
+        f"(settled out-rows + dmask + upd) {b_rk:.4f} ms ({by_rk}), the "
+        f"pull's stream of the whole sliced in-view {stream_b_rk:.4f} ms; "
+        f"plain push twin {push_plain_ms_k:.4f} ms")
+    dense_k, dense_trip_k, act_rows_k = phase_profile(
+        gk, src8_k, sl_in, sl_out,
+        lambda dm: ell_sliced_push_relax_batch(dm, sl_out),
+        lambda dm: ell_sliced_gather_min_batch(dm, sl_in, sparse=True),
+        lambda dm: dm[None], out_deg_k,
+        f"relax profile kronecker({KRON_K}) sliced, instatic|outstatic")
+    dense_k3 = dense_k[None]
+    dense_turns_k = [
+        time_ms(lambda: ell_sliced_gather_min_batch(dense_k3, sl_in,
+                                                    sparse=True), reps=10),
+        time_ms(lambda: ell_sliced_push_relax_batch(dense_k, sl_out), reps=10),
+        time_ms(lambda: ell_sliced_push_relax_batch(dense_k, sl_out), reps=10),
+        time_ms(lambda: ell_sliced_gather_min_batch(dense_k3, sl_in,
+                                                    sparse=True), reps=10),
+    ]
+    dk_act, dk_cand, _ = push_load(dense_k, out_deg_k)
+    log(f"sliced relax at the densest phase {dense_trip_k} ({dk_act} active "
+        f"rows, {dk_cand} candidates), in turns (pull, push, push, pull): "
+        + ", ".join(f"{t:.4f}" for t in dense_turns_k) + f" ms; bound "
+        f"{relax_bound(dense_k, out_deg_k)[0]:.4f} ms")
+    del dense_k, dense_k3
     sliced_timed = {
-        "ell_sliced_gather_min_batch": (
-            lambda: ell_sliced_gather_min_batch(relax16, sl_in, sparse=True),
-            lambda: ref.ell_sliced_gather_min_batch_ref(relax16, sl_in),
-            bound(sl_bytes + merge_bytes(sl_in) + 2 * bk, 2.0 * fs_r)),
         "ell_sliced_relax_keys_batch": (
             lambda: ell_sliced_relax_keys_batch(dmask_io16, ga16, gb16, gc16,
                                                 sl_in),
@@ -1027,6 +1349,11 @@ def main() -> int:
                        b_ms, b_by)
         log(f"{name}: {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
+    times["ell_sliced_gather_min_batch"] = (
+        pull_ms_k,
+        time_ms(lambda: ref.ell_sliced_gather_min_batch_ref(relax16, sl_in),
+                reps=3, warmup=1),
+        b_rk, by_rk)
     gdense = torch.stack([kgate("out_dyn", s_kio), kgate("out_weak", s_kio)])
     dense_ms_s = time_ms(lambda: ell_sliced_gather_min_batch(gdense, sl_out),
                          reps=20)
@@ -1042,7 +1369,7 @@ def main() -> int:
             f"phases per query, {LANES / solve_s:.2f} queries/s; serving "
             f"{REQUESTS / s_s:.2f} queries/s, {np.mean(list(ph_s.values())):.1f}"
             f" phases per request")
-    del st_k16, st_kio, relax16, dmask_io16, ga16, gb16, gc16, gdense
+    del st_k16, st_kio, relax16, dm16, dmask_io16, ga16, gb16, gc16, gdense
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"card: {smi}")
     sliced_kernels = {
@@ -1057,13 +1384,26 @@ def main() -> int:
         "ell_keys_dep_batch": "src/repro/kernels/ell_relax_keys.py:482",
     }
     kernels = [
+        # the pull relax: no serving path launches it since the push took
+        # over the relax of every plan without in-side keys (0 launches on
+        # the main path); its bound is the function's, the push's
         {"name": "ell_relax_batch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
          "replaces": "src/repro/kernels/ell_relax.py:97",
          "launches": launches["ell_relax_batch"],
          "max_abs_err": errs["ell_relax_batch"], "ms": out_ms_r,
          "plain_ms": plain_ms_r, "bound_ms": b_r, "bound_by": by_r,
-         "library_ms": None},
+         "library_ms": None, "stream_bound_ms": stream_b_r},
+        {"name": "ell_push_relax_batch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_push.cu",
+         "replaces": "src/repro/kernels/ell_relax.py:97",
+         "launches": launches["ell_push_relax_batch"],
+         "max_abs_err": errs["ell_push_relax_batch"], "ms": push_ms,
+         "plain_ms": push_plain_ms, "bound_ms": b_r, "bound_by": by_r,
+         "library_ms": None, "pull_ms": out_ms_r, "active_rows": active_mid,
+         "candidates": cand_mid, "densest_phase_ms": dense_turns[1:3],
+         "active_rows_median": int(np.median(act_rows_g)),
+         "active_rows_max": int(act_rows_g.max())},
         {"name": "frontier_crit_lanes_batch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/frontier_crit.cu",
          "replaces": "src/repro/kernels/frontier_crit.py:94",
@@ -1091,15 +1431,28 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
          "replaces": replaces,
-         # the gather's launches are the sliced instatic|outstatic serving
-         # run's, the fused scans' the sliced in|out run's
-         "launches": sliced_serve["instatic|outstatic" if name ==
-                                  "ell_sliced_gather_min_batch"
-                                  else "in|out"][0][name],
+         # the sliced in|out serving run's launches: the gather runs there
+         # to re-prime keys; the default plan's relax is the sliced push
+         "launches": sliced_serve["in|out"][0][name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": times[name][2],
-         "bound_by": times[name][3], "library_ms": None}
+         "bound_by": times[name][3], "library_ms": None,
+         **({"stream_bound_ms": stream_b_rk}
+            if name == "ell_sliced_gather_min_batch" else {})}
         for name, replaces in sliced_kernels.items()
+    ] + [
+        {"name": "ell_sliced_push_relax_batch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_push.cu",
+         "replaces": "src/repro/kernels/ell_relax_keys.py:311",
+         "launches": sliced_serve["instatic|outstatic"][0][
+             "ell_sliced_push_relax_batch"],
+         "max_abs_err": errs["ell_sliced_push_relax_batch"],
+         "ms": push_ms_k, "plain_ms": push_plain_ms_k, "bound_ms": b_rk,
+         "bound_by": by_rk, "library_ms": None, "pull_ms": pull_ms_k,
+         "active_rows": active16, "candidates": cand16,
+         "densest_phase_ms": dense_turns_k[1:3],
+         "active_rows_median": int(np.median(act_rows_k)),
+         "active_rows_max": int(act_rows_k.max())},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,13 @@ plan without the oracle. Per phase:
   * plans with in-side keys relax through the fused in-scan
     (``ell_relax_keys_batch``), which also emits the next phase's in-side
     keys; the others, the default ``instatic|outstatic`` among them, relax
-    through ``ell_relax_batch`` and carry no keys (``crit_keys`` is None).
+    by a push along the OUTGOING view (``ell_push_relax_batch``), which
+    reads only the out-rows of the vertices settled this phase, so they
+    read the outgoing view too (``needs_out_adjacency``).
 
 On the degree-sliced layout each of these runs its sliced kernel instead
 (``ell_sliced_keys_dep_batch``, ``ell_sliced_relax_keys_batch``,
-``ell_sliced_gather_min_batch``); the ops layer picks it by the view's type.
+``ell_sliced_push_relax_batch``); the ops layer picks it by the view's type.
 
 Carried in-side keys are re-primed (``ell_key_min_batch``) once per
 ``step_batch`` call after admission touched a lane.
@@ -174,7 +176,9 @@ class CriterionPolicy(PhasePolicy):
 
     @property
     def needs_out_adjacency(self) -> bool:
-        return self.plan.needs_out_adjacency
+        # out-side keys scan it; a plan without in-side keys pushes its
+        # relax along it (one with them relaxes in the fused in-scan)
+        return self.plan.needs_out_adjacency or not self.plan.in_scan_keys
 
     def num_key_slots(self) -> int:
         return len(self.plan.keys)
@@ -228,8 +232,9 @@ class CriterionPolicy(PhasePolicy):
         settle = C.plan_union_mask(
             plan, d, fringe, mins, keys, g.in_min_static, None
         )
-        # --- in-scan: relax this phase; plans with in-side keys also emit
-        # the NEXT phase's keys from the same kernel call
+        # --- relax this phase: plans with in-side keys in the in-scan, which
+        # also emits the NEXT phase's keys from the same kernel call; the
+        # others by the push along the outgoing view
         next_in = None
         if in_slots:
             # key gates encode the post-settle status
@@ -241,13 +246,13 @@ class CriterionPolicy(PhasePolicy):
             upd, next_in = kops.in_scan_relax_keys_batch(
                 d, settle, parts, ell_in, use_kernels=use_kernels
             )
-        elif kops._is_sliced(ell_in):
+        elif kops._is_sliced(ell_out):
             upd = kops.relax_settled_batch_sliced(
-                d, settle, ell_in, use_kernels=use_kernels
+                d, settle, ell_out, use_kernels=use_kernels
             )
         else:
             upd = kops.relax_settled_batch(
-                d, settle, ell_in[0], ell_in[1], use_kernels=use_kernels
+                d, settle, ell_out[0], ell_out[1], use_kernels=use_kernels
             )
         new_d = torch.minimum(d, upd)
         new_status = torch.where(

@@ -262,9 +262,11 @@ def step_batch(
     Returns after ``k_phases`` trips, or earlier when every lane's fringe is
     empty (possibly at once), or, with ``stop_on_lane_finish``, as soon as
     a lane that was live on entry terminates. ``ell`` is the incoming view
-    (default ``to_ell_in(g)``); ``ell_out`` the outgoing one, read only by
-    plans with out-side dynamic keys (default the memoised ``to_ell_out(g)``,
-    or ``to_ell_out_sliced(g)`` when ``ell`` is sliced). Either may be the
+    (default ``to_ell_in(g)``); ``ell_out`` the outgoing one, read by the
+    plans whose phase reads it (``needs_out_adjacency``: out-side dynamic
+    keys, or the push relax of every plan without in-side keys, the default
+    among them; default the memoised ``to_ell_out(g)``, or
+    ``to_ell_out_sliced(g)`` when ``ell`` is sliced). Either may be the
     padded ``(cols, ws)`` pair or a degree-sliced ``SlicedEll``: results
     are bit-identical between layouts. Before the loop, even one that runs
     no trip, the policy re-primes carried keys that admission made stale.
@@ -478,8 +480,8 @@ def run_phased_static_batch(
     ``max_phases`` caps the trips (default n + 1); ``device`` (None = the
     CUDA card) must be the graph's device; ``layout`` ("padded" or
     "sliced") names the incoming view built when ``ell`` is None;
-    ``ell_out`` is the outgoing view plans with out-side dynamic keys read
-    (default: one in ``ell``'s layout, see :func:`step_batch`).
+    ``ell_out`` is the outgoing view (default: one in ``ell``'s layout, for
+    the plans that read it, see :func:`step_batch`).
     """
     ell = _resolve_layout(g, ell, layout)
     src_np = validate_sources(sources, g.n, 0, f"in [0, {g.n})")

@@ -6,7 +6,9 @@
 // Replaces these TPU kernels of the JAX package:
 //   * repro/kernels/ell_relax.py::ell_relax_batch (and ell_relax, its B = 1
 //     view): the pull-model relaxation, vec = dmask, +inf off the vertices
-//     settled this phase, padded by the ops layer;
+//     settled this phase, padded by the ops layer. No engine path runs it:
+//     the relax of every plan without in-side keys is the push along the
+//     outgoing view (ell_push.cu), the same function;
 //   * repro/kernels/ell_key_min.py::ell_key_min_batch (and ell_key_min, its
 //     B = 1 view): one gate row per lane, padded by the ops layer;
 //   * repro/kernels/ell_relax_keys.py::ell_gather_min_batch: V vectors x B
@@ -24,9 +26,13 @@
 //     sweeps over a degree-sliced adjacency (the section at the end).
 //
 // What bounds them on an H100: memory. There are no multiplies and min-plus
-// has no tensor-core form; the least time is the bytes over the HBM rate:
+// has no tensor-core form. A dense sweep (the key gates) needs every slot:
 // cols + ws (n * D * 8 bytes) read once plus the vectors and outputs, ~1.3 GB
-// and ~0.4 ms at n = 1e6, D = 152, B = 8. The gather vec[l, cols[r, j]] is
+// and ~0.4 ms at n = 1e6, D = 152, B = 8. A relax sweep needs far less: only
+// the settled vertices' edges give candidates, so its least time is their
+// out-rows plus dmask and upd (~0.03 ms at phase 200 of the default solve,
+// ell_push.cu's note); a pull has to stream the whole in-adjacency to find
+// them, which is why the relax is a push. The gather vec[l, cols[r, j]] is
 // random; its working set (lanes * (n + 1) * 4 bytes, 32 MB at 8 lanes) fits
 // the 50 MB L2 and is served from there, but at the granularity of a 32-byte
 // sector: read lane by lane from (lanes, n + 1) rows, every lane of every
@@ -53,10 +59,12 @@
 //    in its pack pass, a bitmap of the columns that hold anything but +inf in
 //    some lane (n_idx / 8 bytes, small enough to stay in L1), and its gather
 //    pass skips the gathers of clear columns. What is left is the coalesced
-//    stream of cols and ws, the bound above. Only the relax sweeps
-//    (ell_relax_batch and sweep 0 of the fused in-scan) do this. Key gates
-//    are dense (0 on every unsettled vertex): a bitmap would skip nothing and
-//    cost its check on every slot.
+//    stream of cols and ws and a bitmap check a slot: the dense bound above,
+//    ~12x the relax's own (the push reads only the settled rows). Only the
+//    relax sweeps (ell_relax_batch, ell_sliced_gather_min_batch on a relax
+//    dmask, and sweep 0 of the fused in-scans) do this. Key gates are dense
+//    (0 on every unsettled vertex): a bitmap would skip nothing and cost its
+//    check on every slot.
 //
 // The two-sweep kernels need a grid-wide barrier: sweep 1 gathers from any
 // column of sweep 0's output. On the TPU that output stayed resident in VMEM

@@ -99,10 +99,11 @@ def packed_scratch(lib, lanes: int, n_idx: int, dev) -> torch.Tensor:
                        dtype=torch.float32, device=dev)
 
 
-def launch(name: str, fn: str, dev, *args):
-    """Call the C entry point ``fn`` on the current stream of ``dev`` and
-    raise if a launch was refused."""
-    lib = library()
+def launch(name: str, fn: str, dev, *args, lib=None):
+    """Call the C entry point ``fn`` of ``lib`` (default the ``ell_gather``
+    library) on the current stream of ``dev`` and raise if a launch was
+    refused."""
+    lib = library() if lib is None else lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, fn)(*args, stream)

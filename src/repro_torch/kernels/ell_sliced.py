@@ -1,7 +1,7 @@
-"""Gather-min and the fused scans over a degree-sliced adjacency (CUDA
-kernels).
+"""Gather-min, the fused scans and the push relax over a degree-sliced
+adjacency (CUDA kernels).
 
-Three kernels over a :class:`~repro_torch.core.graph.SlicedEll`, each with
+Four kernels over a :class:`~repro_torch.core.graph.SlicedEll`, each with
 a ``.launches`` count (one per call that launched its kernels):
 
   * :func:`ell_sliced_gather_min_batch`: V vectors x B lanes,
@@ -12,14 +12,18 @@ a ``.launches`` count (one per call that launched its kernels):
   * :func:`ell_sliced_relax_keys_batch`: the fused in-scan, the sliced twin
     of ``ell_relax_keys_batch``.
   * :func:`ell_sliced_keys_dep_batch`: the fused out-scan, the sliced twin
-    of ``ell_keys_dep_batch``.
+    of ``ell_keys_dep_batch``;
+  * :func:`ell_sliced_push_relax_batch`: the relax pushed along a sliced
+    *outgoing* view, the sliced twin of ``ell_push_relax_batch``
+    (``csrc/ell_push.cu``); it needs no merge, since the atomic min lands
+    each split row's candidates in the vertex's slot directly.
 
-Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. All three
-run on the sliced section of ``csrc/ell_gather.cu``, whose note says what
-bounds them on the card: one pack of the vector shared by every bucket, one
-gather launch over a bucket table, and a merge pass in the kernel. A tensor
-on the CPU runs the plain twin in ``kernels/ref.py``; a CUDA tensor launches
-the kernels or raises.
+Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. The first
+three run on the sliced section of ``csrc/ell_gather.cu``, whose note says
+what bounds them on the card: one pack of the vector shared by every
+bucket, one gather launch over a bucket table, and a merge pass in the
+kernel. A tensor on the CPU runs the plain twin in ``kernels/ref.py``; a
+CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.kernels.config import (
     SLICED_MAX_BUCKETS,
     relax_threads_per_row,
 )
+from repro_torch.kernels.ell_relax import push_rows
 from repro_torch.kernels.ell_relax_keys import (
     check_inputs,
     launch,
@@ -233,3 +238,30 @@ def ell_sliced_keys_dep_batch(gates, dga, dgb, sliced, *, dep_idx: int = 0):
 
 
 ell_sliced_keys_dep_batch.launches = 0  # kernel launches since the last reset
+
+
+def ell_sliced_push_relax_batch(dmask: torch.Tensor, sliced, *,
+                                stats=None) -> torch.Tensor:
+    """Returns upd (B, n) f32: the relax pushed along a sliced outgoing view
+    (``to_ell_out_sliced``), ``min dmask[b, rows[i]] + ws[i, j]`` over every
+    bucket's rows i and slots j with ``cols[i, j] = v``, +inf where v has no
+    candidate.
+
+    ``dmask`` is (B, n) f32, unpadded. Row i of a bucket belongs to vertex
+    ``rows[i]`` (a split hub owns several rows; an owner outside [0, n)
+    pushes nothing); a row ends at its first id outside [0, n) (the
+    sentinel n). ``merge_idx`` is not read: the atomic min lands each row's
+    candidates in place. ``stats``: see ``ell_relax.push_rows`` (the kernel
+    only).
+    """
+    if dmask.dim() != 2:
+        raise ValueError(f"want dmask (B, n); got {tuple(dmask.shape)}")
+    check_sliced({"dmask": dmask}, sliced, dmask.shape[1])
+    if dmask.device.type == "cpu":
+        return ref.ell_push_relax_batch_ref(dmask, sliced)
+    upd = push_rows(dmask, sliced, stats)
+    ell_sliced_push_relax_batch.launches += 1
+    return upd
+
+
+ell_sliced_push_relax_batch.launches = 0  # kernel launches since the last reset

@@ -8,7 +8,10 @@ this module is the one home of the sentinel convention.
 
 Adjacency layouts: the wrappers that take an ``ell`` accept the padded
 ``(cols, ws)`` pair (``to_ell_in``) or a degree-sliced ``SlicedEll``
-(``to_ell_in_sliced``); f32 min is exact, so both give the same bits.
+(``to_ell_in_sliced``); f32 min is exact, so both give the same bits. The
+batched relax (:func:`relax_settled_batch`, :func:`relax_settled_batch_sliced`)
+pushes along the *outgoing* view instead (``to_ell_out[_sliced]``): it reads
+only the settled vertices' out-rows and needs no sentinel pad.
 
 The engines consume the batched entry points; the 1-D ``relax_settled`` /
 ``static_thresholds`` wrappers are the reference surfaces the tests pin the
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ell_key_min import ell_key_min_batch
-from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
+from repro_torch.kernels.ell_relax import ell_push_relax_batch, ell_relax
 from repro_torch.kernels.ell_relax_keys import (
     ell_gather_min_batch,
     ell_keys_dep_batch,
@@ -29,6 +32,7 @@ from repro_torch.kernels.ell_relax_keys import (
 from repro_torch.kernels.ell_sliced import (
     ell_sliced_gather_min_batch,
     ell_sliced_keys_dep_batch,
+    ell_sliced_push_relax_batch,
     ell_sliced_relax_keys_batch,
 )
 from repro_torch.kernels.frontier_crit import (
@@ -76,31 +80,38 @@ def static_thresholds(d, status, out_min_static, *, use_kernels=True):
     return frontier_crit(d, status, out_min_static)
 
 
-def relax_settled_batch(d, settle_mask, ell_cols, ell_ws, *,
+def relax_settled_batch(d, settle_mask, out_cols, out_ws, *,
                         use_kernels=True):
-    """Batched candidate updates (B, n); one adjacency load serves all
-    lanes."""
-    dmask = pad_lane_batch(torch.where(settle_mask, d, INF))
-    if not use_kernels:
-        return kref.ell_relax_batch_ref(dmask, ell_cols, ell_ws)
-    return ell_relax_batch(dmask, ell_cols, ell_ws)
-
-
-def relax_settled_batch_sliced(d, settle_mask, sliced, *, use_kernels=True):
-    """Sliced-layout twin of :func:`relax_settled_batch` (bit-identical)."""
+    """Batched candidate updates (B, n): upd[b, v] = min over out-edges
+    (u, v) of the vertices u settled in lane b, pushed along the padded
+    OUTGOING ELL ``(out_cols, out_ws)`` (``to_ell_out``); one read of a
+    settled vertex's out-row serves all its lanes. The same bits as the
+    pull over the incoming ELL (the reference's ``relax_settled_batch``)."""
     dmask = torch.where(settle_mask, d, INF)
-    return gather_min_batch_sliced(dmask[None], sliced, sparse=True,
-                                   use_kernels=use_kernels)[0]
+    if not use_kernels:
+        return kref.ell_push_relax_batch_ref(dmask, (out_cols, out_ws))
+    return ell_push_relax_batch(dmask, out_cols, out_ws)
 
 
-def gather_min_batch_sliced(vecs, sliced, *, sparse=False, use_kernels=True):
+def relax_settled_batch_sliced(d, settle_mask, sliced_out, *,
+                               use_kernels=True):
+    """Sliced-layout twin of :func:`relax_settled_batch`, pushed along a
+    degree-sliced outgoing view (``to_ell_out_sliced``); bit-identical."""
+    dmask = torch.where(settle_mask, d, INF)
+    if not use_kernels:
+        return kref.ell_push_relax_batch_ref(dmask, sliced_out)
+    return ell_sliced_push_relax_batch(dmask, sliced_out)
+
+
+def gather_min_batch_sliced(vecs, sliced, *, use_kernels=True):
     """(V, B, n) per-vector row-mins over a degree-sliced adjacency, merged
     per vertex. On the card it is always the one-launch-per-pass kernel
     (pack, gather over every bucket, merge), never per-bucket calls of
-    the padded gather; ``sparse`` turns its skip of all-+inf columns on."""
+    the padded gather. Its callers gather dense key gates, so the kernel's
+    skip of all-+inf columns stays off."""
     if not use_kernels:
         return kref.ell_sliced_gather_min_batch_ref(vecs, sliced)
-    return ell_sliced_gather_min_batch(vecs, sliced, sparse=sparse)
+    return ell_sliced_gather_min_batch(vecs, sliced)
 
 
 def static_thresholds_batch(d, status, out_min_static, *, use_kernels=True):
@@ -124,8 +135,8 @@ def crit_thresholds_batch(d, status, keys, *, use_kernels=True):
 def key_min_batch(gate, ell_cols, ell_ws, *, use_kernels=True):
     """Dynamic criterion key (B, n): per-lane min of gate[neighbour] + w.
 
-    Pads the gate with the +inf sentinel slot, as
-    :func:`relax_settled_batch` pads ``dmask`` (both paths).
+    Pads the gate with the +inf sentinel slot (both paths), as
+    :func:`relax_settled` pads ``dmask``.
     """
     padded = pad_lane_batch(gate)
     if not use_kernels:

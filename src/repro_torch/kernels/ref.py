@@ -25,6 +25,50 @@ def ell_relax_batch_ref(dmask: torch.Tensor, cols: torch.Tensor,
     return torch.amin(dmask[:, cols.long()] + ws[None], dim=-1)
 
 
+def push_buckets(out_view):
+    """``(owner, cols, ws)`` per bucket of an outgoing view: the padded
+    ``(cols, ws)`` pair is one bucket whose row r belongs to vertex r; a
+    ``SlicedEll``'s bucket rows belong to ``rows``."""
+    if hasattr(out_view, "slices"):
+        return [(s.rows, s.cols, s.ws) for s in out_view.slices]
+    cols, ws = out_view
+    owner = torch.arange(cols.shape[0], dtype=torch.int32, device=cols.device)
+    return [(owner, cols, ws)]
+
+
+def ell_push_relax_batch_ref(dmask: torch.Tensor, out_view) -> torch.Tensor:
+    """The relax as a push along the outgoing view: (B, n) f32
+    ``upd[b, v] = min dmask[b, u] + ws[r, j]`` over the out-rows r of every
+    owner u (:func:`push_buckets`) and their slots j with
+    ``cols[r, j] = v``; +inf where v has no candidate.
+
+    A lane pushes from u only where ``dmask[b, u]`` is not +inf, and a row
+    ends at its first id outside [0, n) (the builders left-pack rows, so
+    that is the sentinel n); an owner outside [0, n) pushes nothing. Only
+    the rows of owners with some such lane are visited, so the plain solve
+    never materialises more than this phase's candidates. The same f32 add
+    as the pull twin, and ``scatter_reduce_``'s ``amin``, which keeps a NaN.
+    """
+    b, n = dmask.shape
+    live = dmask != INF  # (B, n): lanes that push from u
+    any_live = live.any(dim=0)
+    upd = torch.full((b, n + 1), INF, dtype=torch.float32, device=dmask.device)
+    for owner, cols, ws in push_buckets(out_view):
+        own = owner.long()
+        in_range = (own >= 0) & (own < n)
+        act = torch.nonzero(in_range & any_live[own.clamp(0, max(n - 1, 0))])
+        act = act.squeeze(1)
+        if act.numel() == 0:
+            continue
+        u, c, w = own[act], cols[act].long(), ws[act]
+        in_row = torch.cummin(((c >= 0) & (c < n)).to(torch.int8), dim=1)
+        c = torch.where(in_row.values.bool(), c, n)  # the dropped slots' bin
+        cand = torch.where(live[:, u, None], dmask[:, u, None] + w[None], INF)
+        upd.scatter_reduce_(1, c.reshape(1, -1).expand(b, -1),
+                            cand.reshape(b, -1), "amin", include_self=True)
+    return upd[:, :n].contiguous()
+
+
 def ell_key_min_ref(gate: torch.Tensor, cols: torch.Tensor,
                     ws: torch.Tensor) -> torch.Tensor:
     """key[v] = min_j gate[cols[v, j]] + ws[v, j] (dynamic criterion key)."""

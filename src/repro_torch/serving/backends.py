@@ -78,11 +78,12 @@ class StaticBackend:
     ``device`` (None = the CUDA card) must be the graph's device.
     ``use_kernels=False`` runs the plain twins. ``donate`` is accepted for
     the :class:`EngineBackend` seam and changes nothing: the port's stepper
-    never aliases the state it is given. Plans with out-side dynamic keys
-    build the outgoing ELL once, here. ``layout="sliced"`` builds the
-    degree-sliced in- and out-views instead of the padded ones (the same
-    bits). Delta-stepping, oracle plans and point queries are not ported
-    yet and raise.
+    never aliases the state it is given. Plans that read the outgoing ELL
+    (out-side dynamic keys, or the push relax of every plan without in-side
+    keys, the default among them) build it once, here. ``layout="sliced"``
+    builds the degree-sliced in- and out-views instead of the padded ones
+    (the same bits). Delta-stepping, oracle plans and point queries are not
+    ported yet and raise.
     """
 
     def __init__(self, g: Graph, ell=None, use_kernels: bool = True,

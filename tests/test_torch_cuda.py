@@ -20,12 +20,17 @@ from repro_torch.core import (
     sliced_ell,
     to_ell_in,
     to_ell_in_sliced,
+    to_ell_out,
     to_ell_out_sliced,
 )
 from repro_torch.graphs import kronecker, uniform_gnp
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
-from repro_torch.kernels.ell_relax import ell_relax, ell_relax_batch
+from repro_torch.kernels.ell_relax import (
+    ell_push_relax_batch,
+    ell_relax,
+    ell_relax_batch,
+)
 from repro_torch.kernels.ell_relax_keys import (
     ell_gather_min_batch,
     ell_keys_dep_batch,
@@ -35,6 +40,7 @@ from repro_torch.kernels.ell_relax_keys import (
 from repro_torch.kernels.ell_sliced import (
     ell_sliced_gather_min_batch,
     ell_sliced_keys_dep_batch,
+    ell_sliced_push_relax_batch,
     ell_sliced_relax_keys_batch,
 )
 from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
@@ -460,3 +466,135 @@ def test_sliced_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError, match="at most 16"):
         ell_sliced_gather_min_batch(torch.zeros((1, 2, 200), device=cuda),
                                     wide)
+
+
+# --- the push relax (csrc/ell_push.cu) ----------------------------------------
+#
+# dmask holds negative values and NaN but never a -0, and no weight is -0, so
+# no candidate is -0 and no tie of -0 and +0 arises: such a tie is the one
+# place the push (atomics, any order) may resolve otherwise than the pull (the
+# earlier slot). Weights are finite or +inf, as the builders keep them: a -inf
+# weight would make +inf + -inf = NaN in the pull from a lane that pushes
+# nothing.
+
+
+def _push_out_view(cols, ws, n):
+    """The outgoing ELL of the slots ``cols[v, j] = u < n`` of an incoming
+    one: row u lists (v, w), left-packed, sentinel n and +inf after."""
+    keep = cols < n
+    v = np.nonzero(keep)[0]
+    u, w = cols[keep], ws[keep]
+    order = np.argsort(u, kind="stable")
+    u, v, w = u[order], v[order], w[order]
+    deg = np.bincount(u, minlength=n)
+    d_out = max(int(deg.max()) if deg.size else 0, 1)
+    slot = np.arange(u.size) - (np.cumsum(deg) - deg)[u]
+    out_c = np.full((n, d_out), n, np.int32)
+    out_w = np.full((n, d_out), np.inf, np.float32)
+    out_c[u, slot], out_w[u, slot] = v, w
+    return out_c, out_w
+
+
+def _push_dmask(rng, b, n, live=0.05):
+    """A dmask with a share ``live`` of its slots finite, negative values
+    among them; unless it is empty, a -inf and a NaN a lane too."""
+    dm = np.full((b, n), np.inf, np.float32)
+    on = rng.random((b, n)) < live
+    dm[on] = rng.uniform(-5, 10, on.sum()).astype(np.float32)
+    if live > 0:
+        dm[0, 1] = -np.inf
+        dm[np.arange(b), rng.integers(0, n, b)] = np.nan
+    assert not (dm == 0).any()  # no -0 (nor +0) in dmask
+    return dm
+
+
+def _push_expected_candidates(dm, cols_o, n):
+    """Lane-slots the push must visit: real slots of the rows whose owner
+    has a lane that is not +inf, times those lanes."""
+    lanes = (dm != np.inf).sum(axis=0)
+    ends = np.cumprod((cols_o >= 0) & (cols_o < n), axis=1).sum(axis=1)
+    return int((lanes * ends).sum())
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 300, 8), (3, 777, 33), (8, 5000, 40),
+                                   (13, 700, 5), (40, 2000, 17),
+                                   (70, 901, 152), (8, 20_000, 200)])
+def test_ell_push_relax_batch_matches_twin_and_pull(cuda, b, n, d):
+    rng = np.random.default_rng(b * 31 + n + d)
+    cols, ws = _ell(rng, n, d, n + 1)  # +inf weights, ids up to n
+    ws[ws < 0.3] -= 1.0  # negative weights too
+    cols_o, ws_o = _push_out_view(cols, ws, n)
+    dm = _push_dmask(rng, b, n)
+    tdm, tc, tw = _t(dm, cuda), _t(cols_o, cuda), _t(ws_o, cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    before = ell_push_relax_batch.launches
+    got = ell_push_relax_batch(tdm, tc, tw, stats=stats)
+    assert ell_push_relax_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_push_relax_batch_ref(tdm, (tc, tw)))
+    pad = ops.pad_lane_batch(tdm)
+    assert _same_bits(got, ell_relax_batch(pad, _t(cols, cuda), _t(ws, cuda)))
+    cand, atomics = stats.tolist()
+    assert cand == _push_expected_candidates(dm, cols_o, n)
+    # every output the push lowered took at least one atomic
+    assert int((got != np.inf).sum()) <= atomics <= cand
+
+
+@pytest.mark.parametrize("live", [0.0, 0.01, 1.0])
+@pytest.mark.parametrize("b", [1, 8, 33])
+def test_ell_push_relax_batch_graph_views(cuda, b, live):
+    """The builders' out-view of a graph, against the pull over its in-view:
+    an empty frontier, a sparse one, every vertex settled."""
+    g = uniform_gnp(3000, 3e-3, seed=5, device=cuda)
+    rng = np.random.default_rng(b + int(live * 100))
+    dm = _push_dmask(rng, b, g.n, live)
+    tdm = _t(dm, cuda)
+    got = ell_push_relax_batch(tdm, *to_ell_out(g))
+    assert _same_bits(got, ref.ell_push_relax_batch_ref(tdm, to_ell_out(g)))
+    assert _same_bits(got, ell_relax_batch(ops.pad_lane_batch(tdm),
+                                           *to_ell_in(g)))
+    if live == 0.0:
+        assert bool(torch.isinf(got).all())
+
+
+@pytest.mark.parametrize("b", [1, 8, 40])
+@pytest.mark.parametrize("boundaries,split", [((8, 32, 128, 512), 512),
+                                              ((8,), 8), ((16, 64), 64),
+                                              (None, None)])
+def test_ell_sliced_push_relax_batch_matches_twin_and_pull(cuda, boundaries,
+                                                           split, b):
+    """Buckets of width 8 to 512, hub rows split (kronecker(12)'s largest
+    out-degree is far past 512), against the twin, the sliced pull over the
+    in-view and the padded pull."""
+    g = kronecker(12, seed=6, device=cuda)
+    sl_out = to_ell_out_sliced(g, boundaries=boundaries, split=split)
+    assert any(int(torch.unique(s.rows).numel()) < s.rows.shape[0]
+               for s in sl_out.slices)  # some hub owns several rows
+    rng = np.random.default_rng(b + len(sl_out.slices))
+    dm = _push_dmask(rng, b, g.n, 0.03)
+    tdm = _t(dm, cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    before = ell_sliced_push_relax_batch.launches
+    got = ell_sliced_push_relax_batch(tdm, sl_out, stats=stats)
+    assert ell_sliced_push_relax_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_push_relax_batch_ref(tdm, sl_out))
+    sl_in = to_ell_in_sliced(g, boundaries=boundaries, split=split)
+    assert _same_bits(got, ell_sliced_gather_min_batch(tdm[None], sl_in,
+                                                       sparse=True)[0])
+    assert _same_bits(got, ell_relax_batch(ops.pad_lane_batch(tdm),
+                                           *to_ell_in(g)))
+    cand = sum(_push_expected_candidates(dm[:, s.rows.cpu().numpy()],
+                                         s.cols.cpu().numpy(), g.n)
+               for s in sl_out.slices)
+    assert stats[0].item() == cand
+
+
+def test_push_cuda_tensors_never_fall_back(cuda):
+    dm = torch.zeros((2, 4), device=cuda)
+    cols = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    ws = torch.zeros((4, 2), dtype=torch.float32)  # on the host: refused
+    with pytest.raises(ValueError, match="different devices"):
+        ell_push_relax_batch(dm, cols, ws)
+    view = _sliced_view("split", cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        ell_sliced_push_relax_batch(torch.zeros((2, view.merge_idx.shape[0])),
+                                    view)

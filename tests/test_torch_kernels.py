@@ -31,6 +31,7 @@ from repro_torch.kernels.frontier_crit import (
 )
 
 from helpers import mk_ell
+from test_torch_push import out_view
 
 torch.set_num_threads(1)
 
@@ -197,11 +198,14 @@ def test_ops_wrappers_match_reference(use_kernels):
     settle = rng.random((b, n)) < 0.4
     om = rng.uniform(0, 1, n).astype(np.float32)
     jd, js, jset = jnp.asarray(d), jnp.asarray(status), jnp.asarray(settle)
+    # the port's batched relax pushes along the outgoing view of the same
+    # edges the reference's pull gathers over
+    out_c, out_w = out_view(cols, ws, n)
     for use_pallas in (True, False):
         assert_bits(
             jops.relax_settled_batch(jd, jset, cols, ws, block_rows=32,
                                      use_pallas=use_pallas),
-            tops.relax_settled_batch(T(d), T(settle), T(cols), T(ws),
+            tops.relax_settled_batch(T(d), T(settle), T(out_c), T(out_w),
                                      use_kernels=use_kernels))
         for keys in (None, om[None], rng.uniform(0, 1, (2, b, n)).astype(np.float32)):
             want = jops.crit_thresholds_batch(
