@@ -49,20 +49,28 @@ failure raises, exits non-zero and prints no ``ok`` line:
      in- and out-views on the card, with their sizes;
  13. the sliced kernels against their twins at full width, bit for bit
      (sparse dmask with the skip on, dense V = 2 gates, K = 1 and 2,
-     dep_idx 0 and 1, NaN cases); the sliced push along the out-view
-     against its twin and the sliced pull (B = 1, 8, 13, 40, NaN lanes);
+     dep_idx 0 and 1, NaN cases; the fused in-scan with and without the
+     out-view, B = 1, 8, 13); the sliced push along the out-view against
+     its twin and the sliced pull (B = 1, 8, 13, 40, NaN lanes); then
+     signed zeros: every kernel against its twin on both graphs with their
+     weights mapped onto {+0, -0, 0.5, 1} and vectors from the same set
+     (ties of -0 and +0 in every order, NaN lanes), the pushes also against
+     the pulls;
  14. sliced serving: a StaticBackend(layout="sliced") with 8 lanes answers 16
      requests under ``instatic|outstatic``, then ``in|out``, counts set to 0
      just before: the sliced kernels run (the sliced push on the default
-     plan), the padded ones do not;
+     plan, the fused in-scan in its push form on ``in|out``), the padded
+     ones do not;
  15. sliced end to end: on kronecker(20) the B = 8 kernel and plain solves
      bit-equal for both plans, the served rows equal, one row against
-     scipy's Dijkstra; on G(10^6, 10^-4) layout="sliced" bit-equal to the
-     padded solves of phases 4 and 9;
+     scipy's Dijkstra, the ``in|out`` kernel and plain states half way
+     bit-equal with their carried keys; on G(10^6, 10^-4) layout="sliced"
+     bit-equal to the padded solves of phases 4 and 9;
  16. the sliced kernels' times on the inputs of one real phase (the sliced
-     push and pull in turns), every phase of the sliced default solve as in
-     phase 6, and ms/phase, phases per query and queries/s of the sliced
-     solves and serving.
+     push and pull in turns; the fused scans on the pipelined body in turns
+     with the single-sweep body they ran on before, each split by kernel),
+     every phase of the sliced default solve as in phase 6, and ms/phase,
+     phases per query and queries/s of the sliced solves and serving.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -91,6 +99,8 @@ MID_PHASE = 200  # the phase whose kernel inputs phase 6 times
 DYN_TRIPS = 64  # trips of the insimple|outsimple check (phase 10)
 KRON_K = 20  # kronecker(20): the skewed graph of phases 12-16
 INF = float("inf")
+PUSH_IN_SCAN = "ell_sliced_relax_keys_batch[out_view]"  # #10b's name here
+SIGNED = (0.0, -0.0, 0.5, 1.0)  # the values of the signed-zero cases
 
 
 def log(msg: str):
@@ -144,16 +154,16 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def ptxas_summary(out: str) -> list[tuple[str, str]]:
-    """(kernel, "N registers, S bytes smem, spills") for each entry function
-    in ``nvcc -Xptxas -v`` output, names demangled by ``c++filt`` where the
-    host has it."""
+    """(kernel, "N registers, S bytes smem; stack frame and spills") for
+    each entry function in ``nvcc -Xptxas -v`` output, names demangled by
+    ``c++filt`` where the host has it."""
     rows, fn, spill = [], None, ""
     for line in out.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
             fn, spill = line.split("'")[1], ""
         elif "spill stores" in line and fn is not None:
-            spill = line.split(",", 1)[1].strip()
+            spill = line  # "N bytes stack frame, M bytes spill stores, ..."
         elif line.startswith("ptxas info") and "Used" in line and fn:
             rows.append((fn, line.split("Used", 1)[1].strip() + "; " + spill))
             fn = None
@@ -169,17 +179,32 @@ def ptxas_summary(out: str) -> list[tuple[str, str]]:
 def device_split(fn, calls: int = 5) -> list[tuple[str, float]]:
     """Device milliseconds a call of ``fn`` by kernel name, from
     ``torch.profiler`` over ``calls`` calls."""
+    return [(k, t * c) for k, t, c in device_split_counted(fn, calls)]
+
+
+def device_split_counted(fn, calls: int = 5) -> list[tuple[str, float, float]]:
+    """``(kernel, device ms a launch, launches seen a call)`` of ``fn``
+    from ``torch.profiler``. The profiler drops the records of the first
+    milliseconds it traces, so one warm-up step goes first; late in a long
+    run it still drops some (a kernel launched once a call then shows
+    fewer launches), which leaves the time a launch true and makes the
+    time a call short."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls),
+                 acc_events=True) as prof:
+        for _ in range(calls + 1):
             fn()
-        torch.cuda.synchronize()
-    return [(e.key.split("(")[0], e.device_time_total / calls / 1e3)
-            for e in prof.key_averages() if e.device_time_total > 0]
+            torch.cuda.synchronize()
+            prof.step()
+    return [(e.key.split("(")[0], e.device_time_total / e.count / 1e3,
+             e.count / calls)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and not e.key.startswith("ProfilerStep")]
 
 
 def repeat_wall(fn, first: float, runs: int = 3) -> list:
@@ -205,7 +230,7 @@ def busy_line(fn, wall_s: float, phases: int) -> str:
     parts = device_split(fn, calls=1)
     dev_ms = sum(t for _, t in parts)
     ours = ("push_kernel", "push_mark_kernel", "crit_", "gather_min_kernel",
-            "scan_kernel", "pack_kernel", "merge_kernel")
+            "scan_kernel", "pack_kernel", "merge_kernel", "short_merge_kernel")
     glue = [(k, t) for k, t in parts if not any(o in k for o in ours)]
     ours = sorted((p for p in parts if p not in glue), key=lambda p: -p[1])
     split = "; ".join(f"{k} {t / phases:.4f}" for k, t in ours)
@@ -265,6 +290,30 @@ def seeded_state(rng, b: int, n: int, dev):
     return torch.from_numpy(d).to(dev), torch.from_numpy(status).to(dev)
 
 
+def signed_weights(ws):
+    """A view's weights mapped onto {+0, -0, 0.5, 1} by value (w in [0, 1)
+    goes to SIGNED[int(4 w)]; +inf stays): an edge keeps one weight in its
+    in- and out-view, and ties of -0 and +0 arise in every fold."""
+    import torch
+
+    table = torch.tensor(SIGNED, dtype=torch.float32, device=ws.device)
+    q = (ws.clamp(0.0, 0.999) * 4).long()
+    return torch.where(torch.isfinite(ws), table[q], ws).contiguous()
+
+
+def signed_vec(rng, shape, dev, inf_frac=0.2, nan=True):
+    """Values from {+0, -0, 0.5, 1}, +inf on ``inf_frac`` of the slots, and
+    (``nan``) a NaN at three slots of lane 1; made on the host."""
+    import torch
+
+    x = np.array(SIGNED, np.float32)[rng.integers(0, len(SIGNED), shape)]
+    x[rng.random(shape) < inf_frac] = np.inf
+    if nan:
+        lane = (slice(None),) * (len(shape) - 2) + (1,)
+        x[lane + (rng.integers(0, shape[-1], 3),)] = np.nan
+    return torch.from_numpy(x).to(dev)
+
+
 def main() -> int:
     import torch
 
@@ -274,7 +323,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import (
         KEEP_LANE,
+        EllSlice,
         out_degrees,
+        sliced_ell,
         to_ell_in,
         to_ell_in_sliced,
         to_ell_out,
@@ -309,19 +360,21 @@ def main() -> int:
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
     from repro_torch.serving import StaticBackend
 
-    counted = {f.__name__: f for f in (
+    counted = {f.__name__: (f, "launches") for f in (
         ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
         ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch,
         ell_sliced_gather_min_batch, ell_sliced_relax_keys_batch,
         ell_sliced_keys_dep_batch, ell_push_relax_batch,
         ell_sliced_push_relax_batch)}
+    # #10b: the sliced fused in-scan with the push as its relax sweep
+    counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
 
     def zero_counts():
-        for f in counted.values():
-            f.launches = 0
+        for f, attr in counted.values():
+            setattr(f, attr, 0)
 
     def read_counts() -> dict:
-        return {name: f.launches for name, f in counted.items()}
+        return {name: getattr(f, attr) for name, (f, attr) in counted.items()}
 
     def serve(backend, sources) -> tuple:
         """16 requests through 8 lanes: reset_lanes -> step -> peek ->
@@ -1089,11 +1142,27 @@ def main() -> int:
             ga[1, 2, min(int(sl_in.slices[0].cols[0, 0]), nk - 1)] = \
                 float("nan")
             label += " NaN in ga"
+        twin = ref.ell_sliced_relax_keys_batch_ref(dmask_k[0], ga, gb, gc,
+                                                   sl_in)
         check("ell_sliced_relax_keys_batch", label,
               ell_sliced_relax_keys_batch(dmask_k[0], ga, gb, gc, sl_in),
-              ref.ell_sliced_relax_keys_batch_ref(dmask_k[0], ga, gb, gc,
-                                                  sl_in))
-    del kparts, ga, gb, gc
+              twin)
+        check(PUSH_IN_SCAN, label + ", push sweep",
+              ell_sliced_relax_keys_batch(dmask_k[0], ga, gb, gc, sl_in,
+                                          out_view=sl_out), twin)
+    for b_ in (1, 13):  # other lane tiles: one lane, and 8 + 5
+        dm_ = seeded_push_dmask(prng, b_, nk, 0.01, dev)
+        st_ = stk[:1].expand(b_, -1).contiguous()
+        parts_ = [p[None].contiguous() for p in C.in_scan_gate_parts(
+            kspec["in_full"], st_, (dm_ != INF) & (st_ == 1),
+            gk.in_min_static[None])]
+        twin = ref.ell_sliced_relax_keys_batch_ref(dm_, *parts_, sl_in)
+        for name, ov in (("ell_sliced_relax_keys_batch", None),
+                         (PUSH_IN_SCAN, sl_out)):
+            check(name, f"in-view B={b_} K=1 NaN lanes",
+                  ell_sliced_relax_keys_batch(dm_, *parts_, sl_in,
+                                              out_view=ov), twin)
+    del kparts, ga, gb, gc, dm_, st_, parts_, twin
     kdga, kdgb = C.dep_gate_parts(kspec["out_full"], stk)
     kdga_nan = kdga.clone()
     kdga_nan[4, min(int(sl_out.slices[0].cols[0, 0]), nk - 1)] = float("nan")
@@ -1108,6 +1177,89 @@ def main() -> int:
               ref.ell_sliced_keys_dep_batch_ref(gates, dga_, kdgb, dep, sl_out))
     del dk, stk, settle_k, dmask_k, k_dyn, k_weak, kdga, kdgb, kdga_nan, gates
 
+    # signed zeros at full width: every kernel against its twin where -0 and
+    # +0 tie (XLA's min, and so the reference, takes -0 in either order).
+    # Both graphs' views with their weights mapped onto {+0, -0, 0.5, 1} by
+    # value, vectors drawn from the same set with +inf and NaN lanes; the
+    # pushes also against the pulls over the same edges. A case whose twin
+    # holds no zero of either sign tests nothing and fails.
+    zrng = np.random.default_rng(16)
+
+    def zcheck(name, label, got, twin):
+        zeros = [(t == 0) & torch.signbit(t) for t in
+                 (twin if isinstance(twin, tuple) else (twin,))]
+        if not (any(bool(z.any()) for z in zeros) and any(
+                bool(((t == 0) & ~torch.signbit(t)).any()) for t in
+                (twin if isinstance(twin, tuple) else (twin,)))):
+            raise SystemExit(f"signed-zero case {name} [{label}] met no tie")
+        check(name, f"signed zeros, {label}", got, twin)
+
+    def zsliced(view):
+        return sliced_ell([EllSlice(sl.rows, sl.cols, signed_weights(sl.ws))
+                           for sl in view.slices], view.merge_idx)
+
+    zin, zout = (cols, signed_weights(ws)), (cols_o, signed_weights(ws_o))
+    zb = LANES // 2  # the twins of the K = 2 scans gather (2, B, n, D)
+    zd = signed_vec(zrng, (zb, n), dev, inf_frac=0.6)
+    zst = torch.from_numpy(zrng.integers(0, 3, (zb, n)).astype(
+        np.int32)).to(dev)
+    zv = signed_vec(zrng, (2, zb, n), dev)
+    zp = [signed_vec(zrng, (2, zb, n), dev, nan=i == 0) for i in range(3)]
+    zpull = ell_relax_batch(pad(zd), *zin)
+    zcheck("ell_relax_batch", "G(1e6) in-ELL", zpull,
+           ref.ell_relax_batch_ref(pad(zd), *zin))
+    zcheck("ell_push_relax_batch", "G(1e6) out-ELL",
+           ell_push_relax_batch(zd, *zout),
+           ref.ell_push_relax_batch_ref(zd, zout))
+    if not same_bits(ell_push_relax_batch(zd, *zout), zpull):
+        raise SystemExit("the push and the pull differ on signed zeros")
+    # lane 0 keeps its -0s, the others hold only +0s: both are some min
+    zdc = torch.cat([zd[:1], zd[1:].abs()])
+    zkc = torch.cat([zv[:, :1], zv[:, 1:].abs()], dim=1)
+    zcheck("frontier_crit_lanes_batch", "per-lane K=2 keys",
+           frontier_crit_lanes_batch(zdc, zst, zkc),
+           ref.frontier_crit_lanes_batch_ref(zdc, zst, zkc))
+    zcheck("ell_key_min_batch", "G(1e6) in-ELL",
+           ell_key_min_batch(pad(zv[0]), *zin),
+           ref.ell_key_min_batch_ref(pad(zv[0]), *zin))
+    zcheck("ell_gather_min_batch", "G(1e6) out-ELL V=2",
+           ell_gather_min_batch(zv, *zout),
+           ref.ell_gather_min_batch_ref(zv, *zout))
+    zcheck("ell_relax_keys_batch", "G(1e6) in-ELL K=2",
+           ell_relax_keys_batch(zd, *zp, *zin),
+           ref.ell_relax_keys_batch_ref(zd, *zp, *zin))
+    zcheck("ell_keys_dep_batch", "G(1e6) out-ELL K0=2 dep_idx=1",
+           ell_keys_dep_batch(zv, zp[0][0], zp[1][0], *zout, dep_idx=1),
+           ref.ell_keys_dep_batch_ref(zv, zp[0][0], zp[1][0], 1, *zout))
+    del zin, zout, zd, zst, zv, zp, zpull, zdc, zkc
+    zs_in, zs_out = zsliced(sl_in), zsliced(sl_out)
+    zd = signed_vec(zrng, (zb, nk), dev, inf_frac=0.9)
+    zv = signed_vec(zrng, (2, zb, nk), dev)
+    zp = [signed_vec(zrng, (2, zb, nk), dev, nan=i == 0) for i in range(3)]
+    zpull = ell_sliced_gather_min_batch(zd[None], zs_in, sparse=True)[0]
+    zcheck("ell_sliced_gather_min_batch", "kronecker in-view sparse",
+           zpull, ref.ell_sliced_gather_min_batch_ref(zd[None], zs_in)[0])
+    zcheck("ell_sliced_gather_min_batch", "kronecker out-view V=2",
+           ell_sliced_gather_min_batch(zv, zs_out),
+           ref.ell_sliced_gather_min_batch_ref(zv, zs_out))
+    zpush = ell_sliced_push_relax_batch(zd, zs_out)
+    zcheck("ell_sliced_push_relax_batch", "kronecker out-view", zpush,
+           ref.ell_push_relax_batch_ref(zd, zs_out))
+    if not same_bits(zpush, zpull):
+        raise SystemExit("the sliced push and pull differ on signed zeros")
+    ztwin = ref.ell_sliced_relax_keys_batch_ref(zd, *zp, zs_in)
+    zcheck("ell_sliced_relax_keys_batch", "kronecker in-view K=2",
+           ell_sliced_relax_keys_batch(zd, *zp, zs_in), ztwin)
+    zcheck(PUSH_IN_SCAN, "kronecker in-view K=2, push sweep",
+           ell_sliced_relax_keys_batch(zd, *zp, zs_in, out_view=zs_out),
+           ztwin)
+    zcheck("ell_sliced_keys_dep_batch", "kronecker out-view K0=2 dep_idx=1",
+           ell_sliced_keys_dep_batch(zv, zp[0][0], zp[1][0], zs_out,
+                                     dep_idx=1),
+           ref.ell_sliced_keys_dep_batch_ref(zv, zp[0][0], zp[1][0], 1,
+                                             zs_out))
+    del zs_in, zs_out, zd, zv, zp, zpull, zpush, ztwin
+
     # ---- 14. sliced serving on the skewed graph ----------------------------
     has_out = torch.nonzero(out_degrees(gk) >= 1).squeeze(1).cpu().numpy()
     src_k = np.random.default_rng(2).choice(has_out, REQUESTS)
@@ -1116,15 +1268,15 @@ def main() -> int:
                       "ell_keys_dep_batch", "ell_push_relax_batch")
     served_k, sliced_serve = {}, {}
     # the default plan relaxes by the sliced push and runs no sliced gather;
-    # in|out relaxes in the fused in-scan and pushes nothing
+    # in|out relaxes in the fused in-scan, whose relax sweep is the push
+    # along the out-view it holds (#10b), and runs no other push
     for crit, must, never in (
             ("instatic|outstatic", ("ell_sliced_push_relax_batch",),
              ("ell_sliced_gather_min_batch", "ell_sliced_relax_keys_batch",
-              "ell_sliced_keys_dep_batch")),
-            ("in|out", ("ell_sliced_gather_min_batch",
-                        "ell_sliced_relax_keys_batch",
+              PUSH_IN_SCAN, "ell_sliced_keys_dep_batch")),
+            ("in|out", ("ell_sliced_gather_min_batch", PUSH_IN_SCAN,
                         "ell_sliced_keys_dep_batch"),
-             ("ell_sliced_push_relax_batch",))):
+             ("ell_sliced_push_relax_batch", "ell_sliced_relax_keys_batch"))):
         rows_s, ph_s, l_s, s_s, steps_s, trips_s = serve(
             StaticBackend(gk, criterion=crit, layout="sliced", device=dev),
             src_k)
@@ -1230,6 +1382,24 @@ def main() -> int:
                 raise SystemExit(f"gnp sliced {crit} differs from padded in "
                                  f"{field}")
         del res_g
+    # the carried keys too: the in|out kernel and plain states half way
+    st0 = init_batch_state(gk, src8_k, criterion="in|out", device=dev)
+    half_io = sliced_solve["in|out"][1] // 2
+    t0 = time.perf_counter()
+    st_kio = step_batch(gk, st0, half_io, ell=sl_in, ell_out=sl_out)
+    st_pio = step_batch(gk, st0, half_io, ell=sl_in, ell_out=sl_out,
+                        use_kernels=False)
+    for field in ("dist", "status", "trips", "phases", "sum_fringe",
+                  "relax_edges", "crit_keys"):
+        if not same_bits(getattr(st_kio, field), getattr(st_pio, field)):
+            raise SystemExit(f"sliced in|out kernel and plain states differ "
+                             f"in {field} after {half_io} phases")
+    if st_kio.keys_valid is not st_pio.keys_valid:
+        raise SystemExit("sliced in|out keys_valid differs")
+    log(f"sliced e2e in|out: after {half_io} phases the kernel and plain "
+        f"states are bit-equal on every field, crit_keys included "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del st0, st_pio
     sl_g = to_ell_in_sliced(g)
     log(f"sliced e2e on G(n={N}, p={P}): in-view widths {sl_g.widths}, "
         f"C={sl_g.merge_idx.shape[1]}, {sl_g.padded_slots * 8 / 1e9:.3f} GB "
@@ -1246,9 +1416,6 @@ def main() -> int:
     settle16 = C.plan_union_mask(st_k16.plan, dm16, st16 == 1, mins16, {},
                                  gk.in_min_static, None)
     relax16 = torch.where(settle16, dm16, INF)[None].contiguous()
-    st_kio = init_batch_state(gk, src8_k, criterion="in|out", device=dev)
-    st_kio = step_batch(gk, st_kio, sliced_solve["in|out"][1] // 2, ell=sl_in,
-                        ell_out=sl_out)
     d_kio, s_kio = st_kio.dist, st_kio.status
     god16 = kgate("out_dyn", s_kio)[None].contiguous()
     dga16, dgb16 = C.dep_gate_parts(kspec["out_full"], s_kio)
@@ -1267,14 +1434,16 @@ def main() -> int:
         gb16[0], gc16[0] + torch.where(upd16 < INF, 0.0, INF)))
     dep16 = torch.minimum(dga16, dgb16 + keys16[0])
     fs_r = sliced_finite(relax16, sl_in)
-    fs_rk = sliced_finite(dmask_io16, sl_in) + sliced_finite(gate1_16, sl_in)
+    fs_gate = sliced_finite(gate1_16, sl_in)
+    fs_rk = sliced_finite(dmask_io16, sl_in) + fs_gate
     fs_kd = sliced_finite(god16, sl_out) + sliced_finite(dep16, sl_out)
     del gate1_16, dep16, upd16
     log(f"sliced timing inputs: phase {int(st_k16.trips)} of the "
         f"instatic|outstatic B={LANES} solve ({int(settle16.sum())} settled, "
         f"{int(nf16.sum())} on the fringe), phase {int(st_kio.trips)} of the "
         f"in|out solve ({int(settle_io16.sum())} settled); finite lane-slots: "
-        f"relax {fs_r}, relax_keys {fs_rk}, keys_dep {fs_kd}")
+        f"relax {fs_r}, relax_keys {fs_rk} (gate sweep {fs_gate}), keys_dep "
+        f"{fs_kd}")
     bk = LANES * nk * 4  # bytes of one (B, n) f32 vector
     # the relax, sliced push and sliced pull, on the same input in turns
     dm16 = relax16[0]
@@ -1331,24 +1500,74 @@ def main() -> int:
         + ", ".join(f"{t:.4f}" for t in dense_turns_k) + f" ms; bound "
         f"{relax_bound(dense_k, out_deg_k)[0]:.4f} ms")
     del dense_k, dense_k3
+    # #10 (pull sweep), #10b (push sweep) and #11 on the pipelined body,
+    # each in turns with the single-sweep body they ran on before (today's
+    # body: per sweep a pack, the bucket-table gather and a merge over every
+    # vertex, through #9's entry, which still runs it, with the gate between
+    # the sweeps built by PyTorch instead of in the pack), then split by
+    # kernel with torch.profiler
+    def old_relax_keys():
+        upd = ell_sliced_gather_min_batch(dmask_io16[None], sl_in,
+                                          sparse=True)[0]
+        fin = torch.where(upd < INF, 0.0, INF)
+        gate = torch.minimum(ga16, torch.minimum(gb16, gc16 + fin[None]))
+        return upd, ell_sliced_gather_min_batch(gate, sl_in)
+
+    def old_keys_dep():
+        keys0 = ell_sliced_gather_min_batch(god16, sl_out)
+        gate = torch.minimum(dga16, dgb16 + keys0[0])
+        return torch.cat([keys0, ell_sliced_gather_min_batch(gate[None],
+                                                             sl_out)])
+
+    relax_b, relax_by = relax_bound(dmask_io16, out_deg_k)
+    _, cand_io16, rows_io16 = push_load(dmask_io16, out_deg_k)
+    gate_bytes = (sl_bytes + 5 * bk + sl_in.row_owner.numel() * 4
+                  + sl_in.merge_short.numel() * 4)
+    gate_b, gate_by = bound(gate_bytes, 2.0 * fs_gate)
+    rk_bound = bound(rows_io16 + 2 * bk + gate_bytes,
+                     2.0 * (cand_io16 + fs_gate))
     sliced_timed = {
         "ell_sliced_relax_keys_batch": (
             lambda: ell_sliced_relax_keys_batch(dmask_io16, ga16, gb16, gc16,
                                                 sl_in),
             lambda: ref.ell_sliced_relax_keys_batch_ref(dmask_io16, ga16,
                                                         gb16, gc16, sl_in),
-            bound(sl_bytes + merge_bytes(sl_in) + 6 * bk, 2.0 * fs_rk)),
+            old_relax_keys, rk_bound),
+        PUSH_IN_SCAN: (
+            lambda: ell_sliced_relax_keys_batch(dmask_io16, ga16, gb16, gc16,
+                                                sl_in, out_view=sl_out),
+            lambda: ref.ell_sliced_relax_keys_batch_ref(
+                dmask_io16, ga16, gb16, gc16, sl_in, out_view=sl_out),
+            old_relax_keys, rk_bound),
         "ell_sliced_keys_dep_batch": (
             lambda: ell_sliced_keys_dep_batch(god16, dga16, dgb16, sl_out),
             lambda: ref.ell_sliced_keys_dep_batch_ref(god16, dga16, dgb16, 0,
                                                       sl_out),
+            old_keys_dep,
             bound(sl_out_bytes + merge_bytes(sl_out) + 5 * bk, 2.0 * fs_kd)),
     }
-    for name, (kern, plain, (b_ms, b_by)) in sliced_timed.items():
-        times[name] = (time_ms(kern, reps=20), time_ms(plain, reps=3, warmup=1),
-                       b_ms, b_by)
-        log(f"{name}: {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+    old_ms = {}
+    for name, (kern, plain, old, (b_ms, b_by)) in sliced_timed.items():
+        turns = [time_ms(old, reps=20), time_ms(kern, reps=20),
+                 time_ms(kern, reps=20), time_ms(old, reps=20)]
+        times[name] = ((turns[1] + turns[2]) / 2,
+                       time_ms(plain, reps=3, warmup=1), b_ms, b_by)
+        old_ms[name] = (turns[0] + turns[3]) / 2
+        log(f"{name}: in turns (today's body, pipelined, pipelined, today's "
+            f"body) " + ", ".join(f"{t:.4f}" for t in turns) + f" ms: "
+            f"{times[name][0]:.4f} against {old_ms[name]:.4f} "
+            f"({times[name][0] / old_ms[name]:.2f}x); plain "
+            f"{times[name][1]:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        for label, fn in (("pipelined", kern), ("today's body", old)):
+            log(f"{name} device ms a launch by kernel (launches seen a "
+                f"call), {label}: " + "; ".join(
+                    f"{k} {t:.4f} ({c:g})"
+                    for k, t, c in device_split_counted(fn, calls=10)))
+    log(f"sliced relax_keys bound, in two parts: the relax sweep (settled "
+        f"out-rows {rows_io16 / 1e6:.1f} MB + dmask + upd) {relax_b:.4f} ms "
+        f"({relax_by}), the gate sweep (the whole sliced in-view stream, "
+        f"ga/gb/gc/upd read, keys written, the write-through plan) "
+        f"{gate_b:.4f} ms ({gate_by})")
     times["ell_sliced_gather_min_batch"] = (
         pull_ms_k,
         time_ms(lambda: ref.ell_sliced_gather_min_batch_ref(relax16, sl_in),
@@ -1375,6 +1594,7 @@ def main() -> int:
     sliced_kernels = {
         "ell_sliced_gather_min_batch": "src/repro/kernels/ell_relax_keys.py:311",
         "ell_sliced_relax_keys_batch": "src/repro/kernels/ell_relax_keys.py:345",
+        PUSH_IN_SCAN: "src/repro/kernels/ell_relax_keys.py:345",
         "ell_sliced_keys_dep_batch": "src/repro/kernels/ell_relax_keys.py:394",
     }
     new_kernels = {
@@ -1432,13 +1652,19 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
          "replaces": replaces,
          # the sliced in|out serving run's launches: the gather runs there
-         # to re-prime keys; the default plan's relax is the sliced push
+         # to re-prime keys; the default plan's relax is the sliced push,
+         # and in|out's fused in-scan runs its push form (#10b)
          "launches": sliced_serve["in|out"][0][name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None,
          **({"stream_bound_ms": stream_b_rk}
-            if name == "ell_sliced_gather_min_batch" else {})}
+            if name == "ell_sliced_gather_min_batch" else
+            {"single_sweep_body_ms": old_ms[name]}),
+         **({"bound_relax_ms": relax_b, "bound_gate_ms": gate_b,
+             "push_source": "src/repro_torch/kernels/csrc/ell_push.cu"}
+            if name != "ell_sliced_keys_dep_batch"
+            and name != "ell_sliced_gather_min_batch" else {})}
         for name, replaces in sliced_kernels.items()
     ] + [
         {"name": "ell_sliced_push_relax_batch", "route": "cuda",

@@ -52,9 +52,23 @@ class Graph:
 
 
 def _static_min(index: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.full((n,), INF, dtype=torch.float32, device=w.device)
-    return out.scatter_reduce_(0, index.long(), w, reduce="amin",
-                               include_self=True)
+    """``out[v] = min w`` over the arcs with ``index == v``, with the
+    reference's tie rule (``np.minimum.at``: the later arc in COO order
+    wins). Only a tie of -0 and +0 shows in the bits, so the amin decides
+    everything else, and a zero minimum takes the sign of the zero arc with
+    the largest COO index: both reductions are exact in any order, so no
+    atomic order on the card decides a bit."""
+    idx = index.long()
+    dev = w.device
+    out = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    out.scatter_reduce_(0, idx, w, reduce="amin", include_self=True)
+    zero = torch.nonzero(w == 0).squeeze(1)
+    if zero.numel() == 0:
+        return out
+    last = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, idx[zero], zero, reduce="amax", include_self=True)
+    signed = torch.where(torch.signbit(w[last.clamp(min=0)]), -0.0, 0.0)
+    return torch.where((out == 0) & (last >= 0), signed, out)
 
 
 def from_coo(src, dst, w, n: int, pad_to: int | None = None,
@@ -215,13 +229,30 @@ class SlicedEll(NamedTuple):
     ``merge_pos`` are its compact form for the CUDA merge pass: the
     non-sentinel entries of each row, in row-major order (CSR). A sentinel
     reads +inf, the identity of min, so dropping it gives the same answer
-    for any ``merge_idx``. Build one with :func:`sliced_ell`.
+    for any ``merge_idx``.
+
+    The write-through plan of the fused scans, derived from that form: a
+    vertex whose only entry is a row no other vertex lists ("direct") has
+    ``merged[v] = concat[that row]`` exactly (its other columns are the +inf
+    sentinel, and min(x, +inf) is x, NaN and -0 included), so the row's
+    result is written to v in place. ``row_owner[r]`` is that vertex for
+    the row of a direct vertex, else ``-1 - k``, k the row's slot in a
+    compact scratch of the remaining rows (``split_rows`` of them, in row
+    order). ``merge_short`` lists the other vertices, those with several
+    rows first (``merge_multi`` of them: split hubs), then those with none;
+    a short merge folds the first from the scratch through ``merge_ptr`` /
+    ``merge_pos`` and gives the rest +inf. Build one with
+    :func:`sliced_ell`.
     """
 
     slices: tuple[EllSlice, ...]
     merge_idx: torch.Tensor  # (n, C) int32 positions into concat(slices)+[inf]
     merge_ptr: torch.Tensor  # (n + 1,) int64 row starts into merge_pos
     merge_pos: torch.Tensor  # (nnz,) int32 non-sentinel merge_idx entries
+    row_owner: torch.Tensor  # (R_total,) int32 direct vertex, or -1 - slot
+    merge_short: torch.Tensor  # (S,) int32 vertices the short merge writes
+    merge_multi: int  # the leading vertices of merge_short that have rows
+    split_rows: int  # rows the compact scratch holds (row_owner < 0)
 
     @property
     def widths(self) -> tuple[int, ...]:
@@ -254,11 +285,31 @@ def sliced_ell(slices, merge_idx: torch.Tensor) -> SlicedEll:
         )
     keep = merge_idx != total
     counts = keep.sum(dim=1)
+    dev = merge_idx.device
     merge_ptr = torch.zeros(merge_idx.shape[0] + 1, dtype=torch.int64,
-                            device=merge_idx.device)
+                            device=dev)
     torch.cumsum(counts, 0, out=merge_ptr[1:])
+    merge_pos = merge_idx[keep].contiguous()
+    # write-through: a vertex with one row that no other vertex lists
+    pos = merge_pos.long()
+    direct = counts == 1
+    first = torch.zeros_like(counts)
+    if pos.numel():  # else no vertex has a row
+        first = pos[merge_ptr[:-1].clamp(max=pos.numel() - 1)]
+        direct &= torch.bincount(pos, minlength=total)[first] == 1
+    verts = torch.nonzero(direct).squeeze(1)
+    row_owner = torch.full((total,), -1, dtype=torch.int32, device=dev)
+    row_owner[first[verts]] = verts.to(torch.int32)
+    split = torch.nonzero(row_owner < 0).squeeze(1)
+    row_owner[split] = (-1 - torch.arange(split.numel(), device=dev)).to(
+        torch.int32)
+    multi = torch.nonzero(~direct & (counts > 0)).squeeze(1)
+    none = torch.nonzero(counts == 0).squeeze(1)
     return SlicedEll(slices=slices, merge_idx=merge_idx, merge_ptr=merge_ptr,
-                     merge_pos=merge_idx[keep].contiguous())
+                     merge_pos=merge_pos, row_owner=row_owner,
+                     merge_short=torch.cat([multi, none]).to(torch.int32),
+                     merge_multi=int(multi.numel()),
+                     split_rows=int(split.numel()))
 
 
 def default_slice_boundaries(deg: np.ndarray, pad_multiple: int = 8,

@@ -243,17 +243,24 @@ class CriterionPolicy(PhasePolicy):
                                      g.in_min_static[None])
                 for nm in plan.in_scan_keys
             ]
+            # the sliced in-scan relaxes by the push along the out-view
+            # where the plan holds one (its out-side keys read it)
+            push_view = (ell_out if kops._is_sliced(ell_in)
+                         and kops._is_sliced(ell_out) else None)
             upd, next_in = kops.in_scan_relax_keys_batch(
-                d, settle, parts, ell_in, use_kernels=use_kernels
+                d, settle, parts, ell_in, out_view=push_view,
+                use_kernels=use_kernels
             )
         elif kops._is_sliced(ell_out):
-            upd = kops.relax_settled_batch_sliced(
+            upd = kops.push_settled_batch_sliced(
                 d, settle, ell_out, use_kernels=use_kernels
             )
         else:
-            upd = kops.relax_settled_batch(
+            upd = kops.push_settled_batch(
                 d, settle, ell_out[0], ell_out[1], use_kernels=use_kernels
             )
+        # d >= +0 and upd = d + w >= +0 (+0 + -0 is +0): no -0 reaches this
+        # min, so torch.minimum's choice between zeros never shows
         new_d = torch.minimum(d, upd)
         new_status = torch.where(
             settle, 2, torch.where((status == 0) & (upd < INF), 1, status)

@@ -10,6 +10,8 @@ from repro_torch.kernels.ops import (
     key_min_batch_any,
     out_scan_keys_batch,
     pad_lane_batch,
+    push_settled_batch,
+    push_settled_batch_sliced,
     relax_settled,
     relax_settled_batch,
     relax_settled_batch_sliced,
@@ -25,6 +27,8 @@ __all__ = [
     "key_min_batch_any",
     "out_scan_keys_batch",
     "pad_lane_batch",
+    "push_settled_batch",
+    "push_settled_batch_sliced",
     "relax_settled",
     "relax_settled_batch",
     "relax_settled_batch_sliced",

@@ -18,6 +18,15 @@ RELAX_THREADS = 256
 # at most 4).
 SLICED_MAX_BUCKETS = 16
 
+# The pipelined scan body of the fused scans (csrc/ell_gather.cu; must match
+# its SCAN_CAP, SCAN_WARPS and SCAN_SKIP_WARPS, which check every unit table
+# the sliced wrappers build from these): slots of one array a shared-memory
+# stage holds, and the consumer warps of a dense and of a sparse sweep's
+# block.
+SCAN_CAP = 5120
+SCAN_WARPS = 8
+SCAN_SKIP_WARPS = 16
+
 # frontier_crit_lanes_batch: threads per block, elements per thread in the
 # first pass, and the most OUT lanes a plan can ask for (must match KMAX in
 # csrc/frontier_crit.cu; the registry's plans need at most 4).

@@ -18,12 +18,13 @@
 //     phase's in-side keys through the gate min(ga, min(gb, gc + fin(upd)));
 //   * ell_relax_keys.py::ell_keys_dep_batch (:482): the fused out-scan,
 //     sweep 0 = the independent keys, sweep 1 = the dependent key through the
-//     gate min(dga, dgb + keys0[dep_idx]).
-//     These two run on the pipelined scan body (its own section below, with
-//     its own note); the rest on the single-sweep body described here;
+//     gate min(dga, dgb + keys0[dep_idx]);
 //   * ell_relax_keys.py::ell_sliced_gather_min_batch,
 //     ell_sliced_relax_keys_batch and ell_sliced_keys_dep_batch: the same
 //     sweeps over a degree-sliced adjacency (the section at the end).
+//     The fused scans run on the pipelined scan body (its own section
+//     below, with its own note), all but the sparse relax sweep of the
+//     sliced in-scan; the rest on the single-sweep body described here.
 //
 // What bounds them on an H100: memory. There are no multiplies and min-plus
 // has no tensor-core form. A dense sweep (the key gates) needs every slot:
@@ -77,17 +78,26 @@
 // exceeds its kernels' device time on the card, and is not built.
 //
 // Min semantics: jnp.min/jnp.minimum propagate NaN and fminf drops it, so
-// every fold and every gate min is an explicit compare that keeps a NaN from
-// either side. Ids in [0, n] are the contract (to_ell_in / to_ell_out); an id
-// outside [0, n_idx) reads NaN instead of memory out of bounds.
+// every fold and every gate min is nan_min below, which keeps a NaN from
+// either side and takes -0 over +0 on a tie in either order, as XLA's min
+// does (weights of -0 are legal, so keys can hold -0). Ids in [0, n] are
+// the contract (to_ell_in / to_ell_out); an id outside [0, n_idx) reads NaN
+// instead of memory out of bounds.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #define LANE_TILE 8
 #define SLOTS 4
 
+// min(m, v) as jnp.minimum gives it: NaN if either is NaN (the canonical
+// NaN: card parity takes every NaN as one value), and -0 for a tie of -0
+// and +0 in either order. One instruction (PTX min.NaN, sm_80 and later);
+// an explicit compare with a sign test for the tie cost the gather loops
+// ~40 % (tools/scan_variants.py, nan_min_* variants).
 __device__ __forceinline__ float nan_min(float m, float v) {
-  return (v < m || v != v) ? v : m;
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(m), "f"(v));
+  return r;
 }
 
 // What the pack pass reads for gather lane l and column c.
@@ -265,8 +275,9 @@ __global__ void gather_min_kernel(const float* __restrict__ packed,
 }
 
 // The lane-tile width for `lanes` gather lanes: the next power of two, at
-// most LANE_TILE.
-extern "C" int ell_gather_lane_tile(int lanes) {
+// most LANE_TILE (kernels/ell_relax_keys.py's lane_tile sizes the packed
+// scratch by the same rule).
+static int ell_gather_lane_tile(int lanes) {
   int w = 1;
   while (w < lanes && w < LANE_TILE) w *= 2;
   return w;
@@ -356,25 +367,33 @@ extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
 }
 
 // ---------------------------------------------------------------------------
-// The pipelined scan body: the two fused scans of the paper's in|out plan.
+// The pipelined scan body: the fused scans of the paper's in|out plan, on
+// the padded and on the degree-sliced layout.
 //
 // Replaces ell_relax_keys.py::ell_relax_keys_batch (:182; and
-// ell_relax_keys, its B = 1 view) and ell_relax_keys.py::ell_keys_dep_batch
-// (:482). Each is two sweeps over one padded adjacency, and sweep 1 reads
-// every column of sweep 0's output, so each reads the adjacency twice: at
-// n = 1e6, D = 152 the bytes bound is ~0.41 ms a fused call counting the
-// adjacency once, ~0.82 ms counting the two reads no two-sweep design
-// avoids. What bounds a sweep on an H100 is not those bytes but the random
-// reads: a dense 8-lane sweep reads one 32-byte sector of the packed table
-// for each of its ~1e8 real slots, and the L1 passes about one such
-// request a cycle, at a latency of an L2 hit; the sparse relax sweep reads
-// one bitmap word a slot instead. The single-sweep body above also
+// ell_relax_keys, its B = 1 view), ell_relax_keys.py::ell_keys_dep_batch
+// (:482), and their sliced forms ell_sliced_relax_keys_batch (:345) and
+// ell_sliced_keys_dep_batch (:394). Each is two sweeps over one adjacency,
+// and sweep 1 reads every column of sweep 0's output, so each reads the
+// adjacency twice: at n = 1e6, D = 152 the bytes bound is ~0.41 ms a fused
+// call counting the adjacency once, ~0.82 ms counting the two reads no
+// two-sweep design avoids. What bounds a sweep on an H100 is not those bytes
+// but the random reads: a dense 8-lane sweep reads one 32-byte sector of the
+// packed table for each of its ~1e8 real slots, and the L1 passes about one
+// such request a cycle, at a latency of an L2 hit; the sparse relax sweep
+// reads one bitmap word a slot instead. The single-sweep body above also
 // streamed cols and ws at ~1.1 TB/s (short blocks, one warp a row, a
 // dependent chain of loads each trip). What this body does:
-//  * persistent blocks: SCAN_BLOCKS_PER_SM blocks on each SM walk units of
-//    `rows` consecutive rows in a grid stride; the sparse relax sweep runs
-//    one larger block an SM instead, which holds its bitmap in shared memory
-//    (ScanShape below);
+//  * a unit list: a scan walks units of `rows` consecutive rows of one
+//    bucket. A padded view is one bucket; a sliced view has up to MAX_SLICES
+//    buckets with rows, each with its own geometry (threads a row, rows a
+//    unit, the chunk of a row a stage holds), and its units follow the
+//    previous bucket's, so a block's consecutive units may lie in different
+//    buckets. The table of buckets stays in parameter space, and a block
+//    steps through it as its units ascend;
+//  * persistent blocks: SCAN_BLOCKS_PER_SM blocks on each SM walk the units
+//    in a grid stride; the sparse relax sweep runs one larger block an SM
+//    instead, which holds its bitmap in shared memory (ScanShape below);
 //  * the adjacency through shared memory, by warp roles: one producer warp
 //    fills a ring of SCAN_STAGES stages, each the cols and ws of one unit
 //    (or a chunk of each of its rows, where a unit's rows do not fit a
@@ -395,6 +414,14 @@ extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
 //  * kept from the body above: the lane-interleaved pack (one 32-byte sector
 //    a slot for 8 lanes), the bitmap skip on the sparse relax sweep only,
 //    nan_min, NaN for an id outside [0, n_idx).
+// A padded row is a vertex and writes its output in place. A sliced view
+// writes through: a vertex with exactly one slice-row takes that row's value
+// as it stands (the merge's other columns are the +inf sentinel, and
+// nan_min(x, +inf) is x, NaN and -0 included), so its row writes
+// out[l, owner] directly; the rows of every other vertex (a split hub's)
+// go to a compact scratch, and a short merge pass folds them, and writes
+// +inf for the vertices with no row (sliced_ell's row_owner and
+// merge_short). No pass over every vertex is left.
 // The shape was chosen on the card against variants (tools/scan_variants.py
 // times them): deeper rings or more blocks leave the L1 too little room for
 // the gathers in flight; an L1-bypassing or no-allocate gather and an L2
@@ -403,9 +430,10 @@ extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
 // staged in shared memory) in place of the warp roles, and a coarse bitmap
 // in shared memory beside two blocks an SM (it took the L1's room).
 // The grid-wide barrier between the sweeps stays stream order: pack 0,
-// scan 0, pack 1 (which builds the gate from sweep 0's output), scan 1.
-// A fused call's event time exceeds its kernels' device time by ~0.07 ms
-// (chip_smoke.py phase 11): more than a cooperative launch could save.
+// scan 0 (merge 0), pack 1 (which builds the gate from sweep 0's output),
+// scan 1 (merge 1). A fused call's event time exceeds its kernels' device
+// time by ~0.07 ms (chip_smoke.py phase 11): more than a cooperative launch
+// could save.
 
 #define SCAN_WARPS 8                      // consumer warps a block
 #define SCAN_STAGES 2
@@ -414,6 +442,11 @@ extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
 #define SCAN_UNROLL 8
 #define SCAN_BLOCKS_PER_SM 2
 #define SCAN_SKIP_WARPS 16                // the sparse sweep: one block an SM
+#define MAX_SLICES 16         // buckets with rows a scan takes
+#define SCAN_TABLE_COLS 10    // int64 a bucket in a host unit table
+#define SLICED_WRITE_THROUGH 1
+#define SLICED_RELAX_PIPELINED 0  // the sliced relax sweep's body (below)
+#define MERGE_THREADS 256
 
 // The launch shape of a sweep: a dense sweep runs SCAN_BLOCKS_PER_SM blocks
 // of SCAN_WARPS consumer warps on each SM; the sparse relax sweep (SKIP)
@@ -427,17 +460,39 @@ struct ScanShape {
   static constexpr int blocks = SKIP ? 1 : SCAN_BLOCKS_PER_SM;
 };
 
-struct ScanGeometry {
+// One bucket of a scan's unit list: rows of width d_pad, walked in units of
+// `rows` rows, `tpr` threads a row, each row in `chunks` stages of `chunk`
+// slots (chunks == 1: a unit's rows in one stage).
+struct ScanBucket {
   const int* cols;
   const float* ws;
   long long n_rows;
-  long long units;  // ceil(n_rows / rows)
+  long long first_unit;  // this bucket's first unit in the scan's list
+  long long row_offset;  // its first row in the concatenation of buckets
   int d_pad;
-  int tpr;     // threads a row: a power of two, at most a warp
-  int rows;    // rows a unit: consumer threads / tpr
-  int chunk;   // slots of each row a stage holds: d_pad, or a chunk of it
-  int chunks;  // stages a unit takes for one lane tile
-  int bits_words;  // SKIP: the bitmap's words, when shared memory holds it
+  int tpr;
+  int rows;
+  int chunk;
+  int chunks;
+};
+
+struct ScanTable {
+  ScanBucket e[MAX_SLICES];
+  long long units;  // every bucket's units
+  int count;
+  int bits_words;   // SKIP: the bitmap's words, when shared memory holds it
+};
+
+// Where a scan writes row r of the concatenation, for gather lane l: with
+// no owner, out[l * stride + r]; else out[l * stride + owner[r]] for
+// owner[r] >= 0, and split[l * split_stride + (-1 - owner[r])] for the rows
+// the merge folds.
+struct ScanOut {
+  float* out;
+  long long stride;
+  const int* owner;
+  float* split;
+  long long split_stride;
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -466,19 +521,50 @@ __device__ __forceinline__ void aligned_span(const void* p, long long nbytes,
 }
 
 // A block's walk over its items: units blockIdx.x + q * gridDim.x, each
-// for every lane tile, each tile in `chunks` stages.
+// for every lane tile, each tile in its bucket's `chunks` stages. A block's
+// units ascend, so a step to the next unit only compares it with the next
+// bucket's first unit, kept in a register; the bucket is looked up anew only
+// when the unit crosses into another (a padded view never does). The table
+// is read with constant indices only: a runtime index into a kernel
+// parameter would copy it to local memory.
 struct ScanCursor {
   long long unit;
   int tile;
   int chunk;
-  __device__ __forceinline__ void next(const ScanGeometry& g, int tiles) {
-    if (++chunk == g.chunks) {
+  int bucket;            // the unit's bucket in the table
+  long long next_first;  // the first unit past that bucket
+  ScanBucket b;          // a copy of the bucket
+  __device__ __forceinline__ explicit ScanCursor(const ScanTable& t)
+      : unit(blockIdx.x), tile(0), chunk(0), bucket(-1), next_first(0) {
+    seek(t);
+  }
+  __device__ __forceinline__ void seek(const ScanTable& t) {
+    if (unit < next_first || unit >= t.units) return;
+    bucket = 0;
+#pragma unroll
+    for (int i = 1; i < MAX_SLICES; ++i) {
+      if (i < t.count && unit >= t.e[i].first_unit) bucket = i;
+    }
+    next_first = t.units;
+#pragma unroll
+    for (int i = 0; i < MAX_SLICES; ++i) {
+      if (i == bucket) b = t.e[i];
+      if (i == bucket + 1 && i < t.count) next_first = t.e[i].first_unit;
+    }
+  }
+  __device__ __forceinline__ void next(const ScanTable& t, int tiles) {
+    if (++chunk == b.chunks) {
       chunk = 0;
       if (++tile == tiles) {
         tile = 0;
         unit += gridDim.x;
+        seek(t);
       }
     }
+  }
+  // the unit's first row in its bucket
+  __device__ __forceinline__ long long r0() const {
+    return (unit - b.first_unit) * b.rows;
   }
 };
 
@@ -486,10 +572,12 @@ struct ScanCursor {
 // `bars[stage]`. The smem layout of a stage: cols then ws, each
 // SCAN_STAGE_ELEMS 4-byte words; a chunked unit keeps row r at word
 // r * (chunk + 8).
-__device__ void scan_issue(const ScanGeometry& g, float* stages,
-                           unsigned long long* bars, const ScanCursor& it,
-                           int stage, unsigned long long policy) {
-  const long long r0 = it.unit * g.rows;
+__device__ __forceinline__ void scan_issue(const ScanCursor& it,
+                                           float* stages,
+                                           unsigned long long* bars, int stage,
+                                           unsigned long long policy) {
+  const ScanBucket& g = it.b;
+  const long long r0 = it.r0();
   const int nr = (int)min((long long)g.rows, g.n_rows - r0);
   const int j0 = it.chunk * g.chunk;
   const int len = min(g.chunk, g.d_pad - j0);
@@ -530,18 +618,18 @@ __device__ void scan_issue(const ScanGeometry& g, float* stages,
   }
 }
 
-// One sweep of the pipelined body: out[l * n_rows + r] for every lane l.
-// The last warp is the producer: its lane 0 fills the stages in the
-// block's item order, each once every consumer warp has released it. The
-// other warps consume: warp w owns rows [w * rpw, (w + 1) * rpw) of each
-// unit, rpw = 32 / tpr, and waits for nothing but its stage, so one warp's
-// gathers overlap another's.
+// One sweep of the pipelined body: every row's min for every lane, written
+// as ScanOut says. The last warp is the producer: its lane 0 fills the
+// stages in the block's item order, each once every consumer warp has
+// released it. The other warps consume: warp w owns rows
+// [w * rpw, (w + 1) * rpw) of each unit, rpw = 32 / tpr, and waits for
+// nothing but its stage, so one warp's gathers overlap another's.
 template <int W, bool SKIP>
 __global__ void __launch_bounds__(ScanShape<SKIP>::threads + 32,
                                   ScanShape<SKIP>::blocks)
 scan_kernel(const float* __restrict__ packed,
             const unsigned* __restrict__ live_bits, long long n_idx,
-            ScanGeometry g, int lanes, float* __restrict__ out) {
+            const __grid_constant__ ScanTable tab, int lanes, ScanOut o) {
   constexpr int consumers = ScanShape<SKIP>::threads;
   extern __shared__ __align__(128) unsigned char smem[];
   float* stages = reinterpret_cast<float*>(smem);
@@ -561,19 +649,19 @@ scan_kernel(const float* __restrict__ packed,
   }
   // the bitmap of a sparse sweep, copied whole into shared memory if it fits
   const unsigned* bits = live_bits;
-  if (SKIP && g.bits_words > 0) {
+  if (SKIP && tab.bits_words > 0) {
     unsigned* sbits = reinterpret_cast<unsigned*>(empty + SCAN_STAGES);
-    for (int i0 = 0; i0 < g.bits_words; i0 += 8 * blockDim.x) {
+    for (int i0 = 0; i0 < tab.bits_words; i0 += 8 * blockDim.x) {
       unsigned w[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int i = i0 + e * blockDim.x + threadIdx.x;
-        w[e] = i < g.bits_words ? __ldg(live_bits + i) : 0u;
+        w[e] = i < tab.bits_words ? __ldg(live_bits + i) : 0u;
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int i = i0 + e * blockDim.x + threadIdx.x;
-        if (i < g.bits_words) sbits[i] = w[e];
+        if (i < tab.bits_words) sbits[i] = w[e];
       }
     }
     bits = sbits;
@@ -586,12 +674,11 @@ scan_kernel(const float* __restrict__ packed,
                    : "=l"(policy));
       int stage = 0;
       unsigned round = 0;
-      for (ScanCursor it{blockIdx.x, 0, 0}; it.unit < g.units;
-           it.next(g, tiles)) {
+      for (ScanCursor it(tab); it.unit < tab.units; it.next(tab, tiles)) {
         if (round > 0) {
           mbar_wait(smem_u32(empty + stage), (round - 1) & 1u);
         }
-        scan_issue(g, stages, full, it, stage, policy);
+        scan_issue(it, stages, full, stage, policy);
         if (++stage == SCAN_STAGES) {
           stage = 0;
           ++round;
@@ -606,16 +693,21 @@ scan_kernel(const float* __restrict__ packed,
   // cycle a request)
   constexpr int H = W > 4 ? W / 4 : 1;
   constexpr int WL = W / H;
-  const int row_l = threadIdx.x / g.tpr;
-  const int sub = threadIdx.x % g.tpr;
-  const int part = sub % H;                  // which WL lanes of the tile
-  const int step = g.tpr / H;                // slot-parallel threads a row
   int stage = 0;
   unsigned parity = 0;
   float acc[WL];
-  for (ScanCursor it{blockIdx.x, 0, 0}; it.unit < g.units;
-       it.next(g, tiles)) {
-    const long long r0 = it.unit * g.rows;
+  // this thread's place in a unit, set anew where the bucket changes
+  int bucket = -1, row_l = 0, sub = 0, part = 0, step = 1;
+  for (ScanCursor it(tab); it.unit < tab.units; it.next(tab, tiles)) {
+    const ScanBucket& g = it.b;
+    if (it.bucket != bucket) {
+      bucket = it.bucket;
+      row_l = threadIdx.x / g.tpr;
+      sub = threadIdx.x % g.tpr;
+      part = sub % H;    // which WL lanes of the tile
+      step = g.tpr / H;  // slot-parallel threads a row
+    }
+    const long long r0 = it.r0();
     const int nr = (int)min((long long)g.rows, g.n_rows - r0);
     if (it.chunk == 0) {
 #pragma unroll
@@ -683,19 +775,44 @@ scan_kernel(const float* __restrict__ packed,
     if (it.chunk == g.chunks - 1) {
 #pragma unroll
       for (int k = 0; k < WL; ++k) {
-        for (int o = g.tpr >> 1; o >= H; o >>= 1) {
-          acc[k] = nan_min(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], o));
+        for (int q = g.tpr >> 1; q >= H; q >>= 1) {
+          acc[k] = nan_min(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], q));
         }
       }
       if (sub < H && row_l < nr) {
+        const long long row = g.row_offset + r0 + row_l;
+        float* dst = o.out + row;
+        long long stride = o.stride;
+        if (o.owner != nullptr) {
+          const int v = __ldg(o.owner + row);
+          dst = v >= 0 ? o.out + v : o.split + (-1 - (long long)v);
+          stride = v >= 0 ? o.stride : o.split_stride;
+        }
 #pragma unroll
         for (int k = 0; k < WL; ++k) {
           const int l = it.tile * W + part * WL + k;
-          if (l < lanes) out[(long long)l * g.n_rows + r0 + row_l] = acc[k];
+          if (l < lanes) dst[(long long)l * stride] = acc[k];
         }
       }
     }
   }
+}
+
+// Whether bucket `b` fits the body's shape for lane tiles of W: `tpr` a
+// power of two in [H, 32], rows * tpr the consumer threads, and a unit's
+// rows (or their chunks) within a stage. A host table that breaks one is
+// refused, never run.
+template <int W, bool SKIP>
+static bool bucket_fits(const ScanBucket& b) {
+  constexpr int shared_by = W > 4 ? W / 4 : 1;  // the kernel's H
+  if (b.tpr < shared_by || b.tpr > 32 || (b.tpr & (b.tpr - 1)) != 0) {
+    return false;
+  }
+  if (b.rows * b.tpr != ScanShape<SKIP>::threads) return false;
+  if (b.d_pad < 1 || b.chunk < 1 || b.chunk > b.d_pad) return false;
+  if (b.chunks != (b.d_pad + b.chunk - 1) / b.chunk) return false;
+  if (b.chunks == 1) return (long long)b.rows * b.d_pad <= SCAN_CAP;
+  return (long long)b.rows * (b.chunk + 8) <= SCAN_CAP;
 }
 
 struct Adjacency {
@@ -705,14 +822,16 @@ struct Adjacency {
   int d_pad;
 };
 
-// The geometry of the scan body over `a` for lane tiles of W.
+// The one-bucket table of a padded view for lane tiles of W.
 template <int W, bool SKIP>
-static ScanGeometry scan_geometry(const Adjacency& a) {
+static ScanTable scan_geometry(const Adjacency& a) {
   constexpr int threads = ScanShape<SKIP>::threads;
-  ScanGeometry g;
+  ScanBucket g;
   g.cols = a.cols;
   g.ws = a.ws;
   g.n_rows = a.n_rows;
+  g.first_unit = 0;
+  g.row_offset = 0;
   g.d_pad = a.d_pad;
   const int d_pad = a.d_pad;
   g.tpr = W > 4 ? W / 4 : 1;  // the threads that share one slot's sector
@@ -726,17 +845,74 @@ static ScanGeometry scan_geometry(const Adjacency& a) {
     g.chunk = (SCAN_CAP / g.rows - 8) & ~3;
   }
   g.chunks = (d_pad + g.chunk - 1) / g.chunk;
-  g.units = (a.n_rows + g.rows - 1) / g.rows;
-  g.bits_words = 0;
-  return g;
+  ScanTable t;
+  t.e[0] = g;
+  t.count = 1;
+  t.units = (a.n_rows + g.rows - 1) / g.rows;
+  t.bits_words = 0;
+  return t;
 }
 
-// Pack then scan: one sweep of a fused kernel on the pipelined body.
+// The table of a sliced view from the host array `rows`, SCAN_TABLE_COLS
+// int64 a bucket with rows (kernels/ell_sliced.py builds it: cols, ws, rows,
+// width, threads a row, rows a unit, chunk, chunks, first unit, first row).
+// Returns 0, or cudaErrorInvalidValue for a table that does not fit this
+// build's shape, leaves a row out or counts its rows other than r_total.
+template <int W, bool SKIP>
+static int host_table(const long long* rows, int n_buckets, long long r_total,
+                      ScanTable* t) {
+  if (n_buckets < 0 || n_buckets > MAX_SLICES) {
+    return (int)cudaErrorInvalidValue;
+  }
+  long long unit = 0, row = 0;
+  t->count = n_buckets;
+  for (int i = 0; i < n_buckets; ++i) {
+    const long long* r = rows + SCAN_TABLE_COLS * i;
+    ScanBucket& b = t->e[i];
+    b.cols = (const int*)r[0];
+    b.ws = (const float*)r[1];
+    b.n_rows = r[2];
+    b.d_pad = (int)r[3];
+    b.tpr = (int)r[4];
+    b.rows = (int)r[5];
+    b.chunk = (int)r[6];
+    b.chunks = (int)r[7];
+    b.first_unit = r[8];
+    b.row_offset = r[9];
+    if (b.n_rows < 1 || !bucket_fits<W, SKIP>(b) || b.first_unit != unit ||
+        b.row_offset != row) {
+      return (int)cudaErrorInvalidValue;
+    }
+    unit += (b.n_rows + b.rows - 1) / b.rows;
+    row += b.n_rows;
+  }
+  if (row != r_total) return (int)cudaErrorInvalidValue;
+  t->units = unit;
+  t->bits_words = 0;
+  return 0;
+}
+
+// What a sweep scans: a padded view, or a sliced view's host table.
+struct ScanPlan {
+  const Adjacency* padded;
+  const long long* table;
+  int n_buckets;
+  long long r_total;
+};
+
+// Pack then scan: one sweep on the pipelined body.
 template <int W, int MODE, bool SKIP>
 static int scan_sweep_w(const PackSrc& src, long long n_idx, int lanes,
-                        const Adjacency& a, float* packed,
-                        unsigned* live_bits, float* out, cudaStream_t stream) {
-  ScanGeometry g = scan_geometry<W, SKIP>(a);
+                        const ScanPlan& p, const ScanOut& o, float* packed,
+                        unsigned* live_bits, cudaStream_t stream) {
+  ScanTable tab;
+  if (p.padded != nullptr) {
+    tab = scan_geometry<W, SKIP>(*p.padded);
+  } else {
+    const int rc = host_table<W, SKIP>(p.table, p.n_buckets, p.r_total, &tab);
+    if (rc != 0) return rc;
+  }
+  if (tab.units == 0) return 0;  // no rows: nothing to gather
   constexpr int pack_threads = ScanShape<false>::threads;
   const long long blocks1 = (n_idx + pack_threads - 1) / pack_threads;
   pack_kernel<W, MODE><<<(unsigned)blocks1, pack_threads, 0, stream>>>(
@@ -757,7 +933,7 @@ static int scan_sweep_w(const PackSrc& src, long long n_idx, int lanes,
   if (rc != 0) return rc;
   const long long words = (n_idx + 31) / 32;
   if (SKIP && (long long)smem + 4 * words <= smem_max) {
-    g.bits_words = (int)words;
+    tab.bits_words = (int)words;
     smem += 4 * words;
   }
   rc = (int)cudaFuncSetAttribute(scan_kernel<W, SKIP>,
@@ -766,30 +942,30 @@ static int scan_sweep_w(const PackSrc& src, long long n_idx, int lanes,
   if (rc != 0) return rc;
   // persistent: ScanShape<SKIP>::blocks blocks on each SM walk every unit
   const long long fit = (long long)sms * ScanShape<SKIP>::blocks;
-  const long long grid = g.units < fit ? g.units : fit;
+  const long long grid = tab.units < fit ? tab.units : fit;
   scan_kernel<W, SKIP>
       <<<(unsigned)grid, ScanShape<SKIP>::threads + 32, smem, stream>>>(
-          packed, live_bits, n_idx, g, lanes, out);
+          packed, live_bits, n_idx, tab, lanes, o);
   return (int)cudaGetLastError();
 }
 
 template <int MODE, bool SKIP>
 static int scan_sweep(const PackSrc& src, long long n_idx, int lanes,
-                      const Adjacency& g, float* packed,
-                      unsigned* live_bits, float* out, cudaStream_t stream) {
+                      const ScanPlan& p, const ScanOut& o, float* packed,
+                      unsigned* live_bits, cudaStream_t stream) {
   switch (ell_gather_lane_tile(lanes)) {
     case 1:
-      return scan_sweep_w<1, MODE, SKIP>(src, n_idx, lanes, g, packed,
-                                         live_bits, out, stream);
+      return scan_sweep_w<1, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
+                                         live_bits, stream);
     case 2:
-      return scan_sweep_w<2, MODE, SKIP>(src, n_idx, lanes, g, packed,
-                                         live_bits, out, stream);
+      return scan_sweep_w<2, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
+                                         live_bits, stream);
     case 4:
-      return scan_sweep_w<4, MODE, SKIP>(src, n_idx, lanes, g, packed,
-                                         live_bits, out, stream);
+      return scan_sweep_w<4, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
+                                         live_bits, stream);
     default:
-      return scan_sweep_w<8, MODE, SKIP>(src, n_idx, lanes, g, packed,
-                                         live_bits, out, stream);
+      return scan_sweep_w<8, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
+                                         live_bits, stream);
   }
 }
 
@@ -805,14 +981,17 @@ extern "C" int ell_relax_keys_launch(const float* dmask, const float* ga,
                                      unsigned* live_bits, float* upd,
                                      float* keys, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const Adjacency g{cols, ws, n, d_pad};
+  const Adjacency a{cols, ws, n, d_pad};
+  const ScanPlan p{&a, nullptr, 0, n};
   const PackSrc s0{dmask, nullptr, nullptr, nullptr, n, lanes_b};
-  int rc = scan_sweep<PACK_ROWS, true>(s0, n + 1, lanes_b, g, packed,
-                                       live_bits, upd, s);
+  int rc = scan_sweep<PACK_ROWS, true>(s0, n + 1, lanes_b, p,
+                                       ScanOut{upd, n, nullptr, nullptr, 0},
+                                       packed, live_bits, s);
   if (rc != 0) return rc;
   const PackSrc s1{ga, gb, gc, upd, n, lanes_b};
-  return scan_sweep<PACK_IN_GATE, false>(s1, n + 1, k * lanes_b, g, packed,
-                                         nullptr, keys, s);
+  return scan_sweep<PACK_IN_GATE, false>(s1, n + 1, k * lanes_b, p,
+                                         ScanOut{keys, n, nullptr, nullptr, 0},
+                                         packed, nullptr, s);
 }
 
 // Fused out-scan (ell_keys_dep_batch): gates (K0, B, n), dga/dgb (B, n)
@@ -825,45 +1004,48 @@ extern "C" int ell_keys_dep_launch(const float* gates, const float* dga,
                                    const float* ws, int d_pad, float* packed,
                                    float* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const Adjacency g{cols, ws, n, d_pad};
+  const Adjacency a{cols, ws, n, d_pad};
+  const ScanPlan p{&a, nullptr, 0, n};
   const long long row = (long long)lanes_b * n;
   const PackSrc s0{gates, nullptr, nullptr, nullptr, n, lanes_b};
-  int rc = scan_sweep<PACK_ROWS, false>(s0, n + 1, k0 * lanes_b, g, packed,
-                                        nullptr, out, s);
+  int rc = scan_sweep<PACK_ROWS, false>(s0, n + 1, k0 * lanes_b, p,
+                                        ScanOut{out, n, nullptr, nullptr, 0},
+                                        packed, nullptr, s);
   if (rc != 0) return rc;
   const PackSrc s1{dga, dgb, out + dep_idx * row, nullptr, n, lanes_b};
-  return scan_sweep<PACK_DEP_GATE, false>(s1, n + 1, lanes_b, g, packed,
-                                          nullptr, out + k0 * row, s);
+  return scan_sweep<PACK_DEP_GATE, false>(
+      s1, n + 1, lanes_b, p, ScanOut{out + k0 * row, n, nullptr, nullptr, 0},
+      packed, nullptr, s);
 }
 
 // ---------------------------------------------------------------------------
-// The degree-sliced layout (SlicedEll): every bucket in one gather launch,
-// then a merge pass.
+// The degree-sliced layout (SlicedEll).
 //
 // Replaces ell_relax_keys.py::ell_sliced_gather_min_batch,
 // ell_sliced_relax_keys_batch and ell_sliced_keys_dep_batch. On the TPU each
 // was one grid=() step with every bucket and the (n, C) merge plan resident
-// in VMEM, and the merge a take + min inside the body. Here a sweep is three
-// launches in stream order:
-//  * one pack of the gather vector (and, for the relax sweep, the bitmap),
-//    shared by every bucket;
-//  * one gather launch over a bucket table: each bucket starts at a block
-//    boundary, so a block (and each of its warps) has one threads-per-row;
-//    the launch writes each bucket's row-mins into a (lanes, R_total)
-//    partials scratch at the bucket's row offset in the concatenation;
-//    buckets without rows are left out, which keeps the concatenation order;
-//  * a merge pass, out[l, v] = min over v's positions in the partials, read
-//    from the compact form of merge_idx (its non-sentinel entries, CSR); a
-//    vertex with no entry gets +inf, the sentinel's value.
-// What bounds them on the card: bytes, as for the padded form: the slots of
-// every bucket (sum_b R_b * D_b * 8 bytes, ~0.98 GB a side at kronecker(20)),
-// plus the vectors, the partials written and read back and the merge plan
-// (~0.3 ms a sweep at 3.35 TB/s). A bucket narrower than a warp shares a
-// warp between rows, as a padded row of that width does; split rows of hubs
-// are ordinary rows of the widest bucket. The merge adds one pass over
-// (lanes, n) outputs and the merge plan, small next to the slots.
-
-#define MAX_SLICES 16
+// in VMEM, and the merge a take + min inside the body. What bounds them on
+// the card: bytes, as for the padded form: the slots of every bucket
+// (sum_b R_b * D_b * 8 bytes, ~0.98 GB a side at kronecker(20)), plus the
+// vectors and outputs (~0.3 ms a sweep at 3.35 TB/s), and then the random
+// reads, as above. A bucket narrower than a warp shares a warp between
+// rows, as a padded row of that width does; split rows of hubs are ordinary
+// rows of the widest bucket.
+//
+// The fused scans' dense sweeps (both of ell_sliced_keys_dep_batch, the
+// gate sweep of ell_sliced_relax_keys_batch) run on the pipelined body with
+// write-through: a sweep is a pack, a scan over the unit list of every
+// bucket, and the short merge below (the vertices with no row or with
+// several: split hubs and the vertices of degree 0). The sparse relax
+// sweep of ell_sliced_relax_keys_batch, where no push takes its place, and
+// ell_sliced_gather_min_batch keep the single-sweep body: a pack, one
+// gather launch over a bucket table (each bucket starts at a block
+// boundary, so a block has one threads-per-row) into a (lanes, R_total)
+// partials scratch at each bucket's row offset in the concatenation, and a
+// merge pass over every vertex, read from the compact form of merge_idx
+// (its non-sentinel entries, CSR); a vertex with no entry gets +inf, the
+// sentinel's value. Buckets without rows are left out, which keeps the
+// concatenation order.
 
 struct SliceEntry {
   const int* cols;
@@ -921,10 +1103,108 @@ __global__ void merge_kernel(const float* __restrict__ partials,
   out[(long long)blockIdx.y * n + v] = acc;
 }
 
-// The bucket table from the host array `table`, 5 int64 per bucket: cols,
-// ws, rows, width, threads per row. Buckets without rows are left out.
-// Returns 0, or cudaErrorInvalidValue when the table does not fit or its rows
-// do not add up to r_total.
+// The merge plan of a write-through sweep, from the host array `plan` of 8
+// int64 (kernels/ell_sliced.py): row_owner, merge_ptr, merge_pos,
+// merge_short, then r_total, the short list's length, its leading vertices
+// that have rows (merge_multi), and the rows the scratch holds (split_rows).
+struct MergePlan {
+  const int* owner;
+  const long long* merge_ptr;
+  const int* merge_pos;
+  const int* short_list;
+  long long r_total;
+  long long n_short;
+  long long n_multi;
+  long long n_split;
+};
+
+static MergePlan merge_plan(const long long* plan) {
+  return MergePlan{(const int*)plan[0], (const long long*)plan[1],
+                   (const int*)plan[2], (const int*)plan[3], plan[4], plan[5],
+                   plan[6], plan[7]};
+}
+
+// The short merge: out[l, v] for the vertices v of the short list. Its
+// first n_multi vertices have rows in the scratch, one warp a vertex
+// folding them (a hub's hundreds of rows in 32 strides, then the warp's
+// shuffles); the rest have no row and get +inf. A position outside
+// [0, r_total), or whose row was written through, reads NaN. Grid:
+// (multi_blocks + blocks of the rest, lanes).
+__global__ void __launch_bounds__(MERGE_THREADS)
+short_merge_kernel(const float* __restrict__ split, long long split_stride,
+                   MergePlan m, long long multi_blocks,
+                   float* __restrict__ out, long long n) {
+  const long long l = blockIdx.y;
+  if ((long long)blockIdx.x < multi_blocks) {
+    const long long i = (long long)blockIdx.x * (MERGE_THREADS / 32) +
+                        (threadIdx.x >> 5);
+    if (i >= m.n_multi) return;  // the whole warp
+    const int lane = threadIdx.x & 31;
+    const int v = m.short_list[i];
+    float acc = CUDART_INF_F;
+    const long long end = m.merge_ptr[v + 1];
+    for (long long p = m.merge_ptr[v] + lane; p < end; p += 32) {
+      const int q = m.merge_pos[p];
+      const long long s =
+          (q >= 0 && q < m.r_total) ? -1 - (long long)m.owner[q] : -1;
+      acc = nan_min(acc, (s >= 0 && s < m.n_split)
+                             ? split[l * split_stride + s] : CUDART_NAN_F);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      acc = nan_min(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    }
+    if (lane == 0) out[l * n + v] = acc;
+  } else {
+    const long long i = m.n_multi +
+                        ((long long)blockIdx.x - multi_blocks) * MERGE_THREADS +
+                        threadIdx.x;
+    if (i < m.n_short) out[l * n + m.short_list[i]] = CUDART_INF_F;
+  }
+}
+
+// One write-through sweep of a fused sliced scan: pack `lanes` lanes of
+// `src` over n + 1 columns, scan every bucket (rows of single-row vertices
+// straight into out (lanes, n), the others into `split`), then the short
+// merge. With SLICED_WRITE_THROUGH 0 (a variant tools/scan_variants.py
+// times) every row goes to `split` (lanes * r_total floats then) and the
+// merge runs over every vertex.
+template <int MODE, bool SKIP>
+static int sliced_scan_sweep(const PackSrc& src, long long n, int lanes,
+                             const long long* table, int n_buckets,
+                             const MergePlan& m, float* packed,
+                             unsigned* live_bits, float* split, float* out,
+                             cudaStream_t stream) {
+  const ScanPlan p{nullptr, table, n_buckets, m.r_total};
+#if SLICED_WRITE_THROUGH
+  int rc = scan_sweep<MODE, SKIP>(src, n + 1, lanes, p,
+                                  ScanOut{out, n, m.owner, split, m.n_split},
+                                  packed, live_bits, stream);
+  if (rc != 0 || m.n_short == 0) return rc;
+  constexpr long long per_block = MERGE_THREADS / 32;
+  const long long multi_blocks = (m.n_multi + per_block - 1) / per_block;
+  const long long rest_blocks =
+      (m.n_short - m.n_multi + MERGE_THREADS - 1) / MERGE_THREADS;
+  short_merge_kernel<<<dim3((unsigned)(multi_blocks + rest_blocks),
+                            (unsigned)lanes),
+                       MERGE_THREADS, 0, stream>>>(split, m.n_split, m,
+                                                   multi_blocks, out, n);
+#else
+  const ScanOut all_rows{split, m.r_total, nullptr, nullptr, 0};
+  int rc = scan_sweep<MODE, SKIP>(src, n + 1, lanes, p, all_rows, packed,
+                                  live_bits, stream);
+  if (rc != 0) return rc;
+  merge_kernel<<<dim3((unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
+                      (unsigned)lanes),
+                 MERGE_THREADS, 0, stream>>>(split, m.r_total, m.merge_ptr,
+                                             m.merge_pos, n, out);
+#endif
+  return (int)cudaGetLastError();
+}
+
+// The bucket table of the single-sweep body from the host array `table`, 5
+// int64 per bucket: cols, ws, rows, width, threads per row. Buckets without
+// rows are left out. Returns 0, or cudaErrorInvalidValue when the table
+// does not fit or its rows do not add up to r_total.
 static int make_table(const long long* table, int n_slices, int threads,
                       long long r_total, SliceTable* tab,
                       long long* gather_blocks) {
@@ -951,74 +1231,60 @@ static int make_table(const long long* table, int n_slices, int threads,
   return 0;
 }
 
-struct SlicedGeometry {
-  SliceTable tab;
-  long long gather_blocks;
-  long long r_total;
-  const long long* merge_ptr;
-  const int* merge_pos;
-  int threads;
-};
-
-// One sliced sweep: pack `lanes` lanes of `src` over n_idx = n + 1 columns,
-// gather every bucket into `partials`, merge into out (lanes, n).
-template <int W, int MODE, bool SKIP>
-static int sliced_sweep_w(const PackSrc& src, long long n, int lanes,
-                          const SlicedGeometry& g, float* packed,
-                          unsigned* live_bits, float* partials, float* out,
-                          cudaStream_t stream) {
+// ell_sliced_gather_min_batch on the single-sweep body: pack `lanes` lanes
+// of `src` over n_idx = n + 1 columns, gather every bucket into `partials`,
+// merge into out (lanes, n).
+template <int W, bool SKIP>
+static int sliced_gather_w(const PackSrc& src, long long n, int lanes,
+                           const SliceTable& tab, long long gather_blocks,
+                           long long r_total, const long long* merge_ptr,
+                           const int* merge_pos, int threads, float* packed,
+                           unsigned* live_bits, float* partials, float* out,
+                           cudaStream_t stream) {
   const long long n_idx = n + 1;
-  if (g.gather_blocks > 0) {
-    const long long blocks1 = (n_idx + g.threads - 1) / g.threads;
-    pack_kernel<W, MODE><<<(unsigned)blocks1, g.threads, 0, stream>>>(
+  if (gather_blocks > 0) {
+    const long long blocks1 = (n_idx + threads - 1) / threads;
+    pack_kernel<W, PACK_ROWS><<<(unsigned)blocks1, threads, 0, stream>>>(
         src, n_idx, lanes, packed, SKIP ? live_bits : nullptr);
     int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     sliced_gather_min_kernel<W, SKIP>
-        <<<(unsigned)g.gather_blocks, g.threads, 0, stream>>>(
-            packed, live_bits, n_idx, g.tab, lanes, g.r_total, partials);
+        <<<(unsigned)gather_blocks, threads, 0, stream>>>(
+            packed, live_bits, n_idx, tab, lanes, r_total, partials);
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  const dim3 grid((unsigned)((n + g.threads - 1) / g.threads),
-                  (unsigned)lanes);
-  merge_kernel<<<grid, g.threads, 0, stream>>>(partials, g.r_total,
-                                               g.merge_ptr, g.merge_pos, n,
-                                               out);
+  const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)lanes);
+  merge_kernel<<<grid, threads, 0, stream>>>(partials, r_total, merge_ptr,
+                                             merge_pos, n, out);
   return (int)cudaGetLastError();
 }
 
-template <int MODE, bool SKIP>
-static int sliced_sweep(const PackSrc& src, long long n, int lanes,
-                        const SlicedGeometry& g, float* packed,
-                        unsigned* live_bits, float* partials, float* out,
-                        cudaStream_t stream) {
+template <bool SKIP>
+static int sliced_gather(const PackSrc& src, long long n, int lanes,
+                         const SliceTable& tab, long long gather_blocks,
+                         long long r_total, const long long* merge_ptr,
+                         const int* merge_pos, int threads, float* packed,
+                         unsigned* live_bits, float* partials, float* out,
+                         cudaStream_t stream) {
   switch (ell_gather_lane_tile(lanes)) {
     case 1:
-      return sliced_sweep_w<1, MODE, SKIP>(src, n, lanes, g, packed,
-                                           live_bits, partials, out, stream);
+      return sliced_gather_w<1, SKIP>(src, n, lanes, tab, gather_blocks,
+                                      r_total, merge_ptr, merge_pos, threads,
+                                      packed, live_bits, partials, out, stream);
     case 2:
-      return sliced_sweep_w<2, MODE, SKIP>(src, n, lanes, g, packed,
-                                           live_bits, partials, out, stream);
+      return sliced_gather_w<2, SKIP>(src, n, lanes, tab, gather_blocks,
+                                      r_total, merge_ptr, merge_pos, threads,
+                                      packed, live_bits, partials, out, stream);
     case 4:
-      return sliced_sweep_w<4, MODE, SKIP>(src, n, lanes, g, packed,
-                                           live_bits, partials, out, stream);
+      return sliced_gather_w<4, SKIP>(src, n, lanes, tab, gather_blocks,
+                                      r_total, merge_ptr, merge_pos, threads,
+                                      packed, live_bits, partials, out, stream);
     default:
-      return sliced_sweep_w<8, MODE, SKIP>(src, n, lanes, g, packed,
-                                           live_bits, partials, out, stream);
+      return sliced_gather_w<8, SKIP>(src, n, lanes, tab, gather_blocks,
+                                      r_total, merge_ptr, merge_pos, threads,
+                                      packed, live_bits, partials, out, stream);
   }
-}
-
-static int sliced_geometry(const long long* table, int n_slices,
-                           long long r_total, const long long* merge_ptr,
-                           const int* merge_pos, int threads,
-                           SlicedGeometry* g) {
-  g->r_total = r_total;
-  g->merge_ptr = merge_ptr;
-  g->merge_pos = merge_pos;
-  g->threads = threads;
-  return make_table(table, n_slices, threads, r_total, &g->tab,
-                    &g->gather_blocks);
 }
 
 // ell_sliced_gather_min_batch: `lanes` unpadded rows of n floats at `vecs`
@@ -1031,65 +1297,91 @@ extern "C" int ell_sliced_gather_min_launch(
     int n_slices, long long r_total, const long long* merge_ptr,
     const int* merge_pos, int threads, float* packed, unsigned* live_bits,
     float* partials, float* out, void* stream) {
-  SlicedGeometry g;
-  int rc = sliced_geometry(table, n_slices, r_total, merge_ptr, merge_pos,
-                           threads, &g);
+  SliceTable tab;
+  long long gather_blocks = 0;
+  const int rc = make_table(table, n_slices, threads, r_total, &tab,
+                            &gather_blocks);
   if (rc != 0) return rc;
   const PackSrc src{vecs, nullptr, nullptr, nullptr, n, lanes};
   const cudaStream_t s = (cudaStream_t)stream;
   if (live_bits != nullptr) {
-    return sliced_sweep<PACK_ROWS, true>(src, n, lanes, g, packed, live_bits,
-                                         partials, out, s);
+    return sliced_gather<true>(src, n, lanes, tab, gather_blocks, r_total,
+                               merge_ptr, merge_pos, threads, packed,
+                               live_bits, partials, out, s);
   }
-  return sliced_sweep<PACK_ROWS, false>(src, n, lanes, g, packed, nullptr,
-                                        partials, out, s);
+  return sliced_gather<false>(src, n, lanes, tab, gather_blocks, r_total,
+                              merge_ptr, merge_pos, threads, packed, nullptr,
+                              partials, out, s);
 }
 
 // ell_sliced_relax_keys_batch: dmask (B, n), ga/gb/gc (K, B, n) unpadded.
-// Writes upd (B, n) and keys (K, B, n). Scratch: `packed` for max(B, K * B)
-// lanes over n + 1 columns, `partials` for max(B, K * B) lanes, `live_bits`
-// ceil((n + 1) / 32) words.
+// Writes upd (B, n) and keys (K, B, n). The relax sweep (B lanes, sparse)
+// runs on the single-sweep body, from `relax_table` (make_table's five
+// int64 a bucket, `threads` a block) into `partials` (B * r_total floats)
+// and the merge over every vertex: on kronecker(20)'s in|out phases it took
+// 0.90 ms there against 1.20 on the pipelined body (tools/scan_variants.py;
+// the build with SLICED_RELAX_PIPELINED 1 runs it on the pipelined body
+// from `table0`, the unit table of the sparse shape). A null `relax_table`
+// means upd already holds sweep 0 (the push along the outgoing view,
+// launched before on the same stream). The gate sweep (K * B lanes, unit
+// table `table1`) runs on the pipelined body with write-through. `plan`:
+// the merge plan above. Scratch: `packed` for max(B, K * B) lanes over
+// n + 1 columns, `live_bits` ceil((n + 1) / 32) words, `split`
+// max(B, K * B) * split_rows floats.
 extern "C" int ell_sliced_relax_keys_launch(
     const float* dmask, const float* ga, const float* gb, const float* gc,
-    long long n, int lanes_b, int k, const long long* table, int n_slices,
-    long long r_total, const long long* merge_ptr, const int* merge_pos,
-    int threads, float* packed, unsigned* live_bits, float* partials,
+    long long n, int lanes_b, int k, const long long* relax_table,
+    int relax_buckets, int threads, const long long* table0,
+    const long long* table1, int n_buckets, const long long* plan,
+    float* packed, unsigned* live_bits, float* partials, float* split,
     float* upd, float* keys, void* stream) {
-  SlicedGeometry g;
-  int rc = sliced_geometry(table, n_slices, r_total, merge_ptr, merge_pos,
-                           threads, &g);
-  if (rc != 0) return rc;
   const cudaStream_t s = (cudaStream_t)stream;
-  const PackSrc s0{dmask, nullptr, nullptr, nullptr, n, lanes_b};
-  rc = sliced_sweep<PACK_ROWS, true>(s0, n, lanes_b, g, packed, live_bits,
-                                     partials, upd, s);
-  if (rc != 0) return rc;
-  // the merge above is the barrier: the gate pack reads the merged upd
+  const MergePlan m = merge_plan(plan);
+  if (relax_table != nullptr) {
+    const PackSrc s0{dmask, nullptr, nullptr, nullptr, n, lanes_b};
+#if SLICED_RELAX_PIPELINED
+    const int rc = sliced_scan_sweep<PACK_ROWS, true>(
+        s0, n, lanes_b, table0, n_buckets, m, packed, live_bits, split, upd,
+        s);
+#else
+    SliceTable tab;
+    long long gather_blocks = 0;
+    int rc = make_table(relax_table, relax_buckets, threads, m.r_total, &tab,
+                        &gather_blocks);
+    if (rc == 0) {
+      rc = sliced_gather<true>(s0, n, lanes_b, tab, gather_blocks, m.r_total,
+                               m.merge_ptr, m.merge_pos, threads, packed,
+                               live_bits, partials, upd, s);
+    }
+#endif
+    if (rc != 0) return rc;
+  }
+  // the merge above (or the push) is the barrier: the gate pack reads upd
   const PackSrc s1{ga, gb, gc, upd, n, lanes_b};
-  return sliced_sweep<PACK_IN_GATE, false>(s1, n, k * lanes_b, g, packed,
-                                           nullptr, partials, keys, s);
+  return sliced_scan_sweep<PACK_IN_GATE, false>(s1, n, k * lanes_b, table1,
+                                                n_buckets, m, packed, nullptr,
+                                                split, keys, s);
 }
 
 // ell_sliced_keys_dep_batch: gates (K0, B, n), dga/dgb (B, n) unpadded.
 // Writes out (K0 + 1, B, n): rows [:K0] from the gates, row K0 through
-// min(dga, dgb + out[dep_idx]). Scratch as above for max(K0 * B, B) lanes.
+// min(dga, dgb + out[dep_idx]). `table0` / `table1`: the unit tables of the
+// K0 * B and the B lane sweeps. Scratch as above for max(K0 * B, B) lanes.
 extern "C" int ell_sliced_keys_dep_launch(
     const float* gates, const float* dga, const float* dgb, long long n,
-    int lanes_b, int k0, int dep_idx, const long long* table, int n_slices,
-    long long r_total, const long long* merge_ptr, const int* merge_pos,
-    int threads, float* packed, float* partials, float* out, void* stream) {
-  SlicedGeometry g;
-  int rc = sliced_geometry(table, n_slices, r_total, merge_ptr, merge_pos,
-                           threads, &g);
-  if (rc != 0) return rc;
+    int lanes_b, int k0, int dep_idx, const long long* table0,
+    const long long* table1, int n_buckets, const long long* plan,
+    float* packed, float* split, float* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const MergePlan m = merge_plan(plan);
   const long long row = (long long)lanes_b * n;
   const PackSrc s0{gates, nullptr, nullptr, nullptr, n, lanes_b};
-  rc = sliced_sweep<PACK_ROWS, false>(s0, n, k0 * lanes_b, g, packed, nullptr,
-                                      partials, out, s);
+  const int rc = sliced_scan_sweep<PACK_ROWS, false>(
+      s0, n, k0 * lanes_b, table0, n_buckets, m, packed, nullptr, split, out,
+      s);
   if (rc != 0) return rc;
   const PackSrc s1{dga, dgb, out + dep_idx * row, nullptr, n, lanes_b};
-  return sliced_sweep<PACK_DEP_GATE, false>(s1, n, lanes_b, g, packed,
-                                            nullptr, partials, out + k0 * row,
-                                            s);
+  return sliced_scan_sweep<PACK_DEP_GATE, false>(
+      s1, n, lanes_b, table1, n_buckets, m, packed, nullptr, split,
+      out + k0 * row, s);
 }

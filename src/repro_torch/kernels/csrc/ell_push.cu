@@ -60,11 +60,12 @@
 //    (negative floats order in reverse as unsigned, and above every positive
 //    one), and atomicMax with 0xffc00000 for a NaN, a value neither of the
 //    other two paths can displace, so a NaN in dmask reaches every
-//    out-neighbour as the pull's nan_min carries it. Min is exact and order
-//    free, so upd is the pull's bit for bit (every NaN taken as one value).
-//    The one freedom: a tie of -0 and +0 may resolve either way (the pull
-//    keeps the earlier slot's). No engine input makes a -0: weights are >= +0
-//    (from_coo) and d starts at +0.
+//    out-neighbour as the pull's nan_min carries it. A tie of -0 and +0
+//    gives -0 in either order, as the pull's fold does: a -0 takes the
+//    unsigned max path and is above +0 there, and a +0 on the int path is
+//    not below a -0's INT_MIN. Min is exact and order free, so upd is the
+//    pull's bit for bit (every NaN taken as one value). The read before the
+//    atomic lets a -0 through over a +0 for the same reason.
 //
 // A compacted list of the active rows (appended by the mark pass, walked by
 // a persistent grid) was built and measured against this scan: level over
@@ -100,7 +101,8 @@ struct PushTable {
   int count;
 };
 
-// *p = min(*p, x), exact in any order of the callers (see the note above).
+// *p = min(*p, x), exact in any order of the callers, -0 over +0 on a tie
+// (see the note above).
 __device__ __forceinline__ void atomic_min_f32(float* p, float x) {
   const unsigned bits = __float_as_uint(x);
   if (x != x) {
@@ -200,8 +202,11 @@ __device__ __forceinline__ void push_task(
           if (q * G + sub >= end) continue;
           const float cand = du + w[q];
           ++n_cand;
-          if (!PUSH_FILTER || (cand != cand ? cur[q] == cur[q]
-                                            : cand < cur[q])) {
+          if (!PUSH_FILTER ||
+              (cand != cand ? cur[q] == cur[q]
+                            : cand < cur[q] || (cand == cur[q] &&
+                                                signbit(cand) &&
+                                                !signbit(cur[q])))) {
             atomic_min_f32(urow + v[q], cand);
             ++n_atomic;
           }

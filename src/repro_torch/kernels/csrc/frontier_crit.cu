@@ -22,16 +22,24 @@
 // index per batch lane), and keeps all 1 + K running minima and the count
 // of a thread in registers, so K OUT lanes cost no extra pass over d.
 //
-// Min semantics: an explicit compare that keeps a NaN, as jnp.min does
-// (fminf would drop it).
+// Min semantics: nan_min keeps a NaN, as jnp.min does (fminf would drop
+// it), and takes -0 over +0 on a tie in either order, as XLA's min does.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #define KMAX 8
 #define NL (KMAX + 1)
 
+// min(m, v) as jnp.minimum gives it: NaN if either is NaN (the canonical
+// NaN: card parity takes every NaN as one value), and -0 for a tie of -0
+// and +0 in either order: PTX min.NaN, as the gathers of ell_gather.cu fold.
+// Of the forms that keep the tie rule it is the fastest here; the rule
+// itself costs the first pass ~0.02-0.03 ms against the compare without it
+// (tools/crit_variants.py).
 __device__ __forceinline__ float nan_min(float m, float v) {
-  return (v < m || v != v) ? v : m;
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(m), "f"(v));
+  return r;
 }
 
 __device__ __forceinline__ float warp_min(float v) {

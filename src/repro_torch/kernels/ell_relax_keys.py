@@ -36,8 +36,8 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.config import RELAX_THREADS, relax_threads_per_row
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+LANE_TILE = 8  # the most gather lanes one packed slot holds (ell_gather.cu)
 _SIGNATURES = {
-    "ell_gather_lane_tile": ([_I], _I),
     "ell_gather_min_launch": (
         [_P, _LL, _LL, _I, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P], _I),
     # the fused scans (the pipelined body sets its own launch shape)
@@ -45,17 +45,19 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P], _I),
     "ell_keys_dep_launch": (
         [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _I, _P, _P, _P], _I),
-    # the sliced entry points (kernels/ell_sliced.py); after the vectors and
-    # sizes: bucket table, bucket count, total rows, merge_ptr, merge_pos,
-    # threads, then scratch and outputs
+    # the sliced entry points (kernels/ell_sliced.py). The gather, after
+    # the vectors and sizes: bucket table, bucket count, total rows,
+    # merge_ptr, merge_pos, threads, then scratch and outputs; the fused
+    # scans: (the in-scan: the relax sweep's bucket table, its count and
+    # threads,) the unit tables of their two sweeps, bucket count, the
+    # merge plan, then scratch and outputs
     "ell_sliced_gather_min_launch": (
         [_P, _LL, _I, _P, _I, _LL, _P, _P, _I, _P, _P, _P, _P, _P], _I),
     "ell_sliced_relax_keys_launch": (
-        [_P, _P, _P, _P, _LL, _I, _I, _P, _I, _LL, _P, _P, _I, _P, _P, _P, _P,
-         _P, _P], _I),
+        [_P, _P, _P, _P, _LL, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+         _P, _P, _P, _P], _I),
     "ell_sliced_keys_dep_launch": (
-        [_P, _P, _P, _LL, _I, _I, _I, _P, _I, _LL, _P, _P, _I, _P, _P, _P, _P],
-        _I),
+        [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P], _I),
 }
 
 
@@ -92,9 +94,19 @@ def library():
     return _build.load("ell_gather", _SIGNATURES)
 
 
-def packed_scratch(lib, lanes: int, n_idx: int, dev) -> torch.Tensor:
+def lane_tile(lanes: int) -> int:
+    """The packed table's lane tile for ``lanes`` gather lanes: the next
+    power of two, at most LANE_TILE (``ell_gather_lane_tile`` in
+    ``csrc/ell_gather.cu``, which must agree)."""
+    w = 1
+    while w < lanes and w < LANE_TILE:
+        w *= 2
+    return w
+
+
+def packed_scratch(lanes: int, n_idx: int, dev) -> torch.Tensor:
     """The lane-interleaved scratch of one sweep over ``lanes`` lanes."""
-    tile = lib.ell_gather_lane_tile(lanes)
+    tile = lane_tile(lanes)
     return torch.empty((-(-lanes // tile) * tile * n_idx,),
                        dtype=torch.float32, device=dev)
 
@@ -125,7 +137,7 @@ def gather_rows(vecs: torch.Tensor, n_idx: int, cols: torch.Tensor,
     n_src = vecs.shape[-1]
     lanes = out.numel() // cols.shape[0]
     n_rows, d_pad = cols.shape
-    packed = packed_scratch(library(), lanes, n_idx, vecs.device)
+    packed = packed_scratch(lanes, n_idx, vecs.device)
     live_bits = live_bits_scratch(n_idx, vecs.device) if sparse else None
     launch("gather-min", "ell_gather_min_launch", vecs.device,
            vecs.data_ptr(), n_src, n_idx, lanes, cols.data_ptr(),
@@ -197,7 +209,7 @@ def ell_relax_keys_batch(dmask, ga, gb, gc, cols, ws):
     keys = torch.empty((k, b, n), dtype=torch.float32, device=dev)
     if upd.numel() == 0:
         return upd, keys
-    packed = packed_scratch(library(), max(b, k * b), n + 1, dev)
+    packed = packed_scratch(max(b, k * b), n + 1, dev)
     live_bits = live_bits_scratch(n + 1, dev)
     launch("ell_relax_keys_batch", "ell_relax_keys_launch", dev,
            dmask.data_ptr(), ga.data_ptr(), gb.data_ptr(), gc.data_ptr(), n,
@@ -250,7 +262,7 @@ def ell_keys_dep_batch(gates, dga, dgb, cols, ws, *, dep_idx: int = 0):
     out = torch.empty((k0 + 1, b, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    packed = packed_scratch(library(), max(k0 * b, b), n + 1, dev)
+    packed = packed_scratch(max(k0 * b, b), n + 1, dev)
     launch("ell_keys_dep_batch", "ell_keys_dep_launch", dev,
            gates.data_ptr(), dga.data_ptr(), dgb.data_ptr(), n, b, k0,
            int(dep_idx), cols.data_ptr(), ws.data_ptr(), cols.shape[1],

@@ -10,7 +10,8 @@ a ``.launches`` count (one per call that launched its kernels):
     every bucket (a split vertex owns several rows). With ``sparse`` (the
     relax's ``dmask``) the gathers of all-+inf columns are skipped.
   * :func:`ell_sliced_relax_keys_batch`: the fused in-scan, the sliced twin
-    of ``ell_relax_keys_batch``.
+    of ``ell_relax_keys_batch``; given the sliced outgoing view, its relax
+    sweep is the push along it (counted in ``.push_launches``).
   * :func:`ell_sliced_keys_dep_batch`: the fused out-scan, the sliced twin
     of ``ell_keys_dep_batch``;
   * :func:`ell_sliced_push_relax_batch`: the relax pushed along a sliced
@@ -18,12 +19,16 @@ a ``.launches`` count (one per call that launched its kernels):
     (``csrc/ell_push.cu``); it needs no merge, since the atomic min lands
     each split row's candidates in the vertex's slot directly.
 
-Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. The first
-three run on the sliced section of ``csrc/ell_gather.cu``, whose note says
-what bounds them on the card: one pack of the vector shared by every
-bucket, one gather launch over a bucket table, and a merge pass in the
-kernel. A tensor on the CPU runs the plain twin in ``kernels/ref.py``; a
-CUDA tensor launches the kernels or raises.
+Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. The
+gather, and the in-scan's relax sweep where no push takes its place, run
+on the single-sweep body of ``csrc/ell_gather.cu`` (one pack, one gather
+launch over a bucket table, a merge pass over every vertex); the fused
+scans' dense sweeps on its pipelined scan body, over a unit list that
+spans the buckets (:func:`scan_units`, built here on the host), writing
+each single-row vertex's result in place and merging only the vertices of
+``merge_short``. The notes in that file say what bounds them on the card.
+A tensor on the CPU runs the plain twin in ``kernels/ref.py``; a CUDA
+tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -34,14 +39,17 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.config import (
     RELAX_THREADS,
+    SCAN_CAP,
+    SCAN_SKIP_WARPS,
+    SCAN_WARPS,
     SLICED_MAX_BUCKETS,
     relax_threads_per_row,
 )
 from repro_torch.kernels.ell_relax import push_rows
 from repro_torch.kernels.ell_relax_keys import (
     check_inputs,
+    lane_tile,
     launch,
-    library,
     live_bits_scratch,
     packed_scratch,
 )
@@ -51,8 +59,8 @@ MAX_GRID_Y = 65535  # lanes of one merge launch (its grid's second axis)
 
 def check_sliced(vecs: dict, sliced, n: int):
     """:func:`check_inputs` for every bucket of ``sliced``, plus its merge
-    plan: ``merge_idx`` (n, C) int32 with its compact form, on the vectors'
-    device."""
+    plan: ``merge_idx`` (n, C) int32 with its compact form and write-through
+    plan, on the vectors' device."""
     if not sliced.slices:
         raise ValueError("a sliced view needs at least one bucket")
     for s in sliced.slices:
@@ -73,7 +81,12 @@ def check_sliced(vecs: dict, sliced, n: int):
             or pos.dim() != 1 or pos.dtype != torch.int32:
         raise ValueError("want the compact merge plan of sliced_ell: "
                          "(n + 1,) int64 merge_ptr, (nnz,) int32 merge_pos")
-    plan = (midx, ptr, pos)
+    owner, short = sliced.row_owner, sliced.merge_short
+    if owner.shape != (sliced.total_rows,) or owner.dtype != torch.int32 \
+            or short.dim() != 1 or short.dtype != torch.int32:
+        raise ValueError("want the write-through plan of sliced_ell: "
+                         "(R_total,) int32 row_owner, (S,) int32 merge_short")
+    plan = (midx, ptr, pos, owner, short)
     dev = next(iter(vecs.values())).device
     if any(t.device != dev for t in (*plan, *(s.rows for s in sliced.slices))):
         raise ValueError("the merge plan and the vectors are on different "
@@ -81,9 +94,9 @@ def check_sliced(vecs: dict, sliced, n: int):
 
 
 class _Plan:
-    """What every launch over one sliced view passes to the C side: the
-    bucket table (host int64, five entries a bucket), the total rows and
-    the compact merge plan."""
+    """What every gather launch over one sliced view passes to the C side:
+    the bucket table (host int64, five entries a bucket), the total rows
+    and the compact merge plan."""
 
     def __init__(self, sliced):
         live = [s for s in sliced.slices if s.rows.shape[0]]
@@ -109,6 +122,77 @@ class _Plan:
 
     def partials(self, lanes: int, dev) -> torch.Tensor:
         return torch.empty((max(lanes * self.r_total, 1),),
+                           dtype=torch.float32, device=dev)
+
+
+def scan_geometry(d_pad: int, lanes: int, skip: bool, *, cap: int = SCAN_CAP,
+                  warps: int = SCAN_WARPS,
+                  skip_warps: int = SCAN_SKIP_WARPS) -> tuple:
+    """``(tpr, rows, chunk, chunks)`` of a bucket of width ``d_pad`` on the
+    pipelined scan body, for a sweep over ``lanes`` gather lanes (``skip``:
+    the sparse relax sweep's larger block): the rule of ``scan_geometry`` in
+    ``csrc/ell_gather.cu``. ``tpr`` threads a row start at the threads that
+    share one slot's sector and double while a unit's rows hold more than
+    ``cap`` slots; rows still wider than a stage go chunk by chunk. The
+    keywords are the build's constants (a variant of the body may change
+    them)."""
+    threads = 32 * (skip_warps if skip else warps)
+    w = lane_tile(lanes)
+    tpr = w // 4 if w > 4 else 1
+    while tpr < 32 and (threads // tpr) * d_pad > cap:
+        tpr *= 2
+    rows = threads // tpr
+    chunk = d_pad if rows * d_pad <= cap else (cap // rows - 8) & ~3
+    return tpr, rows, chunk, -(-d_pad // chunk)
+
+
+def scan_units(sliced, lanes: int, skip: bool, **shape) -> list[tuple]:
+    """The unit table of one sweep over ``sliced``: a row of ten ints for
+    each bucket with rows, in the concatenation's order: cols and ws
+    addresses, rows, width, then :func:`scan_geometry`'s four, the bucket's
+    first unit (its units follow the previous bucket's) and its first row in
+    the concatenation. The kernel checks every row against its build."""
+    table, unit, first_row = [], 0, 0
+    for s in sliced.slices:
+        n_rows = int(s.rows.shape[0])
+        if not n_rows:
+            continue
+        d_pad = int(s.cols.shape[1])
+        tpr, rows, chunk, chunks = scan_geometry(d_pad, lanes, skip, **shape)
+        table.append((s.cols.data_ptr(), s.ws.data_ptr(), n_rows, d_pad, tpr,
+                      rows, chunk, chunks, unit, first_row))
+        unit += -(-n_rows // rows)
+        first_row += n_rows
+    if len(table) > SLICED_MAX_BUCKETS:
+        raise ValueError(f"{len(table)} buckets with rows; one launch takes "
+                         f"at most {SLICED_MAX_BUCKETS}")
+    return table
+
+
+class _ScanPlan:
+    """What a fused scan over one sliced view passes to the C side: unit
+    tables on demand (host int64, ten a bucket) and the merge plan (eight
+    int64: row_owner, merge_ptr, merge_pos, merge_short, total rows, the
+    short list's length, merge_multi, split_rows). ``shape``: see
+    :func:`scan_geometry`."""
+
+    def __init__(self, sliced, **shape):
+        self.sliced, self.shape = sliced, shape
+        self.n_buckets = len(scan_units(sliced, 1, False, **shape))
+        self.plan = (ctypes.c_longlong * 8)(
+            sliced.row_owner.data_ptr(), sliced.merge_ptr.data_ptr(),
+            sliced.merge_pos.data_ptr(), sliced.merge_short.data_ptr(),
+            sliced.total_rows, sliced.merge_short.numel(),
+            sliced.merge_multi, sliced.split_rows)
+
+    def table(self, lanes: int, skip: bool):
+        flat = [x for row in scan_units(self.sliced, lanes, skip,
+                                        **self.shape) for x in row]
+        return (ctypes.c_longlong * max(len(flat), 1))(*flat)
+
+    def split(self, lanes: int, dev) -> torch.Tensor:
+        """The compact scratch of the rows the short merge folds."""
+        return torch.empty((max(lanes * self.sliced.split_rows, 1),),
                            dtype=torch.float32, device=dev)
 
 
@@ -142,7 +226,7 @@ def ell_sliced_gather_min_batch(vecs: torch.Tensor, sliced, *,
     plan = _Plan(sliced)
     # scratch held in locals until the launch returns: a freed temporary
     # could hand its memory to the next allocation while still in use
-    packed = packed_scratch(library(), lanes, n + 1, dev)
+    packed = packed_scratch(lanes, n + 1, dev)
     live_bits = live_bits_scratch(n + 1, dev) if sparse else None
     partials = plan.partials(lanes, dev)
     launch("ell_sliced_gather_min_batch", "ell_sliced_gather_min_launch",
@@ -156,13 +240,23 @@ def ell_sliced_gather_min_batch(vecs: torch.Tensor, sliced, *,
 ell_sliced_gather_min_batch.launches = 0  # kernel launches since the last reset
 
 
-def ell_sliced_relax_keys_batch(dmask, ga, gb, gc, sliced):
+def ell_sliced_relax_keys_batch(dmask, ga, gb, gc, sliced, *,
+                                out_view=None):
     """Fused in-scan over a sliced view: ``(upd (B, n), keys (K, B, n))``.
 
     ``upd`` is exactly :func:`ell_sliced_gather_min_batch` of ``dmask``
     (B, n); ``keys[k]`` is the gather-min of the post-phase gate
     ``min(ga[k], gb[k], gc[k] + fin(upd))`` over (K, B, n) gate parts, ``fin``
     0 where ``upd`` is finite. K must be >= 1.
+
+    ``out_view``, the sliced *outgoing* view of the same graph
+    (``to_ell_out_sliced``), makes the relax sweep the push along it
+    (``ell_push.cu``: only the settled vertices' out-rows are read); the
+    gate sweep then reads its ``upd`` in stream order. The same bits; a
+    call of this form counts in ``.push_launches``, the other in
+    ``.launches``. Without it the relax sweep is the single-sweep body's
+    sparse gather and merge (faster than the pipelined body there, PERF.md),
+    the gate sweep the pipelined body's.
     """
     if ga.dim() != 3 or ga.shape[0] < 1:
         raise ValueError(f"need a (K>=1, B, n) gate stack; got {tuple(ga.shape)}")
@@ -175,28 +269,49 @@ def ell_sliced_relax_keys_batch(dmask, ga, gb, gc, sliced):
         )
     b, n = dmask.shape
     check_sliced({"dmask": dmask, "ga": ga, "gb": gb, "gc": gc}, sliced, n)
+    if out_view is not None:
+        check_sliced({"dmask": dmask}, out_view, n)
     if dmask.device.type == "cpu":
-        return ref.ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, sliced)
+        return ref.ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, sliced,
+                                                   out_view=out_view)
     k, dev = ga.shape[0], dmask.device
-    upd = torch.empty((b, n), dtype=torch.float32, device=dev)
     keys = torch.empty((k, b, n), dtype=torch.float32, device=dev)
-    if upd.numel() == 0:
-        return upd, keys
+    if keys.numel() == 0:
+        return torch.empty((b, n), dtype=torch.float32, device=dev), keys
     lanes = max(b, k * b)
     _check_lanes(lanes)
-    plan = _Plan(sliced)
-    packed = packed_scratch(library(), lanes, n + 1, dev)
-    live_bits = live_bits_scratch(n + 1, dev)
-    partials = plan.partials(lanes, dev)
+    plan = _ScanPlan(sliced)
+    # scratch and tables held in locals until the launch returns: a freed
+    # temporary could hand its memory to the next allocation while in use
+    packed = packed_scratch(lanes, n + 1, dev)
+    split = plan.split(lanes, dev)
+    table0, table1 = plan.table(b, skip=True), plan.table(k * b, skip=False)
+    if out_view is None:  # the relax sweep: the single-sweep body's gather
+        upd = torch.empty((b, n), dtype=torch.float32, device=dev)
+        relax = _Plan(sliced)
+        live_bits = live_bits_scratch(n + 1, dev)
+        partials = relax.partials(b, dev)
+        relax_args = (ctypes.addressof(relax.table), relax.n_slices,
+                      RELAX_THREADS)
+        bits, parts = live_bits.data_ptr(), partials.data_ptr()
+    else:
+        upd = push_rows(dmask, out_view)
+        relax_args, bits, parts = (None, 0, RELAX_THREADS), None, None
     launch("ell_sliced_relax_keys_batch", "ell_sliced_relax_keys_launch", dev,
            dmask.data_ptr(), ga.data_ptr(), gb.data_ptr(), gc.data_ptr(), n,
-           b, k, *plan.args(), packed.data_ptr(), live_bits.data_ptr(),
-           partials.data_ptr(), upd.data_ptr(), keys.data_ptr())
-    ell_sliced_relax_keys_batch.launches += 1
+           b, k, *relax_args, ctypes.addressof(table0),
+           ctypes.addressof(table1), plan.n_buckets,
+           ctypes.addressof(plan.plan), packed.data_ptr(), bits, parts,
+           split.data_ptr(), upd.data_ptr(), keys.data_ptr())
+    if out_view is None:
+        ell_sliced_relax_keys_batch.launches += 1
+    else:
+        ell_sliced_relax_keys_batch.push_launches += 1
     return upd, keys
 
 
 ell_sliced_relax_keys_batch.launches = 0  # kernel launches since the last reset
+ell_sliced_relax_keys_batch.push_launches = 0  # those with the push sweep
 
 
 def ell_sliced_keys_dep_batch(gates, dga, dgb, sliced, *, dep_idx: int = 0):
@@ -226,13 +341,15 @@ def ell_sliced_keys_dep_batch(gates, dga, dgb, sliced, *, dep_idx: int = 0):
         return out
     lanes = max(k0 * b, b)
     _check_lanes(lanes)
-    plan = _Plan(sliced)
-    packed = packed_scratch(library(), lanes, n + 1, dev)
-    partials = plan.partials(lanes, dev)
+    plan = _ScanPlan(sliced)
+    packed = packed_scratch(lanes, n + 1, dev)
+    split = plan.split(lanes, dev)
+    table0, table1 = plan.table(k0 * b, skip=False), plan.table(b, skip=False)
     launch("ell_sliced_keys_dep_batch", "ell_sliced_keys_dep_launch", dev,
            gates.data_ptr(), dga.data_ptr(), dgb.data_ptr(), n, b, k0,
-           int(dep_idx), *plan.args(), packed.data_ptr(),
-           partials.data_ptr(), out.data_ptr())
+           int(dep_idx), ctypes.addressof(table0), ctypes.addressof(table1),
+           plan.n_buckets, ctypes.addressof(plan.plan), packed.data_ptr(),
+           split.data_ptr(), out.data_ptr())
     ell_sliced_keys_dep_batch.launches += 1
     return out
 

@@ -9,9 +9,12 @@ this module is the one home of the sentinel convention.
 Adjacency layouts: the wrappers that take an ``ell`` accept the padded
 ``(cols, ws)`` pair (``to_ell_in``) or a degree-sliced ``SlicedEll``
 (``to_ell_in_sliced``); f32 min is exact, so both give the same bits. The
-batched relax (:func:`relax_settled_batch`, :func:`relax_settled_batch_sliced`)
-pushes along the *outgoing* view instead (``to_ell_out[_sliced]``): it reads
-only the settled vertices' out-rows and needs no sentinel pad.
+batched relax has two forms of one function: the reference's pull over
+the incoming view (:func:`relax_settled_batch`,
+:func:`relax_settled_batch_sliced`), and the push the engines run
+(:func:`push_settled_batch`, :func:`push_settled_batch_sliced`), which
+takes the *outgoing* view (``to_ell_out[_sliced]``), reads only the
+settled vertices' out-rows and needs no sentinel pad.
 
 The engines consume the batched entry points; the 1-D ``relax_settled`` /
 ``static_thresholds`` wrappers are the reference surfaces the tests pin the
@@ -23,7 +26,11 @@ import torch
 
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ell_key_min import ell_key_min_batch
-from repro_torch.kernels.ell_relax import ell_push_relax_batch, ell_relax
+from repro_torch.kernels.ell_relax import (
+    ell_push_relax_batch,
+    ell_relax,
+    ell_relax_batch,
+)
 from repro_torch.kernels.ell_relax_keys import (
     ell_gather_min_batch,
     ell_keys_dep_batch,
@@ -80,22 +87,44 @@ def static_thresholds(d, status, out_min_static, *, use_kernels=True):
     return frontier_crit(d, status, out_min_static)
 
 
-def relax_settled_batch(d, settle_mask, out_cols, out_ws, *,
+def relax_settled_batch(d, settle_mask, ell_cols, ell_ws, *,
                         use_kernels=True):
-    """Batched candidate updates (B, n): upd[b, v] = min over out-edges
-    (u, v) of the vertices u settled in lane b, pushed along the padded
-    OUTGOING ELL ``(out_cols, out_ws)`` (``to_ell_out``); one read of a
-    settled vertex's out-row serves all its lanes. The same bits as the
-    pull over the incoming ELL (the reference's ``relax_settled_batch``)."""
+    """Batched candidate updates (B, n), the reference's contract: the pull
+    over the padded INCOMING ELL ``(ell_cols, ell_ws)`` (``to_ell_in``) on
+    kernel #1, one adjacency load serving all B rows. No engine path calls
+    it: the engines relax by :func:`push_settled_batch`, the same bits."""
+    dmask = pad_lane_batch(torch.where(settle_mask, d, INF))
+    if not use_kernels:
+        return kref.ell_relax_batch_ref(dmask, ell_cols, ell_ws)
+    return ell_relax_batch(dmask, ell_cols, ell_ws)
+
+
+def relax_settled_batch_sliced(d, settle_mask, sliced, *, use_kernels=True):
+    """Sliced-layout twin of :func:`relax_settled_batch`: the pull over a
+    degree-sliced INCOMING view (``to_ell_in_sliced``) on kernel #9, with
+    its skip of all-+inf columns on; bit-identical."""
+    dmask = torch.where(settle_mask, d, INF)[None]
+    if not use_kernels:
+        return kref.ell_sliced_gather_min_batch_ref(dmask, sliced)[0]
+    return ell_sliced_gather_min_batch(dmask, sliced, sparse=True)[0]
+
+
+def push_settled_batch(d, settle_mask, out_cols, out_ws, *,
+                       use_kernels=True):
+    """The relax of :func:`relax_settled_batch` pushed along the padded
+    OUTGOING ELL ``(out_cols, out_ws)`` (``to_ell_out``): upd[b, v] = min
+    over out-edges (u, v) of the vertices u settled in lane b; one read of
+    a settled vertex's out-row serves all its lanes. The same bits as the
+    pull over the incoming ELL."""
     dmask = torch.where(settle_mask, d, INF)
     if not use_kernels:
         return kref.ell_push_relax_batch_ref(dmask, (out_cols, out_ws))
     return ell_push_relax_batch(dmask, out_cols, out_ws)
 
 
-def relax_settled_batch_sliced(d, settle_mask, sliced_out, *,
-                               use_kernels=True):
-    """Sliced-layout twin of :func:`relax_settled_batch`, pushed along a
+def push_settled_batch_sliced(d, settle_mask, sliced_out, *,
+                              use_kernels=True):
+    """Sliced-layout twin of :func:`push_settled_batch`, pushed along a
     degree-sliced outgoing view (``to_ell_out_sliced``); bit-identical."""
     dmask = torch.where(settle_mask, d, INF)
     if not use_kernels:
@@ -153,7 +182,7 @@ def key_min_batch_any(gate, ell, *, use_kernels=True):
 
 
 def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
-                             use_kernels=True):
+                             out_view=None, use_kernels=True):
     """The fused in-scan: ``(upd (B, n), keys (K, B, n))``.
 
     ``upd`` is this phase's relax update; ``keys[k]`` is the k-th in-side
@@ -162,13 +191,22 @@ def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
     ``gate_parts`` holds one ``(ga, gb, gc)`` triple per key. On the card
     the two sweeps always run as one kernel call, on either layout; it is
     bit-identical to the split form the reference may choose.
+
+    ``out_view``: on the sliced layout, the sliced outgoing view; the
+    kernel then computes ``upd`` by the push along it (the same bits). The
+    padded in-scan keeps its pull and takes none. The plain twins are the
+    same either way.
     """
     dmask = torch.where(settle_mask, d, INF)
     ga, gb, gc = (torch.stack([p[i] for p in gate_parts]) for i in range(3))
     if _is_sliced(ell):
         if not use_kernels:
             return kref.ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, ell)
-        return ell_sliced_relax_keys_batch(dmask, ga, gb, gc, ell)
+        return ell_sliced_relax_keys_batch(dmask, ga, gb, gc, ell,
+                                           out_view=out_view)
+    if out_view is not None:
+        raise ValueError("the padded in-scan relaxes by its pull: out_view "
+                         "is for the sliced layout")
     cols, ws = ell
     if not use_kernels:
         return kref.ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws)

@@ -2,27 +2,52 @@
 
 Each ``*_ref`` computes the same function as its kernel with the same f32
 operations: one add per candidate and an exact min, so a kernel and its
-twin agree bit for bit. ``torch.amin`` / ``torch.minimum`` propagate NaN as
-``jnp.min`` / ``jnp.minimum`` do. Gather indices are widened to int64 here
-(``torch`` indexing needs them); the kernels read the int32 ``cols``.
+twin agree bit for bit. Every min goes through :func:`amin` (a reduction)
+or :func:`nan_min` (two operands): a NaN wins, as in ``jnp.min`` /
+``jnp.minimum``, and -0 wins a tie with +0 in either order, as XLA's min
+does (``torch.amin`` and ``torch.minimum`` keep either zero, by operand
+order and vector width).
+Gather indices are widened to int64 here (``torch`` indexing needs them);
+the kernels read the int32 ``cols``.
 """
 from __future__ import annotations
 
 import torch
 
 INF = float("inf")
+_NEG_ZERO_BITS = -(2 ** 31)  # the int32 view of -0.0
+
+
+def _neg_zero(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) == _NEG_ZERO_BITS
+
+
+def amin(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``torch.amin`` (NaN wins) with -0 over +0 on a tie, in any order."""
+    if dim is None:
+        x, dim = x.reshape(-1), 0
+    m = torch.amin(x, dim=dim)
+    return torch.where((m == 0) & _neg_zero(x).any(dim=dim), -0.0, m)
+
+
+def nan_min(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``min(m, x)`` as the kernels fold it: x where it is below m, NaN, or
+    -0 beside a +0; m's bits otherwise (so a NaN keeps its payload, which
+    ``torch.minimum``'s vectorised CPU form does not)."""
+    take = (x < m) | torch.isnan(x) | ((x == m) & torch.signbit(x))
+    return torch.where(take, x, m)
 
 
 def ell_relax_ref(dmask: torch.Tensor, cols: torch.Tensor,
                   ws: torch.Tensor) -> torch.Tensor:
     """upd[v] = min_j dmask[cols[v, j]] + ws[v, j]."""
-    return torch.amin(dmask[cols.long()] + ws, dim=1)
+    return amin(dmask[cols.long()] + ws, dim=1)
 
 
 def ell_relax_batch_ref(dmask: torch.Tensor, cols: torch.Tensor,
                         ws: torch.Tensor) -> torch.Tensor:
     """upd[b, v] = min_j dmask[b, cols[v, j]] + ws[v, j]."""
-    return torch.amin(dmask[:, cols.long()] + ws[None], dim=-1)
+    return amin(dmask[:, cols.long()] + ws[None], dim=-1)
 
 
 def push_buckets(out_view):
@@ -47,12 +72,16 @@ def ell_push_relax_batch_ref(dmask: torch.Tensor, out_view) -> torch.Tensor:
     that is the sentinel n); an owner outside [0, n) pushes nothing. Only
     the rows of owners with some such lane are visited, so the plain solve
     never materialises more than this phase's candidates. The same f32 add
-    as the pull twin, and ``scatter_reduce_``'s ``amin``, which keeps a NaN.
+    as the pull twin, and ``scatter_reduce_``'s ``amin``, which keeps a NaN;
+    a target whose min is a zero that some candidate gives as -0 gets -0,
+    as the pull's fold does (the scatter's amin keeps either zero).
     """
     b, n = dmask.shape
     live = dmask != INF  # (B, n): lanes that push from u
     any_live = live.any(dim=0)
-    upd = torch.full((b, n + 1), INF, dtype=torch.float32, device=dmask.device)
+    dev = dmask.device
+    upd = torch.full((b, n + 1), INF, dtype=torch.float32, device=dev)
+    neg0 = torch.zeros((b, n + 1), dtype=torch.int8, device=dev)
     for owner, cols, ws in push_buckets(out_view):
         own = owner.long()
         in_range = (own >= 0) & (own < n)
@@ -64,21 +93,25 @@ def ell_push_relax_batch_ref(dmask: torch.Tensor, out_view) -> torch.Tensor:
         in_row = torch.cummin(((c >= 0) & (c < n)).to(torch.int8), dim=1)
         c = torch.where(in_row.values.bool(), c, n)  # the dropped slots' bin
         cand = torch.where(live[:, u, None], dmask[:, u, None] + w[None], INF)
-        upd.scatter_reduce_(1, c.reshape(1, -1).expand(b, -1),
-                            cand.reshape(b, -1), "amin", include_self=True)
+        at = c.reshape(1, -1).expand(b, -1)
+        upd.scatter_reduce_(1, at, cand.reshape(b, -1), "amin",
+                            include_self=True)
+        neg0.scatter_reduce_(1, at, _neg_zero(cand).reshape(b, -1).to(
+            torch.int8), "amax", include_self=True)
+    upd = torch.where((upd == 0) & neg0.bool(), -0.0, upd)
     return upd[:, :n].contiguous()
 
 
 def ell_key_min_ref(gate: torch.Tensor, cols: torch.Tensor,
                     ws: torch.Tensor) -> torch.Tensor:
     """key[v] = min_j gate[cols[v, j]] + ws[v, j] (dynamic criterion key)."""
-    return torch.amin(gate[cols.long()] + ws, dim=1)
+    return amin(gate[cols.long()] + ws, dim=1)
 
 
 def ell_key_min_batch_ref(gate: torch.Tensor, cols: torch.Tensor,
                           ws: torch.Tensor) -> torch.Tensor:
     """key[b, v] = min_j gate[b, cols[v, j]] + ws[v, j]; adjacency shared."""
-    return torch.amin(gate[:, cols.long()] + ws[None], dim=-1)
+    return amin(gate[:, cols.long()] + ws[None], dim=-1)
 
 
 def pad_idx(vec: torch.Tensor, idx_pad: int) -> torch.Tensor:
@@ -100,7 +133,7 @@ def ell_gather_min_batch_ref(vecs: torch.Tensor, cols: torch.Tensor,
     appends the +inf column of the sentinel id n here.
     """
     vecs = pad_idx(vecs, vecs.shape[-1] + 1)
-    return torch.amin(vecs[:, :, cols.long()] + ws[None, None], dim=-1)
+    return amin(vecs[:, :, cols.long()] + ws[None, None], dim=-1)
 
 
 def ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws):
@@ -115,12 +148,12 @@ def ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws):
     idx_pad = dmask.shape[-1] + 1
     dmask, ga, gb, gc = (pad_idx(x, idx_pad) for x in (dmask, ga, gb, gc))
     c = cols.long()
-    upd = torch.amin(dmask[:, c] + ws[None], dim=-1)  # (B, n)
+    upd = amin(dmask[:, c] + ws[None], dim=-1)  # (B, n)
     fin = torch.full(dmask.shape, INF, dtype=torch.float32,
                      device=dmask.device)
     fin[:, :n_rows] = torch.where(upd < INF, 0.0, INF)
-    gate = torch.minimum(ga, torch.minimum(gb, gc + fin[None]))
-    keys = torch.amin(gate[:, :, c] + ws[None, None], dim=-1)
+    gate = nan_min(ga, nan_min(gb, gc + fin[None]))
+    keys = amin(gate[:, :, c] + ws[None, None], dim=-1)
     return upd, keys
 
 
@@ -130,13 +163,13 @@ def ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws):
     n_rows = cols.shape[0]
     idx_pad = gates.shape[-1] + 1
     c = cols.long()
-    keys0 = torch.amin(pad_idx(gates, idx_pad)[:, :, c] + ws[None, None],
+    keys0 = amin(pad_idx(gates, idx_pad)[:, :, c] + ws[None, None],
                        dim=-1)
     dep = torch.full((gates.shape[1], idx_pad), INF, dtype=torch.float32,
                      device=gates.device)
     dep[:, :n_rows] = keys0[dep_idx]
-    gate = torch.minimum(pad_idx(dga, idx_pad), pad_idx(dgb, idx_pad) + dep)
-    dep_key = torch.amin(gate[:, c] + ws[None], dim=-1)
+    gate = nan_min(pad_idx(dga, idx_pad), pad_idx(dgb, idx_pad) + dep)
+    dep_key = amin(gate[:, c] + ws[None], dim=-1)
     return torch.cat([keys0, dep_key[None]], dim=0)
 
 
@@ -165,10 +198,7 @@ def merge_parts(parts, merge_idx: torch.Tensor, lead) -> torch.Tensor:
     start = 0
     for count in torch.bincount(col, minlength=merge_idx.shape[1]).tolist():
         v, p = verts[start:start + count], pos[start:start + count]
-        # the kernel's nan_min, which keeps a NaN's bits (torch.minimum's
-        # vectorised CPU form returns another NaN payload)
-        m, x = out[..., v], flat[..., p]
-        out[..., v] = torch.where((x < m) | torch.isnan(x), x, m)
+        out[..., v] = nan_min(out[..., v], flat[..., p])
         start += count
     return out
 
@@ -182,12 +212,16 @@ def ell_sliced_gather_min_batch_ref(vecs, sliced):
     return merge_parts(parts, sliced.merge_idx, vecs.shape[:-1])
 
 
-def ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, sliced):
+def ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, sliced,
+                                    out_view=None):
     """Sliced fused in-scan twin: ``(upd (B, n), keys (K, B, n))``, the
-    relax merge, then the key gather of ``min(ga, gb, gc + fin(upd))``."""
-    upd = ell_sliced_gather_min_batch_ref(dmask[None], sliced)[0]
+    relax merge (or, given the sliced outgoing view ``out_view``, the push
+    twin along it: the same bits), then the key gather of
+    ``min(ga, gb, gc + fin(upd))``."""
+    upd = (ell_sliced_gather_min_batch_ref(dmask[None], sliced)[0]
+           if out_view is None else ell_push_relax_batch_ref(dmask, out_view))
     fin = torch.where(upd < INF, 0.0, INF)
-    gates = torch.minimum(ga, torch.minimum(gb, gc + fin[None]))
+    gates = nan_min(ga, nan_min(gb, gc + fin[None]))
     return upd, ell_sliced_gather_min_batch_ref(gates, sliced)
 
 
@@ -195,7 +229,7 @@ def ell_sliced_keys_dep_batch_ref(gates, dga, dgb, dep_idx, sliced):
     """Sliced fused out-scan twin: keys (K0 + 1, B, n); row K0 is the
     gather-min of ``min(dga, dgb + keys[dep_idx])``."""
     keys0 = ell_sliced_gather_min_batch_ref(gates, sliced)
-    gate = torch.minimum(dga, dgb + keys0[dep_idx])
+    gate = nan_min(dga, dgb + keys0[dep_idx])
     dep = ell_sliced_gather_min_batch_ref(gate[None], sliced)
     return torch.cat([keys0, dep], dim=0)
 
@@ -204,8 +238,8 @@ def frontier_crit_ref(d: torch.Tensor, status: torch.Tensor,
                       out_min: torch.Tensor):
     """(min_F d, min_F (d + out_min), |F|) over one (n,) row."""
     fringe = status == 1
-    min_fd = torch.amin(torch.where(fringe, d, INF))
-    l_out = torch.amin(torch.where(fringe, d + out_min, INF))
+    min_fd = amin(torch.where(fringe, d, INF))
+    l_out = amin(torch.where(fringe, d + out_min, INF))
     n_f = fringe.sum(dtype=torch.int32)
     return min_fd, l_out, n_f
 
@@ -214,8 +248,8 @@ def frontier_crit_batch_ref(d: torch.Tensor, status: torch.Tensor,
                             out_min: torch.Tensor):
     """Per-row (min_F d, L_out, |F|) over (B, n) state; out_min shared."""
     fringe = status == 1
-    min_fd = torch.amin(torch.where(fringe, d, INF), dim=1)
-    l_out = torch.amin(torch.where(fringe, d + out_min[None], INF), dim=1)
+    min_fd = amin(torch.where(fringe, d, INF), dim=1)
+    l_out = amin(torch.where(fringe, d + out_min[None], INF), dim=1)
     n_f = fringe.sum(dim=1, dtype=torch.int32)
     return min_fd, l_out, n_f
 
@@ -229,11 +263,11 @@ def frontier_crit_lanes_batch_ref(d: torch.Tensor, status: torch.Tensor,
     min_F (d + keys[k]).
     """
     fringe = status == 1
-    rows = [torch.amin(torch.where(fringe, d, INF), dim=1)]
+    rows = [amin(torch.where(fringe, d, INF), dim=1)]
     if keys is not None:
         for k in range(keys.shape[0]):
             kk = keys[k]
             term = d + (kk if kk.dim() == 2 else kk[None, :])
-            rows.append(torch.amin(torch.where(fringe, term, INF), dim=1))
+            rows.append(amin(torch.where(fringe, term, INF), dim=1))
     n_f = fringe.sum(dim=1, dtype=torch.int32)
     return torch.stack(rows), n_f

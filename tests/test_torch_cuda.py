@@ -470,12 +470,10 @@ def test_sliced_cuda_tensors_never_fall_back(cuda):
 
 # --- the push relax (csrc/ell_push.cu) ----------------------------------------
 #
-# dmask holds negative values and NaN but never a -0, and no weight is -0, so
-# no candidate is -0 and no tie of -0 and +0 arises: such a tie is the one
-# place the push (atomics, any order) may resolve otherwise than the pull (the
-# earlier slot). Weights are finite or +inf, as the builders keep them: a -inf
-# weight would make +inf + -inf = NaN in the pull from a lane that pushes
-# nothing.
+# dmask holds negative values and NaN here; ties of -0 and +0 have their own
+# tests below (every fold takes -0, the atomics in any order too). Weights
+# are finite or +inf, as the builders keep them: a -inf weight would make
+# +inf + -inf = NaN in the pull from a lane that pushes nothing.
 
 
 def _push_out_view(cols, ws, n):
@@ -598,3 +596,191 @@ def test_push_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError, match="different devices"):
         ell_sliced_push_relax_batch(torch.zeros((2, view.merge_idx.shape[0])),
                                     view)
+
+
+# --- signed zeros: every kernel takes -0 over +0 on a tie -------------------
+
+_VALUES = np.array([0.0, -0.0, 0.5, 1.0], np.float32)
+
+
+def _signed(rng, shape, inf_frac=0.2, nan=False):
+    """Draws from {0, -0, 0.5, 1}, +inf on ``inf_frac``, NaN at a few
+    slots of lane 1 when ``nan``."""
+    x = _VALUES[rng.integers(0, _VALUES.size, shape)]
+    x[rng.random(shape) < inf_frac] = np.inf
+    if nan:
+        lane = (slice(None),) * (len(shape) - 2) + (1,)
+        x[lane + (rng.integers(0, shape[-1], 3),)] = np.nan
+    return x
+
+
+def _both_zeros(x):
+    z = x == 0
+    return bool((z & torch.signbit(x)).any() and (z & ~torch.signbit(x)).any())
+
+
+def _signed_graph(dev, n=3000, m=40_000, hub=1300):
+    """Weights from {0, -0, 0.5, 1}; vertex 0 has in- and out-degree
+    ``hub`` (it splits in the 512 bucket)."""
+    rng = np.random.default_rng(21)
+    nb = rng.integers(1, n, hub)
+    src = np.concatenate([nb, np.zeros(hub, int), rng.integers(0, n, m)])
+    dst = np.concatenate([np.zeros(hub, int), nb, rng.integers(0, n, m)])
+    w = _VALUES[rng.integers(0, 4, src.size)]
+    return from_coo(src.astype(np.int32), dst.astype(np.int32), w, n=n,
+                    device=dev)
+
+
+SIGNED_KERNELS = ["relax", "key_min", "gather", "relax_keys", "keys_dep",
+                  "crit", "push", "sliced_gather", "sliced_relax_keys",
+                  "sliced_relax_keys_push", "sliced_keys_dep",
+                  "sliced_push"]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("kernel", SIGNED_KERNELS)
+def test_signed_zero_ties_match_twins(cuda, kernel, b):
+    g = _signed_graph(cuda)
+    n = g.n
+    rng = np.random.default_rng(b * 7 + len(kernel))
+    cols, ws = to_ell_in(g)
+    sl = dict(boundaries=(8, 32, 128, 512))
+    v = _t(_signed(rng, (2, b, n), nan=b > 1), cuda)
+    dm = _t(_signed(rng, (b, n), inf_frac=0.6, nan=b > 1), cuda)
+    parts = [_t(_signed(rng, (2, b, n), nan=b > 1 and i == 0), cuda)
+             for i in range(3)]
+    if kernel == "relax":
+        pad = ops.pad_lane_batch(dm)
+        got, want = (ell_relax_batch(pad, cols, ws),
+                     ref.ell_relax_batch_ref(pad, cols, ws))
+    elif kernel == "key_min":
+        pad = ops.pad_lane_batch(v[0])
+        got, want = (ell_key_min_batch(pad, cols, ws),
+                     ref.ell_key_min_batch_ref(pad, cols, ws))
+    elif kernel == "gather":
+        got, want = (ell_gather_min_batch(v, cols, ws),
+                     ref.ell_gather_min_batch_ref(v, cols, ws))
+    elif kernel == "relax_keys":
+        upd, got = ell_relax_keys_batch(dm, *parts, cols, ws)
+        w_upd, want = ref.ell_relax_keys_batch_ref(dm, *parts, cols, ws)
+        assert _same_bits(upd, w_upd)
+    elif kernel == "keys_dep":
+        got = ell_keys_dep_batch(v, parts[0][0], parts[1][0], cols, ws,
+                                 dep_idx=1)
+        want = ref.ell_keys_dep_batch_ref(v, parts[0][0], parts[1][0], 1,
+                                          cols, ws)
+    elif kernel == "crit":
+        st = _t(rng.integers(0, 3, (b, n)).astype(np.int32), cuda)
+        # lane 0 keeps its -0s; the others only +0s (abs), so both signs of
+        # zero are some lane's min
+        d = torch.cat([dm[:1], dm[1:].abs()]) if b > 1 else dm
+        k = torch.cat([v[:, :1], v[:, 1:].abs()], dim=1) if b > 1 else v
+        got = frontier_crit_lanes_batch(d, st, k)[0]
+        want = ref.frontier_crit_lanes_batch_ref(d, st, k)[0]
+        if b == 1:  # one lane: its fringe min is -0, its keys' lane +0
+            want = torch.cat([want, ref.frontier_crit_lanes_batch_ref(
+                d.abs(), st, k)[0]])
+            got = torch.cat([got, frontier_crit_lanes_batch(
+                d.abs(), st, k)[0]])
+    elif kernel == "push":
+        got = ell_push_relax_batch(dm, *to_ell_out(g))
+        want = ref.ell_relax_batch_ref(ops.pad_lane_batch(dm), cols, ws)
+        assert _same_bits(got, ref.ell_push_relax_batch_ref(dm, to_ell_out(g)))
+    elif kernel == "sliced_push":
+        got = ell_sliced_push_relax_batch(dm, to_ell_out_sliced(g, **sl))
+        want = ref.ell_relax_batch_ref(ops.pad_lane_batch(dm), cols, ws)
+    elif kernel == "sliced_gather":
+        view = to_ell_in_sliced(g, **sl)
+        got, want = (ell_sliced_gather_min_batch(v, view),
+                     ref.ell_sliced_gather_min_batch_ref(v, view))
+    elif kernel.startswith("sliced_relax_keys"):
+        view = to_ell_in_sliced(g, **sl)
+        out_view = (to_ell_out_sliced(g, **sl) if kernel.endswith("push")
+                    else None)
+        upd, keys = ell_sliced_relax_keys_batch(dm, *parts, view,
+                                                out_view=out_view)
+        w_upd, w_keys = ref.ell_sliced_relax_keys_batch_ref(dm, *parts, view)
+        assert _same_bits(upd, w_upd)
+        got, want = keys, w_keys
+    else:
+        view = to_ell_out_sliced(g, **sl)
+        got = ell_sliced_keys_dep_batch(v, parts[0][0], parts[1][0], view,
+                                        dep_idx=1)
+        want = ref.ell_sliced_keys_dep_batch_ref(v, parts[0][0], parts[1][0],
+                                                 1, view)
+    assert _both_zeros(want)
+    assert _same_bits(got, want)
+
+
+# --- the sliced fused scans on the pipelined body (#10, #10b, #11) ----------
+
+
+def _hub_sliced(dev):
+    """kronecker(12) plus a vertex of in- and out-degree 1,300 (three rows
+    of the 512 bucket on either side)."""
+    g = kronecker(12, seed=6, device=dev)
+    rng = np.random.default_rng(4)
+    nb = rng.integers(1, g.n, 1300)
+    real = torch.isfinite(g.w)
+    src = np.concatenate([g.src[real].cpu().numpy(), nb, np.zeros(1300, int)])
+    dst = np.concatenate([g.dst[real].cpu().numpy(), np.zeros(1300, int), nb])
+    w = np.concatenate([g.w[real].cpu().numpy(),
+                        rng.uniform(0, 1, 2600).astype(np.float32)])
+    g = from_coo(src.astype(np.int32), dst.astype(np.int32), w, n=g.n,
+                 device=dev)
+    kw = dict(boundaries=(8, 32, 128, 512))
+    return g, to_ell_in_sliced(g, **kw), to_ell_out_sliced(g, **kw)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("b", [1, 8, 13, 40])
+def test_sliced_relax_keys_on_the_pipelined_body(cuda, b, k):
+    g, sl_in, sl_out = _hub_sliced(cuda)
+    assert sl_in.merge_multi > 0 and sl_in.split_rows > 0
+    n = g.n
+    rng = np.random.default_rng(b * 3 + k)
+    dm = np.full((b, n), np.inf, np.float32)
+    live = rng.random((b, n)) < 0.05
+    dm[live] = rng.uniform(0, 10, live.sum()).astype(np.float32)
+    dm[:, 0] = 1.0  # the hub settled in every lane
+    dm[np.arange(b), rng.integers(0, n, b)] = np.nan
+    parts = [_t(_dense(rng, (k, b, n), nan=i == 0), cuda) for i in range(3)]
+    tdm = _t(dm, cuda)
+    w_upd, w_keys = ref.ell_sliced_relax_keys_batch_ref(tdm, *parts, sl_in)
+    for out_view, counter in ((None, "launches"), (sl_out, "push_launches")):
+        before = getattr(ell_sliced_relax_keys_batch, counter)
+        upd, keys = ell_sliced_relax_keys_batch(tdm, *parts, sl_in,
+                                                out_view=out_view)
+        assert getattr(ell_sliced_relax_keys_batch, counter) == before + 1
+        assert _same_bits(upd, w_upd) and _same_bits(keys, w_keys)
+
+
+@pytest.mark.parametrize("k0,dep_idx", [(1, 0), (2, 1)])
+@pytest.mark.parametrize("b", [1, 8, 13, 40])
+def test_sliced_keys_dep_on_the_pipelined_body(cuda, b, k0, dep_idx):
+    g, _, sl_out = _hub_sliced(cuda)
+    n = g.n
+    rng = np.random.default_rng(b * 5 + k0)
+    gates = _t(_dense(rng, (k0, b, n), nan=True), cuda)
+    dga = _t(_dense(rng, (b, n), nan=True), cuda)
+    dgb = _t(_dense(rng, (b, n)), cuda)
+    before = ell_sliced_keys_dep_batch.launches
+    got = ell_sliced_keys_dep_batch(gates, dga, dgb, sl_out, dep_idx=dep_idx)
+    assert ell_sliced_keys_dep_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_sliced_keys_dep_batch_ref(
+        gates, dga, dgb, dep_idx, sl_out))
+
+
+def test_sliced_fused_scans_refuse_a_table_the_body_does_not_take(cuda,
+                                                                   monkeypatch):
+    """A unit table built for other constants is refused by the kernel's
+    check, never run, and nothing falls back to another body."""
+    from repro_torch.kernels import ell_sliced
+
+    g, sl_in, _ = _hub_sliced(cuda)
+    real = ell_sliced.scan_units
+    monkeypatch.setattr(ell_sliced, "scan_units",
+                        lambda *a, **kw: real(*a, warps=4, **kw))
+    x = torch.zeros((1, 2, g.n), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ell_sliced_keys_dep_batch(x, x[0], x[0], sl_in)

@@ -198,15 +198,17 @@ def test_ops_wrappers_match_reference(use_kernels):
     settle = rng.random((b, n)) < 0.4
     om = rng.uniform(0, 1, n).astype(np.float32)
     jd, js, jset = jnp.asarray(d), jnp.asarray(status), jnp.asarray(settle)
-    # the port's batched relax pushes along the outgoing view of the same
-    # edges the reference's pull gathers over
+    # the port's relax_settled_batch is the reference's pull over the same
+    # incoming view; the push the engines run takes the outgoing view of
+    # the same edges
     out_c, out_w = out_view(cols, ws, n)
     for use_pallas in (True, False):
-        assert_bits(
-            jops.relax_settled_batch(jd, jset, cols, ws, block_rows=32,
-                                     use_pallas=use_pallas),
-            tops.relax_settled_batch(T(d), T(settle), T(out_c), T(out_w),
-                                     use_kernels=use_kernels))
+        want = jops.relax_settled_batch(jd, jset, cols, ws, block_rows=32,
+                                        use_pallas=use_pallas)
+        assert_bits(want, tops.relax_settled_batch(
+            T(d), T(settle), T(cols), T(ws), use_kernels=use_kernels))
+        assert_bits(want, tops.push_settled_batch(
+            T(d), T(settle), T(out_c), T(out_w), use_kernels=use_kernels))
         for keys in (None, om[None], rng.uniform(0, 1, (2, b, n)).astype(np.float32)):
             want = jops.crit_thresholds_batch(
                 jd, js, None if keys is None else jnp.asarray(keys), block=32,

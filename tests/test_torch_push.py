@@ -283,3 +283,35 @@ def test_which_plans_read_the_outgoing_view(criterion, reads_out):
     assert pol.needs_out_adjacency == reads_out
     assert bool(pol.plan.in_scan_keys) == (criterion in (
         "in|out", "insimple", "insimple|outsimple"))
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("graph", ["gnp", "kronecker", "sparse_out"])
+def test_relax_settled_keeps_the_reference_contract(graph, use_kernels):
+    """``ops.relax_settled_batch[_sliced]`` take the INCOMING view, as the
+    reference's functions of those names do, and give its bits; the push
+    the engines run has its own names and takes the outgoing view."""
+    from repro.kernels import ops as jops
+
+    gj, gt = _graphs(graph)
+    rng = np.random.default_rng(17)
+    b = 3
+    d = rng.uniform(0, 10, (b, gt.n)).astype(np.float32)
+    d[rng.random((b, gt.n)) < 0.3] = INF
+    settle = rng.random((b, gt.n)) < 0.2
+    jd, jset = jnp.asarray(d), jnp.asarray(settle)
+    kw = dict(use_kernels=use_kernels)
+    want = jops.relax_settled_batch(jd, jset, *JG.to_ell_in(gj),
+                                    use_pallas=False)
+    assert_bits(want, tops.relax_settled_batch(T(d), T(settle),
+                                               *TG.to_ell_in(gt), **kw))
+    assert_bits(want, tops.push_settled_batch(T(d), T(settle),
+                                              *TG.to_ell_out(gt), **kw))
+    jv = JG.to_ell_in_sliced(gj, boundaries=BOUNDARIES)
+    want_s = jops.relax_settled_batch_sliced(jd, jset, jv, use_pallas=False)
+    assert_bits(want, want_s)
+    assert_bits(want_s, tops.relax_settled_batch_sliced(
+        T(d), T(settle), TG.to_ell_in_sliced(gt, boundaries=BOUNDARIES), **kw))
+    assert_bits(want_s, tops.push_settled_batch_sliced(
+        T(d), T(settle), TG.to_ell_out_sliced(gt, boundaries=BOUNDARIES),
+        **kw))
