@@ -8,13 +8,16 @@ toolkit with ``nvcc`` under ``/usr/local/cuda``). Phases, in order; any
 failure raises, exits non-zero and prints no ``ok`` line:
 
   1. device and build: the card's name, count and power limit; builds every
-     CUDA kernel of the path from ``src/repro_torch/kernels/csrc``;
+     CUDA kernel of the path from ``src/repro_torch/kernels/csrc``, and the
+     two-pass body ``frontier_crit_lanes_batch`` ran on before (from
+     ``tools/crit_variants.py``), to time the two in turns;
   2. kernel parity at full width: the paper's G(n=10^6, p=10^-4) graph
      (~10^8 arcs) and its incoming and outgoing ELL on the card; each kernel
      against its plain PyTorch twin on seeded inputs, compared bit for bit
      (every NaN counts as one value: IEEE leaves NaN payloads open); the
      push relax also against the pull (B = 1, 8, 13, 40, NaN lanes, a dense
-     dmask, grid_road);
+     dmask, grid_road); the frontier reduction also on rows of n % 4 = 3
+     and 1 and for 50 calls in a row;
   3. the main path, serving: a StaticBackend with 8 lanes answers 16
      requests (reset_lanes -> step -> peek -> take_row), with every
      kernel's launch count set to 0 just before and read just after: the
@@ -28,22 +31,28 @@ failure raises, exits non-zero and prints no ``ok`` line:
      relax's bound counts the settled vertices' out-rows, dmask and upd);
      push and pull on the same inputs in turns, the push's candidates and
      atomics; then every phase of the default solve: active rows, push and
-     pull times, and the densest phase timed in turns;
+     pull times, and the densest phase timed in turns; the frontier
+     reduction in turns with its two-pass body;
   7. the dynamic-key kernels at full width: each key kernel against its
-     twin on dense seeded key gates, bit for bit;
+     twin on dense seeded key gates, bit for bit, and the status-gate table
+     (``ell_key_min_status_batch``) against its twin and the f32 path;
   8. the paper's strengthened ``in|out`` criterion, serving: a StaticBackend
      with 8 lanes answers 16 requests, counts set to 0 just before;
   9. ``in|out`` end to end: the B = 8 solve with the kernels and with
      use_kernels=False bit-equal, the served rows equal to it, one row
      against scipy's Dijkstra;
  10. ``insimple|outsimple`` at full width, 64 trips, kernels against twins
-     on every state field (the path of ``ell_gather_min_batch``);
+     on every state field (the path of the status-gate table), with its
+     device split a trip;
  11. the key kernels' times on the inputs of one real phase of the ``in|out``
      solve; the two fused scans (on the pipelined scan body) split by kernel
      with ``torch.profiler``, and their sweeps each timed alone on the
      single-sweep kernels (the body the fused scans ran on before the
      pipelined one): the stream floor, the sparse relax sweep, the dense
-     gate sweeps;
+     gate sweeps; ``ell_key_min_batch`` and ``ell_gather_min_batch`` in turns
+     with the single-sweep body, the status-gate table against the f32
+     path, and the frontier reduction with per-lane keys in turns with its
+     two-pass body, each bit-checked on these inputs first;
  12. the skewed graph: ``kronecker(20)`` (Graph500 initiator, ~9.1e7 arcs,
      largest in-degree ~3.8e5, so no padded layout fits) and its degree-sliced
      in- and out-views on the card, with their sizes;
@@ -63,24 +72,30 @@ failure raises, exits non-zero and prints no ``ok`` line:
      ones do not;
  15. sliced end to end: on kronecker(20) the B = 8 kernel and plain solves
      bit-equal for both plans, the served rows equal, one row against
-     scipy's Dijkstra, the ``in|out`` kernel and plain states half way
-     bit-equal with their carried keys; on G(10^6, 10^-4) layout="sliced"
-     bit-equal to the padded solves of phases 4 and 9;
+     scipy's Dijkstra, the ``in|out`` kernel and plain states a quarter of
+     the way bit-equal with their carried keys; on G(10^6, 10^-4)
+     layout="sliced" bit-equal to the padded solves of phases 4 and 9;
  16. the sliced kernels' times on the inputs of one real phase (the sliced
      push and pull in turns; the fused scans on the pipelined body in turns
      with the single-sweep body they ran on before, each split by kernel),
      every phase of the sliced default solve as in phase 6, and ms/phase,
-     phases per query and queries/s of the sliced solves and serving.
+     phases per query and queries/s of the sliced solves and serving;
+ 17. more buckets than one launch takes: G(10^5, 10^-3) sliced into 19
+     buckets with rows (each pass runs in two groups): every sliced kernel
+     and the sliced push against its twin, and the sliced default and
+     ``in|out`` solves against the padded ones, bit for bit.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -105,6 +120,15 @@ SIGNED = (0.0, -0.0, 0.5, 1.0)  # the values of the signed-zero cases
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def load_tool(name: str):
+    """A script of ``tools/`` as a module (its kernel variants)."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def same_bits(a, b) -> bool:
@@ -340,12 +364,18 @@ def main() -> int:
     from repro_torch.graphs import grid_road, kronecker, uniform_gnp
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
+    from repro_torch.kernels.ell_key_min import (
+        ell_key_min,
+        ell_key_min_batch,
+        ell_key_min_status_batch,
+    )
     from repro_torch.kernels.ell_relax import (
         ell_push_relax_batch,
         ell_relax,
         ell_relax_batch,
     )
+    from repro_torch.kernels import ell_relax_keys as erk
+    from repro_torch.kernels.config import RELAX_THREADS, relax_threads_per_row
     from repro_torch.kernels.ell_relax_keys import (
         ell_gather_min_batch,
         ell_keys_dep_batch,
@@ -362,7 +392,7 @@ def main() -> int:
 
     counted = {f.__name__: (f, "launches") for f in (
         ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
-        ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch,
+        ell_key_min_status_batch, ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch,
         ell_sliced_gather_min_batch, ell_sliced_relax_keys_batch,
         ell_sliced_keys_dep_batch, ell_push_relax_batch,
         ell_sliced_push_relax_batch)}
@@ -428,12 +458,44 @@ def main() -> int:
     log(f"device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    outputs = _build.build(ptxas_info=True)
-    log(f"build: {sorted(_build.SOURCES)} in "
+    # the two-pass body #2 ran on before (tools/crit_variants.py holds it),
+    # built beside the shipped sources to be timed in turns with its
+    # redesign
+    crit_tool = load_tool("crit_variants")
+    with ThreadPoolExecutor(1) as pool:
+        two_pass = pool.submit(crit_tool.build, [crit_tool.TWO_PASS],
+                               ROOT / "build" / "variants")
+        outputs = _build.build(ptxas_info=True)
+        two_pass_lib = two_pass.result()[crit_tool.TWO_PASS]
+    log(f"build: {sorted(_build.SOURCES)} and #2's two-pass body in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)")
     for name, out in sorted(outputs.items()):
         for fn, info in ptxas_summary(out):
             log(f"  ptxas {name}: {fn}: {info}")
+
+    def crit_turns(d, st, keys, reps=50):
+        """#2 in turns with its two-pass body (old, new, new, old) on one
+        input, both bit-checked against the twin first: the CUDA-event
+        medians, and each form's device ms a call (torch.profiler)."""
+        old, got_old = crit_tool.caller(crit_tool.TWO_PASS, two_pass_lib, d,
+                                        st, keys)
+
+        def new():
+            return frontier_crit_lanes_batch(d, st, keys)
+
+        want = ref.frontier_crit_lanes_batch_ref(d, st, keys)
+        old()
+        got_new = new()
+        torch.cuda.synchronize()
+        for label, got in (("two-pass body", got_old), ("kernel", got_new)):
+            if not all(same_bits(a, w) for a, w in zip(got, want)):
+                raise SystemExit(f"frontier_crit_lanes_batch ({label}) "
+                                 "disagrees with its twin")
+        turns = [time_ms(old, reps), time_ms(new, reps), time_ms(new, reps),
+                 time_ms(old, reps)]
+        dev_ms = [sum(t for _, t in device_split(f, calls=10))
+                  for f in (old, new)]
+        return turns, dev_ms
 
     # ---- 2. kernel parity at full width ----------------------------------
     t0 = time.perf_counter()
@@ -486,6 +548,14 @@ def main() -> int:
         "gnp K=1 shared NaN": (d_nan, st8, keys_shared),
         "grid_road B=13 K=1 shared": (d13, st13, gr.out_min_static[None]),
     }
+    for cut in (1, 3):  # rows of n - 1 and n - 3 vertices: n % 4 = 3, 1
+        m_ = n - cut
+        crit_cases[f"gnp n % 4 = {m_ % 4} K=1 shared"] = (
+            d8[:, :m_].contiguous(), st8[:, :m_].contiguous(),
+            keys_shared[:, :m_].contiguous())
+        crit_cases[f"gnp n % 4 = {m_ % 4} K=2 per-lane"] = (
+            d8[:, :m_].contiguous(), st8[:, :m_].contiguous(),
+            keys_lane[:, :, :m_].contiguous())
     errs = {"ell_relax_batch": 0.0, "frontier_crit_lanes_batch": 0.0}
     for label, (dm, c, w) in relax_cases.items():
         got = ell_relax_batch(dm, c, w)
@@ -553,6 +623,20 @@ def main() -> int:
         if not ok:
             raise SystemExit(
                 f"frontier_crit_lanes_batch disagrees with its twin: {label}")
+    # 50 calls in a row on alternating inputs, every result held: each call
+    # finds the ticket its predecessor put back to 0
+    rounds = [crit_cases["gnp K=1 shared"], crit_cases["gnp K=2 per-lane"]]
+    wants = [ref.frontier_crit_lanes_batch_ref(*x) for x in rounds]
+    outs = [frontier_crit_lanes_batch(*rounds[i % 2]) for i in range(50)]
+    torch.cuda.synchronize()
+    if not all(same_bits(o[0], wants[i % 2][0])
+               and same_bits(o[1], wants[i % 2][1])
+               for i, o in enumerate(outs)):
+        raise SystemExit("frontier_crit_lanes_batch differs in 50 calls in "
+                         "a row")
+    log("parity frontier_crit_lanes_batch [50 calls in a row, alternating "
+        "shared and per-lane keys]: bits equal")
+    del rounds, wants, outs, crit_cases, d, st, k
 
     # ---- 3. the main path, serving ---------------------------------------
     sources = np.random.default_rng(1).integers(0, g.n, REQUESTS)
@@ -762,8 +846,9 @@ def main() -> int:
         + ", ".join(f"{t:.4f}" for t in dense_turns) + f" ms; bound "
         f"{relax_bound(dense_dm, out_deg)[0]:.4f} ms")
     del dense_dm, dense_pad
-    out_ms_c = time_ms(
-        lambda: frontier_crit_lanes_batch(d_mid, s_mid, keys_shared), reps=50)
+    crit_turns_mid, crit_dev_mid = crit_turns(d_mid, s_mid, keys_shared)
+    out_ms_c = (crit_turns_mid[1] + crit_turns_mid[2]) / 2
+    old_ms_c = (crit_turns_mid[0] + crit_turns_mid[3]) / 2
     plain_ms_c = time_ms(
         lambda: ref.frontier_crit_lanes_batch_ref(d_mid, s_mid, keys_shared),
         reps=20)
@@ -779,6 +864,12 @@ def main() -> int:
         + 2 * LANES * 4 + LANES * 4,
         3.0 * fringe_mid)
     b_v, _ = bound(ell_bytes + view.numel() * 4 + n * 4, 2.0 * n * d_pad)
+    log(f"frontier_crit_lanes_batch at phase {MID_PHASE} (shared keys), bits "
+        f"equal to the twin, in turns (two-pass body, kernel, kernel, "
+        f"two-pass body): " + ", ".join(f"{t:.4f}" for t in crit_turns_mid)
+        + f" ms: {out_ms_c:.4f} against {old_ms_c:.4f}; device ms a call "
+        f"{crit_dev_mid[1]:.4f} against {crit_dev_mid[0]:.4f}; bound "
+        f"{b_c:.4f} ms ({by_c}); plain {plain_ms_c:.4f} ms")
     log(f"ell_relax (B = 1 view, lane 0 of the timing inputs, not on the "
         f"main path): {view_ms:.4f} ms, plain {view_plain_ms:.4f} ms, bound "
         f"{b_v:.4f} ms")
@@ -823,6 +914,21 @@ def main() -> int:
     row4 = gate8[4].contiguous()
     check("ell_key_min_batch", "gnp 1-D view ell_key_min",
           ell_key_min(row4, cols, ws), ref.ell_key_min_ref(row4, cols, ws))
+    # the status-gate table path: the "unsettled" gate read from status,
+    # against its twin and against the f32 path on the same gate
+    for label, (st_, c, w) in {
+        "in-ELL B=8": (st8, cols, ws),
+        "out-ELL B=8": (st8, cols_o, ws_o),
+        "in-ELL B=1": (st1, cols, ws),
+        "grid_road D=8 B=13": (st13, cols_r, ws_r),
+    }.items():
+        got_ = ell_key_min_status_batch(st_, c, w)
+        check("ell_key_min_status_batch", label, got_,
+              ref.ell_key_min_status_batch_ref(st_, c, w))
+        check("ell_key_min_status_batch", label + ", against the f32 path",
+              got_, ell_key_min_batch(kops.pad_lane_batch(
+                  torch.where(st_ < 2, 0.0, INF)), c, w))
+    del got_
     del gate_nan, gate13, row4
     g_dyn, g_weak = gate("out_dyn", st8), gate("out_weak", st8)
     for label, vecs in {"out-ELL V=1": g_dyn[None],
@@ -945,9 +1051,21 @@ def main() -> int:
     log(f"insimple|outsimple: {int(st_k.trips)} trips in {simple_s:.3f} s "
         f"({simple_s / int(st_k.trips) * 1e3:.3f} ms/phase); every state "
         f"field bit-equal to the plain twins; launches {launches_ss}")
-    if launches_ss["ell_gather_min_batch"] <= 0:
+
+    def steps_simple():
+        return step_batch(g, st0, DYN_TRIPS, ell=(cols, ws),
+                          ell_out=(cols_o, ws_o))
+
+    walls_ss = repeat_wall(steps_simple, simple_s)
+    simple_s = float(np.median(walls_ss))
+    log(f"insimple|outsimple: {DYN_TRIPS} trips, 3 runs "
+        + ", ".join(f"{w:.3f}" for w in walls_ss) + f" s, median "
+        f"{simple_s / DYN_TRIPS * 1e3:.3f} ms/phase; "
+        f"{busy_line(steps_simple, simple_s, DYN_TRIPS)}")
+    if launches_ss["ell_key_min_status_batch"] <= 0:
         raise SystemExit("insimple|outsimple never launched "
-                         "ell_gather_min_batch")
+                         "ell_key_min_status_batch (its out-scan and "
+                         "priming read the unsettled gate from status)")
     del st0, st_k, st_p
 
     # ---- 11. key kernels' times on one real phase of the in|out solve -----
@@ -1006,12 +1124,98 @@ def main() -> int:
                                                cols_o, ws_o),
             bound(ell_out_bytes + 5 * bn, 2.0 * fs_kd)),
     }
-    times = {}
+    # #5 and #6 on the pipelined body, in turns with the single-sweep body
+    # they ran on before (the same C entry point, asked for that body), both
+    # bit-checked against the twin on these inputs first
+    lib_g = erk.library()
+
+    def single_sweep(vecs, n_src, c, w, out):
+        lanes = vecs.numel() // n_src
+        packed = erk.packed_scratch(lanes, n + 1, dev)
+        erk.launch("single sweep", "ell_gather_min_launch", dev,
+                   vecs.data_ptr(), n_src, n + 1, lanes, c.data_ptr(),
+                   w.data_ptr(), c.shape[0], c.shape[1],
+                   relax_threads_per_row(c.shape[1]), RELAX_THREADS,
+                   packed.data_ptr(), None, out.data_ptr(), lib=lib_g)
+        return out
+
+    old_out = {"ell_key_min_batch": torch.empty((LANES, n), device=dev),
+               "ell_gather_min_batch": torch.empty((1, LANES, n), device=dev)}
+    single = {
+        "ell_key_min_batch": lambda: single_sweep(
+            gate_io, n + 1, cols, ws, old_out["ell_key_min_batch"]),
+        "ell_gather_min_batch": lambda: single_sweep(
+            g_od, n, cols_o, ws_o, old_out["ell_gather_min_batch"]),
+    }
+    times, single_ms = {}, {}
     for name, (kern, plain, (b_ms, b_by)) in timed.items():
+        if name in single:
+            want_ = plain()
+            check(name, f"in|out phase {int(st_io.trips)} inputs", kern(),
+                  want_)
+            check(name, f"in|out phase {int(st_io.trips)} inputs, the "
+                  "single-sweep body", single[name](), want_)
+            del want_
+            turns = [time_ms(single[name], reps=20), time_ms(kern, reps=20),
+                     time_ms(kern, reps=20), time_ms(single[name], reps=20)]
+            single_ms[name] = (turns[0] + turns[3]) / 2
+            times[name] = ((turns[1] + turns[2]) / 2,
+                           time_ms(plain, reps=3, warmup=1), b_ms, b_by)
+            log(f"{name}: in turns (single-sweep body, pipelined, "
+                f"pipelined, single-sweep body) "
+                + ", ".join(f"{t:.4f}" for t in turns) + f" ms: "
+                f"{times[name][0]:.4f} against {single_ms[name]:.4f} "
+                f"({times[name][0] / single_ms[name]:.2f}x); plain "
+                f"{times[name][1]:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+                f"device ms a call by kernel: " + "; ".join(
+                    f"{k} {t:.4f}" for k, t in device_split(kern)))
+            continue
         times[name] = (time_ms(kern, reps=20), time_ms(plain, reps=3, warmup=1),
                        b_ms, b_by)
         log(f"{name}: {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
+    # (b), the status-gate table, against (a), the f32 path, on the
+    # "unsettled" gates of the same phase (out_dyn over the out-ELL: the
+    # insimple|outsimple out-scan, #6's role; in_dyn over the in-ELL: its
+    # priming, #5's role), in turns with the single-sweep body too
+    g_in_dyn = pad(gate("in_dyn", s_io))
+    status_turns = {}
+    for label, c, w, f32, old in (
+            ("out-ELL", cols_o, ws_o,
+             lambda: ell_gather_min_batch(g_od, cols_o, ws_o)[0],
+             lambda: single[
+                 "ell_gather_min_batch"]()[0]),
+            ("in-ELL", cols, ws,
+             lambda: ell_key_min_batch(g_in_dyn, cols, ws),
+             lambda: single_sweep(g_in_dyn, n + 1, cols, ws,
+                                  old_out["ell_key_min_batch"]))):
+        def bits(c=c, w=w):
+            return ell_key_min_status_batch(s_io, c, w)
+
+        want_ = ref.ell_key_min_status_batch_ref(s_io, c, w)
+        for tag, fn in (("", bits), (", the f32 path", f32),
+                        (", the single-sweep body", old)):
+            check("ell_key_min_status_batch",
+                  f"in|out phase {int(st_io.trips)} {label}{tag}", fn(),
+                  want_)
+        del want_
+        turns = [time_ms(fn, reps=20) for fn in (old, f32, bits, bits, f32,
+                                                 old)]
+        status_turns[label] = ((turns[2] + turns[3]) / 2,
+                               (turns[1] + turns[4]) / 2,
+                               (turns[0] + turns[5]) / 2)
+        log(f"ell_key_min_status_batch {label}: in turns (single-sweep "
+            f"body, f32 pipelined, status table, status table, f32 "
+            f"pipelined, single-sweep body) " + ", ".join(
+                f"{t:.4f}" for t in turns) + " ms: status table "
+            f"{status_turns[label][0]:.4f} against f32 "
+            f"{status_turns[label][1]:.4f} and the single-sweep body "
+            f"{status_turns[label][2]:.4f}; device ms a call by kernel: "
+            + "; ".join(f"{k} {t:.4f}" for k, t in device_split(bits)))
+    status_plain_ms = time_ms(
+        lambda: ref.ell_key_min_status_batch_ref(s_io, cols_o, ws_o), reps=3,
+        warmup=1)
+    del old_out, single, g_in_dyn
     # The split of the two fused scans into their sweeps, each timed alone
     # on the single-sweep kernels (the fused scans' earlier body): the
     # stream floor (an all-+inf dmask, every gather skipped), #7's sparse
@@ -1052,10 +1256,19 @@ def main() -> int:
     log(f"ell_key_min (B = 1 view, lane 0 of the key timing inputs, not on "
         f"the main path): {km_view_ms:.4f} ms, plain {km_view_plain_ms:.4f} "
         f"ms, bound {b_kv:.4f} ms ({by_kv})")
-    pl_ms = time_ms(lambda: frontier_crit_lanes_batch(d_io, s_io, thr_keys),
-                    reps=50)
+    crit_turns_io, crit_dev_io = crit_turns(d_io, s_io, thr_keys)
+    pl_ms = (crit_turns_io[1] + crit_turns_io[2]) / 2
+    pl_old_ms = (crit_turns_io[0] + crit_turns_io[3]) / 2
+    b_pl, by_pl = bound(d_io.numel() * 4 + s_io.numel() * 4
+                        + thr_keys.numel() * 4 + 3 * LANES * 4,
+                        3.0 * int(nf_io.sum()))
     log(f"frontier_crit_lanes_batch with per-lane (1, B, n) keys on the same "
-        f"inputs: {pl_ms:.4f} ms")
+        f"inputs, bits equal to the twin, in turns (two-pass body, kernel, "
+        f"kernel, two-pass body): " + ", ".join(f"{t:.4f}" for t in
+                                               crit_turns_io)
+        + f" ms: {pl_ms:.4f} against {pl_old_ms:.4f}; device ms a call "
+        f"{crit_dev_io[1]:.4f} against {crit_dev_io[0]:.4f}; bound "
+        f"{b_pl:.4f} ms ({by_pl})")
     del st_io, d_io, s_io, g_od, dga_io, dgb_io, keys_io, thr_keys, mins_io
     del settle_io, dmask_io, ga_io, gb_io, gc_io, gate_io, row_io
 
@@ -1225,6 +1438,12 @@ def main() -> int:
     zcheck("ell_gather_min_batch", "G(1e6) out-ELL V=2",
            ell_gather_min_batch(zv, *zout),
            ref.ell_gather_min_batch_ref(zv, *zout))
+    # an unsettled gate is +0 or +inf, and +0 + -0 is +0: these keys hold
+    # no -0, so no tie to meet; the -0 weights still go through the add
+    for label, view in (("in-ELL", zin), ("out-ELL", zout)):
+        check("ell_key_min_status_batch", f"signed-zero weights, G(1e6) "
+              f"{label}", ell_key_min_status_batch(zst, *view),
+              ref.ell_key_min_status_batch_ref(zst, *view))
     zcheck("ell_relax_keys_batch", "G(1e6) in-ELL K=2",
            ell_relax_keys_batch(zd, *zp, *zin),
            ref.ell_relax_keys_batch_ref(zd, *zp, *zin))
@@ -1264,7 +1483,7 @@ def main() -> int:
     has_out = torch.nonzero(out_degrees(gk) >= 1).squeeze(1).cpu().numpy()
     src_k = np.random.default_rng(2).choice(has_out, REQUESTS)
     padded_gathers = ("ell_relax_batch", "ell_key_min_batch",
-                      "ell_gather_min_batch", "ell_relax_keys_batch",
+                      "ell_key_min_status_batch", "ell_gather_min_batch", "ell_relax_keys_batch",
                       "ell_keys_dep_batch", "ell_push_relax_batch")
     served_k, sliced_serve = {}, {}
     # the default plan relaxes by the sliced push and runs no sliced gather;
@@ -1382,23 +1601,29 @@ def main() -> int:
                 raise SystemExit(f"gnp sliced {crit} differs from padded in "
                                  f"{field}")
         del res_g
-    # the carried keys too: the in|out kernel and plain states half way
+    # the carried keys too: the in|out kernel and plain states a quarter of
+    # the way (the plain steps are the slow part), then the kernel state on
+    # to half way, phase 16's timing inputs (a resumed stepper is the same
+    # state as one call)
     st0 = init_batch_state(gk, src8_k, criterion="in|out", device=dev)
     half_io = sliced_solve["in|out"][1] // 2
+    quarter_io = half_io // 2
     t0 = time.perf_counter()
-    st_kio = step_batch(gk, st0, half_io, ell=sl_in, ell_out=sl_out)
-    st_pio = step_batch(gk, st0, half_io, ell=sl_in, ell_out=sl_out,
+    st_kio = step_batch(gk, st0, quarter_io, ell=sl_in, ell_out=sl_out)
+    st_pio = step_batch(gk, st0, quarter_io, ell=sl_in, ell_out=sl_out,
                         use_kernels=False)
     for field in ("dist", "status", "trips", "phases", "sum_fringe",
                   "relax_edges", "crit_keys"):
         if not same_bits(getattr(st_kio, field), getattr(st_pio, field)):
             raise SystemExit(f"sliced in|out kernel and plain states differ "
-                             f"in {field} after {half_io} phases")
+                             f"in {field} after {quarter_io} phases")
     if st_kio.keys_valid is not st_pio.keys_valid:
         raise SystemExit("sliced in|out keys_valid differs")
-    log(f"sliced e2e in|out: after {half_io} phases the kernel and plain "
+    log(f"sliced e2e in|out: after {quarter_io} phases the kernel and plain "
         f"states are bit-equal on every field, crit_keys included "
         f"({time.perf_counter() - t0:.1f} s)")
+    st_kio = step_batch(gk, st_kio, half_io - quarter_io, ell=sl_in,
+                        ell_out=sl_out)
     del st0, st_pio
     sl_g = to_ell_in_sliced(g)
     log(f"sliced e2e on G(n={N}, p={P}): in-view widths {sl_g.widths}, "
@@ -1589,6 +1814,76 @@ def main() -> int:
             f"{REQUESTS / s_s:.2f} queries/s, {np.mean(list(ph_s.values())):.1f}"
             f" phases per request")
     del st_k16, st_kio, relax16, dm16, dmask_io16, ga16, gb16, gc16, gdense
+    # ---- 17. a sliced view with more buckets than one launch takes --------
+    # G(10^5, 10^-3) (in-degrees ~ 100 +- 10) sliced at widths 64, 68, ...,
+    # 136: every width has rows, so a pass runs in groups of 16 buckets
+    t0 = time.perf_counter()
+    gm = uniform_gnp(100_000, 1e-3, seed=SEED, device=dev)
+    many = dict(pad_multiple=4, boundaries=tuple(range(64, 137, 4)))
+    mv_in, mv_out = to_ell_in_sliced(gm, **many), to_ell_out_sliced(gm, **many)
+    nm_ = gm.n
+    live_in = sum(1 for s_ in mv_in.slices if s_.rows.shape[0])
+    live_out = sum(1 for s_ in mv_out.slices if s_.rows.shape[0])
+    if min(live_in, live_out) <= 16:
+        raise SystemExit(f"the many-bucket views have {live_in} / {live_out} "
+                         "buckets with rows, not more than 16")
+    mrng = np.random.default_rng(17)
+    md, mst = seeded_state(mrng, LANES, nm_, dev)
+    msettle = (mst == 1) & torch.from_numpy(
+        mrng.random((LANES, nm_)) < 0.05).to(dev)
+    mdm = torch.where(msettle, md, INF)
+    mdm[3, 11] = float("nan")
+    mspec = {k.name: k for k in C.plan_for("insimple|in|outweak|out").keys}
+
+    def mgate(name_):
+        return C.key_gate(mspec[name_], mst, gm.in_min_static,
+                          gm.out_min_static, {})
+
+    mlabel = f"G(1e5, 1e-3), {live_in} / {live_out} buckets with rows"
+    check("ell_sliced_gather_min_batch", f"{mlabel}, in-view sparse dmask",
+          ell_sliced_gather_min_batch(mdm[None], mv_in, sparse=True),
+          ref.ell_sliced_gather_min_batch_ref(mdm[None], mv_in))
+    mdense = torch.stack([mgate("out_dyn"), mgate("out_weak")])
+    check("ell_sliced_gather_min_batch", f"{mlabel}, out-view dense V=2",
+          ell_sliced_gather_min_batch(mdense, mv_out),
+          ref.ell_sliced_gather_min_batch_ref(mdense, mv_out))
+    check_push("ell_sliced_push_relax_batch", mlabel, mdm, mv_out,
+               ell_sliced_gather_min_batch(mdm[None], mv_in,
+                                           sparse=True)[0], out_degrees(gm))
+    mparts = [p_[None].contiguous() for p_ in C.in_scan_gate_parts(
+        mspec["in_full"], mst, msettle, gm.in_min_static[None])]
+    mtwin = ref.ell_sliced_relax_keys_batch_ref(mdm, *mparts, mv_in)
+    check("ell_sliced_relax_keys_batch", mlabel,
+          ell_sliced_relax_keys_batch(mdm, *mparts, mv_in), mtwin)
+    check(PUSH_IN_SCAN, f"{mlabel}, push sweep",
+          ell_sliced_relax_keys_batch(mdm, *mparts, mv_in, out_view=mv_out),
+          mtwin)
+    mdga, mdgb = C.dep_gate_parts(mspec["out_full"], mst)
+    check("ell_sliced_keys_dep_batch", mlabel,
+          ell_sliced_keys_dep_batch(mdense, mdga, mdgb, mv_out, dep_idx=1),
+          ref.ell_sliced_keys_dep_batch_ref(mdense, mdga, mdgb, 1, mv_out))
+    del md, mst, msettle, mdm, mdense, mparts, mtwin, mdga, mdgb
+    msrc = np.random.default_rng(3).integers(0, nm_, LANES)
+    for crit in ("instatic|outstatic", "in|out"):
+        res_m = run_phased_static_batch(gm, msrc, criterion=crit, ell=mv_in,
+                                        ell_out=mv_out, device=dev)
+        res_pad = run_phased_static_batch(gm, msrc, criterion=crit,
+                                          device=dev)
+        for field in ("dist", "status", "phases", "total_phases"):
+            if not same_bits(getattr(res_m, field), getattr(res_pad, field)):
+                raise SystemExit(f"many-bucket sliced {crit} differs from "
+                                 f"the padded solve in {field}")
+        for field in ("sum_fringe", "relax_edges"):
+            if not np.array_equal(getattr(res_m, field),
+                                  getattr(res_pad, field)):
+                raise SystemExit(f"many-bucket sliced {crit} differs from "
+                                 f"the padded solve in {field}")
+        log(f"many-bucket sliced {crit} on {mlabel}: B={LANES} solve "
+            f"({int(res_m.total_phases)} phases) bit-equal to the padded "
+            "solve on every BatchedResult field")
+    del gm, mv_in, mv_out, res_m, res_pad
+    log(f"many-bucket phase: {time.perf_counter() - t0:.1f} s")
+
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"card: {smi}")
     sliced_kernels = {
@@ -1630,7 +1925,11 @@ def main() -> int:
          "launches": launches["frontier_crit_lanes_batch"],
          "max_abs_err": errs["frontier_crit_lanes_batch"], "ms": out_ms_c,
          "plain_ms": plain_ms_c, "bound_ms": b_c, "bound_by": by_c,
-         "library_ms": None},
+         "library_ms": None, "two_pass_body_ms": old_ms_c,
+         "device_ms": crit_dev_mid[1], "two_pass_device_ms": crit_dev_mid[0],
+         "per_lane_keys_ms": pl_ms, "per_lane_keys_two_pass_ms": pl_old_ms,
+         "per_lane_keys_bound_ms": b_pl,
+         "launches_in_out": launches_io["frontier_crit_lanes_batch"]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
@@ -1642,11 +1941,30 @@ def main() -> int:
          "plain_ms": times[name][1], "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None,
          # the fused scans: the adjacency read twice, and their two sweeps
-         # each timed alone on the single-sweep body (their earlier design)
+         # each timed alone on the single-sweep body (their earlier design);
+         # #5 and #6: the single-sweep body in turns with the pipelined one
          **({"two_read_bound_ms": 2 * times[name][2],
              "single_sweeps_ms": single_sweeps[name]}
-            if name in single_sweeps else {})}
+            if name in single_sweeps else {}),
+         **({"single_sweep_body_ms": single_ms[name]}
+            if name in single_ms else {})}
         for name, replaces in new_kernels.items()
+    ] + [
+        # #6 (and #5) on "unsettled" gates read from status: the path of
+        # insimple|outsimple's out-scan and priming; timed on the out-ELL
+        {"name": "ell_key_min_status_batch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_gather.cu",
+         "replaces": "src/repro/kernels/ell_relax_keys.py:93",
+         "also_replaces": "src/repro/kernels/ell_key_min.py:86",
+         "launches": launches_ss["ell_key_min_status_batch"],
+         "max_abs_err": errs["ell_key_min_status_batch"],
+         "ms": status_turns["out-ELL"][0], "plain_ms": status_plain_ms,
+         "bound_ms": times["ell_gather_min_batch"][2],
+         "bound_by": times["ell_gather_min_batch"][3], "library_ms": None,
+         "f32_path_ms": status_turns["out-ELL"][1],
+         "single_sweep_body_ms": status_turns["out-ELL"][2],
+         "in_ell_ms": status_turns["in-ELL"][0],
+         "in_ell_f32_path_ms": status_turns["in-ELL"][1]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_gather.cu",

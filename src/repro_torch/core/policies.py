@@ -97,14 +97,20 @@ def _compute_out_keys(plan: C.CritPlan, g: Graph, status, ell_out,
 
     Independent keys (elementwise gates) share the scan; the dependent
     ``out_full`` adds the second sweep, gated by the ``out_dyn`` the first
-    sweep produced (paper Eq. 2's two-hop slack).
+    sweep produced (paper Eq. 2's two-hop slack). Keys whose gates are all
+    "unsettled" (``out_dyn`` alone: ``outsimple`` plans) go through
+    :func:`_key_for`, which reads that gate from status.
     """
     if not (plan.out_scan_keys or plan.out_scan_dep):
         return {}
+    specs = [_spec_by_name(plan, nm) for nm in plan.out_scan_keys]
+    if plan.out_scan_dep is None and all(sp.gate == "unsettled"
+                                         for sp in specs):
+        return {sp.name: _key_for(sp, g, status, ell_out, use_kernels)
+                for sp in specs}
     gates = torch.stack([
-        C.key_gate(_spec_by_name(plan, nm), status, g.in_min_static,
-                   g.out_min_static, {})
-        for nm in plan.out_scan_keys
+        C.key_gate(sp, status, g.in_min_static, g.out_min_static, {})
+        for sp in specs
     ])
     dep_parts = None
     names = list(plan.out_scan_keys)
@@ -118,17 +124,25 @@ def _compute_out_keys(plan: C.CritPlan, g: Graph, status, ell_out,
     return {nm: keys[i] for i, nm in enumerate(names)}
 
 
+def _key_for(spec: C.KeySpec, g: Graph, status, ell,
+             use_kernels: bool) -> torch.Tensor:
+    """One status-elementwise dynamic key (B, n) over ``ell``: the ops
+    layer picks the gather by the gate's kind (an "unsettled" gate is read
+    from status on the padded layout)."""
+    return kops.key_min_batch_for(
+        spec.gate, status,
+        lambda: C.key_gate(spec, status, g.in_min_static, g.out_min_static,
+                           {}),
+        ell, use_kernels=use_kernels)
+
+
 def _recompute_in_keys(plan: C.CritPlan, g: Graph, status, ell_in,
                        use_kernels: bool) -> torch.Tensor:
     """(K_in, B, n) in-side keys for the *current* status via key-min
     passes: the priming path after admission; the steady state carries
     them out of the fused in-scan instead."""
     return torch.stack([
-        kops.key_min_batch_any(
-            C.key_gate(_spec_by_name(plan, nm), status, g.in_min_static,
-                       g.out_min_static, {}),
-            ell_in, use_kernels=use_kernels,
-        )
+        _key_for(_spec_by_name(plan, nm), g, status, ell_in, use_kernels)
         for nm in plan.in_scan_keys
     ])
 

@@ -8,6 +8,7 @@ from repro_torch.kernels.ops import (
     in_scan_relax_keys_batch,
     key_min_batch,
     key_min_batch_any,
+    key_min_batch_for,
     out_scan_keys_batch,
     pad_lane_batch,
     push_settled_batch,
@@ -25,6 +26,7 @@ __all__ = [
     "in_scan_relax_keys_batch",
     "key_min_batch",
     "key_min_batch_any",
+    "key_min_batch_for",
     "out_scan_keys_batch",
     "pad_lane_batch",
     "push_settled_batch",

@@ -13,10 +13,11 @@ import torch
 # 32).
 RELAX_THREADS = 256
 
-# The sliced gather kernels: the most buckets with rows one launch takes
-# (must match MAX_SLICES in csrc/ell_gather.cu; the default boundaries give
-# at most 4).
-SLICED_MAX_BUCKETS = 16
+# The sliced kernels: the buckets with rows one launch of a pass takes (must
+# match MAX_SLICES in csrc/ell_gather.cu and PUSH_MAX_BUCKETS in
+# csrc/ell_push.cu). A view with more runs each pass once a group of this
+# many, in order (the default boundaries give at most 4: one group).
+SLICED_GROUP_BUCKETS = 16
 
 # The pipelined scan body of the fused scans (csrc/ell_gather.cu; must match
 # its SCAN_CAP, SCAN_WARPS and SCAN_SKIP_WARPS, which check every unit table
@@ -27,11 +28,13 @@ SCAN_CAP = 5120
 SCAN_WARPS = 8
 SCAN_SKIP_WARPS = 16
 
-# frontier_crit_lanes_batch: threads per block, elements per thread in the
-# first pass, and the most OUT lanes a plan can ask for (must match KMAX in
-# csrc/frontier_crit.cu; the registry's plans need at most 4).
+# frontier_crit_lanes_batch: threads per block (must match CRIT_THREADS in
+# csrc/frontier_crit.cu), blocks on each SM over all lanes (one wave; its
+# CRIT_MIN_BLOCKS holds the registers to that many), and the most OUT lanes
+# a plan can ask for (must match KMAX there; the registry's plans need at
+# most 4).
 CRIT_THREADS = 256
-CRIT_ITEMS = 8
+CRIT_BLOCKS_PER_SM = 4
 CRIT_MAX_KEYS = 8
 
 
@@ -53,6 +56,21 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu'; got {dev}")
     return dev
+
+
+# The gather kernels' packed tables: the most gather lanes one packed slot
+# holds (LANE_TILE in csrc/ell_gather.cu).
+LANE_TILE = 8
+
+
+def lane_tile(lanes: int) -> int:
+    """The packed table's lane tile for ``lanes`` gather lanes: the next
+    power of two, at most LANE_TILE (``ell_gather_lane_tile`` in
+    ``csrc/ell_gather.cu``, which must agree)."""
+    w = 1
+    while w < lanes and w < LANE_TILE:
+        w *= 2
+    return w
 
 
 def relax_threads_per_row(d_pad: int) -> int:

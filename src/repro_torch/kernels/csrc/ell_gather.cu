@@ -22,9 +22,11 @@
 //   * ell_relax_keys.py::ell_sliced_gather_min_batch,
 //     ell_sliced_relax_keys_batch and ell_sliced_keys_dep_batch: the same
 //     sweeps over a degree-sliced adjacency (the section at the end).
-//     The fused scans run on the pipelined scan body (its own section
+//     The fused scans and the dense single sweeps (ell_key_min_batch,
+//     ell_gather_min_batch) run on the pipelined scan body (its own section
 //     below, with its own note), all but the sparse relax sweep of the
-//     sliced in-scan; the rest on the single-sweep body described here.
+//     sliced in-scan; the pull (ell_relax_batch), the sliced gather and that
+//     sweep on the single-sweep body described here.
 //
 // What bounds them on an H100: memory. There are no multiplies and min-plus
 // has no tensor-core form. A dense sweep (the key gates) needs every slot:
@@ -110,6 +112,7 @@ struct PackSrc {
   const float* upd;  // IN_GATE: sweep 0's upd, (B, n_src)
   long long n_src;   // columns of each source row; columns past it read +inf
   int lanes_b;       // B: gate lane l = k * B + b reads upd row b
+  const int* status = nullptr;  // the status-gate table's (lanes, n_src)
 };
 
 template <int MODE>
@@ -189,6 +192,31 @@ __global__ void pack_kernel(PackSrc s, long long n_idx, int lanes,
   if (live_bits != nullptr) {
     const unsigned word = __ballot_sync(0xffffffffu, live);
     if ((threadIdx.x & 31) == 0 && c < n_idx) live_bits[c >> 5] = word;
+  }
+}
+
+// The status-gate table of an "unsettled" key gate (core/criteria.py:
+// gate[l, c] = 0 where status[l, c] < 2, else +inf): byte c of tile t holds
+// bit k set where lane t * W + k's gate is 0; columns in [n_src, n_idx) (the
+// sentinel) and lanes past the last are clear. One thread per column.
+template <int W>
+__global__ void pack_status_kernel(const int* __restrict__ status,
+                                   long long n_src, long long n_idx,
+                                   int lanes,
+                                   unsigned char* __restrict__ bits) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_idx) return;
+  const int tiles = (lanes + W - 1) / W;
+  for (int t = 0; t < tiles; ++t) {
+    unsigned m = 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int l = t * W + k;
+      if (l < lanes && c < n_src && status[(long long)l * n_src + c] < 2) {
+        m |= 1u << k;
+      }
+    }
+    bits[(long long)t * n_idx + c] = (unsigned char)m;
   }
 }
 
@@ -342,30 +370,6 @@ static int sweep(const PackSrc& src, long long n_idx, int lanes,
   }
 }
 
-// Single sweep (ell_relax_batch, ell_key_min_batch, ell_gather_min_batch):
-// `lanes` rows of n_src floats at `vecs`, gathered over ids in [0, n_idx);
-// columns in [n_src, n_idx) read +inf. Scratch: `packed` holds
-// ceil(lanes / W) * W * n_idx floats, 16-byte aligned (unused for one lane
-// with n_src == n_idx); `live_bits`, for a sparse `vecs`, holds
-// ceil(n_idx / 32) words, and null turns the skip off.
-extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
-                                     long long n_idx, int lanes,
-                                     const int* cols, const float* ws,
-                                     long long n_rows, int d_pad, int tpr,
-                                     int threads, float* packed,
-                                     unsigned* live_bits, float* out,
-                                     void* stream) {
-  const PackSrc src{vecs, nullptr, nullptr, nullptr, n_src, lanes};
-  const Geometry g{cols, ws, n_rows, d_pad, tpr, threads};
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (live_bits != nullptr) {
-    return sweep<PACK_ROWS, true>(src, n_idx, lanes, g, packed, live_bits,
-                                  out, s);
-  }
-  return sweep<PACK_ROWS, false>(src, n_idx, lanes, g, packed, nullptr, out,
-                                 s);
-}
-
 // ---------------------------------------------------------------------------
 // The pipelined scan body: the fused scans of the paper's in|out plan, on
 // the padded and on the degree-sliced layout.
@@ -373,7 +377,13 @@ extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
 // Replaces ell_relax_keys.py::ell_relax_keys_batch (:182; and
 // ell_relax_keys, its B = 1 view), ell_relax_keys.py::ell_keys_dep_batch
 // (:482), and their sliced forms ell_sliced_relax_keys_batch (:345) and
-// ell_sliced_keys_dep_batch (:394). Each is two sweeps over one adjacency,
+// ell_sliced_keys_dep_batch (:394); and, one sweep each, the dense
+// gathers ell_relax_keys.py::ell_gather_min_batch (:93) and
+// ell_key_min.py::ell_key_min_batch (:86, and ell_key_min, its B = 1 view:
+// a one-lane padded gate is the packed table as it stands), which ran on
+// the single-sweep body until the pipelined one had shown, on the fused
+// scans, that its stream is what that body lacked. The fused scans are two
+// sweeps over one adjacency,
 // and sweep 1 reads every column of sweep 0's output, so each reads the
 // adjacency twice: at n = 1e6, D = 152 the bytes bound is ~0.41 ms a fused
 // call counting the adjacency once, ~0.82 ms counting the two reads no
@@ -385,12 +395,15 @@ extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
 // streamed cols and ws at ~1.1 TB/s (short blocks, one warp a row, a
 // dependent chain of loads each trip). What this body does:
 //  * a unit list: a scan walks units of `rows` consecutive rows of one
-//    bucket. A padded view is one bucket; a sliced view has up to MAX_SLICES
-//    buckets with rows, each with its own geometry (threads a row, rows a
+//    bucket. A padded view is one bucket; a sliced view has a bucket a
+//    width with rows, each with its own geometry (threads a row, rows a
 //    unit, the chunk of a row a stage holds), and its units follow the
 //    previous bucket's, so a block's consecutive units may lie in different
 //    buckets. The table of buckets stays in parameter space, and a block
-//    steps through it as its units ascend;
+//    steps through it as its units ascend. A table holds MAX_SLICES
+//    buckets; a view with more scans them in groups of that many, one
+//    launch a group (every view the default boundaries build has at most
+//    4, so one launch a sweep);
 //  * persistent blocks: SCAN_BLOCKS_PER_SM blocks on each SM walk the units
 //    in a grid stride; the sparse relax sweep runs one larger block an SM
 //    instead, which holds its bitmap in shared memory (ScanShape below);
@@ -624,7 +637,7 @@ __device__ __forceinline__ void scan_issue(const ScanCursor& it,
 // released it. The other warps consume: warp w owns rows
 // [w * rpw, (w + 1) * rpw) of each unit, rpw = 32 / tpr, and waits for
 // nothing but its stage, so one warp's gathers overlap another's.
-template <int W, bool SKIP>
+template <int W, bool SKIP, bool BITS>
 __global__ void __launch_bounds__(ScanShape<SKIP>::threads + 32,
                                   ScanShape<SKIP>::blocks)
 scan_kernel(const float* __restrict__ packed,
@@ -745,7 +758,16 @@ scan_kernel(const float* __restrict__ packed,
               take = (bits[cu[u] >> 5] >> (cu[u] & 31)) & 1u;
             }
           }
-          if (take && valid) {
+          if (take && valid && BITS) {
+            // the status-gate table: this thread's WL bits of the byte
+            const unsigned m = __ldg(
+                reinterpret_cast<const unsigned char*>(packed) +
+                (long long)it.tile * n_idx + cu[u]);
+#pragma unroll
+            for (int k = 0; k < WL; ++k) {
+              v[u][k] = (m >> (part * WL + k)) & 1u ? 0.0f : CUDART_INF_F;
+            }
+          } else if (take && valid) {
             load_lanes<WL>(ptile + (long long)cu[u] * W, v[u]);
           } else {
 #pragma unroll
@@ -853,21 +875,20 @@ static ScanTable scan_geometry(const Adjacency& a) {
   return t;
 }
 
-// The table of a sliced view from the host array `rows`, SCAN_TABLE_COLS
-// int64 a bucket with rows (kernels/ell_sliced.py builds it: cols, ws, rows,
-// width, threads a row, rows a unit, chunk, chunks, first unit, first row).
-// Returns 0, or cudaErrorInvalidValue for a table that does not fit this
-// build's shape, leaves a row out or counts its rows other than r_total.
+// Group `first / MAX_SLICES` of a sliced view's buckets, `count` of them,
+// from the host array `rows`, SCAN_TABLE_COLS int64 a bucket with rows
+// (kernels/ell_sliced.py builds it: cols, ws, rows, width, threads a row,
+// rows a unit, chunk, chunks, first unit (from 0 in each group), first row
+// in the concatenation). `row` is the group's first row and steps past its
+// last. Returns 0, or cudaErrorInvalidValue for a group that does not fit
+// this build's shape or leaves a row out.
 template <int W, bool SKIP>
-static int host_table(const long long* rows, int n_buckets, long long r_total,
-                      ScanTable* t) {
-  if (n_buckets < 0 || n_buckets > MAX_SLICES) {
-    return (int)cudaErrorInvalidValue;
-  }
-  long long unit = 0, row = 0;
-  t->count = n_buckets;
-  for (int i = 0; i < n_buckets; ++i) {
-    const long long* r = rows + SCAN_TABLE_COLS * i;
+static int host_group(const long long* rows, int first, int count,
+                      long long* row, ScanTable* t) {
+  long long unit = 0;
+  t->count = count;
+  for (int i = 0; i < count; ++i) {
+    const long long* r = rows + SCAN_TABLE_COLS * (first + i);
     ScanBucket& b = t->e[i];
     b.cols = (const int*)r[0];
     b.ws = (const float*)r[1];
@@ -880,13 +901,12 @@ static int host_table(const long long* rows, int n_buckets, long long r_total,
     b.first_unit = r[8];
     b.row_offset = r[9];
     if (b.n_rows < 1 || !bucket_fits<W, SKIP>(b) || b.first_unit != unit ||
-        b.row_offset != row) {
+        b.row_offset != *row) {
       return (int)cudaErrorInvalidValue;
     }
     unit += (b.n_rows + b.rows - 1) / b.rows;
-    row += b.n_rows;
+    *row += b.n_rows;
   }
-  if (row != r_total) return (int)cudaErrorInvalidValue;
   t->units = unit;
   t->bits_words = 0;
   return 0;
@@ -900,25 +920,68 @@ struct ScanPlan {
   long long r_total;
 };
 
-// Pack then scan: one sweep on the pipelined body.
-template <int W, int MODE, bool SKIP>
+// The launches of a sweep: one for a padded view, one for each group of
+// MAX_SLICES buckets of a sliced view.
+static int scan_groups(const ScanPlan& p) {
+  return p.padded != nullptr ? 1 : (p.n_buckets + MAX_SLICES - 1) / MAX_SLICES;
+}
+
+// The table of launch g of a sweep (`row` as for host_group).
+template <int W, bool SKIP>
+static int scan_table(const ScanPlan& p, int g, long long* row,
+                      ScanTable* t) {
+  if (p.padded != nullptr) {
+    *t = scan_geometry<W, SKIP>(*p.padded);
+    return 0;
+  }
+  const int first = g * MAX_SLICES;
+  const int count = p.n_buckets - first < MAX_SLICES ? p.n_buckets - first
+                                                     : MAX_SLICES;
+  return host_group<W, SKIP>(p.table, first, count, row, t);
+}
+
+// Pack then scan: one sweep on the pipelined body. A sliced view with more
+// than MAX_SLICES buckets with rows scans them in groups, one launch each
+// after the one pack, in stream order: buckets own disjoint rows, and a row
+// writes its own output (or compact-scratch) slot, so the groups add up to
+// the one launch they stand for. Every group is checked before anything is
+// launched. One lane of rows that already hold every id is the packed
+// layout as it stands and is not copied.
+template <int W, int MODE, bool SKIP, bool BITS>
 static int scan_sweep_w(const PackSrc& src, long long n_idx, int lanes,
                         const ScanPlan& p, const ScanOut& o, float* packed,
                         unsigned* live_bits, cudaStream_t stream) {
+  if (p.padded == nullptr && p.n_buckets < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int groups = scan_groups(p);
   ScanTable tab;
-  if (p.padded != nullptr) {
-    tab = scan_geometry<W, SKIP>(*p.padded);
-  } else {
-    const int rc = host_table<W, SKIP>(p.table, p.n_buckets, p.r_total, &tab);
+  long long row = 0, units = 0;
+  for (int g = 0; g < groups; ++g) {
+    const int rc = scan_table<W, SKIP>(p, g, &row, &tab);
+    if (rc != 0) return rc;
+    units += tab.units;
+  }
+  if (p.padded == nullptr && row != p.r_total) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (units == 0) return 0;  // no rows: nothing to gather
+  const bool as_is = !SKIP && !BITS && packs_as_is(MODE, src, n_idx, lanes);
+  int rc = 0;
+  if (!as_is) {
+    constexpr int pack_threads = ScanShape<false>::threads;
+    const long long blocks1 = (n_idx + pack_threads - 1) / pack_threads;
+    if (BITS) {
+      pack_status_kernel<W><<<(unsigned)blocks1, pack_threads, 0, stream>>>(
+          src.status, src.n_src, n_idx, lanes,
+          reinterpret_cast<unsigned char*>(packed));
+    } else {
+      pack_kernel<W, MODE><<<(unsigned)blocks1, pack_threads, 0, stream>>>(
+          src, n_idx, lanes, packed, SKIP ? live_bits : nullptr);
+    }
+    rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  if (tab.units == 0) return 0;  // no rows: nothing to gather
-  constexpr int pack_threads = ScanShape<false>::threads;
-  const long long blocks1 = (n_idx + pack_threads - 1) / pack_threads;
-  pack_kernel<W, MODE><<<(unsigned)blocks1, pack_threads, 0, stream>>>(
-      src, n_idx, lanes, packed, SKIP ? live_bits : nullptr);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
   size_t smem = sizeof(float) * SCAN_STAGES * 2 * SCAN_STAGE_ELEMS +
                 sizeof(unsigned long long) * 2 * SCAN_STAGES;
   int dev = 0, sms = 0, smem_max = 0;
@@ -932,41 +995,112 @@ static int scan_sweep_w(const PackSrc& src, long long n_idx, int lanes,
   }
   if (rc != 0) return rc;
   const long long words = (n_idx + 31) / 32;
-  if (SKIP && (long long)smem + 4 * words <= smem_max) {
-    tab.bits_words = (int)words;
-    smem += 4 * words;
-  }
-  rc = (int)cudaFuncSetAttribute(scan_kernel<W, SKIP>,
+  const bool bits_in_smem = SKIP && (long long)smem + 4 * words <= smem_max;
+  if (bits_in_smem) smem += 4 * words;
+  rc = (int)cudaFuncSetAttribute(scan_kernel<W, SKIP, BITS>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem);
   if (rc != 0) return rc;
   // persistent: ScanShape<SKIP>::blocks blocks on each SM walk every unit
   const long long fit = (long long)sms * ScanShape<SKIP>::blocks;
-  const long long grid = tab.units < fit ? tab.units : fit;
-  scan_kernel<W, SKIP>
-      <<<(unsigned)grid, ScanShape<SKIP>::threads + 32, smem, stream>>>(
-          packed, live_bits, n_idx, tab, lanes, o);
-  return (int)cudaGetLastError();
+  row = 0;
+  for (int g = 0; g < groups; ++g) {
+    scan_table<W, SKIP>(p, g, &row, &tab);  // checked above
+    tab.bits_words = bits_in_smem ? (int)words : 0;
+    const long long grid = tab.units < fit ? tab.units : fit;
+    scan_kernel<W, SKIP, BITS>
+        <<<(unsigned)grid, ScanShape<SKIP>::threads + 32, smem, stream>>>(
+            as_is ? src.a : packed, live_bits, n_idx, tab, lanes, o);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
-template <int MODE, bool SKIP>
+// BITS: `packed` holds the status-gate table of src.status (bytes) in
+// place of the f32 packed lanes.
+template <int MODE, bool SKIP, bool BITS = false>
 static int scan_sweep(const PackSrc& src, long long n_idx, int lanes,
                       const ScanPlan& p, const ScanOut& o, float* packed,
                       unsigned* live_bits, cudaStream_t stream) {
   switch (ell_gather_lane_tile(lanes)) {
     case 1:
-      return scan_sweep_w<1, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
-                                         live_bits, stream);
+      return scan_sweep_w<1, MODE, SKIP, BITS>(src, n_idx, lanes, p, o,
+                                               packed, live_bits, stream);
     case 2:
-      return scan_sweep_w<2, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
-                                         live_bits, stream);
+      return scan_sweep_w<2, MODE, SKIP, BITS>(src, n_idx, lanes, p, o,
+                                               packed, live_bits, stream);
     case 4:
-      return scan_sweep_w<4, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
-                                         live_bits, stream);
+      return scan_sweep_w<4, MODE, SKIP, BITS>(src, n_idx, lanes, p, o,
+                                               packed, live_bits, stream);
     default:
-      return scan_sweep_w<8, MODE, SKIP>(src, n_idx, lanes, p, o, packed,
-                                         live_bits, stream);
+      return scan_sweep_w<8, MODE, SKIP, BITS>(src, n_idx, lanes, p, o,
+                                               packed, live_bits, stream);
   }
+}
+
+// Single sweep (ell_relax_batch, ell_key_min_batch, ell_gather_min_batch):
+// `lanes` rows of n_src floats at `vecs`, gathered over ids in [0, n_idx);
+// columns in [n_src, n_idx) read +inf. Scratch: `packed` holds
+// ceil(lanes / W) * W * n_idx floats, 16-byte aligned (unused for one lane
+// with n_src == n_idx); `live_bits`, for a sparse `vecs`, holds
+// ceil(n_idx / 32) words, and null turns the skip off.
+// threads == 0: a dense sweep (no live_bits) on the pipelined scan body
+// below, the body of ell_key_min_batch and ell_gather_min_batch: a padded
+// view as one bucket of its unit list, in the launch shape of the fused
+// scans' dense sweeps. threads > 0: the single-sweep body above, `tpr`
+// threads a row and `threads` a block, the body of the sparse pull
+// (ell_relax_batch), which the dense sweeps ran on before (a caller may
+// still ask for it, to time the two in turns).
+extern "C" int ell_gather_min_launch(const float* vecs, long long n_src,
+                                     long long n_idx, int lanes,
+                                     const int* cols, const float* ws,
+                                     long long n_rows, int d_pad, int tpr,
+                                     int threads, float* packed,
+                                     unsigned* live_bits, float* out,
+                                     void* stream) {
+  const PackSrc src{vecs, nullptr, nullptr, nullptr, n_src, lanes};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (threads == 0) {
+    if (live_bits != nullptr) return (int)cudaErrorInvalidValue;
+    const Adjacency a{cols, ws, n_rows, d_pad};
+    return scan_sweep<PACK_ROWS, false>(
+        src, n_idx, lanes, ScanPlan{&a, nullptr, 0, n_rows},
+        ScanOut{out, n_rows, nullptr, nullptr, 0}, packed, nullptr, s);
+  }
+  const Geometry g{cols, ws, n_rows, d_pad, tpr, threads};
+  if (live_bits != nullptr) {
+    return sweep<PACK_ROWS, true>(src, n_idx, lanes, g, packed, live_bits,
+                                  out, s);
+  }
+  return sweep<PACK_ROWS, false>(src, n_idx, lanes, g, packed, nullptr, out,
+                                 s);
+}
+
+// The dense single sweep of an "unsettled" key gate from the lanes' status
+// (ell_gather_min_batch / ell_key_min_batch on such gates, chosen by the ops
+// layer from the gate's kind): `status` (lanes, n_src) int32, ids in
+// [0, n_idx), columns past n_src (the sentinel) read +inf. The pack writes
+// the status-gate table, one byte of lane bits a column (n_idx bytes a tile
+// of 8 lanes, against 32 bytes a column of f32 lanes), into `bits`
+// (ceil(lanes / W) * n_idx bytes), and the scan reads one byte a slot and
+// puts back the gate's +0 or +inf before the same add and nan_min as the f32
+// path: bit-equal to it for every weight, -0 and NaN included. Timed
+// against the f32 path on the pipelined body, it reads less and is the
+// faster (PERF.md, PR 17).
+extern "C" int ell_gather_min_status_launch(const int* status,
+                                            long long n_src, long long n_idx,
+                                            int lanes, const int* cols,
+                                            const float* ws, long long n_rows,
+                                            int d_pad, unsigned char* bits,
+                                            float* out, void* stream) {
+  PackSrc src{nullptr, nullptr, nullptr, nullptr, n_src, lanes};
+  src.status = status;
+  const Adjacency a{cols, ws, n_rows, d_pad};
+  return scan_sweep<PACK_ROWS, false, true>(
+      src, n_idx, lanes, ScanPlan{&a, nullptr, 0, n_rows},
+      ScanOut{out, n_rows, nullptr, nullptr, 0},
+      reinterpret_cast<float*>(bits), nullptr, (cudaStream_t)stream);
 }
 
 // Fused in-scan (ell_relax_keys_batch): dmask (B, n), ga/gb/gc (K, B, n)
@@ -1201,20 +1335,23 @@ static int sliced_scan_sweep(const PackSrc& src, long long n, int lanes,
   return (int)cudaGetLastError();
 }
 
-// The bucket table of the single-sweep body from the host array `table`, 5
-// int64 per bucket: cols, ws, rows, width, threads per row. Buckets without
-// rows are left out. Returns 0, or cudaErrorInvalidValue when the table
-// does not fit or its rows do not add up to r_total.
-static int make_table(const long long* table, int n_slices, int threads,
-                      long long r_total, SliceTable* tab,
+// The bucket tables of the single-sweep body from the host array `table`,
+// 5 int64 per bucket: cols, ws, rows, width, threads per row. Buckets
+// without rows are left out; the others go in groups of MAX_SLICES, in
+// order, one gather launch a group. next_group fills `tab` with the group
+// that starts at bucket *i and steps *i past it; `row` is the group's
+// first row in the concatenation and steps past its last. Returns 0, or
+// cudaErrorInvalidValue for a bucket with no threads a row.
+static int next_group(const long long* table, int n_slices, int threads,
+                      int* i, long long* row, SliceTable* tab,
                       long long* gather_blocks) {
   tab->count = 0;
-  long long block = 0, row = 0;
-  for (int i = 0; i < n_slices; ++i) {
-    const long long* t = table + 5 * i;
+  long long block = 0;
+  for (; *i < n_slices && tab->count < MAX_SLICES; ++*i) {
+    const long long* t = table + 5 * *i;
     const long long rows = t[2];
     if (rows == 0) continue;
-    if (tab->count == MAX_SLICES) return (int)cudaErrorInvalidValue;
+    if (t[4] < 1 || t[3] < 1) return (int)cudaErrorInvalidValue;
     SliceEntry& e = tab->e[tab->count++];
     e.cols = (const int*)t[0];
     e.ws = (const float*)t[1];
@@ -1222,37 +1359,59 @@ static int make_table(const long long* table, int n_slices, int threads,
     e.d_pad = (int)t[3];
     e.tpr = (int)t[4];
     e.first_block = block;
-    e.row_offset = row;
+    e.row_offset = *row;
     block += (rows * e.tpr + threads - 1) / threads;
-    row += rows;
+    *row += rows;
   }
-  if (row != r_total) return (int)cudaErrorInvalidValue;
   *gather_blocks = block;
   return 0;
 }
 
+// Whether the bucket table's rows add up to r_total (every group in range).
+static int check_table(const long long* table, int n_slices, int threads,
+                       long long r_total) {
+  if (n_slices < 0 || threads < 32 || threads % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SliceTable tab;
+  long long row = 0, blocks = 0;
+  for (int i = 0; i < n_slices;) {
+    const int rc = next_group(table, n_slices, threads, &i, &row, &tab,
+                              &blocks);
+    if (rc != 0) return rc;
+  }
+  return row == r_total ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // ell_sliced_gather_min_batch on the single-sweep body: pack `lanes` lanes
-// of `src` over n_idx = n + 1 columns, gather every bucket into `partials`,
-// merge into out (lanes, n).
+// of `src` over n_idx = n + 1 columns, gather every bucket into `partials`
+// (one launch a group of MAX_SLICES buckets, each at its rows' offset), then
+// merge into out (lanes, n). The table is checked (check_table) first.
 template <int W, bool SKIP>
 static int sliced_gather_w(const PackSrc& src, long long n, int lanes,
-                           const SliceTable& tab, long long gather_blocks,
+                           const long long* table, int n_slices,
                            long long r_total, const long long* merge_ptr,
                            const int* merge_pos, int threads, float* packed,
                            unsigned* live_bits, float* partials, float* out,
                            cudaStream_t stream) {
   const long long n_idx = n + 1;
-  if (gather_blocks > 0) {
+  if (r_total > 0) {
     const long long blocks1 = (n_idx + threads - 1) / threads;
     pack_kernel<W, PACK_ROWS><<<(unsigned)blocks1, threads, 0, stream>>>(
         src, n_idx, lanes, packed, SKIP ? live_bits : nullptr);
     int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
-    sliced_gather_min_kernel<W, SKIP>
-        <<<(unsigned)gather_blocks, threads, 0, stream>>>(
-            packed, live_bits, n_idx, tab, lanes, r_total, partials);
-    rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
+    SliceTable tab;
+    long long row = 0, gather_blocks = 0;
+    for (int i = 0; i < n_slices;) {
+      next_group(table, n_slices, threads, &i, &row, &tab, &gather_blocks);
+      if (gather_blocks == 0) continue;
+      sliced_gather_min_kernel<W, SKIP>
+          <<<(unsigned)gather_blocks, threads, 0, stream>>>(
+              packed, live_bits, n_idx, tab, lanes, r_total, partials);
+      rc = (int)cudaGetLastError();
+      if (rc != 0) return rc;
+    }
   }
   const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)lanes);
   merge_kernel<<<grid, threads, 0, stream>>>(partials, r_total, merge_ptr,
@@ -1262,26 +1421,28 @@ static int sliced_gather_w(const PackSrc& src, long long n, int lanes,
 
 template <bool SKIP>
 static int sliced_gather(const PackSrc& src, long long n, int lanes,
-                         const SliceTable& tab, long long gather_blocks,
+                         const long long* table, int n_slices,
                          long long r_total, const long long* merge_ptr,
                          const int* merge_pos, int threads, float* packed,
                          unsigned* live_bits, float* partials, float* out,
                          cudaStream_t stream) {
+  const int rc = check_table(table, n_slices, threads, r_total);
+  if (rc != 0) return rc;
   switch (ell_gather_lane_tile(lanes)) {
     case 1:
-      return sliced_gather_w<1, SKIP>(src, n, lanes, tab, gather_blocks,
+      return sliced_gather_w<1, SKIP>(src, n, lanes, table, n_slices,
                                       r_total, merge_ptr, merge_pos, threads,
                                       packed, live_bits, partials, out, stream);
     case 2:
-      return sliced_gather_w<2, SKIP>(src, n, lanes, tab, gather_blocks,
+      return sliced_gather_w<2, SKIP>(src, n, lanes, table, n_slices,
                                       r_total, merge_ptr, merge_pos, threads,
                                       packed, live_bits, partials, out, stream);
     case 4:
-      return sliced_gather_w<4, SKIP>(src, n, lanes, tab, gather_blocks,
+      return sliced_gather_w<4, SKIP>(src, n, lanes, table, n_slices,
                                       r_total, merge_ptr, merge_pos, threads,
                                       packed, live_bits, partials, out, stream);
     default:
-      return sliced_gather_w<8, SKIP>(src, n, lanes, tab, gather_blocks,
+      return sliced_gather_w<8, SKIP>(src, n, lanes, table, n_slices,
                                       r_total, merge_ptr, merge_pos, threads,
                                       packed, live_bits, partials, out, stream);
   }
@@ -1297,26 +1458,21 @@ extern "C" int ell_sliced_gather_min_launch(
     int n_slices, long long r_total, const long long* merge_ptr,
     const int* merge_pos, int threads, float* packed, unsigned* live_bits,
     float* partials, float* out, void* stream) {
-  SliceTable tab;
-  long long gather_blocks = 0;
-  const int rc = make_table(table, n_slices, threads, r_total, &tab,
-                            &gather_blocks);
-  if (rc != 0) return rc;
   const PackSrc src{vecs, nullptr, nullptr, nullptr, n, lanes};
   const cudaStream_t s = (cudaStream_t)stream;
   if (live_bits != nullptr) {
-    return sliced_gather<true>(src, n, lanes, tab, gather_blocks, r_total,
+    return sliced_gather<true>(src, n, lanes, table, n_slices, r_total,
                                merge_ptr, merge_pos, threads, packed,
                                live_bits, partials, out, s);
   }
-  return sliced_gather<false>(src, n, lanes, tab, gather_blocks, r_total,
+  return sliced_gather<false>(src, n, lanes, table, n_slices, r_total,
                               merge_ptr, merge_pos, threads, packed, nullptr,
                               partials, out, s);
 }
 
 // ell_sliced_relax_keys_batch: dmask (B, n), ga/gb/gc (K, B, n) unpadded.
 // Writes upd (B, n) and keys (K, B, n). The relax sweep (B lanes, sparse)
-// runs on the single-sweep body, from `relax_table` (make_table's five
+// runs on the single-sweep body, from `relax_table` (next_group's five
 // int64 a bucket, `threads` a block) into `partials` (B * r_total floats)
 // and the merge over every vertex: on kronecker(20)'s in|out phases it took
 // 0.90 ms there against 1.20 on the pipelined body (tools/scan_variants.py;
@@ -1344,15 +1500,9 @@ extern "C" int ell_sliced_relax_keys_launch(
         s0, n, lanes_b, table0, n_buckets, m, packed, live_bits, split, upd,
         s);
 #else
-    SliceTable tab;
-    long long gather_blocks = 0;
-    int rc = make_table(relax_table, relax_buckets, threads, m.r_total, &tab,
-                        &gather_blocks);
-    if (rc == 0) {
-      rc = sliced_gather<true>(s0, n, lanes_b, tab, gather_blocks, m.r_total,
-                               m.merge_ptr, m.merge_pos, threads, packed,
-                               live_bits, partials, upd, s);
-    }
+    const int rc = sliced_gather<true>(
+        s0, n, lanes_b, relax_table, relax_buckets, m.r_total, m.merge_ptr,
+        m.merge_pos, threads, packed, live_bits, partials, upd, s);
 #endif
     if (rc != 0) return rc;
   }

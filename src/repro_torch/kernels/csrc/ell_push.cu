@@ -78,7 +78,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#define PUSH_MAX_BUCKETS 16  // must match SLICED_MAX_BUCKETS in config.py
+#define PUSH_MAX_BUCKETS 16  // buckets one push launch takes (a group)
 #define PUSH_THREADS 256
 #define PUSH_UNROLL 4          // chunks of G slots a thread loads at once
 #define PUSH_TASK_SLOTS 1024   // a warp task's rows hold at most this many
@@ -270,30 +270,19 @@ static int push_rows_per_task(int d_pad) {
   return rt < 1 ? 1 : (rt > 32 ? 32 : rt);
 }
 
-// ell_push_relax_batch: dmask (lanes, n) f32 -> upd (lanes, n) f32. `table`
-// is a host array of 5 int64 per bucket: cols, ws, rows (0: row r belongs to
-// vertex r), row count, width; buckets without rows are left out. Scratch:
-// `mask` ceil(lanes / 32) * n words. `stats` (2 uint64, or null) gets
-// [candidates, atomics issued] added. Returns 0, cudaErrorInvalidValue for a
-// table that does not fit or a bad size, or the launch's error.
-extern "C" int ell_push_relax_launch(const float* dmask, long long n,
-                                     int lanes, const long long* table,
-                                     int n_buckets, unsigned* mask,
-                                     float* upd, unsigned long long* stats,
-                                     void* stream) {
-  if (n < 1 || lanes < 1) return (int)cudaErrorInvalidValue;
-  const int tiles = (lanes + 31) / 32;
-  if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  PushTable tab;
-  tab.count = 0;
-  long long tasks = 0;
-  for (int i = 0; i < n_buckets; ++i) {
-    const long long* t = table + 5 * i;
+// The push table of the buckets with rows from bucket *i of the host
+// `table` on, at most PUSH_MAX_BUCKETS of them; steps *i past them and sets
+// `tasks` to their warp tasks. Returns cudaErrorInvalidValue for a bucket
+// of width < 1.
+static int next_group(const long long* table, int n_buckets, int* i,
+                      PushTable* tab, long long* tasks) {
+  tab->count = 0;
+  *tasks = 0;
+  for (; *i < n_buckets && tab->count < PUSH_MAX_BUCKETS; ++*i) {
+    const long long* t = table + 5 * *i;
     if (t[3] == 0) continue;
-    if (tab.count == PUSH_MAX_BUCKETS || t[4] < 1) {
-      return (int)cudaErrorInvalidValue;
-    }
-    PushBucket& e = tab.e[tab.count++];
+    if (t[4] < 1) return (int)cudaErrorInvalidValue;
+    PushBucket& e = tab->e[tab->count++];
     e.cols = (const int*)t[0];
     e.ws = (const float*)t[1];
     e.rows = (const int*)t[2];
@@ -301,8 +290,35 @@ extern "C" int ell_push_relax_launch(const float* dmask, long long n,
     e.d_pad = (int)t[4];
     e.g = push_threads_per_row(e.d_pad);
     e.rt = push_rows_per_task(e.d_pad);
-    e.first_task = tasks;
-    tasks += (e.n_rows + e.rt - 1) / e.rt;
+    e.first_task = *tasks;
+    *tasks += (e.n_rows + e.rt - 1) / e.rt;
+  }
+  return 0;
+}
+
+// ell_push_relax_batch: dmask (lanes, n) f32 -> upd (lanes, n) f32. `table`
+// is a host array of 5 int64 per bucket: cols, ws, rows (0: row r belongs to
+// vertex r), row count, width; buckets without rows are left out. The mark
+// pass runs once; the push pass once for each group of PUSH_MAX_BUCKETS
+// buckets with rows, in order on the stream (every view the default
+// boundaries build is one group): the atomic min is exact in any order, so
+// the groups give the one launch's bits. Scratch: `mask` ceil(lanes / 32) *
+// n words. `stats` (2 uint64, or null) gets [candidates, atomics issued]
+// added. Returns 0, cudaErrorInvalidValue for a table that does not fit or
+// a bad size (checked before any launch), or a launch's error.
+extern "C" int ell_push_relax_launch(const float* dmask, long long n,
+                                     int lanes, const long long* table,
+                                     int n_buckets, unsigned* mask,
+                                     float* upd, unsigned long long* stats,
+                                     void* stream) {
+  if (n < 1 || lanes < 1 || n_buckets < 0) return (int)cudaErrorInvalidValue;
+  const int tiles = (lanes + 31) / 32;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  PushTable tab;
+  long long tasks = 0;
+  for (int i = 0; i < n_buckets;) {
+    const int rc = next_group(table, n_buckets, &i, &tab, &tasks);
+    if (rc != 0) return rc;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   const dim3 mark_grid((unsigned)((n + PUSH_THREADS - 1) / PUSH_THREADS),
@@ -310,11 +326,15 @@ extern "C" int ell_push_relax_launch(const float* dmask, long long n,
   push_mark_kernel<<<mark_grid, PUSH_THREADS, 0, s>>>(dmask, n, lanes, mask,
                                                       upd);
   int rc = (int)cudaGetLastError();
-  if (rc != 0 || tasks == 0) return rc;
-  constexpr long long WARPS = PUSH_THREADS / 32;
-  long long blocks = (tasks + WARPS - 1) / WARPS;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-  push_kernel<<<dim3((unsigned)blocks, (unsigned)tiles), PUSH_THREADS, 0, s>>>(
-      tab, tasks, dmask, n, mask, upd, stats);
-  return (int)cudaGetLastError();
+  for (int i = 0; rc == 0 && i < n_buckets;) {
+    next_group(table, n_buckets, &i, &tab, &tasks);
+    if (tasks == 0) continue;
+    constexpr long long WARPS = PUSH_THREADS / 32;
+    long long blocks = (tasks + WARPS - 1) / WARPS;
+    if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
+    push_kernel<<<dim3((unsigned)blocks, (unsigned)tiles), PUSH_THREADS, 0,
+                  s>>>(tab, tasks, dmask, n, mask, upd, stats);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
 }

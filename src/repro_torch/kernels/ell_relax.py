@@ -27,7 +27,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.config import SLICED_MAX_BUCKETS
 from repro_torch.kernels.ell_relax_keys import check_inputs, gather_rows, launch
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -99,9 +98,6 @@ def push_rows(dmask: torch.Tensor, out_view, stats=None,
         raise ValueError("want stats as a (2,) int64 tensor on the card")
     buckets = ([(s.rows, s.cols, s.ws) for s in out_view.slices]
                if hasattr(out_view, "slices") else [(None, *out_view)])
-    if sum(1 for _, c, _ in buckets if c.shape[0]) > SLICED_MAX_BUCKETS:
-        raise ValueError(f"more than {SLICED_MAX_BUCKETS} buckets with rows; "
-                         "one launch takes at most that many")
     entries = []
     for rows, cols, ws in buckets:
         entries += [cols.data_ptr(), ws.data_ptr(),

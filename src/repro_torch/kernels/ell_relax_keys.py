@@ -17,14 +17,13 @@ count (one per call that launched its kernel):
     paper Eq. 2).
 
 Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. All
-three run on ``csrc/ell_gather.cu``: the gather on its single-sweep body,
-the two fused scans on its pipelined scan body (persistent blocks, the
-adjacency through a ring of bulk copies into shared memory). Its notes say
-what bounds them on the card and how the two sweeps are ordered; the
-helpers below bind that
-library for every gather wrapper (``ell_relax``, ``ell_key_min`` and
-``ell_sliced`` too). A tensor on the CPU runs the plain twin in
-``kernels/ref.py``; a CUDA tensor launches the kernel or raises.
+three run on the pipelined scan body of ``csrc/ell_gather.cu`` (persistent
+blocks, the adjacency through a ring of bulk copies into shared memory).
+Its notes say what bounds them on the card and how the two sweeps are
+ordered; the helpers below bind that library for every gather wrapper
+(``ell_relax``, ``ell_key_min`` and ``ell_sliced`` too). A tensor on the
+CPU runs the plain twin in ``kernels/ref.py``; a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -33,13 +32,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.config import RELAX_THREADS, relax_threads_per_row
+from repro_torch.kernels.config import (
+    RELAX_THREADS,
+    lane_tile,
+    relax_threads_per_row,
+)
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-LANE_TILE = 8  # the most gather lanes one packed slot holds (ell_gather.cu)
 _SIGNATURES = {
     "ell_gather_min_launch": (
         [_P, _LL, _LL, _I, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P], _I),
+    # the dense sweep of an "unsettled" gate from status (ell_key_min.py)
+    "ell_gather_min_status_launch": (
+        [_P, _LL, _LL, _I, _P, _P, _LL, _I, _P, _P, _P], _I),
     # the fused scans (the pipelined body sets its own launch shape)
     "ell_relax_keys_launch": (
         [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P], _I),
@@ -94,16 +99,6 @@ def library():
     return _build.load("ell_gather", _SIGNATURES)
 
 
-def lane_tile(lanes: int) -> int:
-    """The packed table's lane tile for ``lanes`` gather lanes: the next
-    power of two, at most LANE_TILE (``ell_gather_lane_tile`` in
-    ``csrc/ell_gather.cu``, which must agree)."""
-    w = 1
-    while w < lanes and w < LANE_TILE:
-        w *= 2
-    return w
-
-
 def packed_scratch(lanes: int, n_idx: int, dev) -> torch.Tensor:
     """The lane-interleaved scratch of one sweep over ``lanes`` lanes."""
     tile = lane_tile(lanes)
@@ -111,14 +106,26 @@ def packed_scratch(lanes: int, n_idx: int, dev) -> torch.Tensor:
                        dtype=torch.float32, device=dev)
 
 
+def on_stream(dev, call, *args):
+    """``call(*args, stream)`` with ``dev`` the current device and
+    ``stream`` its current stream (as a raw handle): the launch goes where
+    PyTorch would put a kernel of its own. The device is switched only when
+    it is not current already (a host cost a launch need not pay); a device
+    without an index is the current one."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    if index == current:
+        return call(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return call(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def launch(name: str, fn: str, dev, *args, lib=None):
     """Call the C entry point ``fn`` of ``lib`` (default the ``ell_gather``
     library) on the current stream of ``dev`` and raise if a launch was
     refused."""
     lib = library() if lib is None else lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+    rc = on_stream(dev, getattr(lib, fn), *args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -130,19 +137,23 @@ def live_bits_scratch(n_idx: int, dev) -> torch.Tensor:
 
 def gather_rows(vecs: torch.Tensor, n_idx: int, cols: torch.Tensor,
                 ws: torch.Tensor, out: torch.Tensor, *, sparse: bool = False):
-    """One sweep of the gather body on the card: ``vecs`` (..., n_src) is
+    """One sweep of a gather body on the card: ``vecs`` (..., n_src) is
     one row per gather lane, ids in [0, n_idx), columns past n_src read
-    +inf; ``out`` is (..., n_rows). ``sparse`` (``vecs`` is +inf almost
-    everywhere) skips the gathers of all-+inf columns through a bitmap."""
+    +inf; ``out`` is (..., n_rows). A dense sweep runs on the pipelined scan
+    body; ``sparse`` (``vecs`` is +inf almost everywhere: the pull relax)
+    on the single-sweep body, which skips the gathers of all-+inf columns
+    through a bitmap."""
     n_src = vecs.shape[-1]
     lanes = out.numel() // cols.shape[0]
     n_rows, d_pad = cols.shape
     packed = packed_scratch(lanes, n_idx, vecs.device)
     live_bits = live_bits_scratch(n_idx, vecs.device) if sparse else None
+    # threads 0 asks the C entry point for the pipelined body
+    tpr, threads = ((relax_threads_per_row(d_pad), RELAX_THREADS) if sparse
+                    else (0, 0))
     launch("gather-min", "ell_gather_min_launch", vecs.device,
            vecs.data_ptr(), n_src, n_idx, lanes, cols.data_ptr(),
-           ws.data_ptr(), n_rows, d_pad, relax_threads_per_row(d_pad),
-           RELAX_THREADS, packed.data_ptr(),
+           ws.data_ptr(), n_rows, d_pad, tpr, threads, packed.data_ptr(),
            None if live_bits is None else live_bits.data_ptr(),
            out.data_ptr())
 

@@ -27,8 +27,10 @@ scans' dense sweeps on its pipelined scan body, over a unit list that
 spans the buckets (:func:`scan_units`, built here on the host), writing
 each single-row vertex's result in place and merging only the vertices of
 ``merge_short``. The notes in that file say what bounds them on the card.
-A tensor on the CPU runs the plain twin in ``kernels/ref.py``; a CUDA
-tensor launches the kernels or raises.
+A view takes any number of buckets: one launch of a pass takes a group of
+``SLICED_GROUP_BUCKETS`` (:func:`bucket_groups`), and a view with more runs
+the pass once a group, in order. A tensor on the CPU runs the plain twin in
+``kernels/ref.py``; a CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from repro_torch.kernels.config import (
     SCAN_CAP,
     SCAN_SKIP_WARPS,
     SCAN_WARPS,
-    SLICED_MAX_BUCKETS,
+    SLICED_GROUP_BUCKETS,
     relax_threads_per_row,
 )
 from repro_torch.kernels.ell_relax import push_rows
@@ -100,11 +102,6 @@ class _Plan:
 
     def __init__(self, sliced):
         live = [s for s in sliced.slices if s.rows.shape[0]]
-        if len(live) > SLICED_MAX_BUCKETS:
-            raise ValueError(
-                f"{len(live)} buckets with rows; one launch takes at most "
-                f"{SLICED_MAX_BUCKETS}"
-            )
         entries = []
         for s in live:
             d_pad = s.cols.shape[1]
@@ -146,26 +143,36 @@ def scan_geometry(d_pad: int, lanes: int, skip: bool, *, cap: int = SCAN_CAP,
     return tpr, rows, chunk, -(-d_pad // chunk)
 
 
+def bucket_groups(sliced) -> list[list]:
+    """The buckets with rows of ``sliced``, in the concatenation's order, in
+    groups of at most ``SLICED_GROUP_BUCKETS``: each pass of a sliced kernel
+    launches once a group, in this order (``csrc/ell_gather.cu`` and
+    ``csrc/ell_push.cu`` group the same way)."""
+    live = [s for s in sliced.slices if s.rows.shape[0]]
+    return [live[i:i + SLICED_GROUP_BUCKETS]
+            for i in range(0, len(live), SLICED_GROUP_BUCKETS)]
+
+
 def scan_units(sliced, lanes: int, skip: bool, **shape) -> list[tuple]:
     """The unit table of one sweep over ``sliced``: a row of ten ints for
     each bucket with rows, in the concatenation's order: cols and ws
     addresses, rows, width, then :func:`scan_geometry`'s four, the bucket's
-    first unit (its units follow the previous bucket's) and its first row in
-    the concatenation. The kernel checks every row against its build."""
-    table, unit, first_row = [], 0, 0
-    for s in sliced.slices:
-        n_rows = int(s.rows.shape[0])
-        if not n_rows:
-            continue
-        d_pad = int(s.cols.shape[1])
-        tpr, rows, chunk, chunks = scan_geometry(d_pad, lanes, skip, **shape)
-        table.append((s.cols.data_ptr(), s.ws.data_ptr(), n_rows, d_pad, tpr,
-                      rows, chunk, chunks, unit, first_row))
-        unit += -(-n_rows // rows)
-        first_row += n_rows
-    if len(table) > SLICED_MAX_BUCKETS:
-        raise ValueError(f"{len(table)} buckets with rows; one launch takes "
-                         f"at most {SLICED_MAX_BUCKETS}")
+    first unit in its group of :func:`bucket_groups` (one launch a group; a
+    bucket's units follow the previous bucket's of the group) and its first
+    row in the concatenation. The kernel checks every row against its
+    build."""
+    table, first_row = [], 0
+    for group in bucket_groups(sliced):
+        unit = 0
+        for s in group:
+            n_rows = int(s.rows.shape[0])
+            d_pad = int(s.cols.shape[1])
+            tpr, rows, chunk, chunks = scan_geometry(d_pad, lanes, skip,
+                                                     **shape)
+            table.append((s.cols.data_ptr(), s.ws.data_ptr(), n_rows, d_pad,
+                          tpr, rows, chunk, chunks, unit, first_row))
+            unit += -(-n_rows // rows)
+            first_row += n_rows
     return table
 
 

@@ -9,10 +9,12 @@ criterion plan needs, plus the fringe size:
 
 Key stacks come as shared ``(K, n)`` (all OUT keys static: the default
 plan), per-lane ``(K, B, n)`` (dynamic keys) or None (K = 0). The kernel is
-``csrc/frontier_crit.cu`` (a two-pass reduction: per-block partials, then
-one fold per lane); its note says what bounds it on the card. A tensor on
-the CPU runs the plain twin in ``kernels/ref.py``; a CUDA tensor launches
-the kernel or raises.
+``csrc/frontier_crit.cu``: one launch a call, whose blocks fold their
+partials into the result through a ticket (the last block to finish folds
+them all); its note says what bounds it on the card. The partials and the
+ticket are scratch this module allocates once per device and stream and
+reuses. A tensor on the CPU runs the plain twin in ``kernels/ref.py``; a
+CUDA tensor launches the kernel or raises.
 
 ``frontier_crit_lanes``/``frontier_crit``/``frontier_crit_batch`` are the
 reference's thin wrappers over the lane reduction.
@@ -24,17 +26,57 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.config import CRIT_ITEMS, CRIT_MAX_KEYS, CRIT_THREADS
+from repro_torch.kernels.config import (
+    CRIT_BLOCKS_PER_SM,
+    CRIT_MAX_KEYS,
+    CRIT_THREADS,
+)
+from repro_torch.kernels.ell_relax_keys import on_stream
 
-_P = ctypes.c_void_p
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "frontier_crit_lanes_launch": (
-        [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, _P, _P, _P, _P, _P],
-        ctypes.c_int,
+        [_P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P, _P, _P, _P, _P, _P],
+        _I,
     ),
 }
+MAX_LANES = 65535  # lanes ride the grid's second axis
+
+# (device index, stream) -> [partial minima, partial counts, ticket]: the
+# ticket is zeroed once and every launch leaves it 0; the partials grow to
+# the largest call seen. One scratch a stream: launches on one stream are
+# ordered, so they never share it at once.
+_scratch: dict = {}
+_sms: dict = {}  # device index -> SM count
+
+
+def blocks_per_lane(dev, lanes: int, n: int) -> int:
+    """Blocks of one lane's row: ``CRIT_BLOCKS_PER_SM`` blocks on each SM
+    over all lanes (one wave), no more than the row has chunks of
+    ``CRIT_THREADS`` groups of 4 vertices."""
+    sms = _sms.get(dev.index)
+    if sms is None:
+        sms = _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    wave = -(-sms * CRIT_BLOCKS_PER_SM // lanes)
+    return max(1, min(wave, -(-n // (4 * CRIT_THREADS))))
+
+
+def scratch(dev, stream: int, n_min: int, n_cnt: int):
+    """The reduction's scratch on ``dev`` for ``stream``: at least
+    ``n_min`` partial minima and ``n_cnt`` partial counts, and the ticket."""
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = [
+            torch.empty(0, dtype=torch.float32, device=dev),
+            torch.empty(0, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev)]
+    if buf[0].numel() < n_min:
+        buf[0] = torch.empty(n_min, dtype=torch.float32, device=dev)
+    if buf[1].numel() < n_cnt:
+        buf[1] = torch.empty(n_cnt, dtype=torch.int32, device=dev)
+    return buf
 
 
 def _check(d, status, keys):
@@ -85,27 +127,31 @@ def frontier_crit_lanes_batch(d: torch.Tensor, status: torch.Tensor,
     b, n = d.shape
     k = 0 if keys is None else keys.shape[0]
     dev = d.device
-    mins = torch.empty((1 + k, b), dtype=torch.float32, device=dev)
-    cnt = torch.empty((b,), dtype=torch.int32, device=dev)
+    # mins and cnt share one allocation: (1 + K) * B f32 words, then B i32
+    out = torch.empty(((2 + k) * b,), dtype=torch.int32, device=dev)
+    mins = out[:(1 + k) * b].view(torch.float32).view(1 + k, b)
+    cnt = out[(1 + k) * b:]
     if b == 0:
         return mins, cnt
-    if b > 65535:
-        raise ValueError(f"at most 65535 lanes per launch; got {b}")
-    nblk = -(-n // (CRIT_THREADS * CRIT_ITEMS))
-    part_min = torch.empty((1 + k, b, nblk), dtype=torch.float32, device=dev)
-    part_cnt = torch.empty((b, nblk), dtype=torch.int32, device=dev)
+    if b > MAX_LANES:
+        raise ValueError(f"at most {MAX_LANES} lanes per launch; got {b}")
     key_sk = key_sb = 0
     if keys is not None:
         key_sk, key_sb = (n, 0) if keys.dim() == 2 else (b * n, n)
     lib = _build.load("frontier_crit", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.frontier_crit_lanes_launch(
+    bx = blocks_per_lane(dev, b, n)
+
+    def call(stream):
+        part_min, part_cnt, ticket = scratch(dev, stream, (1 + k) * b * bx,
+                                             b * bx)
+        return lib.frontier_crit_lanes_launch(
             d.data_ptr(), status.data_ptr(),
             None if keys is None else keys.data_ptr(), n, b, k, key_sk,
-            key_sb, CRIT_THREADS, CRIT_ITEMS, nblk, part_min.data_ptr(),
-            part_cnt.data_ptr(), mins.data_ptr(), cnt.data_ptr(), stream,
+            key_sb, bx, part_min.data_ptr(), part_cnt.data_ptr(),
+            ticket.data_ptr(), mins.data_ptr(), cnt.data_ptr(), stream,
         )
+
+    rc = on_stream(dev, call)
     if rc != 0:
         raise RuntimeError(
             f"frontier_crit_lanes_batch launch failed: CUDA error {rc}"

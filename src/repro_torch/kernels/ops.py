@@ -25,7 +25,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.ell_key_min import ell_key_min_batch
+from repro_torch.kernels.ell_key_min import (
+    ell_key_min_batch,
+    ell_key_min_status_batch,
+)
 from repro_torch.kernels.ell_relax import (
     ell_push_relax_batch,
     ell_relax,
@@ -179,6 +182,25 @@ def key_min_batch_any(gate, ell, *, use_kernels=True):
         return gather_min_batch_sliced(gate[None], ell,
                                        use_kernels=use_kernels)[0]
     return key_min_batch(gate, ell[0], ell[1], use_kernels=use_kernels)
+
+
+def key_min_batch_for(kind, status, make_gate, ell, *, use_kernels=True):
+    """A dynamic key (B, n) over either layout for the current ``status``,
+    its gate of ``KeySpec.gate`` kind ``kind`` (``core/criteria.py``).
+
+    An ``"unsettled"`` gate (+0 where status < 2, +inf elsewhere) on the
+    padded layout is read from ``status`` itself as the status-gate table
+    (one byte of lane bits a column, :func:`ell_key_min_status_batch`);
+    every other kind, and the sliced layout, gather the f32 gate
+    ``make_gate()`` (called only then). The kind decides, never the gate's
+    values; both paths give the same bits.
+    """
+    if kind == "unsettled" and not _is_sliced(ell):
+        cols, ws = ell
+        if not use_kernels:
+            return kref.ell_key_min_status_batch_ref(status, cols, ws)
+        return ell_key_min_status_batch(status, cols, ws)
+    return key_min_batch_any(make_gate(), ell, use_kernels=use_kernels)
 
 
 def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.config import lane_tile
+
 INF = float("inf")
 _NEG_ZERO_BITS = -(2 ** 31)  # the int32 view of -0.0
 
@@ -112,6 +114,46 @@ def ell_key_min_batch_ref(gate: torch.Tensor, cols: torch.Tensor,
                           ws: torch.Tensor) -> torch.Tensor:
     """key[b, v] = min_j gate[b, cols[v, j]] + ws[v, j]; adjacency shared."""
     return amin(gate[:, cols.long()] + ws[None], dim=-1)
+
+
+def status_gate_table(status: torch.Tensor, n_idx: int) -> torch.Tensor:
+    """The status-gate table of the "unsettled" key gate of ``status``
+    (lanes, n_src), as the kernel's pack writes it (``csrc/ell_gather.cu``):
+    uint8 (tiles, n_idx), byte c of tile t with bit k set where lane
+    t * W + k has status < 2 (its gate is +0), W = ``lane_tile(lanes)``;
+    the columns past n_src (the sentinel) and the lanes past the last are
+    clear."""
+    lanes, n_src = status.shape
+    w = lane_tile(lanes)
+    tiles = -(-lanes // w)
+    on = torch.zeros((tiles * w, n_idx), dtype=torch.int32,
+                     device=status.device)
+    on[:lanes, :n_src] = (status < 2).to(torch.int32)
+    shift = torch.arange(w, dtype=torch.int32, device=status.device)
+    return (on.view(tiles, w, n_idx) << shift[None, :, None]).sum(
+        dim=1).to(torch.uint8)
+
+
+def status_gate_rows(table: torch.Tensor, lanes: int) -> torch.Tensor:
+    """The gates a status-gate table stands for: (lanes, n_idx) f32, +0
+    where a lane's bit is set, +inf elsewhere."""
+    tiles, n_idx = table.shape
+    w = lane_tile(lanes)
+    shift = torch.arange(w, dtype=torch.int32, device=table.device)
+    bit = (table.to(torch.int32)[:, None, :] >> shift[None, :, None]) & 1
+    return torch.where(bit == 1, 0.0, INF).to(torch.float32).reshape(
+        tiles * w, n_idx)[:lanes]
+
+
+def ell_key_min_status_batch_ref(status: torch.Tensor, cols: torch.Tensor,
+                                 ws: torch.Tensor) -> torch.Tensor:
+    """key[b, v] = min_j gate[b, cols[v, j]] + ws[v, j] for the "unsettled"
+    gate of ``status`` (B, n) (+0 where status < 2, +inf elsewhere and at
+    the sentinel id n), read through the status-gate table as the kernel
+    reads it."""
+    lanes, n = status.shape
+    gate = status_gate_rows(status_gate_table(status, n + 1), lanes)
+    return ell_key_min_batch_ref(gate, cols, ws)
 
 
 def pad_idx(vec: torch.Tensor, idx_pad: int) -> torch.Tensor:

@@ -25,7 +25,11 @@ from repro_torch.core import (
 )
 from repro_torch.graphs import kronecker, uniform_gnp
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ell_key_min import ell_key_min, ell_key_min_batch
+from repro_torch.kernels.ell_key_min import (
+    ell_key_min,
+    ell_key_min_batch,
+    ell_key_min_status_batch,
+)
 from repro_torch.kernels.ell_relax import (
     ell_push_relax_batch,
     ell_relax,
@@ -456,16 +460,17 @@ def test_sliced_cuda_tensors_never_fall_back(cuda):
         with pytest.raises(ValueError, match="different devices"):
             call()
     # 17 buckets with rows (vertex i has in-degree 8 * (i + 1)) are more
-    # than one launch takes: the wrapper raises instead of running the twin
+    # than one launch takes: the card runs them in two groups, and agrees
+    # with the twin (it raised before the groups)
     deg = 8 * np.arange(1, 18)
     dst = np.repeat(np.arange(17), deg).astype(np.int32)
     src = (np.arange(dst.size) % 150 + 17).astype(np.int32)
     g = from_coo(src, dst, np.ones(dst.size, np.float32), n=200, device=cuda)
     wide = to_ell_in_sliced(g, boundaries=tuple(deg))
     assert len(wide.slices) == 17
-    with pytest.raises(ValueError, match="at most 16"):
-        ell_sliced_gather_min_batch(torch.zeros((1, 2, 200), device=cuda),
-                                    wide)
+    x = _t(_dense(np.random.default_rng(17), (1, 2, 200), nan=True), cuda)
+    assert _same_bits(ell_sliced_gather_min_batch(x, wide),
+                      ref.ell_sliced_gather_min_batch_ref(x, wide))
 
 
 # --- the push relax (csrc/ell_push.cu) ----------------------------------------
@@ -784,3 +789,214 @@ def test_sliced_fused_scans_refuse_a_table_the_body_does_not_take(cuda,
     x = torch.zeros((1, 2, g.n), device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         ell_sliced_keys_dep_batch(x, x[0], x[0], sl_in)
+
+
+# --- frontier_crit_lanes_batch: one launch, a ticket, vector loads (#2) ----
+
+
+def _crit_inputs(rng, b, n, k, per_lane, offset=0):
+    """(d, status, keys) on the host with NaN, -0 / +0 ties and +inf holes;
+    ``offset`` floats into a larger buffer, so rows start off 16 bytes."""
+    d = rng.uniform(0, 5, (b, n)).astype(np.float32)
+    d[rng.random((b, n)) < 0.2] = np.inf
+    d[rng.random((b, n)) < 0.05] = 0.0
+    d[rng.random((b, n)) < 0.05] = -0.0
+    status = rng.integers(0, 3, (b, n)).astype(np.int32)
+    if n > 3:
+        d[0, 3], status[0, 3] = np.nan, 1
+    keys = None
+    if k:
+        shape = (k, b, n) if per_lane else (k, n)
+        keys = rng.uniform(0, 1, shape).astype(np.float32)
+        keys[rng.random(shape) < 0.1] = -0.0
+        keys[rng.random(shape) < 0.1] = 0.0
+
+    def place(x):
+        buf = np.zeros(x.size + offset, x.dtype)
+        buf[offset:] = x.reshape(-1)
+        return buf, x.shape
+    return [place(x) for x in (d, status)] + ([place(keys)] if k else [])
+
+
+def _on_card(placed, dev, offset):
+    return [torch.from_numpy(buf).to(dev)[offset:].view(shape)
+            for buf, shape in placed]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [4096, 1001, 999, 37, 3])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("k,per_lane", [(0, False), (1, False), (1, True),
+                                        (4, False), (4, True)])
+def test_frontier_crit_one_launch_matches_twin(cuda, k, per_lane, b, n,
+                                               offset):
+    """n % 4 in {0, 1, 3}, rows shorter than one block, tensors starting off
+    a 16-byte boundary; -0 ties, NaN, all three key forms; five calls in a
+    row, each one launch, each bit-equal (the ticket is back at 0 after
+    every call)."""
+    rng = np.random.default_rng(k * 1000 + b * 10 + n + offset)
+    args = _on_card(_crit_inputs(rng, b, n, k, per_lane, offset), cuda,
+                    offset)
+    keys = args[2] if k else None
+    w_mins, w_cnt = ref.frontier_crit_lanes_batch_ref(args[0], args[1], keys)
+    for _ in range(5):
+        before = frontier_crit_lanes_batch.launches
+        mins, cnt = frontier_crit_lanes_batch(args[0], args[1], keys)
+        assert frontier_crit_lanes_batch.launches == before + 1
+        assert _same_bits(mins, w_mins) and _same_bits(cnt, w_cnt)
+
+
+def test_frontier_crit_many_lanes_and_calls(cuda):
+    """70 lanes (more than a wave's blocks a lane), then 50 calls in a row
+    on alternating inputs: the scratch is reused and the ticket reset."""
+    rng = np.random.default_rng(70)
+    big = _on_card(_crit_inputs(rng, 70, 5000, 8, True), cuda, 0)
+    small = _on_card(_crit_inputs(rng, 8, 100_003, 1, False), cuda, 0)
+    want = {id(x): ref.frontier_crit_lanes_batch_ref(*x)
+            for x in (big, small)}
+    outs = []
+    for i in range(50):
+        x = big if i % 2 else small
+        outs.append((x, frontier_crit_lanes_batch(*x)))
+    for x, (mins, cnt) in outs:
+        w_mins, w_cnt = want[id(x)]
+        assert _same_bits(mins, w_mins) and _same_bits(cnt, w_cnt)
+
+
+# --- the dense single sweeps on the pipelined body (#4, #5, #6) -------------
+
+
+@pytest.mark.parametrize("body", ["pipelined", "single_sweep"])
+@pytest.mark.parametrize("v,b,n,rows,d", [(1, 8, 3000, 3000, 152),
+                                          (2, 8, 3000, 3000, 40),
+                                          (3, 5, 900, 411, 9),
+                                          (1, 1, 5000, 5000, 1000),
+                                          (2, 1, 64, 64, 3)])
+def test_dense_sweep_bodies_match_twin(cuda, body, v, b, n, rows, d):
+    """#6 through its wrapper (the pipelined body) and both bodies through
+    the C entry point; -0 weights, NaN gates, more than 8 lanes, rows wider
+    than a stage (D = 1000), n_rows != n."""
+    from repro_torch.kernels import ell_relax_keys as erk
+    from repro_torch.kernels.config import RELAX_THREADS, relax_threads_per_row
+
+    rng = np.random.default_rng(v * 31 + b + n + d)
+    cols, ws = _ell(rng, rows, d, n + 1)
+    ws[rng.random(ws.shape) < 0.1] = -0.0
+    ws[rng.random(ws.shape) < 0.1] = 0.0
+    x = _dense(rng, (v, b, n), nan=True)
+    x[rng.random(x.shape) < 0.1] = 0.0
+    vecs, tc, tw = _t(x, cuda), _t(cols, cuda), _t(ws, cuda)
+    want = ref.ell_gather_min_batch_ref(vecs, tc, tw)
+    if body == "pipelined":
+        got = ell_gather_min_batch(vecs, tc, tw)
+    else:
+        got = torch.empty_like(want)
+        lanes = v * b
+        packed = erk.packed_scratch(lanes, n + 1, cuda)
+        erk.launch("single sweep", "ell_gather_min_launch", cuda,
+                   vecs.data_ptr(), n, n + 1, lanes, tc.data_ptr(),
+                   tw.data_ptr(), rows, d, relax_threads_per_row(d),
+                   RELAX_THREADS, packed.data_ptr(), None, got.data_ptr())
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 8, 13])
+def test_key_min_on_the_pipelined_body(cuda, b):
+    """#5 and its B = 1 view #4 (a one-lane gate is the packed table as it
+    stands: no pack), on a gate of 0 / +inf as unsettled gates are."""
+    rng = np.random.default_rng(b)
+    n, d = 4000, 152
+    cols, ws = _ell(rng, n, d, n + 1)
+    ws[rng.random(ws.shape) < 0.1] = -0.0
+    gate = np.where(rng.random((b, n + 1)) < 0.6, 0.0, np.inf).astype(
+        np.float32)
+    gate[:, n] = np.inf
+    args = (_t(gate, cuda), _t(cols, cuda), _t(ws, cuda))
+    assert _same_bits(ell_key_min_batch(*args),
+                      ref.ell_key_min_batch_ref(*args))
+    row = args[0][b - 1].contiguous()
+    assert _same_bits(ell_key_min(row, *args[1:]),
+                      ref.ell_key_min_ref(row, *args[1:]))
+
+
+# --- sliced views with more buckets than one launch takes -------------------
+
+
+def _many_bucket_views(dev):
+    """kronecker(10) sliced at 40 boundaries, pad multiple 1: more than 16
+    buckets with rows on either side, so every pass runs in groups."""
+    g = kronecker(10, seed=3, device=dev)
+    kw = dict(pad_multiple=1, boundaries=tuple(range(1, 41)))
+    views = to_ell_in_sliced(g, **kw), to_ell_out_sliced(g, **kw)
+    for v in views:
+        assert sum(1 for s in v.slices if s.rows.shape[0]) > 16
+    return g, views
+
+
+@pytest.mark.parametrize("b", [1, 8, 13])
+def test_many_bucket_views_match_twins(cuda, b):
+    g, (sl_in, sl_out) = _many_bucket_views(cuda)
+    n = g.n
+    rng = np.random.default_rng(b + 40)
+    dm = np.full((b, n), np.inf, np.float32)
+    live = rng.random((b, n)) < 0.05
+    dm[live] = rng.uniform(0, 10, live.sum()).astype(np.float32)
+    dm[np.arange(b), rng.integers(0, n, b)] = np.nan
+    tdm = _t(dm, cuda)
+    for view, sparse in ((sl_in, True), (sl_out, False)):
+        x = tdm[None] if sparse else _t(_dense(rng, (2, b, n), nan=True), cuda)
+        assert _same_bits(
+            ell_sliced_gather_min_batch(x, view, sparse=sparse),
+            ref.ell_sliced_gather_min_batch_ref(x, view))
+    pull = ref.ell_sliced_gather_min_batch_ref(tdm[None], sl_in)[0]
+    push = ell_sliced_push_relax_batch(tdm, sl_out)
+    assert _same_bits(push, ref.ell_push_relax_batch_ref(tdm, sl_out))
+    assert _same_bits(push, pull)
+    parts = [_t(_dense(rng, (2, b, n), nan=i == 0), cuda) for i in range(3)]
+    w_upd, w_keys = ref.ell_sliced_relax_keys_batch_ref(tdm, *parts, sl_in)
+    for out_view in (None, sl_out):
+        upd, keys = ell_sliced_relax_keys_batch(tdm, *parts, sl_in,
+                                                out_view=out_view)
+        assert _same_bits(upd, w_upd) and _same_bits(keys, w_keys)
+    got = ell_sliced_keys_dep_batch(parts[0], parts[1][0], parts[2][0],
+                                    sl_out, dep_idx=1)
+    assert _same_bits(got, ref.ell_sliced_keys_dep_batch_ref(
+        parts[0], parts[1][0], parts[2][0], 1, sl_out))
+
+
+@pytest.mark.parametrize("criterion", ["instatic|outstatic", "in|out"])
+def test_many_bucket_solves_match_padded(cuda, criterion):
+    g, (sl_in, sl_out) = _many_bucket_views(cuda)
+    sources = [0, 11, g.n - 1, 5, 77]
+    a = run_phased_static_batch(g, sources, trace_len=16, criterion=criterion,
+                                ell=sl_in, ell_out=sl_out)
+    c = run_phased_static_batch(g, sources, trace_len=16, criterion=criterion)
+    for f in ("dist", "status", "phases", "total_phases", "settled_per_phase"):
+        assert _same_bits(getattr(a, f), getattr(c, f)), f
+    for f in ("sum_fringe", "relax_edges"):
+        assert np.array_equal(getattr(a, f), getattr(c, f))
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 13])
+@pytest.mark.parametrize("n,d,rows", [(3000, 152, 3000), (900, 9, 411),
+                                      (5000, 1000, 5000)])
+def test_key_min_status_matches_twin_and_f32(cuda, b, n, d, rows):
+    """The status-gate table path against its twin and against the f32
+    path (#5 on the padded gate, #6 at V = 1) on the same "unsettled" gate:
+    -0 and NaN weights, ids up to the sentinel, more than 8 lanes, rows
+    wider than a stage, n_rows != n."""
+    rng = np.random.default_rng(b * 7 + n + d)
+    cols, ws = _ell(rng, rows, d, n + 1)
+    ws[rng.random(ws.shape) < 0.1] = -0.0
+    ws[rng.random(ws.shape) < 0.1] = 0.0
+    ws.reshape(-1)[5] = np.nan
+    status = rng.integers(0, 3, (b, n)).astype(np.int32)
+    gate = np.where(status < 2, 0.0, np.inf).astype(np.float32)
+    ts, tc, tw = _t(status, cuda), _t(cols, cuda), _t(ws, cuda)
+    before = ell_key_min_status_batch.launches
+    got = ell_key_min_status_batch(ts, tc, tw)
+    assert ell_key_min_status_batch.launches == before + 1
+    assert _same_bits(got, ref.ell_key_min_status_batch_ref(ts, tc, tw))
+    tg = _t(gate, cuda)
+    assert _same_bits(got, ell_key_min_batch(ops.pad_lane_batch(tg), tc, tw))
+    assert _same_bits(got[None], ell_gather_min_batch(tg[None], tc, tw))

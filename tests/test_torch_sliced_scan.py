@@ -34,7 +34,8 @@ from repro_torch.graphs import generators as TGen
 from repro_torch.kernels import config, ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.ell_sliced import (
-    SLICED_MAX_BUCKETS,
+    SLICED_GROUP_BUCKETS,
+    bucket_groups,
     ell_sliced_relax_keys_batch,
     lane_tile,
     scan_geometry,
@@ -216,11 +217,13 @@ def test_unit_table_covers_every_row_once(name, lanes, skip, shape):
                       config.SCAN_SKIP_WARPS if skip else config.SCAN_WARPS)
     table = scan_units(view, lanes, skip, **shape)
     live = [s for s in view.slices if s.rows.shape[0]]
-    assert len(table) == len(live) <= SLICED_MAX_BUCKETS
+    assert len(table) == len(live)
     w = lane_tile(lanes)
     unit, row = 0, 0
     covered = np.zeros(view.total_rows, np.int64)
-    for s, entry in zip(live, table):
+    for i, (s, entry) in enumerate(zip(live, table)):
+        if i % SLICED_GROUP_BUCKETS == 0:
+            unit = 0  # each group's units count from 0: one launch a group
         c, wt, n_rows, d_pad, tpr, rows, chunk, chunks, first, offset = entry
         assert (c, wt) == (s.cols.data_ptr(), s.ws.data_ptr())
         assert (n_rows, d_pad) == tuple(s.cols.shape)
@@ -255,14 +258,20 @@ def test_unit_geometry_of_the_default_widths():
 
 
 def test_unit_table_refuses_too_many_buckets():
+    """17 buckets with rows, one more than a launch takes: the table is no
+    longer refused but cut into two groups (16 + 1), each group's units
+    counted from 0, the rows' offsets running on across the groups."""
     deg = 8 * np.arange(1, 18)
     dst = np.repeat(np.arange(17), deg).astype(np.int32)
     src = (np.arange(dst.size) % 150 + 17).astype(np.int32)
     g = TG.from_coo(src, dst, np.ones(dst.size, np.float32), n=200,
                     device="cpu")
     wide = TG.to_ell_in_sliced(g, boundaries=tuple(deg))
-    with pytest.raises(ValueError, match="at most 16"):
-        scan_units(wide, 8, False)
+    assert [len(grp) for grp in bucket_groups(wide)] == [16, 1]
+    table = scan_units(wide, 8, False)
+    assert len(table) == 17
+    assert table[16][8] == 0 and table[15][8] > 0
+    assert [e[9] for e in table] == list(range(17))  # one row a bucket
 
 
 # --- #10 with and without the out-view -------------------------------------

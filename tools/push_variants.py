@@ -47,8 +47,9 @@ VARIANTS = {
     # cuts: the mark pass alone (the push pass is not launched); the push
     # pass reading the owners' mask words only; the push pass streaming the
     # active rows with no candidate formed
-    "cut_mark_only": ({}, [("  if (rc != 0 || tasks == 0) return rc;\n",
-                            "  return rc;\n")], False),
+    "cut_mark_only": ({}, [("  for (int i = 0; rc == 0 && i < n_buckets;) {\n",
+                            "  for (int i = 0; rc == 0 && i < 0;) {\n")],
+                      False),
     "cut_scan_only": ({}, [("  while (rest != 0) {\n",
                             "  while (rest != 0 && tile < 0) {\n")], False),
     "cut_no_update": ({}, [

@@ -17,9 +17,14 @@ its ``ell_sliced_relax_keys_launch`` (the pull form) and
 constants: every variant against the twins bit for bit (the cuts
 excepted, which leave work out on purpose), CUDA-event medians in two
 rounds (forward, then backward), and each fused call's device time by
-kernel from ``torch.profiler``. Last, the shipped build's out-scan on the
-first 1, 2, 4 and 8 lanes (a packed table of 4-32 MB). Exits non-zero
-without a card.
+kernel from ``torch.profiler``. The dense single sweeps of
+``ell_gather_min_batch`` (the out_dyn gate over the out-ELL) and
+``ell_key_min_batch`` (the in_dyn gate over the in-ELL) on the same phase
+go through ``ell_gather_min_launch`` (and, read from the lanes' status,
+``ell_gather_min_status_launch``) the same way, every variant, and the
+shipped build's pipelined body, f32 and status table, in turns with the
+single-sweep body it replaced there. Last, the shipped build's out-scan on the first 1, 2, 4 and 8 lanes
+(a packed table of 4-32 MB). Exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -80,6 +85,7 @@ _NAN_MIN_COMPARE = [(_NAN_MIN, "  return (v < m || v != v || (v == m && "
                                "signbit(v))) ? v : m;\n")]
 _NAN_MIN_NO_TIE = [(_NAN_MIN, "  return (v < m || v != v) ? v : m;\n")]
 
+
 # name -> ({macro: value}, [(old text, new text)], bits must equal the twin)
 VARIANTS = {
     "shipped": ({}, [], True),
@@ -94,13 +100,13 @@ VARIANTS = {
     "skip_h1_warps8": ({"SCAN_SKIP_WARPS": 8}, _SKIP_H1, True),
     "skip_h1_warps12": ({"SCAN_SKIP_WARPS": 12}, _SKIP_H1, True),
     "skip_bits_global": ({}, [
-        ("  if (SKIP && (long long)smem + 4 * words <= smem_max) {\n",
-         "  if (false) {\n")], True),
+        ("  const bool bits_in_smem = SKIP && (long long)smem + 4 * words <= "
+         "smem_max;\n", "  const bool bits_in_smem = false;\n")], True),
     # the sparse sweep as two blocks of 8 warps an SM, its bitmap read
     # through the L1
     "skip_two_blocks": ({"SCAN_SKIP_WARPS": 8}, [
-        ("  if (SKIP && (long long)smem + 4 * words <= smem_max) {\n",
-         "  if (false) {\n"),
+        ("  const bool bits_in_smem = SKIP && (long long)smem + 4 * words <= "
+         "smem_max;\n", "  const bool bits_in_smem = false;\n"),
         ("  static constexpr int blocks = SKIP ? 1 : SCAN_BLOCKS_PER_SM;",
          "  static constexpr int blocks = SKIP ? 2 : SCAN_BLOCKS_PER_SM;")],
         True),
@@ -125,8 +131,10 @@ VARIANTS = {
     # the shared-memory reads and bitmap checks but no gathers
     "cut_ring_only": ({}, [("    if (row_l < nr) {\n", "    if (false) {\n")],
                       False),
-    "cut_no_gather": ({}, [("          if (take && valid) {\n",
-                            "          if (false) {\n")], False),
+    "cut_no_gather": ({}, [("          if (take && valid && BITS) {\n",
+                            "          if (false) {\n"),
+                           ("          } else if (take && valid) {\n",
+                            "          } else if (false) {\n")], False),
 }
 
 
@@ -225,7 +233,8 @@ def main() -> int:
     from repro_torch.kernels import ell_sliced as esl
     from repro_torch.kernels.ell_relax_keys import ell_keys_dep_batch
     from repro_torch.kernels.ell_sliced import ell_sliced_keys_dep_batch
-    from repro_torch.kernels.config import RELAX_THREADS
+    from repro_torch.kernels.config import RELAX_THREADS, relax_threads_per_row
+    from repro_torch.kernels.ops import pad_lane_batch as ops_pad
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
 
     sys.path.insert(0, str(ROOT))
@@ -287,7 +296,7 @@ def main() -> int:
             spec["in_full"], status, settle, graph.in_min_static[None]))
         print(f"inputs: phase {int(st.trips)} of the in|out B=8 solve, "
               f"{int(settle.sum())} settled", flush=True)
-        return dmask, ga, gb, gc, g_od, dga, dgb
+        return dmask, ga, gb, gc, g_od, dga, dgb, status
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -299,7 +308,7 @@ def main() -> int:
     g = uniform_gnp(1_000_000, 1e-4, seed=0, device=dev)
     cols, ws = to_ell_in(g)
     cols_o, ws_o = to_ell_out(g)
-    dmask, ga, gb, gc, g_od, dga, dgb = phase_inputs(
+    dmask, ga, gb, gc, g_od, dga, dgb, status_io = phase_inputs(
         g, (cols, ws), (cols_o, ws_o),
         lambda *a: ell_keys_dep_batch(*a, cols_o, ws_o), 100)
     n, b = g.n, dmask.shape[0]
@@ -335,6 +344,65 @@ def main() -> int:
         return "keys_dep", call, lambda: same_bits(out, w_dep)
 
     rounds(names, lambda nm: [relax_keys(libs[nm]), keys_dep(libs[nm])])
+
+    # the dense single sweeps: #6 on the out_dyn gate, #5 on the in_dyn gate
+    g_id = ops_pad(C.key_gate(spec["in_dyn"], status_io, g.in_min_static,
+                              g.out_min_static, {}))
+    w_gm = ref.ell_gather_min_batch_ref(g_od, cols_o, ws_o)
+    w_km = ref.ell_key_min_batch_ref(g_id, cols, ws)
+
+    def dense(lib, label, vec, n_src, c, w, want, body=0):
+        lanes = vec.numel() // n_src
+        out = torch.empty_like(want)
+        packed = erk.packed_scratch(lanes, n + 1, dev)
+        tpr, threads = ((relax_threads_per_row(c.shape[1]), RELAX_THREADS)
+                        if body else (0, 0))
+
+        def call():
+            checked(lib.ell_gather_min_launch(
+                vec.data_ptr(), n_src, n + 1, lanes, c.data_ptr(),
+                w.data_ptr(), c.shape[0], c.shape[1], tpr, threads,
+                packed.data_ptr(), None, out.data_ptr(), stream()))
+        return label, call, lambda: same_bits(out, want)
+
+    def dense_status(lib, label, c, w, want):
+        """(b): the same sweep read from status (the status-gate table)."""
+        out = torch.empty_like(want).reshape(b, -1)
+        bits = torch.empty((n + 1,), dtype=torch.uint8, device=dev)
+
+        def call():
+            checked(lib.ell_gather_min_status_launch(
+                status_io.data_ptr(), n, n + 1, b, c.data_ptr(), w.data_ptr(),
+                c.shape[0], c.shape[1], bits.data_ptr(), out.data_ptr(),
+                stream()))
+        return (label + " (status table)", call,
+                lambda: same_bits(out, want.reshape(b, -1)))
+
+    def dense_cases(lib, body=0):
+        return [dense(lib, "gather_min", g_od, n, cols_o, ws_o, w_gm, body),
+                dense(lib, "key_min", g_id, n + 1, cols, ws, w_km, body),
+                dense_status(lib, "gather_min", cols_o, ws_o, w_gm),
+                dense_status(lib, "key_min", cols, ws, w_km)]
+
+    rounds(names, lambda nm: dense_cases(libs[nm]))
+    if "shipped" in libs:
+        shipped = dense_cases(libs["shipped"])
+        single = dense_cases(libs["shipped"], body=1)
+        for label, old, f32, bits in (("gather_min", single[0], shipped[0],
+                                       shipped[2]),
+                                      ("key_min", single[1], shipped[1],
+                                       shipped[3])):
+            for _, call, ok in (old, f32, bits):
+                call()
+                torch.cuda.synchronize()
+                if not ok():
+                    raise SystemExit(f"{label} differs from its twin")
+            turns = [time_ms(c, reps=20) for c in
+                     (old[1], f32[1], bits[1], bits[1], f32[1], old[1])]
+            print(f"[shipped] {label} in turns (single-sweep body, "
+                  "pipelined f32, pipelined status table, status table, "
+                  "f32, single-sweep body): "
+                  + ", ".join(f"{t:.4f}" for t in turns) + " ms", flush=True)
     if "shipped" in libs:
         for lanes in (1, 2, 4, 8):
             _, call, _ = keys_dep(libs["shipped"], lanes)
@@ -342,13 +410,13 @@ def main() -> int:
                   f"{lanes * 4 * (n + 1) / 1e6:.0f} MB): "
                   f"{time_ms(call, reps=20):.4f} ms")
     del g, cols, ws, cols_o, ws_o, dmask, ga, gb, gc, g_od, dga, dgb
-    del w_upd, w_keys, w_dep
+    del w_upd, w_keys, w_dep, g_id, w_gm, w_km, status_io
     if args.no_sliced:
         return 0
 
     gk = kronecker(20, seed=0, device=dev)
     sl_in, sl_out = to_ell_in_sliced(gk), to_ell_out_sliced(gk)
-    dmask, ga, gb, gc, g_od, dga, dgb = phase_inputs(
+    dmask, ga, gb, gc, g_od, dga, dgb, _ = phase_inputs(
         gk, sl_in, sl_out,
         lambda *a: ell_sliced_keys_dep_batch(*a, sl_out), 41)
     n = gk.n
@@ -400,7 +468,7 @@ def main() -> int:
           f"({sl_in.split_rows} in the scratch, {sl_in.merge_short.numel()} "
           f"vertices in the short merge), out-view rows {sl_out.total_rows} "
           f"({sl_out.split_rows}, {sl_out.merge_short.numel()})")
-    rounds(names, lambda nm: [sliced_relax_keys(nm), sliced_keys_dep(nm)])
+    rounds(fused, lambda nm: [sliced_relax_keys(nm), sliced_keys_dep(nm)])
     return 0
 
 
