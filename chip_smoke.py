@@ -83,7 +83,30 @@ failure raises, exits non-zero and prints no ``ok`` line:
  17. more buckets than one launch takes: G(10^5, 10^-3) sliced into 19
      buckets with rows (each pass runs in two groups): every sliced kernel
      and the sliced push against its twin, and the sliced default and
-     ``in|out`` solves against the padded ones, bit for bit.
+     ``in|out`` solves against the padded ones, bit for bit;
+ 18. ``ContinuousBatcher`` on G(10^6, 10^-4), padded: (a) the default plan,
+     8 lanes, 32 phases a step, a 64-row ``DistCache``: 40 requests from
+     seed 3 (32 distinct sources, 8 repeats that coalesce) in 4 bursts of
+     10 before the first 4 steps, then ``drain()``; every row bit-equal to
+     B = 8 kernel solves of the same sources, one against scipy; 4 repeats
+     after the drain are cache hits with no engine trip; prints the
+     outcomes, steps, trips, queries/s, admission-to-row latency p50 / p99,
+     the device's busy share over a steady window and the launches beside
+     phase 3's queries/s; (b) ``in|out`` with ``point_queries=True``: 8 s->t
+     and 8 full requests of phase 9's sources, every ``dist[target]`` and
+     full row equal to phase 9's solve, no point row in the cache, the
+     point lanes' ``relax_edges`` against the full lanes' and the re-primes
+     admissions caused;
+ 19. ``run_point_to_point``: on G(10^6, 10^-4), padded, default plan, 4
+     (s, t) pairs bidirectional and forward-only, ``distance`` equal to
+     phase 18's full rows and ``mu >= distance``; the backward views must
+     be the forward graph's own, swapped (their bytes and fetch time are
+     printed); on kronecker(20), sliced, under both plans, 2 pairs each,
+     bidirectional and forward-only (one target of in-degree 0, certified
+     unreachable by the backward lane), against phase 14's rows.
+
+Every path (phases 3, 8, 14, 18, 19) runs with the launch counts set to 0
+just before and read just after, and fails if one of its kernels never ran.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -388,7 +411,14 @@ def main() -> int:
         ell_sliced_relax_keys_batch,
     )
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
-    from repro_torch.serving import StaticBackend
+    from repro_torch.serving import (
+        ContinuousBatcher,
+        DistCache,
+        StaticBackend,
+        graph_key,
+        run_point_to_point,
+        transpose_memo,
+    )
 
     counted = {f.__name__: (f, "launches") for f in (
         ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
@@ -1884,6 +1914,329 @@ def main() -> int:
     del gm, mv_in, mv_out, res_m, res_pad
     log(f"many-bucket phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 18. ContinuousBatcher on G(10^6, 10^-4), padded --------------------
+    # (a) the default plan: 40 requests from seed 3, 32 distinct sources and
+    # 8 repeats, in 4 bursts of 10 (one before each of the first 4 step()
+    # calls), then drain(). The repeats: 2 a burst; those of bursts 1 and 2
+    # arrive while their source (of burst 0) is in flight, those of bursts 0
+    # and 3 while it still waits for a lane; all 8 coalesce.
+    t18 = time.perf_counter()
+    rng18 = np.random.default_rng(3)
+    distinct = rng18.choice(g.n, 32, replace=False)
+    repeats = ([distinct[0], distinct[1]], [distinct[2], distinct[3]],
+               [distinct[4], distinct[5]], [distinct[16], distinct[17]])
+    bursts = [[int(s) for s in rng18.permutation(
+        np.concatenate([distinct[8 * k:8 * k + 8], repeats[k]]))]
+        for k in range(4)]
+    be18 = StaticBackend(g, ell=(cols, ws), device=dev)
+    t0 = time.perf_counter()
+    gkey = graph_key(g)
+    key_s = time.perf_counter() - t0
+    cache18 = DistCache(capacity=64)
+    srv = ContinuousBatcher(g, lanes=LANES, phases_per_step=32, backend=be18,
+                            cache=cache18)
+    served = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for burst in bursts:
+        for s in burst:
+            srv.submit(s)
+        served += srv.step()
+    served += srv.drain()
+    torch.cuda.synchronize()
+    batcher_s = time.perf_counter() - t0
+    launches_b = read_counts()
+    rep = srv.metrics.report()
+    # 4 more after the drain: each a cache hit, no engine trip
+    trips_before = srv.metrics.engine_trips
+    late = [srv.submit(int(s)) for s in distinct[[0, 9, 18, 27]]]
+    srv.drain()
+    if not all(r.cache_hit for r in late) or \
+            srv.metrics.engine_trips != trips_before:
+        raise SystemExit("a repeat after the drain was not a cache hit")
+    outcomes = {}
+    for r in served:
+        outcomes[r.outcome] = outcomes.get(r.outcome, 0) + 1
+    if len(served) != 40 or outcomes != {"ok": 40}:
+        raise SystemExit(f"the batcher answered {outcomes}, not 40 ok")
+    if (rep["coalesced"], rep["cache_hits"], rep["engine_served"]) != (8, 0, 32):
+        raise SystemExit(f"batcher classification {rep['coalesced']} "
+                         f"coalesced / {rep['cache_hits']} hits / "
+                         f"{rep['engine_served']} on lanes, not 8 / 0 / 32")
+    for name in ("ell_push_relax_batch", "frontier_crit_lanes_batch"):
+        if launches_b[name] <= 0:
+            raise SystemExit(f"the batcher never launched {name}")
+    if any(launches_b[nm] for nm in ("ell_relax_batch", "ell_relax_keys_batch",
+                                     "ell_sliced_push_relax_batch")):
+        raise SystemExit(f"the batcher launched another relax: {launches_b}")
+    # the rows against B = 8 kernel solves of the same sources (4 batches;
+    # phase 4 holds that solve against the plain one)
+    t0 = time.perf_counter()
+    full = {}
+    for k in range(4):
+        res = run_phased_static_batch(g, distinct[8 * k:8 * k + 8],
+                                      ell=(cols, ws), ell_out=(cols_o, ws_o),
+                                      device=dev)
+        for i, s in enumerate(distinct[8 * k:8 * k + 8]):
+            full[int(s)] = res.dist[i].cpu().numpy()
+    del res
+    ref_s = time.perf_counter() - t0
+    for r in served + late:
+        if not np.array_equal(r.dist.view(np.int32),
+                              full[r.source].view(np.int32)):
+            raise SystemExit(f"batcher row of source {r.source} differs from "
+                             "the batch solve")
+    want18 = dijkstra(csr, directed=True, indices=int(distinct[0]))
+    fin18 = np.isfinite(want18)
+    got18 = full[int(distinct[0])]
+    if not ((np.isfinite(got18) == fin18).all()
+            and np.allclose(got18[fin18], want18[fin18], rtol=1e-5)):
+        raise SystemExit("batcher row of distinct[0] disagrees with scipy")
+    # the device's busy share over a steady window: 6 rounds of the first
+    # two bursts on a fresh batcher (all 8 lanes busy)
+    def batcher_window():
+        w = ContinuousBatcher(g, lanes=LANES, phases_per_step=32,
+                              backend=be18)
+        for burst in bursts[:2]:
+            for s in burst:
+                w.submit(s)
+            w.step()
+        for _ in range(4):
+            w.step()
+        return w
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    win_trips = int(batcher_window().state.trips)
+    torch.cuda.synchronize()
+    win_s = time.perf_counter() - t0
+    qps_static = len(rows) / serve_s
+    log(f"batcher: 40 requests ({outcomes}; {rep['coalesced']} coalesced, "
+        f"{rep['cache_hits']} cache hits, {rep['engine_served']} on lanes) in "
+        f"{batcher_s:.3f} s, {rep['steps']} steps, {rep['engine_trips']} trips; "
+        f"{rep['throughput_qps']:.2f} queries/s (report), "
+        f"{40 / batcher_s:.2f} by the wall; admission-to-row latency p50 "
+        f"{rep['latency_p50_s']:.3f} s, p99 {rep['latency_p99_s']:.3f} s, "
+        f"lane occupancy {rep['lane_occupancy']:.3f}; phase 3's StaticBackend "
+        f"loop {qps_static:.2f} queries/s [{smi}]")
+    log(f"batcher window (6 rounds, {win_trips} trips, {win_s:.3f} s): "
+        f"{busy_line(batcher_window, win_s, win_trips)} [{smi}]")
+    log(f"batcher launches: {launches_b}")
+    log(f"batcher: the 40 rows and 4 cache hits equal the B={LANES} kernel "
+        f"solves ({ref_s:.1f} s) bit for bit; row of source "
+        f"{int(distinct[0])} within rtol 1e-5 of scipy; graph_key "
+        f"{gkey[:12]} in {key_s:.1f} s")
+
+    # (b) in|out with point queries: 8 s->t requests from src8 (targets from
+    # seed 4), then the 8 full requests of the same sources
+    class RecordingBatcher(ContinuousBatcher):
+        """Records each harvested lane's relax_edges through the harvest
+        hook."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.relax = {}
+
+        def _accept_row(self, req, lane, row, now):
+            self.relax[req.req_id] = int(self.state.relax_edges[lane])
+            return True
+
+    tgt18 = np.random.default_rng(4).integers(0, g.n, LANES)
+    be_io = StaticBackend(g, criterion="in|out", ell=(cols, ws),
+                          point_queries=True, device=dev)
+    cache_io = DistCache(capacity=64)
+    srv_io = RecordingBatcher(g, lanes=LANES, phases_per_step=32,
+                              backend=be_io, cache=cache_io,
+                              point_queries=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    pts = [srv_io.submit(int(s), target=int(t)) for s, t in zip(src8, tgt18)]
+    fulls = [srv_io.submit(int(s)) for s in src8]
+    srv_io.drain()
+    torch.cuda.synchronize()
+    io_s = time.perf_counter() - t0
+    launches_p = read_counts()
+    for i, (p_, f_) in enumerate(zip(pts, fulls)):
+        if p_.cache_hit or p_.coalesced or f_.cache_hit or f_.coalesced:
+            raise SystemExit("an in|out request did not run on its own lane")
+        if not np.array_equal(np.float32(p_.distance).view(np.int32),
+                              dist_io[i][int(tgt18[i])].view(np.int32)):
+            raise SystemExit(f"point query {i}: dist[target] differs from "
+                             "the full solve")
+        if not np.array_equal(f_.dist.view(np.int32),
+                              dist_io[i].view(np.int32)):
+            raise SystemExit(f"in|out full row {i} differs from phase 9's")
+    if len(cache_io) != len(set(int(s) for s in src8)) or not all(
+            np.array_equal(cache_io.get(gkey, "in|out", int(s)).view(np.int32),
+                           dist_io[i].view(np.int32))
+            for i, s in enumerate(src8)):
+        raise SystemExit("the cache holds a point row")
+    for name in ("ell_relax_keys_batch", "ell_keys_dep_batch",
+                 "frontier_crit_lanes_batch"):
+        if launches_p[name] <= 0:
+            raise SystemExit(f"in|out point serving never launched {name}")
+    reprimes = (launches_p["ell_key_min_batch"]
+                + launches_p["ell_key_min_status_batch"])
+    if reprimes <= 0:
+        raise SystemExit("in|out point serving never re-primed its keys")
+    relax_pt = [srv_io.relax[r.req_id] for r in pts]
+    relax_full = [srv_io.relax[r.req_id] for r in fulls]
+    log(f"in|out points: 16 requests (8 s->t) in {io_s:.3f} s, "
+        f"{srv_io.metrics.steps} steps, {srv_io.metrics.engine_trips} trips "
+        f"[{smi}]; phases point {[r.phases for r in pts]} vs full "
+        f"{[r.phases for r in fulls]}; relax_edges point {relax_pt} vs full "
+        f"{relax_full} ({sum(relax_pt) / sum(relax_full):.3f} of the full "
+        f"lanes' work); re-primes after admissions {reprimes}; every "
+        "dist[target] and full row equal to phase 9's solve; the cache holds "
+        "the 8 full rows only")
+    log(f"in|out points launches: {launches_p}")
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # ---- 19. run_point_to_point --------------------------------------------
+    t19 = time.perf_counter()
+
+    def view_bytes(view) -> int:
+        """Bytes of every tensor in a padded pair or a SlicedEll."""
+        if isinstance(view, torch.Tensor):
+            return view.numel() * view.element_size()
+        if isinstance(view, tuple):
+            return sum(view_bytes(v) for v in view)
+        return 0
+
+    def backward_views(graph, fwd_in, fwd_out, bwd_in, bwd_out):
+        """The transpose's views, which must be ``graph``'s own swapped
+        (``core.graph.transpose`` shares the memos): (seconds, bytes)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gt_ = transpose_memo(graph)
+        views = (bwd_in(gt_), bwd_out(gt_))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if views[0] is not fwd_out(graph) or views[1] is not fwd_in(graph):
+            raise SystemExit("the transpose's views are not the forward "
+                             "graph's own, swapped")
+        return secs, view_bytes(views)
+
+    def held_shared(graph):
+        """Every memoised bidirectional backend of ``graph`` ran its
+        backward lane on the forward views."""
+        backends = graph.__dict__.get("_point_backends", {}).values()
+        bid = [pb for pb in backends if pb.bidirectional]
+        if not bid or any(pb._bwd_views is None
+                          or pb._bwd_views[0] is not transpose_memo(graph)
+                          for pb in bid):
+            raise SystemExit("run_point_to_point kept no bidirectional "
+                             "backend on the memoised transpose")
+
+    bwd_s, bwd_bytes = backward_views(g, to_ell_in, to_ell_out,
+                                      to_ell_in, to_ell_out)
+    pairs19 = [(int(s), int(t)) for s, t in zip(
+        distinct[:4], np.random.default_rng(5).integers(0, g.n, 4))]
+
+    def point_pair(graph, s, t, want_t, what, **kw):
+        """One (s, t) pair bidirectional, then forward-only, through
+        run_point_to_point: distance bit-equal to ``want_t``, mu >= it, and
+        the forward lane's phases the same in both modes."""
+        out = []
+        for bidi in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_point_to_point(graph, s, t, bidirectional=bidi,
+                                     device=dev, **kw)
+            q_ms = (time.perf_counter() - t0) * 1e3
+            mode = "bidirectional" if bidi else "forward"
+            if not np.array_equal(np.float32(res.distance).view(np.int32),
+                                  np.float32(want_t).view(np.int32)):
+                raise SystemExit(f"run_point_to_point {what} {mode} ({s}, "
+                                 f"{t}) differs from the full row")
+            # mu sums a path in another order than the forward lane, so in
+            # f32 it may round below distance: the reference's own test
+            # allows that slack (rtol 1e-6), and so does this check
+            if not (res.mu >= res.distance
+                    or np.isclose(res.mu, res.distance, rtol=1e-6)):
+                raise SystemExit(f"mu {res.mu} below distance {res.distance}")
+            out.append((mode, s, t, res, q_ms))
+        rb, rf = out[0][3], out[1][3]
+        # a certified-unreachable query stops the forward lane early
+        if (not rb.unreachable_certified
+                and rb.phases_forward != rf.phases_forward):
+            raise SystemExit(f"{what} ({s}, {t}): the forward lane ran "
+                             f"{rb.phases_forward} phases bidirectional, "
+                             f"{rf.phases_forward} alone")
+        return out
+
+    zero_counts()
+    p19 = []
+    for s, t in pairs19:
+        p19 += point_pair(g, s, t, full[s][t], "padded")
+    launches_q = read_counts()
+    for name in ("ell_push_relax_batch", "frontier_crit_lanes_batch"):
+        if launches_q[name] <= 0:
+            raise SystemExit(f"point queries never launched {name}")
+    held_shared(g)
+    log(f"point: backward views (transpose_memo) {bwd_bytes / 1e9:.3f} GB, "
+        f"all of them the forward views swapped (0 bytes new), fetched in "
+        f"{bwd_s * 1e3:.3f} ms [{smi}]")
+    for mode, s, t, res, q_ms in p19:
+        log(f"point {mode} ({s}, {t}): distance {res.distance!r} (the full "
+            f"row's), mu {res.mu!r}, phases forward {res.phases_forward} / "
+            f"backward {res.phases_backward}, meeting vertex "
+            f"{res.meeting_vertex}, {q_ms:.1f} ms [{smi}]")
+    log(f"point launches: {launches_q}")
+    # kronecker(20), sliced: 2 pairs a plan, bidirectional and forward-only,
+    # one target with in-degree 0 (the unreachable path, certified by the
+    # backward lane), against phase 14's sliced rows
+    kbwd_s, kbwd_bytes = backward_views(gk, to_ell_in_sliced,
+                                        to_ell_out_sliced, to_ell_in_sliced,
+                                        to_ell_out_sliced)
+    log(f"point sliced: backward views {kbwd_bytes / 1e9:.3f} GB, all of "
+        f"them kronecker(20)'s sliced views swapped (0 bytes new), fetched "
+        f"in {kbwd_s * 1e3:.3f} ms [{smi}]")
+    real_k = torch.isfinite(gk.w)
+    indeg_k = torch.bincount(gk.dst[real_k].long(), minlength=gk.n)
+    no_in = int(torch.nonzero(indeg_k == 0)[0])
+    del real_k, indeg_k
+    launches_qs = {}
+    for crit in ("instatic|outstatic", "in|out"):
+        row0 = served_k[crit][0]
+        reach = np.flatnonzero(np.isfinite(row0))
+        t_reach = int(reach[np.random.default_rng(6).integers(len(reach))])
+        zero_counts()
+        for i, t in ((0, t_reach), (1, no_in)):
+            s = int(src_k[i])
+            for mode, _, _, res, q_ms in point_pair(
+                    gk, s, t, served_k[crit][i][t], f"sliced {crit}",
+                    criterion=crit, layout="sliced"):
+                if (mode == "bidirectional" and t == no_in and s != no_in
+                        and not res.unreachable_certified):
+                    raise SystemExit(f"sliced {crit} ({s}, {t}): a target "
+                                     "of in-degree 0 was not certified "
+                                     "unreachable")
+                log(f"point sliced {crit} {mode} ({s}, {t}): distance "
+                    f"{res.distance!r}, mu {res.mu!r}, phases forward "
+                    f"{res.phases_forward} / backward "
+                    f"{res.phases_backward} (phase 14's full row: "
+                    f"{sliced_serve[crit][2][i]}), certified unreachable "
+                    f"{res.unreachable_certified}, {q_ms:.1f} ms [{smi}]")
+        launches_qs[crit] = read_counts()
+        must = (("ell_sliced_push_relax_batch",)
+                if crit == "instatic|outstatic"
+                else (PUSH_IN_SCAN, "ell_sliced_keys_dep_batch",
+                      "ell_sliced_gather_min_batch"))
+        for name in must + ("frontier_crit_lanes_batch",):
+            if launches_qs[crit][name] <= 0:
+                raise SystemExit(f"sliced {crit} point queries never "
+                                 f"launched {name}")
+        log(f"point sliced {crit} launches: {launches_qs[crit]}")
+    held_shared(gk)
+    log(f"phase 19: {time.perf_counter() - t19:.1f} s")
+    by_path = {"batcher": launches_b, "batcher_in_out_points": launches_p,
+               "point_to_point": launches_q,
+               "point_to_point_sliced": launches_qs["instatic|outstatic"],
+               "point_to_point_sliced_in_out": launches_qs["in|out"]}
+
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"card: {smi}")
     sliced_kernels = {
@@ -1998,6 +2351,9 @@ def main() -> int:
          "active_rows_median": int(np.median(act_rows_k)),
          "active_rows_max": int(act_rows_k.max())},
     ]
+    for row in kernels:  # each kernel's launches on this slice's paths
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in by_path.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

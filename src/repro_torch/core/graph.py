@@ -438,8 +438,20 @@ def to_ell_out_sliced(g: Graph, pad_multiple: int = 8, boundaries=None,
 
 
 def transpose(g: Graph) -> Graph:
-    """The reverse graph (incoming edges become outgoing)."""
-    return Graph(
+    """The reverse graph (incoming edges become outgoing).
+
+    Its ELL views are ``g``'s, swapped: the reverse graph's in-view is
+    built from the same (from, to, w) arrays as ``g``'s out-view, and the
+    other way round, on both layouts. So the two graphs share their view
+    memos (swapped), and a view built for either serves both.
+    """
+    gt = Graph(
         n=g.n, m=g.m, src=g.dst, dst=g.src, w=g.w,
         in_min_static=g.out_min_static, out_min_static=g.in_min_static,
     )
+    for a, b in (("in", "out"), ("in_sliced", "out_sliced")):
+        gt.__dict__[f"_ell_{a}_cache"] = g.__dict__.setdefault(
+            f"_ell_{b}_cache", {})
+        gt.__dict__[f"_ell_{b}_cache"] = g.__dict__.setdefault(
+            f"_ell_{a}_cache", {})
+    return gt

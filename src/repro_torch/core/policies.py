@@ -11,6 +11,9 @@ plan without the oracle. Per phase:
     ``ell_keys_dep_batch`` when ``out_full`` depends on ``out_dyn``);
   * every plan reduces the fringe once (``frontier_crit_lanes_batch``,
     with shared static keys or per-lane dynamic ones);
+  * on a target-enabled state, the relax sources are gated by the s->t
+    bound (``relax_from = settle & (d < d[target])``), and ``relax_inc``
+    counts the out-edges of ``relax_from``;
   * plans with in-side keys relax through the fused in-scan
     (``ell_relax_keys_batch``), which also emits the next phase's in-side
     keys; the others, the default ``instatic|outstatic`` among them, relax
@@ -246,6 +249,16 @@ class CriterionPolicy(PhasePolicy):
         settle = C.plan_union_mask(
             plan, d, fringe, mins, keys, g.in_min_static, None
         )
+        # --- the s->t bound (target lanes only): the target's current
+        # tentative distance. A settled source at or beyond it can never
+        # improve the target, so the gated relax drops it; the settle
+        # decision is untouched. A target-free state runs none of this.
+        relax_from = settle
+        if s.target is not None:
+            rows = torch.arange(b, device=d.device)
+            tcol = s.target.clamp(0, s.n - 1).long()
+            bound = torch.where(s.target >= 0, d[rows, tcol], INF)
+            relax_from = kops._bound_gate(d, settle, bound)
         # --- relax this phase: plans with in-side keys in the in-scan, which
         # also emits the NEXT phase's keys from the same kernel call; the
         # others by the push along the outgoing view
@@ -261,17 +274,20 @@ class CriterionPolicy(PhasePolicy):
             # where the plan holds one (its out-side keys read it)
             push_view = (ell_out if kops._is_sliced(ell_in)
                          and kops._is_sliced(ell_out) else None)
+            # key gates keep the FULL settle mask (the post-settle
+            # status); only the relax sources are gated
             upd, next_in = kops.in_scan_relax_keys_batch(
-                d, settle, parts, ell_in, out_view=push_view,
+                d, relax_from, parts, ell_in, out_view=push_view,
                 use_kernels=use_kernels
             )
         elif kops._is_sliced(ell_out):
             upd = kops.push_settled_batch_sliced(
-                d, settle, ell_out, use_kernels=use_kernels
+                d, relax_from, ell_out, use_kernels=use_kernels
             )
         else:
             upd = kops.push_settled_batch(
-                d, settle, ell_out[0], ell_out[1], use_kernels=use_kernels
+                d, relax_from, ell_out[0], ell_out[1],
+                use_kernels=use_kernels
             )
         # d >= +0 and upd = d + w >= +0 (+0 + -0 is +0): no -0 reaches this
         # min, so torch.minimum's choice between zeros never shows
@@ -280,7 +296,7 @@ class CriterionPolicy(PhasePolicy):
             settle, 2, torch.where((status == 0) & (upd < INF), 1, status)
         ).to(torch.int32)
         n_settled = settle.sum(dim=1, dtype=torch.int32)
-        relax_inc = torch.where(settle, s.out_deg[None], 0).sum(
+        relax_inc = torch.where(relax_from, s.out_deg[None], 0).sum(
             dim=1, dtype=torch.int64
         )
         crit_keys = s.crit_keys

@@ -12,6 +12,13 @@ Stepper API, as in the reference:
     chunks (a reset lane is bitwise a fresh solve);
   * :func:`harvest` freezes a state into a :class:`BatchedResult`.
 
+``targets`` (``init_batch_state``) turns lanes into s->t queries: a target
+lane's remaining fringe is demoted the phase its target settles, and the
+policy relaxes only from settled vertices nearer than the target's current
+distance (``ops._bound_gate``), so only ``dist[lane, target]`` (and every
+vertex nearer) is final on that row. A target-free state (``target`` is
+None) runs the exact pre-target program.
+
 ``run_phased_static`` (B = 1) and ``run_phased_static_batch`` are thin
 wrappers over the same stepper.
 
@@ -76,6 +83,8 @@ class BatchState:
     #   costs no device sync
     settled_trace: torch.Tensor  # (B, trace_len) int32 ring of per-phase
     #   settle counts: phase p of a lane's query lands in slot p % trace_len
+    target: torch.Tensor | None  # (B,) int32 per-lane s->t target (-1 =
+    #   full solve), or None on a state initialised without target lanes
     criterion: str  # canonical policy spec
 
     @property
@@ -107,6 +116,9 @@ class BatchedResult:
     total_phases: torch.Tensor  # scalar int32: loop trips since state init
     settled_per_phase: torch.Tensor | None = None  # (B, trace_len) int32
     #   ring, or None when tracing was off (trace_len == 1)
+    target: torch.Tensor | None = None  # (B,) int32 per-lane target (-1 =
+    #   full solve), only from target-enabled states: on a target lane only
+    #   dist[lane, target[lane]] (and nearer vertices) is final
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -164,6 +176,17 @@ def _fresh_rows(sources: torch.Tensor, n: int):
     return d, status
 
 
+def _validate_targets(targets, b: int, n: int) -> np.ndarray | None:
+    """(B,) int32 host target vector (or None): each entry a vertex id for
+    an s->t lane or -1 for a full solve, through the source gatekeeper."""
+    if targets is None:
+        return None
+    return validate_sources(
+        targets, n, EMPTY_LANE, f"in [0, {n}) or -1 for a full-solve lane",
+        expect_lanes=b,
+    )
+
+
 def init_batch_state(
     g: Graph,
     sources,
@@ -181,8 +204,10 @@ def init_batch_state(
     ``trace_len`` sizes the per-lane settled-per-phase ring (1 = off).
     ``dist_true`` is read only by oracle plans, which are not ported, so it
     is dropped, as the reference drops it for non-oracle plans. Telemetry
-    rings, delta-stepping and s->t targets are not ported yet and raise.
-    ``device`` (None = the CUDA card) must be the graph's device.
+    rings and delta-stepping are not ported yet and raise. ``targets``, a
+    ``(B,)`` int vector of target vertices (-1 = full solve), makes the
+    state target-capable (see the module docstring). ``device`` (None =
+    the CUDA card) must be the graph's device.
     """
     policy = P.policy_for(criterion)
     dev = graph_device(g, device)
@@ -199,9 +224,8 @@ def init_batch_state(
     if telemetry:
         raise not_ported("telemetry=True (the extended rings)",
                           "Queue 1 item 5")
-    if targets is not None:
-        raise not_ported("s->t target lanes", "Queue 1 item 5")
     b = src_np.shape[0]
+    tg = _validate_targets(targets, b, g.n)
     d0, status0 = _fresh_rows(torch.from_numpy(src_np).to(dev), g.n)
     zeros_i32 = torch.zeros((b,), dtype=torch.int32, device=dev)
     zeros_i64 = torch.zeros((b,), dtype=torch.int64, device=dev)
@@ -217,6 +241,7 @@ def init_batch_state(
         keys_valid=policy.init_keys_valid(),
         settled_trace=torch.zeros((b, int(trace_len)), dtype=torch.int32,
                                   device=dev),
+        target=None if tg is None else torch.from_numpy(tg).to(dev),
         criterion=policy.spec,
     )
 
@@ -224,10 +249,17 @@ def init_batch_state(
 def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
            use_kernels: bool) -> BatchState:
     """One trip of the loop: the policy's phase plus the chassis' ring and
-    counter writes, gated per lane on ``n_fringe > 0``."""
+    counter writes, gated per lane on ``n_fringe > 0``. On a target lane,
+    the phase its target settles demotes the remaining fringe to status 0:
+    the lane is then a fixed point, and the phase itself still counts."""
     out = policy.phase(g, ell_in, ell_out, s, use_kernels)
-    lane_on = out.n_fringe > 0  # finished/empty lanes stop counting
     rows = torch.arange(s.num_lanes, device=s.device)
+    status = out.status
+    if s.target is not None:
+        tcol = s.target.clamp(0, s.n - 1).long()
+        hit = (s.target >= 0) & (status[rows, tcol] == 2)
+        status = torch.where(hit[:, None] & (status == 1), 0, status)
+    lane_on = out.n_fringe > 0  # finished/empty lanes stop counting
     idx = (s.phases % s.settled_trace.shape[1]).long()
     trace = s.settled_trace.clone()
     # dead lanes must not write: their stuck slot may hold a wrapped entry
@@ -235,7 +267,7 @@ def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
                                    s.settled_trace[rows, idx])
     return BatchState(
         dist=out.dist,
-        status=out.status,
+        status=status,
         trips=s.trips + 1,
         phases=s.phases + lane_on.to(torch.int32),
         sum_fringe=s.sum_fringe + out.n_fringe.to(torch.int64),
@@ -244,6 +276,7 @@ def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
         crit_keys=out.crit_keys,
         keys_valid=s.keys_valid,
         settled_trace=trace,
+        target=s.target,
         criterion=s.criterion,
     )
 
@@ -304,29 +337,35 @@ def reset_lanes(state: BatchState, sources, dist_true=None,
     (:data:`KEEP_LANE`) leaves that lane's bits untouched, ``-1``
     (:data:`EMPTY_LANE`) parks it empty, and a vertex id starts a fresh
     query there, bitwise the same as a fresh :func:`init_batch_state` row.
-    Validation and messages are the reference's.
+    On a target-enabled state, ``targets`` gives each touched lane its new
+    target (-1 = full solve, the default when omitted); KEEP_LANE rows keep
+    theirs. A target-free state rejects ``targets``. Validation and
+    messages are the reference's.
     """
     src_np = validate_sources(
         sources, state.n, KEEP_LANE,
         f"in [0, {state.n}), -1 (park) or -2 (keep)",
         expect_lanes=state.num_lanes,
     )
-    if targets is not None:
+    if targets is not None and state.target is None:
         raise ValueError(
             "state was initialised without target lanes; pass "
             "init_batch_state(..., targets=...) to enable s->t queries "
             "(the target field is pytree-structural)"
         )
+    tg = _validate_targets(targets, state.num_lanes, state.n)
     if dist_true is not None:
         raise ValueError(
             f"criterion {state.criterion!r} does not read dist_true"
         )
-    return _reset_lanes(state, torch.from_numpy(src_np).to(state.device),
-                        bool((src_np >= EMPTY_LANE).any()))
+    return _reset_lanes(
+        state, torch.from_numpy(src_np).to(state.device),
+        bool((src_np >= EMPTY_LANE).any()),
+        None if tg is None else torch.from_numpy(tg).to(state.device))
 
 
-def _reset_lanes(state: BatchState, sources: torch.Tensor,
-                 any_touched: bool) -> BatchState:
+def _reset_lanes(state: BatchState, sources: torch.Tensor, any_touched: bool,
+                 targets: torch.Tensor | None = None) -> BatchState:
     touch = sources >= EMPTY_LANE  # KEEP_LANE rows pass through unchanged
     fresh_d, fresh_s = _fresh_rows(sources, state.n)
     crit_keys = state.crit_keys
@@ -338,6 +377,12 @@ def _reset_lanes(state: BatchState, sources: torch.Tensor,
     def ctr(old):
         return torch.where(touch, 0, old)
 
+    target = state.target
+    if target is not None:
+        # touched lanes take their new target (default -1 = full solve)
+        if targets is None:
+            targets = torch.full_like(target, EMPTY_LANE)
+        target = torch.where(touch, targets, target)
     return BatchState(
         dist=torch.where(touch[:, None], fresh_d, state.dist),
         status=torch.where(touch[:, None], fresh_s, state.status),
@@ -352,6 +397,7 @@ def _reset_lanes(state: BatchState, sources: torch.Tensor,
         keys_valid=(None if state.keys_valid is None
                     else state.keys_valid and not any_touched),
         settled_trace=torch.where(touch[:, None], 0, state.settled_trace),
+        target=target,
         criterion=state.criterion,
     )
 
@@ -359,20 +405,30 @@ def _reset_lanes(state: BatchState, sources: torch.Tensor,
 def reset_lane(state: BatchState, lane: int, source: int = EMPTY_LANE,
                target: int = EMPTY_LANE) -> BatchState:
     """Re-initialise one lane's ``(n,)`` slice for a new query (or park
-    it); the other lanes' bits are untouched."""
+    it), with ``target`` as its s->t target on a target-enabled state; the
+    other lanes' bits are untouched."""
     if not 0 <= lane < state.num_lanes:
         raise ValueError(f"lane must be in [0, {state.num_lanes}); got {lane}")
     if not EMPTY_LANE <= source < state.n:
         raise ValueError(f"source must be in [0, {state.n}) or -1; got {source}")
     if target != EMPTY_LANE:
-        raise ValueError(
-            "state was initialised without target lanes; pass "
-            "init_batch_state(..., targets=...) to enable s->t queries"
-        )
+        if state.target is None:
+            raise ValueError(
+                "state was initialised without target lanes; pass "
+                "init_batch_state(..., targets=...) to enable s->t queries"
+            )
+        if not EMPTY_LANE <= target < state.n:
+            raise ValueError(
+                f"target must be in [0, {state.n}) or -1; got {target}"
+            )
     vec = torch.full((state.num_lanes,), KEEP_LANE, dtype=torch.int32,
                      device=state.device)
     vec[lane] = source
-    return _reset_lanes(state, vec, True)
+    tvec = None
+    if state.target is not None:
+        tvec = torch.full_like(vec, EMPTY_LANE)
+        tvec[lane] = target
+    return _reset_lanes(state, vec, True, tvec)
 
 
 def lanes_active(state: BatchState) -> np.ndarray:
@@ -396,6 +452,7 @@ def harvest(state: BatchState) -> BatchedResult:
         relax_edges=state.relax_edges.cpu().numpy(),
         total_phases=state.trips,
         settled_per_phase=state.settled_trace if traced else None,
+        target=state.target,
     )
 
 
@@ -431,7 +488,9 @@ def run_phased_static(
     covers the phase cap, so the result carries the full per-phase
     profile. ``device`` (None = the CUDA card) must be the graph's device.
     ``layout``, ``ell`` and ``ell_out`` are as in
-    :func:`run_phased_static_batch`.
+    :func:`run_phased_static_batch`. ``target`` makes it an s->t query:
+    only ``dist[target]`` (bit-exact against the full solve) and the
+    vertices nearer than it are final on the returned row.
     """
     ell = _resolve_layout(g, ell, layout)
     policy = P.policy_for(criterion)
@@ -481,7 +540,8 @@ def run_phased_static_batch(
     CUDA card) must be the graph's device; ``layout`` ("padded" or
     "sliced") names the incoming view built when ``ell`` is None;
     ``ell_out`` is the outgoing view (default: one in ``ell``'s layout, for
-    the plans that read it, see :func:`step_batch`).
+    the plans that read it, see :func:`step_batch`); ``targets`` (B,) gives
+    per-lane s->t targets (-1 = full solve), as in :func:`init_batch_state`.
     """
     ell = _resolve_layout(g, ell, layout)
     src_np = validate_sources(sources, g.n, 0, f"in [0, {g.n})")

@@ -25,7 +25,6 @@ _GRAPH_FIELDS = {
 # run yet; they must be absent or None.
 _UNPORTED_STATE_FIELDS = (
     "dist_true", "fringe_trace", "relax_trace", "attr_trace", "delta",
-    "target",
 )
 
 
@@ -77,8 +76,9 @@ def state_from_numpy(fields: dict, device=None) -> BatchState:
     ``relax_edges``/``relax_edges_hi``) fold into int64. The carried key
     stack ``crit_keys`` and its ``keys_valid`` flag (a host bool here) come
     over as they are, so both packages continue from one mid-solve state.
-    Fields of modes the port does not run (oracle rows, telemetry rings,
-    delta, targets) must be absent or None.
+    ``target`` (the (B,) int32 s->t targets of a target-enabled state, or
+    None) comes over as it is. Fields of modes the port does not run
+    (oracle rows, telemetry rings, delta) must be absent or None.
     """
     dev = resolve_device(device)
     extra = [k for k in _UNPORTED_STATE_FIELDS if fields.get(k) is not None]
@@ -105,5 +105,7 @@ def state_from_numpy(fields: dict, device=None) -> BatchState:
         keys_valid=(None if fields.get("keys_valid") is None
                     else bool(np.asarray(fields["keys_valid"]))),
         settled_trace=_tensor(fields["settled_trace"], np.int32, dev),
+        target=(None if fields.get("target") is None
+                else _tensor(fields["target"], np.int32, dev)),
         criterion=str(fields["criterion"]),
     )

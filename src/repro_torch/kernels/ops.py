@@ -16,6 +16,11 @@ the incoming view (:func:`relax_settled_batch`,
 takes the *outgoing* view (``to_ell_out[_sliced]``), reads only the
 settled vertices' out-rows and needs no sentinel pad.
 
+The bound-gated wrappers (``*_gated_batch``) are the reference's surface
+for s->t target lanes: the same kernels over a settle mask with the
+sources at or beyond the lane's bound removed (:func:`_bound_gate`). The
+engine gates the mask once itself and calls the plain wrappers.
+
 The engines consume the batched entry points; the 1-D ``relax_settled`` /
 ``static_thresholds`` wrappers are the reference surfaces the tests pin the
 batched ones against.
@@ -135,6 +140,48 @@ def push_settled_batch_sliced(d, settle_mask, sliced_out, *,
     return ell_sliced_push_relax_batch(dmask, sliced_out)
 
 
+def _bound_gate(d, settle_mask, bound):
+    """The s->t gate: prune relax sources at or beyond the lane's bound.
+
+    ``bound`` is (B,) f32, the target's current tentative distance (+inf on
+    full-solve lanes, where the gate changes nothing). A settled vertex
+    with ``d >= bound`` can only emit candidates ``>= bound`` (adding a
+    non-negative f32 weight is monotone), and the bound never drops below
+    the target's final distance, so dropping these sources never changes
+    ``dist[target]``.
+    """
+    return settle_mask & (d < bound[:, None])
+
+
+def relax_settled_gated_batch(d, settle_mask, bound, ell, *,
+                              use_kernels=True):
+    """Bound-gated twin of :func:`relax_settled_batch`, the reference's
+    contract: the pull over the INCOMING view of either layout, with
+    settled sources at or beyond ``bound`` masked out."""
+    gated = _bound_gate(d, settle_mask, bound)
+    if _is_sliced(ell):
+        return relax_settled_batch_sliced(d, gated, ell,
+                                          use_kernels=use_kernels)
+    return relax_settled_batch(d, gated, ell[0], ell[1],
+                               use_kernels=use_kernels)
+
+
+def push_settled_gated_batch(d, settle_mask, bound, out_cols, out_ws, *,
+                             use_kernels=True):
+    """Bound-gated :func:`push_settled_batch` (the padded outgoing view):
+    the gate is the push's settle mask and nothing else."""
+    return push_settled_batch(d, _bound_gate(d, settle_mask, bound),
+                              out_cols, out_ws, use_kernels=use_kernels)
+
+
+def push_settled_gated_batch_sliced(d, settle_mask, bound, sliced_out, *,
+                                    use_kernels=True):
+    """Bound-gated :func:`push_settled_batch_sliced` (the sliced outgoing
+    view)."""
+    return push_settled_batch_sliced(d, _bound_gate(d, settle_mask, bound),
+                                     sliced_out, use_kernels=use_kernels)
+
+
 def gather_min_batch_sliced(vecs, sliced, *, use_kernels=True):
     """(V, B, n) per-vector row-mins over a degree-sliced adjacency, merged
     per vertex. On the card it is always the one-launch-per-pass kernel
@@ -233,6 +280,22 @@ def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
     if not use_kernels:
         return kref.ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws)
     return ell_relax_keys_batch(dmask, ga, gb, gc, cols, ws)
+
+
+def in_scan_relax_keys_gated_batch(d, settle_mask, bound, gate_parts, ell,
+                                   *, out_view=None, use_kernels=True):
+    """Bound-gated twin of :func:`in_scan_relax_keys_batch`.
+
+    Only the relax sources are gated; the key gates (built by the caller
+    from the full post-settle status) pass through, and the kernel's
+    ``fin(upd)`` term then reads the pruned update, so the emitted keys are
+    what re-deriving them from the pruned state's status would give. The
+    kernels read the settle mask only as ``dmask``, so the gate reaches the
+    relax alone on either layout, the push form (``out_view``) included.
+    """
+    return in_scan_relax_keys_batch(
+        d, _bound_gate(d, settle_mask, bound), gate_parts, ell,
+        out_view=out_view, use_kernels=use_kernels)
 
 
 def out_scan_keys_batch(gates, dep_parts, ell, *, use_kernels=True):

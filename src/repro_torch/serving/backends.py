@@ -7,8 +7,8 @@ resumable B-lane phase stepper. :class:`StaticBackend` is the
 single-device one, over ``repro_torch.core.static_engine``: a lane is a
 fixed point when empty or finished, a reset lane is bitwise a fresh solve,
 and ``stop_on_lane_finish`` ends a chunk on the first lane termination.
-The continuous batcher and the rest of the serving stack come in a later
-slice (ROADMAP Queue 1 item 8).
+:class:`~repro_torch.serving.scheduler.ContinuousBatcher` drives it. The
+portfolio and sharded backends wait for ROADMAP Queue 1 items 8 and 11.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.core import criteria as C
 from repro_torch.core import policies as P
 from repro_torch.core.graph import (
     Graph,
@@ -31,10 +32,22 @@ from repro_torch.core.static_engine import (
     BatchState,
     graph_device,
     init_batch_state,
-    not_ported,
     reset_lanes,
     step_batch,
 )
+
+
+def _serving_policy(spec: str) -> P.PhasePolicy:
+    """Validate and resolve a serving policy spec, rejecting ``oracle``
+    plans as the reference does: a clairvoyant criterion needs the answer
+    it is supposed to compute as input, which no online workload has.
+    Delta-stepping raises ``NotImplementedError`` (not ported yet)."""
+    if P.canonical_spec(spec) != P.DELTA_SPEC and C.plan_for(spec).needs_oracle:
+        raise ValueError(
+            "serving backends cannot run the 'oracle' criterion: it requires "
+            "per-query true distances up front"
+        )
+    return P.policy_for(spec)
 
 
 @runtime_checkable
@@ -60,7 +73,10 @@ class EngineBackend(Protocol):
 
     def reset_lanes(self, state, sources: np.ndarray, *, donate: bool = False,
                     targets: np.ndarray | None = None):
-        """Re-init the lanes ``sources`` selects (KEEP_LANE passes through)."""
+        """Re-init the lanes ``sources`` selects (KEEP_LANE passes through).
+
+        ``targets`` (point-capable backends only) gives each admitted lane
+        its s->t target vertex, ``EMPTY_LANE`` for a full solve."""
         ...
 
     def peek(self, state) -> tuple[int, np.ndarray, np.ndarray]:
@@ -82,15 +98,18 @@ class StaticBackend:
     (out-side dynamic keys, or the push relax of every plan without in-side
     keys, the default among them) build it once, here. ``layout="sliced"``
     builds the degree-sliced in- and out-views instead of the padded ones
-    (the same bits). Delta-stepping, oracle plans and point queries are not
-    ported yet and raise.
+    (the same bits). ``point_queries=True`` initialises target-capable lane
+    state, so a scheduler can mix full solves and early-exiting s->t lanes
+    in one batch; off by default, a target-free backend runs the exact
+    pre-target program. Oracle plans are rejected (``ValueError``), and
+    delta-stepping is not ported yet and raises.
     """
 
     def __init__(self, g: Graph, ell=None, use_kernels: bool = True,
                  criterion: str = DEFAULT_CRITERION, layout: str = "padded",
                  policy: str | None = None, delta: float | None = None,
                  point_queries: bool = False, device=None):
-        pol = P.policy_for(policy if policy is not None else criterion)
+        pol = _serving_policy(policy if policy is not None else criterion)
         if layout not in ("padded", "sliced"):
             raise ValueError(
                 f"layout must be 'padded' or 'sliced'; got {layout!r}"
@@ -100,9 +119,6 @@ class StaticBackend:
                 f"policy {pol.spec!r} does not take a delta bucket width; "
                 "use policy='delta' for delta-stepping"
             )
-        if point_queries:
-            raise not_ported("point queries (s->t target lanes)",
-                              "Queue 1 item 5")
         self.device = graph_device(g, device)
         self.g = g
         sliced = layout == "sliced"
@@ -115,15 +131,17 @@ class StaticBackend:
             self.ell_out = to_ell_out_sliced(g) if sliced else to_ell_out(g)
         self.use_kernels = bool(use_kernels)
         self.criterion = pol.spec
+        self.point_queries = bool(point_queries)
 
     @property
     def n(self) -> int:
         return self.g.n
 
     def init(self, lanes: int) -> BatchState:
+        empty = np.full(lanes, EMPTY_LANE, np.int32)
         return init_batch_state(
-            self.g, np.full(lanes, EMPTY_LANE, np.int32),
-            criterion=self.criterion, device=self.device,
+            self.g, empty, criterion=self.criterion,
+            targets=empty if self.point_queries else None, device=self.device,
         )
 
     def step(self, state, k_phases, *, stop_on_lane_finish=True, donate=False):

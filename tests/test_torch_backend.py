@@ -89,10 +89,14 @@ def test_static_backend_contract():
         StaticBackend(gt, layout="dense", device="cpu")
     with pytest.raises(ValueError, match="delta"):
         StaticBackend(gt, delta=0.5, device="cpu")
-    for kw in ({"point_queries": True}, {"policy": "delta"},
-               {"criterion": "in|out|oracle"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            StaticBackend(gt, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        StaticBackend(gt, device="cpu", policy="delta")
+    # serving never runs the oracle (the reference's ValueError), and point
+    # queries are ported: target-capable lane state
+    with pytest.raises(ValueError, match="oracle"):
+        StaticBackend(gt, device="cpu", criterion="in|out|oracle")
+    pb = StaticBackend(gt, device="cpu", point_queries=True)
+    assert pb.point_queries and pb.init(2).target.tolist() == [-1, -1]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             StaticBackend(gt)

@@ -1000,3 +1000,164 @@ def test_key_min_status_matches_twin_and_f32(cuda, b, n, d, rows):
     tg = _t(gate, cuda)
     assert _same_bits(got, ell_key_min_batch(ops.pad_lane_batch(tg), tc, tw))
     assert _same_bits(got[None], ell_gather_min_batch(tg[None], tc, tw))
+
+
+# ---------------------------------------------------------------------------
+# s->t: the bound-gated relax, the batcher and point queries on the card
+# ---------------------------------------------------------------------------
+
+
+def _gated_inputs(rng, b, n, dev):
+    """d, a settle mask and per-lane bounds that cut some sources (a median
+    of the lane's settled d, or 1.0) and none (+inf)."""
+    d = rng.uniform(0, 4, (b, n)).astype(np.float32)
+    settle = rng.random((b, n)) < 0.2
+    bound = np.empty(b, np.float32)
+    for i in range(b):
+        bound[i] = (np.median(d[i][settle[i]]) if i % 3 == 0 else
+                    np.inf if i % 3 == 1 else 1.0)
+    td, ts, tb = _t(d, dev), _t(settle, dev), _t(bound, dev)
+    gated = ops._bound_gate(td, ts, tb)
+    assert 0 < int(gated.sum()) < int(ts.sum())  # the bound cuts sources
+    if b > 1:
+        assert bool(gated[1].eq(ts[1]).all())  # +inf cuts none
+    return td, ts, tb
+
+
+@pytest.mark.parametrize("b", [1, 8, 13])
+@pytest.mark.parametrize("layout", ["padded", "sliced"])
+def test_gated_push_matches_twin_and_gated_pull(cuda, layout, b):
+    rng = np.random.default_rng(b + len(layout))
+    if layout == "padded":
+        g = uniform_gnp(3000, 3e-3, seed=5, device=cuda)
+        out_v, in_v = to_ell_out(g), to_ell_in(g)
+        fn, counter = ops.push_settled_gated_batch, ell_push_relax_batch
+        args = out_v
+    else:
+        g = kronecker(11, seed=4, device=cuda)
+        out_v, in_v = to_ell_out_sliced(g), to_ell_in_sliced(g)
+        fn, counter = ops.push_settled_gated_batch_sliced, \
+            ell_sliced_push_relax_batch
+        args = (out_v,)
+    d, settle, bound = _gated_inputs(rng, b, g.n, cuda)
+    before = counter.launches
+    got = fn(d, settle, bound, *args)
+    assert counter.launches == before + 1
+    assert _same_bits(got, fn(d, settle, bound, *args, use_kernels=False))
+    assert _same_bits(got, ops.relax_settled_gated_batch(d, settle, bound,
+                                                         in_v))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("layout", ["padded", "sliced", "sliced_push"])
+def test_gated_in_scans_match_twins(cuda, layout, k):
+    b = 8
+    rng = np.random.default_rng(k * 10 + len(layout))
+    if layout == "padded":
+        g = uniform_gnp(3000, 3e-3, seed=5, device=cuda)
+        ell, out_view = to_ell_in(g), None
+    else:
+        g = kronecker(11, seed=4, device=cuda)
+        ell = to_ell_in_sliced(g)
+        out_view = to_ell_out_sliced(g) if layout == "sliced_push" else None
+    d, settle, bound = _gated_inputs(rng, b, g.n, cuda)
+    parts = [tuple(_t(_dense(rng, (b, g.n)), cuda) for _ in range(3))
+             for _ in range(k)]
+    kernel = (ell_relax_keys_batch if layout == "padded"
+              else ell_sliced_relax_keys_batch)
+    attr = "push_launches" if out_view is not None else "launches"
+    before = getattr(kernel, attr)
+    upd, keys = ops.in_scan_relax_keys_gated_batch(d, settle, bound, parts,
+                                                   ell, out_view=out_view)
+    assert getattr(kernel, attr) == before + 1
+    w_upd, w_keys = ops.in_scan_relax_keys_gated_batch(
+        d, settle, bound, parts, ell, out_view=out_view, use_kernels=False)
+    assert _same_bits(upd, w_upd) and _same_bits(keys, w_keys)
+    # the gate reaches the relax alone: the ungated call on the gated mask
+    gated = ops._bound_gate(d, settle, bound)
+    u2, k2 = ops.in_scan_relax_keys_batch(d, gated, parts, ell,
+                                          out_view=out_view)
+    assert _same_bits(upd, u2) and _same_bits(keys, k2)
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.25
+        return self.t
+
+
+@pytest.mark.parametrize("criterion,layout", [
+    ("instatic|outstatic", "padded"), ("in|out", "padded"),
+    ("instatic|outstatic", "sliced"), ("in|out", "sliced")])
+def test_batcher_and_points_on_the_card_match_plain_and_host(cuda, criterion,
+                                                             layout):
+    """ContinuousBatcher (full and point requests, duplicates, a cache) and
+    PointBackend on the card with the kernels, bit-equal to the card's
+    plain twins and to the CPU port on the same trace."""
+    from repro_torch.serving import (
+        ContinuousBatcher,
+        DistCache,
+        PointBackend,
+        StaticBackend,
+    )
+
+    rng = np.random.default_rng(5)
+    n = 600
+    trace = [(int(s), int(t) if t >= 0 else None)
+             for s, t in zip(rng.integers(0, 40, 14),
+                             np.where(rng.random(14) < 0.5,
+                                      rng.integers(0, n, 14), -1))]
+    pairs = rng.integers(0, n, (3, 2))
+    runs = []
+    for dev, use_kernels in ((cuda, True), (cuda, False), ("cpu", False)):
+        g = uniform_gnp(n, 0.02, seed=3, device=dev)
+        be = StaticBackend(g, criterion=criterion, layout=layout,
+                           use_kernels=use_kernels, point_queries=True,
+                           device=dev)
+        server = ContinuousBatcher(g, lanes=4, phases_per_step=6, backend=be,
+                                   cache=DistCache(), clock=_Clock(),
+                                   point_queries=True)
+        before = frontier_crit_lanes_batch.launches
+        done = []
+        for i, (s, t) in enumerate(trace):
+            server.submit(s, target=t)
+            if i % 4 == 3:
+                done += server.step()
+        done += server.drain(max_steps=10_000)
+        if use_kernels:
+            assert frontier_crit_lanes_batch.launches > before
+        pb = PointBackend(g, criterion=criterion, layout=layout,
+                          use_kernels=use_kernels, phases_per_chunk=3,
+                          device=dev)
+        points = [pb.query(s, t) for s, t in pairs]
+        runs.append((done, server.metrics.report(), points))
+    want_done, want_rep, want_pts = runs[0]
+    assert len(want_done) == len(trace)
+    for done, rep, pts in runs[1:]:
+        assert rep == want_rep
+        assert [(r.req_id, r.lane, r.phases, r.cache_hit, r.coalesced)
+                for r in done] == [(r.req_id, r.lane, r.phases, r.cache_hit,
+                                    r.coalesced) for r in want_done]
+        for a, b in zip(want_done, done):
+            assert np.array_equal(a.dist.view(np.int32), b.dist.view(np.int32))
+        for a, b in zip(want_pts, pts):
+            assert (a.distance, a.phases_forward, a.phases_backward, a.mu,
+                    a.meeting_vertex, a.unreachable_certified) == \
+                (b.distance, b.phases_forward, b.phases_backward, b.mu,
+                 b.meeting_vertex, b.unreachable_certified)
+            assert np.array_equal(a.dist.view(np.int32), b.dist.view(np.int32))
+
+
+def test_meeting_vertex_on_the_card_is_the_first_minimum(cuda):
+    from repro_torch.serving.point import _meet
+
+    for df, db, want in (([2.0, 0.5, 2.0, 0.5], [0.5, 1.0, 0.0, 1.0], 1),
+                         ([np.inf] * 5, [np.inf] * 5, 0),
+                         ([0.0, -0.0, 0.0], [-0.0, -0.0, 0.0], 0)):
+        a = _t(np.array([df], np.float32), cuda)
+        b = _t(np.array([db], np.float32), cuda)
+        assert _meet(a, b)[1] == want
+        assert int(torch.argmin(a[0] + b[0])) == want

@@ -254,12 +254,9 @@ def test_input_validation_matches_reference():
 def test_unported_modes_raise_naming_the_roadmap():
     _, gt = _graphs("gnp")
     for kw in ({"criterion": "oracle"}, {"criterion": "in|oracle"},
-               {"criterion": "delta"}, {"telemetry": True},
-               {"targets": [3]}):
+               {"criterion": "delta"}, {"telemetry": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TS.run_phased_static_batch(gt, [0], device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.run_phased_static(gt, 0, target=3, device="cpu")
 
 
 def test_entry_points_run_on_the_card_by_default():

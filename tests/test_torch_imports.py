@@ -32,7 +32,12 @@ def test_port_files_exist():
     assert {"chip_smoke.py", "static_engine.py", "policies.py", "criteria.py",
             "ell_relax.py", "frontier_crit.py", "ell_key_min.py",
             "ell_relax_keys.py", "ell_sliced.py", "ops.py", "ref.py",
-            "backends.py", "interop.py"} <= names
+            "backends.py", "interop.py", "scheduler.py", "queue.py",
+            "metrics.py", "cache.py", "point.py", "timer.py", "registry.py",
+            "tracer.py"} <= names
+    obs = ROOT / "src" / "repro_torch" / "obs"
+    assert {obs / f for f in ("__init__.py", "timer.py", "registry.py",
+                              "tracer.py")} <= set(FILES)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
