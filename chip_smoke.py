@@ -103,10 +103,40 @@ failure raises, exits non-zero and prints no ``ok`` line:
      be the forward graph's own, swapped (their bytes and fetch time are
      printed); on kronecker(20), sliced, under both plans, 2 pairs each,
      bidirectional and forward-only (one target of in-degree 0, certified
-     unreachable by the backward lane), against phase 14's rows.
+     unreachable by the backward lane), against phase 14's rows;
+ 20. delta-stepping at full width, ``delta = default_delta(g)``: on the
+     inputs of one real delta phase (a trip where some lane runs a light
+     round and another its heavy turn), #2 on bucket ids and the gathers
+     of the light and heavy gates over the weight-gated views (#5 padded,
+     #9 sliced) against their twins, bit for bit, and timed; then on
+     G(10^6, 10^-4), padded, the B = 8 solve with the kernels against the
+     plain twins on every field, row 0 against scipy, two lanes equal to
+     ``run_delta_stepping`` (the COO loop) on the card (a lane that loop
+     stalls on at a bucket edge is shown stalled there and the next lane
+     taken), and
+     ``StaticBackend(policy="delta")`` answering 16 requests: #2 and #5
+     run, no relax kernel (no push, no pull); the same on sliced
+     ``kronecker(20)``, where #9 runs and #5 does not; ms/phase, phases
+     per query, queries/s and the device split beside the default plan's
+     (phases 3, 4, 14, 15);
+ 21. oracle plans on G(10^6, 10^-4), padded and sliced: ``oracle``,
+     ``instatic|outstatic|oracle`` and ``in|out|oracle`` with phase 4's
+     rows as ``dist_true``, kernels against plain twins on every field,
+     every row within the oracle's tolerance of its ``dist_true`` (the
+     count above it printed), phases per row beside the plan without the
+     oracle, and ``run_phased(..., "oracle")`` (the COO loop) for one
+     source equal to its lane;
+ 22. telemetry rings: the default plan, ``in|out`` and delta at B = 8 with
+     ``telemetry=True`` and a ring longer than the trips: every other
+     field equal to the runs without rings (phases 4, 9, 20), per lane the
+     fringe ring summing to ``sum_fringe``, the relax ring to
+     ``relax_edges`` and the attribution's settle slots to the settled
+     ring; ``phase_telemetry`` decodes every lane, and the tracer's events
+     pass ``validate_events``.
 
-Every path (phases 3, 8, 14, 18, 19) runs with the launch counts set to 0
-just before and read just after, and fails if one of its kernels never ran.
+Every path (phases 3, 8, 14, 18, 19, and the solves and serving of 20–22)
+runs with the launch counts set to 0 just before and read just after, and
+fails if one of its kernels never ran.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -136,6 +166,7 @@ CHUNK = 64  # phases per step call in the serving loop
 MID_PHASE = 200  # the phase whose kernel inputs phase 6 times
 DYN_TRIPS = 64  # trips of the insimple|outsimple check (phase 10)
 KRON_K = 20  # kronecker(20): the skewed graph of phases 12-16
+DELTA_MAX_TRIPS = 3000  # phase 20 fails a delta solve still live after these
 INF = float("inf")
 PUSH_IN_SCAN = "ell_sliced_relax_keys_batch[out_view]"  # #10b's name here
 SIGNED = (0.0, -0.0, 0.5, 1.0)  # the values of the signed-zero cases
@@ -152,6 +183,27 @@ def load_tool(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def result_diff(a, b) -> str | None:
+    """The first field in which two results (dataclasses) differ, bit for
+    bit (None where both are equal): tensors by :func:`same_bits`, host
+    arrays by value, a None only against a None."""
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            same = x is None and y is None
+        elif torch.is_tensor(x):
+            same = torch.is_tensor(y) and same_bits(x, y)
+        else:
+            same = np.array_equal(np.asarray(x), np.asarray(y))
+        if not same:
+            return f.name
+    return None
 
 
 def same_bits(a, b) -> bool:
@@ -379,7 +431,10 @@ def main() -> int:
         to_ell_out_sliced,
     )
     from repro_torch.core import criteria as C
+    from repro_torch.core import default_delta, run_delta_stepping, run_phased
+    from repro_torch.core.policies import policy_for
     from repro_torch.core.static_engine import (
+        harvest,
         init_batch_state,
         run_phased_static_batch,
         step_batch,
@@ -411,6 +466,14 @@ def main() -> int:
         ell_sliced_relax_keys_batch,
     )
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
+    from repro_torch.obs import (
+        Observability,
+        attribution_terms,
+        phase_telemetry,
+        publish_phase_telemetry,
+        trace_phase_telemetry,
+        validate_events,
+    )
     from repro_torch.serving import (
         ContinuousBatcher,
         DistCache,
@@ -436,6 +499,11 @@ def main() -> int:
     def read_counts() -> dict:
         return {name: getattr(f, attr) for name, (f, attr) in counted.items()}
 
+    def must_run(counts: dict, names, what: str):
+        for name in names:
+            if counts[name] <= 0:
+                raise SystemExit(f"{what} never launched {name}")
+
     def serve(backend, sources) -> tuple:
         """16 requests through 8 lanes: reset_lanes -> step -> peek ->
         take_row, counts set to 0 just before and read just after."""
@@ -457,6 +525,9 @@ def main() -> int:
                 state = backend.reset_lanes(state, admit)
             state = backend.step(state, CHUNK, stop_on_lane_finish=True)
             steps += 1
+            if steps > 4 * REQUESTS * 64:  # a lane that never finishes
+                raise SystemExit(f"{backend.criterion} serving made no "
+                                 f"progress in {steps} steps")
             _, active, phases = backend.peek(state)
             for lane in range(LANES):
                 r = lane_req[lane]
@@ -711,6 +782,7 @@ def main() -> int:
 
     walls = repeat_wall(solve_default, solve_s)
     solve_s = float(np.median(walls))
+    default_ms_phase = solve_s / total * 1e3  # phase 20 prints it beside delta
     log(f"e2e: B={LANES} solve with kernels, 3 runs "
         + ", ".join(f"{w:.3f}" for w in walls) + f" s, median {solve_s:.3f} s "
         f"({LANES / solve_s:.2f} queries/s, {total} phases, "
@@ -2237,6 +2309,402 @@ def main() -> int:
                "point_to_point_sliced": launches_qs["instatic|outstatic"],
                "point_to_point_sliced_in_out": launches_qs["in|out"]}
 
+    # ---- 20. delta-stepping at full width -----------------------------------
+    t20 = time.perf_counter()
+    delta_g, delta_k = default_delta(g), default_delta(gk)
+    log(f"delta: default_delta = {delta_g!r} on G(n={N}, p={P}), "
+        f"{delta_k!r} on kronecker({KRON_K}) (Python floats; a state holds "
+        f"each rounded to f32 once)")
+
+    delta_policy = policy_for("delta")
+
+    def delta_phase(graph, ell, srcs, delta, trips):
+        """The kernels' inputs of one real delta phase, from the policy's
+        own ``prepare`` and ``gates``: the first trip from ``trips`` on
+        where some lane runs a light round and another its heavy turn.
+        Returns the state, the bucket ids, the light and heavy gates
+        (B, n), the weight-gated views and the light and heavy
+        out-degrees."""
+        st = init_batch_state(graph, srcs, criterion="delta", delta=delta,
+                              device=dev)
+        st = step_batch(graph, st, trips, ell=ell)
+        views = delta_policy.prepare(graph, ell, None, st, True)
+        for _ in range(64):
+            gt_ = delta_policy.gates(st)
+            if bool(gt_.cur.any()) and bool(gt_.heavy_from.any()):
+                break
+            st = step_batch(graph, st, 1, ell=ell)
+        return (st, gt_.bidx, torch.where(gt_.cur, st.dist, INF),
+                torch.where(gt_.heavy_from, st.dist, INF)) + tuple(views)
+
+    def gated_slots(gate_rows, view) -> int:
+        """Lane-slots whose gate and gated weight are both finite: the adds
+        and mins the data needs, over a padded pair or every bucket."""
+        padded = kops.pad_lane_batch(gate_rows)
+        buckets = ([(s.cols, s.ws) for s in view.slices]
+                   if kops._is_sliced(view) else [view])
+        total_slots = 0
+        for c, w in buckets:
+            c_l, w_fin = c.long(), torch.isfinite(w)
+            for i in range(padded.shape[0]):
+                total_slots += int((torch.isfinite(padded[i][c_l])
+                                    & w_fin).sum())
+        return total_slots
+
+    delta_rows = {}
+    for what, graph, ell, srcs, delta, trips0 in (
+            ("padded", g, (cols, ws), src8, delta_g, 24),
+            ("sliced", gk, sl_in, src8_k, delta_k, 24)):
+        st_d, bidx_d, lg_d, hg_d, lv_d, hv_d, dl_d, dh_d = delta_phase(
+            graph, ell, srcs, delta, trips0)
+        n_light = int((lg_d != INF).sum())
+        n_heavy = int((hg_d != INF).sum())
+        # #2 on bucket ids: small integers in f32 on the fringe, +inf off it
+        want_b = ref.frontier_crit_lanes_batch_ref(bidx_d, st_d.status, None)
+        got_b = frontier_crit_lanes_batch(bidx_d, st_d.status, None)
+        if not all(same_bits(a, b) for a, b in zip(got_b, want_b)):
+            raise SystemExit(f"frontier_crit_lanes_batch on {what} bucket ids "
+                             "disagrees with its twin")
+        errs["frontier_crit_lanes_batch"] = max(
+            errs["frontier_crit_lanes_batch"],
+            max_abs_err(got_b[0], want_b[0]))
+        rows_d = {}
+        for side, gate_d, view, deg_d in (("light", lg_d, lv_d, dl_d),
+                                          ("heavy", hg_d, hv_d, dh_d)):
+            if what == "padded":
+                padded_gate = kops.pad_lane_batch(gate_d)
+                name = "ell_key_min_batch"
+
+                def kern(pg=padded_gate, v=view):
+                    return ell_key_min_batch(pg, v[0], v[1])
+
+                def plain(pg=padded_gate, v=view):
+                    return ref.ell_key_min_batch_ref(pg, v[0], v[1])
+                nbytes = ell_bytes + padded_gate.numel() * 4 + gate_d.numel() * 4
+            else:
+                name = "ell_sliced_gather_min_batch"
+
+                def kern(gt_=gate_d, v=view):
+                    return ell_sliced_gather_min_batch(gt_[None], v)[0]
+
+                def plain(gt_=gate_d, v=view):
+                    return ref.ell_sliced_gather_min_batch_ref(gt_[None], v)[0]
+                nbytes = sl_bytes + merge_bytes(view) + 2 * gate_d.numel() * 4
+            got_d, want_d = kern(), plain()
+            if not same_bits(got_d, want_d):
+                raise SystemExit(f"{name} on the {what} {side}-gated view "
+                                 "disagrees with its twin")
+            errs[name] = max(errs.get(name, 0.0), max_abs_err(got_d, want_d))
+            # the function is the relax of the gated vertices' light (heavy)
+            # out-arcs, bounded as #1/#9 are (relax_bound); the bound of the
+            # dense in-view stream, which the kernel reads, is kept beside
+            b_d, by_d = relax_bound(gate_d, deg_d)
+            stream_d, _ = bound(nbytes, 2.0 * gated_slots(gate_d, view))
+            rows_d[side] = (time_ms(kern, 20), time_ms(plain, 2), b_d, by_d,
+                            stream_d)
+        delta_rows[what] = rows_d
+        log(f"delta kernels, {what}, trip {int(st_d.trips)} of the B={LANES} "
+            f"solve: {n_light} light-gate and {n_heavy} heavy-gate lane-"
+            f"vertices, lanes on a light round "
+            f"{int((lg_d != INF).any(dim=1).sum())}; #2 on bucket ids and "
+            f"both gated gathers bit-equal to their twins; " + "; ".join(
+                f"{side} {t[0]:.3f} ms (plain {t[1]:.2f}, bound {t[2]:.4f} "
+                f"{t[3]} [in-view stream {t[4]:.4f}])"
+                for side, t in rows_d.items()) + f" [{smi}]")
+        del st_d, bidx_d, lg_d, hg_d, lv_d, hv_d, dl_d, dh_d
+
+    def legacy_lane(graph, source, delta, row, phases):
+        """``run_delta_stepping`` against one stepper lane: (source, phases,
+        buckets, seconds, verdict), the verdict "equal" (dist bit-equal,
+        phases equal) or the vertex the loop stalls on. The legacy loop
+        keeps a tentative t in bucket b only while
+        fl(b delta) <= t < fl((b + 1) delta), so a t equal to fl(k delta)
+        whose f32 quotient t / delta floors to k - 1 makes bucket k - 1 the
+        lowest while the interval compare leaves t out of it; every later
+        phase is then an empty heavy round up to the cap (the reference's
+        loop does the same; the stepper compares bucket ids). A stalled
+        lane must make no progress in 8 more phases and hold such a t at
+        or below every distance it got wrong; anything else fails."""
+        cap = phases + 1
+        t0 = time.perf_counter()
+        leg = run_delta_stepping(graph, source, delta=delta, max_phases=cap,
+                                 device=dev)
+        secs = time.perf_counter() - t0
+        out = (source, int(leg.phases), int(leg.buckets_processed), secs)
+        if same_bits(leg.dist, row) and int(leg.phases) == phases:
+            return out + ("equal",)
+        more = run_delta_stepping(graph, source, delta=delta,
+                                  max_phases=cap + 8, device=dev)
+        dl = torch.tensor(delta, dtype=torch.float32, device=dev)
+        t = leg.dist
+        k = torch.floor(t / dl) + 1.0
+        wrong = t.view(torch.int32) != row.view(torch.int32)
+        first_wrong = (ref.amin(row[wrong]) if bool(wrong.any())
+                       else torch.tensor(INF, device=dev))
+        stall = torch.isfinite(t) & (t == k * dl) & (t <= first_wrong)
+        stuck = (int(leg.phases) == cap and int(more.phases) == cap + 8
+                 and same_bits(leg.dist, more.dist))
+        if not (stuck and bool(stall.any())):
+            raise SystemExit(f"run_delta_stepping from {source} differs from "
+                             "the stepper's lane")
+        v = int(torch.nonzero(stall)[0])
+        return out + (f"stalls at vertex {v}: t = {float(t[v])!r} = "
+                      f"fl({int(k[v])} delta), t / delta = "
+                      f"{float(t[v] / dl)!r}; {int(wrong.sum())} distances "
+                      f"differ, none below t",)
+
+    delta_e2e, delta_serve = {}, {}
+    for what, graph, ell, srcs8, srcs16, delta, want_row, fin_row in (
+            ("padded", g, (cols, ws), src8, sources, delta_g, want, fin),
+            ("sliced", gk, sl_in, src8_k, src_k, delta_k, want_k, fin_k)):
+        kw = dict(ell=ell, criterion="delta", delta=delta, device=dev,
+                  max_phases=DELTA_MAX_TRIPS)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res_d = run_phased_static_batch(graph, srcs8, **kw)
+        torch.cuda.synchronize()
+        solve_d_s = time.perf_counter() - t0
+        if bool((res_d.status == 1).any()):
+            raise SystemExit(f"the {what} delta solve is still live after "
+                             f"{DELTA_MAX_TRIPS} trips")
+        log(f"delta e2e {what}: the B={LANES} kernel solve ran "
+            f"{int(res_d.total_phases)} trips in {solve_d_s:.3f} s")
+        by_path[f"delta_solve_{what}"] = read_counts()
+        must_run(by_path[f"delta_solve_{what}"], (
+            "frontier_crit_lanes_batch", "ell_key_min_batch" if what ==
+            "padded" else "ell_sliced_gather_min_batch"),
+            f"the {what} delta solve")
+        total_d = int(res_d.total_phases)
+        t0 = time.perf_counter()
+        res_dp = run_phased_static_batch(graph, srcs8, use_kernels=False, **kw)
+        torch.cuda.synchronize()
+        field = result_diff(res_d, res_dp)
+        if field is not None:
+            raise SystemExit(f"{what} delta kernel and plain solves differ "
+                             f"in {field}")
+        del res_dp
+        plain_what = "plain twins, the whole solve"
+        plain_d_s = time.perf_counter() - t0
+        log(f"delta e2e {what}: {plain_what} {plain_d_s:.3f} s, bit-equal")
+
+        def solve_d(graph=graph, srcs8=srcs8, kw=kw):
+            return run_phased_static_batch(graph, srcs8, **kw)
+
+        walls_d = repeat_wall(solve_d, solve_d_s)
+        solve_d_s = float(np.median(walls_d))
+        dist_d = res_d.dist.cpu().numpy()
+        got = dist_d[0]
+        same_set = bool((np.isfinite(got) == fin_row).all())
+        close = bool(np.allclose(got[fin_row], want_row[fin_row], rtol=1e-5))
+        if not (same_set and close):
+            raise SystemExit(f"{what} delta row 0 disagrees with scipy")
+        # the legacy loop (COO segment-mins) on the card: two lanes equal,
+        # every lane tried on the way holds its stall
+        legacy = []
+        for i in [0, LANES - 1] + list(range(1, LANES - 1)):
+            legacy.append(legacy_lane(graph, int(srcs8[i]), delta,
+                                      res_d.dist[i], int(res_d.phases[i])))
+            if sum(v[-1] == "equal" for v in legacy) == 2:
+                break
+        else:
+            raise SystemExit(f"{what}: fewer than two lanes of "
+                             "run_delta_stepping equal the stepper's")
+        log(f"delta e2e {what}: {busy_line(solve_d, solve_d_s, total_d)}")
+        log(f"delta e2e {what}: B={LANES} solve with kernels, 3 runs "
+            + ", ".join(f"{w:.3f}" for w in walls_d) + f" s, median "
+            f"{solve_d_s:.3f} s ({LANES / solve_d_s:.2f} queries/s, {total_d} "
+            f"phases, {solve_d_s / total_d * 1e3:.3f} ms/phase; phases per "
+            f"row {res_d.phases.tolist()}); {plain_what} {plain_d_s:.3f} s, "
+            f"bit-equal on every field; row 0 against scipy: same "
+            f"reachable set, rtol 1e-5; run_delta_stepping lanes (source, "
+            f"phases, buckets, s, verdict) {legacy} [{smi}]")
+        # serving: #2 and the layout's key-min gather run, no relax kernel
+        rows_ds, ph_ds, l_ds, s_ds, steps_ds, trips_ds = serve(
+            StaticBackend(graph, policy="delta", layout=what, device=dev),
+            srcs16)
+        gather = ("ell_key_min_batch" if what == "padded"
+                  else "ell_sliced_gather_min_batch")
+        other = ("ell_sliced_gather_min_batch" if what == "padded"
+                 else "ell_key_min_batch")
+        for name in (gather, "frontier_crit_lanes_batch"):
+            if l_ds[name] <= 0:
+                raise SystemExit(f"{what} delta serving never launched {name}")
+        relax = ("ell_relax_batch", "ell_push_relax_batch",
+                 "ell_sliced_push_relax_batch", other, PUSH_IN_SCAN,
+                 "ell_relax_keys_batch", "ell_sliced_relax_keys_batch")
+        if any(l_ds[name] for name in relax):
+            raise SystemExit(f"{what} delta serving launched a relax kernel: "
+                             f"{ {nm: l_ds[nm] for nm in relax} }")
+        for i in range(LANES):
+            if not np.array_equal(rows_ds[i].view(np.int32),
+                                  dist_d[i].view(np.int32)):
+                raise SystemExit(f"{what} delta served row {i} differs from "
+                                 "the solve")
+        by_path[f"delta_serving_{what}"] = l_ds
+        delta_e2e[what] = (solve_d_s, total_d, res_d.phases.tolist())
+        delta_serve[what] = (s_ds, trips_ds, [ph_ds[r]
+                                              for r in range(REQUESTS)])
+        base_s, base_ph = ((serve_s, [req_phases[r] for r in range(REQUESTS)])
+                           if what == "padded" else
+                           (sliced_serve["instatic|outstatic"][1],
+                            [sliced_serve["instatic|outstatic"][2][r]
+                             for r in range(REQUESTS)]))
+        log(f"delta serving {what}: {REQUESTS} requests in {s_ds:.3f} s "
+            f"({REQUESTS / s_ds:.2f} queries/s; the default plan "
+            f"{REQUESTS / base_s:.2f} in phase {3 if what == 'padded' else 14}"
+            f"), {steps_ds} step calls, {trips_ds} trips; phases per request "
+            f"{delta_serve[what][2]} (default plan {base_ph}); the 8 served "
+            f"rows equal the solve's [{smi}]")
+        log(f"delta serving {what} launches: {l_ds}")
+        if what == "padded":
+            res_delta = res_d  # phase 22 holds the telemetry run against it
+        del res_d
+    log(f"delta beside the default plan, ms/phase: padded "
+        f"{delta_e2e['padded'][0] / delta_e2e['padded'][1] * 1e3:.3f} (default "
+        f"{default_ms_phase:.3f}, phase 4), sliced kronecker("
+        f"{KRON_K}) {delta_e2e['sliced'][0] / delta_e2e['sliced'][1] * 1e3:.3f}"
+        f" (default {sliced_solve['instatic|outstatic'][0] / sliced_solve['instatic|outstatic'][1] * 1e3:.3f}, phase 15)")
+    log(f"phase 20: {time.perf_counter() - t20:.1f} s")
+
+    # ---- 21. oracle plans ---------------------------------------------------
+    # dist_true: phase 4's kernel solve (the f32 fixed point of these
+    # sources); an oracle settle takes d <= dist_true + 1e-6 (1 + |dist_true|)
+    t21 = time.perf_counter()
+    truth = res_k.dist
+    tol_hi = truth + C.oracle_tolerance(truth)
+    oracle_rows = {}
+    base_phases = {"oracle": None, "instatic|outstatic|oracle": res_k.phases,
+                   "in|out|oracle": res_io.phases}
+    for layout in ("padded", "sliced"):
+        for plan in ("oracle", "instatic|outstatic|oracle", "in|out|oracle"):
+            kw = dict(criterion=plan, dist_true=truth, layout=layout,
+                      device=dev)
+            if layout == "padded":
+                kw.update(ell=(cols, ws), ell_out=(cols_o, ws_o))
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res_o = run_phased_static_batch(g, src8, **kw)
+            torch.cuda.synchronize()
+            solve_o_s = time.perf_counter() - t0
+            l_o = read_counts()
+            by_path[f"oracle_{layout}[{plan}]"] = l_o
+            t0 = time.perf_counter()
+            res_op = run_phased_static_batch(g, src8, use_kernels=False, **kw)
+            torch.cuda.synchronize()
+            plain_o_s = time.perf_counter() - t0
+            field = result_diff(res_o, res_op)
+            if field is not None:
+                raise SystemExit(f"{layout} {plan} kernel and plain solves "
+                                 f"differ in {field}")
+            del res_op
+            exact = same_bits(res_o.dist, truth)
+            off = int((res_o.dist != truth).sum())
+            inside = bool(((res_o.dist >= truth) & (res_o.dist <= tol_hi)
+                           | (res_o.dist == truth)).all())
+            if not inside:
+                raise SystemExit(f"{layout} {plan}: a row left dist_true's "
+                                 "tolerance")
+            oracle_rows[(layout, plan)] = (res_o.phases.tolist(), exact, off)
+            base = base_phases[plan]
+            log(f"oracle {layout} {plan}: phases per row "
+                f"{res_o.phases.tolist()}"
+                + ("" if base is None else f" (without the oracle "
+                   f"{base.tolist()})")
+                + f", {int(res_o.total_phases)} trips in {solve_o_s:.3f} s "
+                f"({solve_o_s / int(res_o.total_phases) * 1e3:.3f} ms/phase); "
+                f"plain twins {plain_o_s:.3f} s, every field bit-equal; rows "
+                f"equal to dist_true {exact} ({off} vertices above it, within "
+                f"its tolerance) [{smi}]")
+            log(f"oracle {layout} {plan} launches: {l_o}")
+            if layout == "padded" and plan == "oracle":
+                lane0 = (res_o.dist[0].clone(), int(res_o.phases[0]))
+            del res_o
+    for layout, push, in_scan in (
+            ("padded", "ell_push_relax_batch", "ell_relax_keys_batch"),
+            ("sliced", "ell_sliced_push_relax_batch", PUSH_IN_SCAN)):
+        for plan, relax in (("oracle", push),
+                            ("instatic|outstatic|oracle", push),
+                            ("in|out|oracle", in_scan)):
+            must_run(by_path[f"oracle_{layout}[{plan}]"],
+                     ("frontier_crit_lanes_batch", relax),
+                     f"the {layout} {plan} solve")
+    t0 = time.perf_counter()
+    rp = run_phased(g, int(src8[0]), "oracle", dist_true=truth[0], device=dev)
+    rp_s = time.perf_counter() - t0
+    if not same_bits(rp.dist, lane0[0]) or int(rp.phases) != lane0[1]:
+        raise SystemExit("run_phased's oracle differs from the stepper's lane")
+    log(f"oracle run_phased (COO segment-mins) on the card, source "
+        f"{int(src8[0])}: {int(rp.phases)} phases in {rp_s:.3f} s, dist and "
+        f"phases equal to the stepper's lane 0")
+    del rp, lane0, tol_hi
+    log(f"phase 21: {time.perf_counter() - t21:.1f} s")
+
+    # ---- 22. telemetry rings ------------------------------------------------
+    t22 = time.perf_counter()
+    for plan, base_res, delta in (("instatic|outstatic", res_k, None),
+                                  ("in|out", res_io, None),
+                                  ("delta", res_delta, delta_g)):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        st_t = init_batch_state(g, src8, criterion=plan, delta=delta,
+                                trace_len=int(base_res.total_phases) + 1,
+                                telemetry=True, device=dev)
+        st_t = step_batch(g, st_t, 4 * g.n + 16, ell=(cols, ws),
+                          ell_out=(cols_o, ws_o))
+        torch.cuda.synchronize()
+        tel_s = time.perf_counter() - t0
+        by_path[f"telemetry[{plan}]"] = read_counts()
+        must_run(by_path[f"telemetry[{plan}]"], (
+            "frontier_crit_lanes_batch",
+            {"delta": "ell_key_min_batch", "in|out": "ell_relax_keys_batch"}
+            .get(plan, "ell_push_relax_batch")), f"the {plan} telemetry run")
+        res_t = harvest(st_t)
+        for field in ("dist", "status", "phases", "total_phases"):
+            if not same_bits(getattr(res_t, field), getattr(base_res, field)):
+                raise SystemExit(f"{plan} with telemetry differs in {field}")
+        for field in ("sum_fringe", "relax_edges"):
+            if not np.array_equal(getattr(res_t, field),
+                                  getattr(base_res, field)):
+                raise SystemExit(f"{plan} with telemetry differs in {field}")
+        terms = attribution_terms(plan)
+        settle_slots = [k for k, t in enumerate(terms) if t not in ("light",
+                                                               "bucket")]
+        fr_sum = res_t.fringe_per_phase.sum(dim=1, dtype=torch.int64)
+        rx_sum = res_t.relax_per_phase.sum(dim=1, dtype=torch.int64)
+        at_sum = res_t.settle_attribution[:, :, settle_slots].sum(
+            dim=2, dtype=torch.int32)
+        if not (np.array_equal(fr_sum.cpu().numpy(), res_t.sum_fringe)
+                and np.array_equal(rx_sum.cpu().numpy(), res_t.relax_edges)
+                and torch.equal(at_sum, res_t.settled_per_phase)):
+            raise SystemExit(f"{plan}: the rings do not reconcile with the "
+                             "counters")
+        records = phase_telemetry(st_t)
+        if len(records) != int(res_t.phases.sum()):
+            raise SystemExit(f"{plan}: phase_telemetry decoded "
+                             f"{len(records)} records")
+        obs22 = Observability.enabled()
+        publish_phase_telemetry(records, obs22.registry)
+        trace_phase_telemetry(records, obs22.tracer)
+        problems = validate_events(obs22.tracer.events())
+        if problems:
+            raise SystemExit(f"{plan}: telemetry events fail validation: "
+                             f"{problems[:3]}")
+        shares = {t: int(res_t.settle_attribution[:, :, k].sum())
+                  for k, t in enumerate(terms) if t != "bucket"}
+        log(f"telemetry {plan}: B={LANES}, trace_len "
+            f"{st_t.settled_trace.shape[1]}, {int(res_t.total_phases)} trips "
+            f"in {tel_s:.3f} s; every other field equal to the run without "
+            f"rings; per lane the fringe ring sums to sum_fringe, the relax "
+            f"ring to relax_edges, the attribution's settles to the settled "
+            f"ring; {len(records)} records decoded, "
+            f"{len(obs22.tracer.events())} trace events valid; attribution "
+            f"totals {shares}")
+        del st_t, res_t, records, obs22
+    log(f"phase 22: {time.perf_counter() - t22:.1f} s")
+
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"card: {smi}")
     sliced_kernels = {
@@ -2351,6 +2819,16 @@ def main() -> int:
          "active_rows_median": int(np.median(act_rows_k)),
          "active_rows_max": int(act_rows_k.max())},
     ]
+    # #5 and #9 on delta's weight-gated views, light and heavy gates of one
+    # real delta phase (phase 20)
+    for row in kernels:
+        layout = {"ell_key_min_batch": "padded",
+                  "ell_sliced_gather_min_batch": "sliced"}.get(row["name"])
+        if layout is not None:
+            row["delta_gated"] = {
+                side: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                       "bound_by": t[3], "stream_bound_ms": t[4]}
+                for side, t in delta_rows[layout].items()}
     for row in kernels:  # each kernel's launches on this slice's paths
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

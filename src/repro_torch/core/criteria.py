@@ -1,20 +1,26 @@
-"""Criterion plans for the port (counterpart of ``repro.core.criteria``).
+"""Correctness criteria and criterion plans for the port (counterpart of
+``repro.core.criteria``).
 
-Criterion names, their canonical order and the :class:`CritPlan` lowering
-are pure metadata and are copied as they are, so both packages lower every
-criterion string to the same plan. The settle masks are the reference's
-float ops on torch tensors. The dense reference semantics (``evaluate``
-and the ``crit_*`` functions over COO edges) come with ``run_phased``
-(ROADMAP Queue 1 item 3).
+Every criterion is a sound predicate over fringe vertices: ``crit(v)`` true
+implies ``d[v] == dist(s, v)``, so a phase settles every matching vertex
+at once. The dense semantics (:class:`CritContext`, the ``crit_*``
+functions and :func:`evaluate`) are masked reductions over the COO edge
+arrays, the reference's float ops on torch tensors; ``run_phased`` runs on
+them and the stepper's plans are held against them. Criterion names, their
+canonical order and the :class:`CritPlan` lowering are pure metadata and
+are copied as they are, so both packages lower every criterion string to
+the same plan.
 
 Status encoding: 0 = U (unexplored), 1 = F (fringe), 2 = S (settled).
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.kernels import ref as kref
 
 INF = float("inf")
 U, F, S = 0, 1, 2
@@ -27,6 +33,162 @@ CRITERIA = (
     "outstatic", "outsimple", "outweak", "out",
     "oracle",
 )
+
+
+
+class CritContext(NamedTuple):
+    """Everything a criterion may read, as tensors on one device."""
+
+    src: torch.Tensor  # (m,) int32
+    dst: torch.Tensor  # (m,) int32
+    w: torch.Tensor  # (m,) f32, +inf padding
+    in_min_static: torch.Tensor  # (n,) f32
+    out_min_static: torch.Tensor  # (n,) f32
+    d: torch.Tensor  # (n,) f32 tentative distances
+    status: torch.Tensor  # (n,) int8
+    fringe: torch.Tensor  # (n,) bool == (status == F)
+    min_fringe_d: torch.Tensor  # 0-dim f32: min_{u in F} d[u]
+    dist_true: torch.Tensor  # (n,) f32; only ORACLE reads it
+
+
+def _segmin(vals, idx, n):
+    return kref.segment_min(vals, idx, n)
+
+
+def _out_min_dynamic(ctx: CritContext) -> torch.Tensor:
+    """min over outgoing edges with an unsettled target (F + U)."""
+    unsettled_dst = ctx.status[ctx.dst.long()] < S
+    vals = torch.where(unsettled_dst, ctx.w, INF)
+    return _segmin(vals, ctx.src, ctx.d.shape[0])
+
+
+def oracle_tolerance(dist_true: torch.Tensor) -> torch.Tensor:
+    """``1e-6 + 1e-6 * |dist_true|`` in f32 as the reference's compiled
+    engines give it: XLA fuses the multiply and the add into one FMA (one
+    rounding; an eager two-step f32 form differs in about a quarter of the
+    values). The product of two f32 is exact in f64; the f64 sum is made
+    round-to-odd from its exact error, so rounding it to f32 once gives the
+    FMA's bits on any device."""
+    eps = torch.tensor(1e-6, dtype=torch.float32).double().to(dist_true.device)
+    p = eps * torch.abs(dist_true).double()  # exact
+    s = p + eps
+    bv = s - p
+    err = (p - (s - bv)) + (eps - bv)  # s + err == p + eps exactly
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, INF, -INF).double()
+    odd = (err != 0) & torch.isfinite(err) & even
+    s = torch.where(odd, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+# --- IN family: d[v] - (best incoming slack) <= min_F d --------------------
+
+def crit_dijk(ctx: CritContext) -> torch.Tensor:
+    return ctx.fringe & (ctx.d <= ctx.min_fringe_d)
+
+
+def crit_instatic(ctx: CritContext) -> torch.Tensor:
+    """Eq. 4 (Crauser): static min over ALL incoming edges."""
+    return ctx.fringe & (ctx.d - ctx.in_min_static <= ctx.min_fringe_d)
+
+
+def crit_insimple(ctx: CritContext) -> torch.Tensor:
+    """Eq. 6: min over incoming edges whose source is unsettled (F + U)."""
+    n = ctx.d.shape[0]
+    vals = torch.where(ctx.status[ctx.src.long()] < S, ctx.w, INF)
+    in_dyn = _segmin(vals, ctx.dst, n)
+    return ctx.fringe & (ctx.d - in_dyn <= ctx.min_fringe_d)
+
+
+def crit_in(ctx: CritContext) -> torch.Tensor:
+    """Eq. 1 (full IN): sources in F contribute c(w,v); sources in U the
+    two-hop slack c(w,v) + min-in-edge(w)."""
+    n = ctx.d.shape[0]
+    src = ctx.src.long()
+    st = ctx.status[src]
+    vals = torch.where(
+        st == F, ctx.w,
+        torch.where(st == U, ctx.w + ctx.in_min_static[src], INF),
+    )
+    in_key = _segmin(vals, ctx.dst, n)
+    return ctx.fringe & (ctx.d - in_key <= ctx.min_fringe_d)
+
+
+# --- OUT family: d[v] <= L where L = min_{u in F} (d[u] + best out slack) ---
+
+def _out_mask(ctx: CritContext, out_key: torch.Tensor) -> torch.Tensor:
+    lhs = torch.where(ctx.fringe, ctx.d + out_key, INF)
+    return ctx.fringe & (ctx.d <= kref.amin(lhs))
+
+
+def crit_outstatic(ctx: CritContext) -> torch.Tensor:
+    """Eq. 5 (Crauser): static min over ALL outgoing edges."""
+    return _out_mask(ctx, ctx.out_min_static)
+
+
+def crit_outsimple(ctx: CritContext) -> torch.Tensor:
+    """Eq. 7: min over outgoing edges with an unsettled target (F + U)."""
+    return _out_mask(ctx, _out_min_dynamic(ctx))
+
+
+def crit_outweak(ctx: CritContext) -> torch.Tensor:
+    """Eq. 3: full OUT with the two-hop term made static."""
+    n = ctx.d.shape[0]
+    dst = ctx.dst.long()
+    st = ctx.status[dst]
+    vals = torch.where(
+        st == F, ctx.w,
+        torch.where(st == U, ctx.w + ctx.out_min_static[dst], INF),
+    )
+    return _out_mask(ctx, _segmin(vals, ctx.src, n))
+
+
+def crit_out(ctx: CritContext) -> torch.Tensor:
+    """Eq. 2 (full OUT): targets in F contribute c(u,w); targets in U
+    c(u,w) + min over w's out-edges that stay in F + U (recomputed by one
+    segment-min a phase)."""
+    n = ctx.d.shape[0]
+    out_dyn = _out_min_dynamic(ctx)
+    dst = ctx.dst.long()
+    st = ctx.status[dst]
+    vals = torch.where(
+        st == F, ctx.w,
+        torch.where(st == U, ctx.w + out_dyn[dst], INF),
+    )
+    return _out_mask(ctx, _segmin(vals, ctx.src, n))
+
+
+def crit_oracle(ctx: CritContext) -> torch.Tensor:
+    """Clairvoyant bound: settle v once d[v] == dist(s, v), within
+    :func:`oracle_tolerance`."""
+    return ctx.fringe & (ctx.d <= ctx.dist_true
+                         + oracle_tolerance(ctx.dist_true))
+
+
+REGISTRY: dict[str, Callable[[CritContext], torch.Tensor]] = {
+    "dijk": crit_dijk,
+    "instatic": crit_instatic,
+    "outstatic": crit_outstatic,
+    "insimple": crit_insimple,
+    "outsimple": crit_outsimple,
+    "in": crit_in,
+    "out": crit_out,
+    "outweak": crit_outweak,
+    "oracle": crit_oracle,
+}
+# a REGISTRY name missing from the canonical order would pass parse's
+# validation yet never be applied: fail at import instead
+assert set(CRITERIA) == set(REGISTRY), set(CRITERIA) ^ set(REGISTRY)
+
+
+def evaluate(names: tuple[str, ...], ctx: CritContext) -> torch.Tensor:
+    """Disjunction of criteria, with a DIJK fallback guard: every criterion
+    is complete, so the fallback fires only where float rounding leaves
+    the mask empty (the bare oracle's tolerance)."""
+    mask = torch.zeros_like(ctx.fringe)
+    for nm in names:
+        mask = mask | REGISTRY[nm](ctx)
+    return torch.where(torch.any(mask), mask, crit_dijk(ctx))
 
 
 def parse(criterion: str) -> tuple[str, ...]:
@@ -265,8 +427,7 @@ def plan_term_masks(plan: CritPlan, d: torch.Tensor, fringe: torch.Tensor,
     for i in range(len(plan.out_terms)):  # OUT family: d <= L_k
         masks.append(fringe & (d <= mins[1 + i][:, None]))
     if plan.needs_oracle:
-        tol = 1e-6 + 1e-6 * torch.abs(dist_true)
-        masks.append(fringe & (d <= dist_true + tol))
+        masks.append(fringe & (d <= dist_true + oracle_tolerance(dist_true)))
     return masks
 
 

@@ -51,6 +51,21 @@ class Graph:
         return int(torch.isfinite(self.w).sum())
 
 
+def graph_device(g: Graph, device) -> torch.device:
+    """Resolve ``device`` (None = the CUDA card) and check the graph is on it."""
+    dev = resolve_device(device)
+    if g.device != dev:
+        raise ValueError(f"the graph lives on {g.device}, not on {dev}")
+    return dev
+
+
+def f32_rows(x, dev) -> torch.Tensor:
+    """Rows given as a tensor or anything numpy reads, as f32 on ``dev``."""
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.asarray(x, dtype=np.float32))
+    return x.to(device=dev, dtype=torch.float32)
+
+
 def _static_min(index: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
     """``out[v] = min w`` over the arcs with ``index == v``, with the
     reference's tie rule (``np.minimum.at``: the later arc in COO order

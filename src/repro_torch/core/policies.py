@@ -3,8 +3,11 @@
 
 A :class:`PhasePolicy` decides which fringe vertices a phase settles; the
 stepper (``repro_torch.core.static_engine``) owns lane admission, the trip
-loop, the work counters and the ring. :class:`CriterionPolicy` runs every
-plan without the oracle. Per phase:
+loop, the work counters and the rings. A policy's ``prepare`` builds the
+loop-invariant operands once a ``step_batch`` call, and ``phase`` runs one
+trip on them. :class:`CriterionPolicy` runs every criterion plan, oracle
+plans (``dist_true`` rows, with the per-lane DIJK fallback of the bare
+oracle) included. Per phase:
 
   * plans with out-side dynamic keys scan the outgoing ELL once
     (``out_scan_keys_batch``: ``ell_gather_min_batch``, or
@@ -26,7 +29,23 @@ On the degree-sliced layout each of these runs its sliced kernel instead
 ``ell_sliced_push_relax_batch``); the ops layer picks it by the view's type.
 
 Carried in-side keys are re-primed (``ell_key_min_batch``) once per
-``step_batch`` call after admission touched a lane.
+``step_batch`` call after admission touched a lane. On a state with the
+attribution ring, the settle mask is built member by member and each
+settled vertex is credited to the first member that proved it.
+
+:class:`DeltaPolicy` is delta-stepping (Meyer & Sanders) on the same
+stepper. ``prepare`` splits the incoming view into light (w <= delta) and
+heavy (w > delta) +inf-gated views (``ops.weight_gated_ell``); a phase
+reduces the bucket id ``floor(d / delta)`` over the fringe with
+``frontier_crit_lanes_batch`` and relaxes once through
+``ops.delta_relax_batch`` (two key-min gathers: ``ell_key_min_batch``, or
+``ell_sliced_gather_min_batch`` on the sliced layout). The carried stack
+holds the drain bookkeeping: slot 0 the ``last_processed`` tentative
+distance, slot 1 the removed-from-bucket flag. A lane is on a light round
+while a bucket vertex has ``d < last_processed``; otherwise the phase is
+its heavy turn, on which the removed vertices relax their heavy edges and
+settle. The bucket is the per-vertex index compare, as in the reference
+(its docstring says why the interval compare could livelock in f32).
 """
 from __future__ import annotations
 
@@ -54,6 +73,8 @@ class PhaseOutcome(NamedTuple):
     n_fringe: torch.Tensor  # (B,) int32 |F| at phase entry (the live gauge)
     n_settled: torch.Tensor  # (B,) int32 vertices settled this phase
     relax_inc: torch.Tensor  # (B,) int64 out-edges relaxed this phase
+    attr_counts: torch.Tensor | None = None  # (B, T) int32 attribution
+    #   slots, only when the state carries an attribution ring
 
 
 class PhasePolicy:
@@ -61,7 +82,13 @@ class PhasePolicy:
     spec by :func:`policy_for` and hold no state beyond their plan."""
 
     spec: str  # canonical spec string (== BatchState.criterion)
+    uses_delta: bool = False  # reads BatchState.delta (the bucket width)
+    needs_oracle: bool = False  # requires per-lane dist_true rows
     needs_out_adjacency: bool = False  # phase reads the outgoing ELL
+
+    def attribution_terms(self) -> tuple[str, ...]:
+        """Names of the per-phase attribution slots, in recorded order."""
+        raise NotImplementedError
 
     def num_key_slots(self) -> int:
         """Depth K of the carried ``crit_keys`` stack (0 = no stack)."""
@@ -83,9 +110,13 @@ class PhasePolicy:
         """Once-per-chunk invariant repair before entering the loop."""
         return state
 
-    def phase(self, g: Graph, ell_in, ell_out, s,
-              use_kernels: bool) -> PhaseOutcome:
-        """Advance state ``s`` by one phase."""
+    def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
+        """Loop-invariant operands of :meth:`phase`, once a ``step_batch``
+        call."""
+        raise NotImplementedError
+
+    def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
+        """Advance state ``s`` by one phase on :meth:`prepare`'s ``aux``."""
         raise NotImplementedError
 
 
@@ -178,18 +209,20 @@ class CriterionPolicy(PhasePolicy):
     The carried ``crit_keys`` stack holds the plan's dynamic keys (ordered
     like ``plan.keys``); in-side slots come out of the fused in-scan and
     are re-primed once per chunk when admission invalidated them
-    (``keys_valid``). Oracle plans are not ported and raise.
+    (``keys_valid``). ``prepare`` hands the views through, so the plans'
+    phase reads them as before.
     """
 
     def __init__(self, plan: C.CritPlan):
-        if plan.needs_oracle:
-            raise NotImplementedError(
-                f"criterion {plan.criterion!r} needs the oracle (dist_true "
-                "rows); oracle plans are not ported to the PyTorch package "
-                "yet (ROADMAP Queue 1 item 5)"
-            )
         self.plan = plan
         self.spec = plan.criterion
+
+    @property
+    def needs_oracle(self) -> bool:
+        return self.plan.needs_oracle
+
+    def attribution_terms(self) -> tuple[str, ...]:
+        return C.attribution_terms(self.plan)
 
     @property
     def needs_out_adjacency(self) -> bool:
@@ -229,9 +262,12 @@ class CriterionPolicy(PhasePolicy):
                                                 ell_in, use_kernels)
         return dataclasses.replace(state, crit_keys=keys, keys_valid=True)
 
-    def phase(self, g: Graph, ell_in, ell_out, s,
-              use_kernels: bool) -> PhaseOutcome:
+    def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
+        return ell_in, ell_out
+
+    def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
         plan = self.plan
+        ell_in, ell_out = aux
         b = s.num_lanes
         in_slots = _in_slot_indices(plan)
         d, status = s.dist, s.status
@@ -246,9 +282,26 @@ class CriterionPolicy(PhasePolicy):
             d, status, _threshold_keys(plan, g, keys, b),
             use_kernels=use_kernels,
         )
-        settle = C.plan_union_mask(
-            plan, d, fringe, mins, keys, g.in_min_static, None
-        )
+        term_masks = None
+        if s.attr_trace is not None:
+            # the attribution ring credits each settled vertex to the first
+            # member that proved it, so each member's mask is kept; their
+            # union is plan_union_mask's
+            term_masks = C.plan_term_masks(
+                plan, d, fringe, mins, keys, g.in_min_static, s.dist_true)
+            settle = term_masks[0]
+            for m in term_masks[1:]:
+                settle = settle | m
+        else:
+            settle = C.plan_union_mask(
+                plan, d, fringe, mins, keys, g.in_min_static, s.dist_true)
+        if plan.needs_fallback:
+            # the bare oracle can leave a non-empty fringe with an empty
+            # mask (its tolerance is for f64 truth): evaluate()'s DIJK guard,
+            # lane by lane
+            dijk = fringe & (d <= mins[0][:, None])
+            settle = torch.where(torch.any(settle, dim=1, keepdim=True),
+                                 settle, dijk)
         # --- the s->t bound (target lanes only): the target's current
         # tentative distance. A settled source at or beyond it can never
         # improve the target, so the gated relax drops it; the settle
@@ -299,6 +352,20 @@ class CriterionPolicy(PhasePolicy):
         relax_inc = torch.where(relax_from, s.out_deg[None], 0).sum(
             dim=1, dtype=torch.int64
         )
+        attr_counts = None
+        if term_masks is not None:
+            # first-true claiming partitions the settled set over the
+            # members in canonical order, so the counts sum to n_settled
+            claimed = torch.zeros_like(settle)
+            counts = []
+            for m in term_masks:
+                take = m & settle & ~claimed
+                counts.append(take.sum(dim=1, dtype=torch.int32))
+                claimed = claimed | take
+            if plan.needs_fallback:
+                # the residual slot: vertices the DIJK guard settled
+                counts.append(n_settled - sum(counts))
+            attr_counts = torch.stack(counts, dim=1)
         crit_keys = s.crit_keys
         if plan.keys:
             crit_keys = torch.stack([keys[k.name] for k in plan.keys])
@@ -307,6 +374,134 @@ class CriterionPolicy(PhasePolicy):
         return PhaseOutcome(
             dist=new_d, status=new_status, crit_keys=crit_keys,
             n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc,
+            attr_counts=attr_counts,
+        )
+
+
+class DeltaGates(NamedTuple):
+    """One delta phase's settle decision (:meth:`DeltaPolicy.gates`)."""
+
+    bidx: torch.Tensor  # (B, n) f32 bucket ids on the fringe, +inf off it
+    bucket: torch.Tensor  # (B,) the lane's bucket id, +inf on an idle lane
+    n_fringe: torch.Tensor  # (B,) int32 |F|
+    cur: torch.Tensor  # (B, n) the light round's work set
+    heavy_turn: torch.Tensor  # (B,) the lane's drain is done
+    heavy_from: torch.Tensor  # (B, n) the removed set on the heavy turn
+
+
+class DeltaPolicy(PhasePolicy):
+    """Delta-stepping (Meyer & Sanders) as a stepper phase policy (see the
+    module docstring).
+
+    Attribution slots: ``light`` (bucket vertices processed on a light
+    round), ``heavy`` (vertices settled on the heavy turn: it equals the
+    settled ring) and ``bucket`` (the lane's bucket id that phase, an id,
+    not a count).
+    """
+
+    spec = DELTA_SPEC
+    uses_delta = True
+    needs_out_adjacency = False
+
+    def attribution_terms(self) -> tuple[str, ...]:
+        return ("light", "heavy", "bucket")
+
+    def num_key_slots(self) -> int:
+        return 2
+
+    def fresh_keys(self, b: int, n: int, device) -> torch.Tensor:
+        return torch.stack([
+            torch.full((b, n), INF, dtype=torch.float32, device=device),
+            torch.zeros((b, n), dtype=torch.float32, device=device),
+        ])  # last_processed, removed
+
+    def phase_cap(self, n: int) -> int:
+        # light rounds are label-correcting: a bucket may reprocess its
+        # vertices several times before its heavy turn (the legacy loop's
+        # bound)
+        return 4 * n + 16
+
+    def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
+        """``(ell_light, ell_heavy, deg_light, deg_heavy)`` for ``ell_in``
+        and the state's delta, memoised on the graph for one (view, delta)
+        pair at a time: a server stepping in chunks builds them once, and
+        the graph holds the two copies of the view's weights while it lives
+        or until another pair replaces them."""
+        delta = float(state.delta)
+        hit = g.__dict__.get("_delta_prepare_cache")
+        if (hit is not None and hit[1] == delta and len(hit[0]) == len(ell_in)
+                and all(a is b for a, b in zip(hit[0], ell_in))):
+            return hit[2]
+        ell_light, ell_heavy = kops.weight_gated_ell(ell_in, state.delta)
+        # light and heavy out-degrees for the relax counters (the COO
+        # padding carries w = +inf, which `isfinite` drops)
+        light = torch.isfinite(g.w) & (g.w <= state.delta)
+        deg_light = torch.zeros((g.n,), dtype=torch.int32,
+                                device=g.device).index_add_(
+            0, g.src.long(), light.to(torch.int32))
+        aux = (ell_light, ell_heavy, deg_light, state.out_deg - deg_light)
+        g.__dict__["_delta_prepare_cache"] = (ell_in, delta, aux)
+        return aux
+
+    @staticmethod
+    def gates(s, use_kernels: bool = True) -> DeltaGates:
+        """The settle decision of one phase on state ``s``: the bucket ids
+        over the fringe, reduced to each lane's bucket by
+        ``frontier_crit_lanes_batch``, and the light and heavy relax
+        gates."""
+        d, status = s.dist, s.status
+        fringe = status == 1
+        # the bucket id of each fringe vertex, an f32 divide by the f32
+        # delta; the fused threshold kernel reduces it to the lane's bucket
+        # and counts the fringe in one pass
+        bidx = torch.where(fringe, torch.floor(d / s.delta), INF)
+        mins, n_f = kops.crit_thresholds_batch(bidx, status, None,
+                                               use_kernels=use_kernels)
+        b_lane = mins[0]  # (B,) current bucket id (+inf on empty lanes)
+        cur = fringe & (bidx == b_lane[:, None]) & (d < s.crit_keys[0])
+        heavy_turn = ~torch.any(cur, dim=1)  # drain done (or lane idle)
+        # light edges from this round's work set, heavy edges from the
+        # removed set on the heavy turn
+        heavy_from = heavy_turn[:, None] & (s.crit_keys[1] > 0.5)
+        return DeltaGates(bidx, b_lane, n_f, cur, heavy_turn, heavy_from)
+
+    def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
+        ell_light, ell_heavy, deg_light, deg_heavy = aux
+        d, status = s.dist, s.status
+        last_proc = s.crit_keys[0]
+        removed = s.crit_keys[1] > 0.5
+        _, b_lane, n_f, cur, heavy_turn, heavy_from = self.gates(s,
+                                                                 use_kernels)
+        upd = kops.delta_relax_batch(d, cur, heavy_from, ell_light,
+                                     ell_heavy, use_kernels=use_kernels)
+        settle = heavy_from  # the bucket settles on its heavy turn
+        # d >= +0 and upd = d + w >= +0: no -0 reaches this min
+        new_d = torch.minimum(d, upd)
+        new_status = torch.where(
+            settle, 2, torch.where((status == 0) & (upd < INF), 1, status)
+        ).to(torch.int32)
+        # drain bookkeeping: light rounds record the processed tentatives
+        # and extend `removed`; the heavy turn resets both for the next
+        # bucket (an idle lane is a fixed point: both are fresh already)
+        new_last = torch.where(heavy_turn[:, None], INF,
+                               torch.where(cur, d, last_proc))
+        new_removed = ~heavy_turn[:, None] & (removed | cur)
+        n_settled = settle.sum(dim=1, dtype=torch.int32)
+        relax_inc = (torch.where(cur, deg_light[None], 0).sum(
+            dim=1, dtype=torch.int64)
+            + torch.where(heavy_from, deg_heavy[None], 0).sum(
+                dim=1, dtype=torch.int64))
+        attr_counts = None
+        if s.attr_trace is not None:
+            bucket_id = torch.where(n_f > 0, b_lane, 0.0).to(torch.int32)
+            attr_counts = torch.stack(
+                [cur.sum(dim=1, dtype=torch.int32), n_settled, bucket_id],
+                dim=1)
+        return PhaseOutcome(
+            dist=new_d, status=new_status,
+            crit_keys=torch.stack([new_last, new_removed.to(torch.float32)]),
+            n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc,
+            attr_counts=attr_counts,
         )
 
 
@@ -320,13 +515,12 @@ def canonical_spec(spec: str) -> str:
 @functools.lru_cache(maxsize=None)
 def _policy_for_canonical(spec: str) -> PhasePolicy:
     if spec == DELTA_SPEC:
-        raise NotImplementedError(
-            "delta-stepping (DeltaPolicy) is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
+        return DeltaPolicy()
     return CriterionPolicy(C.plan_for(spec))
 
 
 def policy_for(spec: str) -> PhasePolicy:
-    """The (cached) :class:`PhasePolicy` a spec string selects."""
+    """The (cached) :class:`PhasePolicy` a spec string selects:
+    ``"delta"`` selects :class:`DeltaPolicy`, any criterion disjunction its
+    :class:`CriterionPolicy`."""
     return _policy_for_canonical(canonical_spec(spec))

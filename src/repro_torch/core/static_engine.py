@@ -12,6 +12,12 @@ Stepper API, as in the reference:
     chunks (a reset lane is bitwise a fresh solve);
   * :func:`harvest` freezes a state into a :class:`BatchedResult`.
 
+``criterion`` is any policy spec: a criterion plan (an oracle plan takes
+per-lane ``dist_true`` rows) or ``"delta"``, delta-stepping on the same
+stepper with the bucket width ``delta`` as data (``core.policies``).
+``telemetry=True`` adds the fringe, relax and settle-attribution rings
+that ``repro_torch.obs.telemetry`` decodes.
+
 ``targets`` (``init_batch_state``) turns lanes into s->t queries: a target
 lane's remaining fringe is demoted the phase its target settles, and the
 policy relaxes only from settled vertices nearer than the target's current
@@ -47,14 +53,16 @@ from repro_torch.core import criteria as C
 from repro_torch.core import policies as P
 from repro_torch.core.graph import (
     Graph,
+    f32_rows,
+    graph_device,
     out_degrees,
     to_ell_in,
     to_ell_in_sliced,
     to_ell_out,
     to_ell_out_sliced,
 )
+from repro_torch.core.delta_stepping import default_delta
 from repro_torch.core.phased import PhasedResult
-from repro_torch.kernels.config import resolve_device
 from repro_torch.kernels.ops import _is_sliced
 
 INF = float("inf")
@@ -81,8 +89,19 @@ class BatchState:
     keys_valid: bool | None  # whether the in-side slots of crit_keys match
     #   status (None: the plan carries none); a host bool, so checking it
     #   costs no device sync
+    dist_true: torch.Tensor | None  # (B, n) f32 per-lane true distances,
+    #   only on oracle-plan states
     settled_trace: torch.Tensor  # (B, trace_len) int32 ring of per-phase
     #   settle counts: phase p of a lane's query lands in slot p % trace_len
+    fringe_trace: torch.Tensor | None  # (B, trace_len) int32 ring of |F| at
+    #   phase entry, only with telemetry=True
+    relax_trace: torch.Tensor | None  # (B, trace_len) int32 ring of the
+    #   out-edges relaxed each phase, only with telemetry=True
+    attr_trace: torch.Tensor | None  # (B, trace_len, T) int32 ring of the
+    #   policy's attribution slots (``policy.attribution_terms()``), only
+    #   with telemetry=True
+    delta: torch.Tensor | None  # 0-dim f32 bucket width, only on
+    #   delta-stepping states
     target: torch.Tensor | None  # (B,) int32 per-lane s->t target (-1 =
     #   full solve), or None on a state initialised without target lanes
     criterion: str  # canonical policy spec
@@ -116,24 +135,15 @@ class BatchedResult:
     total_phases: torch.Tensor  # scalar int32: loop trips since state init
     settled_per_phase: torch.Tensor | None = None  # (B, trace_len) int32
     #   ring, or None when tracing was off (trace_len == 1)
+    fringe_per_phase: torch.Tensor | None = None  # (B, trace_len) int32,
+    #   only from telemetry states with trace_len > 1
+    relax_per_phase: torch.Tensor | None = None  # (B, trace_len) int32,
+    #   likewise
+    settle_attribution: torch.Tensor | None = None  # (B, trace_len, T)
+    #   int32, likewise; T indexes the policy's attribution_terms()
     target: torch.Tensor | None = None  # (B,) int32 per-lane target (-1 =
     #   full solve), only from target-enabled states: on a target lane only
     #   dist[lane, target[lane]] (and nearer vertices) is final
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a mode of the reference that is not ported yet raises."""
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})"
-    )
-
-
-def graph_device(g: Graph, device) -> torch.device:
-    """Resolve ``device`` (None = the CUDA card) and check the graph is on it."""
-    dev = resolve_device(device)
-    if g.device != dev:
-        raise ValueError(f"the graph lives on {g.device}, not on {dev}")
-    return dev
 
 
 def validate_sources(sources, n: int, lo: int, range_desc: str,
@@ -187,6 +197,45 @@ def _validate_targets(targets, b: int, n: int) -> np.ndarray | None:
     )
 
 
+def _validate_dist_true(dist_true, policy: P.PhasePolicy, b: int, n: int,
+                        dev) -> torch.Tensor | None:
+    """(B, n) f32 ``dist_true`` on ``dev`` when the policy reads it, else
+    None: a ``dist_true`` given to a plan without the oracle is dropped, as
+    the reference drops it."""
+    if not policy.needs_oracle:
+        return None
+    if dist_true is None:
+        raise ValueError(
+            f"criterion {policy.spec!r} includes 'oracle': per-lane "
+            f"dist_true of shape ({b}, {n}) is required"
+        )
+    dt = f32_rows(dist_true, dev)
+    if tuple(dt.shape) != (b, n):
+        raise ValueError(
+            f"dist_true must have shape ({b}, {n}); got {tuple(dt.shape)}"
+        )
+    return dt
+
+
+def _validate_delta(policy: P.PhasePolicy, g: Graph, delta):
+    """0-dim f32 bucket width on the graph's device for delta-stepping
+    states (default :func:`~repro_torch.core.delta_stepping.default_delta`),
+    else None; a criterion policy rejects a delta."""
+    if not policy.uses_delta:
+        if delta is not None:
+            raise ValueError(
+                f"criterion {policy.spec!r} does not take a delta bucket "
+                f"width; use criterion='delta' for delta-stepping"
+            )
+        return None
+    delta = float(default_delta(g) if delta is None else delta)
+    if not (np.isfinite(delta) and delta > 0):
+        raise ValueError(
+            f"delta must be a positive finite bucket width; got {delta}"
+        )
+    return torch.tensor(delta, dtype=torch.float32, device=g.device)
+
+
 def init_batch_state(
     g: Graph,
     sources,
@@ -201,10 +250,13 @@ def init_batch_state(
     """Fresh ``(B, n)`` stepper state for B lanes over one shared graph.
 
     ``sources[i] == -1`` (:data:`EMPTY_LANE`) leaves lane ``i`` empty.
-    ``trace_len`` sizes the per-lane settled-per-phase ring (1 = off).
-    ``dist_true`` is read only by oracle plans, which are not ported, so it
-    is dropped, as the reference drops it for non-oracle plans. Telemetry
-    rings and delta-stepping are not ported yet and raise. ``targets``, a
+    ``criterion`` is any policy spec (see the module docstring). An oracle
+    plan requires per-lane ``dist_true`` rows ``(B, n)``; other plans drop
+    them. ``criterion="delta"`` takes the bucket width ``delta`` (default
+    ``default_delta(g)``), stored as a 0-dim f32 tensor; other policies
+    reject one. ``trace_len`` sizes the per-lane settled-per-phase ring
+    (1 = off); ``telemetry=True`` adds the fringe, relax and
+    ``(B, trace_len, T)`` attribution rings. ``targets``, a
     ``(B,)`` int vector of target vertices (-1 = full solve), makes the
     state target-capable (see the module docstring). ``device`` (None =
     the CUDA card) must be the graph's device.
@@ -216,19 +268,19 @@ def init_batch_state(
     )
     if trace_len < 1:
         raise ValueError(f"trace_len must be >= 1; got {trace_len}")
-    if delta is not None:
-        raise ValueError(
-            f"criterion {policy.spec!r} does not take a delta bucket "
-            f"width; use criterion='delta' for delta-stepping"
-        )
-    if telemetry:
-        raise not_ported("telemetry=True (the extended rings)",
-                          "Queue 1 item 5")
     b = src_np.shape[0]
+    dt = _validate_dist_true(dist_true, policy, b, g.n, dev)
+    dl = _validate_delta(policy, g, delta)
     tg = _validate_targets(targets, b, g.n)
     d0, status0 = _fresh_rows(torch.from_numpy(src_np).to(dev), g.n)
     zeros_i32 = torch.zeros((b,), dtype=torch.int32, device=dev)
     zeros_i64 = torch.zeros((b,), dtype=torch.int64, device=dev)
+
+    def ring(*shape):
+        return torch.zeros((b, int(trace_len)) + shape, dtype=torch.int32,
+                           device=dev)
+
+    n_terms = len(policy.attribution_terms())
     return BatchState(
         dist=d0,
         status=status0,
@@ -239,20 +291,24 @@ def init_batch_state(
         out_deg=out_degrees(g),
         crit_keys=policy.fresh_keys(b, g.n, dev),
         keys_valid=policy.init_keys_valid(),
-        settled_trace=torch.zeros((b, int(trace_len)), dtype=torch.int32,
-                                  device=dev),
+        dist_true=dt,
+        settled_trace=ring(),
+        fringe_trace=ring() if telemetry else None,
+        relax_trace=ring() if telemetry else None,
+        attr_trace=ring(n_terms) if telemetry else None,
+        delta=dl,
         target=None if tg is None else torch.from_numpy(tg).to(dev),
         criterion=policy.spec,
     )
 
 
-def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
+def _phase(g: Graph, aux, s: BatchState, policy: P.PhasePolicy,
            use_kernels: bool) -> BatchState:
     """One trip of the loop: the policy's phase plus the chassis' ring and
     counter writes, gated per lane on ``n_fringe > 0``. On a target lane,
     the phase its target settles demotes the remaining fringe to status 0:
     the lane is then a fixed point, and the phase itself still counts."""
-    out = policy.phase(g, ell_in, ell_out, s, use_kernels)
+    out = policy.phase(g, aux, s, use_kernels)
     rows = torch.arange(s.num_lanes, device=s.device)
     status = out.status
     if s.target is not None:
@@ -261,10 +317,21 @@ def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
         status = torch.where(hit[:, None] & (status == 1), 0, status)
     lane_on = out.n_fringe > 0  # finished/empty lanes stop counting
     idx = (s.phases % s.settled_trace.shape[1]).long()
-    trace = s.settled_trace.clone()
-    # dead lanes must not write: their stuck slot may hold a wrapped entry
-    trace[rows, idx] = torch.where(lane_on, out.n_settled,
-                                   s.settled_trace[rows, idx])
+
+    def write(ring, vals):
+        # dead lanes must not write: their stuck slot may hold a wrapped
+        # entry
+        new = ring.clone()
+        on = lane_on.reshape((-1,) + (1,) * (vals.dim() - 1))
+        new[rows, idx] = torch.where(on, vals, ring[rows, idx])
+        return new
+
+    fringe_trace, relax_trace, attr_trace = (
+        s.fringe_trace, s.relax_trace, s.attr_trace)
+    if attr_trace is not None:
+        fringe_trace = write(fringe_trace, out.n_fringe)
+        relax_trace = write(relax_trace, out.relax_inc.to(torch.int32))
+        attr_trace = write(attr_trace, out.attr_counts)
     return BatchState(
         dist=out.dist,
         status=status,
@@ -275,7 +342,12 @@ def _phase(g: Graph, ell_in, ell_out, s: BatchState, policy: P.PhasePolicy,
         out_deg=s.out_deg,
         crit_keys=out.crit_keys,
         keys_valid=s.keys_valid,
-        settled_trace=trace,
+        dist_true=s.dist_true,
+        settled_trace=write(s.settled_trace, out.n_settled),
+        fringe_trace=fringe_trace,
+        relax_trace=relax_trace,
+        attr_trace=attr_trace,
+        delta=s.delta,
         target=s.target,
         criterion=s.criterion,
     )
@@ -318,6 +390,8 @@ def step_batch(
         ell_out = to_ell_out_sliced(g) if _is_sliced(ell) else to_ell_out(g)
     live0 = torch.any(state.status == 1, dim=1)  # (B,) lanes live at entry
     s = policy.prime(g, ell, state, use_kernels)
+    # loop-invariant operands, once a call (delta's weight-gated views)
+    aux = policy.prepare(g, ell, ell_out, s, use_kernels)
     for _ in range(max(int(k_phases), 0)):
         live = torch.any(s.status == 1, dim=1)  # lanes never revive
         go = torch.any(live)
@@ -325,7 +399,7 @@ def step_batch(
             go = go & torch.all(live == live0)
         if not bool(go):  # the one host sync of a trip
             break
-        s = _phase(g, ell, ell_out, s, policy, use_kernels)
+        s = _phase(g, aux, s, policy, use_kernels)
     return s
 
 
@@ -337,7 +411,10 @@ def reset_lanes(state: BatchState, sources, dist_true=None,
     (:data:`KEEP_LANE`) leaves that lane's bits untouched, ``-1``
     (:data:`EMPTY_LANE`) parks it empty, and a vertex id starts a fresh
     query there, bitwise the same as a fresh :func:`init_batch_state` row.
-    On a target-enabled state, ``targets`` gives each touched lane its new
+    On an oracle-plan state, refilling a lane with a real source requires
+    fresh per-lane ``dist_true`` rows ``(B, n)`` (touched rows replace the
+    stored ones); parking or keeping lanes does not. On a target-enabled
+    state, ``targets`` gives each touched lane its new
     target (-1 = full solve, the default when omitted); KEEP_LANE rows keep
     theirs. A target-free state rejects ``targets``. Validation and
     messages are the reference's.
@@ -354,18 +431,33 @@ def reset_lanes(state: BatchState, sources, dist_true=None,
             "(the target field is pytree-structural)"
         )
     tg = _validate_targets(targets, state.num_lanes, state.n)
-    if dist_true is not None:
+    dt = None
+    if state.dist_true is not None:
+        if dist_true is None and (src_np >= 0).any():
+            raise ValueError(
+                "criterion includes 'oracle': refilling lanes requires "
+                "dist_true rows (B, n)"
+            )
+        if dist_true is not None:
+            dt = f32_rows(dist_true, state.device)
+            if dt.shape != state.dist.shape:
+                raise ValueError(
+                    f"dist_true must have shape {tuple(state.dist.shape)}; "
+                    f"got {tuple(dt.shape)}"
+                )
+    elif dist_true is not None:
         raise ValueError(
             f"criterion {state.criterion!r} does not read dist_true"
         )
     return _reset_lanes(
         state, torch.from_numpy(src_np).to(state.device),
         bool((src_np >= EMPTY_LANE).any()),
-        None if tg is None else torch.from_numpy(tg).to(state.device))
+        None if tg is None else torch.from_numpy(tg).to(state.device), dt)
 
 
 def _reset_lanes(state: BatchState, sources: torch.Tensor, any_touched: bool,
-                 targets: torch.Tensor | None = None) -> BatchState:
+                 targets: torch.Tensor | None = None,
+                 dist_true: torch.Tensor | None = None) -> BatchState:
     touch = sources >= EMPTY_LANE  # KEEP_LANE rows pass through unchanged
     fresh_d, fresh_s = _fresh_rows(sources, state.n)
     crit_keys = state.crit_keys
@@ -376,6 +468,16 @@ def _reset_lanes(state: BatchState, sources: torch.Tensor, any_touched: bool,
 
     def ctr(old):
         return torch.where(touch, 0, old)
+
+    def ring(old):
+        if old is None:
+            return None
+        return torch.where(touch.reshape((-1,) + (1,) * (old.dim() - 1)),
+                           0, old)
+
+    state_dt = state.dist_true
+    if state_dt is not None and dist_true is not None:
+        state_dt = torch.where(touch[:, None], dist_true, state_dt)
 
     target = state.target
     if target is not None:
@@ -396,7 +498,12 @@ def _reset_lanes(state: BatchState, sources: torch.Tensor, any_touched: bool,
         # the next step_batch re-primes them before its loop
         keys_valid=(None if state.keys_valid is None
                     else state.keys_valid and not any_touched),
-        settled_trace=torch.where(touch[:, None], 0, state.settled_trace),
+        dist_true=state_dt,
+        settled_trace=ring(state.settled_trace),
+        fringe_trace=ring(state.fringe_trace),
+        relax_trace=ring(state.relax_trace),
+        attr_trace=ring(state.attr_trace),
+        delta=state.delta,
         target=target,
         criterion=state.criterion,
     )
@@ -411,6 +518,11 @@ def reset_lane(state: BatchState, lane: int, source: int = EMPTY_LANE,
         raise ValueError(f"lane must be in [0, {state.num_lanes}); got {lane}")
     if not EMPTY_LANE <= source < state.n:
         raise ValueError(f"source must be in [0, {state.n}) or -1; got {source}")
+    if state.dist_true is not None and source >= 0:
+        raise ValueError(
+            "criterion includes 'oracle': use reset_lanes(..., dist_true=...) "
+            "to refill a lane with its true-distance row"
+        )
     if target != EMPTY_LANE:
         if state.target is None:
             raise ValueError(
@@ -441,9 +553,13 @@ def harvest(state: BatchState) -> BatchedResult:
 
     ``settled_per_phase`` is the ring only when tracing was on
     (``trace_len > 1``): a length-1 ring holds just the last phase, which
-    must never read as a profile.
+    must never read as a profile. The telemetry rings follow the same rule.
     """
     traced = state.settled_trace.shape[1] > 1
+
+    def ring(x):
+        return x if traced else None
+
     return BatchedResult(
         dist=state.dist,
         status=state.status.to(torch.int8),
@@ -451,7 +567,10 @@ def harvest(state: BatchState) -> BatchedResult:
         sum_fringe=state.sum_fringe.cpu().numpy(),
         relax_edges=state.relax_edges.cpu().numpy(),
         total_phases=state.trips,
-        settled_per_phase=state.settled_trace if traced else None,
+        settled_per_phase=ring(state.settled_trace),
+        fringe_per_phase=ring(state.fringe_trace),
+        relax_per_phase=ring(state.relax_trace),
+        settle_attribution=ring(state.attr_trace),
         target=state.target,
     )
 
@@ -486,7 +605,9 @@ def run_phased_static(
 
     ``trace_len`` sizes the settled-per-phase ring; the default (None)
     covers the phase cap, so the result carries the full per-phase
-    profile. ``device`` (None = the CUDA card) must be the graph's device.
+    profile. ``dist_true`` is the (n,) true-distance row an oracle plan
+    requires; ``delta`` the bucket width of ``criterion="delta"``.
+    ``device`` (None = the CUDA card) must be the graph's device.
     ``layout``, ``ell`` and ``ell_out`` are as in
     :func:`run_phased_static_batch`. ``target`` makes it an s->t query:
     only ``dist[target]`` (bit-exact against the full solve) and the
@@ -499,6 +620,8 @@ def run_phased_static(
         raise ValueError(f"source must be in [0, {g.n}); got {source}")
     if trace_len is None:
         trace_len = cap
+    if dist_true is not None:
+        dist_true = f32_rows(dist_true, g.device).reshape(1, g.n)
     state = init_batch_state(
         g, [int(source)], criterion=criterion, dist_true=dist_true,
         trace_len=trace_len, delta=delta,
@@ -536,7 +659,10 @@ def run_phased_static_batch(
 
     Row ``i`` of the result equals ``run_phased_static(g, sources[i])``
     exactly. ``use_kernels=False`` runs the plain twins (bit-identical);
-    ``max_phases`` caps the trips (default n + 1); ``device`` (None = the
+    ``max_phases`` caps the trips (default the policy's cap: n + 1 for
+    criterion plans, 4n + 16 for delta-stepping); ``criterion``,
+    ``dist_true`` (B, n), ``delta`` and ``telemetry`` are as in
+    :func:`init_batch_state`; ``device`` (None = the
     CUDA card) must be the graph's device; ``layout`` ("padded" or
     "sliced") names the incoming view built when ``ell`` is None;
     ``ell_out`` is the outgoing view (default: one in ``ell``'s layout, for

@@ -21,11 +21,6 @@ _GRAPH_FIELDS = {
     "src": np.int32, "dst": np.int32, "w": np.float32,
     "in_min_static": np.float32, "out_min_static": np.float32,
 }
-# Fields a reference BatchState carries only for modes the port does not
-# run yet; they must be absent or None.
-_UNPORTED_STATE_FIELDS = (
-    "dist_true", "fringe_trace", "relax_trace", "attr_trace", "delta",
-)
 
 
 def _tensor(x, dtype, dev) -> torch.Tensor:
@@ -76,21 +71,25 @@ def state_from_numpy(fields: dict, device=None) -> BatchState:
     ``relax_edges``/``relax_edges_hi``) fold into int64. The carried key
     stack ``crit_keys`` and its ``keys_valid`` flag (a host bool here) come
     over as they are, so both packages continue from one mid-solve state.
-    ``target`` (the (B,) int32 s->t targets of a target-enabled state, or
-    None) comes over as it is. Fields of modes the port does not run
-    (oracle rows, telemetry rings, delta) must be absent or None.
+    So do the fields a mode carries, each absent or None where the state
+    has none: ``dist_true`` (oracle plans), the telemetry rings
+    ``fringe_trace`` / ``relax_trace`` / ``attr_trace``, ``delta`` (the
+    0-dim f32 bucket width of a delta-stepping state) and ``target`` (the
+    (B,) int32 s->t targets).
     """
     dev = resolve_device(device)
-    extra = [k for k in _UNPORTED_STATE_FIELDS if fields.get(k) is not None]
-    if extra:
-        raise NotImplementedError(
-            f"state carries fields of modes not ported yet: {extra} "
-            "(ROADMAP Queue 1 item 5)"
-        )
 
     def counter(name):
         folded = combine_limbs(fields[name], fields[name + "_hi"])
         return torch.from_numpy(folded).to(dev)
+
+    def opt(name, dtype, shape=None):
+        x = fields.get(name)
+        if x is None:
+            return None
+        if shape is not None:
+            x = np.asarray(x).reshape(shape)
+        return _tensor(x, dtype, dev)
 
     return BatchState(
         dist=_tensor(fields["dist"], np.float32, dev),
@@ -100,12 +99,15 @@ def state_from_numpy(fields: dict, device=None) -> BatchState:
         sum_fringe=counter("sum_fringe"),
         relax_edges=counter("relax_edges"),
         out_deg=_tensor(fields["out_deg"], np.int32, dev),
-        crit_keys=(None if fields.get("crit_keys") is None
-                   else _tensor(fields["crit_keys"], np.float32, dev)),
+        crit_keys=opt("crit_keys", np.float32),
         keys_valid=(None if fields.get("keys_valid") is None
                     else bool(np.asarray(fields["keys_valid"]))),
+        dist_true=opt("dist_true", np.float32),
         settled_trace=_tensor(fields["settled_trace"], np.int32, dev),
-        target=(None if fields.get("target") is None
-                else _tensor(fields["target"], np.int32, dev)),
+        fringe_trace=opt("fringe_trace", np.int32),
+        relax_trace=opt("relax_trace", np.int32),
+        attr_trace=opt("attr_trace", np.int32),
+        delta=opt("delta", np.float32, ()),
+        target=opt("target", np.int32),
         criterion=str(fields["criterion"]),
     )

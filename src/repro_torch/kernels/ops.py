@@ -250,6 +250,46 @@ def key_min_batch_for(kind, status, make_gate, ell, *, use_kernels=True):
     return key_min_batch_any(make_gate(), ell, use_kernels=use_kernels)
 
 
+def weight_gated_ell(ell, delta):
+    """Light and heavy weight-gated twins of an adjacency view, the
+    delta-stepping lowering: ``light`` keeps the weights ``w <= delta`` and
+    masks the rest to +inf (min-neutral, as padding is), ``heavy`` keeps
+    ``w > delta``. ``delta`` is a 0-dim f32 tensor (an f32 compare). The
+    twins share every index array with ``ell`` and replace only the
+    weights: ``(cols, ws)`` pairs on the padded layout, and on a
+    ``SlicedEll`` each bucket's ``ws`` (``cols``, ``rows``, the merge and
+    write-through plans are the view's own). Padding (+inf) lands in the
+    heavy twin unchanged.
+    """
+    def gate(ws, keep_light: bool):
+        return torch.where((ws <= delta) == keep_light, ws, INF)
+
+    if _is_sliced(ell):
+        return tuple(
+            ell._replace(slices=tuple(s._replace(ws=gate(s.ws, light))
+                                      for s in ell.slices))
+            for light in (True, False))
+    cols, ws = ell
+    return (cols, gate(ws, True)), (cols, gate(ws, False))
+
+
+def delta_relax_batch(d, light_from, heavy_from, ell_light, ell_heavy, *,
+                      use_kernels=True):
+    """Delta-stepping candidate updates (B, n): the light relax of
+    ``light_from`` over ``ell_light`` and the heavy relax of ``heavy_from``
+    over ``ell_heavy`` (:func:`weight_gated_ell`), min-merged. Each is a
+    key-min gather of the +inf-masked ``d`` (``ell_key_min_batch``, or
+    ``ell_sliced_gather_min_batch`` on the sliced layout), with the
+    gathers of all-+inf columns not skipped, as the reference computes it;
+    a lane on a light round gathers an all-+inf heavy gate, and the other
+    way round."""
+    upd_light = key_min_batch_any(torch.where(light_from, d, INF), ell_light,
+                                  use_kernels=use_kernels)
+    upd_heavy = key_min_batch_any(torch.where(heavy_from, d, INF), ell_heavy,
+                                  use_kernels=use_kernels)
+    return kref.nan_min(upd_light, upd_heavy)
+
+
 def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
                              out_view=None, use_kernels=True):
     """The fused in-scan: ``(upd (B, n), keys (K, B, n))``.

@@ -40,6 +40,26 @@ def nan_min(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(take, x, m)
 
 
+def segment_min(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.ops.segment_min(vals, idx, num_segments=n)`` over 1-D f32
+    ``vals`` and ids in [0, n): (n,) f32, +inf where a segment is empty,
+    the canonical NaN where any of its values is NaN, else its min with -0
+    over +0 on a tie in either order (``tests/test_torch_oracle.py`` holds
+    the rule against JAX). ``scatter_reduce_``'s ``amin`` keeps either zero
+    and on the card is an atomic min, so the zero's sign and the NaN are
+    decided by a second scatter of flags (an ``amax``, exact in any order).
+    """
+    idx = idx.long()
+    out = torch.full((n,), INF, dtype=torch.float32, device=vals.device)
+    out.scatter_reduce_(0, idx, vals, "amin", include_self=True)
+    flag = torch.zeros((n,), dtype=torch.int8, device=vals.device)
+    flag.scatter_reduce_(
+        0, idx, (2 * torch.isnan(vals) + _neg_zero(vals)).to(torch.int8),
+        "amax", include_self=True)
+    out = torch.where((out == 0) & (flag == 1), -0.0, out)
+    return torch.where(flag == 2, float("nan"), out)
+
+
 def ell_relax_ref(dmask: torch.Tensor, cols: torch.Tensor,
                   ws: torch.Tensor) -> torch.Tensor:
     """upd[v] = min_j dmask[cols[v, j]] + ws[v, j]."""
@@ -220,29 +240,37 @@ def merge_parts(parts, merge_idx: torch.Tensor, lead) -> torch.Tensor:
     ``out[..., v] = min_c concat(parts, +inf)[..., merge_idx[v, c]]``.
 
     The reference takes ``(..., n, C)`` at once; at C in the hundreds that
-    is tens of GB, so this loops over the columns and, in column c, reads
-    only the vertices whose entry is not the sentinel (it reads +inf, the
-    identity of min). A column holds each vertex once, so its update has
-    no conflicts; min is exact, so the order gives the same bits. ``lead``
+    is tens of GB, so this reads only the entries that are not the sentinel
+    (it reads +inf, the identity of min) and reduces them per vertex with
+    scatters that are exact in any order: an ``amin`` of the values that
+    are not NaN, an ``amax`` flag for a -0 among them, and an ``amax`` of
+    the column of the vertex's last NaN, whose bits then win. That is the
+    :func:`nan_min` fold over the columns in order, bit for bit. ``lead``
     is the leading shape (``parts`` may be empty: an edgeless graph).
     """
     dev = merge_idx.device
+    n = merge_idx.shape[0]
     flat = torch.cat(
         list(parts) + [torch.full(tuple(lead) + (1,), INF,
                                   dtype=torch.float32, device=dev)], dim=-1)
     sentinel = flat.shape[-1] - 1
-    out = torch.full(tuple(lead) + (merge_idx.shape[0],), INF,
-                     dtype=torch.float32, device=dev)
+    rows = flat.reshape(-1, flat.shape[-1])  # (L, R + 1)
     verts, col = torch.nonzero(merge_idx != sentinel, as_tuple=True)
-    by_col = torch.sort(col, stable=True).indices
-    verts = verts[by_col]
-    pos = merge_idx[verts, col[by_col]].long()
-    start = 0
-    for count in torch.bincount(col, minlength=merge_idx.shape[1]).tolist():
-        v, p = verts[start:start + count], pos[start:start + count]
-        out[..., v] = nan_min(out[..., v], flat[..., p])
-        start += count
-    return out
+    vals = rows[:, merge_idx[verts, col].long()]  # (L, E)
+    idx = verts.expand_as(vals)
+    nan = torch.isnan(vals)
+    out = torch.full((rows.shape[0], n), INF, dtype=torch.float32,
+                     device=dev)
+    out.scatter_reduce_(1, idx, torch.where(nan, INF, vals), "amin")
+    neg = torch.zeros(out.shape, dtype=torch.int8, device=dev)
+    neg.scatter_reduce_(1, idx, _neg_zero(vals).to(torch.int8), "amax")
+    out = torch.where((out == 0) & (neg == 1), -0.0, out)
+    last = torch.full(out.shape, -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(1, idx, torch.where(nan, col, -1), "amax")
+    nan_pos = merge_idx[torch.arange(n, device=dev)[None],
+                        last.clamp(min=0)].long()
+    out = torch.where(last >= 0, rows.gather(1, nan_pos), out)
+    return out.reshape(tuple(lead) + (n,))
 
 
 def ell_sliced_gather_min_batch_ref(vecs, sliced):

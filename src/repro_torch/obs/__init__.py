@@ -1,11 +1,13 @@
-"""Observability of the port: metrics registry, span tracer, timer
-(counterpart of ``repro.obs``; the trace and metrics formats are the
-reference's).
+"""Observability of the port: metrics registry, span tracer, timer and the
+decoder of the stepper's telemetry rings (counterpart of ``repro.obs``; the
+trace, metrics and telemetry formats are the reference's).
 
 :class:`Observability` is the handle the serving layer takes: a registry +
 tracer pair. ``Observability.disabled()`` is safe to plumb through hot
-loops: every recording call returns on one attribute check. The telemetry
-rings' decoder and the command line wait for ROADMAP Queue 1 items 5 and 9.
+loops: every recording call returns on one attribute check.
+:mod:`~repro_torch.obs.telemetry` turns a ``telemetry=True`` state into
+per-phase records and publishes them. The command line waits for ROADMAP
+Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -13,6 +15,13 @@ import dataclasses
 
 from repro_torch.obs import timer
 from repro_torch.obs.registry import Counter, Gauge, Histogram, MetricsRegistry
+from repro_torch.obs.telemetry import (
+    PhaseTelemetry,
+    attribution_terms,
+    phase_telemetry,
+    publish_phase_telemetry,
+    trace_phase_telemetry,
+)
 from repro_torch.obs.tracer import NULL_TRACER, Tracer, validate_events
 
 
@@ -45,7 +54,12 @@ __all__ = [
     "MetricsRegistry",
     "NULL_TRACER",
     "Observability",
+    "PhaseTelemetry",
     "Tracer",
+    "attribution_terms",
+    "phase_telemetry",
+    "publish_phase_telemetry",
+    "trace_phase_telemetry",
     "timer",
     "validate_events",
 ]

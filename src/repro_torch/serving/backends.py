@@ -17,8 +17,8 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.core import criteria as C
 from repro_torch.core import policies as P
+from repro_torch.core.delta_stepping import default_delta
 from repro_torch.core.graph import (
     Graph,
     to_ell_in,
@@ -38,16 +38,17 @@ from repro_torch.core.static_engine import (
 
 
 def _serving_policy(spec: str) -> P.PhasePolicy:
-    """Validate and resolve a serving policy spec, rejecting ``oracle``
-    plans as the reference does: a clairvoyant criterion needs the answer
-    it is supposed to compute as input, which no online workload has.
-    Delta-stepping raises ``NotImplementedError`` (not ported yet)."""
-    if P.canonical_spec(spec) != P.DELTA_SPEC and C.plan_for(spec).needs_oracle:
+    """Validate and resolve a serving policy spec (a criterion or
+    ``"delta"``), rejecting ``oracle`` plans as the reference does: a
+    clairvoyant criterion needs the answer it is supposed to compute as
+    input, which no online workload has."""
+    pol = P.policy_for(spec)
+    if pol.needs_oracle:
         raise ValueError(
             "serving backends cannot run the 'oracle' criterion: it requires "
             "per-query true distances up front"
         )
-    return P.policy_for(spec)
+    return pol
 
 
 @runtime_checkable
@@ -101,8 +102,10 @@ class StaticBackend:
     (the same bits). ``point_queries=True`` initialises target-capable lane
     state, so a scheduler can mix full solves and early-exiting s->t lanes
     in one batch; off by default, a target-free backend runs the exact
-    pre-target program. Oracle plans are rejected (``ValueError``), and
-    delta-stepping is not ported yet and raises.
+    pre-target program. ``policy`` (any policy spec, a criterion or
+    ``"delta"``) takes precedence over ``criterion``; ``delta`` is the
+    bucket width of the delta policy (default ``default_delta(g)``) and is
+    rejected for any other. Oracle plans are rejected (``ValueError``).
     """
 
     def __init__(self, g: Graph, ell=None, use_kernels: bool = True,
@@ -114,7 +117,10 @@ class StaticBackend:
             raise ValueError(
                 f"layout must be 'padded' or 'sliced'; got {layout!r}"
             )
-        if delta is not None:
+        self.delta = None
+        if pol.uses_delta:
+            self.delta = float(delta) if delta is not None else default_delta(g)
+        elif delta is not None:
             raise ValueError(
                 f"policy {pol.spec!r} does not take a delta bucket width; "
                 "use policy='delta' for delta-stepping"
@@ -140,7 +146,7 @@ class StaticBackend:
     def init(self, lanes: int) -> BatchState:
         empty = np.full(lanes, EMPTY_LANE, np.int32)
         return init_batch_state(
-            self.g, empty, criterion=self.criterion,
+            self.g, empty, criterion=self.criterion, delta=self.delta,
             targets=empty if self.point_queries else None, device=self.device,
         )
 

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.delta_stepping import default_delta
 from repro_torch.core.graph import (
     Graph,
     to_ell_in,
@@ -115,9 +116,10 @@ class PointBackend:
     graph's device (``device``: None = the CUDA card, which must be the
     graph's). The backward lane runs on the memoised transpose, whose views
     are the graph's own swapped: a bidirectional query builds at most the
-    view the forward lane does not read, once per graph. ``query`` answers one (s, t) pair; :func:`run_point_to_point`
-    wraps a per-graph memoised instance. ``policy="delta"`` is not ported
-    yet and raises.
+    view the forward lane does not read, once per graph. ``query`` answers
+    one (s, t) pair; :func:`run_point_to_point` wraps a per-graph memoised
+    instance. ``policy="delta"`` runs both lanes with ``default_delta(g)``
+    (the transpose has the same weights, so the same width).
     """
 
     def __init__(self, g: Graph, *, criterion: str = DEFAULT_CRITERION,
@@ -143,6 +145,7 @@ class PointBackend:
         self.use_kernels = bool(use_kernels)
         self.bidirectional = bool(bidirectional)
         self.phases_per_chunk = int(phases_per_chunk)
+        self.delta = default_delta(g) if pol.uses_delta else None
         self._bwd_views = None  # (gt, ell, ell_out) built on first use
 
     def _views(self, g: Graph):
@@ -175,14 +178,15 @@ class PointBackend:
                 raise ValueError(f"{name} must be in [0, {n}); got {v}")
         fwd = init_batch_state(
             self.g, np.array([source], np.int32), criterion=self.criterion,
-            targets=np.array([target], np.int32), device=self.device,
+            delta=self.delta, targets=np.array([target], np.int32),
+            device=self.device,
         )
         bwd = bwd_graph = bwd_ell = bwd_ell_out = None
         if self.bidirectional:
             bwd_graph, bwd_ell, bwd_ell_out = self._backward()
             bwd = init_batch_state(
                 bwd_graph, np.array([target], np.int32),
-                criterion=self.criterion,
+                criterion=self.criterion, delta=self.delta,
                 targets=np.array([source], np.int32), device=self.device,
             )
         cap = self._pol.phase_cap(n)

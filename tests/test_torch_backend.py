@@ -12,6 +12,7 @@ import torch
 from repro.graphs import generators as JGen
 from repro.serving.backends import StaticBackend as JBackend
 from repro_torch.core import static_engine as TS
+from repro_torch.core.delta_stepping import default_delta
 from repro_torch.graphs import generators as TGen
 from repro_torch.serving import EngineBackend, StaticBackend
 
@@ -89,8 +90,10 @@ def test_static_backend_contract():
         StaticBackend(gt, layout="dense", device="cpu")
     with pytest.raises(ValueError, match="delta"):
         StaticBackend(gt, delta=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StaticBackend(gt, device="cpu", policy="delta")
+    # delta-stepping serves, with default_delta(g) unless given
+    db = StaticBackend(gt, device="cpu", policy="delta")
+    assert db.criterion == "delta" and db.delta == default_delta(gt)
+    assert float(db.init(2).delta) == np.float32(default_delta(gt))
     # serving never runs the oracle (the reference's ValueError), and point
     # queries are ported: target-capable lane state
     with pytest.raises(ValueError, match="oracle"):

@@ -1161,3 +1161,141 @@ def test_meeting_vertex_on_the_card_is_the_first_minimum(cuda):
         b = _t(np.array([db], np.float32), cuda)
         assert _meet(a, b)[1] == want
         assert int(torch.argmin(a[0] + b[0])) == want
+
+
+# ---------------------------------------------------------------------------
+# delta-stepping, oracle plans and the telemetry rings on the card
+# ---------------------------------------------------------------------------
+
+RESULT_FIELDS = ("dist", "status", "phases", "sum_fringe", "relax_edges",
+                 "total_phases", "settled_per_phase", "fringe_per_phase",
+                 "relax_per_phase", "settle_attribution")
+
+
+def _results_same(a, b, fields=RESULT_FIELDS):
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None or y is None:
+            assert x is None and y is None, f
+        elif isinstance(x, np.ndarray):
+            assert np.array_equal(x, y), f
+        else:
+            assert _same_bits(x, y.to(x.device)), f
+
+
+@pytest.mark.parametrize("layout", ["padded", "sliced"])
+@pytest.mark.parametrize("b", [1, 8, 13])
+def test_weight_gated_gathers_match_twins(cuda, layout, b):
+    g = uniform_gnp(2000, 5e-3, seed=11, device=cuda)
+    ell = to_ell_in_sliced(g) if layout == "sliced" else to_ell_in(g)
+    rng = np.random.default_rng(b)
+    d = rng.uniform(0, 2, (b, g.n)).astype(np.float32)
+    light = rng.random((b, g.n)) < 0.03
+    heavy = rng.random((b, g.n)) < 0.03
+    heavy[0] = False  # a lane on its light round: an all-+inf heavy gate
+    d, light, heavy = (_t(x, cuda) for x in (d, light, heavy))
+    gather = (ell_sliced_gather_min_batch if layout == "sliced"
+              else ell_key_min_batch)
+    for delta in (0.1, 0.02):
+        views = ops.weight_gated_ell(ell, torch.tensor(delta, device=cuda))
+        before = gather.launches
+        got = ops.delta_relax_batch(d, light, heavy, *views)
+        assert gather.launches == before + 2  # the kernel, never the twin
+        want = ops.delta_relax_batch(d, light, heavy, *views,
+                                     use_kernels=False)
+        assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("n", [4096, 4097, 4099])
+def test_frontier_crit_on_bucket_ids(cuda, n):
+    rng = np.random.default_rng(n)
+    status = rng.integers(0, 3, (8, n)).astype(np.int32)
+    bidx = np.floor(rng.uniform(0, 3, (8, n)) / np.float32(0.1))
+    bidx = np.where(status == 1, bidx, np.inf).astype(np.float32)
+    status[5] = 0  # an empty lane: +inf, no fringe
+    args = (_t(bidx, cuda), _t(status, cuda), None)
+    got = frontier_crit_lanes_batch(*args)
+    want = ref.frontier_crit_lanes_batch_ref(*args)
+    assert all(_same_bits(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("layout", ["padded", "sliced"])
+def test_delta_solves_match_plain_host_and_legacy(cuda, layout):
+    from repro_torch.core import run_delta_stepping
+
+    g = uniform_gnp(3000, 3e-3, seed=4, device=cuda)
+    g_cpu = uniform_gnp(3000, 3e-3, seed=4, device="cpu")
+    sources = [0, 5, 9, 17]
+    kw = dict(criterion="delta", layout=layout, trace_len=600,
+              telemetry=True)
+    got = run_phased_static_batch(g, sources, **kw)
+    _results_same(got, run_phased_static_batch(g, sources, use_kernels=False,
+                                               **kw))
+    _results_same(got, run_phased_static_batch(g_cpu, sources, device="cpu",
+                                               **kw))
+    for i, s in enumerate(sources):
+        leg = run_delta_stepping(g, s)
+        assert _same_bits(leg.dist, got.dist[i])
+        assert int(leg.phases) == int(got.phases[i])
+
+
+@pytest.mark.parametrize("criterion", ["oracle", "instatic|outstatic|oracle",
+                                       "in|out|oracle"])
+@pytest.mark.parametrize("layout", ["padded", "sliced"])
+def test_oracle_solves_match_plain_and_host(cuda, criterion, layout):
+    from repro_torch.core import run_phased
+
+    g = uniform_gnp(3000, 3e-3, seed=6, device=cuda)
+    g_cpu = uniform_gnp(3000, 3e-3, seed=6, device="cpu")
+    sources = [1, 40, 300]
+    truth = run_phased_static_batch(g, sources).dist
+    kw = dict(criterion=criterion, layout=layout, trace_len=400,
+              telemetry=True)
+    got = run_phased_static_batch(g, sources, dist_true=truth, **kw)
+    _results_same(got, run_phased_static_batch(
+        g, sources, dist_true=truth, use_kernels=False, **kw))
+    _results_same(got, run_phased_static_batch(
+        g_cpu, sources, dist_true=truth.cpu(), device="cpu", **kw))
+    solo = run_phased(g, 40, criterion, dist_true=truth[1])
+    assert _same_bits(solo.dist, got.dist[1])
+    assert int(solo.phases) == int(got.phases[1])
+
+
+@pytest.mark.parametrize("criterion", ["instatic|outstatic", "in|out",
+                                       "delta"])
+def test_telemetry_rings_match_plain_and_host(cuda, criterion):
+    g = uniform_gnp(3000, 3e-3, seed=8, device=cuda)
+    g_cpu = uniform_gnp(3000, 3e-3, seed=8, device="cpu")
+    sources = [2, 7, 100, 2999]
+    kw = dict(criterion=criterion, trace_len=600)
+    on = run_phased_static_batch(g, sources, telemetry=True, **kw)
+    _results_same(on, run_phased_static_batch(g, sources, telemetry=True,
+                                              use_kernels=False, **kw))
+    _results_same(on, run_phased_static_batch(g_cpu, sources, telemetry=True,
+                                              device="cpu", **kw))
+    off = run_phased_static_batch(g, sources, **kw)
+    _results_same(on, off, RESULT_FIELDS[:7])
+    assert torch.equal(on.fringe_per_phase.sum(dim=1).cpu(),
+                       torch.from_numpy(on.sum_fringe))
+
+
+def test_segment_min_and_oracle_tolerance_match_the_host(cuda):
+    from repro_torch.core import bellman_ford
+    from repro_torch.core.criteria import oracle_tolerance
+
+    rng = np.random.default_rng(12)
+    signed = np.array([0.0, -0.0, 0.5, 1.0, np.nan], np.float32)
+    vals = signed[rng.integers(0, 4, 1 << 20)]  # ties of -0 and +0
+    vals[rng.integers(0, 1 << 20, 40)] = np.nan
+    idx = rng.integers(0, 5000, 1 << 20).astype(np.int32)
+    want = ref.segment_min(torch.from_numpy(vals), torch.from_numpy(idx),
+                           5003)
+    got = ref.segment_min(_t(vals, cuda), _t(idx, cuda), 5003)
+    assert _same_bits(got.cpu(), want)
+    dt = rng.uniform(0, 1e4, 1 << 16).astype(np.float32)
+    assert _same_bits(oracle_tolerance(_t(dt, cuda)).cpu(),
+                      oracle_tolerance(torch.from_numpy(dt)))
+    g = uniform_gnp(2000, 4e-3, seed=13, device=cuda)
+    g_cpu = uniform_gnp(2000, 4e-3, seed=13, device="cpu")
+    assert _same_bits(bellman_ford(g, 3).cpu(),
+                      bellman_ford(g_cpu, 3, device="cpu"))

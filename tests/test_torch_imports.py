@@ -34,10 +34,11 @@ def test_port_files_exist():
             "ell_relax_keys.py", "ell_sliced.py", "ops.py", "ref.py",
             "backends.py", "interop.py", "scheduler.py", "queue.py",
             "metrics.py", "cache.py", "point.py", "timer.py", "registry.py",
-            "tracer.py"} <= names
+            "tracer.py", "delta_stepping.py", "phased.py", "oracle.py",
+            "telemetry.py"} <= names
     obs = ROOT / "src" / "repro_torch" / "obs"
     assert {obs / f for f in ("__init__.py", "timer.py", "registry.py",
-                              "tracer.py")} <= set(FILES)
+                              "tracer.py", "telemetry.py")} <= set(FILES)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

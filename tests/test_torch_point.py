@@ -382,8 +382,14 @@ def test_run_point_to_point_memoises_and_validates(graphs):
         b.query(-1, 0)
     with pytest.raises(ValueError, match="layout"):
         TPoint(gt, layout="mosaic", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TPoint(gt, policy="delta", device="cpu")
+    # delta-stepping answers s->t queries as the reference's backend does
+    gj = graphs["gnp"][0]
+    want = JPoint(gj, policy="delta", use_pallas=False).query(0, 1)
+    got = TPoint(gt, policy="delta", device="cpu").query(0, 1)
+    assert np.float32(got.distance).view(np.int32) == \
+        np.float32(want.distance).view(np.int32)
+    assert (got.phases_forward, got.phases_backward) == \
+        (want.phases_forward, want.phases_backward)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TPoint(gt)

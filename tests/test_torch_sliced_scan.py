@@ -170,6 +170,40 @@ def test_write_through_plan_reproduces_merge_parts(name, lanes):
                 write_through(parts, view, lead))
 
 
+def column_fold(parts, merge_idx, lead):
+    """``merge_parts`` as a fold: ``nan_min`` over the columns in order."""
+    flat = np.concatenate(
+        [p.numpy() for p in parts] + [np.full(lead + (1,), INF, np.float32)],
+        axis=-1)
+    out = np.full(lead + (merge_idx.shape[0],), INF, np.float32)
+    for c in range(merge_idx.shape[1]):
+        x = flat[..., merge_idx[:, c].numpy().astype(np.int64)]
+        out = ref.nan_min(T(out), T(x)).numpy()
+    return out
+
+
+@pytest.mark.parametrize("lanes", [1, 5])
+@pytest.mark.parametrize("name", sorted(VIEWS))
+def test_merge_parts_is_the_column_fold(name, lanes):
+    """The scatter form of ``merge_parts`` gives the column fold's bits:
+    -0 over +0, -inf, and NaNs with distinct payloads (the last one in
+    column order wins)."""
+    view = VIEWS[name]
+    rng = np.random.default_rng(7 + lanes)
+    lead = (2, lanes)
+    parts = []
+    for s in view.slices:
+        if not s.rows.shape[0]:
+            continue
+        x = VALUES[rng.integers(0, VALUES.size, lead + (s.rows.shape[0],))]
+        x[rng.random(x.shape) < 0.05] = -INF
+        nan = rng.random(x.shape) < 0.1
+        x.view(np.int32)[nan] = 0x7FC00000 + rng.integers(1, 999, nan.sum())
+        parts.append(T(x))
+    assert_bits(column_fold(parts, view.merge_idx, lead),
+                ref.merge_parts(parts, view.merge_idx, lead))
+
+
 @pytest.mark.parametrize("name", sorted(VIEWS))
 def test_write_through_plan_shape(name):
     view = VIEWS[name]
