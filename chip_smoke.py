@@ -134,9 +134,41 @@ failure raises, exits non-zero and prints no ``ok`` line:
      ring; ``phase_telemetry`` decodes every lane, and the tracer's events
      pass ``validate_events``.
 
-Every path (phases 3, 8, 14, 18, 19, and the solves and serving of 20–22)
-runs with the launch counts set to 0 just before and read just after, and
-fails if one of its kernels never ran.
+ 23. the engine portfolio on both graphs: ``measure_portfolio`` over the
+     eight default candidates on G(10^6, 10^-4) (the five sliced ones and
+     the sliced default plan on ``kronecker(20)``, where no padded view
+     fits) into a fresh ``TuningLedger``, each candidate's qps, phases,
+     ms/phase, delta and attribution shares printed, its solves' launches
+     checked (#2 and its plan's kernels, no pull relax, none of the other
+     layout's kernels), its probe rows (telemetry on) bit-equal to its
+     timed solve's; the ledger saved and reloaded, a ``PortfolioBackend``
+     built from it with no launch and routed to the recorded qps argmax;
+     phase 18's 40 requests (8 on ``kronecker(20)``) served through it,
+     every row bit-equal to a B = 8 solve of the routed candidate, whose
+     first B = 8 solve equals its plain twins on every field, one row
+     within rtol 1e-5 of scipy's Dijkstra and, on G(10^6, 10^-4), every
+     row equal in value to phase 18's default-plan rows;
+     ``graph_family``'s host seconds; ``python -m repro_torch.obs
+     dashboard`` on the saved ledger;
+ 24. chaos and recovery on G(10^6, 10^-4), padded, default plan:
+     ``ResilientBatcher`` under a hand-written ``FaultPlan`` with one fault
+     of each of the six kinds (virtual clock, ``FaultyDistCache``,
+     observability on) serves phase 18's 40 requests all ``ok`` and equal
+     to phase 18's rows; the faults fired are the plan's, one quarantine a
+     row fault, one engine failure (an injected one), the poisoned cache
+     entry dropped, the trace valid (``validate_events`` and ``python -m
+     repro_torch.obs validate``); with no faults, verify on and off, the
+     completions, rows and steps of phase 18's batcher and their
+     queries/s; ``verify_row`` on the card (#5 over the resident padded
+     in-view; #9 over the sliced one on ``kronecker(20)``) timed a row
+     beside the solve's
+     time a row and a host numpy form of the same check; each single-entry
+     corruption (NaN, negative, raised, lowered, inf made finite) of a
+     real row rejected on the card with the host form's reason.
+
+Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, and
+of 23–24) runs with the launch counts set to 0 just before and read just
+after, and fails if one of its kernels never ran.
 
 The second line from the end is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -145,6 +177,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -474,13 +507,27 @@ def main() -> int:
         trace_phase_telemetry,
         validate_events,
     )
+    from repro_torch.kernels.config import TuningLedger
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.serving import (
+        DEFAULT_CANDIDATES,
         ContinuousBatcher,
         DistCache,
+        EngineCandidate,
+        Fault,
+        FaultPlan,
+        FaultyBackend,
+        FaultyDistCache,
+        PortfolioBackend,
+        ResilientBatcher,
         StaticBackend,
+        VirtualClock,
+        graph_family,
         graph_key,
+        measure_portfolio,
         run_point_to_point,
         transpose_memo,
+        verify_row,
     )
 
     counted = {f.__name__: (f, "launches") for f in (
@@ -545,6 +592,9 @@ def main() -> int:
         return rows, req_phases, counts, serve_s, steps, trips
 
     dev = torch.device("cuda", 0)
+    # the whole run's peak: a phase that resets the allocator's peak to read
+    # its own folds the peak so far in here first
+    run_peak = [0]
     torch.backends.cuda.matmul.allow_tf32 = False  # nothing here multiplies;
     torch.backends.cudnn.allow_tf32 = False  # set so no reader has to ask
 
@@ -2705,7 +2755,457 @@ def main() -> int:
         del st_t, res_t, records, obs22
     log(f"phase 22: {time.perf_counter() - t22:.1f} s")
 
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # ---- 23. the engine portfolio -------------------------------------------
+    t23 = time.perf_counter()
+    import repro_torch.serving.backends as backends_mod
+
+    def cand_kernels(spec, layout):
+        """(kernels a candidate's solves must launch, kernels they must
+        not): every candidate runs #2 and no pull relax (#1); a layout
+        runs none of the other layout's kernels."""
+        padded = layout == "padded"
+        must = {"delta": ("ell_key_min_batch",) if padded
+                else ("ell_sliced_gather_min_batch",),
+                "in|out": ("ell_relax_keys_batch", "ell_keys_dep_batch")
+                if padded else (PUSH_IN_SCAN, "ell_sliced_keys_dep_batch"),
+                }.get(spec, ("ell_push_relax_batch",) if padded
+                      else ("ell_sliced_push_relax_batch",))
+        # sliced: #10 runs only in its push form (#10b)
+        never = ("ell_relax_batch", "ell_sliced_relax_keys_batch") + (
+            ("ell_sliced_gather_min_batch", PUSH_IN_SCAN,
+             "ell_sliced_keys_dep_batch", "ell_sliced_push_relax_batch")
+            if padded else padded_gathers)
+        return ("frontier_crit_lanes_batch",) + must, never
+
+    def check_launches(counts, spec, layout, what):
+        must, never = cand_kernels(spec, layout)
+        must_run(counts, must, what)
+        if any(counts[name] for name in never):
+            raise SystemExit(f"{what} launched one of {never}: {counts}")
+
+    # every solve measure_portfolio makes, recorded: its launches (counts set
+    # to 0 just before each call and read just after) and its rows, the
+    # probe's (telemetry on) and the last timed one's (telemetry off)
+    probe_log = {}
+    real_batch_solve = backends_mod.run_phased_static_batch
+
+    def recording_solve(graph, srcs, **kw):
+        rec = probe_log.setdefault(
+            (id(graph), kw["criterion"], kw["layout"], kw.get("delta")),
+            {"counts": dict.fromkeys(counted, 0), "calls": 0})
+        zero_counts()
+        res = real_batch_solve(graph, srcs, **kw)
+        for name, c in read_counts().items():
+            rec["counts"][name] += c
+        rec["calls"] += 1
+        rec["probe" if kw.get("telemetry") else "timed"] = (
+            res.dist, res.status, res.phases)
+        return res
+
+    def probe_and_route(graph, cands, label, script, want_rows, scipy_row):
+        """measure_portfolio over ``cands`` into a fresh ledger, per-candidate
+        checks, save and reload, a PortfolioBackend built from the reloaded
+        ledger (no launch, the recorded argmax), then ``script`` served
+        through a ContinuousBatcher on it, every row against a B = 8 solve
+        of the routed candidate. That candidate's first B = 8 solve is held
+        against its plain twins on every field, the row of
+        ``scipy_row[0]`` against scipy's ``scipy_row[1]`` (rtol 1e-5), and
+        with ``want_rows`` every row against another plan's in value.
+        Returns (ledger path, serving seconds, the batcher's report, the
+        routed candidate's rows by source)."""
+        t0 = time.perf_counter()
+        fam = graph_family(graph)
+        fam_s = time.perf_counter() - t0
+        log(f"portfolio {label}: graph_family {fam!r} in {fam_s:.1f} s "
+            "(host f64 buckets and a host BFS over the CSR)")
+        ledger = TuningLedger()
+        reg23 = MetricsRegistry()
+        probe_log.clear()
+        backends_mod.run_phased_static_batch = recording_solve
+        torch.cuda.synchronize()
+        run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            entries = measure_portfolio(graph, lanes=LANES, candidates=cands,
+                                        ledger=ledger, registry=reg23)
+        finally:
+            backends_mod.run_phased_static_batch = real_batch_solve
+        probe_s = time.perf_counter() - t0
+        log(f"portfolio {label}: {len(cands)} candidates probed in "
+            f"{probe_s:.1f} s, peak device memory during the probe "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+        for cand in cands:
+            e = entries[(cand.ledger_policy, cand.layout)]
+            delta = cand.resolve_delta(graph)
+            rec = probe_log[(id(graph), cand.spec, cand.layout, delta)]
+            what = f"portfolio {label} {cand.ledger_policy}:{cand.layout}"
+            check_launches(rec["counts"], cand.spec, cand.layout, what)
+            by_path[f"portfolio[{label}:{cand.ledger_policy}:"
+                    f"{cand.layout}]"] = rec["counts"]
+            for a, b in zip(rec["probe"], rec["timed"]):
+                if not same_bits(a, b):
+                    raise SystemExit(f"{what}: the probe's rows (telemetry "
+                                     "on) differ from its timed solve's")
+            if reg23.snapshot()[f"portfolio.qps.{cand.ledger_policy}."
+                                f"{cand.layout}"]["value"] != e["qps"]:
+                raise SystemExit(f"{what}: the registry's qps gauge differs")
+            attr = e.get("settle_attribution", {})
+            tot = sum(attr.values()) or 1
+            log(f"  {cand.ledger_policy}:{cand.layout}: {e['qps']:.2f} "
+                f"queries/s, {e['phases']} phases ({e['wall_s']:.3f} s, "
+                f"{e['per_phase_s'] * 1e3:.3f} ms/phase), delta "
+                f"{e.get('delta')}, shares "
+                + " ".join(f"{t}={v / tot:.3f}" for t, v in attr.items())
+                + f"; {rec['calls']} solves, launches "
+                + str({k: v for k, v in rec["counts"].items() if v}))
+        path = ledger.save(str(Path(tmp23) / f"ledger_{label}.json"))
+        reloaded = TuningLedger(path)
+        if reloaded.entries != ledger.entries:
+            raise SystemExit(f"portfolio {label}: the reloaded ledger differs")
+        torch.cuda.synchronize()
+        zero_counts()
+        pb = PortfolioBackend(graph, lanes_hint=LANES, candidates=cands,
+                              ledger=reloaded)
+        built = read_counts()
+        if any(built.values()):
+            raise SystemExit(f"portfolio {label}: building the backend "
+                             f"launched kernels (a re-probe): {built}")
+        best = max(entries, key=lambda k: entries[k]["qps"])
+        if (pb.choice.ledger_policy, pb.choice.layout) != best:
+            raise SystemExit(f"portfolio {label}: routed to {pb.choice}, "
+                             f"not the recorded argmax {best}")
+        log(f"portfolio {label}: reloaded {len(reloaded.entries)} entries "
+            f"from {Path(path).name}; PortfolioBackend routed to "
+            f"{pb.choice.ledger_policy}:{pb.choice.layout} (criterion "
+            f"{pb.criterion!r}) with no launch")
+        srv23 = ContinuousBatcher(graph, lanes=LANES, phases_per_step=32,
+                                  backend=pb,
+                                  cache=DistCache(capacity=64))
+        done = []
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for burst in script:
+            for s in burst:
+                srv23.submit(int(s))
+            done += srv23.step()
+        done += srv23.drain()
+        torch.cuda.synchronize()
+        serve23_s = time.perf_counter() - t0
+        launches23 = read_counts()
+        by_path[f"portfolio[{label}] serving"] = launches23
+        check_launches(launches23, pb.choice.spec, pb.choice.layout,
+                       f"portfolio {label} serving")
+        n_req = sum(len(b) for b in script)
+        if len(done) != n_req or any(r.outcome != "ok" for r in done):
+            raise SystemExit(f"portfolio {label}: not every request ok")
+        distinct_src = sorted({int(s) for b in script for s in b})
+        routed = {}
+        kw = dict(criterion=pb.choice.spec, layout=pb.choice.layout,
+                  delta=pb.choice.resolve_delta(graph), device=dev)
+        for k in range(0, len(distinct_src), LANES):
+            chunk = distinct_src[k:k + LANES]
+            res = run_phased_static_batch(graph, chunk, **kw)
+            for i, s in enumerate(chunk):
+                routed[s] = res.dist[i].cpu().numpy()
+            if k == 0:  # the routed path's kernels against their twins
+                t0 = time.perf_counter()
+                field = result_diff(res, run_phased_static_batch(
+                    graph, chunk, use_kernels=False, **kw))
+                if field is not None:
+                    raise SystemExit(f"portfolio {label}: the routed "
+                                     f"candidate's kernel and plain solves "
+                                     f"differ in {field}")
+                log(f"portfolio {label}: the routed candidate's B={LANES} "
+                    f"kernel solve bit-equal to its plain twins on every "
+                    f"field ({time.perf_counter() - t0:.1f} s)")
+            del res
+        s_sp, want_sp = scipy_row
+        got, fin = routed[s_sp], np.isfinite(want_sp)
+        if not ((np.isfinite(got) == fin).all()
+                and np.allclose(got[fin], want_sp[fin], rtol=1e-5)):
+            raise SystemExit(f"portfolio {label}: the routed row of {s_sp} "
+                             "disagrees with scipy's Dijkstra")
+        for r in done:
+            if not np.array_equal(r.dist.view(np.int32),
+                                  routed[r.source].view(np.int32)):
+                raise SystemExit(f"portfolio {label}: the row of source "
+                                 f"{r.source} differs from a B={LANES} solve "
+                                 "of the routed candidate")
+        rep23 = srv23.metrics.report()
+        if want_rows is not None:  # another plan's rows, equal as values
+            differ = [r.source for r in done
+                      if not np.array_equal(r.dist, want_rows[r.source])]
+            if differ:
+                raise SystemExit(f"portfolio {label}: the rows of {differ} "
+                                 "differ in value from phase 18's "
+                                 "default-plan rows")
+        log(f"portfolio {label}: the row of {s_sp} within rtol 1e-5 of "
+            "scipy's Dijkstra" + ("" if want_rows is None else
+                                  f"; all {len(done)} rows equal in value "
+                                  "to phase 18's default-plan rows"))
+        return path, serve23_s, rep23, routed
+
+    import tempfile
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp23 = tmp_ctx.name
+    path_g, serve_g_s, rep_g, _ = probe_and_route(
+        g, DEFAULT_CANDIDATES, "gnp", bursts, full,
+        (int(distinct[0]), want18))
+    # the host-bound default plan read against phase 4's solve, now
+    walls_again = repeat_wall(solve_default, 0.0, runs=4)[1:]
+    log(f"portfolio gnp: phase 4's default solve again "
+        + ", ".join(f"{w:.3f}" for w in walls_again) + " s (phase 4: median "
+        f"{default_ms_phase * int(res_k.total_phases) / 1e3:.3f} s) [{smi}]")
+    log(f"portfolio gnp: phase 18's 40 requests through the routed backend "
+        f"in {serve_g_s:.3f} s, {rep_g['throughput_qps']:.2f} queries/s "
+        f"(report), {40 / serve_g_s:.2f} by the wall, {rep_g['steps']} steps; "
+        f"phase 18's default plan {rep['throughput_qps']:.2f} / "
+        f"{40 / batcher_s:.2f}; every row equal to a B={LANES} solve of the "
+        f"routed candidate [{smi}]")
+    sliced_cands = tuple(c for c in DEFAULT_CANDIDATES
+                         if c.layout == "sliced") + (
+        EngineCandidate("instatic|outstatic", "sliced"),)
+    path_k, serve_k_s, rep_k23, rows_k23 = probe_and_route(
+        gk, sliced_cands, "kronecker", [list(src8_k)], None,
+        (int(src8_k[0]), want_k))
+    log(f"portfolio kronecker: 8 requests through the routed backend in "
+        f"{serve_k_s:.3f} s ({8 / serve_k_s:.2f} queries/s), "
+        f"{rep_k23['steps']} steps; every row equal to a B={LANES} solve of "
+        f"the routed candidate [{smi}]")
+    merged = TuningLedger(path_g)
+    merged.load(path_k)
+    path_all = merged.save(str(Path(tmp23) / "ledger.json"))
+    dash = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "dashboard", path_all],
+        capture_output=True, text=True, timeout=120, check=False,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if dash.returncode != 0 or "== portfolio" not in dash.stdout:
+        raise SystemExit(f"python -m repro_torch.obs dashboard failed "
+                         f"({dash.returncode}): {dash.stderr[-2000:]}")
+    log("portfolio dashboard (python -m repro_torch.obs dashboard):")
+    for line in dash.stdout.rstrip().splitlines():
+        log(f"  | {line}")
+    log(f"phase 23: {time.perf_counter() - t23:.1f} s")
+
+    # ---- 24. chaos and recovery -----------------------------------------------
+    t24 = time.perf_counter()
+    from repro_torch.serving.resilience import _verify_edges
+    clock24 = VirtualClock()
+    plan24 = FaultPlan([
+        Fault("row_nan", at=2), Fault("step_error", at=4),
+        Fault("cache_poison", at=5), Fault("row_neg", at=6),
+        Fault("stall", at=8, magnitude=0.5),
+        Fault("row_perturb", at=10, magnitude=2.0)], seed=24)
+    be24 = FaultyBackend(StaticBackend(g, ell=(cols, ws), device=dev), plan24,
+                         clock=clock24)
+    cache24 = FaultyDistCache(DistCache(capacity=64), plan24)
+    obs24 = Observability.enabled(clock=clock24.now)
+    srv24 = ResilientBatcher(g, lanes=LANES, phases_per_step=32,
+                             backend=be24, cache=cache24, clock=clock24.now,
+                             obs=obs24)
+    served24 = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for burst in bursts:
+        for s in burst:
+            srv24.submit(s)
+        served24 += srv24.step()
+    served24 += srv24.drain()
+    torch.cuda.synchronize()
+    chaos_s = time.perf_counter() - t0
+    by_path["resilient (6 faults)"] = read_counts()
+    must_run(by_path["resilient (6 faults)"],
+             ("ell_push_relax_batch", "frontier_crit_lanes_batch"),
+             "the resilient batcher")
+    m24 = srv24.metrics
+    fired = sorted(f.kind for f in be24.fired)
+    want_fired = sorted(f.kind for f in plan24.faults
+                        if f.kind != "cache_poison")
+    row_faults = sum(f.kind.startswith("row_") for f in be24.fired)
+    if fired != want_fired or len(cache24.poisoned) != 1:
+        raise SystemExit(f"phase 24 fired {fired} and poisoned "
+                         f"{cache24.poisoned}, not the plan's faults")
+    if len(served24) != 40 or any(r.outcome != "ok" for r in served24):
+        raise SystemExit("the resilient batcher did not answer every request "
+                         f"ok: {[(r.source, r.outcome, r.fail_reason) for r in served24 if r.outcome != 'ok']}")
+    if (m24.quarantines, m24.engine_failures) != (row_faults, 1):
+        raise SystemExit(f"phase 24: {m24.quarantines} quarantines and "
+                         f"{m24.engine_failures} engine failures, not "
+                         f"{row_faults} and 1")
+    snap24 = obs24.registry.snapshot()
+    if (snap24["serving.quarantines"]["value"],
+            snap24["serving.engine_failures"]["value"]) != (row_faults, 1):
+        raise SystemExit("phase 24: the registry's counters disagree")
+    poisoned_src = cache24.poisoned[0][2]
+    late24 = srv24.submit(poisoned_src)
+    srv24.drain()
+    if cache24.corrupt_dropped != 1:
+        raise SystemExit("the poisoned cache entry was not dropped")
+    for r in served24 + [late24]:
+        if not np.array_equal(r.dist.view(np.int32),
+                              full[r.source].view(np.int32)):
+            raise SystemExit(f"resilient row of source {r.source} differs "
+                             "from phase 18's")
+    events24 = obs24.tracer.events()
+    failures = [e["name"] for e in events24
+                if e["name"].startswith("engine failure")]
+    if len(failures) != 1 or "injected engine failure" not in failures[0]:
+        raise SystemExit(f"phase 24 recovered from another failure: "
+                         f"{failures}")
+    problems = validate_events(events24)
+    trace24 = obs24.tracer.export(str(Path(tmp23) / "trace24.json"))
+    val = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "validate", trace24],
+        capture_output=True, text=True, timeout=120, check=False,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if problems or val.returncode != 0:
+        raise SystemExit(f"phase 24's trace fails validation: {problems[:3]} "
+                         f"{val.stdout[-500:]}")
+    log(f"chaos: 40 requests under one fault of each kind ({fired} on the "
+        f"backend, cache_poison at put {plan24.faults[2].at}) in "
+        f"{chaos_s:.3f} s: all ok and equal to phase 18's rows; "
+        f"{m24.quarantines} quarantines, {m24.retries} retries, "
+        f"{m24.engine_failures} engine failure, {m24.steps} steps, virtual "
+        f"clock {clock24.now()}; the poisoned entry (source {poisoned_src}) "
+        f"dropped on lookup and re-solved; {len(events24)} trace events "
+        f"valid ({val.stdout.strip()})")
+
+    # (2) no faults: verify on and off against the plain batcher of phase 18
+    def resilient_run(verify: bool):
+        plan0 = FaultPlan([])
+        s24 = ResilientBatcher(
+            g, lanes=LANES, phases_per_step=32, verify=verify,
+            backend=FaultyBackend(StaticBackend(g, ell=(cols, ws),
+                                                device=dev), plan0),
+            cache=FaultyDistCache(DistCache(capacity=64), plan0))
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for burst in bursts:
+            for s in burst:
+                s24.submit(s)
+            out += s24.step()
+        out += s24.drain()
+        torch.cuda.synchronize()
+        return s24, out, time.perf_counter() - t0
+
+    def completions(reqs):
+        return [(r.req_id, r.source, r.lane, r.phases, r.cache_hit,
+                 r.coalesced, r.outcome) for r in reqs]
+
+    qps24 = {True: [], False: []}
+    for verify in (True, False, False, True):  # in turns
+        s24, out24, s24_s = resilient_run(verify)
+        if completions(out24) != completions(served) or \
+                s24.metrics.steps != rep["steps"] or not all(
+                    np.array_equal(a.dist.view(np.int32),
+                                   b.dist.view(np.int32))
+                    for a, b in zip(out24, served)):
+            raise SystemExit(f"the resilient batcher (verify={verify}) with "
+                             "no faults differs from phase 18's batcher")
+        qps24[verify].append(40 / s24_s)
+    log(f"no faults: completions, rows and steps ({rep['steps']}) equal to "
+        f"phase 18's batcher; queries/s by the wall in turns (on, off, off, "
+        f"on): {qps24[True][0]:.2f}, {qps24[False][0]:.2f}, "
+        f"{qps24[False][1]:.2f}, {qps24[True][1]:.2f}: verify=True "
+        f"{np.mean(qps24[True]):.2f} against verify=False "
+        f"{np.mean(qps24[False]):.2f}; phase 18 {40 / batcher_s:.2f} [{smi}]")
+
+    # (3) verify_row on the card against a host numpy form of the same check
+    def host_verify(coo, n, d, source):
+        """The reference's check in host numpy (``np.minimum.at``)."""
+        h_src, h_dst, h_w = coo
+        if np.isnan(d).any():
+            return "NaN distance"
+        if (d < 0).any():
+            return "negative distance"
+        if d[source] != np.float32(0.0):
+            return f"dist[source] = {d[source]!r}, expected 0.0"
+        best = np.full(n, np.inf, np.float32)
+        np.minimum.at(best, h_dst, d[h_src] + h_w)
+        best[source] = np.float32(0.0)
+        bad = np.flatnonzero(d != best)
+        if bad.size:
+            v = int(bad[0])
+            return (f"fixed-point violation at vertex {v}: dist={d[v]!r} vs "
+                    f"min-in-edge {best[v]!r} ({bad.size} vertices total)")
+        return None
+
+    def host_coo(graph):
+        keep = torch.isfinite(graph.w) & (graph.src != graph.dst)
+        return (graph.src[keep].cpu().numpy(), graph.dst[keep].cpu().numpy(),
+                graph.w[keep].cpu().numpy())
+
+    s0 = int(distinct[0])
+    row0 = full[s0]
+    t0 = time.perf_counter()
+    if verify_row(g, row0, s0) is not None:
+        raise SystemExit("verify_row rejected an engine row")
+    first_ms = (time.perf_counter() - t0) * 1e3
+    walls24 = []
+    for s in distinct[:20]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdict = verify_row(g, full[int(s)], int(s))
+        walls24.append(time.perf_counter() - t0)
+        if verdict is not None:
+            raise SystemExit(f"verify_row rejected the row of {int(s)}")
+    verify_ms = float(np.median(walls24)) * 1e3
+    # the part of it that is the key-min sweep (#5 over the in-view)
+    gate0 = torch.from_numpy(row0).to(dev)[None]
+    sweep_ms = time_ms(
+        lambda: kops.key_min_batch_any(gate0, _verify_edges(g)), reps=20)
+    del gate0
+    t0 = time.perf_counter()
+    coo_g = host_coo(g)
+    coo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if host_verify(coo_g, g.n, row0, s0) is not None:
+        raise SystemExit("the host check rejected an engine row")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    row_solve_ms = default_ms_phase * int(res_k.total_phases) / LANES
+    log(f"verify_row on the card: {verify_ms:.3f} ms a row (median of 20 "
+        f"rows; the first call {first_ms:.1f} ms memoises its view), of "
+        f"which the one-lane #5 sweep {sweep_ms:.3f} ms by events; the "
+        f"B={LANES} default solve {row_solve_ms:.3f} ms a row (phase 4), the "
+        f"batcher {batcher_s / 40 * 1e3:.3f} ms a row (phase 18); the host "
+        f"numpy form {host_ms:.1f} ms a row (one row; its COO copied in "
+        f"{coo_s:.1f} s) [{smi}]")
+
+    # (4) each single-entry corruption, rejected alike on the card and host
+    s_k = int(src8_k[0])
+    row_k = rows_k23[s_k]
+    coo_k = host_coo(gk)
+    for graph, coo, row, s, label in ((g, coo_g, row0, s0, "gnp"),
+                                      (gk, coo_k, row_k, s_k, "kronecker")):
+        fin_v = np.flatnonzero(np.isfinite(row) & (np.arange(graph.n) != s))
+        v = int(fin_v[len(fin_v) // 3])
+        cases = [("NaN", v, np.nan), ("negative", v, -1.0),
+                 ("raised", v, row[v] + np.float32(0.5)),
+                 ("lowered", v, row[v] * np.float32(0.5))]
+        inf_v = np.flatnonzero(np.isinf(row))
+        if inf_v.size:
+            cases.append(("inf made finite", int(inf_v[0]), 7.0))
+        elif label == "kronecker":
+            raise SystemExit("the kronecker row has no unreachable vertex")
+        for what, u, val in cases:
+            bad = row.copy()
+            bad[u] = val
+            on_card = verify_row(graph, bad, s)
+            on_host = host_verify(coo, graph.n, bad, s)
+            if on_card is None or on_card != on_host:
+                raise SystemExit(f"{label} {what}: verify_row {on_card!r}, "
+                                 f"host {on_host!r}")
+            log(f"  {label} row of {s}, {what} at {u}: {on_card}")
+    del coo_g, coo_k
+    tmp_ctx.cleanup()
+    log(f"phase 24: {time.perf_counter() - t24:.1f} s")
+
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+    log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
     log(f"card: {smi}")
     sliced_kernels = {
         "ell_sliced_gather_min_batch": "src/repro/kernels/ell_relax_keys.py:311",

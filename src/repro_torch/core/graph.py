@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.config import resolve_device
+from repro_torch.kernels.config import resolve_device, resolve_slice_boundaries
 
 INF = float("inf")
 
@@ -417,6 +417,12 @@ def _build_ell_sliced(from_ids, to_ids, w, n, pad_multiple, boundaries,
 
 
 def _sliced_view(g: Graph, side: str, pad_multiple, boundaries, split):
+    """The memoised sliced view of one side. With no ``boundaries``, the
+    tuning ledger's for (side, n) on the graph's device come first; the
+    memo is keyed by the resolved boundaries, so a view built before a
+    tuning run is not returned after it."""
+    if boundaries is None:
+        boundaries = resolve_slice_boundaries(side, g.n, g.device)
     cache = g.__dict__.setdefault(f"_ell_{side}_sliced_cache", {})
     key = (pad_multiple,
            None if boundaries is None else tuple(int(b) for b in boundaries),
@@ -433,14 +439,15 @@ def to_ell_in_sliced(g: Graph, pad_multiple: int = 8, boundaries=None,
                      split: int | None = None) -> SlicedEll:
     """Degree-sliced ELL view of the *incoming* adjacency.
 
-    ``boundaries`` are bucket widths (rounded up to ``pad_multiple``). The
-    port has no tuning ledger yet, so when they are omitted the view uses
-    :func:`default_slice_boundaries` of the in-degree distribution (the
-    reference reads its ledger first, and falls back to the same default
-    when the ledger holds nothing). Rows with degree beyond ``split``
-    (default: the widest bucket) are split into width-``split`` chunks
-    merged by the consumer. Memoised per Graph instance keyed by the full
-    parameter tuple, like :func:`to_ell_in`.
+    ``boundaries`` are bucket widths (rounded up to ``pad_multiple``). When
+    they are omitted, a tuning-ledger entry for this (side, n) on the
+    graph's device (written by
+    ``repro_torch.kernels.config.autotune_slicing``) wins over the
+    :func:`default_slice_boundaries` of the in-degree distribution, as in
+    the reference. Rows with degree beyond ``split`` (default: the widest
+    bucket) are split into width-``split`` chunks merged by the consumer.
+    Memoised per Graph instance keyed by the full parameter tuple with the
+    boundaries resolved, like :func:`to_ell_in`.
     """
     return _sliced_view(g, "in", pad_multiple, boundaries, split)
 
@@ -448,7 +455,8 @@ def to_ell_in_sliced(g: Graph, pad_multiple: int = 8, boundaries=None,
 def to_ell_out_sliced(g: Graph, pad_multiple: int = 8, boundaries=None,
                       split: int | None = None) -> SlicedEll:
     """Degree-sliced ELL view of the *outgoing* adjacency (the transpose
-    twin of :func:`to_ell_in_sliced`), memoised per Graph instance."""
+    twin of :func:`to_ell_in_sliced`, the same ledger lookup for the
+    ``"out"`` side), memoised per Graph instance."""
     return _sliced_view(g, "out", pad_multiple, boundaries, split)
 
 
@@ -458,7 +466,10 @@ def transpose(g: Graph) -> Graph:
     Its ELL views are ``g``'s, swapped: the reverse graph's in-view is
     built from the same (from, to, w) arrays as ``g``'s out-view, and the
     other way round, on both layouts. So the two graphs share their view
-    memos (swapped), and a view built for either serves both.
+    memos (swapped), and a view built for either serves both. A sliced
+    memo is keyed by its resolved boundaries, so the reverse graph's
+    in-view still takes the ``"in"`` side's tuned boundaries, as the
+    reference's reverse graph (which shares no memo) does.
     """
     gt = Graph(
         n=g.n, m=g.m, src=g.dst, dst=g.src, w=g.w,

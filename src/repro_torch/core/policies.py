@@ -90,6 +90,11 @@ class PhasePolicy:
         """Names of the per-phase attribution slots, in recorded order."""
         raise NotImplementedError
 
+    def share_terms(self) -> tuple[str, ...]:
+        """The attribution slots that are counts (summable into shares):
+        what a portfolio record may aggregate. Defaults to all of them."""
+        return self.attribution_terms()
+
     def num_key_slots(self) -> int:
         """Depth K of the carried ``crit_keys`` stack (0 = no stack)."""
         raise NotImplementedError
@@ -405,6 +410,9 @@ class DeltaPolicy(PhasePolicy):
 
     def attribution_terms(self) -> tuple[str, ...]:
         return ("light", "heavy", "bucket")
+
+    def share_terms(self) -> tuple[str, ...]:
+        return ("light", "heavy")  # the bucket id is not a count
 
     def num_key_slots(self) -> int:
         return 2

@@ -1,13 +1,57 @@
-"""Device resolution and launch geometry for the CUDA kernel layer.
+"""Device resolution, launch geometry and the tuning ledger of the CUDA
+kernel layer (counterpart of ``repro.kernels.config``).
 
-The reference's execution config (interpret/compiled modes, VMEM budgets,
-tuning ledger, scan fusion) has no meaning on a Hopper card yet; this
-module keeps only what the port's kernels need: which device an entry
-point runs on, and the fixed launch shapes of the two kernels.
+  * **device** — :func:`resolve_device`: which device an entry point runs
+    on (``None`` is the CUDA card).
+  * **launch geometry** — the fixed launch shapes of the kernels, which
+    the CUDA sources mirror.
+  * **tuning ledger** — :class:`TuningLedger`, a persistable JSON map from
+    a key to a measured decision: the degree-sliced views' tuned bucket
+    boundaries (:func:`autotune_slicing`, read by
+    ``repro_torch.core.graph.to_ell_in_sliced`` / ``to_ell_out_sliced``
+    when built without boundaries) and the engine portfolio's measured
+    walls (:func:`record_portfolio`, read by
+    ``repro_torch.serving.backends.pick_engine``).
+  * **launch timing** — :func:`measure_launch`, the one timed-call
+    primitive: a ``torch.cuda.synchronize()`` closes each repetition on the
+    card, and every repetition lands in the default registry's
+    ``kernel.launch.<kind>`` histogram.
+
+Decisions of the port:
+
+  * Keys of kernel shapes (:func:`ledger_key`, :func:`slicing_ledger_key`)
+    carry the device, not a kernel mode: their first segment is ``cpu`` or
+    the card's ``sm_XY`` (``torch.cuda.get_device_capability``), so CPU and
+    H100 records never mix.
+  * Portfolio keys keep the reference's form,
+    ``portfolio:{family}:b{b}:{policy}:{layout}``: they record end-to-end
+    walls, and :func:`portfolio_entries`, ``family_fallbacks`` and the
+    dashboard parse either package's file.
+  * The process ledger (:func:`global_ledger`) auto-loads the file named
+    by ``REPRO_TORCH_TUNING_LEDGER``, never ``REPRO_TUNING_LEDGER``: a
+    ledger of CPU-interpret or TPU walls must not route the card's
+    traffic.
+  * The JSON layout is the reference's (``indent=1, sort_keys=True``), so
+    a file saved by one package loads in the other.
+
+The reference's kernel modes, scan fusion, VMEM budgets, block-rows
+resolution and autotuning and ``KernelExecConfig`` have no counterpart yet:
+their H100 meaning is the launch geometry (registers, shared memory), a
+design of its own (ROADMAP Queue 1 item 7). Tuning changes only how a view
+is laid out, never a value: f32 min-plus is exact in any order.
 """
 from __future__ import annotations
 
+import json
+import os
+from typing import Callable
+
 import torch
+
+from repro_torch.obs import timer as obs_timer
+from repro_torch.obs.registry import default_registry
+
+_LEDGER_ENV = "REPRO_TORCH_TUNING_LEDGER"
 
 # The gather kernels (csrc/ell_gather.cu): threads per block (a multiple of
 # 32).
@@ -80,3 +124,240 @@ def relax_threads_per_row(d_pad: int) -> int:
     while tpr < min(d_pad, 32):
         tpr *= 2
     return tpr
+
+
+def device_tag(device=None) -> str:
+    """The device segment of a kernel-shape ledger key: ``cpu``, or the
+    card's compute capability as ``sm_XY`` (``None`` = the CUDA card)."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    major, minor = torch.cuda.get_device_capability(dev)
+    return f"sm_{major}{minor}"
+
+
+# ---------------------------------------------------------------------------
+# Tuning ledger
+# ---------------------------------------------------------------------------
+
+
+def ledger_key(kind: str, n: int, d_pad: int, b: int, lanes: int = 1,
+               device=None) -> str:
+    """Canonical ledger key for a kernel-call shape on ``device``."""
+    return f"{device_tag(device)}:{kind}:n{n}:d{d_pad}:b{b}:l{lanes}"
+
+
+def slicing_ledger_key(side: str, n: int, device=None) -> str:
+    """Ledger key for a graph's tuned slice boundaries on ``device``, per
+    adjacency side and vertex count (the builders know no batch size)."""
+    return f"{device_tag(device)}:slicing:{side}:n{n}"
+
+
+def portfolio_ledger_key(family: str, b: int, policy: str, layout: str) -> str:
+    """Ledger key for one measured serving engine configuration: graph
+    family, lane count, policy spec and layout (the reference's form; no
+    device segment, these are end-to-end walls)."""
+    return f"portfolio:{family}:b{int(b)}:{policy}:{layout}"
+
+
+def record_portfolio(ledger: "TuningLedger", family: str, b: int, policy: str,
+                     layout: str, *, wall_s: float, phases: int, queries: int,
+                     delta: float | None = None,
+                     attribution: dict[str, int] | None = None) -> dict:
+    """Write one measured portfolio entry and return it: the raw
+    measurement (``wall_s`` for ``queries`` solves over ``phases`` phases),
+    the rates the router ranks by, the bucket width a Δ candidate ran with,
+    and the policy's ``settle_attribution`` totals when the probe ran with
+    telemetry (what the dashboard explains a win with)."""
+    entry: dict = {
+        "wall_s": float(wall_s),
+        "phases": int(phases),
+        "queries": int(queries),
+        "per_phase_s": float(wall_s) / max(int(phases), 1),
+        "qps": float(queries) / max(float(wall_s), 1e-12),
+    }
+    if delta is not None:
+        entry["delta"] = float(delta)
+    if attribution is not None:
+        entry["settle_attribution"] = {
+            str(k): int(v) for k, v in attribution.items()
+        }
+    ledger.put(portfolio_ledger_key(family, b, policy, layout), entry)
+    return entry
+
+
+def portfolio_entries(ledger: "TuningLedger", family: str,
+                      b: int) -> dict[tuple[str, str], dict]:
+    """All recorded engine configs for one (family, lanes): (policy, layout)
+    -> entry. Policy specs hold no ``:``, so the last ``:`` splits policy
+    from layout."""
+    prefix = f"portfolio:{family}:b{int(b)}:"
+    out: dict[tuple[str, str], dict] = {}
+    for key, entry in ledger.entries.items():
+        if key.startswith(prefix):
+            policy, layout = key[len(prefix):].rsplit(":", 1)
+            out[(policy, layout)] = entry
+    return out
+
+
+class TuningLedger:
+    """Persistable map from a ledger key to a measured decision. Entries
+    are plain dicts, so the JSON file is diffable and survives schema
+    growth."""
+
+    def __init__(self, path: str | None = None):
+        self.path = path
+        self.entries: dict[str, dict] = {}
+        if path and os.path.exists(path):
+            self.load(path)
+
+    def get(self, key: str) -> dict | None:
+        return self.entries.get(key)
+
+    def put(self, key: str, entry: dict) -> None:
+        self.entries[key] = dict(entry)
+
+    def load(self, path: str) -> int:
+        """Merge entries from ``path``; returns how many were accepted.
+
+        Tolerant of a torn or foreign file: unparseable JSON or a non-dict
+        top level loads nothing, values that are not dicts are skipped, and
+        the entries already in memory are never dropped. A tuning record is
+        a measurement memo: losing one re-measures, while failing an engine
+        build over it would stop serving.
+        """
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            return 0
+        if not isinstance(data, dict):
+            return 0
+        good = {k: v for k, v in data.items()
+                if isinstance(k, str) and isinstance(v, dict)}
+        self.entries.update(good)
+        self.path = path
+        return len(good)
+
+    def save(self, path: str | None = None) -> str:
+        """Persist atomically (temp file, ``fsync``, ``os.replace``): a
+        crash mid-save leaves the previous file whole, and a reader sees the
+        old ledger or the new one, never a truncated prefix."""
+        path = path or self.path
+        if path is None:
+            raise ValueError("no ledger path given and none remembered")
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(self.entries, f, indent=1, sort_keys=True)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        self.path = path
+        return path
+
+
+_GLOBAL_LEDGER: TuningLedger | None = None
+
+
+def global_ledger() -> TuningLedger:
+    """The process-wide ledger (auto-loads ``REPRO_TORCH_TUNING_LEDGER``
+    if set)."""
+    global _GLOBAL_LEDGER
+    if _GLOBAL_LEDGER is None:
+        path = os.environ.get(_LEDGER_ENV)
+        _GLOBAL_LEDGER = TuningLedger(path if path else None)
+    return _GLOBAL_LEDGER
+
+
+def reset_global_ledger() -> None:
+    """Drop the cached process ledger (tests, environment changes)."""
+    global _GLOBAL_LEDGER
+    _GLOBAL_LEDGER = None
+
+
+# ---------------------------------------------------------------------------
+# Measured tuning
+# ---------------------------------------------------------------------------
+
+
+def _sync(out) -> None:
+    """Wait for the card when ``out`` (a tensor, or a tuple or list of
+    them) lives on one: a host clock measures device work only then."""
+    if isinstance(out, (tuple, list)):
+        for x in out:
+            _sync(x)
+    elif torch.is_tensor(out) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+
+
+def measure_launch(kind: str, fn: Callable[[], object],
+                   reps: int = 3) -> float:
+    """Median wall seconds of ``reps`` calls of ``fn`` after one untimed
+    warm-up call (the first call on the card builds the kernels). Each
+    repetition ends in a ``torch.cuda.synchronize()`` when ``fn`` returns
+    tensors on the card, and is observed into the default registry's
+    ``kernel.launch.<kind>`` histogram."""
+    _sync(fn())
+    hist = default_registry().histogram(
+        f"kernel.launch.{kind}", f"wall seconds per {kind!r} kernel launch"
+    )
+    walls = []
+    for _ in range(reps):
+        t0 = obs_timer.now()
+        _sync(fn())
+        wall = obs_timer.now() - t0
+        walls.append(wall)
+        hist.observe(wall)
+    walls.sort()
+    return walls[len(walls) // 2]
+
+
+def autotune_slicing(
+    make_call: Callable[[tuple[int, ...] | None], Callable[[], object]],
+    n: int,
+    *,
+    side: str = "in",
+    boundary_sets: tuple[tuple[int, ...] | None, ...] = (None,),
+    reps: int = 3,
+    ledger: TuningLedger | None = None,
+    device=None,
+) -> tuple[int, ...] | None:
+    """Time a call per candidate bucket-boundary set (``None`` = the padded
+    layout) and ledger the winner under :func:`slicing_ledger_key`, which
+    the sliced builders read when given no boundaries. Returns the winning
+    boundary tuple (None for padded)."""
+    ledger = global_ledger() if ledger is None else ledger
+    best: tuple[float, tuple[int, ...] | None] | None = None
+    measured = {}
+    for bset in boundary_sets:
+        wall = measure_launch(f"slicing.{side}", make_call(bset), reps)
+        measured["padded" if bset is None else str(list(bset))] = wall
+        if best is None or wall < best[0]:
+            best = (wall, bset)
+    if best is None:
+        raise ValueError("boundary_sets must be non-empty")
+    ledger.put(
+        slicing_ledger_key(side, n, device),
+        {
+            "boundaries": None if best[1] is None else list(best[1]),
+            "wall_s": best[0],
+            "measured": measured,
+        },
+    )
+    return best[1]
+
+
+def resolve_slice_boundaries(side: str, n: int,
+                             device=None) -> tuple[int, ...] | None:
+    """The tuned bucket boundaries of a sliced view on ``device``, or None
+    when nothing was tuned or the padded layout won (the builder then uses
+    its degree-distribution default: a caller asking for a sliced view gets
+    one)."""
+    hit = global_ledger().get(slicing_ledger_key(side, n, device))
+    if hit and hit.get("boundaries"):
+        return tuple(int(x) for x in hit["boundaries"])
+    return None

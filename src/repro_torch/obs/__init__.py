@@ -6,15 +6,23 @@ trace, metrics and telemetry formats are the reference's).
 tracer pair. ``Observability.disabled()`` is safe to plumb through hot
 loops: every recording call returns on one attribute check.
 :mod:`~repro_torch.obs.telemetry` turns a ``telemetry=True`` state into
-per-phase records and publishes them. The command line waits for ROADMAP
-Queue 1 item 9.
+per-phase records and publishes them. ``python -m repro_torch.obs``
+validates and normalises trace files and renders a text dashboard from a
+registry snapshot or a saved tuning ledger (the portfolio view).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.obs import timer
-from repro_torch.obs.registry import Counter, Gauge, Histogram, MetricsRegistry
+from repro_torch.obs.registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    default_registry,
+    set_default_registry,
+)
 from repro_torch.obs.telemetry import (
     PhaseTelemetry,
     attribution_terms,
@@ -22,7 +30,13 @@ from repro_torch.obs.telemetry import (
     publish_phase_telemetry,
     trace_phase_telemetry,
 )
-from repro_torch.obs.tracer import NULL_TRACER, Tracer, validate_events
+from repro_torch.obs.tracer import (
+    NULL_TRACER,
+    Tracer,
+    load_trace,
+    validate_events,
+    validate_trace_file,
+)
 
 
 @dataclasses.dataclass
@@ -57,9 +71,13 @@ __all__ = [
     "PhaseTelemetry",
     "Tracer",
     "attribution_terms",
+    "default_registry",
+    "load_trace",
     "phase_telemetry",
     "publish_phase_telemetry",
-    "trace_phase_telemetry",
+    "set_default_registry",
     "timer",
+    "trace_phase_telemetry",
     "validate_events",
+    "validate_trace_file",
 ]

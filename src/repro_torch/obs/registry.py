@@ -225,3 +225,33 @@ def _prom_num(v) -> str:
     if isinstance(v, int):
         return str(v)
     return repr(float(v))
+
+
+# ---------------------------------------------------------------------------
+# Process default registry
+# ---------------------------------------------------------------------------
+#
+# Publishers with no natural injection point (the launch timer of
+# ``repro_torch.kernels.config``, called from deep inside tuning runs)
+# publish here. Code with a real seam (ContinuousBatcher, ServingMetrics)
+# takes an explicit registry instead; tests swap the default with
+# set_default_registry.
+
+_DEFAULT: MetricsRegistry | None = None
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry (created lazily on first use)."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = MetricsRegistry()
+    return _DEFAULT
+
+
+def set_default_registry(reg: MetricsRegistry | None) -> MetricsRegistry | None:
+    """Swap the process default (None resets to a fresh lazy one); returns
+    the previous registry so tests can restore it."""
+    global _DEFAULT
+    prev = _DEFAULT
+    _DEFAULT = reg
+    return prev

@@ -196,6 +196,23 @@ NULL_TRACER = Tracer(enabled=False)
 # ---------------------------------------------------------------------------
 
 
+def load_trace(path: str) -> list[dict]:
+    """Load a trace file, accepting both the object form
+    (``{"traceEvents": [...]}``) and the bare JSON-array form."""
+    with open(path) as f:
+        data = json.load(f)
+    if isinstance(data, dict):
+        events = data.get("traceEvents")
+        if not isinstance(events, list):
+            raise ValueError(
+                f"{path}: object form must carry a 'traceEvents' list"
+            )
+        return events
+    if isinstance(data, list):
+        return data
+    raise ValueError(f"{path}: neither object nor array trace form")
+
+
 def validate_events(events) -> list[str]:
     """Chrome trace-event structural validation; returns error strings.
 
@@ -270,3 +287,12 @@ def validate_events(events) -> list[str]:
                 f"event[{j}]: 'B' {name!r} on ({pid}, {tid}) never closed"
             )
     return errors
+
+
+def validate_trace_file(path: str) -> list[str]:
+    """Load + validate; file-level problems come back as errors too."""
+    try:
+        events = load_trace(path)
+    except (OSError, ValueError) as e:
+        return [str(e)]
+    return validate_events(events)

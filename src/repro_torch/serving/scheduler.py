@@ -60,7 +60,7 @@ Every completion and failure flows through :meth:`_finish` / :meth:`_fail`;
 the engine advance and the harvest acceptance are the two protected hooks
 (:meth:`_advance_and_peek`, :meth:`_accept_row`) a fault-tolerant subclass
 overrides to add verified recovery without duplicating the scheduling loop
-(the reference's ``ResilientBatcher``, ROADMAP Queue 1 item 8, part 2).
+(:class:`~repro_torch.serving.resilience.ResilientBatcher`).
 """
 from __future__ import annotations
 

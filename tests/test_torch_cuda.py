@@ -1299,3 +1299,85 @@ def test_segment_min_and_oracle_tolerance_match_the_host(cuda):
     g_cpu = uniform_gnp(2000, 4e-3, seed=13, device="cpu")
     assert _same_bits(bellman_ford(g, 3).cpu(),
                       bellman_ford(g_cpu, 3, device="cpu"))
+
+
+def _probed(entries):
+    return {k: {f: e.get(f) for f in ("phases", "queries", "delta",
+                                      "settle_attribution")}
+            for k, e in entries.items()}
+
+
+def test_portfolio_probe_on_the_kernels_matches_twins_and_host(cuda):
+    """Every default candidate probed on the card with the kernels, with
+    the twins and on the host: the same phases and attributions; the
+    routed backend serves the host's rows."""
+    from repro_torch.kernels.config import TuningLedger
+    from repro_torch.serving import (
+        DEFAULT_CANDIDATES,
+        ContinuousBatcher,
+        PortfolioBackend,
+        graph_family,
+        measure_portfolio,
+    )
+
+    g = kronecker(10, seed=3, device=cuda)
+    g_cpu = kronecker(10, seed=3, device="cpu")
+    assert graph_family(g) == graph_family(g_cpu)
+    led = TuningLedger()
+    on = measure_portfolio(g, lanes=4, ledger=led, repeats=1)
+    plain = measure_portfolio(g, lanes=4, ledger=TuningLedger(), repeats=1,
+                              use_kernels=False)
+    host = measure_portfolio(g_cpu, lanes=4, ledger=TuningLedger(),
+                             repeats=1)
+    assert _probed(on) == _probed(plain) == _probed(host)
+    assert len(on) == len(DEFAULT_CANDIDATES)
+    pb = PortfolioBackend(g, lanes_hint=4, ledger=led)
+    server = ContinuousBatcher(g, lanes=4, backend=pb)
+    for s in (0, 17, 300, 1023, 17):
+        server.submit(s)
+    for r in server.drain(max_steps=100_000):
+        want = run_phased_static_batch(
+            g_cpu, [r.source], criterion=pb.criterion,
+            layout=pb.choice.layout, delta=pb.choice.resolve_delta(g_cpu),
+            device="cpu").dist[0]
+        assert _same_bits(torch.from_numpy(r.dist.copy()), want)
+
+
+def test_verify_row_on_the_card_matches_the_host(cuda):
+    from repro_torch.serving import verify_row
+
+    rng = np.random.default_rng(5)
+    n, m = 4000, 40000
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    w = rng.choice(np.array([0.0, -0.0, 0.5, 1.0, 0.25], np.float32), m)
+    g = from_coo(src, dst, w, n, device=cuda)
+    g_cpu = from_coo(src, dst, w, n, device="cpu")
+    for s in (0, 9, 3999):
+        clean = run_phased_static_batch(g, [s]).dist[0].cpu().numpy()
+        assert verify_row(g, clean, s) is None
+        neg0 = clean.copy()
+        neg0[(clean == 0) & (np.arange(n) != s)] = -0.0  # ties of ±0
+        rows = [neg0]
+        for v in rng.integers(0, n, 40):
+            for val in (np.nan, -1.0, 1.0, 0.0, clean[v] + 0.5, 7.0):
+                bad = neg0.copy()
+                bad[v] = val
+                rows.append(bad)
+        for row in rows:
+            assert verify_row(g, row, s) == verify_row(g_cpu, row, s)
+            assert verify_row(g, row, s, target=1) == \
+                verify_row(g_cpu, row, s, target=1)
+    cols_d, ws_d = g.__dict__["_verify_edges"]
+    assert cols_d.is_cuda and ws_d.is_cuda
+    before = ell_key_min_batch.launches
+    assert verify_row(g, clean, s) is None
+    assert ell_key_min_batch.launches == before + 1  # best through #5
+    # a graph served on the sliced layout: #9 over its sliced in-view
+    g_s = from_coo(src, dst, w, n, device=cuda)
+    to_ell_out_sliced(g_s)
+    before = ell_sliced_gather_min_batch.launches
+    for row in rows:
+        assert verify_row(g_s, row, s) == verify_row(g_cpu, row, s)
+    assert ell_sliced_gather_min_batch.launches > before
+    assert hasattr(g_s.__dict__["_verify_edges"], "slices")
+    assert not g_s.__dict__.get("_ell_in_cache")

@@ -2,6 +2,9 @@
 nor ``chip_smoke.py`` or the port's ``tools/``, imports ``jax`` or the
 reference package ``repro`` (``repro_torch`` itself is allowed)."""
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -35,10 +38,33 @@ def test_port_files_exist():
             "backends.py", "interop.py", "scheduler.py", "queue.py",
             "metrics.py", "cache.py", "point.py", "timer.py", "registry.py",
             "tracer.py", "delta_stepping.py", "phased.py", "oracle.py",
-            "telemetry.py"} <= names
+            "telemetry.py", "faults.py", "resilience.py", "config.py",
+            "__main__.py"} <= names
     obs = ROOT / "src" / "repro_torch" / "obs"
-    assert {obs / f for f in ("__init__.py", "timer.py", "registry.py",
-                              "tracer.py", "telemetry.py")} <= set(FILES)
+    assert {obs / f for f in ("__init__.py", "__main__.py", "timer.py",
+                              "registry.py", "tracer.py",
+                              "telemetry.py")} <= set(FILES)
+    serving = ROOT / "src" / "repro_torch" / "serving"
+    assert {serving / f for f in ("faults.py", "resilience.py",
+                                  "backends.py")} <= set(FILES)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.serving.faults", "repro_torch.serving.resilience",
+    "repro_torch.serving.backends", "repro_torch.kernels.config",
+    "repro_torch.obs.__main__"])
+def test_new_modules_import_without_jax(module):
+    """Each module of the portfolio, fault and resilience tiers and the CLI
+    imports in a fresh interpreter that has no ``jax`` or ``repro`` module
+    loaded afterwards."""
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=False)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
