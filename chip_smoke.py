@@ -165,16 +165,32 @@ failure raises, exits non-zero and prints no ``ok`` line:
      time a row and a host numpy form of the same check; each single-entry
      corruption (NaN, negative, raised, lowered, inf made finite) of a
      real row rejected on the card with the host form's reason.
+ 25. the execution config and the analysis gate: ``python -m
+     repro_torch.analysis --require-card`` in a subprocess (lint, the CPU
+     audit, each kernel's ptxas registers, shared memory and spills against
+     the card's limits, every contract case three times on a poisoned
+     caching allocator: 0 poisoned cells); ``in|out`` at B = 8 on padded
+     G(10^6, 10^-4) and sliced ``kronecker(20)`` with the scans in the
+     reference's split form (``tools/scan_variants.py``: #1 / #6 or #9 and
+     a torch gate, no fused scan launched) and fused, in turns, bit-equal
+     on every ``BatchedResult`` field, ms/phase of each; ``measure_launch``
+     on #2 and #1b at phase 6's inputs, CUDA events beside the host clock;
+     a ledger tagged ``cpu`` routes the card to the first candidate;
+     ``TraceGuard`` counts 0 compiles over 16 warmed ``StaticBackend``
+     requests. The script stops at its start unless
+     ``REPRO_TORCH_KERNEL_MODE`` resolves to ``auto``.
 
-Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, and
-of 23–24) runs with the launch counts set to 0 just before and read just
-after, and fails if one of its kernels never ran.
+Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
+23–24 and of 25) runs with the launch counts set to 0 just before and read
+just after, and fails if one of its kernels never ran.
 
-The second line from the end is the ``kernels`` JSON line; the last line is
-``{"ok": true, "device": {...}}``.
+The second line from the end is the ``kernels`` JSON line (each row with
+its ``__global__`` kernels' ptxas ``registers``, ``smem_bytes`` and
+``spills``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -507,7 +523,10 @@ def main() -> int:
         trace_phase_telemetry,
         validate_events,
     )
+    from repro_torch.analysis import TraceGuard, compile_count
+    from repro_torch.kernels import config as kcfg
     from repro_torch.kernels.config import TuningLedger
+    from repro_torch.kernels.registry import collect as collect_contracts
     from repro_torch.obs import MetricsRegistry
     from repro_torch.serving import (
         DEFAULT_CANDIDATES,
@@ -525,6 +544,7 @@ def main() -> int:
         graph_family,
         graph_key,
         measure_portfolio,
+        pick_engine,
         run_point_to_point,
         transpose_memo,
         verify_row,
@@ -591,6 +611,10 @@ def main() -> int:
                              "every request")
         return rows, req_phases, counts, serve_s, steps, trips
 
+    if kcfg.kernel_mode() != "auto":
+        raise SystemExit(
+            f"chip_smoke runs the kernels as shipped: REPRO_TORCH_KERNEL_MODE "
+            f"resolves to {kcfg.kernel_mode()!r}; unset it")
     dev = torch.device("cuda", 0)
     # the whole run's peak: a phase that resets the allocator's peak to read
     # its own folds the peak so far in here first
@@ -616,13 +640,16 @@ def main() -> int:
     with ThreadPoolExecutor(1) as pool:
         two_pass = pool.submit(crit_tool.build, [crit_tool.TWO_PASS],
                                ROOT / "build" / "variants")
-        outputs = _build.build(ptxas_info=True)
+        _build.build()
         two_pass_lib = two_pass.result()[crit_tool.TWO_PASS]
     log(f"build: {sorted(_build.SOURCES)} and #2's two-pass body in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)")
-    for name, out in sorted(outputs.items()):
-        for fn, info in ptxas_summary(out):
-            log(f"  ptxas {name}: {fn}: {info}")
+    resources = {nm: _build.kernel_resources(nm) for nm in _build.SOURCES}
+    for name, kernels_of in sorted(resources.items()):
+        for fn, r in sorted(kernels_of.items()):
+            log(f"  ptxas {name}.cu {fn}: {r['registers']} registers, "
+                f"{r['smem_bytes']} bytes smem, spills {r['spill_stores']} / "
+                f"{r['spill_loads']} bytes ({len(r['instances'])} instances)")
 
     def crit_turns(d, st, keys, reps=50):
         """#2 in turns with its two-pass body (old, new, new, old) on one
@@ -3204,6 +3231,134 @@ def main() -> int:
     tmp_ctx.cleanup()
     log(f"phase 24: {time.perf_counter() - t24:.1f} s")
 
+    # ---- 25. the execution config and the analysis gate ---------------------
+    t25 = time.perf_counter()
+    # (a) the gate in a subprocess: lint, the CPU audit, and the card checks
+    # (each kernel's ptxas resources, every contract case on a poisoned
+    # allocator, 3 runs)
+    t0 = time.perf_counter()
+    gate = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--require-card"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    for line in gate.stdout.splitlines():
+        if line.startswith(("resources:", "audit", "lint")):
+            log(f"gate: {line}")
+    if gate.returncode != 0:
+        raise SystemExit(f"python -m repro_torch.analysis --require-card "
+                         f"exited {gate.returncode}:\n{gate.stdout[-4000:]}\n"
+                         f"{gate.stderr[-4000:]}")
+    log(f"gate: exit 0 in {time.perf_counter() - t0:.1f} s")
+
+    # (b) the scans' split form (tools/scan_variants.py) against the fused
+    # scans: in|out, B = 8, on padded G(10^6, 10^-4) and sliced
+    # kronecker(20), in turns (fused, split, split, fused); every
+    # BatchedResult field bit-equal, the split runs launch #1 / #6 or #9 and
+    # none of the fused scans
+    split_tool = load_tool("scan_variants")
+    fusion = {}
+    io_views = {"padded": (g, src8, dict(ell=(cols, ws),
+                                         ell_out=(cols_o, ws_o))),
+                "sliced": (gk, src8_k, dict(layout="sliced"))}
+    split_runs = {"padded": ("ell_relax_batch", "ell_gather_min_batch"),
+                  "sliced": ("ell_sliced_gather_min_batch",)}
+    fused_kernels = ("ell_relax_keys_batch", "ell_keys_dep_batch",
+                     "ell_sliced_relax_keys_batch", PUSH_IN_SCAN,
+                     "ell_sliced_keys_dep_batch")
+    for layout, (graph, srcs, kw) in io_views.items():
+        runs = []
+        for mode in ("fused", "split", "split", "fused"):
+            with (split_tool.split_scans() if mode == "split"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                res = run_phased_static_batch(graph, srcs, criterion="in|out",
+                                              device=dev, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+            if mode == "split":
+                must_run(counts, split_runs[layout], f"split in|out {layout}")
+                if any(counts[nm] for nm in fused_kernels):
+                    raise SystemExit(f"split in|out {layout} launched a fused"
+                                     f" scan: {counts}")
+                by_path[f"split in|out {layout}"] = counts
+            runs.append((mode, res, wall))
+        for mode, res, _ in runs[1:]:
+            bad = result_diff(runs[0][1], res)
+            if bad is not None:
+                raise SystemExit(f"in|out {layout}: {mode} differs from fused "
+                                 f"in {bad}")
+        total = int(runs[0][1].total_phases)
+        ms = {m: [w / total * 1e3 for mm, _, w in runs if mm == m]
+              for m in ("fused", "split")}
+        fusion[layout] = (ms, total)
+        log(f"scan fusion, in|out {layout} B={LANES} ({total} phases), in "
+            f"turns (fused, split, split, fused): "
+            + ", ".join(f"{w / total * 1e3:.3f}" for _, _, w in runs)
+            + " ms/phase; split / fused "
+            f"{np.mean(ms['split']) / np.mean(ms['fused']):.3f}; every "
+            "BatchedResult field bit-equal")
+        del runs
+
+    # (c) the timer: #2 and #1b on phase 6's inputs (phase MID_PHASE of the
+    # default B = 8 solve), CUDA events beside the host clock
+    st25 = step_batch(g, init_batch_state(g, src8, device=dev), MID_PHASE,
+                      ell=(cols, ws))
+    d25, s25 = st25.dist, st25.status
+    mins25, _ = kops.crit_thresholds_batch(d25, s25, keys_shared)
+    settle25 = C.plan_union_mask(st25.plan, d25, s25 == 1, mins25, {},
+                                 g.in_min_static, None)
+    dm25 = torch.where(settle25, d25, INF)
+    timer_rows = {}
+    for name, fn in (
+            ("frontier_crit_lanes_batch",
+             lambda: frontier_crit_lanes_batch(d25, s25, keys_shared)),
+            ("ell_push_relax_batch",
+             lambda: ell_push_relax_batch(dm25, cols_o, ws_o))):
+        ev = kcfg.measure_launch(f"smoke.{name}", fn, reps=50) * 1e3
+        host = kcfg.measure_launch(f"smoke.{name}.host", fn, reps=50,
+                                   clock="host") * 1e3
+        timer_rows[name] = (ev, host)
+        log(f"measure_launch {name} at phase {MID_PHASE}: CUDA events "
+            f"{ev:.4f} ms, host clock {host:.4f} ms (median of 50; host / "
+            f"events {host / ev:.2f})")
+    del st25, d25, s25, mins25, settle25, dm25
+
+    # (d) a ledger probed on the CPU twins never routes the card
+    fam = graph_family(g)
+    led_cpu = TuningLedger()
+    for i, cand in enumerate(DEFAULT_CANDIDATES):
+        kcfg.record_portfolio(led_cpu, fam, LANES, cand.ledger_policy,
+                              cand.layout, wall_s=1.0, phases=100,
+                              queries=LANES * (1 + i), device="cpu")
+    on_card = pick_engine(fam, LANES, DEFAULT_CANDIDATES, led_cpu, device=dev)
+    on_cpu = pick_engine(fam, LANES, DEFAULT_CANDIDATES, led_cpu,
+                         device="cpu")
+    if on_card != DEFAULT_CANDIDATES[0] or on_cpu != DEFAULT_CANDIDATES[-1]:
+        raise SystemExit(f"a cpu-tagged ledger routed the card to {on_card} "
+                         f"(the cpu to {on_cpu})")
+    log(f"routing: a ledger tagged cpu routes the card to the first "
+        f"candidate ({on_card.ledger_policy}:{on_card.layout}), the cpu to "
+        f"its argmax ({on_cpu.ledger_policy}:{on_cpu.layout})")
+
+    # (e) the build sentinel over 16 warmed StaticBackend requests
+    with TraceGuard(label="warmed StaticBackend") as guard:
+        rows25, _, launches25, serve25, _, _ = serve(
+            StaticBackend(g, device=dev), sources)
+    must_run(launches25, ("ell_push_relax_batch",
+                          "frontier_crit_lanes_batch"), "guarded serving")
+    by_path["guarded serving"] = launches25
+    for r in range(REQUESTS):
+        if not np.array_equal(rows25[r].view(np.int32),
+                              rows[r].view(np.int32)):
+            raise SystemExit(f"guarded serving row {r} differs from phase 3")
+    log(f"TraceGuard: {guard.compiles} compiles over 16 warmed StaticBackend "
+        f"requests ({serve25:.3f} s; rows equal to phase 3's); "
+        f"compile_count {compile_count()} in the run")
+    log(f"phase 25: {time.perf_counter() - t25:.1f} s")
+
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
     log(f"card: {smi}")
@@ -3332,6 +3487,28 @@ def main() -> int:
     for row in kernels:  # each kernel's launches on this slice's paths
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
+    # each row's __global__ kernels (its contract's) with their ptxas
+    # resources: the most registers and static shared bytes among them and
+    # their spilled bytes (stores + loads)
+    contracts = collect_contracts()
+    for row in kernels:
+        name = row["name"].replace("[out_view]", "_push")
+        used = {f"{src}.cu:{k}": resources[src][k]
+                for src, k in contracts.get(name).kernels}
+        row["registers"] = max(r["registers"] for r in used.values())
+        row["smem_bytes"] = max(r["smem_bytes"] for r in used.values())
+        row["spills"] = sum(r["spill_stores"] + r["spill_loads"]
+                            for r in used.values())
+        row["global_kernels"] = sorted(used)
+    # phase 25: the split / fused ms a phase, events beside the host clock
+    for row in kernels:
+        if row["name"] in timer_rows:
+            row["measure_launch_ms"] = dict(zip(("events", "host"),
+                                                timer_rows[row["name"]]))
+        fused_of = {"ell_relax_keys_batch": "padded",
+                    PUSH_IN_SCAN: "sliced"}.get(row["name"])
+        if fused_of is not None:  # in|out ms/phase, split against fused
+            row["in_out_ms_phase"] = fusion[fused_of][0]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

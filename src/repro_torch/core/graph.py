@@ -61,8 +61,8 @@ def graph_device(g: Graph, device) -> torch.device:
 
 def f32_rows(x, dev) -> torch.Tensor:
     """Rows given as a tensor or anything numpy reads, as f32 on ``dev``."""
-    if not torch.is_tensor(x):
-        x = torch.from_numpy(np.asarray(x, dtype=np.float32))
+    if not torch.is_tensor(x):  # any strides and byte order numpy reads
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
     return x.to(device=dev, dtype=torch.float32)
 
 
@@ -92,9 +92,11 @@ def from_coo(src, dst, w, n: int, pad_to: int | None = None,
     reads), with the reference's input checks, on ``device`` (None = the
     CUDA card)."""
     dev = resolve_device(device)
-    src = np.asarray(src, dtype=np.int32)
-    dst = np.asarray(dst, dtype=np.int32)
-    w = np.asarray(w, dtype=np.float32)
+    # contiguous and native: torch.from_numpy takes no negative stride and
+    # no foreign byte order
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    w = np.ascontiguousarray(w, dtype=np.float32)
     if not src.shape == dst.shape == w.shape:
         raise ValueError(
             f"src, dst and w must have one shape; got {src.shape}, "

@@ -1,10 +1,18 @@
-"""Device resolution, launch geometry and the tuning ledger of the CUDA
-kernel layer (counterpart of ``repro.kernels.config``).
+"""The execution config of the CUDA kernel layer (counterpart of
+``repro.kernels.config``): the one module that reads ``REPRO_TORCH_*``.
 
   * **device** — :func:`resolve_device`: which device an entry point runs
     on (``None`` is the CUDA card).
-  * **launch geometry** — the fixed launch shapes of the kernels, which
-    the CUDA sources mirror.
+  * **kernel mode** — :func:`kernel_mode` (``REPRO_TORCH_KERNEL_MODE``:
+    ``auto`` or ``kernels``). ``auto`` launches the kernels on CUDA tensors
+    and runs the plain twins on CPU tensors; ``kernels`` raises where a
+    wrapper is handed a CPU tensor (:func:`runs_twin`). No mode runs a twin
+    on CUDA tensors: a differential run passes ``use_kernels=False``.
+  * **launch geometry** — the compile-time launch shapes the CUDA sources
+    fix in ``#define`` s, mirrored here (:data:`GEOMETRY_MIRRORS`, which the
+    audit holds against the sources), and the card's limits the audit holds
+    each kernel's ``ptxas`` record to. Variants of a shape or a launch are
+    the job of ``tools/*_variants.py``.
   * **tuning ledger** — :class:`TuningLedger`, a persistable JSON map from
     a key to a measured decision: the degree-sliced views' tuned bucket
     boundaries (:func:`autotune_slicing`, read by
@@ -13,9 +21,9 @@ kernel layer (counterpart of ``repro.kernels.config``).
     walls (:func:`record_portfolio`, read by
     ``repro_torch.serving.backends.pick_engine``).
   * **launch timing** — :func:`measure_launch`, the one timed-call
-    primitive: a ``torch.cuda.synchronize()`` closes each repetition on the
-    card, and every repetition lands in the default registry's
-    ``kernel.launch.<kind>`` histogram.
+    primitive: on the card each repetition is timed by CUDA events, on the
+    CPU by the host clock, and every repetition lands in the default
+    registry's ``kernel.launch.<kind>`` histogram.
 
 Decisions of the port:
 
@@ -26,7 +34,10 @@ Decisions of the port:
   * Portfolio keys keep the reference's form,
     ``portfolio:{family}:b{b}:{policy}:{layout}``: they record end-to-end
     walls, and :func:`portfolio_entries`, ``family_fallbacks`` and the
-    dashboard parse either package's file.
+    dashboard parse either package's file. An entry the port probed carries
+    a ``"device"`` field (:func:`device_tag`), and the router skips entries
+    of another device, so CPU walls never route the card; an entry with no
+    such field (the reference writes none) routes on any device.
   * The process ledger (:func:`global_ledger`) auto-loads the file named
     by ``REPRO_TORCH_TUNING_LEDGER``, never ``REPRO_TUNING_LEDGER``: a
     ledger of CPU-interpret or TPU walls must not route the card's
@@ -34,11 +45,11 @@ Decisions of the port:
   * The JSON layout is the reference's (``indent=1, sort_keys=True``), so
     a file saved by one package loads in the other.
 
-The reference's kernel modes, scan fusion, VMEM budgets, block-rows
-resolution and autotuning and ``KernelExecConfig`` have no counterpart yet:
-their H100 meaning is the launch geometry (registers, shared memory), a
-design of its own (ROADMAP Queue 1 item 7). Tuning changes only how a view
-is laid out, never a value: f32 min-plus is exact in any order.
+The reference's VMEM budget and block rows have no counterpart: a CUDA
+block's limits are threads, registers and shared memory, which the audit
+(``repro_torch.analysis.kernel_audit``) checks against each build's
+``ptxas`` record. Tuning changes only how a view is laid out, never a
+value: f32 min-plus is exact in any order.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from repro_torch.obs import timer as obs_timer
 from repro_torch.obs.registry import default_registry
 
 _LEDGER_ENV = "REPRO_TORCH_TUNING_LEDGER"
+_MODE_ENV = "REPRO_TORCH_KERNEL_MODE"
 
 # The gather kernels (csrc/ell_gather.cu): threads per block (a multiple of
 # 32).
@@ -80,6 +92,33 @@ SCAN_SKIP_WARPS = 16
 CRIT_THREADS = 256
 CRIT_BLOCKS_PER_SM = 4
 CRIT_MAX_KEYS = 8
+
+# The push relax (csrc/ell_push.cu): threads per block (must match
+# PUSH_THREADS there).
+PUSH_THREADS = 256
+
+
+def kernel_mode() -> str:
+    """The kernel mode: ``auto`` or ``kernels`` (``REPRO_TORCH_KERNEL_MODE``,
+    default ``auto``); raises on another value."""
+    mode = os.environ.get(_MODE_ENV, "auto").strip().lower()
+    if mode not in ("auto", "kernels"):
+        raise ValueError(f"{_MODE_ENV} must be 'auto' or 'kernels'; got "
+                         f"{mode!r}")
+    return mode
+
+
+def runs_twin(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper handed ``t`` runs its plain twin: ``t`` lies
+    on the CPU. In the ``kernels`` mode a CPU tensor raises instead."""
+    if t.device.type != "cpu":
+        return False
+    if kernel_mode() == "kernels":
+        raise RuntimeError(
+            f"{_MODE_ENV}=kernels: a kernel wrapper was handed a CPU tensor; "
+            "put the inputs on the card"
+        )
+    return True
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,6 +154,33 @@ def lane_tile(lanes: int) -> int:
     while w < lanes and w < LANE_TILE:
         w *= 2
     return w
+
+
+# config.py's mirrors of compile-time constants of the CUDA sources:
+# (source under csrc/, #define) -> the value here that must equal it. The
+# audit parses each source and holds every pair equal
+# (``analysis.kernel_audit.audit_geometry_mirrors``); a variant of a body
+# with other values is the job of ``tools/*_variants.py``, never of a
+# launch.
+GEOMETRY_MIRRORS = {
+    ("ell_gather.cu", "SCAN_CAP"): SCAN_CAP,
+    ("ell_gather.cu", "SCAN_WARPS"): SCAN_WARPS,
+    ("ell_gather.cu", "SCAN_SKIP_WARPS"): SCAN_SKIP_WARPS,
+    ("ell_gather.cu", "MAX_SLICES"): SLICED_GROUP_BUCKETS,
+    ("ell_gather.cu", "LANE_TILE"): LANE_TILE,
+    ("ell_push.cu", "PUSH_MAX_BUCKETS"): SLICED_GROUP_BUCKETS,
+    ("ell_push.cu", "PUSH_THREADS"): PUSH_THREADS,
+    ("frontier_crit.cu", "CRIT_THREADS"): CRIT_THREADS,
+    ("frontier_crit.cu", "CRIT_MIN_BLOCKS"): CRIT_BLOCKS_PER_SM,
+    ("frontier_crit.cu", "KMAX"): CRIT_MAX_KEYS,
+}
+
+# The card's limits a launch must keep (H100, sm_90): threads a block,
+# 32-bit registers an SM and a thread, shared memory a block (opt-in).
+MAX_THREADS_PER_BLOCK = 1024
+REGISTERS_PER_SM = 65536
+MAX_REGISTERS_PER_THREAD = 255
+MAX_SMEM_PER_BLOCK = 232448
 
 
 def relax_threads_per_row(d_pad: int) -> int:
@@ -163,12 +229,14 @@ def portfolio_ledger_key(family: str, b: int, policy: str, layout: str) -> str:
 def record_portfolio(ledger: "TuningLedger", family: str, b: int, policy: str,
                      layout: str, *, wall_s: float, phases: int, queries: int,
                      delta: float | None = None,
-                     attribution: dict[str, int] | None = None) -> dict:
+                     attribution: dict[str, int] | None = None,
+                     device=None) -> dict:
     """Write one measured portfolio entry and return it: the raw
     measurement (``wall_s`` for ``queries`` solves over ``phases`` phases),
     the rates the router ranks by, the bucket width a Δ candidate ran with,
-    and the policy's ``settle_attribution`` totals when the probe ran with
-    telemetry (what the dashboard explains a win with)."""
+    the policy's ``settle_attribution`` totals when the probe ran with
+    telemetry (what the dashboard explains a win with) and, given the
+    ``device`` it was measured on, that device's :func:`device_tag`."""
     entry: dict = {
         "wall_s": float(wall_s),
         "phases": int(phases),
@@ -182,19 +250,25 @@ def record_portfolio(ledger: "TuningLedger", family: str, b: int, policy: str,
         entry["settle_attribution"] = {
             str(k): int(v) for k, v in attribution.items()
         }
+    if device is not None:
+        entry["device"] = device_tag(device)
     ledger.put(portfolio_ledger_key(family, b, policy, layout), entry)
     return entry
 
 
-def portfolio_entries(ledger: "TuningLedger", family: str,
-                      b: int) -> dict[tuple[str, str], dict]:
+def portfolio_entries(ledger: "TuningLedger", family: str, b: int,
+                      device=None) -> dict[tuple[str, str], dict]:
     """All recorded engine configs for one (family, lanes): (policy, layout)
     -> entry. Policy specs hold no ``:``, so the last ``:`` splits policy
-    from layout."""
+    from layout. Given a ``device``, entries tagged with another device are
+    left out (untagged ones stay)."""
     prefix = f"portfolio:{family}:b{int(b)}:"
+    tag = None if device is None else device_tag(device)
     out: dict[tuple[str, str], dict] = {}
     for key, entry in ledger.entries.items():
         if key.startswith(prefix):
+            if tag is not None and entry.get("device", tag) != tag:
+                continue
             policy, layout = key[len(prefix):].rsplit(":", 1)
             out[(policy, layout)] = entry
     return out
@@ -284,32 +358,62 @@ def reset_global_ledger() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _sync(out) -> None:
-    """Wait for the card when ``out`` (a tensor, or a tuple or list of
-    them) lives on one: a host clock measures device work only then."""
+def _card_of(out):
+    """The CUDA device of the first tensor in ``out`` (a tensor, or a
+    tuple or list of them), or None when none lives on a card."""
     if isinstance(out, (tuple, list)):
         for x in out:
-            _sync(x)
-    elif torch.is_tensor(out) and out.is_cuda:
-        torch.cuda.synchronize(out.device)
+            dev = _card_of(x)
+            if dev is not None:
+                return dev
+        return None
+    if torch.is_tensor(out) and out.is_cuda:
+        return out.device
+    return None
 
 
-def measure_launch(kind: str, fn: Callable[[], object],
-                   reps: int = 3) -> float:
-    """Median wall seconds of ``reps`` calls of ``fn`` after one untimed
-    warm-up call (the first call on the card builds the kernels). Each
-    repetition ends in a ``torch.cuda.synchronize()`` when ``fn`` returns
-    tensors on the card, and is observed into the default registry's
-    ``kernel.launch.<kind>`` histogram."""
-    _sync(fn())
+def _host_seconds(fn, card) -> float:
+    t0 = obs_timer.now()
+    fn()
+    if card is not None:
+        torch.cuda.synchronize(card)
+    return obs_timer.now() - t0
+
+
+def _event_seconds(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def measure_launch(kind: str, fn: Callable[[], object], reps: int = 3, *,
+                   clock: str | None = None) -> float:
+    """Median seconds of ``reps`` calls of ``fn`` after one untimed warm-up
+    call (the first call on the card builds the kernels). When ``fn``
+    returns tensors on the card each repetition is timed by CUDA events
+    around the call on the current stream (``clock="host"`` takes the host
+    clock to a ``torch.cuda.synchronize()`` instead, to read the two side
+    by side); on the CPU by the host clock. Every repetition is observed
+    into the default registry's ``kernel.launch.<kind>`` histogram."""
+    if clock not in (None, "host"):
+        raise ValueError(f"clock must be None or 'host'; got {clock!r}")
+    card = _card_of(fn())
+    if card is not None:
+        torch.cuda.synchronize(card)
     hist = default_registry().histogram(
-        f"kernel.launch.{kind}", f"wall seconds per {kind!r} kernel launch"
+        f"kernel.launch.{kind}", f"seconds per {kind!r} kernel launch"
     )
     walls = []
     for _ in range(reps):
-        t0 = obs_timer.now()
-        _sync(fn())
-        wall = obs_timer.now() - t0
+        if card is None or clock == "host":
+            wall = _host_seconds(fn, card)
+        else:
+            with torch.cuda.device(card):
+                wall = _event_seconds(fn)
         walls.append(wall)
         hist.observe(wall)
     walls.sort()

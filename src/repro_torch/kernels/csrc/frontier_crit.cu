@@ -29,22 +29,23 @@
 //    CRIT_BLOCKS_PER_SM (kernels/config.py) blocks on each SM in one wave
 //    (CRIT_MIN_BLOCKS holds the registers to that many);
 //    block (x, b) walks chunks x, x + blocks_x, ... of lane b's row, each
-//    chunk Unroll<K> * CRIT_THREADS groups of 4 vertices. Each block writes
-//    its partials, fences, and draws a ticket (atomicAdd); the block that draws
-//    the last one folds every block's partials, writes mins and cnt and
-//    puts the ticket back to 0 for the next launch in stream order. The
-//    scratch (partials and ticket) is allocated and zeroed once per device
-//    and stream by the wrapper and reused. f32 min does not round and the
-//    int32 count is an exact sum, so the result is the same in any order;
-//  * every load issued before any fold: each thread loads Unroll<K> groups
-//    of 4 vertices at a time, status as int4, d and each key as float4,
-//    unconditionally (a vertex off the fringe then folds +inf), so
-//    each SM has tens of KB in flight. A row that does not start on a
-//    16-byte boundary (n % 4 != 0, or a view) takes the vertices before the
-//    first aligned one and after the last whole group as a scalar head and
-//    tail, and a stream whose groups are still not aligned to 16 bytes
-//    (status or a key row at another offset) loads each group's 4 words as
-//    scalars, issued the same way;
+//    chunk Unroll<K, ALIGNED> * CRIT_THREADS groups of 4 vertices. Each
+//    block writes its partials, fences, and draws a ticket (atomicAdd); the
+//    block that draws the last one folds every block's partials, writes
+//    mins and cnt and puts the ticket back to 0 for the next launch in
+//    stream order. The scratch (partials and ticket) is allocated and
+//    zeroed once per device and stream by the wrapper and reused. f32 min
+//    does not round and the int32 count is an exact sum, so the result is
+//    the same in any order;
+//  * every load issued before any fold: each thread loads
+//    Unroll<K, ALIGNED> groups of 4 vertices at a time, status as int4, d
+//    and each key as float4, unconditionally (a vertex off the fringe then
+//    folds +inf), so each SM has tens of KB in flight. A row that does
+//    not start on a 16-byte boundary (n % 4 != 0, or a view) takes the
+//    vertices before the first aligned one and after the last whole group
+//    as a scalar head and tail, and a stream whose groups are still not
+//    aligned to 16 bytes (status or a key row at another offset) loads each
+//    group's 4 words as scalars, issued the same way;
 //  * a template on K (0 for no keys), so that registers hold only the lanes
 //    in use; the shared and the per-lane key stacks differ only in their
 //    strides.
@@ -127,10 +128,21 @@ struct Acc {
 };
 
 // Groups of 4 vertices a thread loads before it folds any: enough bytes in
-// flight without holding more than ~64 registers of loaded words.
-template <int K>
+// flight without holding more than ~64 registers of loaded words. The
+// scalar form (!ALIGNED) needs more registers for its addresses: under
+// CRIT_MIN_BLOCKS 4 (64 registers a thread) ptxas spilled K = 1 and 4 off
+// 16-byte boundaries and K = 2 in both forms at the unrolls of the first
+// design (4, 4, 2), so those take one step less (the audit of
+// repro_torch.analysis reads every instance's spills). K = 1 on aligned
+// rows, the default plan's form at n % 4 == 0, keeps 4. K = 7 and 8 off
+// the boundary still spill 36-40 bytes at an unroll of 1 (their K row
+// pointers and K + 2 accumulators); no plan has more than 4 OUT keys, and
+// their contract names that reason.
+template <int K, bool ALIGNED>
 struct Unroll {
-  static constexpr int value = K <= 2 ? 4 : (K <= 4 ? 2 : 1);
+  static constexpr int value =
+      (K == 0 || (K == 1 && ALIGNED)) ? 4
+      : (K <= 3 || (K == 4 && ALIGNED)) ? 2 : 1;
 };
 
 struct CritArgs {
@@ -169,7 +181,7 @@ __device__ __forceinline__ void load4(const T* p, bool vec, T* out) {
 template <int K, bool ALIGNED>
 __global__ void __launch_bounds__(CRIT_THREADS, CRIT_MIN_BLOCKS)
 crit_kernel(const CritArgs a) {
-  constexpr int U = Unroll<K>::value;
+  constexpr int U = Unroll<K, ALIGNED>::value;
   const int b = blockIdx.y;
   const int lanes = gridDim.y;
   const int bx = gridDim.x;

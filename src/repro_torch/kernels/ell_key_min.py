@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.config import lane_tile
+from repro_torch.kernels.config import lane_tile, runs_twin
 from repro_torch.kernels.ell_relax_keys import (
     check_inputs,
     gather_rows,
@@ -40,7 +40,7 @@ def ell_key_min_batch(gate: torch.Tensor, cols: torch.Tensor,
     check_inputs({"gate": gate}, cols, ws)
     if gate.shape[1] < 1:
         raise ValueError("gate rows need at least one slot")
-    if gate.device.type == "cpu":
+    if runs_twin(gate):
         return ref.ell_key_min_batch_ref(gate, cols, ws)
     out = torch.empty((gate.shape[0], cols.shape[0]), dtype=torch.float32,
                       device=gate.device)
@@ -88,7 +88,7 @@ def ell_key_min_status_batch(status: torch.Tensor, cols: torch.Tensor,
     if status.device != cols.device or not status.is_contiguous():
         raise ValueError("status must be contiguous, on the adjacency's "
                          "device")
-    if status.device.type == "cpu":
+    if runs_twin(status):
         return ref.ell_key_min_status_batch_ref(status, cols, ws)
     b, n = status.shape
     n_rows, d_pad = cols.shape
@@ -105,3 +105,49 @@ def ell_key_min_status_batch(status: torch.Tensor, cols: torch.Tensor,
 
 
 ell_key_min_status_batch.launches = 0  # kernel launches since the last reset
+
+
+def register_kernels(reg):
+    """Register this module's kernel contracts (``kernels/registry.py``)."""
+    from repro_torch.kernels import registry as R
+
+    scan = ((R.SRC_GATHER, "pack_kernel"), (R.SRC_GATHER, "scan_kernel"))
+    status_scan = ((R.SRC_GATHER, "pack_status_kernel"),
+                   (R.SRC_GATHER, "scan_kernel"))
+
+    def cases_1d():
+        return (R.SpecCase("one_row", (R.fixture_lane_batch(1)[0],
+                                       *R.fixture_ell())),)
+
+    def cases_batch():
+        return (
+            R.SpecCase("ref", (R.fixture_lane_batch(), *R.fixture_ell())),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}",
+                (R.fixture_lane_batch(b, n, seed, nan=True, signed=signed),
+                 *R.fixture_ell(n, 6, seed, signed)))),
+        )
+
+    def cases_status():
+        return (
+            R.SpecCase("ref", (R.fixture_status((R.FIXTURE_B, R.FIXTURE_N)),
+                               *R.fixture_ell())),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}", (R.fixture_status((b, n), seed),
+                               *R.fixture_ell(n, 6, seed, signed)))),
+        )
+
+    reg.register(R.KernelContract(
+        name="ell_key_min", module=__name__, wrapper=ell_key_min,
+        make_cases=cases_1d, kernels=scan,
+        notes="#4: #5 at B = 1, through the same kernel"))
+    reg.register(R.KernelContract(
+        name="ell_key_min_batch", module=__name__, wrapper=ell_key_min_batch,
+        make_cases=cases_batch, kernels=scan,
+        notes="#5: a dense gate sweep on the pipelined scan body"))
+    reg.register(R.KernelContract(
+        name="ell_key_min_status_batch", module=__name__,
+        wrapper=ell_key_min_status_batch, make_cases=cases_status,
+        kernels=status_scan,
+        notes="#5b: the 'unsettled' gate read from status (one byte of "
+              "lane bits a column)"))

@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.config import runs_twin
 from repro_torch.kernels.ell_relax_keys import check_inputs, gather_rows, launch
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -48,7 +49,7 @@ def ell_relax_batch(dmask: torch.Tensor, cols: torch.Tensor,
     check_inputs({"dmask": dmask}, cols, ws)
     if dmask.shape[1] < 1:
         raise ValueError("dmask rows need at least one slot")
-    if dmask.device.type == "cpu":
+    if runs_twin(dmask):
         return ref.ell_relax_batch_ref(dmask, cols, ws)
     out = torch.empty((dmask.shape[0], cols.shape[0]), dtype=torch.float32,
                       device=dmask.device)
@@ -133,7 +134,7 @@ def ell_push_relax_batch(dmask: torch.Tensor, cols: torch.Tensor,
             f"the padded out-view needs one row per vertex: cols has "
             f"{cols.shape[0]} rows for n = {dmask.shape[1]}"
         )
-    if dmask.device.type == "cpu":
+    if runs_twin(dmask):
         return ref.ell_push_relax_batch_ref(dmask, (cols, ws))
     upd = push_rows(dmask, (cols, ws), stats)
     ell_push_relax_batch.launches += 1
@@ -141,3 +142,57 @@ def ell_push_relax_batch(dmask: torch.Tensor, cols: torch.Tensor,
 
 
 ell_push_relax_batch.launches = 0  # kernel launches since the last reset
+
+
+def register_kernels(reg):
+    """Register this module's kernel contracts (``kernels/registry.py``)."""
+    from repro_torch.kernels import registry as R
+
+    pull = ((R.SRC_GATHER, "pack_kernel"), (R.SRC_GATHER, "gather_min_kernel"))
+    push = ((R.SRC_PUSH, "push_mark_kernel"), (R.SRC_PUSH, "push_kernel"))
+
+    def cases_1d():
+        return (
+            R.SpecCase("one_row", (R.fixture_lane_batch(1)[0],
+                                   *R.fixture_ell())),
+            R.SpecCase("signed_nan", (
+                R.fixture_lane_batch(1, 13, seed=7, nan=True,
+                                     signed=True)[0],
+                *R.fixture_ell(13, 5, seed=8, signed=True))),
+        )
+
+    def cases_batch():
+        dmask, ell = R.fixture_lane_batch(), R.fixture_ell()
+        return (
+            R.SpecCase("ref", (dmask, *ell)),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}",
+                (R.fixture_lane_batch(b, n, seed, nan=True, signed=signed),
+                 *R.fixture_ell(n, 5, seed, signed)))),
+        )
+
+    def cases_push():
+        return (
+            R.SpecCase("ref", (R.fixture_rows(
+                (R.FIXTURE_B, R.FIXTURE_N), seed=2, inf_frac=0.5),
+                *R.fixture_out_ell())),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}",
+                (R.fixture_rows((b, n), seed, inf_frac=0.5, nan=True,
+                                signed=signed),
+                 *R.fixture_out_ell(n, seed, signed)))),
+        )
+
+    reg.register(R.KernelContract(
+        name="ell_relax", module=__name__, wrapper=ell_relax,
+        make_cases=cases_1d, kernels=pull,
+        notes="#3: #1 at B = 1, through the same kernel"))
+    reg.register(R.KernelContract(
+        name="ell_relax_batch", module=__name__, wrapper=ell_relax_batch,
+        make_cases=cases_batch, kernels=pull,
+        notes="#1: the pull over the incoming ELL, single-sweep body"))
+    reg.register(R.KernelContract(
+        name="ell_push_relax_batch", module=__name__,
+        wrapper=ell_push_relax_batch, make_cases=cases_push, kernels=push,
+        notes="#1b: the relax pushed along the outgoing ELL (f32 atomic "
+              "min)"))

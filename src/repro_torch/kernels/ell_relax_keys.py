@@ -36,6 +36,7 @@ from repro_torch.kernels.config import (
     RELAX_THREADS,
     lane_tile,
     relax_threads_per_row,
+    runs_twin,
 )
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -169,7 +170,7 @@ def ell_gather_min_batch(vecs: torch.Tensor, cols: torch.Tensor,
     if vecs.dim() != 3:
         raise ValueError(f"want vecs (V, B, n); got {tuple(vecs.shape)}")
     check_inputs({"vecs": vecs}, cols, ws)
-    if vecs.device.type == "cpu":
+    if runs_twin(vecs):
         return ref.ell_gather_min_batch_ref(vecs, cols, ws)
     v, b, n = vecs.shape
     out = torch.empty((v, b, cols.shape[0]), dtype=torch.float32,
@@ -213,7 +214,7 @@ def ell_relax_keys_batch(dmask, ga, gb, gc, cols, ws):
     check_inputs({"dmask": dmask, "ga": ga, "gb": gb, "gc": gc}, cols, ws)
     b, n = dmask.shape
     _check_square(n, cols)
-    if dmask.device.type == "cpu":
+    if runs_twin(dmask):
         return ref.ell_relax_keys_batch_ref(dmask, ga, gb, gc, cols, ws)
     k, dev = ga.shape[0], dmask.device
     upd = torch.empty((b, n), dtype=torch.float32, device=dev)
@@ -267,7 +268,7 @@ def ell_keys_dep_batch(gates, dga, dgb, cols, ws, *, dep_idx: int = 0):
         )
     check_inputs({"gates": gates, "dga": dga, "dgb": dgb}, cols, ws)
     _check_square(n, cols)
-    if gates.device.type == "cpu":
+    if runs_twin(gates):
         return ref.ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws)
     dev = gates.device
     out = torch.empty((k0 + 1, b, n), dtype=torch.float32, device=dev)
@@ -283,3 +284,64 @@ def ell_keys_dep_batch(gates, dga, dgb, cols, ws, *, dep_idx: int = 0):
 
 
 ell_keys_dep_batch.launches = 0  # kernel launches since the last reset
+
+
+def register_kernels(reg):
+    """Register this module's kernel contracts (``kernels/registry.py``)."""
+    from repro_torch.kernels import registry as R
+
+    scan = ((R.SRC_GATHER, "pack_kernel"), (R.SRC_GATHER, "scan_kernel"))
+    n, b, k = R.FIXTURE_N, R.FIXTURE_B, R.FIXTURE_K
+
+    def cases_gather():
+        return (
+            R.SpecCase("ref", (R.fixture_rows((k, b, n)), *R.fixture_ell())),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}", (R.fixture_rows((2, b, n), seed, nan=True,
+                                              signed=signed),
+                               *R.fixture_ell(n, 6, seed, signed)))),
+        )
+
+    def in_scan(b, n, seed, signed, nan):
+        return (R.fixture_rows((b, n), seed, inf_frac=0.6, nan=nan,
+                               signed=signed),
+                *(R.fixture_rows((k, b, n), seed + i, nan=nan, signed=signed)
+                  for i in (1, 2, 3)),
+                *R.fixture_ell(n, 5, seed, signed))
+
+    def cases_relax_keys():
+        return (
+            R.SpecCase("ref", in_scan(b, n, 6, False, False)),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}", in_scan(b, n, seed, signed, True))),
+        )
+
+    def out_scan(b, n, seed, signed, nan):
+        return (R.fixture_rows((k, b, n), seed, nan=nan, signed=signed),
+                R.fixture_rows((b, n), seed + 1, nan=nan, signed=signed),
+                R.fixture_rows((b, n), seed + 2, signed=signed),
+                *R.fixture_ell(n, 5, seed, signed))
+
+    def cases_keys_dep():
+        return (
+            R.SpecCase("ref", out_scan(b, n, 10, False, False)),
+            R.SpecCase("dep_1", out_scan(b, n, 10, False, False),
+                       {"dep_idx": 1}),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}", out_scan(b, n, seed, signed, True),
+                {"dep_idx": seed % 2})),
+        )
+
+    reg.register(R.KernelContract(
+        name="ell_gather_min_batch", module=__name__,
+        wrapper=ell_gather_min_batch, make_cases=cases_gather, kernels=scan,
+        notes="#6: V vectors x B lanes on the pipelined scan body"))
+    reg.register(R.KernelContract(
+        name="ell_relax_keys_batch", module=__name__,
+        wrapper=ell_relax_keys_batch, make_cases=cases_relax_keys,
+        kernels=scan,
+        notes="#7: the fused in-scan, two sweeps in one launch"))
+    reg.register(R.KernelContract(
+        name="ell_keys_dep_batch", module=__name__,
+        wrapper=ell_keys_dep_batch, make_cases=cases_keys_dep, kernels=scan,
+        notes="#8: the fused out-scan (paper Eq. 2)"))

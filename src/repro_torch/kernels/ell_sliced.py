@@ -46,6 +46,7 @@ from repro_torch.kernels.config import (
     SCAN_WARPS,
     SLICED_GROUP_BUCKETS,
     relax_threads_per_row,
+    runs_twin,
 )
 from repro_torch.kernels.ell_relax import push_rows
 from repro_torch.kernels.ell_relax_keys import (
@@ -223,7 +224,7 @@ def ell_sliced_gather_min_batch(vecs: torch.Tensor, sliced, *,
         raise ValueError(f"want vecs (V, B, n); got {tuple(vecs.shape)}")
     v, b, n = vecs.shape
     check_sliced({"vecs": vecs}, sliced, n)
-    if vecs.device.type == "cpu":
+    if runs_twin(vecs):
         return ref.ell_sliced_gather_min_batch_ref(vecs, sliced)
     out = torch.empty((v, b, n), dtype=torch.float32, device=vecs.device)
     if out.numel() == 0:
@@ -278,7 +279,7 @@ def ell_sliced_relax_keys_batch(dmask, ga, gb, gc, sliced, *,
     check_sliced({"dmask": dmask, "ga": ga, "gb": gb, "gc": gc}, sliced, n)
     if out_view is not None:
         check_sliced({"dmask": dmask}, out_view, n)
-    if dmask.device.type == "cpu":
+    if runs_twin(dmask):
         return ref.ell_sliced_relax_keys_batch_ref(dmask, ga, gb, gc, sliced,
                                                    out_view=out_view)
     k, dev = ga.shape[0], dmask.device
@@ -339,7 +340,7 @@ def ell_sliced_keys_dep_batch(gates, dga, dgb, sliced, *, dep_idx: int = 0):
             f"{tuple(dgb.shape)}"
         )
     check_sliced({"gates": gates, "dga": dga, "dgb": dgb}, sliced, n)
-    if gates.device.type == "cpu":
+    if runs_twin(gates):
         return ref.ell_sliced_keys_dep_batch_ref(gates, dga, dgb, dep_idx,
                                                  sliced)
     dev = gates.device
@@ -381,7 +382,7 @@ def ell_sliced_push_relax_batch(dmask: torch.Tensor, sliced, *,
     if dmask.dim() != 2:
         raise ValueError(f"want dmask (B, n); got {tuple(dmask.shape)}")
     check_sliced({"dmask": dmask}, sliced, dmask.shape[1])
-    if dmask.device.type == "cpu":
+    if runs_twin(dmask):
         return ref.ell_push_relax_batch_ref(dmask, sliced)
     upd = push_rows(dmask, sliced, stats)
     ell_sliced_push_relax_batch.launches += 1
@@ -389,3 +390,91 @@ def ell_sliced_push_relax_batch(dmask: torch.Tensor, sliced, *,
 
 
 ell_sliced_push_relax_batch.launches = 0  # kernel launches since the last reset
+
+
+def register_kernels(reg):
+    """Register this module's kernel contracts (``kernels/registry.py``)."""
+    from repro_torch.kernels import registry as R
+
+    g = R.SRC_GATHER
+    gather = ((g, "pack_kernel"), (g, "sliced_gather_min_kernel"),
+              (g, "merge_kernel"))
+    scan = ((g, "pack_kernel"), (g, "scan_kernel"), (g, "short_merge_kernel"))
+    push = ((R.SRC_PUSH, "push_mark_kernel"), (R.SRC_PUSH, "push_kernel"))
+    k = R.FIXTURE_K
+
+    def views():
+        """(label, lanes, n, in-view, out-view): the reference's small
+        view, the same build at n % 4 = 1 and 3, and views of more than 16
+        buckets with rows at B = 1, 8, 13, 40."""
+        out = [(f"n{n}_b3", 3, n, R.fixture_sliced(n, side="in"),
+                R.fixture_sliced(n, side="out")) for n in (10, 13, 11)]
+        sl_in, sl_out = R.fixture_sliced_groups("in"), \
+            R.fixture_sliced_groups("out")
+        n = sl_in.merge_idx.shape[0]
+        out += [(f"groups_b{b}", b, n, sl_in, sl_out) for b in (1, 8, 13, 40)]
+        return out
+
+    def cases_gather():
+        return tuple(
+            R.SpecCase(f"{lab}{'_sparse' if i % 2 else ''}", (
+                R.fixture_rows((1 if i % 2 else k, b, n), 13 + i,
+                               inf_frac=0.7 if i % 2 else 0.2, nan=i > 0),
+                sl), {"sparse": True} if i % 2 else {})
+            for i, (lab, b, n, sl, _) in enumerate(views()))
+
+    def in_scan(i, b, n, sl):
+        return (R.fixture_rows((b, n), 14 + i, inf_frac=0.6, nan=i > 0),
+                *(R.fixture_rows((k, b, n), 15 + i + j, nan=i > 0,
+                                 signed=i % 2 == 1) for j in range(3)),
+                sl)
+
+    def cases_relax_keys():
+        return tuple(R.SpecCase(lab, in_scan(i, b, n, sl))
+                     for i, (lab, b, n, sl, _) in enumerate(views()))
+
+    def cases_relax_keys_push():
+        return tuple(R.SpecCase(lab, in_scan(i, b, n, sl),
+                                {"out_view": sl_out})
+                     for i, (lab, b, n, sl, sl_out) in enumerate(views()))
+
+    def cases_keys_dep():
+        return tuple(
+            R.SpecCase(lab, (R.fixture_rows((k, b, n), 18 + i, nan=i > 0),
+                             R.fixture_rows((b, n), 19 + i),
+                             R.fixture_rows((b, n), 20 + i, nan=i > 0),
+                             sl_out), {"dep_idx": i % 2})
+            for i, (lab, b, n, _, sl_out) in enumerate(views()))
+
+    def cases_push():
+        return tuple(
+            R.SpecCase(lab, (R.fixture_rows((b, n), 21 + i, inf_frac=0.5,
+                                            nan=i > 0), sl_out))
+            for i, (lab, b, n, _, sl_out) in enumerate(views()))
+
+    reg.register(R.KernelContract(
+        name="ell_sliced_gather_min_batch", module=__name__,
+        wrapper=ell_sliced_gather_min_batch, make_cases=cases_gather,
+        kernels=gather,
+        notes="#9: pack, one gather launch a group of buckets, merge"))
+    reg.register(R.KernelContract(
+        name="ell_sliced_relax_keys_batch", module=__name__,
+        wrapper=ell_sliced_relax_keys_batch, make_cases=cases_relax_keys,
+        kernels=gather + scan,
+        notes="#10: the sliced fused in-scan (single-sweep relax, pipelined "
+              "gate sweep)"))
+    reg.register(R.KernelContract(
+        name="ell_sliced_relax_keys_batch_push", module=__name__,
+        wrapper=ell_sliced_relax_keys_batch,
+        make_cases=cases_relax_keys_push, kernels=push + scan,
+        notes="#10b: the sliced fused in-scan with the push as its relax "
+              "sweep"))
+    reg.register(R.KernelContract(
+        name="ell_sliced_keys_dep_batch", module=__name__,
+        wrapper=ell_sliced_keys_dep_batch, make_cases=cases_keys_dep,
+        kernels=scan, notes="#11: the sliced fused out-scan"))
+    reg.register(R.KernelContract(
+        name="ell_sliced_push_relax_batch", module=__name__,
+        wrapper=ell_sliced_push_relax_batch, make_cases=cases_push,
+        kernels=push,
+        notes="#9b: the relax pushed along a sliced outgoing view"))

@@ -30,6 +30,7 @@ from repro_torch.kernels.config import (
     CRIT_BLOCKS_PER_SM,
     CRIT_MAX_KEYS,
     CRIT_THREADS,
+    runs_twin,
 )
 from repro_torch.kernels.ell_relax_keys import on_stream
 
@@ -122,7 +123,7 @@ def frontier_crit_lanes_batch(d: torch.Tensor, status: torch.Tensor,
     OUT threshold ``min_F (d + keys[k])``.
     """
     _check(d, status, keys)
-    if d.device.type == "cpu":
+    if runs_twin(d):
         return ref.frontier_crit_lanes_batch_ref(d, status, keys)
     b, n = d.shape
     k = 0 if keys is None else keys.shape[0]
@@ -183,3 +184,62 @@ def frontier_crit_batch(d: torch.Tensor, status: torch.Tensor,
     """Returns (min_fringe_d (B,), l_out (B,), fringe_count (B,))."""
     mins, cnt = frontier_crit_lanes_batch(d, status, out_min[None])
     return mins[0], mins[1], cnt
+
+
+def register_kernels(reg):
+    """Register this module's kernel contracts (``kernels/registry.py``)."""
+    from repro_torch.kernels import registry as R
+
+    crit = ((R.SRC_CRIT, "crit_kernel"),)
+    n, b, k = R.FIXTURE_N, R.FIXTURE_B, R.FIXTURE_K
+
+    def cases_lanes():
+        d, status = R.fixture_rows((b, n), seed=21), R.fixture_status((b, n))
+        return (
+            R.SpecCase("nokeys", (d, status, None)),
+            R.SpecCase("shared_keys", (d, status,
+                                       R.fixture_rows((k, n), seed=22))),
+            R.SpecCase("per_lane_keys", (d, status,
+                                         R.fixture_rows((k, b, n), seed=23))),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}", (R.fixture_rows((b, n), seed, nan=True,
+                                              signed=signed),
+                               R.fixture_status((b, n), seed),
+                               R.fixture_rows((k, b, n) if seed % 2 else
+                                              (k, n), seed + 1,
+                                              signed=signed)))),
+        )
+
+    def cases_scalar():
+        return (R.SpecCase("one_row", (R.fixture_rows((n,), seed=24),
+                                       R.fixture_status((n,)),
+                                       R.fixture_rows((n,), seed=25))),)
+
+    def cases_batch():
+        return (R.SpecCase("ref", (R.fixture_rows((b, n), seed=26),
+                                   R.fixture_status((b, n)),
+                                   R.fixture_rows((n,), seed=27))),)
+
+    notes = ("one launch; per-block partials folded by the last block to "
+             "take the ticket; |F| is an int32 work counter")
+    # the instances of more than 4 keys on rows off 16-byte boundaries
+    # spill 36-40 bytes under CRIT_MIN_BLOCKS 4 (csrc/frontier_crit.cu,
+    # Unroll): compiled for KMAX = 8, they run on no plan's path
+    unused = ("K = {} keys off 16-byte boundaries: no criterion plan has "
+              "more than 4 OUT keys, so no engine path launches this "
+              "instance; bit-equal to the twin on the card "
+              "(test_frontier_crit_every_key_count_matches_twin)")
+    reg.register(R.KernelContract(
+        name="frontier_crit_lanes_batch", module=__name__,
+        wrapper=frontier_crit_lanes_batch, make_cases=cases_lanes,
+        counter_outputs=(1,), kernels=crit, notes=notes,
+        spills_ok={f"crit_kernel<{k},0>": unused.format(k)
+                   for k in (7, 8)}))
+    reg.register(R.KernelContract(
+        name="frontier_crit", module=__name__, wrapper=frontier_crit,
+        make_cases=cases_scalar, counter_outputs=(2,), kernels=crit,
+        notes=notes))
+    reg.register(R.KernelContract(
+        name="frontier_crit_batch", module=__name__,
+        wrapper=frontier_crit_batch, make_cases=cases_batch,
+        counter_outputs=(2,), kernels=crit, notes=notes))

@@ -363,3 +363,167 @@ def out_scan_keys_batch(gates, dep_parts, ell, *, use_kernels=True):
     if not use_kernels:
         return kref.ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws)
     return ell_keys_dep_batch(gates, dga, dgb, cols, ws, dep_idx=dep_idx)
+
+
+def register_kernels(reg):
+    """Register the engine-facing wrapper contracts (``kernels/registry.py``):
+    the callables the engines invoke, so the audit also covers the padding,
+    masking and layout dispatch the raw kernels' contracts cannot see. They
+    launch through the kernels' wrappers (no kernels of their own)."""
+    from repro_torch.kernels import registry as R
+
+    n, b, k = R.FIXTURE_N, R.FIXTURE_B, R.FIXTURE_K
+
+    def rows(shape, seed, **kw):
+        return R.fixture_rows(shape, seed=seed, **kw)
+
+    def settle(shape, seed):
+        return R.fixture_status(shape, seed) == 1
+
+    def cases_relax_settled():
+        return (R.SpecCase("default", (rows((n,), 30), settle((n,), 31),
+                                       *R.fixture_ell())),)
+
+    def cases_static_thresholds():
+        return (R.SpecCase("default", (rows((n,), 32), R.fixture_status(
+            (n,), 33), rows((n,), 34))),)
+
+    def cases_relax_settled_batch():
+        return (
+            R.SpecCase("default", (rows((b, n), 35), settle((b, n), 36),
+                                   *R.fixture_ell())),
+            R.SpecCase("b40_n13", (rows((40, 13), 135, nan=True),
+                                   settle((40, 13), 136),
+                                   *R.fixture_ell(13, 5, 137, signed=True))),
+        )
+
+    def cases_relax_settled_sliced():
+        return (
+            R.SpecCase("sliced", (rows((b, n), 37), settle((b, n), 38),
+                                  R.fixture_sliced(side="in"))),
+            R.SpecCase("groups_b8", (rows((8, 60), 137, nan=True),
+                                     settle((8, 60), 138),
+                                     R.fixture_sliced_groups("in"))),
+        )
+
+    def cases_push_settled():
+        return (R.SpecCase("default", (rows((b, n), 39), settle((b, n), 40),
+                                       *R.fixture_out_ell())),)
+
+    def cases_push_settled_sliced():
+        return (R.SpecCase("sliced", (rows((b, n), 41), settle((b, n), 42),
+                                      R.fixture_sliced(side="out"))),)
+
+    def cases_gather_sliced():
+        return (R.SpecCase("sliced", (rows((k, b, n), 39),
+                                      R.fixture_sliced(side="in"))),)
+
+    def cases_static_thresholds_batch():
+        return (R.SpecCase("default", (rows((b, n), 40), R.fixture_status(
+            (b, n), 41), rows((n,), 42))),)
+
+    def cases_crit_thresholds():
+        d, status = rows((b, n), 43), R.fixture_status((b, n), 44)
+        return (
+            R.SpecCase("nokeys", (d, status, None)),
+            R.SpecCase("shared_keys", (d, status, rows((k, n), 45))),
+            R.SpecCase("per_lane_keys", (d, status, rows((k, b, n), 46))),
+        )
+
+    def cases_key_min():
+        return (R.SpecCase("default", (rows((b, n), 47), *R.fixture_ell())),)
+
+    def cases_key_min_any():
+        gate = rows((b, n), 48)
+        return (
+            R.SpecCase("padded", (gate, R.fixture_ell())),
+            R.SpecCase("sliced", (gate, R.fixture_sliced(side="in"))),
+        )
+
+    def _gate_parts(seed0):
+        return tuple((rows((b, n), seed0 + 3 * i),
+                      rows((b, n), seed0 + 3 * i + 1),
+                      rows((b, n), seed0 + 3 * i + 2)) for i in range(k))
+
+    def cases_in_scan():
+        d, st = rows((b, n), 49), settle((b, n), 50)
+        gp = _gate_parts(51)
+        return (
+            R.SpecCase("padded", (d, st, gp, R.fixture_ell())),
+            R.SpecCase("sliced", (d, st, gp, R.fixture_sliced(side="in"))),
+            R.SpecCase("sliced_push", (d, st, gp, R.fixture_sliced(
+                side="in")), {"out_view": R.fixture_sliced(side="out")}),
+        )
+
+    def cases_delta_relax():
+        delta = torch.tensor(0.5, dtype=torch.float32)
+        ell_l, ell_h = weight_gated_ell(R.fixture_ell(), delta)
+        sl_l, sl_h = weight_gated_ell(R.fixture_sliced(side="in"), delta)
+        d = rows((b, n), 70)
+        light = R.fixture_status((b, n), 71) == 1
+        heavy = R.fixture_status((b, n), 72) == 2
+        return (
+            R.SpecCase("padded", (d, light, heavy, ell_l, ell_h)),
+            R.SpecCase("sliced", (d, light, heavy, sl_l, sl_h)),
+        )
+
+    def cases_relax_gated():
+        d, st = rows((b, n), 80), settle((b, n), 81)
+        bound = rows((b,), 82, inf_frac=0.4)
+        return (
+            R.SpecCase("padded", (d, st, bound, R.fixture_ell())),
+            R.SpecCase("sliced", (d, st, bound, R.fixture_sliced(side="in"))),
+        )
+
+    def cases_in_scan_gated():
+        d, st = rows((b, n), 83), settle((b, n), 84)
+        bound = rows((b,), 85, inf_frac=0.4)
+        gp = _gate_parts(86)
+        return (
+            R.SpecCase("padded", (d, st, bound, gp, R.fixture_ell())),
+            R.SpecCase("sliced", (d, st, bound, gp,
+                                  R.fixture_sliced(side="in"))),
+        )
+
+    def cases_out_scan():
+        gates = rows((k, b, n), 60)
+        dga, dgb = rows((b, n), 61), rows((b, n), 62)
+        return (
+            R.SpecCase("independent", (gates, None, R.fixture_ell())),
+            R.SpecCase("dep_0", (gates, (dga, dgb, 0), R.fixture_ell())),
+            R.SpecCase("dep_1", (gates, (dga, dgb, 1), R.fixture_ell())),
+            R.SpecCase("dep_sliced", (gates, (dga, dgb, 0),
+                                      R.fixture_sliced(side="out"))),
+        )
+
+    for name, fn, cases, counters in (
+        ("relax_settled", relax_settled, cases_relax_settled, ()),
+        ("static_thresholds", static_thresholds, cases_static_thresholds,
+         (2,)),
+        ("relax_settled_batch", relax_settled_batch,
+         cases_relax_settled_batch, ()),
+        ("relax_settled_batch_sliced", relax_settled_batch_sliced,
+         cases_relax_settled_sliced, ()),
+        ("push_settled_batch", push_settled_batch, cases_push_settled, ()),
+        ("push_settled_batch_sliced", push_settled_batch_sliced,
+         cases_push_settled_sliced, ()),
+        ("gather_min_batch_sliced", gather_min_batch_sliced,
+         cases_gather_sliced, ()),
+        ("static_thresholds_batch", static_thresholds_batch,
+         cases_static_thresholds_batch, (2,)),
+        ("crit_thresholds_batch", crit_thresholds_batch,
+         cases_crit_thresholds, (1,)),
+        ("key_min_batch", key_min_batch, cases_key_min, ()),
+        ("key_min_batch_any", key_min_batch_any, cases_key_min_any, ()),
+        ("delta_relax_batch", delta_relax_batch, cases_delta_relax, ()),
+        ("relax_settled_gated_batch", relax_settled_gated_batch,
+         cases_relax_gated, ()),
+        ("in_scan_relax_keys_gated_batch", in_scan_relax_keys_gated_batch,
+         cases_in_scan_gated, ()),
+        ("in_scan_relax_keys_batch", in_scan_relax_keys_batch,
+         cases_in_scan, ()),
+        ("out_scan_keys_batch", out_scan_keys_batch, cases_out_scan, ()),
+    ):
+        reg.register(R.KernelContract(
+            name=name, module=__name__, wrapper=fn, make_cases=cases,
+            counter_outputs=counters))

@@ -341,3 +341,77 @@ def frontier_crit_lanes_batch_ref(d: torch.Tensor, status: torch.Tensor,
             rows.append(amin(torch.where(fringe, term, INF), dim=1))
     n_f = fringe.sum(dim=1, dtype=torch.int32)
     return torch.stack(rows), n_f
+
+
+def register_kernels(reg):
+    """Bind each contract's plain twin as its oracle.
+
+    This module is last in ``registry.KERNEL_MODULES``, so every contract
+    exists already; ``collect()`` then refuses any left unbound. An oracle
+    takes the wrapper's arguments: the launch keyword ``sparse`` changes no
+    value and is dropped, the others (``dep_idx``, ``out_view``) are the
+    twin's own. The ops wrappers'
+    oracles are the wrappers themselves on the twin path.
+    """
+    import functools
+
+    from repro_torch.kernels import ops
+
+    def gather_ref(vecs, sliced, sparse=False):
+        return ell_sliced_gather_min_batch_ref(vecs, sliced)
+
+    def push_ref(dmask, cols, ws):
+        return ell_push_relax_batch_ref(dmask, (cols, ws))
+
+    def keys_dep_ref(gates, dga, dgb, cols, ws, dep_idx=0):
+        return ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws)
+
+    def sliced_keys_dep_ref(gates, dga, dgb, sliced, dep_idx=0):
+        return ell_sliced_keys_dep_batch_ref(gates, dga, dgb, dep_idx, sliced)
+
+    twin = functools.partial
+    for name, oracle in (
+        ("ell_relax", ell_relax_ref),
+        ("ell_relax_batch", ell_relax_batch_ref),
+        ("ell_push_relax_batch", push_ref),
+        ("ell_key_min", ell_key_min_ref),
+        ("ell_key_min_batch", ell_key_min_batch_ref),
+        ("ell_key_min_status_batch", ell_key_min_status_batch_ref),
+        ("ell_gather_min_batch", ell_gather_min_batch_ref),
+        ("ell_relax_keys_batch", ell_relax_keys_batch_ref),
+        ("ell_keys_dep_batch", keys_dep_ref),
+        ("ell_sliced_gather_min_batch", gather_ref),
+        ("ell_sliced_relax_keys_batch", ell_sliced_relax_keys_batch_ref),
+        ("ell_sliced_relax_keys_batch_push", ell_sliced_relax_keys_batch_ref),
+        ("ell_sliced_keys_dep_batch", sliced_keys_dep_ref),
+        ("ell_sliced_push_relax_batch", ell_push_relax_batch_ref),
+        ("frontier_crit", frontier_crit_ref),
+        ("frontier_crit_batch", frontier_crit_batch_ref),
+        ("frontier_crit_lanes_batch", frontier_crit_lanes_batch_ref),
+        ("relax_settled", twin(ops.relax_settled, use_kernels=False)),
+        ("static_thresholds", frontier_crit_ref),
+        ("relax_settled_batch", twin(ops.relax_settled_batch,
+                                     use_kernels=False)),
+        ("relax_settled_batch_sliced",
+         twin(ops.relax_settled_batch_sliced, use_kernels=False)),
+        ("push_settled_batch", twin(ops.push_settled_batch,
+                                    use_kernels=False)),
+        ("push_settled_batch_sliced",
+         twin(ops.push_settled_batch_sliced, use_kernels=False)),
+        ("gather_min_batch_sliced",
+         twin(ops.gather_min_batch_sliced, use_kernels=False)),
+        ("static_thresholds_batch", frontier_crit_batch_ref),
+        ("crit_thresholds_batch", frontier_crit_lanes_batch_ref),
+        ("key_min_batch", twin(ops.key_min_batch, use_kernels=False)),
+        ("key_min_batch_any", twin(ops.key_min_batch_any, use_kernels=False)),
+        ("delta_relax_batch", twin(ops.delta_relax_batch, use_kernels=False)),
+        ("relax_settled_gated_batch",
+         twin(ops.relax_settled_gated_batch, use_kernels=False)),
+        ("in_scan_relax_keys_gated_batch",
+         twin(ops.in_scan_relax_keys_gated_batch, use_kernels=False)),
+        ("in_scan_relax_keys_batch",
+         twin(ops.in_scan_relax_keys_batch, use_kernels=False)),
+        ("out_scan_keys_batch", twin(ops.out_scan_keys_batch,
+                                     use_kernels=False)),
+    ):
+        reg.bind_oracle(name, oracle)

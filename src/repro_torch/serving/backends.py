@@ -356,8 +356,9 @@ def measure_portfolio(
     once untimed without it (a warm-up), then timed without it (median of
     ``repeats``, each solve closed by a ``torch.cuda.synchronize()`` on the
     card, so the wall is the solve's and not its enqueue). Entries land in
-    the tuning ledger under ``portfolio_ledger_key``; returns
-    (ledger_policy, layout) -> entry.
+    the tuning ledger under ``portfolio_ledger_key``, tagged with the
+    graph's device (``config.device_tag``); returns (ledger_policy, layout)
+    -> entry.
     """
     if ledger is None:
         ledger = kcfg.global_ledger()
@@ -393,6 +394,7 @@ def measure_portfolio(
             queries=lanes,
             delta=delta_eff,
             attribution=_attribution_totals(probe, spec),
+            device=dev,
         )
         del probe
         out[(cand.ledger_policy, cand.layout)] = entry
@@ -409,16 +411,19 @@ def pick_engine(
     lanes: int,
     candidates: tuple[EngineCandidate, ...] = DEFAULT_CANDIDATES,
     ledger=None,
+    device=None,
 ) -> EngineCandidate:
     """The measured-best candidate for (family, lanes): the recorded-qps
     argmax over the candidates with entries, under the rich family key or
     else its coarse fallback; with no entries, the first candidate (the
-    paper's default criterion), so routing never waits on a probe."""
+    paper's default criterion), so routing never waits on a probe. Given a
+    ``device``, entries measured on another device are not read (an
+    untagged entry, as the reference writes them, is)."""
     if ledger is None:
         ledger = kcfg.global_ledger()
     entries: dict = {}
     for fam in family_fallbacks(family):
-        entries = kcfg.portfolio_entries(ledger, fam, lanes)
+        entries = kcfg.portfolio_entries(ledger, fam, lanes, device)
         if entries:
             break
     best, best_qps = None, -1.0
@@ -435,8 +440,9 @@ class PortfolioBackend:
     At construction it resolves ``graph_family(g)``, reads the ledger's
     portfolio records for (family, ``lanes_hint``) and builds the
     measured-best candidate as an inner :class:`StaticBackend` on the
-    graph's device. ``probe=True``, or a ledger with no record of the
-    family, runs :func:`measure_portfolio` first: the first server of a
+    graph's device; entries measured on another device do not count.
+    ``probe=True``, or a ledger with no record of the family, runs
+    :func:`measure_portfolio` first: the first server of a
     family pays one probe, later ones route from the records. The five
     protocol methods delegate; ``criterion`` is the routed policy's.
     """
@@ -452,7 +458,7 @@ class PortfolioBackend:
         self.family = graph_family(g)
         self.lanes_hint = int(lanes_hint)
         if probe or not any(
-            kcfg.portfolio_entries(ledger, fam, self.lanes_hint)
+            kcfg.portfolio_entries(ledger, fam, self.lanes_hint, g.device)
             for fam in family_fallbacks(self.family)
         ):
             measure_portfolio(
@@ -460,7 +466,7 @@ class PortfolioBackend:
                 ledger=ledger, use_kernels=use_kernels, registry=registry,
             )
         self.choice = pick_engine(self.family, self.lanes_hint, candidates,
-                                  ledger)
+                                  ledger, g.device)
         self.inner = StaticBackend(
             g, use_kernels=use_kernels, layout=self.choice.layout,
             policy=self.choice.policy, delta=self.choice.resolve_delta(g),

@@ -133,6 +133,9 @@ def verify_row(g: Graph, dist: np.ndarray, source: int,
     d = np.asarray(dist)
     if d.shape != (g.n,):
         return f"shape {d.shape} != ({g.n},)"
+    # the row's own dtype, contiguous and in native byte order (what
+    # torch.from_numpy takes)
+    d = np.ascontiguousarray(d, dtype=d.dtype.newbyteorder("="))
     if not d.flags.writeable:  # torch.from_numpy wants a writeable buffer
         d = d.copy()
     row = torch.from_numpy(d).to(g.device)  # the row as given, its dtype

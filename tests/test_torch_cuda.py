@@ -846,6 +846,27 @@ def test_frontier_crit_one_launch_matches_twin(cuda, k, per_lane, b, n,
         assert _same_bits(mins, w_mins) and _same_bits(cnt, w_cnt)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", range(9))
+def test_frontier_crit_every_key_count_matches_twin(cuda, k, offset):
+    """Every key count the kernel takes (0 to KMAX = 8) on aligned rows and
+    on rows off a 16-byte boundary: the instances whose unroll, and for
+    K > 4 off the boundary the key-at-a-time fold, were set so that ptxas
+    spills none (the audit's resource check); shared and per-lane keys,
+    -0 ties and NaN, bit-equal to the twin."""
+    for per_lane in ((False, True) if k else (False,)):
+        for b, n in ((8, 4096), (3, 1001)):
+            rng = np.random.default_rng(100 * k + 10 * b + offset)
+            args = _on_card(_crit_inputs(rng, b, n, k, per_lane, offset),
+                            cuda, offset)
+            keys = args[2] if k else None
+            mins, cnt = frontier_crit_lanes_batch(args[0], args[1], keys)
+            w_mins, w_cnt = ref.frontier_crit_lanes_batch_ref(args[0],
+                                                              args[1], keys)
+            assert _same_bits(mins, w_mins) and _same_bits(cnt, w_cnt), (
+                k, per_lane, b, n, offset)
+
+
 def test_frontier_crit_many_lanes_and_calls(cuda):
     """70 lanes (more than a wave's blocks a lane), then 50 calls in a row
     on alternating inputs: the scratch is reused and the ticket reset."""
@@ -1381,3 +1402,14 @@ def test_verify_row_on_the_card_matches_the_host(cuda):
     assert ell_sliced_gather_min_batch.launches > before
     assert hasattr(g_s.__dict__["_verify_edges"], "slices")
     assert not g_s.__dict__.get("_ell_in_cache")
+
+
+def test_analysis_card_checks_find_nothing(cuda):
+    """The audit's card checks (``python -m repro_torch.analysis``): every
+    kernel's ptxas resources within the card's limits, every case of every
+    contract written in full on a poisoned allocator, 3 runs alike."""
+    from repro_torch.analysis.kernel_audit import audit_card
+
+    findings, rows, stats = audit_card()
+    assert findings == [], [str(f) for f in findings]
+    assert len(rows) == 10 and stats["poisoned_cells"] == 0

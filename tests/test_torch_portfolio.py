@@ -155,6 +155,9 @@ def test_measure_portfolio_entries_equal_the_reference(gnp):
     et = TB.measure_portfolio(gt, lanes=2, ledger=led_t, registry=reg,
                               repeats=1)
     assert list(et) == list(ej)
+    # the port tags each entry with the device it probed on; the rest of
+    # the entry is the reference's
+    assert all(e.pop("device") == "cpu" for e in et.values())
     assert _strip(et) == _strip(ej)
     assert set(led_t.entries) == set(led_j.entries)
     for key, e in et.items():
@@ -178,6 +181,7 @@ def test_measure_portfolio_on_other_families(kind):
                               ledger=tcfg.TuningLedger(), repeats=1)
     ej = JB.measure_portfolio(gj, lanes=3, candidates=CANDS[1],
                               ledger=jcfg.TuningLedger(), repeats=1)
+    assert all(e.pop("device") == "cpu" for e in et.values())
     assert _strip(et) == _strip(ej)
 
 

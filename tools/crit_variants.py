@@ -40,7 +40,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # loads: fewer or more groups of 4 vertices a thread before it folds.
 _FOLD = ('  float r;\n  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(m), '
          '"f"(v));\n  return r;\n')
-_UNROLL = "  static constexpr int value = K <= 2 ? 4 : (K <= 4 ? 2 : 1);\n"
+_UNROLL = "      (K == 0 || (K == 1 && ALIGNED)) ? 4\n"
 # name -> ({macro: value}, [(old text, new text)])
 VARIANTS = {
     "shipped": ({}, []),
@@ -53,8 +53,8 @@ VARIANTS = {
                                     "m ? __int_as_float(__float_as_int(m) | "
                                     "__float_as_int(v)) : m);\n")]),
     "no_tie": ({}, [(_FOLD, "  return (v < m || v != v) ? v : m;\n")]),
-    "unroll2": ({}, [(_UNROLL, _UNROLL.replace("K <= 2 ? 4", "K <= 2 ? 2"))]),
-    "unroll8": ({}, [(_UNROLL, _UNROLL.replace("K <= 2 ? 4", "K <= 2 ? 8"))]),
+    "unroll2": ({}, [(_UNROLL, _UNROLL.replace("? 4", "? 2"))]),
+    "unroll8": ({}, [(_UNROLL, _UNROLL.replace("? 4", "? 8"))]),
     # registers held to 2 blocks of 256 threads an SM instead of 4 (no
     # spills for K >= 1), for the 1 and 2 blocks an SM of the sweep below
     "min_blocks2": ({"CRIT_MIN_BLOCKS": 2}, []),

@@ -25,10 +25,18 @@ go through ``ell_gather_min_launch`` (and, read from the lanes' status,
 shipped build's pipelined body, f32 and status table, in turns with the
 single-sweep body it replaced there. Last, the shipped build's out-scan on the first 1, 2, 4 and 8 lanes
 (a packed table of 4-32 MB). Exits non-zero without a card.
+
+The module also holds the reference's split form of the two fused scans
+(``split_in_scan``, ``split_out_scan``, and ``split_scans``, which puts
+them in place of ``repro_torch.kernels.ops``' scans for a ``with`` block):
+the single sweeps #1, #6 and #9 with the gate between them in torch, the
+same bits as the fused kernels. ``chip_smoke.py`` and the CPU tests hold
+the fused scans against it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import re
 import subprocess
@@ -157,6 +165,84 @@ def shape_of(defines: dict) -> dict:
     names = {"SCAN_CAP": "cap", "SCAN_WARPS": "warps",
              "SCAN_SKIP_WARPS": "skip_warps"}
     return {names[k]: v for k, v in defines.items() if k in names}
+
+
+def split_in_scan(d, settle_mask, gate_parts, ell, *, out_view=None,
+                  use_kernels=True):
+    """``ops.in_scan_relax_keys_batch`` in the reference's split form: the
+    relax sweep (``ops.relax_settled_batch``, #1, on the padded view;
+    ``ops.relax_settled_batch_sliced``, #9 with its skip of all-+inf
+    columns, on a sliced one; ``out_view`` is not used, the split form
+    pulls), the post-phase gate ``min(ga, gb, gc + fin(upd))`` in torch,
+    then one gather of the K gates (#6 or #9). ``use_kernels=False`` runs
+    the fused form's twins."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    if not use_kernels:
+        return _fused("in")(d, settle_mask, gate_parts, ell,
+                            out_view=out_view, use_kernels=False)
+    if ops._is_sliced(ell):
+        upd = ops.relax_settled_batch_sliced(d, settle_mask, ell)
+    else:
+        upd = ops.relax_settled_batch(d, settle_mask, ell[0], ell[1])
+    ga, gb, gc = (torch.stack([p[i] for p in gate_parts]) for i in range(3))
+    fin = torch.where(upd < INF, 0.0, INF)
+    gates = ref.nan_min(ga, ref.nan_min(gb, gc + fin[None]))
+    return upd, _fused("out")(gates, None, ell)
+
+
+def split_out_scan(gates, dep_parts, ell, *, use_kernels=True):
+    """``ops.out_scan_keys_batch`` in the reference's split form: the
+    independent keys by one gather (#6 or #9: the out-scan with no
+    dependent key), then the dependent key by a second gather over the
+    gate ``min(dga, dgb + keys[dep_idx])`` built in torch.
+    ``use_kernels=False`` runs the fused form's twins."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    gather = _fused("out")
+    if dep_parts is None or not use_kernels:
+        return gather(gates, dep_parts, ell, use_kernels=use_kernels)
+    dga, dgb, dep_idx = dep_parts
+    keys0 = gather(gates, None, ell)
+    gate = ref.nan_min(dga, dgb + keys0[dep_idx])
+    return torch.cat([keys0, gather(gate[None], None, ell)], dim=0)
+
+
+_FUSED: dict = {}
+
+
+def _fused(side: str):
+    """The package's own scan of ``side`` (``in`` or ``out``), also while
+    :func:`split_scans` has swapped it out."""
+    from repro_torch.kernels import ops
+
+    if side in _FUSED:
+        return _FUSED[side]
+    return ops.in_scan_relax_keys_batch if side == "in" else \
+        ops.out_scan_keys_batch
+
+
+@contextlib.contextmanager
+def split_scans():
+    """Run every engine's two-sweep scans in the split form inside the
+    block: ``ops.in_scan_relax_keys_batch`` (and so its bound-gated form)
+    and ``ops.out_scan_keys_batch`` are swapped for :func:`split_in_scan`
+    and :func:`split_out_scan`, and put back on exit."""
+    from repro_torch.kernels import ops
+
+    _FUSED["in"], _FUSED["out"] = (ops.in_scan_relax_keys_batch,
+                                   ops.out_scan_keys_batch)
+    ops.in_scan_relax_keys_batch = split_in_scan
+    ops.out_scan_keys_batch = split_out_scan
+    try:
+        yield
+    finally:
+        ops.in_scan_relax_keys_batch = _FUSED.pop("in")
+        ops.out_scan_keys_batch = _FUSED.pop("out")
 
 
 def rounds(names, cases):
