@@ -179,10 +179,33 @@ failure raises, exits non-zero and prints no ``ok`` line:
      ``TraceGuard`` counts 0 compiles over 16 warmed ``StaticBackend``
      requests. The script stops at its start unless
      ``REPRO_TORCH_KERNEL_MODE`` resolves to ``auto``.
+ 26. the sharded stepper over ``torch.distributed``: (a) the rectangular
+     push (#1b, ``ell_push_rect_batch``) on each block of G(10^6, 10^-4)
+     at P = 2 against its twin, bit for bit (sparse and dense dmask, B =
+     1, 8, 13, 40, NaN lanes, a dense key gate, values and weights on
+     {+0, -0, 0.5, 1}; the dense case also against the square push over
+     the whole graph with only the block live), and timed on rank 0's block
+     of phase 6's input beside its twin, its bound and the square push;
+     (b) 2 ranks sharing cuda:0 under gloo (``torch.multiprocessing``
+     spawn; every collective staged through host memory; the kernels built
+     by phase 1 before the spawn): phase 4's B = 8 solve under the default
+     plan on both schedules and ``in|out`` on ``reduce_scatter``, each
+     bit-equal to phases 4 and 9's kernel solves (``dist``, ``status``,
+     ``phases``, ``sum_fringe``, ``relax_edges``, trips), #2 and the
+     rectangular push launched on every rank and no pull; then
+     ``ShardedBackend`` under ``ContinuousBatcher`` on rank 0 (rank 1 in
+     ``follow()``) answers phase 3's 16 requests with phase 3's rows; ms a
+     phase, the exchange's ms a phase (host clock around the collectives),
+     queries/s, labelled as 2 ranks sharing one H100 (a correctness check,
+     not a sharded speed); (c) a world of one rank on NCCL, in this
+     process: the default B = 8 solve equal to phase 4's on every field,
+     and ``ShardedBackend`` (rank 0 alone) serving phase 3's 16 requests
+     with its rows. Any rank's failure fails the run.
 
 Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
-23–24 and of 25) runs with the launch counts set to 0 just before and read
-just after, and fails if one of its kernels never ran.
+23–24, of 25 and of 26, on every rank) runs with the launch counts set to
+0 just before and read just after, and fails if one of its kernels never
+ran.
 
 The second line from the end is the ``kernels`` JSON line (each row with
 its ``__global__`` kernels' ptxas ``registers``, ``smem_bytes`` and
@@ -462,6 +485,161 @@ def signed_vec(rng, shape, dev, inf_frac=0.2, nan=True):
     return torch.from_numpy(x).to(dev)
 
 
+def kernel_counters() -> dict:
+    """name -> (wrapper, its launch-count attribute) of every kernel the
+    script counts."""
+    from repro_torch.kernels.ell_key_min import (
+        ell_key_min_batch,
+        ell_key_min_status_batch,
+    )
+    from repro_torch.kernels.ell_relax import (
+        ell_push_rect_batch,
+        ell_push_relax_batch,
+        ell_relax_batch,
+    )
+    from repro_torch.kernels.ell_relax_keys import (
+        ell_gather_min_batch,
+        ell_keys_dep_batch,
+        ell_relax_keys_batch,
+    )
+    from repro_torch.kernels.ell_sliced import (
+        ell_sliced_gather_min_batch,
+        ell_sliced_keys_dep_batch,
+        ell_sliced_push_relax_batch,
+        ell_sliced_relax_keys_batch,
+    )
+    from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
+
+    counted = {f.__name__: (f, "launches") for f in (
+        ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
+        ell_key_min_status_batch, ell_gather_min_batch, ell_relax_keys_batch,
+        ell_keys_dep_batch, ell_sliced_gather_min_batch,
+        ell_sliced_relax_keys_batch, ell_sliced_keys_dep_batch,
+        ell_push_relax_batch, ell_sliced_push_relax_batch,
+        ell_push_rect_batch)}
+    # #10b: the sliced fused in-scan with the push as its relax sweep
+    counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
+    return counted
+
+
+SHARDED_LABEL = "2 ranks sharing one H100, gloo through host memory"
+SHARDED_RELAX = ("ell_push_rect_batch", "frontier_crit_lanes_batch")
+SHARDED_NEVER = ("ell_relax_batch", "ell_push_relax_batch",
+                 "ell_sliced_gather_min_batch", "ell_sliced_push_relax_batch",
+                 "ell_gather_min_batch", "ell_key_min_batch",
+                 "ell_relax_keys_batch", "ell_keys_dep_batch")
+
+
+def sharded_rank(rank: int, world: int, store: str, job: str):
+    """One rank of phase 26's gloo world (the ranks share cuda:0): the B = 8
+    solve of phase 4's sources under the default plan on both schedules
+    and ``in|out`` on one, each held by rank 0 against phases 4 and 9's
+    kernel solves, every rank's launches checked (#2 and the rectangular
+    push run, no pull, no square push); then ``ShardedBackend`` under
+    ``ContinuousBatcher`` on rank 0 answering phase 3's 16 requests (the
+    other ranks follow), rows against phase 3's. Writes
+    ``<job>/rank<r>.json``; any failure raises, and the parent's join
+    fails."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.graphs import uniform_gnp
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.serving import ContinuousBatcher, ShardedBackend
+
+    rank, world, dev = init_group(rank, world, backend="gloo",
+                                  init_method=store, device="cuda:0")
+    counted = kernel_counters()
+    want = np.load(Path(job) / "ref.npz")
+    report = {"rank": rank, "paths": {}}
+    try:
+        t0 = time.perf_counter()
+        g = uniform_gnp(N, P, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        report["graph_s"] = time.perf_counter() - t0
+        src8 = want["src8"]
+
+        def run(label, tag, **kw):
+            for f, attr in counted.values():
+                setattr(f, attr, 0)
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = D.run_sharded_batch(g, None, src8, device=dev, stats=stats,
+                                      **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {nm: getattr(f, a) for nm, (f, a) in counted.items()}
+            for nm in SHARDED_RELAX:
+                if counts[nm] <= 0:
+                    raise SystemExit(f"rank {rank} {label}: {nm} never ran")
+            ran = {nm: counts[nm] for nm in SHARDED_NEVER if counts[nm]}
+            if ran:
+                raise SystemExit(f"rank {rank} {label}: another relax or "
+                                 f"scan ran: {ran}")
+            if rank == 0:
+                for f in ("dist", "status", "phases"):
+                    got = getattr(res, f).cpu().numpy()
+                    if not np.array_equal(got.view(np.uint8),
+                                          want[f"{tag}_{f}"].view(np.uint8)):
+                        raise SystemExit(f"sharded {label}: {f} differs from "
+                                         "the single-card kernel solve")
+                for f in ("sum_fringe", "relax_edges"):
+                    if not np.array_equal(getattr(res, f), want[f"{tag}_{f}"]):
+                        raise SystemExit(f"sharded {label}: {f} differs")
+                if int(res.total_phases) != int(want[f"{tag}_trips"]):
+                    raise SystemExit(f"sharded {label}: trips differ")
+            report["paths"][label] = {
+                "wall_s": wall, "trips": int(res.total_phases),
+                "exchange_s": stats.get("exchange_s", 0.0),
+                "collectives": stats.get("collectives", 0),
+                "launches": counts}
+
+        for sched in D.SCHEDULES:
+            run(f"default {sched}", "k", schedule=sched)
+        run("in|out reduce_scatter", "io", schedule="reduce_scatter",
+            criterion="in|out")
+
+        for f, attr in counted.values():
+            setattr(f, attr, 0)
+        backend = ShardedBackend(g, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rank == 0:
+            server = ContinuousBatcher(g, lanes=LANES, phases_per_step=CHUNK,
+                                       backend=backend)
+            for s in want["sources"]:
+                server.submit(int(s))
+            done = sorted(server.drain(max_steps=100_000),
+                          key=lambda r: r.req_id)
+            backend.close()
+            if len(done) != REQUESTS or any(r.outcome != "ok" for r in done):
+                raise SystemExit("ShardedBackend did not answer every request")
+            for r in done:
+                if not np.array_equal(r.dist.view(np.int32),
+                                      want["rows"][r.req_id].view(np.int32)):
+                    raise SystemExit(f"ShardedBackend row {r.req_id} differs "
+                                     "from phase 3's")
+            served = {"requests": len(done), "steps": server.metrics.steps,
+                      "trips": int(server.metrics.engine_trips)}
+        else:
+            served = {"commands": backend.follow()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {nm: getattr(f, a) for nm, (f, a) in counted.items()}
+        for nm in SHARDED_RELAX:
+            if counts[nm] <= 0:
+                raise SystemExit(f"rank {rank} serving: {nm} never ran")
+        report["paths"]["serving"] = dict(served, wall_s=wall,
+                                          launches=counts)
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    with open(Path(job) / f"rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
 def main() -> int:
     import torch
 
@@ -550,14 +728,7 @@ def main() -> int:
         verify_row,
     )
 
-    counted = {f.__name__: (f, "launches") for f in (
-        ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
-        ell_key_min_status_batch, ell_gather_min_batch, ell_relax_keys_batch, ell_keys_dep_batch,
-        ell_sliced_gather_min_batch, ell_sliced_relax_keys_batch,
-        ell_sliced_keys_dep_batch, ell_push_relax_batch,
-        ell_sliced_push_relax_batch)}
-    # #10b: the sliced fused in-scan with the push as its relax sweep
-    counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
+    counted = kernel_counters()
 
     def zero_counts():
         for f, attr in counted.values():
@@ -3359,6 +3530,224 @@ def main() -> int:
         f"compile_count {compile_count()} in the run")
     log(f"phase 25: {time.perf_counter() - t25:.1f} s")
 
+    # ---- 26. the sharded stepper over torch.distributed ---------------------
+    import tempfile
+
+    import torch.distributed as tdist
+    import torch.multiprocessing as tmp_mp
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels.ell_relax import ell_push_rect_batch
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.serving import ShardedBackend
+
+    t26 = time.perf_counter()
+    n = g.n
+
+    def block(x, rank, n_loc):
+        """Rank ``rank``'s (B, n_loc) block of (B, n) rows, +inf past n."""
+        out = torch.full((x.shape[0], n_loc), INF, device=dev)
+        lo, hi = rank * n_loc, min((rank + 1) * n_loc, n)
+        out[:, : hi - lo] = x[:, lo:hi]
+        return out
+
+    # (a) the rectangular push (#1b) at full width, each block of P = 2
+    # against its twin; the dense B = 8 case also against the square push
+    # over the whole graph with only the block's rows live
+    errs["ell_push_rect_batch"] = 0.0
+    prng26 = np.random.default_rng(26)
+    dm8u = torch.where(st8 == 1, d8, INF)  # phase 2's dense dmask
+    gate8 = torch.where(st8 < 2, 0.0, INF)  # an "unsettled" key gate
+    for r in range(2):
+        sg = D.shard_graph_batch(g, 2, rank=r, with_transpose=False)
+        view = sg.ell_out
+        cases = {
+            "B=1 sparse, NaN lane": (seeded_push_dmask(
+                prng26, 1, sg.n_loc, 0.01, dev), view),
+            "B=8 dense (a third finite)": (block(dm8u, r, sg.n_loc), view),
+            "B=13 NaN lanes": (seeded_push_dmask(
+                prng26, 13, sg.n_loc, 0.003, dev), view),
+            "B=40 NaN lanes": (seeded_push_dmask(
+                prng26, 40, sg.n_loc, 0.001, dev), view),
+            "B=8 dense key gate": (block(gate8, r, sg.n_loc), view),
+            "B=8 on {+0, -0, 0.5, 1}": (
+                signed_vec(prng26, (LANES, sg.n_loc), dev, inf_frac=0.6),
+                (view[0], signed_weights(view[1]))),
+        }
+        for label, (dm, vw) in cases.items():
+            got = ell_push_rect_batch(dm, *vw, sg.n_pad)
+            want = ref.ell_push_rect_batch_ref(dm, *vw, sg.n_pad)
+            torch.cuda.synchronize()
+            ok = same_bits(got, want)
+            errs["ell_push_rect_batch"] = max(errs["ell_push_rect_batch"],
+                                              max_abs_err(got, want))
+            square = ""
+            if label.startswith("B=8 dense (a"):
+                full = torch.full((LANES, n), INF, device=dev)
+                lo = r * sg.n_loc
+                full[:, lo:lo + sg.n_loc] = dm[:, : n - lo]
+                ok_sq = same_bits(got[:, :n],
+                                  ell_push_relax_batch(full, cols_o, ws_o))
+                square = (", the square push over the whole graph "
+                          f"{'bits equal' if ok_sq else 'DIFFER'}")
+                ok = ok and ok_sq
+            log(f"parity ell_push_rect_batch [rank {r} of 2, {label}]: twin "
+                f"{'bits equal' if ok else 'DIFFER'}{square} (n_loc "
+                f"{sg.n_loc}, n_pad {sg.n_pad}, NaN out: "
+                f"{int(torch.isnan(got).sum())})")
+            if not ok:
+                raise SystemExit(f"ell_push_rect_batch disagrees: rank {r}, "
+                                 f"{label}")
+        del sg, view, cases, got, want
+    # its time on rank 0's block of phase MID_PHASE's input, beside the
+    # twin, the bound, and the square push on the whole-graph input with
+    # only that block live
+    st26 = step_batch(g, init_batch_state(g, src8, device=dev), MID_PHASE,
+                      ell=(cols, ws))
+    mins26, _ = kops.crit_thresholds_batch(st26.dist, st26.status,
+                                           keys_shared)
+    settle26 = C.plan_union_mask(st26.plan, st26.dist, st26.status == 1,
+                                 mins26, {}, g.in_min_static, None)
+    dm_full26 = torch.where(settle26, st26.dist, INF)
+    sg0 = D.shard_graph_batch(g, 2, rank=0, with_transpose=False)
+    dm26 = block(dm_full26, 0, sg0.n_loc)
+    only0 = torch.full_like(dm_full26, INF)
+    only0[:, : sg0.n_loc] = dm26[:, : min(sg0.n_loc, n)]
+    rect26 = ell_push_rect_batch(dm26, *sg0.ell_out, sg0.n_pad)
+    if not (same_bits(rect26, ref.ell_push_rect_batch_ref(
+            dm26, *sg0.ell_out, sg0.n_pad)) and same_bits(
+            rect26[:, :n], ell_push_relax_batch(only0, cols_o, ws_o))):
+        raise SystemExit(f"ell_push_rect_batch disagrees at phase {MID_PHASE}")
+    rect_ms = time_ms(lambda: ell_push_rect_batch(dm26, *sg0.ell_out,
+                                                  sg0.n_pad), reps=20)
+    rect_sq_ms = time_ms(lambda: ell_push_relax_batch(only0, cols_o, ws_o),
+                         reps=20)
+    rect_plain_ms = time_ms(lambda: ref.ell_push_rect_batch_ref(
+        dm26, *sg0.ell_out, sg0.n_pad), reps=5)
+    active26, cand26, rows26 = push_load(dm26, sg0.out_deg)
+    b26, by26 = bound(rows26 + dm26.numel() * 4 + LANES * sg0.n_pad * 4,
+                      2.0 * cand26)
+    log(f"ell_push_rect_batch at phase {MID_PHASE}, rank 0's block: "
+        f"{rect_ms:.4f} ms ({active26} active rows, {cand26} candidates); "
+        f"bound {b26:.4f} ms ({by26}); the square push on the same rows "
+        f"{rect_sq_ms:.4f} ms; plain twin {rect_plain_ms:.4f} ms")
+    del st26, mins26, settle26, dm_full26, only0, rect26, gate8, dm8u
+
+    # (b) 2 ranks sharing cuda:0 under gloo (every collective staged through
+    # host memory by Comm; NCCL refuses two ranks on one card)
+    job26 = Path(tempfile.mkdtemp(prefix="smoke26-"))
+    np.savez(job26 / "ref.npz", src8=np.asarray(src8),
+             sources=np.asarray(sources),
+             rows=np.stack([rows[r] for r in range(REQUESTS)]),
+             **{f"{tag}_{f}": (getattr(res, f).cpu().numpy()
+                               if torch.is_tensor(getattr(res, f))
+                               else np.asarray(getattr(res, f)))
+                for tag, res in (("k", res_k), ("io", res_io))
+                for f in ("dist", "status", "phases", "sum_fringe",
+                          "relax_edges")},
+             k_trips=int(res_k.total_phases),
+             io_trips=int(res_io.total_phases))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx = tmp_mp.spawn(sharded_rank, args=(2, f"file://{job26}/store",
+                                           str(job26)),
+                       nprocs=2, join=False)
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=5.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise SystemExit("phase 26's ranks outlived 600 s")
+    world_s = time.perf_counter() - t0
+    reports = []
+    for r in range(2):
+        with open(job26 / f"rank{r}.json") as f:
+            reports.append(json.load(f))
+    log(f"sharded [{SHARDED_LABEL}; {smi}]: the ranks took {world_s:.1f} s "
+        f"(graph generation {reports[0]['graph_s']:.1f} / "
+        f"{reports[1]['graph_s']:.1f} s); gloo through host memory: every "
+        f"collective staged explicitly (Comm.staged)")
+    for rep26 in reports:
+        r = rep26["rank"]
+        for label, path in rep26["paths"].items():
+            by_path[f"sharded {label} rank {r}"] = path["launches"]
+            if label == "serving":
+                what = (f"{path['requests']} requests, {path['steps']} steps, "
+                        f"{path['trips']} trips, "
+                        f"{REQUESTS / path['wall_s']:.2f} queries/s"
+                        if r == 0 else
+                        f"{path['commands']} commands followed")
+                log(f"sharded [{SHARDED_LABEL}; {smi}] ShardedBackend "
+                    f"serving rank {r}: {what}, {path['wall_s']:.3f} s; "
+                    f"launches #1b rect {path['launches']['ell_push_rect_batch']}"
+                    f", #2 {path['launches']['frontier_crit_lanes_batch']}")
+                continue
+            trips = max(path["trips"], 1)
+            log(f"sharded [{SHARDED_LABEL}; {smi}] {label} B={LANES} rank "
+                f"{r}: {path['trips']} trips, "
+                f"{path['wall_s'] / trips * 1e3:.3f} ms/phase, exchange "
+                f"{path['exchange_s'] / trips * 1e3:.3f} ms/phase (host clock"
+                f", {path['collectives']} collectives), "
+                f"{LANES / path['wall_s']:.2f} queries/s, "
+                f"{path['wall_s']:.3f} s; launches #1b rect "
+                f"{path['launches']['ell_push_rect_batch']}, #2 "
+                f"{path['launches']['frontier_crit_lanes_batch']}")
+    log("sharded: both schedules of the default plan equal phase 4's kernel "
+        "solve and in|out phase 9's (dist, status, phases, sum_fringe, "
+        "relax_edges, trips); ShardedBackend's 16 rows equal phase 3's; every "
+        "rank ran #2 and the rectangular push and no pull")
+
+    # (c) a world of one rank on NCCL, in this process
+    init_group(0, 1, backend="nccl", init_method=f"file://{job26}/nccl",
+               device=dev)
+    try:
+        stats26 = {}
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res_n = D.run_sharded_batch(g, None, src8, device=dev, stats=stats26)
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - t0
+        counts = read_counts()
+        # ShardedBackend on NCCL: rank 0 alone, its commands broadcast to
+        # no follower, phase 3's requests and rows
+        zero_counts()
+        server = ContinuousBatcher(g, lanes=LANES, phases_per_step=CHUNK,
+                                   backend=ShardedBackend(g, device=dev))
+        for s26 in sources:
+            server.submit(int(s26))
+        done26 = sorted(server.drain(max_steps=100_000),
+                        key=lambda r: r.req_id)
+        server.backend.close()
+        counts_serve = read_counts()
+    finally:
+        tdist.destroy_process_group()
+    must_run(counts, SHARDED_RELAX, "the NCCL world of one")
+    must_run(counts_serve, SHARDED_RELAX, "ShardedBackend on NCCL")
+    by_path["sharded default nccl world of one"] = counts
+    by_path["sharded serving nccl world of one"] = counts_serve
+    if len(done26) != REQUESTS or any(
+            not np.array_equal(r.dist.view(np.int32),
+                               rows[r.req_id].view(np.int32))
+            for r in done26):
+        raise SystemExit("ShardedBackend on NCCL: rows differ from phase 3's")
+    bad = result_diff(res_k, res_n)
+    if bad is not None:
+        raise SystemExit(f"the NCCL world of one differs from phase 4 in {bad}")
+    trips_n = int(res_n.total_phases)
+    log(f"sharded [NCCL, a world of one on {kind}; {smi}] default B={LANES}:"
+        f" {trips_n} trips, {nccl_s / trips_n * 1e3:.3f} ms/phase, exchange "
+        f"{stats26.get('exchange_s', 0.0) / trips_n * 1e3:.3f} ms/phase "
+        f"({stats26.get('collectives', 0)} collectives), "
+        f"{LANES / nccl_s:.2f} queries/s, {nccl_s:.3f} s; every "
+        "BatchedResult field equal to phase 4's; ShardedBackend served "
+        f"phase 3's {REQUESTS} requests with its rows")
+    del res_n, sg0, dm26
+    import shutil
+
+    shutil.rmtree(job26, ignore_errors=True)
+    log(f"phase 26: {time.perf_counter() - t26:.1f} s")
+
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
     log(f"card: {smi}")
@@ -3374,6 +3763,8 @@ def main() -> int:
         "ell_relax_keys_batch": "src/repro/kernels/ell_relax_keys.py:182",
         "ell_keys_dep_batch": "src/repro/kernels/ell_relax_keys.py:482",
     }
+    sharded_launches = reports[0]["paths"]["default reduce_scatter"][
+        "launches"]
     kernels = [
         # the pull relax: no serving path launches it since the push took
         # over the relax of every plan without in-side keys (0 launches on
@@ -3473,6 +3864,19 @@ def main() -> int:
          "densest_phase_ms": dense_turns_k[1:3],
          "active_rows_median": int(np.median(act_rows_k)),
          "active_rows_max": int(act_rows_k.max())},
+    ] + [
+        # #1b in its rectangular form, the sharded stepper's relax and key
+        # scans; it stands for the reference's shard-local XLA segment_min
+        # (no pallas_call). Launches: rank 0's, the default reduce_scatter
+        # solve of phase 26's gloo world
+        {"name": "ell_push_rect_batch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_push.cu",
+         "replaces": "src/repro/core/distributed.py:590",
+         "launches": sharded_launches["ell_push_rect_batch"],
+         "max_abs_err": errs["ell_push_rect_batch"], "ms": rect_ms,
+         "plain_ms": rect_plain_ms, "bound_ms": b26, "bound_by": by26,
+         "library_ms": None, "square_push_ms": rect_sq_ms,
+         "active_rows": active26, "candidates": cand26},
     ]
     # #5 and #9 on delta's weight-gated views, light and heavy gates of one
     # real delta phase (phase 20)

@@ -156,8 +156,9 @@ def _rank_in_group(keys: torch.Tensor, n: int):
     return order, srt, rank
 
 
-def _build_ell(from_ids, to_ids, w, n, pad_multiple):
-    """(n, D) ELL rows keyed by ``to_ids`` holding (from_id, weight) pairs.
+def _build_ell(from_ids, to_ids, w, n, pad_multiple, sentinel=None):
+    """(n, D) ELL rows keyed by ``to_ids`` holding (from_id, weight) pairs,
+    padded with the id ``sentinel`` (default n) and +inf.
 
     The reference's slot of an edge is its rank within its row after a
     stable sort by row (:func:`_rank_in_group`).
@@ -170,7 +171,8 @@ def _build_ell(from_ids, to_ids, w, n, pad_multiple):
     max_deg = max(max_deg, 1)
     d_pad = -(-max_deg // pad_multiple) * pad_multiple
     dev = w.device
-    cols = torch.full((n, d_pad), n, dtype=torch.int32, device=dev)
+    cols = torch.full((n, d_pad), n if sentinel is None else sentinel,
+                      dtype=torch.int32, device=dev)
     ws = torch.full((n, d_pad), INF, dtype=torch.float32, device=dev)
     order, to_s, slot = _rank_in_group(to_long, n)
     cols[to_s, slot] = from_ids[order]

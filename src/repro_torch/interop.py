@@ -2,17 +2,23 @@
 package, as numpy.
 
 The port never imports the reference; a caller that holds a reference
-``Graph``, ``SlicedEll`` or ``BatchState`` passes its arrays as a dict of
-numpy arrays (``np.asarray`` of each field) and gets the port's
-counterpart, with no recomputation. The tests use this to start both
-packages from one mid-solve state, and to feed the reference's own sliced
-view to the port's kernels.
+``Graph``, ``SlicedEll``, ``BatchState``, ``ShardedBatchGraph`` or
+``ShardedBatchState`` passes its arrays as a dict of numpy arrays
+(``np.asarray`` of each field) and gets the port's counterpart, with no
+recomputation (a sharded one as one rank's block). The tests use this to
+start both packages from one mid-solve state, and to feed the reference's
+own sliced view to the port's kernels.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import (
+    ShardedBatchGraph,
+    ShardedBatchState,
+    local_out_view,
+)
 from repro_torch.core.graph import EllSlice, Graph, SlicedEll, sliced_ell
 from repro_torch.core.static_engine import BatchState
 from repro_torch.kernels.config import resolve_device
@@ -109,5 +115,76 @@ def state_from_numpy(fields: dict, device=None) -> BatchState:
         attr_trace=opt("attr_trace", np.int32),
         delta=opt("delta", np.float32, ()),
         target=opt("target", np.int32),
+        criterion=str(fields["criterion"]),
+    )
+
+
+def sharded_graph_from_numpy(fields: dict, rank: int,
+                             device=None) -> ShardedBatchGraph:
+    """Rank ``rank``'s block of a reference ``ShardedBatchGraph`` on
+    ``device`` (None = the CUDA card): its row of the stacked ``(P,
+    E_loc)`` edge arrays (``src_local, dst, w`` and, where present,
+    ``tsrc_local, tdst, tw``) and its ``(n_loc,)`` slices of ``in_min``,
+    ``out_min`` and ``out_deg``, taken as given; only the rank-local
+    outgoing views are built from the rows."""
+    dev = resolve_device(device)
+    n_loc, n_pad = int(fields["n_loc"]), int(fields["n_pad"])
+    lo, hi = rank * n_loc, (rank + 1) * n_loc
+
+    def row(name, dtype):
+        return _tensor(np.asarray(fields[name])[rank], dtype, dev)
+
+    def block(name, dtype):
+        return _tensor(np.asarray(fields[name])[lo:hi], dtype, dev)
+
+    fwd = (row("src_local", np.int32), row("dst", np.int32),
+           row("w", np.float32))
+    rev = (None,) * 3
+    if fields.get("tsrc_local") is not None:
+        rev = (row("tsrc_local", np.int32), row("tdst", np.int32),
+               row("tw", np.float32))
+    return ShardedBatchGraph(
+        n=int(fields["n"]), n_pad=n_pad, n_loc=n_loc,
+        num_shards=int(fields["num_shards"]), rank=int(rank),
+        src_local=fwd[0], dst=fwd[1], w=fwd[2],
+        tsrc_local=rev[0], tdst=rev[1], tw=rev[2],
+        in_min=block("in_min", np.float32),
+        out_min=block("out_min", np.float32),
+        out_deg=block("out_deg", np.int32),
+        ell_out=local_out_view(*fwd, n_loc, n_pad),
+        ell_t=None if rev[0] is None else local_out_view(*rev, n_loc, n_pad),
+    )
+
+
+def sharded_state_from_numpy(fields: dict, rank: int, num_shards: int,
+                             device=None) -> ShardedBatchState:
+    """Rank ``rank``'s block of a reference ``ShardedBatchState`` (its
+    ``(B, n_pad)`` fields read as global arrays, ``np.asarray`` of each)
+    on ``device`` (None = the CUDA card): the ``(B, n_loc)`` column block
+    of ``dist``, ``status`` and ``dist_true`` (absent or None off the
+    oracle plans), the replicated ``trips``, ``phases`` and
+    ``settled_trace``, and the two-limb counters folded into int64."""
+    dev = resolve_device(device)
+    dist = np.asarray(fields["dist"])
+    n_pad = dist.shape[1]
+    n_loc = n_pad // int(num_shards)
+    cols = slice(rank * n_loc, (rank + 1) * n_loc)
+
+    def counter(name):
+        folded = combine_limbs(fields[name], fields[name + "_hi"])
+        return torch.from_numpy(folded).to(dev)
+
+    dt = fields.get("dist_true")
+    return ShardedBatchState(
+        n=int(fields["n"]), n_pad=n_pad, rank=int(rank),
+        dist=_tensor(dist[:, cols], np.float32, dev),
+        status=_tensor(np.asarray(fields["status"])[:, cols], np.int32, dev),
+        trips=_tensor(np.asarray(fields["trips"]).reshape(()), np.int32, dev),
+        phases=_tensor(fields["phases"], np.int32, dev),
+        sum_fringe=counter("sum_fringe"),
+        relax_edges=counter("relax_edges"),
+        dist_true=(None if dt is None
+                   else _tensor(np.asarray(dt)[:, cols], np.float32, dev)),
+        settled_trace=_tensor(fields["settled_trace"], np.int32, dev),
         criterion=str(fields["criterion"]),
     )

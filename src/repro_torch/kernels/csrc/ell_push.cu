@@ -75,6 +75,16 @@
 // Ids: an id outside [0, n) ends its row (the sentinel n does so by
 // contract); an owner outside [0, n) makes its row inactive. Both are
 // skipped, never read out of bounds.
+//
+// The rectangular form (ell_push_rect_launch) separates the two sizes the
+// square form shares: dmask is (lanes, n_rows), its owners the rows of one
+// rank's vertex block of a sharded graph, and upd is (lanes, n_targets),
+// with a row's ids global in [0, n_targets) and ending at the first one
+// outside it (the sentinel n_targets). It is the relax and the dynamic key
+// scans of the sharded stepper (core/distributed.py), which stand for the
+// reference's shard-local jax.ops.segment_min (XLA, no Pallas kernel) in
+// repro/core/distributed.py (:536-539, :590-593). The square form is the
+// rectangular one with n_rows == n_targets == n.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -114,30 +124,34 @@ __device__ __forceinline__ void atomic_min_f32(float* p, float x) {
   }
 }
 
-// Mark: mask[t, u] bit k set iff dmask[t * 32 + k, u] != +inf; upd = +inf.
-// Grid: (vertex blocks, lane tiles).
+// Mark: mask[t, u] bit k set iff dmask[t * 32 + k, u] != +inf, for the n
+// owners u; upd = +inf on its nt targets. Grid: (blocks over max(n, nt),
+// lane tiles).
 __global__ void push_mark_kernel(const float* __restrict__ dmask, long long n,
-                                 int lanes, unsigned* __restrict__ mask,
+                                 long long nt, int lanes,
+                                 unsigned* __restrict__ mask,
                                  float* __restrict__ upd) {
   const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= n) return;
+  if (u >= n && u >= nt) return;
   const int t = blockIdx.y;
   const int b1 = min(lanes, t * 32 + 32);
   unsigned bits = 0;
   for (int b = t * 32; b < b1; ++b) {
-    const long long i = (long long)b * n + u;
-    if (dmask[i] != CUDART_INF_F) bits |= 1u << (b - t * 32);
-    upd[i] = CUDART_INF_F;
+    if (u < n && dmask[(long long)b * n + u] != CUDART_INF_F) {
+      bits |= 1u << (b - t * 32);
+    }
+    if (u < nt) upd[(long long)b * nt + u] = CUDART_INF_F;
   }
-  mask[(long long)t * n + u] = bits;
+  if (u < n) mask[(long long)t * n + u] = bits;
 }
 
 // The rows of warp task `task` of bucket `bk`, for lane tile `tile`: rows
-// task * rt + [0, rt), one lane each for the mask read.
+// task * rt + [0, rt), one lane each for the mask read. Owners lie in
+// [0, n) (dmask and mask rows), ids in [0, nt) (upd rows).
 template <int G>
 __device__ __forceinline__ void push_task(
     const PushBucket& bk, long long task, int tile,
-    const float* __restrict__ dmask, long long n,
+    const float* __restrict__ dmask, long long n, long long nt,
     const unsigned* __restrict__ mask, float* upd,
     unsigned long long& n_cand, unsigned long long& n_atomic) {
   constexpr int RPW = 32 / G;  // rows in flight a warp
@@ -178,19 +192,19 @@ __device__ __forceinline__ void push_task(
         v[q] = j < bk.d_pad ? __ldcs(crow + j) : -1;
         w[q] = j < bk.d_pad ? __ldcs(wrow + j) : 0.0f;
       }
-      // the row ends at its first id outside [0, n): slots [0, end) of
+      // the row ends at its first id outside [0, nt): slots [0, end) of
       // this pass are the row's, the same for the whole group
       int end = SPAN;
 #pragma unroll
       for (int q = 0; q < PUSH_UNROLL; ++q) {
         const unsigned e =
-            (__ballot_sync(gmask, v[q] < 0 || v[q] >= n) >> (gid * G)) & low;
+            (__ballot_sync(gmask, v[q] < 0 || v[q] >= nt) >> (gid * G)) & low;
         if (e != 0 && end == SPAN) end = q * G + __ffs(e) - 1;
       }
       for (unsigned bits = rm; bits != 0; bits &= bits - 1) {
         const long long b = (long long)tile * 32 + __ffs(bits) - 1;
         const float du = __ldg(dmask + b * n + u);
-        float* urow = upd + b * n;
+        float* urow = upd + b * nt;
         float cur[PUSH_UNROLL];
 #pragma unroll
         for (int q = 0; q < PUSH_UNROLL; ++q) {
@@ -222,7 +236,7 @@ __device__ __forceinline__ void push_task(
 // issued] added.
 __global__ void __launch_bounds__(PUSH_THREADS)
     push_kernel(PushTable tab, long long tasks,
-                const float* __restrict__ dmask, long long n,
+                const float* __restrict__ dmask, long long n, long long nt,
                 const unsigned* __restrict__ mask, float* upd,
                 unsigned long long* stats) {
   constexpr int WARPS = PUSH_THREADS / 32;
@@ -238,11 +252,14 @@ __global__ void __launch_bounds__(PUSH_THREADS)
     }
     const long long task = gw - bk.first_task;
     if (bk.g == 8) {
-      push_task<8>(bk, task, tile, dmask, n, mask, upd, n_cand, n_atomic);
+      push_task<8>(bk, task, tile, dmask, n, nt, mask, upd, n_cand,
+                     n_atomic);
     } else if (bk.g == 16) {
-      push_task<16>(bk, task, tile, dmask, n, mask, upd, n_cand, n_atomic);
+      push_task<16>(bk, task, tile, dmask, n, nt, mask, upd, n_cand,
+                     n_atomic);
     } else {
-      push_task<32>(bk, task, tile, dmask, n, mask, upd, n_cand, n_atomic);
+      push_task<32>(bk, task, tile, dmask, n, nt, mask, upd, n_cand,
+                     n_atomic);
     }
   }
   if (stats != nullptr) {
@@ -296,6 +313,43 @@ static int next_group(const long long* table, int n_buckets, int* i,
   return 0;
 }
 
+// The push, dmask (lanes, n) f32 -> upd (lanes, nt) f32 (see the entry
+// points below).
+static int push_launch(const float* dmask, long long n, long long nt,
+                       int lanes, const long long* table, int n_buckets,
+                       unsigned* mask, float* upd, unsigned long long* stats,
+                       void* stream) {
+  if (n < 1 || nt < 1 || lanes < 1 || n_buckets < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tiles = (lanes + 31) / 32;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  PushTable tab;
+  long long tasks = 0;
+  for (int i = 0; i < n_buckets;) {
+    const int rc = next_group(table, n_buckets, &i, &tab, &tasks);
+    if (rc != 0) return rc;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long span = n > nt ? n : nt;
+  const dim3 mark_grid((unsigned)((span + PUSH_THREADS - 1) / PUSH_THREADS),
+                       (unsigned)tiles);
+  push_mark_kernel<<<mark_grid, PUSH_THREADS, 0, s>>>(dmask, n, nt, lanes,
+                                                      mask, upd);
+  int rc = (int)cudaGetLastError();
+  for (int i = 0; rc == 0 && i < n_buckets;) {
+    next_group(table, n_buckets, &i, &tab, &tasks);
+    if (tasks == 0) continue;
+    constexpr long long WARPS = PUSH_THREADS / 32;
+    long long blocks = (tasks + WARPS - 1) / WARPS;
+    if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
+    push_kernel<<<dim3((unsigned)blocks, (unsigned)tiles), PUSH_THREADS, 0,
+                  s>>>(tab, tasks, dmask, n, nt, mask, upd, stats);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
+}
+
 // ell_push_relax_batch: dmask (lanes, n) f32 -> upd (lanes, n) f32. `table`
 // is a host array of 5 int64 per bucket: cols, ws, rows (0: row r belongs to
 // vertex r), row count, width; buckets without rows are left out. The mark
@@ -311,30 +365,19 @@ extern "C" int ell_push_relax_launch(const float* dmask, long long n,
                                      int n_buckets, unsigned* mask,
                                      float* upd, unsigned long long* stats,
                                      void* stream) {
-  if (n < 1 || lanes < 1 || n_buckets < 0) return (int)cudaErrorInvalidValue;
-  const int tiles = (lanes + 31) / 32;
-  if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  PushTable tab;
-  long long tasks = 0;
-  for (int i = 0; i < n_buckets;) {
-    const int rc = next_group(table, n_buckets, &i, &tab, &tasks);
-    if (rc != 0) return rc;
-  }
-  const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 mark_grid((unsigned)((n + PUSH_THREADS - 1) / PUSH_THREADS),
-                       (unsigned)tiles);
-  push_mark_kernel<<<mark_grid, PUSH_THREADS, 0, s>>>(dmask, n, lanes, mask,
-                                                      upd);
-  int rc = (int)cudaGetLastError();
-  for (int i = 0; rc == 0 && i < n_buckets;) {
-    next_group(table, n_buckets, &i, &tab, &tasks);
-    if (tasks == 0) continue;
-    constexpr long long WARPS = PUSH_THREADS / 32;
-    long long blocks = (tasks + WARPS - 1) / WARPS;
-    if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-    push_kernel<<<dim3((unsigned)blocks, (unsigned)tiles), PUSH_THREADS, 0,
-                  s>>>(tab, tasks, dmask, n, mask, upd, stats);
-    rc = (int)cudaGetLastError();
-  }
-  return rc;
+  return push_launch(dmask, n, n, lanes, table, n_buckets, mask, upd, stats,
+                     stream);
+}
+
+// ell_push_rect_batch: the rectangular form, dmask (lanes, n_rows) f32 ->
+// upd (lanes, n_targets) f32, a row's ids in [0, n_targets) (the sentinel
+// n_targets ends it). `table`, `mask` (ceil(lanes / 32) * n_rows words),
+// `stats` and the return code as above.
+extern "C" int ell_push_rect_launch(const float* dmask, long long n_rows,
+                                    long long n_targets, int lanes,
+                                    const long long* table, int n_buckets,
+                                    unsigned* mask, float* upd,
+                                    unsigned long long* stats, void* stream) {
+  return push_launch(dmask, n_rows, n_targets, lanes, table, n_buckets, mask,
+                     upd, stats, stream);
 }

@@ -15,6 +15,11 @@ and +inf otherwise. Two kernels compute it:
     land in ``upd`` through an f32 atomic min (``csrc/ell_push.cu``). The
     relax of every plan without in-side dynamic keys. The same bits as the
     pull (every NaN taken as one value).
+  * :func:`ell_push_rect_batch`, the same push in a rectangular form: the
+    rows are one rank's vertex block of a sharded graph and the targets
+    global ids, so ``dmask`` is (B, n_rows) and ``upd`` (B, n_targets). The
+    sharded stepper's relax and dynamic key scans
+    (``core/distributed.py``).
 
 Each source's note says what bounds its kernel on the card and how the
 design answers. A tensor on the CPU runs the plain twin in
@@ -33,6 +38,7 @@ from repro_torch.kernels.ell_relax_keys import check_inputs, gather_rows, launch
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PUSH_SIGNATURES = {
     "ell_push_relax_launch": ([_P, _LL, _I, _P, _I, _P, _P, _P, _P], _I),
+    "ell_push_rect_launch": ([_P, _LL, _LL, _I, _P, _I, _P, _P, _P, _P], _I),
 }
 MAX_PUSH_LANES = 32 * 65535  # lane tiles ride the grid's second axis
 
@@ -81,15 +87,17 @@ def push_library():
 
 
 def push_rows(dmask: torch.Tensor, out_view, stats=None,
-              lib=None) -> torch.Tensor:
+              lib=None, n_targets: int | None = None) -> torch.Tensor:
     """Launch the push (``csrc/ell_push.cu``) along ``out_view``, a padded
     ``(cols, ws)`` pair or a ``SlicedEll``, already checked; returns upd
-    (B, n). ``stats``, a (2,) int64 tensor on the card or None, gets
-    [candidates, atomics issued] added. ``lib`` is a build of the source
-    with the same C interface (default :func:`push_library`)."""
+    (B, n), or (B, n_targets) through the rectangular entry point when
+    ``n_targets`` is given. ``stats``, a (2,) int64 tensor on the card or
+    None, gets [candidates, atomics issued] added. ``lib`` is a build of
+    the source with the same C interface (default :func:`push_library`)."""
     b, n = dmask.shape
     dev = dmask.device
-    upd = torch.empty((b, n), dtype=torch.float32, device=dev)
+    m = n if n_targets is None else int(n_targets)
+    upd = torch.empty((b, m), dtype=torch.float32, device=dev)
     if upd.numel() == 0:
         return upd
     if b > MAX_PUSH_LANES:
@@ -106,9 +114,13 @@ def push_rows(dmask: torch.Tensor, out_view, stats=None,
                     cols.shape[1]]
     table = (ctypes.c_longlong * max(len(entries), 1))(*entries)
     mask = torch.empty((-(-b // 32), n), dtype=torch.int32, device=dev)
-    launch("ell_push_relax_batch", "ell_push_relax_launch", dev,
-           dmask.data_ptr(), n, b, ctypes.addressof(table), len(buckets),
-           mask.data_ptr(), upd.data_ptr(),
+    sizes = ((n,) if n_targets is None else (n, m))
+    launch("ell_push_relax_batch" if n_targets is None
+           else "ell_push_rect_batch",
+           "ell_push_relax_launch" if n_targets is None
+           else "ell_push_rect_launch", dev,
+           dmask.data_ptr(), *sizes, b, ctypes.addressof(table),
+           len(buckets), mask.data_ptr(), upd.data_ptr(),
            None if stats is None else stats.data_ptr(),
            lib=push_library() if lib is None else lib)
     return upd
@@ -142,6 +154,41 @@ def ell_push_relax_batch(dmask: torch.Tensor, cols: torch.Tensor,
 
 
 ell_push_relax_batch.launches = 0  # kernel launches since the last reset
+
+
+def ell_push_rect_batch(dmask: torch.Tensor, cols: torch.Tensor,
+                        ws: torch.Tensor, n_targets: int, *,
+                        stats=None) -> torch.Tensor:
+    """Returns upd (B, n_targets) f32: the push of
+    :func:`ell_push_relax_batch` from ``n_rows`` owners to ``n_targets``
+    global targets, ``min dmask[b, u] + ws[u, j]`` over the rows u and
+    slots j with ``cols[u, j] = v``, +inf where v has no candidate.
+
+    ``dmask`` is (B, n_rows) f32; ``cols`` (n_rows, D) int32 ids in
+    [0, n_targets] and ``ws`` (n_rows, D) f32 are one rank's outgoing view
+    of its vertex block (row u holds local vertex u's out-edges
+    left-packed, and a row ends at its first id outside [0, n_targets),
+    the sentinel n_targets). Where ``dmask[b, u]`` is +inf, u pushes
+    nothing in lane b. ``stats``: see :func:`push_rows` (the kernel only).
+    """
+    if dmask.dim() != 2:
+        raise ValueError(f"want dmask (B, n_rows); got {tuple(dmask.shape)}")
+    check_inputs({"dmask": dmask}, cols, ws)
+    if cols.shape[0] != dmask.shape[1]:
+        raise ValueError(
+            f"the out-view needs one row per owner: cols has "
+            f"{cols.shape[0]} rows for {dmask.shape[1]} dmask columns"
+        )
+    if int(n_targets) < 1:
+        raise ValueError(f"n_targets must be >= 1; got {n_targets}")
+    if runs_twin(dmask):
+        return ref.ell_push_rect_batch_ref(dmask, cols, ws, int(n_targets))
+    upd = push_rows(dmask, (cols, ws), stats, n_targets=int(n_targets))
+    ell_push_rect_batch.launches += 1
+    return upd
+
+
+ell_push_rect_batch.launches = 0  # kernel launches since the last reset
 
 
 def register_kernels(reg):
@@ -191,8 +238,20 @@ def register_kernels(reg):
         name="ell_relax_batch", module=__name__, wrapper=ell_relax_batch,
         make_cases=cases_batch, kernels=pull,
         notes="#1: the pull over the incoming ELL, single-sweep body"))
+    def cases_rect():
+        return (
+            R.SpecCase("ref", R.fixture_rect()),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}", R.fixture_rect(b, n, seed, signed))),
+        )
+
     reg.register(R.KernelContract(
         name="ell_push_relax_batch", module=__name__,
         wrapper=ell_push_relax_batch, make_cases=cases_push, kernels=push,
         notes="#1b: the relax pushed along the outgoing ELL (f32 atomic "
               "min)"))
+    reg.register(R.KernelContract(
+        name="ell_push_rect_batch", module=__name__,
+        wrapper=ell_push_rect_batch, make_cases=cases_rect, kernels=push,
+        notes="#1b in its rectangular form: one rank's vertex block pushed "
+              "to global targets (the sharded stepper)"))

@@ -124,6 +124,42 @@ def ell_push_relax_batch_ref(dmask: torch.Tensor, out_view) -> torch.Tensor:
     return upd[:, :n].contiguous()
 
 
+def push_coo_batch_ref(dmask: torch.Tensor, rows: torch.Tensor,
+                       cols: torch.Tensor, ws: torch.Tensor,
+                       n_targets: int) -> torch.Tensor:
+    """The push as the reference's shard-local scan over a COO edge list:
+    (B, n_targets) f32 ``upd[b, v]`` = :func:`segment_min` over the edges e
+    with ``cols[e] = v`` of ``dmask[b, rows[e]] + ws[e]``, where a lane
+    takes an edge only if ``dmask[b, rows[e]]`` is not +inf (where it is,
+    the reference's candidate is +inf too: its +inf masks and weights are
+    never -inf). ``rows`` index dmask's columns, ``cols`` lie in
+    [0, n_targets). Only the edges of owners with some such lane are
+    visited, so no more than this call's candidates are materialised."""
+    b = dmask.shape[0]
+    live = dmask != INF
+    rows = rows.long()
+    act = torch.nonzero(live.any(dim=0)[rows]).squeeze(1)
+    r, c, w = rows[act], cols.long()[act], ws[act]
+    cand = torch.where(live[:, r], dmask[:, r] + w[None], INF)
+    at = c[None] + torch.arange(b, device=dmask.device)[:, None] * n_targets
+    return segment_min(cand.reshape(-1), at.reshape(-1),
+                       b * n_targets).reshape(b, n_targets)
+
+
+def ell_push_rect_batch_ref(dmask: torch.Tensor, cols: torch.Tensor,
+                            ws: torch.Tensor, n_targets: int) -> torch.Tensor:
+    """The rectangular push (``ell_push_rect_batch``): the left-packed rows
+    of ``(cols, ws)`` (row u holds owner u's out-edges, ended by the first
+    id outside [0, n_targets)) as a COO edge list, through
+    :func:`push_coo_batch_ref`."""
+    c = cols.long()
+    in_row = torch.cummin(((c >= 0) & (c < n_targets)).to(torch.int8),
+                          dim=1).values.bool()
+    owner = torch.arange(c.shape[0], device=c.device)[:, None].expand_as(c)
+    return push_coo_batch_ref(dmask, owner[in_row], c[in_row], ws[in_row],
+                              n_targets)
+
+
 def ell_key_min_ref(gate: torch.Tensor, cols: torch.Tensor,
                     ws: torch.Tensor) -> torch.Tensor:
     """key[v] = min_j gate[cols[v, j]] + ws[v, j] (dynamic criterion key)."""
@@ -374,6 +410,7 @@ def register_kernels(reg):
         ("ell_relax", ell_relax_ref),
         ("ell_relax_batch", ell_relax_batch_ref),
         ("ell_push_relax_batch", push_ref),
+        ("ell_push_rect_batch", ell_push_rect_batch_ref),
         ("ell_key_min", ell_key_min_ref),
         ("ell_key_min_batch", ell_key_min_batch_ref),
         ("ell_key_min_status_batch", ell_key_min_status_batch_ref),

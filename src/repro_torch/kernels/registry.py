@@ -22,7 +22,8 @@ The contract names are the reference's, plus the port's own kernels: the
 pushes ``ell_push_relax_batch`` (#1b) and ``ell_sliced_push_relax_batch``
 (#9b), the sliced in-scan in its push form
 ``ell_sliced_relax_keys_batch_push`` (#10b), the status-gate sweep
-``ell_key_min_status_batch`` (#5b), and the ops layer's push relaxes.
+``ell_key_min_status_batch`` (#5b), the rectangular push of the sharded
+stepper ``ell_push_rect_batch`` (#1b), and the ops layer's push relaxes.
 """
 from __future__ import annotations
 
@@ -257,6 +258,24 @@ def fixture_out_ell(n: int = FIXTURE_N, seed: int = 5, signed: bool = False):
     from repro_torch.core.graph import to_ell_out
 
     return to_ell_out(fixture_graph(n, seed, signed), pad_multiple=2)
+
+
+def fixture_rect(b: int = FIXTURE_B, n: int = FIXTURE_N, seed: int = 6,
+                 signed: bool = False):
+    """``(dmask, cols, ws, n_targets)`` of the rectangular push: ``n // 2 +
+    1`` owner rows, left-packed out-rows of 0 to 4 global ids in
+    [0, n_targets) with ``n_targets = n + 3``, then the sentinel
+    n_targets; dmask +inf on half the slots, NaN in the last lane;
+    ``signed`` draws weights and dmask from {+0, -0, 0.5, 1}."""
+    rng = np.random.default_rng(seed)
+    rows, m, d = n // 2 + 1, n + 3, 4
+    cols = rng.integers(0, m, size=(rows, d)).astype(np.int32)
+    cols[np.arange(d)[None] >= rng.integers(0, d + 1, rows)[:, None]] = m
+    ws = np.where(cols < m, _values(rng, (rows, d), signed),
+                  np.inf).astype(np.float32)
+    dmask = fixture_rows((b, rows), seed=seed + 1, inf_frac=0.5, nan=True,
+                         signed=signed)
+    return dmask, _t(cols), _t(ws), m
 
 
 def wide(make: Callable[[int, int, int, bool], SpecCase]):

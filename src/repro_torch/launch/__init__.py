@@ -1,0 +1,3 @@
+"""Launch helpers of the port (counterpart of ``repro.launch``): the
+process group a sharded run needs (``mesh.init_group``) and the
+distributed SSSP launcher (``python -m repro_torch.launch.sssp_run``)."""

@@ -8,9 +8,11 @@ finished rows from an :class:`ArrivalQueue`; duplicate queries short-cut
 through a :class:`DistCache` (or coalesce onto an in-flight lane), and
 :class:`ServingMetrics` emits the throughput and latency report. The engine
 is pluggable behind the :class:`EngineBackend` adapter: the single-device
-stepper (:class:`StaticBackend`, default) or :class:`PortfolioBackend`,
+stepper (:class:`StaticBackend`, default), :class:`PortfolioBackend`,
 which routes to the measured-best policy x layout from the tuning ledger's
-portfolio records. Every admitted query's distances are bit-exact against a
+portfolio records, or :class:`ShardedBackend`, the sharded stepper over a
+``torch.distributed`` group (the batcher on rank 0, the other ranks in
+``follow()``). Every admitted query's distances are bit-exact against a
 standalone solve.
 
 The fault-tolerant tier layers on top: :class:`ResilientBatcher` verifies
@@ -18,14 +20,14 @@ every harvested row against the relax-fixed-point certificate
 (:func:`verify_row`, on the graph's device), quarantines and retries
 corrupted work, and recovers from engine step failures;
 :class:`FaultPlan` / :class:`FaultyBackend` / :class:`FaultyDistCache` are
-the deterministic chaos seam the guarantees are tested under. The sharded
-backend waits for ROADMAP Queue 1 item 11.
+the deterministic chaos seam the guarantees are tested under.
 """
 from repro_torch.serving.backends import (
     DEFAULT_CANDIDATES,
     EngineBackend,
     EngineCandidate,
     PortfolioBackend,
+    ShardedBackend,
     StaticBackend,
     family_fallbacks,
     graph_family,
@@ -73,6 +75,7 @@ __all__ = [
     "EngineBackend",
     "StaticBackend",
     "PortfolioBackend",
+    "ShardedBackend",
     "EngineCandidate",
     "DEFAULT_CANDIDATES",
     "graph_family",

@@ -8,6 +8,11 @@ single-device one, over ``repro_torch.core.static_engine``: a lane is a
 fixed point when empty or finished, a reset lane is bitwise a fresh solve,
 and ``stop_on_lane_finish`` ends a chunk on the first lane termination.
 :class:`~repro_torch.serving.scheduler.ContinuousBatcher` drives it.
+:class:`ShardedBackend` is the same seam over the sharded stepper of
+``repro_torch.core.distributed``, one vertex block a rank of a
+``torch.distributed`` group: the batcher runs on rank 0, and each of its
+calls first broadcasts a small command that the other ranks, in
+:meth:`ShardedBackend.follow`, replay on their blocks.
 
 The engine portfolio routes by measurement: :func:`graph_family` buckets a
 graph by degree skew, weight tail and hop depth; :func:`measure_portfolio`
@@ -15,8 +20,7 @@ probes each :class:`EngineCandidate` (policy x layout, with a Δ-grid) on
 the graph's device and records its walls and settle attribution in the
 tuning ledger (``repro_torch.kernels.config``); :func:`pick_engine` reads
 the recorded qps argmax; :class:`PortfolioBackend` serves through that
-candidate's :class:`StaticBackend`. The sharded backend waits for ROADMAP
-Queue 1 item 11.
+candidate's :class:`StaticBackend`.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.core import criteria as C
+from repro_torch.core import distributed as D
 from repro_torch.core import policies as P
 from repro_torch.core.delta_stepping import default_delta
 from repro_torch.core.graph import (
@@ -51,6 +57,10 @@ from repro_torch.kernels import config as kcfg
 from repro_torch.obs.timer import timed
 
 
+_ORACLE_REFUSED = ("serving backends cannot run the 'oracle' criterion: it "
+                   "requires per-query true distances up front")
+
+
 def _serving_policy(spec: str) -> P.PhasePolicy:
     """Validate and resolve a serving policy spec (a criterion or
     ``"delta"``), rejecting ``oracle`` plans as the reference does: a
@@ -58,10 +68,7 @@ def _serving_policy(spec: str) -> P.PhasePolicy:
     input, which no online workload has."""
     pol = P.policy_for(spec)
     if pol.needs_oracle:
-        raise ValueError(
-            "serving backends cannot run the 'oracle' criterion: it requires "
-            "per-query true distances up front"
-        )
+        raise ValueError(_ORACLE_REFUSED)
     return pol
 
 
@@ -186,6 +193,151 @@ class StaticBackend:
 
     def take_row(self, state, lane):
         return state.dist[int(lane)].cpu().numpy().copy()
+
+
+class ShardedBackend:
+    """Adapter over the sharded batch stepper (``core/distributed.py``).
+
+    Every rank of ``group`` (None = the default world) builds one with the
+    same arguments; each shards the graph and keeps its vertex block. The
+    scheduler runs on rank 0 only: its clock and deadlines would make SPMD
+    copies diverge. There, each of the five methods first broadcasts a
+    command (op, ``k``, flags, the reset sources or the lane) to the group;
+    ranks 1 and up call :meth:`follow`, which replays the commands on their
+    blocks until rank 0's :meth:`close`. ``peek`` reduces the live flags
+    over the group; ``take_row`` gathers the lane's ``(n,)`` row.
+
+    ``device`` (None = ``cuda:(rank % device_count)``) must be the graph's
+    device. ``use_kernels=False`` runs the plain path. The transpose
+    partition is built only for plans with out-side dynamic keys. Oracle
+    plans and s->t ``targets`` are refused (``ValueError``), as the
+    reference refuses them; ``donate`` changes nothing.
+    """
+
+    _INIT, _STEP, _RESET, _PEEK, _ROW, _CLOSE = range(1, 7)
+
+    def __init__(self, g: Graph, group=None,
+                 schedule: str = "reduce_scatter", pad_multiple: int = 8,
+                 criterion: str = DEFAULT_CRITERION, device=None,
+                 use_kernels: bool = True):
+        plan = C.plan_for(criterion)
+        if plan.needs_oracle:
+            raise ValueError(_ORACLE_REFUSED)
+        if schedule not in D.SCHEDULES:
+            raise ValueError(f"unknown exchange schedule: {schedule!r}")
+        self.device = graph_device(g, D.rank_device(group, device))
+        self.g = g
+        self.group = group
+        self.schedule = schedule
+        self.criterion = plan.criterion
+        self.use_kernels = bool(use_kernels)
+        self.rank, size = D.group_rank_size(group)
+        self.comm = D.Comm(group, self.device)
+        self.sg = D.shard_graph_batch(
+            g, size, pad_multiple=pad_multiple,
+            with_transpose=plan.needs_out_adjacency, group=group)
+        self._state = None  # a follower's own state
+
+    @property
+    def n(self) -> int:
+        return self.g.n
+
+    @property
+    def leader(self) -> bool:
+        return self.rank == 0
+
+    def _tell(self, op: int, a: int = 0, b: int = 0) -> None:
+        """Rank 0: broadcast one command header ``[op, a, b]``."""
+        if not self.leader:
+            raise RuntimeError(
+                "only rank 0 drives a ShardedBackend; the other ranks call "
+                "follow()"
+            )
+        self.comm.broadcast(torch.tensor([op, a, b], dtype=torch.int64))
+
+    def _sources(self, src: np.ndarray | None, lanes: int) -> np.ndarray:
+        """The reset vector (validated on rank 0), rank 0's on every rank."""
+        t = (torch.zeros(lanes, dtype=torch.int64) if src is None
+             else torch.from_numpy(src.astype(np.int64)))
+        return self.comm.broadcast(t).cpu().numpy()
+
+    # the SPMD bodies, run on every rank
+    def _do_init(self, lanes: int):
+        return D.init_sharded_batch_state(
+            self.sg, np.full(lanes, EMPTY_LANE, np.int32),
+            criterion=self.criterion)
+
+    def _do_step(self, state, k_phases: int, stop: bool):
+        return D.step_sharded_batch(
+            self.sg, state, self.group, k_phases, schedule=self.schedule,
+            stop_on_lane_finish=stop, use_kernels=self.use_kernels)
+
+    def _do_peek(self, state):
+        live = self.comm.sum_((state.status == 1).sum(dim=1)) > 0
+        return (int(state.trips), live.cpu().numpy(),
+                state.phases.cpu().numpy())
+
+    def _do_row(self, state, lane: int) -> np.ndarray:
+        row = self.comm.gather(state.dist[int(lane)])
+        return row[: self.g.n].cpu().numpy().copy()
+
+    # the EngineBackend seam, called on rank 0
+    def init(self, lanes: int):
+        self._tell(self._INIT, lanes)
+        return self._do_init(lanes)
+
+    def step(self, state, k_phases, *, stop_on_lane_finish=True, donate=False):
+        self._tell(self._STEP, int(k_phases), int(bool(stop_on_lane_finish)))
+        return self._do_step(state, int(k_phases), bool(stop_on_lane_finish))
+
+    def reset_lanes(self, state, sources, *, donate=False, targets=None):
+        if targets is not None:
+            raise ValueError(
+                "ShardedBackend does not support s->t target lanes; serve "
+                "point queries through a point-capable StaticBackend"
+            )
+        new = D.reset_sharded_lanes(state, sources)  # raises before a command
+        self._tell(self._RESET, state.num_lanes)
+        self._sources(np.asarray(sources), state.num_lanes)
+        return new
+
+    def peek(self, state):
+        self._tell(self._PEEK)
+        return self._do_peek(state)
+
+    def take_row(self, state, lane):
+        self._tell(self._ROW, int(lane))
+        return self._do_row(state, lane)
+
+    def close(self) -> None:
+        """Rank 0: release the followers (their :meth:`follow` returns)."""
+        self._tell(self._CLOSE)
+
+    def follow(self) -> int:
+        """Ranks 1 and up: replay rank 0's commands on this rank's block
+        until its :meth:`close`; returns the commands replayed."""
+        if self.leader:
+            raise RuntimeError("rank 0 drives the backend; it does not follow")
+        done = 0
+        while True:
+            op, a, b = self.comm.broadcast(
+                torch.zeros(3, dtype=torch.int64)).tolist()
+            if op == self._CLOSE:
+                return done
+            if op == self._INIT:
+                self._state = self._do_init(a)
+            elif op == self._STEP:
+                self._state = self._do_step(self._state, a, bool(b))
+            elif op == self._RESET:
+                self._state = D.reset_sharded_lanes(self._state,
+                                                    self._sources(None, a))
+            elif op == self._PEEK:
+                self._do_peek(self._state)
+            elif op == self._ROW:
+                self._do_row(self._state, a)
+            else:
+                raise RuntimeError(f"unknown ShardedBackend command {op}")
+            done += 1
 
 
 # ---------------------------------------------------------------------------

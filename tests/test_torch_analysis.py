@@ -31,7 +31,8 @@ from repro_torch.obs.registry import set_default_registry
 torch.set_num_threads(1)
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 PORT_ONLY = {"ell_push_relax_batch", "ell_sliced_push_relax_batch",
-             "ell_sliced_relax_keys_batch_push", "ell_key_min_status_batch"}
+             "ell_sliced_relax_keys_batch_push", "ell_key_min_status_batch",
+             "ell_push_rect_batch"}
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from repro_torch.kernels.ell_key_min import (
     ell_key_min_status_batch,
 )
 from repro_torch.kernels.ell_relax import (
+    ell_push_rect_batch,
     ell_push_relax_batch,
     ell_relax,
     ell_relax_batch,
@@ -601,6 +602,60 @@ def test_push_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError, match="different devices"):
         ell_sliced_push_relax_batch(torch.zeros((2, view.merge_idx.shape[0])),
                                     view)
+
+
+@pytest.mark.parametrize("P,rank", [(1, 0), (2, 0), (2, 1), (3, 2)])
+@pytest.mark.parametrize("b,live", [(1, 0.05), (8, 0.3), (13, 0.02),
+                                    (40, 0.01), (8, 1.0)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_ell_push_rect_batch_matches_twin(cuda, P, rank, b, live, signed):
+    """The rectangular push of the sharded stepper: one rank's block of
+    G(3000, 3e-3) pushed to global targets, against its twin (the COO
+    segment-min) and, where the block is the whole graph's rows, against
+    the square push; sparse and dense dmask, NaN / -inf lanes, -0 and +0
+    weights and dmask values."""
+    from repro_torch.core.distributed import shard_graph_batch
+    from repro_torch.core.graph import from_coo
+
+    g = uniform_gnp(3000, 3e-3, seed=P + rank, device=cuda)
+    if signed:
+        table = torch.tensor(_VALUES, device=cuda)
+        w = table[(g.w.clamp(0, 0.999) * 4).long()]
+        g = from_coo(g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                     w.cpu().numpy(), g.n, device=cuda)
+    sg = shard_graph_batch(g, P, rank=rank)
+    rng = np.random.default_rng(b * 7 + rank)
+    dm = _push_dmask(rng, b, sg.n_loc, live)
+    if signed:
+        dm = np.where(np.isfinite(dm) & (dm > 0),
+                      _VALUES[rng.integers(0, 4, dm.shape)], dm)
+    tdm = _t(dm.astype(np.float32), cuda)
+    before = ell_push_rect_batch.launches
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = ell_push_rect_batch(tdm, *sg.ell_out, sg.n_pad, stats=stats)
+    assert ell_push_rect_batch.launches == before + 1
+    assert got.shape == (b, sg.n_pad)
+    assert _same_bits(got, ref.ell_push_rect_batch_ref(tdm, *sg.ell_out,
+                                                        sg.n_pad))
+    real = torch.isfinite(sg.w)
+    assert _same_bits(got, ref.push_coo_batch_ref(
+        tdm, sg.src_local[real], sg.dst[real], sg.w[real], sg.n_pad))
+    live_rows = (tdm != np.inf).any(dim=0)
+    assert int(stats[0]) == int(
+        ((tdm != np.inf).sum(dim=0) * sg.out_deg).sum())
+    assert live_rows.any() or int(stats[1]) == 0
+    if P == 1:  # one block holds every row: the square push's bits
+        assert _same_bits(got, ell_push_relax_batch(tdm, *sg.ell_out))
+
+
+def test_push_rect_cuda_tensors_never_fall_back(cuda):
+    dm = torch.zeros((2, 4), device=cuda)
+    cols = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    ws = torch.zeros((4, 2), dtype=torch.float32)  # on the host: refused
+    with pytest.raises(ValueError, match="different devices"):
+        ell_push_rect_batch(dm, cols, ws, 9)
+    with pytest.raises(ValueError, match="one row per owner"):
+        ell_push_rect_batch(dm, cols[:3].contiguous(), ws[:3].to(cuda), 9)
 
 
 # --- signed zeros: every kernel takes -0 over +0 on a tie -------------------

@@ -39,7 +39,7 @@ def test_port_files_exist():
             "metrics.py", "cache.py", "point.py", "timer.py", "registry.py",
             "tracer.py", "delta_stepping.py", "phased.py", "oracle.py",
             "telemetry.py", "faults.py", "resilience.py", "config.py",
-            "__main__.py"} <= names
+            "__main__.py", "distributed.py", "mesh.py", "sssp_run.py"} <= names
     obs = ROOT / "src" / "repro_torch" / "obs"
     assert {obs / f for f in ("__init__.py", "__main__.py", "timer.py",
                               "registry.py", "tracer.py",
@@ -52,11 +52,12 @@ def test_port_files_exist():
 @pytest.mark.parametrize("module", [
     "repro_torch.serving.faults", "repro_torch.serving.resilience",
     "repro_torch.serving.backends", "repro_torch.kernels.config",
-    "repro_torch.obs.__main__"])
+    "repro_torch.obs.__main__", "repro_torch.core.distributed",
+    "repro_torch.launch.mesh", "repro_torch.launch.sssp_run"])
 def test_new_modules_import_without_jax(module):
-    """Each module of the portfolio, fault and resilience tiers and the CLI
-    imports in a fresh interpreter that has no ``jax`` or ``repro`` module
-    loaded afterwards."""
+    """Each module of the portfolio, fault and resilience tiers, the CLI,
+    the sharded stepper and the launchers imports in a fresh interpreter
+    that has no ``jax`` or ``repro`` module loaded afterwards."""
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
