@@ -201,19 +201,38 @@ failure raises, exits non-zero and prints no ``ok`` line:
      process: the default B = 8 solve equal to phase 4's on every field,
      and ``ShardedBackend`` (rank 0 alone) serving phase 3's 16 requests
      with its rows. Any rank's failure fails the run.
+ 27. LM serving (the LM substrate's ``prefill``, ``decode_step`` and
+     ``forward_logits``; no kernel of ours, TF32 off): (a) every smoke
+     config on the card against the same weights on the CPU, f32,
+     ``forward_logits`` (S = 32), ``prefill`` with every cache leaf and 4
+     decode steps within rtol = atol = 1e-4; (b) ``internlm2-1.8b`` and (c)
+     ``mamba2-1.3b`` at full width: the parameter count; f32 prefill of a
+     512-token prompt (B = 2) and one decode step against ``forward_logits``
+     over 513 tokens (rtol 1e-3, atol 2e-3; the SSD's forward in chunks
+     that divide 513, its one-chunk fallback reported beside it); the card
+     against the CPU on one 64-token request (rtol = atol = 1e-3); the bf16
+     served run, B = 4 prompts of 2048 tokens, ``prefill`` and 32 greedy
+     ``decode_step``s, every tensor on the card: prefill ms, decode ms a
+     step, generated tokens/s and peak memory beside their bounds; a
+     ``torch.profiler`` split of one prefill and one decode step (by kind
+     of kernel, the top ops, the device's busy share of a step). No SSSP
+     kernel may launch on this path.
 
 Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
 23–24, of 25 and of 26, on every rank) runs with the launch counts set to
 0 just before and read just after, and fails if one of its kernels never
 ran.
 
-The second line from the end is the ``kernels`` JSON line (each row with
-its ``__global__`` kernels' ptxas ``registers``, ``smem_bytes`` and
-``spills``); the last line is ``{"ok": true, "device": {...}}``.
+The third line from the end is phase 27's ``lm_serving`` JSON line; the
+second is the ``kernels`` JSON line (each row with its ``__global__``
+kernels' ptxas ``registers``, ``smem_bytes`` and ``spills``); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -242,6 +261,11 @@ DELTA_MAX_TRIPS = 3000  # phase 20 fails a delta solve still live after these
 INF = float("inf")
 PUSH_IN_SCAN = "ell_sliced_relax_keys_batch[out_view]"  # #10b's name here
 SIGNED = (0.0, -0.0, 0.5, 1.0)  # the values of the signed-zero cases
+# LM serving (phase 27): the widths of the two served configs' runs
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_STEPS = 2, 32, 4
+LM_SMOKE_TOL = 1e-4  # rtol and atol, card against CPU in f32 (TF32 off)
+LM_PROMPT_B, LM_PROMPT_S, LM_GEN = 4, 2048, 32  # the bf16 served run
+BF16_OPS_PER_S = 989e12  # bf16 dense, tensor cores
 
 
 def log(msg: str):
@@ -638,6 +662,399 @@ def sharded_rank(rank: int, world: int, store: str, job: str):
         tdist.destroy_process_group()
     with open(Path(job) / f"rank{rank}.json", "w") as f:
         json.dump(report, f)
+
+
+def lm_inputs(cfg, b: int, s: int, extra: int, seed: int) -> tuple:
+    """numpy inputs from a seed: the batch over s positions (tokens or
+    embeddings, and the vision stub) and ``extra`` more tokens to decode."""
+    rng = np.random.default_rng(seed)
+    batch = {}
+    toks = rng.integers(0, cfg.vocab, (b, s + extra)).astype(np.int64)
+    if cfg.embeddings_in:
+        batch["embeds"] = (0.1 * rng.standard_normal((b, s, cfg.d_model))
+                           ).astype(np.float32)
+    else:
+        batch["tokens"] = toks[:, :s]
+    if cfg.n_vision_tokens:
+        batch["vision"] = (0.02 * rng.standard_normal(
+            (b, cfg.n_vision_tokens, cfg.d_model))).astype(np.float32)
+    return batch, toks[:, s:]
+
+
+def torch_from(arr, device):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def lm_on(batch: dict, device) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def lm_close(what: str, got, want, rtol: float, atol: float) -> float:
+    """The largest absolute difference of two tensors (moved to the host);
+    raises unless every element is within ``atol + rtol * |want|``."""
+    import torch
+
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    if got.shape != want.shape:
+        raise SystemExit(f"{what}: shape {tuple(got.shape)} against "
+                         f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"{what}: non-finite values")
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        err = float((got - want).abs().max())
+        raise SystemExit(f"{what}: differ by up to {err:.3e} (rtol {rtol}, "
+                         f"atol {atol})")
+    return float((got.double() - want.double()).abs().max())
+
+
+def lm_cache_close(what: str, got: list, want: list, rtol, atol) -> float:
+    worst = 0.0
+    if len(got) != len(want):
+        raise SystemExit(f"{what}: {len(got)} units against {len(want)}")
+    for u, (gu, wu) in enumerate(zip(got, want)):
+        if gu.keys() != wu.keys():
+            raise SystemExit(f"{what}: unit {u} layers differ")
+        for lname, entry in wu.items():
+            for leaf, w in entry.items():
+                worst = max(worst, lm_close(f"{what} unit {u} {lname}.{leaf}",
+                                            gu[lname][leaf], w, rtol, atol))
+    return worst
+
+
+def lm_smoke_pair(arch: str, dev) -> dict:
+    """One smoke config on the card against the same weights on the CPU:
+    forward_logits, prefill (logits and every cache leaf) and
+    LM_SMOKE_STEPS decode steps (logits, cache, pos); the largest
+    difference of each."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import (decode_step, forward_logits, init_params,
+                                    prefill)
+
+    cfg = get_smoke(arch)
+    card = init_params(cfg, seed=0, device=dev)
+    host = copy.deepcopy(card).cpu()
+    batch, nxt = lm_inputs(cfg, LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_STEPS, 0)
+    tol = (LM_SMOKE_TOL, LM_SMOKE_TOL)
+    errs = {"forward": lm_close(
+        f"{arch} forward_logits", forward_logits(cfg, card, lm_on(batch, dev)),
+        forward_logits(cfg, host, lm_on(batch, "cpu")), *tol)}
+    if cfg.encoder_only:
+        return errs
+    lg_d, c_d, pos_d = prefill(cfg, card, lm_on(batch, dev))
+    lg_h, c_h, pos_h = prefill(cfg, host, lm_on(batch, "cpu"))
+    errs["prefill"] = max(lm_close(f"{arch} prefill logits", lg_d, lg_h, *tol),
+                          lm_cache_close(f"{arch} prefill", c_d, c_h, *tol))
+    errs["decode"] = 0.0
+    for i in range(LM_SMOKE_STEPS):
+        tok = nxt[:, i:i + 1]
+        lg_d, c_d, pos_d = decode_step(cfg, card, torch_from(tok, dev), c_d,
+                                       pos_d)
+        lg_h, c_h, pos_h = decode_step(cfg, host, torch_from(tok, "cpu"), c_h,
+                                       pos_h)
+        if pos_d != pos_h or pos_d != LM_SMOKE_S + i + 1:
+            raise SystemExit(f"{arch} decode step {i}: pos {pos_d} / {pos_h}")
+        errs["decode"] = max(
+            errs["decode"],
+            lm_close(f"{arch} decode {i} logits", lg_d, lg_h, *tol),
+            lm_cache_close(f"{arch} decode {i}", c_d, c_h, *tol))
+    return errs
+
+
+def lm_kinds(split) -> dict:
+    """Device ms a call by kind of kernel: matrix products (cuBLAS),
+    copies (casts and the permutes before a product), softmax, reductions,
+    other elementwise; with the launches of each."""
+    kinds = {}
+    for name, ms, calls in split:
+        low = name.lower()
+        kind = ("gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
+                                                  "cutlass", "cublas"))
+                else "copy" if "copy" in low
+                else "softmax" if "softmax" in low
+                else "reduce" if "reduce" in low
+                else "elementwise" if "elementwise" in low else "other")
+        ms_sum, n = kinds.get(kind, (0.0, 0.0))
+        kinds[kind] = (ms_sum + ms * calls, n + calls)
+    return {k: [round(v[0], 4), round(v[1], 2)]
+            for k, v in sorted(kinds.items(), key=lambda kv: -kv[1][0])}
+
+
+def lm_bounds(cfg, n_params: int, b: int, s: int, pos: int) -> dict:
+    """The least time the card could take (ms) for one bf16 prefill of b x s
+    tokens and one decode step at slot ``pos``, from the shapes: decode
+    moves every weight but the embedding table once (b of its rows), the
+    attention caches' first pos + 1 slots and the SSM states (f32, read and
+    written); prefill does 2 x the weights' products a token (the LM head
+    for the last token only), causal attention's QK and AV over half of
+    the S x S pairs in bf16, and the SSD's chunk products in f32 (its
+    einsums run on f32 inputs: 67 TFLOP/s, TF32 off)."""
+    D, V = cfg.d_model, cfg.vocab_pad
+    embed = V * D if not cfg.embeddings_in else 0
+    head = D * V
+    body = n_params - embed - head
+    n_attn = sum(m == "attn" for m, _ in cfg.pattern) * cfg.n_units
+    n_mamba = sum(m == "mamba" for m, _ in cfg.pattern) * cfg.n_units
+    H, dh, K = cfg.n_heads, cfg.d_head, cfg.n_kv
+    Hs, N, Pd, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_groups
+    k = cfg.ssm_conv - 1
+    # decode
+    w_bytes = 2 * (n_params - embed + b * D)
+    kv_bytes = n_attn * 2 * 2 * b * K * dh * (pos + 1)  # read, incl. the new
+    ssm_bytes = n_mamba * (2 * 4 * b * Hs * N * Pd
+                           + 2 * 2 * b * k * (cfg.d_inner + 2 * G * N))
+    dec_bytes = w_bytes + kv_bytes + ssm_bytes
+    dec_ops = 2 * (n_params - embed) * b
+    dec_ms = max(dec_bytes / HBM_BYTES_PER_S, dec_ops / BF16_OPS_PER_S) * 1e3
+    # prefill
+    tokens = b * s
+    mm_ops = 2 * body * tokens + 2 * head * b
+    attn_ops = n_attn * 2 * b * H * dh * s * s  # 2 products x 2 flops x 1/2
+    Q = min(cfg.ssm_chunk, s) if s % min(cfg.ssm_chunk, s) == 0 else s
+    ssd_ops = n_mamba * b * (s // Q) * (2 * Q * Q * Hs * (N + Pd)
+                                        + 4 * Q * Hs * N * Pd)
+    pre_ms = ((mm_ops + attn_ops) / BF16_OPS_PER_S
+              + ssd_ops / F32_OPS_PER_S) * 1e3
+    pre_bytes_ms = 2 * n_params / HBM_BYTES_PER_S * 1e3
+    return {"decode_ms": dec_ms, "decode_bytes": dec_bytes,
+            "decode_weight_bytes": w_bytes, "decode_cache_bytes": kv_bytes,
+            "decode_ssm_bytes": ssm_bytes,
+            "decode_by": "bytes" if dec_bytes / HBM_BYTES_PER_S
+            >= dec_ops / BF16_OPS_PER_S else "operations",
+            "prefill_ms": max(pre_ms, pre_bytes_ms),
+            "prefill_ops": mm_ops + attn_ops + ssd_ops,
+            "prefill_by": "operations" if pre_ms >= pre_bytes_ms else "bytes"}
+
+
+def lm_full_width(name: str, want_params: int, dev, run_peak: list) -> dict:
+    """One published config at full width on the card: the parameter
+    count; the reference's decode-vs-forward check in f32 (B = 2, a 512-token
+    prompt, one decode step, against forward_logits over 513 tokens); the
+    card against the CPU in f32 on one 64-token request; then the bf16
+    served run (LM_PROMPT_B prompts of LM_PROMPT_S tokens, prefill, LM_GEN
+    greedy decode steps) timed beside its bounds, with a torch.profiler
+    split of one prefill and one decode step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward_logits, init_params,
+                                    param_count, prefill)
+
+    cfg = get_config(name)
+    out = {"config": name}
+    n_params = param_count(init_params(cfg, device="meta"))
+    if n_params != want_params:
+        raise SystemExit(f"{name}: {n_params} parameters, want {want_params}")
+    out["params"] = n_params
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)  # f32
+    torch.cuda.synchronize()
+    out["init_f32_s"] = time.perf_counter() - t0
+
+    # (1) decode against forward, f32 (tests/test_archs_smoke.py's check).
+    # 513 positions are no multiple of the SSD chunk (128), so the SSD
+    # would fall back to one chunk of 513, whose f32 decays exp(cum_i -
+    # cum_j) lose ~1e-2 of the logits at full width (the reference's
+    # fallback: PERF.md §6, PR 23); the forward here runs the same
+    # arithmetic in chunks that divide 513, and the fallback's own
+    # difference is reported beside it
+    batch, nxt = lm_inputs(cfg, 2, 512, 1, seed=1)
+    full_b = lm_on({"tokens": np.concatenate([batch["tokens"], nxt], axis=1)},
+                   dev)
+    fcfg = cfg
+    if cfg.has("mamba") and 513 % min(cfg.ssm_chunk, 513):
+        fcfg = dataclasses.replace(cfg, ssm_chunk=max(
+            q for q in range(1, cfg.ssm_chunk + 1) if 513 % q == 0))
+    full = forward_logits(fcfg, model, full_b)
+    lg, cache, pos = prefill(cfg, model, lm_on(batch, dev))
+    lg_pre = lg
+    e_pre = lm_close(f"{name} prefill vs forward", lg, full[:, 511], 1e-3, 2e-3)
+    lg, cache, pos = decode_step(cfg, model, torch_from(nxt, dev), cache, pos)
+    e_dec = lm_close(f"{name} decode vs forward", lg, full[:, 512], 1e-3, 2e-3)
+    if pos != 513:
+        raise SystemExit(f"{name}: decode returned pos {pos}, want 513")
+    out["decode_vs_forward_f32"] = {"prefill_err": e_pre, "decode_err": e_dec,
+                                    "forward_ssm_chunk": fcfg.ssm_chunk}
+    if fcfg is not cfg:  # the one-chunk fallback, measured, not gated
+        one = forward_logits(cfg, model, full_b)
+        out["decode_vs_forward_f32"]["one_chunk_fallback"] = {
+            "prefill_err": max_abs_err(one[:, 511], lg_pre),
+            "decode_err": max_abs_err(one[:, 512], lg),
+            "vs_chunked_forward_err": max_abs_err(one, full)}
+        del one
+    del full, cache, lg, lg_pre
+
+    # (2) the card against the CPU, f32, one 64-token request
+    batch64, _ = lm_inputs(cfg, 1, 64, 0, seed=2)
+    t0 = time.perf_counter()
+    host = copy.deepcopy(model).cpu()
+    want = forward_logits(cfg, host, lm_on(batch64, "cpu"))
+    out["card_vs_cpu_f32"] = {
+        "err": lm_close(f"{name} card vs cpu", forward_logits(
+            cfg, model, lm_on(batch64, dev)), want, 1e-3, 1e-3),
+        "host_s": time.perf_counter() - t0}
+    del host, want, model
+    torch.cuda.empty_cache()
+
+    # (3) the bf16 served run; its peak is counted above what was resident
+    # before its weights were drawn (earlier phases' graphs stay resident)
+    torch.cuda.synchronize()
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    on = torch.device(dev).type  # cuda; a rehearsal on the host passes cpu
+    off = [n for n, p in model.named_parameters() if p.device.type != on]
+    if off:
+        raise SystemExit(f"{name}: parameters off the card: {off[:3]}")
+    prompts, _ = lm_inputs(cfg, LM_PROMPT_B, LM_PROMPT_S, 0, seed=3)
+    prompts = lm_on(prompts, dev)
+
+    def serve(gen: int):
+        lg, cache, pos = prefill(cfg, model, prompts)
+        tok = lg.argmax(-1, keepdim=True)
+        toks = [tok]
+        for _ in range(gen):
+            lg, cache, pos = decode_step(cfg, model, tok, cache, pos)
+            tok = lg.argmax(-1, keepdim=True)
+            toks.append(tok)
+        return torch.cat(toks, dim=1), cache, pos, lg
+
+    serve(2)  # warm-up: the first calls pick their cuBLAS kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache, pos = prefill(cfg, model, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = lg.argmax(-1, keepdim=True)
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(LM_GEN):
+        lg, cache, pos = decode_step(cfg, model, tok, cache, pos)
+        tok = lg.argmax(-1, keepdim=True)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated() - resident
+    gen = torch.cat(toks, dim=1)
+    leaves = [t for unit in cache for entry in unit.values()
+              for t in entry.values()]
+    if any(t.device.type != on for t in leaves + [gen, lg]):
+        raise SystemExit(f"{name}: a cache leaf or output left the card")
+    if not bool(torch.isfinite(lg.float()).all()):
+        raise SystemExit(f"{name}: non-finite bf16 logits")
+    if gen.shape != (LM_PROMPT_B, LM_GEN + 1) or pos != LM_PROMPT_S + LM_GEN:
+        raise SystemExit(f"{name}: generated {tuple(gen.shape)}, pos {pos}")
+    if int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab:
+        raise SystemExit(f"{name}: a generated id outside the vocabulary")
+    b = lm_bounds(cfg, n_params, LM_PROMPT_B, LM_PROMPT_S,
+                  LM_PROMPT_S + LM_GEN // 2)
+    step_ms = decode_s / LM_GEN * 1e3
+    out["served_bf16"] = {
+        "batch": LM_PROMPT_B, "prompt": LM_PROMPT_S, "decode_steps": LM_GEN,
+        "prefill_ms": prefill_s * 1e3, "prefill_bound_ms": b["prefill_ms"],
+        "prefill_bound_by": b["prefill_by"],
+        "prefill_tokens_per_s": LM_PROMPT_B * LM_PROMPT_S / prefill_s,
+        "decode_ms_per_step": step_ms, "decode_bound_ms": b["decode_ms"],
+        "decode_bound_by": b["decode_by"],
+        "decode_bytes_per_step": b["decode_bytes"],
+        "decode_weight_bytes": b["decode_weight_bytes"],
+        "decode_cache_bytes": b["decode_cache_bytes"],
+        "decode_ssm_bytes": b["decode_ssm_bytes"],
+        "generated_tokens_per_s": LM_PROMPT_B * LM_GEN / decode_s,
+        "peak_gib": peak / 2**30, "resident_before_gib": resident / 2**30,
+        "first_ids": gen[0, :8].tolist()}
+
+    # (4) where the time goes: one prefill, one decode step (torch.profiler,
+    # after a warm-up call each); the device's busy share of a decode step
+    pre_split = device_split_counted(
+        lambda: prefill(cfg, model, prompts), calls=1)
+    dec_split = device_split_counted(
+        lambda: decode_step(cfg, model, tok, cache, pos - 1), calls=3)
+    dev_ms = sum(t * c for _, t, c in dec_split)
+
+    def top(split, n=6):
+        rows = sorted(split, key=lambda r: -r[1] * r[2])[:n]
+        return [[k, round(t * c, 4), round(c, 2)] for k, t, c in rows]
+
+    out["profile"] = {
+        "prefill_device_ms": sum(t * c for _, t, c in pre_split),
+        "prefill_by_kind": lm_kinds(pre_split),
+        "prefill_top": top(pre_split),
+        "decode_device_ms_per_step": dev_ms,
+        "decode_kernels_per_step": sum(c for _, _, c in dec_split),
+        "decode_busy_share": dev_ms / step_ms,
+        "decode_by_kind": lm_kinds(dec_split),
+        "decode_top": top(dec_split)}
+    del model, cache, prompts
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serving_phase(dev, smi: str, run_peak: list) -> dict:
+    """Phase 27: LM serving. (a) every smoke config, card against CPU in f32
+    with TF32 off; (b) internlm2-1.8b and (c) mamba2-1.3b at full width."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    t27 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise SystemExit("phase 27 compares f32 with TF32 off; it is on")
+    log("lm: TF32 off (torch.backends.cuda.matmul.allow_tf32 and "
+        "torch.backends.cudnn.allow_tf32 False): f32 products in full f32")
+    result = {"tf32": False, "smoke": {}}
+    t0 = time.perf_counter()
+    for arch in ARCHS:
+        errs = lm_smoke_pair(arch, dev)
+        result["smoke"][arch] = errs
+        log(f"lm smoke {arch}: card against CPU (f32, same weights), largest "
+            f"difference " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (rtol = atol = {LM_SMOKE_TOL})")
+    result["smoke_s"] = time.perf_counter() - t0
+    for key, name, want in (("internlm2", "internlm2-1.8b", 1_889_634_304),
+                            ("mamba2", "mamba2-1.3b", 1_447_336_960)):
+        t0 = time.perf_counter()
+        r = lm_full_width(name, want, dev, run_peak)
+        r["seconds"] = time.perf_counter() - t0
+        result[key] = r
+        s, p = r["served_bf16"], r["profile"]
+        dvf = r["decode_vs_forward_f32"]
+        log(f"lm {name}: {r['params']:,} parameters; f32 prefill / decode "
+            f"against forward_logits over 513 tokens (ssm_chunk "
+            f"{dvf['forward_ssm_chunk']}): {dvf['prefill_err']:.3e} / "
+            f"{dvf['decode_err']:.3e} (rtol 1e-3, atol 2e-3); card against "
+            f"CPU, 64 tokens: {r['card_vs_cpu_f32']['err']:.3e} (rtol = atol"
+            " = 1e-3)")
+        if "one_chunk_fallback" in dvf:
+            fb = dvf["one_chunk_fallback"]
+            log(f"lm {name}: the forward's one-chunk fallback (513 positions "
+                f"in one SSD chunk) differs from prefill / decode by "
+                f"{fb['prefill_err']:.3e} / {fb['decode_err']:.3e} and from "
+                f"the chunked forward by {fb['vs_chunked_forward_err']:.3e}")
+        log(f"lm {name} [{smi}] bf16, B={s['batch']} x {s['prompt']} tokens: "
+            f"prefill {s['prefill_ms']:.2f} ms (bound {s['prefill_bound_ms']:.2f}"
+            f", {s['prefill_bound_by']}); decode {s['decode_ms_per_step']:.3f} "
+            f"ms/step (bound {s['decode_bound_ms']:.3f}, {s['decode_bound_by']}"
+            f": {s['decode_bytes_per_step'] / 1e9:.3f} GB a step); "
+            f"{s['generated_tokens_per_s']:.1f} generated tokens/s; peak "
+            f"{s['peak_gib']:.2f} GiB above the {s['resident_before_gib']:.2f}"
+            " GiB earlier phases left resident")
+        log(f"lm {name} profile: prefill {p['prefill_device_ms']:.2f} device "
+            f"ms, by kind [ms, launches] {p['prefill_by_kind']}; decode "
+            f"{p['decode_device_ms_per_step']:.3f} device ms a step in "
+            f"{p['decode_kernels_per_step']:.0f} kernels, busy "
+            f"{p['decode_busy_share']:.1%}, by kind {p['decode_by_kind']}")
+        log(f"lm {name} top device ops: prefill {p['prefill_top']}; decode "
+            f"{p['decode_top']}")
+    result["seconds"] = time.perf_counter() - t27
+    log(f"phase 27: {result['seconds']:.1f} s")
+    return result
 
 
 def main() -> int:
@@ -3748,6 +4165,14 @@ def main() -> int:
     shutil.rmtree(job26, ignore_errors=True)
     log(f"phase 26: {time.perf_counter() - t26:.1f} s")
 
+    # ---- 27. LM serving ----------------------------------------------------
+    zero_counts()
+    lm27 = lm_serving_phase(dev, smi, run_peak)
+    lm_counts = read_counts()
+    if any(lm_counts.values()):  # the LM path has no kernel of its own
+        raise SystemExit(f"phase 27 launched SSSP kernels: {lm_counts}")
+    by_path["lm serving"] = lm_counts
+
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
     log(f"card: {smi}")
@@ -3913,6 +4338,7 @@ def main() -> int:
                     PUSH_IN_SCAN: "sliced"}.get(row["name"])
         if fused_of is not None:  # in|out ms/phase, split against fused
             row["in_out_ms_phase"] = fusion[fused_of][0]
+    print(json.dumps({"lm_serving": lm27}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -15,7 +15,9 @@ follows its graph) to run the plain twins on the host (the tests do).
 
 The stepper runs every mode of the reference's: every criterion plan, the
 oracle plans included, delta-stepping, targets and the telemetry rings,
-on the padded and the degree-sliced layouts. The execution config beyond
-the ledger (kernel modes, launch-geometry tuning), the sharded stepper and
-the LM substrate are not ported yet (ROADMAP Queue 1).
+on the padded and the degree-sliced layouts; ``core.distributed`` shards
+it over a ``torch.distributed`` group. ``configs`` and ``models`` hold the
+LM substrate's serving path (the ten architectures, ``prefill``,
+``decode_step``, ``forward_logits``); its training and mesh pieces are not
+ported yet (ROADMAP Queue 1).
 """

@@ -1,5 +1,6 @@
 """Carry graphs, sliced adjacency views and stepper state in from the JAX
-package, as numpy.
+package, as numpy; and the LM substrate's weights and decode caches both
+ways.
 
 The port never imports the reference; a caller that holds a reference
 ``Graph``, ``SlicedEll``, ``BatchState``, ``ShardedBatchGraph`` or
@@ -7,7 +8,9 @@ The port never imports the reference; a caller that holds a reference
 (``np.asarray`` of each field) and gets the port's counterpart, with no
 recomputation (a sharded one as one rank's block). The tests use this to
 start both packages from one mid-solve state, and to feed the reference's
-own sliced view to the port's kernels.
+own sliced view to the port's kernels. ``lm_params_from_numpy``,
+``lm_cache_from_numpy`` and ``lm_cache_to_numpy`` do the same for a model's
+parameters and caches, in the reference's stacked ``(U, ...)`` layout.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.core.distributed import (
 from repro_torch.core.graph import EllSlice, Graph, SlicedEll, sliced_ell
 from repro_torch.core.static_engine import BatchState
 from repro_torch.kernels.config import resolve_device
+from repro_torch.models.transformer import LM, init_params
 
 _GRAPH_FIELDS = {
     "src": np.int32, "dst": np.int32, "w": np.float32,
@@ -188,3 +192,88 @@ def sharded_state_from_numpy(fields: dict, rank: int, num_shards: int,
         settled_trace=_tensor(fields["settled_trace"], np.int32, dev),
         criterion=str(fields["criterion"]),
     )
+
+
+def _leaf_tensor(arr, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor; the reference's bf16 leaves (``ml_dtypes``'
+    bfloat16, which torch cannot read) go through their 16-bit pattern."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+
+def _leaf(tree: dict, path: list[str]):
+    """The numpy leaf of a parameter path: ``units.<u>.<rest>`` is row u of
+    the reference's leaf ``units/<rest>``, stacked over units by vmap."""
+    if path[0] == "units":
+        node = tree["units"]
+        for key in path[2:]:
+            node = node[key]
+        return np.asarray(node)[int(path[1])]
+    node = tree
+    for key in path:
+        node = node[key]
+    return node
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None, dtype=None) -> LM:
+    """The port's model from the reference's parameters, a nested dict of
+    numpy arrays (``jax.tree.map(np.asarray, params)``), on ``device`` (None
+    = the CUDA card). The leading U axis that vmap puts on ``units`` is
+    unstacked. ``dtype=None`` keeps the tree's dtypes (each must be the
+    port's for that parameter); a dtype casts every leaf to it except the
+    router, ``A_log``, ``D`` and ``dt_bias``, which stay f32 as the
+    reference keeps them."""
+    dev = resolve_device(device)
+    cast = dtype is not None
+    if not cast:  # the model's dtype is its final norm's
+        dtype = _leaf_tensor(np.asarray(tree["final_norm"]), "cpu").dtype
+    model = init_params(cfg, dtype=dtype, device="meta").to_empty(device=dev)
+    want = {name for name, _ in model.named_parameters()}
+    have = set()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            t = _leaf_tensor(_leaf(tree, name.split(".")), dev)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: want shape {tuple(p.shape)}; got "
+                                 f"{tuple(t.shape)}")
+            if t.dtype != p.dtype and not cast:
+                raise TypeError(f"{name}: want {p.dtype}; got {t.dtype}")
+            p.copy_(t)
+            have.add(name)
+    if have != want:
+        raise ValueError(f"missing parameters: {sorted(want - have)}")
+    return model
+
+
+def lm_cache_to_numpy(cache: list) -> dict:
+    """The port's decode cache (one dict per unit) in the reference's
+    stacked layout: ``{"l{j}": {leaf: (U, B, ...)}}``. bf16 leaves come out
+    as f32 (exact)."""
+    out = {}
+    for lname, entry in cache[0].items():
+        out[lname] = {}
+        for leaf in entry:
+            rows = [unit[lname][leaf] for unit in cache]
+            stacked = torch.stack(rows).detach().cpu()
+            if stacked.dtype == torch.bfloat16:
+                stacked = stacked.float()
+            out[lname][leaf] = stacked.numpy()
+    return out
+
+
+def lm_cache_from_numpy(tree: dict, device=None) -> list:
+    """The port's decode cache from the reference's stacked ``(U, B, ...)``
+    cache (numpy leaves, ``jax.tree.map(np.asarray, cache)``) on ``device``
+    (None = the CUDA card); the leaves keep their dtypes."""
+    dev = resolve_device(device)
+    n_units = {np.asarray(v).shape[0]
+               for entry in tree.values() for v in entry.values()}
+    if len(n_units) != 1:
+        raise ValueError(f"cache leaves disagree on U: {sorted(n_units)}")
+    (U,) = n_units
+    return [{lname: {leaf: _leaf_tensor(np.asarray(v)[u], dev)
+                     for leaf, v in entry.items()}
+             for lname, entry in tree.items()} for u in range(U)]

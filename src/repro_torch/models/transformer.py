@@ -1,0 +1,359 @@
+"""Model assembly and the serving entry points for every assigned
+architecture family (dense, MoE, SSM, hybrid, VLM-backbone, encoder):
+counterpart of ``repro.models.transformer``.
+
+The model is ``n_units`` repetitions of ``cfg.pattern``. The reference scans
+over stacked unit parameters; here the units are an ``nn.ModuleList`` run by
+a Python loop, each unit holding its layers as ``l0``, ``l1``, ... as the
+reference's unit dict does. Heterogeneous stacks (jamba's 7:1 mamba:attn
+with interleaved MoE, llama-vision's every-5th cross-attention) are
+expressed inside the unit.
+
+Serving: ``prefill`` runs the prompt and returns the decode cache, a list
+with one dict per unit (``cache[u]["l{j}"]``), each attention layer's K / V
+preallocated as (B, S + cache_pad, K, dh) in the activation dtype;
+``decode_step`` writes slot ``pos`` of it in place. ``interop``'s
+``lm_cache_to_numpy`` / ``lm_cache_from_numpy`` convert it to and from the
+reference's stacked (U, B, ...) layout. Training (``train_loss``) and the
+mesh pieces come in later slices.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.config import resolve_device
+from repro_torch.models import layers as L
+
+
+class Layer(nn.Module):
+    """One (mixer, ffn) entry of the pattern: ``norm1`` and the mixer under
+    its name (``attn``, ``xattn`` or ``mamba``); with an FFN, ``norm2`` and
+    ``mlp``, ``moe``, or ``moe`` and ``dense`` (arctic's dense residual)."""
+
+    def __init__(self, cfg: ModelConfig, mixer: str, ffn: str,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.mixer, self.ffn = mixer, ffn
+        self.norm1 = L._param((cfg.d_model,), dtype, device)
+        if mixer in ("attn", "xattn"):
+            setattr(self, mixer, L.Attention(cfg, dtype, device))
+        elif mixer == "mamba":
+            self.mamba = L.Mamba(cfg, dtype, device)
+        else:
+            raise ValueError(mixer)
+        if ffn != "none":
+            self.norm2 = L._param((cfg.d_model,), dtype, device)
+            if ffn == "mlp":
+                self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+            elif ffn == "moe":
+                self.moe = L.MoE(cfg, dtype, device)
+            elif ffn == "moe_dense":
+                self.moe = L.MoE(cfg, dtype, device)
+                self.dense = L.MLP(cfg.d_model, cfg.dense_d_ff, dtype, device)
+            else:
+                raise ValueError(ffn)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.norm1.fill_(1)
+        if self.ffn != "none":
+            self.norm2.fill_(1)
+        for m in self.children():
+            m.reset_parameters(gen)
+
+
+class LM(nn.Module):
+    """``embed`` (vocab_pad, D) unless the input is embeddings; ``units``;
+    ``final_norm``; ``lm_head`` (D, vocab_pad) unless tied to the embedding."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.d_model
+        if not cfg.embeddings_in:
+            self.embed = L._param((cfg.vocab_pad, D), dtype, device)
+        self.units = nn.ModuleList(
+            _init_unit(cfg, dtype, device) for _ in range(cfg.n_units))
+        self.final_norm = L._param((D,), dtype, device)
+        if not cfg.tie_embeddings or cfg.embeddings_in:
+            self.lm_head = L._param((D, cfg.vocab_pad), dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        cfg = self.cfg
+        if not cfg.embeddings_in:
+            L._dense_(self.embed, gen, scale=0.02)
+        for unit in self.units:
+            for layer in unit.children():
+                layer.reset_parameters(gen)
+        self.final_norm.fill_(1)
+        if hasattr(self, "lm_head"):
+            L._dense_(self.lm_head, gen)  # / sqrt(d_model)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _init_layer(cfg: ModelConfig, mixer: str, ffn: str, dtype,
+                device) -> Layer:
+    return Layer(cfg, mixer, ffn, dtype, device)
+
+
+def _init_unit(cfg: ModelConfig, dtype, device) -> nn.Module:
+    unit = nn.Module()
+    for j, (mixer, ffn) in enumerate(cfg.pattern):
+        unit.add_module(f"l{j}", _init_layer(cfg, mixer, ffn, dtype, device))
+    return unit
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
+                seed: int = 0, dtype=torch.float32, device=None) -> LM:
+    """The model with random weights, from the reference's distributions:
+    projections normal / sqrt(fan-in) drawn in f32 then cast, conv weights
+    normal * 0.5, ``A_log = log U(1, 16)``, norms and ``D`` ones, biases
+    zero, the embedding normal * 0.02 and the LM head normal / sqrt(D). The
+    router, ``A_log``, ``D`` and ``dt_bias`` stay f32 in every dtype.
+
+    ``generator`` (a ``torch.Generator`` on ``device``) or ``seed`` gives the
+    draws; they cannot equal JAX's threefry bits, so tests carry the
+    reference's weights across with ``interop.lm_params_from_numpy``.
+    ``device=None`` means the CUDA card (raises without one); ``"meta"``
+    builds the shapes with no storage and draws nothing.
+    """
+    if str(device) == "meta":
+        return LM(cfg, dtype, torch.device("meta"))
+    dev = resolve_device(device)
+    model = LM(cfg, dtype, dev)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    model.reset_parameters(gen)
+    return model
+
+
+def param_count(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+# --------------------------------------------------------------------------
+# unit application (full sequence)
+# --------------------------------------------------------------------------
+
+def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Layer, x,
+                 positions, vision, collect_cache: bool):
+    cache = None
+    h = L.rms_norm(x, lp.norm1, cfg.rms_eps)
+    if mixer == "attn":
+        if collect_cache:
+            q = L._project_q(cfg, lp.attn, h)
+            k, v = L._project_kv(cfg, lp.attn, h)
+            cache = {"k": L.rope(k, positions, cfg.rope_theta), "v": v}
+            q = L.rope(q, positions, cfg.rope_theta)
+            o = L._sdpa(cfg, q, cache["k"], v, positions, positions,
+                        cfg.causal)
+            mx = o @ lp.attn.wo
+        else:
+            mx = L.apply_attention(cfg, lp.attn, h, positions,
+                                   causal=cfg.causal)
+    elif mixer == "xattn":
+        if collect_cache:
+            xk, xv = L._project_kv(cfg, lp.xattn, vision)
+            cache = {"xk": xk, "xv": xv}
+        mx = L.apply_attention(cfg, lp.xattn, h, positions, kv_source=vision)
+    elif mixer == "mamba":
+        if collect_cache:
+            mx, cache = _mamba_with_state(cfg, lp.mamba, h)
+        else:
+            mx = L.apply_mamba(cfg, lp.mamba, h)
+    else:
+        raise ValueError(mixer)
+    x = x + mx
+    if ffn != "none":
+        x = x + _apply_ffn(cfg, ffn, lp, L.rms_norm(x, lp.norm2, cfg.rms_eps))
+    return x, cache
+
+
+def _apply_ffn(cfg: ModelConfig, ffn: str, lp: Layer, h2):
+    if ffn == "mlp":
+        return L.apply_mlp(lp.mlp, h2)
+    if ffn == "moe":
+        return L.apply_moe(cfg, lp.moe, h2)
+    # moe_dense: arctic's dense residual in parallel with the MoE
+    return L.apply_moe(cfg, lp.moe, h2) + L.apply_mlp(lp.dense, h2)
+
+
+def _apply_unit(cfg: ModelConfig, up: nn.Module, x, positions, vision,
+                collect_cache: bool):
+    caches = {}
+    for j, (mixer, ffn) in enumerate(cfg.pattern):
+        x, cache = _apply_layer(cfg, mixer, ffn, getattr(up, f"l{j}"), x,
+                                positions, vision, collect_cache)
+        if cache is not None:
+            caches[f"l{j}"] = cache
+    return x, caches
+
+
+def _mamba_with_state(cfg, p, h):
+    """Full-sequence mamba that also returns the decode-ready state: the
+    last ssm_conv - 1 PRE-conv inputs of each segment and the final SSM
+    state (one pass; the reference reruns the projections for them)."""
+    S = h.shape[1]
+    k = cfg.ssm_conv - 1
+    out, (x0, B0, C0), state = L._ssd(cfg, p, h)
+    return out, {"convx": x0[:, S - k:, :].clone(),
+                 "convb": B0[:, S - k:, :].clone(),
+                 "convc": C0[:, S - k:, :].clone(), "ssm": state}
+
+
+def _mamba_final_state(cfg, p, h):
+    """Final SSM state (B, H, N, P) after the full sequence."""
+    return L._ssd(cfg, p, h)[2]
+
+
+# --------------------------------------------------------------------------
+# forward passes
+# --------------------------------------------------------------------------
+
+def _embed_in(cfg, params: LM, batch):
+    if cfg.embeddings_in:
+        return torch.as_tensor(batch["embeds"], device=params.final_norm.device)
+    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
+    return _embed_tokens(params, tokens)
+
+
+def _embed_tokens(params: LM, tokens):
+    flat = torch.index_select(params.embed, 0, tokens.reshape(-1))
+    return flat.reshape(*tokens.shape, params.embed.shape[1])
+
+
+def _vision(params: LM, batch):
+    vision = batch.get("vision")
+    if vision is None:
+        return None
+    return torch.as_tensor(vision, device=params.final_norm.device)
+
+
+def _lm_head(cfg, params: LM):
+    if hasattr(params, "lm_head"):
+        return params.lm_head
+    return params.embed.T
+
+
+def _stack(cfg, params: LM, x, positions, vision):
+    """The units in order, no cache (the reference's ``_stack_scan`` with no
+    remat)."""
+    for up in params.units:
+        x, _ = _apply_unit(cfg, up, x, positions, vision, False)
+    return x
+
+
+@torch.no_grad()
+def forward_logits(cfg: ModelConfig, params: LM, batch):
+    """Full logits (B, S, vocab) — smoke tests/small evals only."""
+    x = _embed_in(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _stack(cfg, params, x, positions, _vision(params, batch))
+    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
+    return (x @ _lm_head(cfg, params))[..., : cfg.vocab]
+
+
+# --------------------------------------------------------------------------
+# prefill + decode (serving)
+# --------------------------------------------------------------------------
+
+def cache_pad(cfg: ModelConfig) -> int:
+    return 64  # decode slots appended after the prefilled prefix
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: LM, batch):
+    """Forward the prompt; returns (last-token logits (B, vocab), cache, pos)
+    with ``pos`` = S, a Python int.
+
+    Each attention layer's K / V cache is preallocated as (B, S + cache_pad,
+    K, dh) in the activation dtype, the prompt's keys (after RoPE) and values
+    in its first S slots.
+    """
+    if cfg.encoder_only:
+        raise ValueError("encoder-only model has no prefill/decode")
+    x = _embed_in(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    vision = _vision(params, batch)
+    pad = cache_pad(cfg)
+    caches = []
+    for up in params.units:
+        x, unit_cache = _apply_unit(cfg, up, x, positions, vision, True)
+        for entry in unit_cache.values():
+            for name in ("k", "v"):
+                if name in entry:
+                    kv = entry[name]
+                    padded = kv.new_zeros((B, S + pad) + kv.shape[2:])
+                    padded[:, :S] = kv
+                    entry[name] = padded
+        caches.append(unit_cache)
+    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
+    logits = x[:, -1, :] @ _lm_head(cfg, params)
+    return logits[:, : cfg.vocab], caches, S
+
+
+def init_cache(cfg: ModelConfig, batch: int, prefix_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Shape-only cache (zeros) in the port's layout: one dict per unit."""
+    dev = resolve_device(device)
+    smax = prefix_len + cache_pad(cfg)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    caches = []
+    for _ in range(cfg.n_units):
+        unit = {}
+        for j, (mixer, _ffn) in enumerate(cfg.pattern):
+            if mixer == "attn":
+                unit[f"l{j}"] = {
+                    "k": zeros(batch, smax, cfg.n_kv, cfg.d_head),
+                    "v": zeros(batch, smax, cfg.n_kv, cfg.d_head),
+                }
+            elif mixer == "xattn":
+                shape = (batch, cfg.n_vision_tokens, cfg.n_kv, cfg.d_head)
+                unit[f"l{j}"] = {"xk": zeros(*shape), "xv": zeros(*shape)}
+            elif mixer == "mamba":
+                unit[f"l{j}"] = L.mamba_state_init(cfg, batch, dtype, dev)
+        caches.append(unit)
+    return caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: LM, tokens, cache, pos: int):
+    """One autoregressive step. tokens (B, 1) int; ``pos`` (a Python int) is
+    the slot this token writes. Writes slot ``pos`` of each attention cache
+    in place and replaces each Mamba layer's state in its dict, so the
+    returned cache is the one passed in; returns (logits (B, vocab), cache,
+    pos + 1)."""
+    tokens = torch.as_tensor(tokens, device=params.embed.device)
+    y = _embed_tokens(params, tokens)
+    for up, uc in zip(params.units, cache):
+        for j, (mixer, ffn) in enumerate(cfg.pattern):
+            lp = getattr(up, f"l{j}")
+            h = L.rms_norm(y, lp.norm1, cfg.rms_eps)
+            if mixer == "attn":
+                mx, _ = L.apply_attention_decode(cfg, lp.attn, h, uc[f"l{j}"],
+                                                 pos)
+            elif mixer == "xattn":
+                mx, _ = L.apply_cross_attention_decode(cfg, lp.xattn, h,
+                                                       uc[f"l{j}"])
+            else:  # mamba
+                mx, uc[f"l{j}"] = L.apply_mamba_decode(cfg, lp.mamba, h,
+                                                       uc[f"l{j}"])
+            y = y + mx
+            if ffn != "none":
+                y = y + _apply_ffn(cfg, ffn, lp,
+                                   L.rms_norm(y, lp.norm2, cfg.rms_eps))
+    x = L.rms_norm(y, params.final_norm, cfg.rms_eps)
+    logits = x[:, -1, :] @ _lm_head(cfg, params)
+    return logits[:, : cfg.vocab], cache, pos + 1

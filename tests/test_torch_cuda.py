@@ -9,6 +9,8 @@ JAX, so it runs on a machine that has only PyTorch:
 Floats compare bit for bit, with every NaN taken as one value (IEEE leaves
 NaN payloads open).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1468,3 +1470,93 @@ def test_analysis_card_checks_find_nothing(cuda):
     findings, rows, stats = audit_card()
     assert findings == [], [str(f) for f in findings]
     assert len(rows) == 10 and stats["poisoned_cells"] == 0
+
+
+# ---- the LM substrate's serving path (no kernel of its own: its products
+# are torch matmuls and einsums, as the reference's are jnp.einsum) -------
+
+LM_B, LM_S, LM_STEPS = 2, 32, 3
+
+
+@pytest.fixture
+def full_f32():
+    """f32 products in full f32 on the card for the test (TF32 off)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _lm_inputs(cfg, dev):
+    rng = np.random.default_rng(0)
+    batch = {}
+    toks = rng.integers(0, cfg.vocab, (LM_B, LM_S + LM_STEPS))
+    if cfg.embeddings_in:
+        batch["embeds"] = (0.1 * rng.standard_normal(
+            (LM_B, LM_S, cfg.d_model))).astype(np.float32)
+    else:
+        batch["tokens"] = toks[:, :LM_S]
+    if cfg.n_vision_tokens:
+        batch["vision"] = (0.02 * rng.standard_normal(
+            (LM_B, cfg.n_vision_tokens, cfg.d_model))).astype(np.float32)
+    return ({k: _t(v, dev) for k, v in batch.items()}, toks[:, LM_S:])
+
+
+def _lm_check(got, want, tol):
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def _lm_card_against_host(arch, dtype, tol, dev):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import (decode_step, forward_logits, init_params,
+                                    prefill)
+
+    cfg = get_smoke(arch)
+    card = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    host = copy.deepcopy(card).cpu()
+    b_d, nxt = _lm_inputs(cfg, dev)
+    b_h = {k: v.cpu() for k, v in b_d.items()}
+    _lm_check(forward_logits(cfg, card, b_d), forward_logits(cfg, host, b_h),
+              tol)
+    if cfg.encoder_only:
+        with pytest.raises(ValueError, match="encoder-only"):
+            prefill(cfg, card, b_d)
+        return
+    lg_d, c_d, pos_d = prefill(cfg, card, b_d)
+    lg_h, c_h, pos_h = prefill(cfg, host, b_h)
+    for i in range(LM_STEPS + 1):
+        assert pos_d == pos_h == LM_S + i
+        _lm_check(lg_d, lg_h, tol)
+        for unit_d, unit_h in zip(c_d, c_h, strict=True):
+            for lname, entry in unit_h.items():
+                for leaf, want in entry.items():
+                    _lm_check(unit_d[lname][leaf], want, tol)
+        if i == LM_STEPS:
+            break
+        tok = nxt[:, i:i + 1]
+        lg_d, c_d, pos_d = decode_step(cfg, card, _t(tok, dev), c_d, pos_d)
+        lg_h, c_h, pos_h = decode_step(cfg, host, _t(tok, "cpu"), c_h, pos_h)
+
+
+@pytest.mark.parametrize("arch", [
+    "hubert_xlarge", "llama32_vision_90b", "internlm2_1_8b", "qwen25_14b",
+    "phi3_medium_14b", "qwen3_32b", "jamba15_large_398b", "arctic_480b",
+    "qwen3_moe_235b", "mamba2_1_3b"])
+def test_lm_smoke_on_the_card_matches_the_host(cuda, full_f32, arch):
+    """Every smoke config, f32: forward_logits, prefill (logits and every
+    cache leaf) and 3 decode steps on the card against the same weights on
+    the CPU, rtol = atol = 1e-4."""
+    _lm_card_against_host(arch, torch.float32, 1e-4, cuda)
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_1_3b"])
+def test_lm_bf16_on_the_card_stays_there_and_near_the_host(cuda, arch):
+    """bf16 serving keeps every tensor on the card; against the CPU's bf16
+    within the two backends' bf16 rounding (atol = rtol = 6e-2, the bound
+    the CPU tests measured against the reference)."""
+    _lm_card_against_host(arch, torch.bfloat16, 6e-2, cuda)

@@ -39,7 +39,8 @@ def test_port_files_exist():
             "metrics.py", "cache.py", "point.py", "timer.py", "registry.py",
             "tracer.py", "delta_stepping.py", "phased.py", "oracle.py",
             "telemetry.py", "faults.py", "resilience.py", "config.py",
-            "__main__.py", "distributed.py", "mesh.py", "sssp_run.py"} <= names
+            "__main__.py", "distributed.py", "mesh.py", "sssp_run.py",
+            "layers.py", "transformer.py", "base.py"} <= names
     obs = ROOT / "src" / "repro_torch" / "obs"
     assert {obs / f for f in ("__init__.py", "__main__.py", "timer.py",
                               "registry.py", "tracer.py",
@@ -47,17 +48,24 @@ def test_port_files_exist():
     serving = ROOT / "src" / "repro_torch" / "serving"
     assert {serving / f for f in ("faults.py", "resilience.py",
                                   "backends.py")} <= set(FILES)
+    pkg = ROOT / "src" / "repro_torch"
+    assert {pkg / "models" / "layers.py", pkg / "models" / "transformer.py",
+            pkg / "configs" / "base.py"} <= set(FILES)
+    archs = {p.stem for p in (pkg / "configs").glob("*.py")}
+    assert len(archs - {"__init__", "base"}) == 10, sorted(archs)
 
 
 @pytest.mark.parametrize("module", [
     "repro_torch.serving.faults", "repro_torch.serving.resilience",
     "repro_torch.serving.backends", "repro_torch.kernels.config",
     "repro_torch.obs.__main__", "repro_torch.core.distributed",
-    "repro_torch.launch.mesh", "repro_torch.launch.sssp_run"])
+    "repro_torch.launch.mesh", "repro_torch.launch.sssp_run",
+    "repro_torch.configs", "repro_torch.models", "repro_torch.interop"])
 def test_new_modules_import_without_jax(module):
     """Each module of the portfolio, fault and resilience tiers, the CLI,
-    the sharded stepper and the launchers imports in a fresh interpreter
-    that has no ``jax`` or ``repro`` module loaded afterwards."""
+    the sharded stepper, the launchers and the LM substrate imports in a
+    fresh interpreter that has no ``jax`` or ``repro`` module loaded
+    afterwards."""
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
