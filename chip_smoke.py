@@ -217,16 +217,40 @@ failure raises, exits non-zero and prints no ``ok`` line:
      ``torch.profiler`` split of one prefill and one decode step (by kind
      of kernel, the top ops, the device's busy share of a step). No SSSP
      kernel may launch on this path.
+ 28. LM training (``train_loss`` with remat and the chunked cross-entropy,
+     AdamW, the data stream, checkpoints, ``train()`` and its launcher; no
+     kernel of ours, f32 with TF32 off): (a) every smoke config on the card
+     against the same weights and batch on the CPU (B = 2, S = 32):
+     ``train_loss`` under remat none, "full" and "dots" and every gradient
+     leaf, and one ``apply_updates`` step in both ``v_mode``s with ``m``
+     in f32 and bf16 on the same gradients, at the CPU tests' tolerances;
+     (b) ``internlm2-1.8b`` at every published width on 2 layers: the
+     chunked cross-entropy against ``forward_logits``'s, the three remat
+     choices against each other (B = 2 x 1024), the card's gradients
+     against the CPU's by relative L2 error (B = 1 x 128); (c) the timed
+     run, ``internlm2-1.8b`` at full depth and width: ``train()`` for 6
+     steps, B = 4 x 2048, f32 parameters, m bf16, v factored, full remat,
+     a checkpoint every 3 steps (two kept: the disk must hold two, ~11.3 GB
+     each, or the phase fails), then a second ``train()`` resumed from
+     step 3 after step 6's checkpoint is removed, its losses within rtol
+     1e-4 of the first run's; ms a step (median of steps 2-6), tokens/s and
+     peak memory beside their bounds, a ``torch.profiler`` split of one
+     step by kind of kernel with the device's busy share, and one
+     checkpoint's snapshot, write and restore (restored bit for bit); (d)
+     ``python -m repro_torch.launch.train --arch internlm2_1_8b --smoke
+     --steps 3`` in a subprocess on the card. No SSSP kernel may launch on
+     this path.
 
 Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
 23–24, of 25 and of 26, on every rank) runs with the launch counts set to
 0 just before and read just after, and fails if one of its kernels never
 ran.
 
-The third line from the end is phase 27's ``lm_serving`` JSON line; the
-second is the ``kernels`` JSON line (each row with its ``__global__``
-kernels' ptxas ``registers``, ``smem_bytes`` and ``spills``); the last line
-is ``{"ok": true, "device": {...}}``.
+The fourth line from the end is phase 27's ``lm_serving`` JSON line; the
+third is phase 28's ``lm_training``; the second is the ``kernels`` JSON
+line (each row with its ``__global__`` kernels' ptxas ``registers``,
+``smem_bytes`` and ``spills``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -266,6 +290,14 @@ LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_STEPS = 2, 32, 4
 LM_SMOKE_TOL = 1e-4  # rtol and atol, card against CPU in f32 (TF32 off)
 LM_PROMPT_B, LM_PROMPT_S, LM_GEN = 4, 2048, 32  # the bf16 served run
 BF16_OPS_PER_S = 989e12  # bf16 dense, tensor cores
+# LM training (phase 28): the timed run, internlm2-1.8b at full width
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 2048, 6, 3
+LM_TRAIN_CUT = 2  # layers of the full-width parity checks (b)
+LM_CUT_B, LM_CUT_S = 2, 1024  # (b) on the card: two cross-entropy chunks
+LM_HOST_B, LM_HOST_S = 1, 128  # (b) card against CPU
+LM_RESUME_RTOL = 1e-4  # (c) the resumed run's losses against the first's
+LM_CUT_GRAD_RL2 = 1e-5  # (b) relative L2 error of a gradient leaf
+PCIE_BYTES_PER_S = 64e9  # PCIe 5.0 x16, one direction: the host link
 
 
 def log(msg: str):
@@ -1055,6 +1087,451 @@ def lm_serving_phase(dev, smi: str, run_peak: list) -> dict:
     result["seconds"] = time.perf_counter() - t27
     log(f"phase 27: {result['seconds']:.1f} s")
     return result
+
+
+def lm_train_tol(cfg) -> tuple:
+    """The tests' tolerances, read from their one definition
+    (``tests/test_torch_lm_train_tol.py``, which imports no JAX): (loss
+    rtol, gradient rtol, gradient atol as a share of the leaf's largest
+    magnitude); Mamba models wider."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from test_torch_lm_train_tol import train_tol
+
+    return train_tol(cfg)
+
+
+def lm_loss_grads(cfg, model, batch, remat: bool, policy: str = "full"):
+    import torch
+
+    from repro_torch.models import train_loss
+
+    loss = train_loss(cfg, model, batch, remat=remat, remat_policy=policy)
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def lm_grads_close(what: str, names, got, want, rtol, share) -> float:
+    """Raises unless each gradient leaf is within rtol and an atol of
+    ``share`` times the leaf's largest magnitude; the largest difference
+    as a share of its leaf's largest magnitude."""
+    import torch
+
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        scale = float(w.abs().max())
+        if not bool(torch.isfinite(g).all()):
+            raise SystemExit(f"{what} {name}: non-finite gradient")
+        if not torch.allclose(g, w, rtol=rtol, atol=share * scale):
+            raise SystemExit(f"{what} {name}: gradients differ by up to "
+                             f"{float((g - w).abs().max()):.3e} (rtol {rtol}, "
+                             f"atol {share} x {scale:.3e})")
+        if scale > 0:
+            worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def lm_train_smoke_pair(arch: str, dev) -> dict:
+    """Phase 28 (a): one smoke config on the card against the same weights
+    and batch on the CPU: ``train_loss`` under remat none, "full" and
+    "dots" and every gradient leaf; then one ``apply_updates`` step on each
+    side from the same weights and the same (the host's) gradients, in
+    both ``v_mode``s with ``m`` in f32 and bf16."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
+
+    cfg = get_smoke(arch)
+    loss_rtol, g_rtol, g_share = lm_train_tol(cfg)
+    card = init_params(cfg, seed=0, device=dev).requires_grad_()
+    host = copy.deepcopy(card).cpu()
+    names = [n for n, _ in card.named_parameters()]
+    b_h = batch_for(cfg, DataConfig(batch=LM_SMOKE_B, seq_len=LM_SMOKE_S), 0,
+                    device="cpu")
+    b_d = {k: v.to(dev) for k, v in b_h.items()}
+    out = {"loss_rel": 0.0, "grad_share": 0.0}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        loss_d, g_d = lm_loss_grads(cfg, card, b_d, remat, policy)
+        loss_h, g_h = lm_loss_grads(cfg, host, b_h, remat, policy)
+        rel = abs(float(loss_d) - float(loss_h)) / abs(float(loss_h))
+        if not np.isfinite(float(loss_d)) or rel > loss_rtol:
+            raise SystemExit(f"{arch} train_loss remat={remat} {policy}: "
+                             f"{float(loss_d)!r} on the card, "
+                             f"{float(loss_h)!r} on the host")
+        out["loss_rel"] = max(out["loss_rel"], rel)
+        out["grad_share"] = max(out["grad_share"], lm_grads_close(
+            f"{arch} remat={remat} {policy}", names, g_d, g_h, g_rtol,
+            g_share))
+    grads_h = dict(zip(names, g_h))
+    grads_d = {n: g.to(dev) for n, g in grads_h.items()}
+    out["adamw_share"] = 0.0
+    for m_dtype in ("float32", "bfloat16"):
+        for v_mode in ("full", "factored"):
+            ocfg = OptConfig(lr=1e-2, warmup_steps=1, m_dtype=m_dtype,
+                             v_mode=v_mode)
+            sides = []
+            for model, grads, where in ((card, grads_d, dev),
+                                        (host, grads_h, "cpu")):
+                stepped = copy.deepcopy(model)
+                st = init_opt_state(stepped, ocfg, device=where)
+                stats = apply_updates(stepped, grads, st, ocfg)
+                sides.append((stepped, st, stats))
+            (m_d, st_d, s_d), (m_h, st_h, s_h) = sides
+            what = f"{arch} apply_updates {m_dtype} {v_mode}"
+            if not (bool(s_d["finite"]) and bool(s_h["finite"])):
+                raise SystemExit(f"{what}: not finite")
+            bf16 = m_dtype == "bfloat16"
+            # the CPU tests' tolerances (tests/test_torch_lm_train_optim.py)
+            moved = [p1 - p0 for p1, p0 in zip(m_h.parameters(),
+                                               host.parameters())]
+            share = 2.0 ** -7 if bf16 else 1e-6
+            for (name, pd), ph, dp in zip(m_d.named_parameters(),
+                                          m_h.parameters(), moved):
+                scale = float(dp.detach().abs().max())
+                if not torch.allclose(pd.detach().cpu(), ph.detach(),
+                                      rtol=2e-6, atol=share * scale):
+                    raise SystemExit(f"{what} {name}: parameters differ")
+                if scale > 0:
+                    out["adamw_share"] = max(out["adamw_share"], float(
+                        (pd.detach().cpu() - ph.detach()).abs().max()) / scale)
+            for part in ("m", "v"):
+                for path, want in st_h[part].items():
+                    got = st_d[part][path]
+                    pairs = ([(got, want)] if part == "m" else
+                             [(got[k], want[k]) for k in want])
+                    for g, w in pairs:
+                        g, w = g.float().cpu(), w.float()
+                        rtol = 2.0 ** -7 if bf16 and part == "m" else 2e-6
+                        atol = (2.0 ** -8 if bf16 and part == "m" else 1e-6
+                                ) * float(w.abs().max())
+                        if not torch.allclose(g, w, rtol=rtol, atol=atol):
+                            raise SystemExit(f"{what} {part}/{path} differs")
+            if int(st_d["step"]) != 1:
+                raise SystemExit(f"{what}: step {int(st_d['step'])}")
+    return out
+
+
+def lm_train_bounds(cfg, n_params: int, b: int, s: int) -> dict:
+    """The least time (ms) of one training step of b x s tokens, from the
+    code: the forward's products are 2 x (every weight but the embedding
+    table, which is a lookup) a token, the LM head over every position
+    included, and causal attention's QK and AV over half of the S x S
+    pairs; the backward is twice a forward, so a step is 3 forwards, in
+    f32 on CUDA cores (67 TFLOP/s, TF32 off). Full remat, the run's
+    choice, runs each unit's forward and each cross-entropy chunk's once
+    more in the backward: a cost of that choice (``recompute_ms``, one
+    forward), not part of the bound. Bytes: the f32 parameters read twice
+    (forward, backward) and written once, the f32 gradients written and
+    read, the bf16 momentum read and written, over 3.35 TB/s."""
+    D, V = cfg.d_model, cfg.vocab_pad
+    n_attn = sum(m == "attn" for m, _ in cfg.pattern) * cfg.n_units
+    tokens = b * s
+    fwd = 2 * tokens * (n_params - V * D) + n_attn * 2 * b * cfg.n_heads \
+        * cfg.d_head * s * s
+    ops = 3 * fwd
+    nbytes = 3 * 4 * n_params + 2 * 4 * n_params + 2 * 2 * n_params
+    ops_ms, bytes_ms = ops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"forward_ops": fwd, "step_ops": ops, "step_bytes": nbytes,
+            "step_ms": max(ops_ms, bytes_ms),
+            "step_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "recompute_ms": fwd / F32_OPS_PER_S * 1e3}
+
+
+def lm_ckpt_bytes(state_shapes: dict, n_params: int) -> int:
+    """A checkpoint's array bytes: f32 parameters, the optimizer's leaves."""
+    leaves = [state_shapes["step"]] + list(state_shapes["m"].values()) + [
+        t for e in state_shapes["v"].values() for t in e.values()]
+    return 4 * n_params + sum(t.numel() * t.element_size() for t in leaves)
+
+
+def lm_full_width_cut(dev) -> dict:
+    """Phase 28 (b): internlm2-1.8b at every published width, cut to
+    LM_TRAIN_CUT layers. On the card: ``chunked_ce_loss`` (two chunks of
+    512) against the cross-entropy of ``forward_logits``; the three remat
+    choices' losses and gradients. Then the card's gradients against the
+    CPU's on a shorter batch, leaf by leaf, by relative L2 error."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.models import forward_logits, init_params, train_loss
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"),
+                              n_layers=LM_TRAIN_CUT)
+    model = init_params(cfg, seed=0, device=dev).requires_grad_()
+    names = [n for n, _ in model.named_parameters()]
+    batch = batch_for(cfg, DataConfig(batch=LM_CUT_B, seq_len=LM_CUT_S), 0,
+                      device=dev)
+    out = {"layers": cfg.n_layers, "batch": LM_CUT_B, "seq": LM_CUT_S}
+    with torch.no_grad():
+        logits = forward_logits(cfg, model, batch).double()
+        labels = batch["labels"].long()
+        want = float((torch.logsumexp(logits, -1) - logits.gather(
+            -1, labels[..., None])[..., 0]).mean())
+        del logits
+        got = float(train_loss(cfg, model, batch, remat=True))
+    out["ce_vs_forward_rel"] = abs(got - want) / abs(want)
+    if out["ce_vs_forward_rel"] > 1e-5:
+        raise SystemExit(f"internlm2 cut: chunked CE {got!r} against the "
+                         f"forward's {want!r}")
+    runs = {}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        runs[(remat, policy)] = lm_loss_grads(cfg, model, batch, remat, policy)
+    loss0, g0 = runs[(False, "full")]
+    out["remat"] = {}
+    for key in ((True, "full"), (True, "dots")):
+        loss, g = runs[key]
+        rel = abs(float(loss) - float(loss0)) / abs(float(loss0))
+        rl2 = max(float((a - b).double().norm() / b.double().norm())
+                  for a, b in zip(g, g0))
+        out["remat"][key[1]] = {"loss_rel": rel, "grad_rel_l2": rl2,
+                                "loss_bit_equal": bool(torch.equal(loss,
+                                                                   loss0))}
+        if rel > 1e-6 or rl2 > 1e-6:
+            raise SystemExit(f"internlm2 cut remat {key}: loss {rel:.3e}, "
+                             f"gradients {rl2:.3e} from no remat")
+    del runs, g0
+    small = batch_for(cfg, DataConfig(batch=LM_HOST_B, seq_len=LM_HOST_S), 1,
+                      device=dev)
+    _, g_d = lm_loss_grads(cfg, model, small, True)
+    host = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    _, g_h = lm_loss_grads(cfg, host, {k: v.cpu() for k, v in small.items()},
+                           True)
+    out["host_s"] = time.perf_counter() - t0
+    worst = ("", 0.0)
+    for name, a, b in zip(names, g_d, g_h):
+        rl2 = float((a.cpu().double() - b.double()).norm()
+                    / b.double().norm())
+        if not rl2 <= LM_CUT_GRAD_RL2:
+            raise SystemExit(f"internlm2 cut card vs cpu {name}: relative "
+                             f"L2 error {rl2:.3e} > {LM_CUT_GRAD_RL2}")
+        worst = max(worst, (name, rl2), key=lambda w: w[1])
+    out["card_vs_cpu_grad_rel_l2"] = {"worst_leaf": worst[0],
+                                      "worst": worst[1]}
+    del model, host, g_d, g_h
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_training_phase(dev, run_peak: list) -> dict:
+    """Phase 28: LM training. (a) every smoke config, card against CPU;
+    (b) internlm2-1.8b at full width on LM_TRAIN_CUT layers; (c) the timed
+    run at full depth and width, its resume, a profiled step and the
+    checkpoint's cost; (d) the launcher in a subprocess."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, get_smoke
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import init_params, param_count
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+
+    t28 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise SystemExit("phase 28 compares f32 with TF32 off; it is on")
+    result = {"tf32": False, "smoke": {}}
+
+    # (a) every smoke config, card against CPU
+    t0 = time.perf_counter()
+    for arch in ARCHS:
+        errs = lm_train_smoke_pair(arch, dev)
+        result["smoke"][arch] = errs
+        log(f"lm train smoke {arch}: card against CPU (f32, same weights and "
+            f"batch): loss {errs['loss_rel']:.2e} relative over 3 remat "
+            f"choices, gradients {errs['grad_share']:.2e} of each leaf's "
+            f"largest, one AdamW step in 4 modes {errs['adamw_share']:.2e} "
+            f"of each leaf's largest change (tolerances: "
+            f"{lm_train_tol(get_smoke(arch))})")
+    result["smoke_s"] = time.perf_counter() - t0
+
+    # (b) full width, LM_TRAIN_CUT layers
+    t0 = time.perf_counter()
+    cut = lm_full_width_cut(dev)
+    cut["seconds"] = time.perf_counter() - t0
+    result["internlm2_cut"] = cut
+    log(f"lm train internlm2-1.8b cut to {cut['layers']} layers (full "
+        f"width), B={cut['batch']} x {cut['seq']}: chunked CE against the "
+        f"forward's {cut['ce_vs_forward_rel']:.2e} relative; remat against "
+        f"none {cut['remat']}; card against CPU (B={LM_HOST_B} x "
+        f"{LM_HOST_S}) worst gradient relative L2 "
+        f"{cut['card_vs_cpu_grad_rel_l2']} (limit {LM_CUT_GRAD_RL2})")
+
+    # (c) the timed run at full depth and width
+    cfg = get_config("internlm2-1.8b")
+    n_params = param_count(init_params(cfg, device="meta"))
+    ocfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS,
+                     m_dtype="bfloat16", v_mode="factored")
+    dcfg = DataConfig(seed=0, batch=LM_TRAIN_B, seq_len=LM_TRAIN_S)
+    shapes = init_params(cfg, device="meta")
+    ckpt_bytes = lm_ckpt_bytes(init_opt_state(shapes, ocfg, device="meta"),
+                               n_params)
+    work = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        disk = shutil.disk_usage(work)
+        log(f"lm train: checkpoints in {work}: {disk.free / 1e9:.1f} GB free "
+            f"of {disk.total / 1e9:.1f} GB; a checkpoint is "
+            f"{ckpt_bytes / 1e9:.2f} GB, two at once are needed")
+        if disk.free < 2.2 * ckpt_bytes:
+            raise SystemExit(f"lm train: {disk.free / 1e9:.1f} GB free, two "
+                             f"checkpoints need {2 * ckpt_bytes / 1e9:.1f}")
+        run = lm_timed_run(cfg, dcfg, ocfg, n_params, ckpt_bytes, work, dev,
+                           run_peak)
+        run["disk_free_gb"] = disk.free / 1e9
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result["timed"] = run
+
+    # (d) the launcher, on the card, in its own process
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "internlm2_1_8b", "--smoke", "--steps", "3"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600, check=False)
+    last = proc.stdout.strip().splitlines()[-1:] or [""]
+    if proc.returncode != 0 or not (
+            last[0].startswith("done: final loss ")
+            and last[0].endswith("(skipped 0 poisoned steps)")):
+        raise SystemExit(f"launcher: rc {proc.returncode}, {last[0]!r}; "
+                         f"{proc.stderr[-2000:]}")
+    result["launcher"] = {"line": last[0], "seconds": time.perf_counter() - t0}
+    log(f"lm train launcher ({' '.join(cmd[1:])}): {last[0]}")
+    result["seconds"] = time.perf_counter() - t28
+    log(f"phase 28: {result['seconds']:.1f} s")
+    return result
+
+
+def lm_timed_run(cfg, dcfg, ocfg, n_params: int, ckpt_bytes: int, work: str,
+                 dev, run_peak: list) -> dict:
+    """Phase 28 (c): ``train()`` for LM_TRAIN_STEPS steps with a checkpoint
+    every LM_TRAIN_EVERY (the watchdog at 0 s reads each step's wall time);
+    a second ``train()`` resumed from the middle checkpoint, whose losses
+    must follow the first's; a ``torch.profiler`` split of one step; a
+    checkpoint's snapshot, write and restore, restored bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime.train_loop import make_train_step, train
+
+    out = {"config": "internlm2-1.8b", "params": n_params,
+           "batch": dcfg.batch, "seq": dcfg.seq_len,
+           "steps": LM_TRAIN_STEPS, "ckpt_every": LM_TRAIN_EVERY,
+           "optimizer": "AdamW, m bf16, v factored, f32 parameters",
+           "remat": "full"}
+    ckdir = os.path.join(work, "run")
+    torch.cuda.synchronize()
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step_s = {}
+    t0 = time.perf_counter()
+    first = train(cfg, LM_TRAIN_STEPS, dcfg, ocfg, ckpt_dir=ckdir,
+                  ckpt_every=LM_TRAIN_EVERY,
+                  watchdog=lambda s, dt: step_s.__setitem__(s, dt),
+                  step_timeout_s=0.0, device=dev)
+    out["run_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    out["resident_before_gib"] = resident / 2**30
+    losses = first.losses
+    if (first.skipped_steps or len(losses) != LM_TRAIN_STEPS
+            or not all(np.isfinite(losses))):
+        raise SystemExit(f"lm train: losses {losses}, skipped "
+                         f"{first.skipped_steps}")
+    out["losses"] = losses
+    out["step_s"] = [step_s[i] for i in range(LM_TRAIN_STEPS)]
+    med = float(np.median(out["step_s"][1:]))
+    out["ms_per_step"] = med * 1e3
+    out["tokens_per_s"] = dcfg.batch * dcfg.seq_len / med
+    mgr = CheckpointManager(ckdir)
+    if mgr.all_steps() != [LM_TRAIN_EVERY, LM_TRAIN_STEPS]:
+        raise SystemExit(f"lm train: checkpoints {mgr.all_steps()}")
+    out["ckpt_file_bytes"] = os.path.getsize(
+        os.path.join(ckdir, f"ckpt_{LM_TRAIN_STEPS:08d}.npz"))
+    # a crash before the last checkpoint was written: drop it and resume
+    for ext in ("npz", "json"):
+        os.remove(os.path.join(ckdir, f"ckpt_{LM_TRAIN_STEPS:08d}.{ext}"))
+    t0 = time.perf_counter()
+    again = train(cfg, LM_TRAIN_STEPS, dcfg, ocfg, ckpt_dir=ckdir,
+                  ckpt_every=LM_TRAIN_EVERY, device=dev)
+    out["resume_run_s"] = time.perf_counter() - t0
+    want = losses[LM_TRAIN_EVERY:]
+    if again.restored_from != LM_TRAIN_EVERY or not np.allclose(
+            again.losses, want, rtol=LM_RESUME_RTOL, atol=0):
+        raise SystemExit(f"lm train resume: from {again.restored_from}, "
+                         f"losses {again.losses} against {want}")
+    out["resumed_losses"] = again.losses
+    out["resume_max_rel"] = max(abs(a - b) / abs(b)
+                                for a, b in zip(again.losses, want))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # one profiled step, then the checkpoint's cost, on a fresh model
+    model = init_params(cfg, seed=0, device=dev)
+    state = init_opt_state(model, ocfg, device=dev)
+    step = make_train_step(cfg, ocfg, remat=True)
+    batch = batch_for(cfg, dcfg, 0, device=dev)
+    split = device_split_counted(lambda: step(model, state, batch), calls=1)
+    dev_ms = sum(t * c for _, t, c in split)
+    out["profile"] = {
+        "device_ms": dev_ms, "kernels": sum(c for _, _, c in split),
+        "busy_share": dev_ms / out["ms_per_step"],
+        "by_kind": lm_kinds(split),
+        "top": [[k, round(t * c, 3), round(c, 2)] for k, t, c in
+                sorted(split, key=lambda r: -r[1] * r[2])[:6]]}
+    del batch
+    ck2 = os.path.join(work, "timing")
+    mgr = CheckpointManager(ck2, keep=1)
+    tree = {"params": model, "opt": state}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save_async(1, tree)
+    snap_s = time.perf_counter() - t0
+    mgr.wait()
+    write_s = time.perf_counter() - t0 - snap_s
+    t0 = time.perf_counter()
+    back = mgr.restore(1, tree, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for (name, p), (_, q) in zip(model.named_parameters(),
+                                 back["params"].named_parameters()):
+        if not torch.equal(p, q):
+            raise SystemExit(f"lm checkpoint: {name} not restored bit for "
+                             "bit")
+    for part in ("m", "v"):
+        for path, t in state[part].items():
+            pairs = ([(t, back["opt"][part][path])] if part == "m" else
+                     [(t[k], back["opt"][part][path][k]) for k in t])
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise SystemExit(f"lm checkpoint: opt/{part}/{path} not "
+                                 "restored bit for bit")
+    nbytes = os.path.getsize(os.path.join(ck2, "ckpt_00000001.npz"))
+    out["checkpoint"] = {
+        "bytes": nbytes, "array_bytes": ckpt_bytes,
+        "snapshot_s": snap_s, "write_s": write_s, "restore_s": restore_s,
+        "snapshot_bound_s": ckpt_bytes / PCIE_BYTES_PER_S,
+        "write_gb_per_s": nbytes / write_s / 1e9}
+    del model, state, back, tree
+    shutil.rmtree(ck2, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["bound"] = lm_train_bounds(cfg, n_params, dcfg.batch, dcfg.seq_len)
+    out["tokens_per_s_bound"] = (dcfg.batch * dcfg.seq_len
+                                 / (out["bound"]["step_ms"] / 1e3))
+    out["state_gib"] = (4 + 4 + 2) * n_params / 2**30  # p, g, m
+    return out
 
 
 def main() -> int:
@@ -4173,6 +4650,38 @@ def main() -> int:
         raise SystemExit(f"phase 27 launched SSSP kernels: {lm_counts}")
     by_path["lm serving"] = lm_counts
 
+    # ---- 28. LM training ---------------------------------------------------
+    zero_counts()
+    lm28 = lm_training_phase(dev, run_peak)
+    lm_counts = read_counts()
+    if any(lm_counts.values()):  # the training path has no kernel either
+        raise SystemExit(f"phase 28 launched SSSP kernels: {lm_counts}")
+    by_path["lm training"] = lm_counts
+    tr = lm28["timed"]
+    bd = tr["bound"]
+    log(f"lm train internlm2-1.8b [{smi}] f32, B={tr['batch']} x {tr['seq']}, "
+        f"full remat, AdamW (m bf16, v factored): {tr['ms_per_step']:.1f} ms "
+        f"a step (median of steps 2-{LM_TRAIN_STEPS}; bound "
+        f"{bd['step_ms']:.1f}, {bd['step_by']}: {bd['step_ops']:.3e} f32 "
+        f"operations, 3 forwards; full remat's recompute adds "
+        f"{bd['recompute_ms']:.1f} to it), "
+        f"{tr['tokens_per_s']:.1f} tokens/s (bound "
+        f"{tr['tokens_per_s_bound']:.1f}); peak {tr['peak_gib']:.2f} GiB above "
+        f"the {tr['resident_before_gib']:.2f} GiB resident (parameters, "
+        f"gradients and m alone {tr['state_gib']:.2f}); losses {tr['losses']}; "
+        f"resumed from step {LM_TRAIN_EVERY}: {tr['resumed_losses']} (largest "
+        f"relative difference {tr['resume_max_rel']:.2e}, limit "
+        f"{LM_RESUME_RTOL}); step wall seconds {tr['step_s']}")
+    pr, ck = tr["profile"], tr["checkpoint"]
+    log(f"lm train profile: {pr['device_ms']:.1f} device ms a step in "
+        f"{pr['kernels']:.0f} kernels, busy {pr['busy_share']:.1%}; by kind "
+        f"[ms, launches] {pr['by_kind']}; top {pr['top']}")
+    log(f"lm train checkpoint: {ck['bytes'] / 1e9:.3f} GB on disk; snapshot "
+        f"to the host {ck['snapshot_s']:.2f} s (bound "
+        f"{ck['snapshot_bound_s']:.2f} s over PCIe 5.0 x16), write "
+        f"{ck['write_s']:.2f} s ({ck['write_gb_per_s']:.2f} GB/s), restore "
+        f"onto the card {ck['restore_s']:.2f} s; restored bit for bit")
+
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
     log(f"card: {smi}")
@@ -4339,6 +4848,7 @@ def main() -> int:
         if fused_of is not None:  # in|out ms/phase, split against fused
             row["in_out_ms_phase"] = fusion[fused_of][0]
     print(json.dumps({"lm_serving": lm27}), flush=True)
+    print(json.dumps({"lm_training": lm28}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -17,7 +17,8 @@ The stepper runs every mode of the reference's: every criterion plan, the
 oracle plans included, delta-stepping, targets and the telemetry rings,
 on the padded and the degree-sliced layouts; ``core.distributed`` shards
 it over a ``torch.distributed`` group. ``configs`` and ``models`` hold the
-LM substrate's serving path (the ten architectures, ``prefill``,
-``decode_step``, ``forward_logits``); its training and mesh pieces are not
-ported yet (ROADMAP Queue 1).
+LM substrate (the ten architectures; ``prefill``, ``decode_step``,
+``forward_logits``, ``train_loss``), and ``optim``, ``data``,
+``checkpoint``, ``runtime`` and ``launch.train`` its training on one
+device; its mesh pieces are not ported yet (ROADMAP Queue 1).
 """

@@ -8,11 +8,20 @@ The port never imports the reference; a caller that holds a reference
 (``np.asarray`` of each field) and gets the port's counterpart, with no
 recomputation (a sharded one as one rank's block). The tests use this to
 start both packages from one mid-solve state, and to feed the reference's
-own sliced view to the port's kernels. ``lm_params_from_numpy``,
-``lm_cache_from_numpy`` and ``lm_cache_to_numpy`` do the same for a model's
-parameters and caches, in the reference's stacked ``(U, ...)`` layout.
+own sliced view to the port's kernels. ``lm_params_from_numpy`` /
+``lm_params_to_numpy``, ``opt_state_from_numpy`` / ``opt_state_to_numpy``
+and ``lm_cache_from_numpy`` / ``lm_cache_to_numpy`` carry a model's
+parameters, its optimizer state and its decode caches both ways, in the
+reference's stacked ``(U, ...)`` layout. bf16 leaves come out as 2-byte
+void records (``BF16_RECORD``), as numpy writes the reference's
+``ml_dtypes.bfloat16`` into a checkpoint, and go in from either form.
+``flatten_tree`` / ``unflatten_into`` are the one path between such trees
+(a model among them) and ``'/'``-keyed host arrays, shared with the
+checkpoint manager.
 """
 from __future__ import annotations
+
+from typing import Any
 
 import numpy as np
 import torch
@@ -25,7 +34,10 @@ from repro_torch.core.distributed import (
 from repro_torch.core.graph import EllSlice, Graph, SlicedEll, sliced_ell
 from repro_torch.core.static_engine import BatchState
 from repro_torch.kernels.config import resolve_device
-from repro_torch.models.transformer import LM, init_params
+from repro_torch.models.transformer import LM, init_params, leaf_paths
+from repro_torch.optim.adamw import OptConfig, init_opt_state
+
+BF16_RECORD = np.dtype("V2")  # a bf16 value as numpy stores it, unnamed
 
 _GRAPH_FIELDS = {
     "src": np.int32, "dst": np.int32, "w": np.float32,
@@ -194,14 +206,47 @@ def sharded_state_from_numpy(fields: dict, rank: int, num_shards: int,
     )
 
 
-def _leaf_tensor(arr, dev) -> torch.Tensor:
-    """A numpy leaf as a tensor; the reference's bf16 leaves (``ml_dtypes``'
-    bfloat16, which torch cannot read) go through their 16-bit pattern."""
+def leaf_tensor(arr, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor (a copy); the reference's bf16 leaves
+    (``ml_dtypes``' bfloat16, which torch cannot read, or its 2-byte void
+    records) go through their 16-bit pattern."""
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
-    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+    if arr.dtype.name == "bfloat16" or arr.dtype == BF16_RECORD:
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.tensor(bits).view(torch.bfloat16).to(dev)
+    return torch.tensor(arr).to(dev)
+
+
+def tensor_to_numpy(tensors, stack: bool = False) -> np.ndarray:
+    """A host copy of a tensor, or (``stack``) of a list of tensors stacked
+    on a new leading axis; bf16 as ``BF16_RECORD``s. Never aliases the
+    tensors, on the CPU either."""
+    tensors = list(tensors) if stack else [tensors]
+    head = tensors[0]
+    shape = ((len(tensors),) if stack else ()) + tuple(head.shape)
+    bf16 = head.dtype == torch.bfloat16
+    out = torch.empty(shape, dtype=torch.int16 if bf16 else head.dtype)
+    into = out.view(torch.bfloat16) if bf16 else out
+    with torch.no_grad():
+        if stack:
+            for u, t in enumerate(tensors):
+                into[u].copy_(t)
+        else:
+            into.copy_(head)
+    arr = out.numpy()
+    return arr.view(BF16_RECORD) if bf16 else arr
+
+
+def nest(flat: dict) -> dict:
+    """``{"a/b/c": x}`` -> ``{"a": {"b": {"c": x}}}``."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *dirs, name = path.split("/")
+        node = tree
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[name] = leaf
+    return tree
 
 
 def _leaf(tree: dict, path: list[str]):
@@ -229,13 +274,13 @@ def lm_params_from_numpy(cfg, tree: dict, device=None, dtype=None) -> LM:
     dev = resolve_device(device)
     cast = dtype is not None
     if not cast:  # the model's dtype is its final norm's
-        dtype = _leaf_tensor(np.asarray(tree["final_norm"]), "cpu").dtype
+        dtype = leaf_tensor(np.asarray(tree["final_norm"]), "cpu").dtype
     model = init_params(cfg, dtype=dtype, device="meta").to_empty(device=dev)
     want = {name for name, _ in model.named_parameters()}
     have = set()
     with torch.no_grad():
         for name, p in model.named_parameters():
-            t = _leaf_tensor(_leaf(tree, name.split(".")), dev)
+            t = leaf_tensor(_leaf(tree, name.split(".")), dev)
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: want shape {tuple(p.shape)}; got "
                                  f"{tuple(t.shape)}")
@@ -246,6 +291,84 @@ def lm_params_from_numpy(cfg, tree: dict, device=None, dtype=None) -> LM:
     if have != want:
         raise ValueError(f"missing parameters: {sorted(want - have)}")
     return model
+
+
+def lm_params_to_numpy(model: LM) -> dict:
+    """The reference's parameter tree (nested dicts of numpy arrays) of the
+    port's model, the inverse of ``lm_params_from_numpy``: each ``units``
+    leaf restacked over the units (U, ...); host copies, bf16 leaves as
+    ``BF16_RECORD``s."""
+    flat = {}
+    for path, names in leaf_paths(model).items():
+        ps = [model.get_parameter(n) for n in names]
+        stacked = path.startswith("units/")
+        flat[path] = tensor_to_numpy(ps if stacked else ps[0], stack=stacked)
+    return nest(flat)
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    """Host arrays of a tree's leaves under their ``'/'``-joined keys:
+    tensors copied, numpy leaves as given, a model as the reference's
+    parameter tree."""
+    if isinstance(tree, LM):
+        tree = lm_params_to_numpy(tree)
+    if isinstance(tree, dict):
+        flat = {}
+        for key, sub in tree.items():
+            flat.update(flatten_tree(sub, f"{prefix}{key}/"))
+        return flat
+    leaf = tensor_to_numpy(tree) if torch.is_tensor(tree) else np.asarray(tree)
+    return {prefix[:-1]: leaf}
+
+
+def unflatten_into(template: Any, flat: dict, dev, prefix: str = "") -> Any:
+    """The template's structure with each leaf read from ``flat`` onto
+    ``dev``: same shapes and dtypes as the template's leaves (which may be
+    on the meta device), a model rebuilt as a model."""
+    if isinstance(template, LM):
+        for path in leaf_paths(template):
+            if prefix + path not in flat:
+                raise KeyError(f"checkpoint missing leaf {prefix + path!r}")
+        sub = {k[len(prefix):]: v for k, v in flat.items()
+               if k.startswith(prefix)}
+        model = lm_params_from_numpy(template.cfg, nest(sub), device=dev)
+        want = template.final_norm.dtype
+        if model.final_norm.dtype != want:
+            raise TypeError(f"{prefix[:-1]}: ckpt dtype "
+                            f"{model.final_norm.dtype} != {want}")
+        return model
+    if isinstance(template, dict):
+        return {key: unflatten_into(sub, flat, dev, f"{prefix}{key}/")
+                for key, sub in template.items()}
+    key = prefix[:-1]
+    if key not in flat:
+        raise KeyError(f"checkpoint missing leaf {key!r}")
+    arr = flat[key]
+    if tuple(arr.shape) != tuple(template.shape):
+        raise ValueError(f"{key}: ckpt shape {arr.shape} != "
+                         f"{tuple(template.shape)}")
+    out = leaf_tensor(arr, dev)
+    if out.dtype != template.dtype:
+        raise TypeError(f"{key}: ckpt dtype {out.dtype} != {template.dtype}")
+    return out
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The reference's optimizer tree ``{"step", "m", "v"}`` (nested dicts
+    of numpy arrays, leaf paths as the parameters') of the port's state:
+    host copies, a bf16 ``m`` as ``BF16_RECORD``s."""
+    return nest(flatten_tree(state))
+
+
+def opt_state_from_numpy(cfg: OptConfig, tree: dict, model: LM,
+                         device=None) -> dict:
+    """The port's optimizer state for ``model`` from the reference's tree
+    ``{"step", "m", "v"}`` (numpy leaves, ``jax.tree.map(np.asarray,
+    state)``) on ``device`` (None = the CUDA card), read as a checkpoint
+    is: every leaf that ``init_opt_state(model, cfg)`` has, with its shape
+    and dtype."""
+    return unflatten_into(init_opt_state(model, cfg, device="meta"),
+                          flatten_tree(tree), resolve_device(device))
 
 
 def lm_cache_to_numpy(cache: list) -> dict:
@@ -274,6 +397,6 @@ def lm_cache_from_numpy(tree: dict, device=None) -> list:
     if len(n_units) != 1:
         raise ValueError(f"cache leaves disagree on U: {sorted(n_units)}")
     (U,) = n_units
-    return [{lname: {leaf: _leaf_tensor(np.asarray(v)[u], dev)
+    return [{lname: {leaf: leaf_tensor(np.asarray(v)[u], dev)
                      for leaf, v in entry.items()}
              for lname, entry in tree.items()} for u in range(U)]

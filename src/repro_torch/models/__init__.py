@@ -1,16 +1,21 @@
 """LM-family model substrate (dense / MoE / SSM / hybrid / VLM / encoder):
-the serving path of ``repro.models`` on PyTorch. ``train_loss`` and the
-sharding context come with the training and mesh slices."""
+the serving and training paths of ``repro.models`` on PyTorch. The
+sharding context comes with the mesh slice."""
 from repro_torch.models.transformer import (
+    REMAT_POLICIES,
+    chunked_ce_loss,
     decode_step,
     forward_logits,
     init_cache,
     init_params,
+    leaf_paths,
     param_count,
     prefill,
+    train_loss,
 )
 
 __all__ = [
     "init_params", "forward_logits", "prefill", "decode_step", "init_cache",
-    "param_count",
+    "param_count", "leaf_paths", "train_loss", "chunked_ce_loss",
+    "REMAT_POLICIES",
 ]

@@ -14,9 +14,12 @@ Conventions, as the reference's:
 
 Every op is the reference's plain arithmetic in the reference's order: no
 fused attention or other library kernel stands in for it. The reference has
-no Pallas kernel on this path, so neither has the port. Parameters carry no
-gradient (serving only). Off the global view, the reference's expert-
-parallel MoE (``_apply_moe_ep``, a ``shard_map``) has no counterpart here.
+no Pallas kernel on this path, so neither has the port. Parameters are
+built frozen (``requires_grad=False``), which serving and the layer-level
+checks read directly; the training step turns on the gradients of the
+model it trains (``runtime.train_loop.make_train_step``). Off the global
+view, the reference's expert-parallel MoE (``_apply_moe_ep``, a
+``shard_map``) has no counterpart here.
 """
 from __future__ import annotations
 

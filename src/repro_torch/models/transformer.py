@@ -14,13 +14,29 @@ with one dict per unit (``cache[u]["l{j}"]``), each attention layer's K / V
 preallocated as (B, S + cache_pad, K, dh) in the activation dtype;
 ``decode_step`` writes slot ``pos`` of it in place. ``interop``'s
 ``lm_cache_to_numpy`` / ``lm_cache_from_numpy`` convert it to and from the
-reference's stacked (U, B, ...) layout. Training (``train_loss``) and the
-mesh pieces come in later slices.
+reference's stacked (U, B, ...) layout.
+
+Training: ``train_loss`` runs the units with per-unit rematerialisation
+(``torch.utils.checkpoint``; ``REMAT_POLICIES``) and computes the LM head
+and the cross-entropy in sequence chunks under remat
+(``chunked_ce_loss``), so the (B, S, V) logits never exist. The reference
+also checkpoints each layer of a multi-layer unit (jamba, llama-vision)
+inside the unit's remat; that changes only peak memory, and the port
+does not nest. The mesh pieces (the reference's ``shd``) come in a later
+slice.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.config import resolve_device
@@ -139,6 +155,22 @@ def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+def leaf_paths(params: nn.Module) -> dict[str, list[str]]:
+    """The reference's parameter leaves, in the port's names: ``{leaf
+    path: [parameter names]}``. A leaf path is the reference's
+    ``'/'``-joined key (``units/l0/attn/wq``, ``embed``); a ``units/...``
+    leaf is stacked over the units by the reference's vmap, so it maps to
+    ``units.<u>.l0.attn.wq`` for every unit u in order, and any other leaf
+    to its one parameter."""
+    paths: dict[str, list[str]] = {}
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "units":
+            parts = ["units"] + parts[2:]
+        paths.setdefault("/".join(parts), []).append(name)
+    return paths
+
+
 # --------------------------------------------------------------------------
 # unit application (full sequence)
 # --------------------------------------------------------------------------
@@ -243,12 +275,86 @@ def _lm_head(cfg, params: LM):
     return params.embed.T
 
 
-def _stack(cfg, params: LM, x, positions, vision):
-    """The units in order, no cache (the reference's ``_stack_scan`` with no
-    remat)."""
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the output of every ``aten.mm`` and
+    recompute the rest. A product ``x @ W`` of activations and a weight
+    (the projections, the MLP, the router) reaches ``mm`` with its batch
+    and sequence axes folded into rows: the reference's dot with no batch
+    dimensions. The attention einsums, the SSD's chunk products and the
+    experts' products carry batch dimensions and reach ``bmm``, which the
+    reference's ``dots_with_no_batch_dims_saveable`` recomputes too."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# the ``context_fn`` of each unit's checkpoint
+REMAT_POLICIES = {
+    # full: keep each unit's input only and recompute the unit in the
+    # backward pass (4/3 of the forward products)
+    "full": noop_context_fn,
+    # dots: also keep the products with no batch dimensions, recompute the
+    # elementwise work and the batched products
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_products),
+}
+
+
+def _stack(cfg, params: LM, x, positions, vision, remat: bool = False,
+           remat_policy: str = "full"):
+    """The units in order, no cache (the reference's ``_stack_scan``); with
+    ``remat`` each unit runs under ``torch.utils.checkpoint`` with
+    ``REMAT_POLICIES[remat_policy]``."""
+    context_fn = REMAT_POLICIES[remat_policy]
     for up in params.units:
-        x, _ = _apply_unit(cfg, up, x, positions, vision, False)
+        def unit_fn(h, up=up):
+            return _apply_unit(cfg, up, h, positions, vision, False)[0]
+
+        x = (checkpoint(unit_fn, x, use_reentrant=False,
+                        context_fn=context_fn) if remat else unit_fn(x))
     return x
+
+
+def _ce_chunk(cfg, hc, lm_head, lc):
+    """Sum over one chunk of logsumexp - gold, the logits (B, chunk, V) in
+    f32 with the vocabulary padding masked."""
+    logits = (hc @ lm_head).to(torch.float32)
+    if logits.shape[-1] != cfg.vocab:  # mask vocab padding
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, L.MASKED)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_ce_loss(cfg, h, lm_head, labels, chunk: int | None = None):
+    """Mean next-token cross-entropy; the logits are computed a sequence
+    chunk at a time (``cfg.ce_chunk`` positions, one chunk when S is no
+    multiple of it) under remat, so the (B, S, V) tensor never exists."""
+    B, S, _ = h.shape
+    chunk = chunk or cfg.ce_chunk
+    if S % chunk != 0:
+        chunk = S
+    labels = torch.as_tensor(labels, device=h.device).long()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, chunk):
+        total = total + checkpoint(_ce_chunk, cfg, h[:, c:c + chunk], lm_head,
+                                   labels[:, c:c + chunk],
+                                   use_reentrant=False)
+    return total / (B * S)
+
+
+def train_loss(cfg: ModelConfig, params: LM, batch, remat: bool = True,
+               remat_policy: str = "full"):
+    """The mean next-token cross-entropy of ``batch`` ({"tokens" or
+    "embeds", "labels"[, "vision"]}), differentiable in the parameters that
+    require a gradient (``make_train_step`` turns them on)."""
+    x = _embed_in(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _stack(cfg, params, x, positions, _vision(params, batch), remat,
+               remat_policy)
+    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
+    return chunked_ce_loss(cfg, x, _lm_head(cfg, params), batch["labels"])
 
 
 @torch.no_grad()

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.core import (
     EllSlice,
     from_coo,
@@ -51,6 +52,7 @@ from repro_torch.kernels.ell_sliced import (
     ell_sliced_relax_keys_batch,
 )
 from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
+from test_torch_lm_train_tol import train_tol
 
 pytestmark = pytest.mark.cuda
 
@@ -1543,10 +1545,7 @@ def _lm_card_against_host(arch, dtype, tol, dev):
         lg_h, c_h, pos_h = decode_step(cfg, host, _t(tok, "cpu"), c_h, pos_h)
 
 
-@pytest.mark.parametrize("arch", [
-    "hubert_xlarge", "llama32_vision_90b", "internlm2_1_8b", "qwen25_14b",
-    "phi3_medium_14b", "qwen3_32b", "jamba15_large_398b", "arctic_480b",
-    "qwen3_moe_235b", "mamba2_1_3b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_lm_smoke_on_the_card_matches_the_host(cuda, full_f32, arch):
     """Every smoke config, f32: forward_logits, prefill (logits and every
     cache leaf) and 3 decode steps on the card against the same weights on
@@ -1560,3 +1559,80 @@ def test_lm_bf16_on_the_card_stays_there_and_near_the_host(cuda, arch):
     within the two backends' bf16 rounding (atol = rtol = 6e-2, the bound
     the CPU tests measured against the reference)."""
     _lm_card_against_host(arch, torch.bfloat16, 6e-2, cuda)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_train_loss_and_grads_on_the_card_match_the_host(cuda, full_f32,
+                                                            arch):
+    """Every smoke config, f32: ``train_loss`` under remat none, "full"
+    and "dots" and the gradient of every parameter on the card against the
+    same weights and batch on the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.models import init_params, train_loss
+
+    cfg = get_smoke(arch)
+    loss_rtol, g_rtol, g_atol = train_tol(cfg)
+    card = init_params(cfg, seed=0, device=cuda).requires_grad_()
+    host = copy.deepcopy(card).cpu()
+    b_d = batch_for(cfg, DataConfig(batch=LM_B, seq_len=LM_S), 0,
+                    device=cuda)
+    b_h = {k: v.cpu() for k, v in b_d.items()}
+    for remat, policy in [(False, "full"), (True, "full"), (True, "dots")]:
+        runs = []
+        for model, batch in ((card, b_d), (host, b_h)):
+            loss = train_loss(cfg, model, batch, remat=remat,
+                              remat_policy=policy)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            runs.append((loss, grads))
+        (loss_d, g_d), (loss_h, g_h) = runs
+        assert loss_d.device.type == "cuda"
+        torch.testing.assert_close(loss_d.cpu(), loss_h, rtol=loss_rtol,
+                                   atol=0)
+        for (name, _), gd, gh in zip(card.named_parameters(), g_d, g_h):
+            assert gd.device.type == "cuda", name
+            scale = float(gh.abs().max())
+            torch.testing.assert_close(gd.cpu(), gh, rtol=g_rtol,
+                                       atol=g_atol * scale,
+                                       msg=lambda m: f"{policy} {name}: {m}")
+
+
+def test_lm_train_two_steps_on_the_card(cuda, full_f32, tmp_path):
+    """``train()`` on the card (the default device) for 2 smoke steps (bf16
+    m, factored v) with a checkpoint after each; the second step, resumed
+    from the first's checkpoint on the card and on the CPU (the card's
+    and the host's generators draw different weights, so both sides start
+    from that checkpoint), gives the same loss; the checkpoint restores
+    onto the card, and the entry points default to it."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.runtime.train_loop import train
+
+    cfg = get_smoke("internlm2_1_8b")
+    dcfg = DataConfig(batch=4, seq_len=32)
+    ocfg = OptConfig(lr=5e-3, warmup_steps=1, total_steps=4,
+                     m_dtype="bfloat16", v_mode="factored")
+    card_dir, host_dir = tmp_path / "card", tmp_path / "host"
+    first = train(cfg, 1, dcfg, ocfg, ckpt_dir=str(card_dir), ckpt_every=1)
+    shutil.copytree(card_dir, host_dir)
+    got = train(cfg, 2, dcfg, ocfg, ckpt_dir=str(card_dir), ckpt_every=1)
+    want = train(cfg, 2, dcfg, ocfg, ckpt_dir=str(host_dir), ckpt_every=1,
+                 device="cpu")
+    assert got.restored_from == want.restored_from == 1
+    assert first.skipped_steps == got.skipped_steps == 0
+    assert np.isfinite(first.losses).all()
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+    shapes = init_params(cfg, device="meta")
+    state = CheckpointManager(str(card_dir)).restore(
+        2, {"params": shapes,
+            "opt": init_opt_state(shapes, ocfg, device="meta")})
+    assert state["params"].embed.device.type == "cuda"
+    assert state["opt"]["m"]["embed"].device.type == "cuda"
+    assert int(state["opt"]["step"]) == 2
+    assert make_batch(dcfg, 0, cfg.vocab)["tokens"].device.type == "cuda"
+    assert init_opt_state(state["params"], ocfg)["step"].device.type == "cuda"

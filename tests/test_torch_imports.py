@@ -51,6 +51,10 @@ def test_port_files_exist():
     pkg = ROOT / "src" / "repro_torch"
     assert {pkg / "models" / "layers.py", pkg / "models" / "transformer.py",
             pkg / "configs" / "base.py"} <= set(FILES)
+    assert {pkg / "optim" / "adamw.py", pkg / "data" / "pipeline.py",
+            pkg / "checkpoint" / "manager.py",
+            pkg / "runtime" / "train_loop.py",
+            pkg / "launch" / "train.py"} <= set(FILES)
     archs = {p.stem for p in (pkg / "configs").glob("*.py")}
     assert len(archs - {"__init__", "base"}) == 10, sorted(archs)
 
@@ -60,12 +64,15 @@ def test_port_files_exist():
     "repro_torch.serving.backends", "repro_torch.kernels.config",
     "repro_torch.obs.__main__", "repro_torch.core.distributed",
     "repro_torch.launch.mesh", "repro_torch.launch.sssp_run",
-    "repro_torch.configs", "repro_torch.models", "repro_torch.interop"])
+    "repro_torch.configs", "repro_torch.models", "repro_torch.interop",
+    "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.manager", "repro_torch.runtime.train_loop",
+    "repro_torch.launch.train"])
 def test_new_modules_import_without_jax(module):
     """Each module of the portfolio, fault and resilience tiers, the CLI,
-    the sharded stepper, the launchers and the LM substrate imports in a
-    fresh interpreter that has no ``jax`` or ``repro`` module loaded
-    afterwards."""
+    the sharded stepper, the launchers and the LM substrate (serving and
+    training) imports in a fresh interpreter that has no ``jax`` or
+    ``repro`` module loaded afterwards."""
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
