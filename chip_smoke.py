@@ -228,26 +228,58 @@ failure raises, exits non-zero and prints no ``ok`` line:
      chunked cross-entropy against ``forward_logits``'s, the three remat
      choices against each other (B = 2 x 1024), the card's gradients
      against the CPU's by relative L2 error (B = 1 x 128); (c) the timed
-     run, ``internlm2-1.8b`` at full depth and width: ``train()`` for 6
-     steps, B = 4 x 2048, f32 parameters, m bf16, v factored, full remat,
-     a checkpoint every 3 steps (two kept: the disk must hold two, ~11.3 GB
-     each, or the phase fails), then a second ``train()`` resumed from
-     step 3 after step 6's checkpoint is removed, its losses within rtol
-     1e-4 of the first run's; ms a step (median of steps 2-6), tokens/s and
+     run, ``internlm2-1.8b`` at full depth and width: ``train()`` for 4
+     steps (6 until phase 29 came; the script's time limit), B = 4 x 2048,
+     f32 parameters, m bf16, v factored, full remat, a checkpoint every 2
+     steps (two kept: the disk must hold two, ~11.3 GB each, or the phase
+     fails), then a second ``train()`` resumed from step 2 after step 4's
+     checkpoint is removed, its losses within rtol 1e-4 of the first
+     run's; ms a step (median of steps 2-4), tokens/s and
      peak memory beside their bounds, a ``torch.profiler`` split of one
      step by kind of kernel with the device's busy share, and one
      checkpoint's snapshot, write and restore (restored bit for bit); (d)
      ``python -m repro_torch.launch.train --arch internlm2_1_8b --smoke
      --steps 3`` in a subprocess on the card. No SSSP kernel may launch on
      this path.
+ 29. The LM substrate on a mesh (``sharding/``, the expert-parallel MoE,
+     the sharded train and serve steps, elastic re-planning; no kernel of
+     ours, f32 with TF32 off). It runs right after phase 1, before any
+     graph is on the card: its ranks need the card's memory.
+     The one-card twins of (b) and (c) run first and are freed; then 4
+     gloo ranks share this card as a 2 x 2 (data, model) mesh
+     (``torch.multiprocessing``, a ``file://`` store; a failed rank fails
+     the run): (a) every smoke config, FSDP over "data": the sharded loss
+     and every gathered gradient against the one-card step (MoE layers
+     as ``apply_moe_ep_plain(2, 2)`` wherever the gate is on), one AdamW
+     step (bf16 m, factored v) of the placed model and of the one-card
+     model on the same gradients, ``build_step``'s whole train step
+     (timed, its gloo bytes), then the sharded prefill and 4 decode steps
+     against one card's, all within ``train_tol``; (b) ``qwen3-moe-235b``
+     at published widths cut to 1 of 94 units, B = 2 x 1024, expert
+     parallel, FSDP: the loss, the router's gradient and one expert's
+     against the one-card plain twin, the step's ms, the all-to-alls'
+     ms, gloo bytes and peak memory by rank; (c) ``internlm2-1.8b`` at
+     published width cut to 4 units, B = 4 x 2048, FSDP: two train steps
+     against one card's ``make_train_step``; (e) ``qwen3-moe`` smoke
+     trained 2 steps with checkpoints, then 3 ranks re-planned by
+     ``plan_mesh(3, want_tp=2, global_batch=4)`` to (2, 1), one idle:
+     every restored leaf gathered bit-equal to the file, step 3 against
+     one card's plain (2, 1) step from the same checkpoint; (d) an NCCL
+     world of one in this process: (c)'s model through the sharded code,
+     loss and gradients bit-equal to the one-card step (a leaf that is not
+     bit-stable between two one-card runs is named with its op), and
+     ``qwen3-moe`` smoke against ``apply_moe_ep_plain(1, 1)``. One card
+     runs these for correctness only: no number here is a sharded speed.
+     No SSSP kernel may launch on any rank.
 
 Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
 23–24, of 25 and of 26, on every rank) runs with the launch counts set to
 0 just before and read just after, and fails if one of its kernels never
 ran.
 
-The fourth line from the end is phase 27's ``lm_serving`` JSON line; the
-third is phase 28's ``lm_training``; the second is the ``kernels`` JSON
+The fifth line from the end is phase 27's ``lm_serving`` JSON line; the
+fourth is phase 28's ``lm_training``; the third is phase 29's
+``lm_mesh``; the second is the ``kernels`` JSON
 line (each row with its ``__global__`` kernels' ptxas ``registers``,
 ``smem_bytes`` and ``spills``); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -291,7 +323,7 @@ LM_SMOKE_TOL = 1e-4  # rtol and atol, card against CPU in f32 (TF32 off)
 LM_PROMPT_B, LM_PROMPT_S, LM_GEN = 4, 2048, 32  # the bf16 served run
 BF16_OPS_PER_S = 989e12  # bf16 dense, tensor cores
 # LM training (phase 28): the timed run, internlm2-1.8b at full width
-LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 2048, 6, 3
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 2048, 4, 2
 LM_TRAIN_CUT = 2  # layers of the full-width parity checks (b)
 LM_CUT_B, LM_CUT_S = 2, 1024  # (b) on the card: two cross-entropy chunks
 LM_HOST_B, LM_HOST_S = 1, 128  # (b) card against CPU
@@ -1534,6 +1566,798 @@ def lm_timed_run(cfg, dcfg, ocfg, n_params: int, ckpt_bytes: int, work: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the LM substrate on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_LABEL = ("4 gloo ranks sharing one H100 as a 2 x 2 (data, model) mesh, "
+              "every collective staged through host memory")
+LM_MESH_B, LM_MESH_S, LM_MESH_GEN = 4, 64, 4  # (a): batch, prompt, decode
+LM_EP_UNITS, LM_EP_B, LM_EP_S = 1, 2, 1024  # (b) qwen3-moe-235b, 94 -> 1
+LM_EP_EXPERT = 77  # (b) the expert whose gradient is checked
+LM_DENSE_UNITS, LM_DENSE_B, LM_DENSE_S = 4, 4, 2048  # (c) internlm2-1.8b
+# ops whose gradient the card does not fix in order, by the leaf they feed
+NONDETERMINISTIC = {"embed": "index_select's backward (index_add_ with "
+                             "atomics)"}
+LM_MESH_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=4,
+                   m_dtype="bfloat16", v_mode="factored")
+
+
+@contextlib.contextmanager
+def lm_plain_moe(dp: int, tp: int):
+    """Every MoE layer of the one-device path as the (dp, tp) mesh runs
+    it: ``apply_moe_ep_plain`` where the reference's gate is on, the
+    global view elsewhere (the one-card step the sharded one is held
+    against)."""
+    from repro_torch.models import layers as L
+
+    def plain(cfg, p, x, shd=None):
+        if L.ep_gate(cfg, x.shape[0], x.shape[1], dp, tp):
+            return L.apply_moe_ep_plain(cfg, p, x, dp, tp)
+        return saved(cfg, p, x)
+
+    saved, L.apply_moe = L.apply_moe, plain
+    try:
+        yield
+    finally:
+        L.apply_moe = saved
+
+
+def lm_cut(name: str, units: int):
+    """A published config at full width, its depth cut to ``units`` units."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=units * len(cfg.pattern))
+
+
+def lm_share(got, want) -> float:
+    """The largest difference as a share of ``want``'s largest magnitude."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale > 0 else float(
+        (got - want).abs().max())
+
+
+def lm_tree_share(got: dict, want: dict, what: str, rtol, share) -> float:
+    """Each array of ``got`` (numpy, bf16 as records) against ``want``'s
+    within rtol and ``share`` of its largest magnitude; the worst share."""
+    import torch
+
+    from repro_torch.interop import leaf_tensor
+
+    worst = 0.0
+    for key, w in want.items():
+        g_t = leaf_tensor(got[key], "cpu").double()
+        w_t = leaf_tensor(w, "cpu").double()
+        scale = float(w_t.abs().max()) if w_t.numel() else 0.0
+        if not torch.allclose(g_t, w_t, rtol=rtol, atol=share * scale):
+            raise SystemExit(f"{what} {key}: differs by up to "
+                             f"{float((g_t - w_t).abs().max()):.3e}")
+        if scale > 0:
+            worst = max(worst, float((g_t - w_t).abs().max()) / scale)
+    return worst
+
+
+def lm_mesh_smoke(arch: str, mesh, dev) -> dict:
+    """Phase 29 (a), one smoke config on every rank of the 2 x 2 mesh (the
+    one-card side on rank 0, which reports): the sharded loss and every
+    gradient (FSDP over "data"; the step timed and its gloo bytes counted)
+    against the one-card step (the plain expert-parallel twin for MoE
+    layers); one AdamW step (bf16 m, factored v) of the placed model and
+    of the one-card model on the same (the one card's, sent from rank 0)
+    gradients; then the sharded prefill and 4 decode steps of
+    ``build_step``'s cells (an encoder's forward) against one card's."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.interop import lm_params_to_numpy, opt_state_to_numpy
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import (
+        decode_step,
+        forward_logits,
+        init_params,
+        prefill,
+    )
+    from repro_torch.models.layers import ShardingCtx
+    from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
+    from repro_torch.runtime.train_loop import value_and_grad
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.partition import (
+        gather_param,
+        place_like,
+        place_params,
+    )
+
+    cfg = get_smoke(arch)
+    loss_rtol, g_rtol, g_share = lm_train_tol(cfg)
+    ocfg = OptConfig(**LM_MESH_OPT)
+    shd = ShardingCtx(dp=("data",), tp="model", mesh=mesh)
+    lead = mesh.rank == 0
+    whole = init_params(cfg, seed=0, device="cpu")  # the same on each rank
+    step = build_step(cfg, "train_4k", mesh, opt_cfg=ocfg, fsdp=True,
+                      microbatches=1)
+    batch = batch_for(cfg, DataConfig(batch=LM_MESH_B, seq_len=LM_MESH_S), 0,
+                      device=dev)
+    out = {}
+    model = place_params(copy.deepcopy(whole), mesh, step.param_specs)
+    names = [n for n, _ in model.named_parameters()]
+    # the sharded step: loss and gradients, then AdamW (timed, counted)
+    torch.cuda.synchronize()
+    mesh.stats = {}
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(cfg, model, batch, shd)
+    torch.cuda.synchronize()
+    out["grad_ms"] = (time.perf_counter() - t0) * 1e3
+    step_stats, mesh.stats = mesh.stats, None
+    got = [gather_param(model, n, grads[n]) for n in names]
+    one = copy.deepcopy(whole).to(dev)
+    if lead:
+        with lm_plain_moe(2, 2):
+            want_loss, want = value_and_grad(cfg, one, batch)
+        out["loss"], out["loss_one_card"] = float(loss), float(want_loss)
+        out["loss_rel"] = abs(float(loss) - float(want_loss)) / abs(
+            float(want_loss))
+        if not out["loss_rel"] <= loss_rtol:
+            raise SystemExit(f"lm mesh {arch}: loss {float(loss)!r} against "
+                             f"one card's {float(want_loss)!r}")
+        out["grad_share"] = lm_grads_close(
+            f"lm mesh {arch}", names, got, [want[n] for n in names], g_rtol,
+            g_share)
+    else:
+        want = {n: torch.empty_like(g) for n, g in zip(names, got)}
+    # one AdamW step on the same (the one card's, sent from rank 0)
+    # gradients
+    for n in names:
+        want[n] = comm.broadcast(mesh, "data", comm.broadcast(
+            mesh, "model", want[n], 0, want[n].shape, want[n].dtype), 0,
+            want[n].shape, want[n].dtype)
+    state = init_opt_state(model, ocfg)
+    torch.cuda.synchronize()
+    mesh.stats = step_stats
+    t0 = time.perf_counter()
+    apply_updates(model, {n: place_like(model, n, want[n]) for n in names},
+                  state, ocfg)
+    torch.cuda.synchronize()
+    out["adamw_ms"] = (time.perf_counter() - t0) * 1e3
+    out["step_ms"] = out["grad_ms"] + out["adamw_ms"]
+    out["step_bytes"] = mesh.stats.get("bytes", 0)
+    out["step_collectives"] = mesh.stats.get("collectives", 0)
+    mesh.stats = None
+    got_p = lm_params_to_numpy(model)
+    got_s = opt_state_to_numpy(state, model)
+    if lead:
+        one_state = init_opt_state(one, ocfg, device=dev)
+        apply_updates(one, want, one_state, ocfg)
+        flat, want_flat = {}, {}
+
+        def walk(tree, prefix, into):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}/", into)
+                else:
+                    into[prefix + k] = v
+        walk(got_p, "", flat)
+        walk(lm_params_to_numpy(one), "", want_flat)
+        out["adamw_params_share"] = lm_tree_share(
+            flat, want_flat, f"lm mesh {arch} adamw", 1e-5, 1e-6)
+        flat, want_flat = {}, {}
+        walk(got_s, "", flat)
+        walk(opt_state_to_numpy(one_state), "", want_flat)
+        out["adamw_state_share"] = lm_tree_share(
+            flat, want_flat, f"lm mesh {arch} adamw state", 2.0 ** -7,
+            2.0 ** -8)
+    del model, state, grads, want, got
+    # serving: the prefill and decode cells of build_step
+    pre = build_step(cfg, "prefill_32k", mesh)
+    dec = build_step(cfg, "decode_32k", mesh)
+    served = place_params(copy.deepcopy(whole), mesh, pre.param_specs)
+    one = copy.deepcopy(whole).to(dev)  # the AdamW step above moved it
+    rng = np.random.default_rng(29)
+    prompts = {}
+    if cfg.embeddings_in:
+        prompts["embeds"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (LM_MESH_B, LM_MESH_S, cfg.d_model))).astype(np.float32)).to(dev)
+    else:
+        prompts["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (LM_MESH_B, LM_MESH_S))).to(dev)
+    if cfg.n_vision_tokens:
+        prompts["vision"] = torch.from_numpy((0.02 * rng.standard_normal(
+            (LM_MESH_B, cfg.n_vision_tokens, cfg.d_model))).astype(
+                np.float32)).to(dev)
+
+    def close(got, want, what):
+        share = lm_share(got, want)
+        if not torch.allclose(got.double(), want.double(), rtol=g_rtol,
+                              atol=g_share * float(want.abs().max())):
+            raise SystemExit(f"lm mesh {arch} serving: {what} differ "
+                             f"({share:.3e})")
+        return share
+
+    if cfg.encoder_only:
+        got = pre.fn(served, prompts)
+        if lead:
+            out["serve_share"] = close(got, forward_logits(cfg, one, prompts),
+                                       "logits")
+        return out
+    lg, cache, pos = pre.fn(served, prompts)
+    if lead:
+        with lm_plain_moe(2, 2):
+            lg1, cache1, pos1 = prefill(cfg, one, prompts)
+        out["serve_share"] = close(lg, lg1, "prefill logits")
+    for i in range(LM_MESH_GEN):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (LM_MESH_B, 1))).to(dev)
+        lg, cache, pos = dec.fn(served, tok, cache, pos)
+        if lead:
+            lg1, cache1, pos1 = decode_step(cfg, one, tok, cache1, pos1)
+            out["serve_share"] = max(out["serve_share"], close(
+                lg, lg1, f"logits of decode step {i}"))
+    return out
+
+
+def lm_mesh_rank(rank: int, world: int, store: str, job: str):
+    """One rank of phase 29's 2 x 2 gloo world on cuda:0: (a) every smoke
+    config; (b) qwen3-moe-235b at published widths cut to LM_EP_UNITS
+    unit(s), the expert-parallel step against the one-card twin's numbers
+    in ``<job>/ep_twin.pt``; (c) internlm2-1.8b at full width on
+    LM_DENSE_UNITS units, two train steps; (e) qwen3-moe smoke trained 2
+    steps with a checkpoint after each. Every SSSP kernel's launches are
+    counted and must stay 0. Writes ``<job>/rank<r>.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.launch.mesh import init_group, make_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import ShardingCtx
+    from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
+    from repro_torch.runtime.train_loop import train, value_and_grad
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.partition import gather_param, place_params
+
+    torch.set_num_threads(2)  # 4 ranks on the host's 8 cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, dev = init_group(rank, world, backend="gloo",
+                                  init_method=store, device="cuda:0")
+    counted = kernel_counters()
+    for f, attr in counted.values():
+        setattr(f, attr, 0)
+    job = Path(job)
+    report = {"rank": rank, "smoke": {}}
+    try:
+        mesh = make_mesh(2, 2, dev)
+        shd = ShardingCtx(dp=("data",), tp="model", mesh=mesh)
+        # (a) the ten smoke configs
+        t0 = time.perf_counter()
+        for arch in ARCHS:
+            report["smoke"][arch] = lm_mesh_smoke(arch, mesh, dev)
+        report["smoke_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        # (b) qwen3-moe-235b at published widths, expert parallel
+        cfg = lm_cut("qwen3-moe-235b", LM_EP_UNITS)
+        ocfg = OptConfig(**LM_MESH_OPT)
+        step = build_step(cfg, "train_4k", mesh, opt_cfg=ocfg, fsdp=True,
+                          microbatches=1)
+        t0 = time.perf_counter()
+        for r in range(world):  # one whole model on the card at a time
+            if rank == r:
+                model = place_params(init_params(cfg, seed=0, device=dev),
+                                     mesh, step.param_specs)
+                torch.cuda.empty_cache()
+            tdist.barrier()
+        ep = {"init_s": time.perf_counter() - t0,
+              "params_gib": sum(p.numel() * 4 for p in model.parameters())
+              / 2**30}
+        batch = batch_for(cfg, DataConfig(batch=LM_EP_B, seq_len=LM_EP_S), 0,
+                          device=dev)
+        twin = torch.load(job / "ep_twin.pt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.stats = {}
+        t0 = time.perf_counter()
+        # remat as the train step runs it: without, the four ranks' peaks
+        # fill the card (80,034 MiB in use at the backward's end, chip run
+        # 3, PR 25)
+        loss, grads = value_and_grad(cfg, model, batch, shd)
+        torch.cuda.synchronize()
+        ep["grad_ms"] = (time.perf_counter() - t0) * 1e3
+        ep["grad_stats"] = dict(mesh.stats)
+        if rank == 0:
+            ep["card_used_mib"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=False).stdout.strip()
+        tdist.barrier()
+        mesh.stats = {}
+        t0 = time.perf_counter()
+        state = init_opt_state(model, ocfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = apply_updates(model, grads, state, ocfg)
+        torch.cuda.synchronize()
+        ep["adamw_ms"] = (time.perf_counter() - t1) * 1e3
+        ep["state_init_ms"] = (t1 - t0) * 1e3
+        ep["adamw_bytes"] = mesh.stats.get("bytes", 0)
+        mesh.stats = None
+        ep["step_ms"] = ep["grad_ms"] + ep["adamw_ms"]
+        ep["step_bytes"] = ep["grad_stats"].get("bytes", 0) + ep["adamw_bytes"]
+        ep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        ep["loss"], ep["loss_twin"] = float(loss), float(twin["loss"])
+        loss_rtol, g_rtol, g_share = lm_train_tol(cfg)
+        ep["loss_rel"] = abs(ep["loss"] - ep["loss_twin"]) / abs(
+            ep["loss_twin"])
+        ep["gnorm"] = float(stats["gnorm"])
+        router = gather_param(model, "units.0.l0.moe.router",
+                              grads["units.0.l0.moe.router"])
+        ep["router_share"] = lm_grads_close(
+            "lm mesh qwen3-moe-235b router", ["router"], [router],
+            [twin["router"].to(dev)], g_rtol, g_share)
+        # one expert's gradient: its block's data rows joined, in the
+        # model column that holds it
+        e_loc = cfg.n_experts // mesh.shape["model"]
+        ep["expert"] = LM_EP_EXPERT
+        ep["expert_share"] = None
+        if mesh.coords["model"] == LM_EP_EXPERT // e_loc:
+            module = model.get_submodule("units.0.l0.moe")
+            shares = []
+            for nm in ("wi", "wg", "wo"):
+                dims = module.placed[nm].dims[1:]
+                g = grads[f"units.0.l0.moe.{nm}"][LM_EP_EXPERT % e_loc]
+                shares.append(lm_grads_close(
+                    f"lm mesh qwen3-moe-235b expert {LM_EP_EXPERT} {nm}",
+                    [nm], [comm.gather_whole(mesh, g, dims)],
+                    [twin[nm].to(dev)], g_rtol, g_share))
+            ep["expert_share"] = max(shares)
+        if not ep["loss_rel"] <= loss_rtol:
+            raise SystemExit(f"lm mesh qwen3-moe-235b: loss {ep['loss']!r} "
+                             f"against the twin's {ep['loss_twin']!r}")
+        report["ep"] = ep
+        del model, grads, state, router, batch, twin
+        torch.cuda.empty_cache()
+        tdist.barrier()
+
+        # (c) internlm2-1.8b at full width, LM_DENSE_UNITS units, FSDP
+        cfg = lm_cut("internlm2-1.8b", LM_DENSE_UNITS)
+        step = build_step(cfg, "train_4k", mesh, opt_cfg=ocfg, fsdp=True,
+                          microbatches=1)
+        model = place_params(init_params(cfg, seed=0, device=dev), mesh,
+                             step.param_specs)
+        state = init_opt_state(model, ocfg)
+        dense = {"losses": [], "step_ms": [], "step_bytes": []}
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(2):
+            batch = batch_for(cfg, DataConfig(batch=LM_DENSE_B,
+                                              seq_len=LM_DENSE_S), s,
+                              device=dev)
+            mesh.stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = step.fn(model, state, batch)
+            torch.cuda.synchronize()
+            dense["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            dense["step_bytes"].append(mesh.stats.get("bytes", 0))
+            dense["losses"].append(float(loss))
+        mesh.stats = None
+        dense["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        report["dense"] = dense
+        del model, state, batch
+        torch.cuda.empty_cache()
+
+        # (e) qwen3-moe smoke, 2 steps on 2 x 2 with checkpoints
+        cfg = get_smoke("qwen3_moe_235b")
+        res = train(cfg, 2, DataConfig(batch=LM_MESH_B, seq_len=LM_MESH_S),
+                    ocfg, ckpt_dir=str(job / "elastic"), ckpt_every=1,
+                    mesh=mesh)
+        report["elastic_first"] = {"losses": res.losses,
+                                   "skipped": res.skipped_steps}
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    report["launches"] = {nm: getattr(f, a) for nm, (f, a) in counted.items()}
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(job / f"rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def lm_resume_rank(rank: int, world: int, store: str, job: str):
+    """One rank of phase 29 (e)'s world of 3: ``plan_mesh(3, want_tp=2,
+    global_batch=4)`` = (2, 1), one rank idle; restore the 2 x 2 run's
+    step-2 checkpoint onto it (each gathered leaf against the file, bit
+    for bit) and train step 3. Writes ``<job>/resume<r>.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.interop import lm_params_to_numpy, opt_state_to_numpy
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import OptConfig, init_opt_state, state_specs_for
+    from repro_torch.runtime.elastic import build_mesh, plan_mesh
+    from repro_torch.runtime.train_loop import train
+    from repro_torch.sharding.partition import param_specs, to_shardings
+
+    torch.set_num_threads(2)  # 4 ranks on the host's 8 cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world, dev = init_group(rank, world, backend="gloo",
+                                  init_method=store, device="cuda:0")
+    job = Path(job)
+    report = {"rank": rank}
+    try:
+        plan = plan_mesh(world, want_tp=2, global_batch=LM_MESH_B)
+        mesh = build_mesh(plan, dev)
+        report["plan"] = dataclasses.asdict(plan)
+        if mesh is not None:
+            cfg, ocfg = get_smoke("qwen3_moe_235b"), OptConfig(**LM_MESH_OPT)
+            shapes = init_params(cfg, device="meta")
+            ostate = init_opt_state(shapes, ocfg, device="meta")
+            pspecs = param_specs(cfg, shapes)
+            ckdir = str(job / "elastic")
+            back = CheckpointManager(ckdir).restore(
+                2, {"params": shapes, "opt": ostate},
+                shardings={"params": to_shardings(mesh, pspecs),
+                           "opt": to_shardings(mesh, state_specs_for(
+                               ostate, pspecs))})
+            whole = {"params": lm_params_to_numpy(back["params"]),
+                     "opt": opt_state_to_numpy(back["opt"], back["params"])}
+            with np.load(job / "elastic" / "ckpt_00000002.npz") as z:
+                file = {k: z[k] for k in z.files}
+            flat = {}
+
+            def walk(tree, prefix):
+                for k, v in tree.items():
+                    if isinstance(v, dict):
+                        walk(v, f"{prefix}{k}/")
+                    else:
+                        flat[prefix + k] = np.asarray(v)
+            walk(whole, "")
+            if set(flat) != set(file) or not all(
+                    np.array_equal(np.ravel(flat[k]).view(np.uint8),
+                                   np.ravel(file[k]).view(np.uint8))
+                    for k in file):
+                raise SystemExit(f"rank {rank}: the restore onto (2, 1) is "
+                                 "not the checkpoint bit for bit")
+            report["restored_leaves"] = len(file)
+            res = train(cfg, 3, DataConfig(batch=LM_MESH_B,
+                                           seq_len=LM_MESH_S), ocfg,
+                        ckpt_dir=ckdir, ckpt_every=1, mesh=mesh)
+            report.update(losses=res.losses, restored=res.restored_from)
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    with open(job / f"resume{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def lm_spawn(fn, nprocs: int, job: Path, name: str, limit_s: float) -> float:
+    """``fn`` in ``nprocs`` ranks under torch.multiprocessing (a ``file://``
+    store in ``job``); a rank that fails or a world that outlives
+    ``limit_s`` fails the phase. Returns the world's seconds."""
+    import torch.multiprocessing as tmp_mp
+
+    t0 = time.perf_counter()
+    # the ranks share one card: growable segments keep each rank's cached
+    # blocks near what it holds (read by each rank's allocator at its start)
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ctx = tmp_mp.spawn(fn, args=(nprocs, f"file://{job}/{name}",
+                                     str(job)), nprocs=nprocs, join=False)
+    finally:
+        if saved is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    deadline = time.monotonic() + limit_s
+    while not ctx.join(timeout=2.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise SystemExit(f"phase 29's {name} world outlived {limit_s} s")
+    return time.perf_counter() - t0
+
+
+def lm_mesh_phase(dev, smi: str, run_peak: list) -> dict:
+    """Phase 29: the LM substrate on a mesh. The one-card twins of (b) and
+    (c) first (then freed); a 2 x 2 gloo world of 4 ranks on this card for
+    (a), (b), (c) and (e)'s first run; a world of 3 for (e)'s resume,
+    against the one-card step from the same checkpoint; (d) an NCCL world
+    of one in this process. Correctness on one card: two ranks on one card
+    share its SMs and gloo stages every collective through host memory, so
+    no number here is a sharded speed."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.launch.mesh import init_group, make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import ShardingCtx
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.runtime.train_loop import make_train_step, value_and_grad
+    from repro_torch.sharding.partition import (
+        gather_param,
+        param_specs,
+        place_params,
+    )
+
+    t29 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise SystemExit("phase 29 compares f32 with TF32 off; it is on")
+    job = Path(tempfile.mkdtemp(prefix="smoke29-"))
+    ocfg = OptConfig(**LM_MESH_OPT)
+    result = {"label": MESH_LABEL, "card": smi,
+              "resident_before_gib": torch.cuda.memory_allocated() / 2**30}
+    try:
+        # (b)'s twin: qwen3-moe-235b at published widths, the plain (2, 2)
+        # expert-parallel step on one card; freed before the world starts
+        cfg = lm_cut("qwen3-moe-235b", LM_EP_UNITS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init_params(cfg, seed=0, device=dev)
+        batch = batch_for(cfg, DataConfig(batch=LM_EP_B, seq_len=LM_EP_S), 0,
+                          device=dev)
+        with lm_plain_moe(2, 2):
+            loss, grads = value_and_grad(cfg, model, batch)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        pre = "units.0.l0.moe."
+        torch.save({"loss": loss.cpu(),
+                    "router": grads[pre + "router"].cpu(),
+                    **{nm: grads[pre + nm][LM_EP_EXPERT].cpu()
+                       for nm in ("wi", "wg", "wo")}}, job / "ep_twin.pt")
+        result["ep_twin"] = {
+            "seconds": twin_s, "loss": float(loss),
+            "params": sum(p.numel() for p in model.parameters()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+        del model, batch, loss, grads
+        # (c)'s twin: internlm2-1.8b on LM_DENSE_UNITS units, two steps of
+        # make_train_step on one card
+        cfg_c = lm_cut("internlm2-1.8b", LM_DENSE_UNITS)
+        model = init_params(cfg_c, seed=0, device=dev)
+        state = init_opt_state(model, ocfg, device=dev)
+        step = make_train_step(cfg_c, ocfg)
+        dense_twin = []
+        for s in range(2):
+            batch = batch_for(cfg_c, DataConfig(batch=LM_DENSE_B,
+                                                seq_len=LM_DENSE_S), s,
+                              device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = step(model, state, batch)
+            torch.cuda.synchronize()
+            dense_twin.append((float(loss), (time.perf_counter() - t0) * 1e3))
+        del model, state, batch
+        torch.cuda.empty_cache()
+        run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+
+        # the 2 x 2 world: (a), (b), (c), (e)'s first run
+        world_s = lm_spawn(lm_mesh_rank, 4, job, "store", 900)
+        reports = []
+        for r in range(4):
+            with open(job / f"rank{r}.json") as f:
+                reports.append(json.load(f))
+        result["world_s"] = world_s
+        for rep in reports:
+            ran = {k: v for k, v in rep["launches"].items() if v}
+            if ran:
+                raise SystemExit(f"phase 29 rank {rep['rank']} launched SSSP "
+                                 f"kernels: {ran}")
+        result["launches"] = reports[0]["launches"]
+        result["rank_peak_gib"] = [rep["peak_gib"] for rep in reports]
+        result["smoke"] = {arch: reports[0]["smoke"][arch] for arch in ARCHS}
+        result["smoke_s"] = reports[0]["smoke_s"]
+        for arch in ARCHS:
+            a = result["smoke"][arch]
+            log(f"lm mesh smoke {arch} [{MESH_LABEL}; {smi}]: loss "
+                f"{a['loss_rel']:.2e} relative to one card's, gradients "
+                f"{a['grad_share']:.2e} of each leaf's largest, AdamW on the "
+                f"same gradients: parameters {a['adamw_params_share']:.2e}, "
+                f"state {a['adamw_state_share']:.2e}; prefill + "
+                f"{LM_MESH_GEN} decode steps {a['serve_share']:.2e} (tol "
+                f"{lm_train_tol(get_smoke(arch))}); the train step "
+                f"{a['step_ms']:.1f} ms, {a['step_bytes'] / 1e6:.3f} MB "
+                f"through gloo in {a['step_collectives']} collectives "
+                "(rank 0)")
+        ep = [rep["ep"] for rep in reports]
+        result["ep"] = {
+            "config": f"qwen3-moe-235b, published widths, {LM_EP_UNITS} of "
+                      "94 units", "batch": LM_EP_B, "seq": LM_EP_S,
+            "loss": ep[0]["loss"], "loss_twin": ep[0]["loss_twin"],
+            "loss_rel": ep[0]["loss_rel"],
+            "router_share": max(e["router_share"] for e in ep),
+            "expert_share": max(e["expert_share"] for e in ep
+                                if e["expert_share"] is not None),
+            "expert": LM_EP_EXPERT,
+            "step_ms": [e["step_ms"] for e in ep],
+            "grad_ms": [e["grad_ms"] for e in ep],
+            "adamw_ms": [e["adamw_ms"] for e in ep],
+            "step_bytes": [e["step_bytes"] for e in ep],
+            "all_to_all_ms": [1e3 * e["grad_stats"].get("all_to_all_s", 0.0)
+                              for e in ep],
+            "all_to_alls": ep[0]["grad_stats"].get("all_to_alls", 0),
+            "peak_gib": [e["peak_gib"] for e in ep],
+            "peak_gib_card": sum(e["peak_gib"] for e in ep),
+            "card_used_mib": ep[0].get("card_used_mib"),
+            "params_gib": [e["params_gib"] for e in ep],
+            "init_s": ep[0]["init_s"], "twin": result.pop("ep_twin")}
+        e = result["ep"]
+        # each layer's forward runs its 2 all-to-alls twice (the forward and
+        # remat's recompute) and their 2 reverses in the backward
+        per_layer = [ms / LM_EP_UNITS / 3 for ms in e["all_to_all_ms"]]
+        e["all_to_all_ms_per_layer_pass"] = per_layer
+        log(f"lm mesh qwen3-moe-235b ({e['config']}) B={LM_EP_B} x "
+            f"{LM_EP_S}, f32, (2, 2), expert parallel [{MESH_LABEL}; {smi}]:"
+            f" loss {e['loss']!r} against the one-card twin's "
+            f"{e['loss_twin']!r} ({e['loss_rel']:.2e}); router gradient "
+            f"{e['router_share']:.2e}, expert {LM_EP_EXPERT}'s "
+            f"{e['expert_share']:.2e} of the largest; a step (loss, "
+            f"gradients, AdamW) {[round(x, 1) for x in e['step_ms']]} ms by "
+            f"rank; the all-to-alls {[round(x, 1) for x in e['all_to_all_ms']]}"
+            f" ms a step ({e['all_to_alls']} calls; "
+            f"{[round(x, 2) for x in per_layer]} ms a layer's pair); gloo "
+            f"{[round(b / 1e9, 3) for b in e['step_bytes']]} GB a step by "
+            f"rank; peak {[round(x, 2) for x in e['peak_gib']]} GiB by rank, "
+            f"{e['peak_gib_card']:.2f} summed, nvidia-smi "
+            f"{e['card_used_mib']} MiB used at the backward's end; twin "
+            f"{e['twin']['seconds']:.1f} s, peak {e['twin']['peak_gib']:.2f} "
+            "GiB")
+        dense = [rep["dense"] for rep in reports]
+        losses = dense[0]["losses"]
+        want = [x[0] for x in dense_twin]
+        loss_rtol = lm_train_tol(cfg_c)[0]
+        if not np.allclose(losses, want, rtol=loss_rtol, atol=0):
+            raise SystemExit(f"lm mesh internlm2 cut: losses {losses} against "
+                             f"one card's {want}")
+        result["dense"] = {
+            "config": f"internlm2-1.8b, published width, {LM_DENSE_UNITS} of "
+                      "24 units", "batch": LM_DENSE_B, "seq": LM_DENSE_S,
+            "losses": losses, "losses_one_card": want,
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, want)),
+            "step_ms": [d["step_ms"] for d in dense],
+            "step_bytes": [d["step_bytes"] for d in dense],
+            "peak_gib": [d["peak_gib"] for d in dense],
+            "one_card_step_ms": [x[1] for x in dense_twin]}
+        d = result["dense"]
+        log(f"lm mesh internlm2-1.8b ({d['config']}) B={LM_DENSE_B} x "
+            f"{LM_DENSE_S}, f32, (2, 2), FSDP [{MESH_LABEL}; {smi}]: losses "
+            f"{losses} against one card's make_train_step {want} "
+            f"({d['loss_rel']:.2e}, rtol {loss_rtol}); steps "
+            f"{[[round(x, 1) for x in s] for s in d['step_ms']]} ms by rank "
+            f"(one card: {[round(x, 1) for x in d['one_card_step_ms']]}); "
+            f"gloo {[[round(b / 1e9, 3) for b in s] for s in d['step_bytes']]}"
+            f" GB a step by rank; peak {[round(x, 2) for x in d['peak_gib']]}"
+            " GiB by rank")
+
+        # (e) the resume on 3 ranks re-planned to (2, 1)
+        first = reports[0]["elastic_first"]
+        resume_s = lm_spawn(lm_resume_rank, 3, job, "resume", 300)
+        resumed = []
+        for r in range(3):
+            with open(job / f"resume{r}.json") as f:
+                resumed.append(json.load(f))
+        active = [rep for rep in resumed if "losses" in rep]
+        if len(active) != 2 or resumed[0]["plan"]["mesh_shape"] != [2, 1]:
+            raise SystemExit(f"phase 29 (e): plan {resumed[0]['plan']}")
+        # the one-card step 3 from the same checkpoint, the (2, 1) twin
+        cfg = get_smoke("qwen3_moe_235b")
+        shapes = init_params(cfg, device="meta")
+        back = CheckpointManager(str(job / "elastic")).restore(
+            2, {"params": shapes,
+                "opt": init_opt_state(shapes, ocfg, device="meta")},
+            device=dev)
+        batch = batch_for(cfg, DataConfig(batch=LM_MESH_B, seq_len=LM_MESH_S),
+                          2, device=dev)
+        with lm_plain_moe(2, 1):
+            want3, _ = make_train_step(cfg, ocfg)(back["params"], back["opt"],
+                                                  batch)
+        got3 = active[0]["losses"][0]
+        rel = abs(got3 - float(want3)) / abs(float(want3))
+        if not rel <= lm_train_tol(cfg)[0]:
+            raise SystemExit(f"phase 29 (e): resumed step 3 loss {got3!r} "
+                             f"against one card's {float(want3)!r}")
+        result["elastic"] = {
+            "first_losses": first["losses"], "plan": resumed[0]["plan"],
+            "restored_leaves": active[0]["restored_leaves"],
+            "resumed_loss": got3, "one_card_loss": float(want3),
+            "loss_rel": rel, "world_s": resume_s}
+        log(f"lm mesh elastic [{smi}]: qwen3-moe smoke 2 steps on (2, 2) "
+            f"{first['losses']}, a checkpoint; 3 ranks re-planned to "
+            f"{tuple(resumed[0]['plan']['mesh_shape'])} (1 idle): every one "
+            f"of {active[0]['restored_leaves']} leaves restored bit for bit; "
+            f"step 3 {got3!r} against one card's plain (2, 1) step "
+            f"{float(want3)!r} ({rel:.2e})")
+        del back, batch
+
+        # (d) an NCCL world of one in this process
+        init_group(0, 1, backend="nccl", init_method=f"file://{job}/nccl",
+                   device=dev)
+        try:
+            mesh = make_mesh(1, 1, dev)
+            shd = ShardingCtx(dp=("data",), tp="model", mesh=mesh)
+            cfg_c = lm_cut("internlm2-1.8b", LM_DENSE_UNITS)
+            one = init_params(cfg_c, seed=0, device=dev)
+            placed = place_params(copy.deepcopy(one), mesh,
+                                  param_specs(cfg_c, one))
+            batch = batch_for(cfg_c, DataConfig(batch=LM_DENSE_B,
+                                                seq_len=LM_DENSE_S), 0,
+                              device=dev)
+            got_l, got_g = value_and_grad(cfg_c, placed, batch, shd)
+            want_l, want_g = value_and_grad(cfg_c, one, batch)
+            # one card twice: the leaves whose gradient is not bit-stable
+            # there come from an op that is not order-fixed on the card
+            again_l, again_g = value_and_grad(cfg_c, one, batch)
+            unstable = [n for n in want_g
+                        if not torch.equal(want_g[n], again_g[n])]
+            differ = [n for n in want_g
+                      if not torch.equal(gather_param(placed, n, got_g[n]),
+                                         want_g[n])]
+            nccl = {"loss_bit_equal": bool(torch.equal(got_l, want_l)),
+                    "grads_differ": differ, "one_card_unstable": unstable,
+                    "unstable_op": {n: NONDETERMINISTIC.get(n.split(".")[-1],
+                                                            "unknown")
+                                    for n in unstable}}
+            if not nccl["loss_bit_equal"] or set(differ) - set(unstable):
+                raise SystemExit(f"phase 29 (d): the NCCL world of one is not "
+                                 f"bit-equal to one card: loss "
+                                 f"{nccl['loss_bit_equal']}, leaves {differ} "
+                                 f"(not bit-stable on one card: {unstable})")
+            del one, placed, got_g, want_g, again_g, batch
+            cfg = get_smoke("qwen3_moe_235b")
+            one = init_params(cfg, seed=0, device="cpu")
+            placed = place_params(copy.deepcopy(one), mesh,
+                                  param_specs(cfg, one))
+            one = one.to(dev)
+            batch = batch_for(cfg, DataConfig(batch=LM_MESH_B,
+                                              seq_len=LM_MESH_S), 0,
+                              device=dev)
+            got_l, got_g = value_and_grad(cfg, placed, batch, shd)
+            with lm_plain_moe(1, 1):
+                want_l, want_g = value_and_grad(cfg, one, batch)
+            loss_rtol, g_rtol, g_share = lm_train_tol(cfg)
+            nccl["moe_loss_rel"] = abs(float(got_l) - float(want_l)) / abs(
+                float(want_l))
+            nccl["moe_grad_share"] = lm_grads_close(
+                "phase 29 (d) qwen3-moe smoke", list(want_g),
+                [gather_param(placed, n, got_g[n]) for n in want_g],
+                list(want_g.values()), g_rtol, g_share)
+            nccl["moe_bit_equal"] = bool(torch.equal(got_l, want_l))
+            if not nccl["moe_loss_rel"] <= loss_rtol:
+                raise SystemExit("phase 29 (d): the qwen3-moe step differs")
+        finally:
+            tdist.destroy_process_group()
+        result["nccl"] = nccl
+        log(f"lm mesh NCCL world of one (1, 1) [{smi}]: internlm2-1.8b "
+            f"({LM_DENSE_UNITS} units, full width): loss bit-equal to the "
+            f"one-card step: {nccl['loss_bit_equal']}; gradient leaves not "
+            f"bit-equal: {nccl['grads_differ']} (not bit-stable between two "
+            f"one-card runs either: {nccl['unstable_op']}); qwen3-moe smoke "
+            "(expert "
+            f"parallel at tp 1) against apply_moe_ep_plain(1, 1): loss "
+            f"{nccl['moe_loss_rel']:.2e}, gradients "
+            f"{nccl['moe_grad_share']:.2e} (bit-equal loss: "
+            f"{nccl['moe_bit_equal']})")
+    finally:
+        shutil.rmtree(job, ignore_errors=True)
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+    result["seconds"] = time.perf_counter() - t29
+    log(f"phase 29: {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1715,6 +2539,14 @@ def main() -> int:
             log(f"  ptxas {name}.cu {fn}: {r['registers']} registers, "
                 f"{r['smem_bytes']} bytes smem, spills {r['spill_stores']} / "
                 f"{r['spill_loads']} bytes ({len(r['instances'])} instances)")
+
+    # ---- 29. the LM substrate on a mesh, run here: its four ranks share
+    # the card's memory, which no graph holds yet ---------------------------
+    zero_counts()
+    lm29 = lm_mesh_phase(dev, smi, run_peak)
+    lm29_counts = read_counts()
+    if any(lm29_counts.values()):  # the mesh path has no kernel either
+        raise SystemExit(f"phase 29 launched SSSP kernels: {lm29_counts}")
 
     def crit_turns(d, st, keys, reps=50):
         """#2 in turns with its two-pass body (old, new, new, old) on one
@@ -4682,6 +5514,10 @@ def main() -> int:
         f"{ck['write_s']:.2f} s ({ck['write_gb_per_s']:.2f} GB/s), restore "
         f"onto the card {ck['restore_s']:.2f} s; restored bit for bit")
 
+    # phase 29 ran after phase 1
+    by_path["lm mesh (this process)"] = lm29_counts
+    by_path["lm mesh (rank 0 of the 2 x 2 world)"] = lm29.pop("launches")
+
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
     log(f"card: {smi}")
@@ -4849,6 +5685,7 @@ def main() -> int:
             row["in_out_ms_phase"] = fusion[fused_of][0]
     print(json.dumps({"lm_serving": lm27}), flush=True)
     print(json.dumps({"lm_training": lm28}), flush=True)
+    print(json.dumps({"lm_mesh": lm29}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -18,8 +18,16 @@ corrupts the newest complete checkpoint (restore scans the manifests).
 tensor's numpy view would alias the parameter that the next step updates
 in place) and writes on a background thread, overlapping the write with
 the next steps; ``wait`` joins it and raises what the write raised.
-``restore`` places the leaves on ``device`` where the reference takes
-shardings.
+``restore`` places the leaves on ``device``.
+
+On a mesh (a placed model in the tree, and ``shardings``: the
+``partition.to_shardings`` tree of the other leaves' specs, which torch
+tensors do not carry as the reference's arrays do) every rank of the mesh
+calls ``save`` / ``save_async`` / ``wait`` / ``restore``: each leaf is
+gathered whole, rank 0 writes the reference's format, and ``wait`` ends
+with a barrier, so every rank then reads the same directory; ``restore``
+takes the whole leaves and places each rank's block per ``shardings``,
+onto any mesh (an elastic restart).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import time
 from typing import Any
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.interop import flatten_tree, unflatten_into
 from repro_torch.kernels.config import resolve_device
@@ -42,26 +51,44 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._mesh = None  # the mesh of the last sharded save
+
+    def _snapshot(self, tree: Any, shardings: Any):
+        """(host arrays of the tree, whether this rank writes them)."""
+        mesh = _mesh_of(tree, shardings)
+        self._mesh = mesh or self._mesh
+        return flatten_tree(tree, shardings=shardings), (
+            mesh is None or mesh.rank == 0)
 
     # ---------------- write path ----------------
-    def save(self, step: int, tree: Any) -> str:
-        return self._write(step, flatten_tree(tree))
+    def save(self, step: int, tree: Any, shardings: Any = None) -> str:
+        flat, writes = self._snapshot(tree, shardings)
+        path = self._write(step, flat) if writes else None
+        self._barrier()
+        return path
 
-    def save_async(self, step: int, tree: Any) -> None:
-        flat = flatten_tree(tree)  # the host snapshot, before the next step
+    def save_async(self, step: int, tree: Any, shardings: Any = None) -> None:
+        # the host snapshot, before the next step
+        flat, writes = self._snapshot(tree, shardings)
         self.wait()
-        self._thread = threading.Thread(target=self._write_logged,
-                                        args=(step, flat))
-        self._thread.start()
+        if writes:
+            self._thread = threading.Thread(target=self._write_logged,
+                                            args=(step, flat))
+            self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("an asynchronous checkpoint write failed") \
                 from err
+
+    def _barrier(self) -> None:
+        if self._mesh is not None and self._mesh.size(("data", "model")) > 1:
+            dist.barrier(group=self._mesh.world)
 
     def _write_logged(self, step: int, flat: dict) -> None:
         try:
@@ -111,12 +138,30 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template: Any, device=None) -> Any:
+    def restore(self, step: int, template: Any, device=None,
+                shardings: Any = None) -> Any:
         """Load ``step`` into the structure of ``template`` (a tree of dicts,
-        tensors and models; its leaves may be on the meta device), every
-        leaf on ``device`` (None = the CUDA card)."""
-        dev = resolve_device(device)
+        tensors and models, whole shapes; its leaves may be on the meta
+        device), every leaf on ``device`` (None = the CUDA card), or where
+        ``shardings`` names a leaf's sharding (a model's: a dict of them by
+        leaf path), this rank's block of it on the sharding's mesh."""
+        mesh = _mesh_of(None, shardings)
+        dev = mesh.device if mesh is not None else resolve_device(device)
         path = os.path.join(self.dir, f"ckpt_{step:08d}.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
-        return unflatten_into(template, flat, dev)
+        return unflatten_into(template, flat, dev, shardings=shardings)
+
+
+def _mesh_of(tree: Any, shardings: Any):
+    """The mesh of a placed model in ``tree`` or of a sharding in
+    ``shardings`` (None: nothing is sharded)."""
+    for node in (tree, shardings):
+        stack = [node]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, dict):
+                stack.extend(x.values())
+            elif getattr(x, "mesh", None) is not None:
+                return x.mesh
+    return None

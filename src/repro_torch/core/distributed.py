@@ -26,9 +26,9 @@ promises which zero a float MIN keeps, so every MIN, the ``(L, B)``
 thresholds included, runs on an order-preserving int32 image of the f32
 bits (:func:`_ordered`) in which -0 < +0, the reference's rule; NaN never
 reaches them (``from_coo`` rejects NaN weights and the stepper's minima
-are of finite or +inf values). Counts are reduced as int64 SUM. With gloo
-and CUDA tensors every collective is staged through host memory
-explicitly, which is what gloo would do itself.
+are of finite or +inf values). Counts are reduced as int64 SUM. Every
+collective runs through ``launch.collectives``, which stages gloo's CUDA
+tensors through pinned host memory explicitly.
 
 Two generations of the engine, as in the reference:
 
@@ -81,7 +81,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.config import resolve_device
 from repro_torch.kernels.ell_relax import ell_push_rect_batch
-from repro_torch.obs.timer import now
+from repro_torch.launch import collectives as coll
 
 INF = float("inf")
 SCHEDULES = ("allreduce", "reduce_scatter")
@@ -148,47 +148,19 @@ class Comm:
                 "(use the gloo backend on the CPU)"
             )
         self.device = device
-        # gloo reduces on the host: CUDA tensors go there and back, here
-        self.staged = self.backend == "gloo" and device.type == "cuda"
+        # gloo reduces on the host: CUDA tensors go there and back
+        self.staged = coll.staged(group, device)
         self.stats = stats
         self.src0 = 0 if group is None else dist.get_global_rank(group, 0)
 
-    def _wire(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` as the collective takes it: contiguous on the rank's
-        device, or where gloo stages a CUDA device, a copy in pinned host
-        memory (the fast copy each way)."""
-        if not self.staged:
-            return t.to(self.device).contiguous()
-        return self._empty(t.shape, t.dtype).copy_(t)
-
-    def _empty(self, shape, dtype) -> torch.Tensor:
-        if not self.staged:
-            return torch.empty(shape, dtype=dtype, device=self.device)
-        return torch.empty(shape, dtype=dtype, pin_memory=True)
-
     def _clocked(self, fn):
-        if self.stats is None:
-            return fn()
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        t0 = now()
-        out = fn()
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        self.stats["exchange_s"] = self.stats.get("exchange_s", 0.0) + (
-            now() - t0)
-        self.stats["collectives"] = self.stats.get("collectives", 0) + 1
-        return out
+        return coll.clocked(self.stats, self.device, fn, "exchange_s",
+                            "collectives")
 
     def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        """``op`` over the group of a temporary ``t`` (reduced in place
-        where it is not staged)."""
-        def run():
-            w = self._wire(t)
-            dist.all_reduce(w, op=op, group=self.group)
-            return w.to(self.device)
-        return self._clocked(run)
+        """``op`` over the group of ``t``."""
+        return self._clocked(
+            lambda: coll.all_reduce(self.group, self.device, t, op))
 
     def min_(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise f32 MIN over the group, -0 over +0."""
@@ -211,30 +183,21 @@ class Comm:
         # block j of axis 0 is our contribution to rank j; after the
         # all_to_all it holds rank j's contribution to OUR block
         blocks = img.reshape(r, self.size, n_loc).transpose(0, 1)
-
-        def run():
-            w = self._wire(blocks)
-            out = self._empty(w.shape, w.dtype)
-            dist.all_to_all_single(out, w, group=self.group)
-            return out.to(self.device)
-        return _from_ordered(torch.amin(self._clocked(run), dim=0))
+        got = self._clocked(
+            lambda: coll.all_to_all(self.group, self.device, blocks))
+        return _from_ordered(torch.amin(got, dim=0))
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """(..., n_loc) blocks of every rank, joined in rank order on the
         last axis: (..., n_pad) on every rank."""
-        def run():
-            w = self._wire(x)
-            parts = [self._empty(w.shape, w.dtype) for _ in range(self.size)]
-            dist.all_gather(parts, w, group=self.group)
-            return torch.cat(parts, dim=-1).to(self.device)
-        return self._clocked(run)
+        parts = self._clocked(
+            lambda: coll.all_gather(self.group, self.device, x))
+        return torch.cat(parts.unbind(0), dim=-1)
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` (a tensor of the same shape and dtype on every
         rank) on every rank."""
-        w = self._wire(t)
-        dist.broadcast(w, src=self.src0, group=self.group)
-        return w.to(self.device)
+        return coll.broadcast(self.group, self.device, t, self.src0)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,12 @@ void records (``BF16_RECORD``), as numpy writes the reference's
 ``flatten_tree`` / ``unflatten_into`` are the one path between such trees
 (a model among them) and ``'/'``-keyed host arrays, shared with the
 checkpoint manager.
+
+On a mesh: ``lm_shards_from_numpy`` places the reference's parameter tree
+on a rank (its blocks, ``sharding.partition.place_params``), and
+``lm_params_to_numpy`` of a placed model gathers the whole tree back (every
+rank of the mesh calls it); ``flatten_tree`` / ``unflatten_into`` gather
+and place the leaves that a ``shardings`` tree names.
 """
 from __future__ import annotations
 
@@ -35,7 +41,15 @@ from repro_torch.core.graph import EllSlice, Graph, SlicedEll, sliced_ell
 from repro_torch.core.static_engine import BatchState
 from repro_torch.kernels.config import resolve_device
 from repro_torch.models.transformer import LM, init_params, leaf_paths
-from repro_torch.optim.adamw import OptConfig, init_opt_state
+from repro_torch.optim.adamw import OptConfig, init_opt_state, state_specs_for
+from repro_torch.sharding.partition import (
+    Sharding,
+    gather,
+    gather_param,
+    place,
+    place_params,
+    to_shardings,
+)
 
 BF16_RECORD = np.dtype("V2")  # a bf16 value as numpy stores it, unnamed
 
@@ -293,53 +307,84 @@ def lm_params_from_numpy(cfg, tree: dict, device=None, dtype=None) -> LM:
     return model
 
 
+def lm_shards_from_numpy(cfg, tree: dict, mesh, specs: dict,
+                         dtype=None) -> LM:
+    """This rank's blocks of the reference's parameters (a nested dict of
+    numpy arrays) under ``specs`` (``partition.param_specs``, with or
+    without ``add_fsdp``): the model placed on ``mesh``."""
+    model = lm_params_from_numpy(cfg, tree, device="cpu", dtype=dtype)
+    return place_params(model, mesh, specs)
+
+
 def lm_params_to_numpy(model: LM) -> dict:
     """The reference's parameter tree (nested dicts of numpy arrays) of the
     port's model, the inverse of ``lm_params_from_numpy``: each ``units``
     leaf restacked over the units (U, ...); host copies, bf16 leaves as
-    ``BF16_RECORD``s."""
+    ``BF16_RECORD``s. A placed model's leaves are gathered whole (every
+    rank of its mesh calls this)."""
+    placed = getattr(model, "mesh", None) is not None
     flat = {}
     for path, names in leaf_paths(model).items():
-        ps = [model.get_parameter(n) for n in names]
+        ps = [gather_param(model, n) if placed else model.get_parameter(n)
+              for n in names]
         stacked = path.startswith("units/")
         flat[path] = tensor_to_numpy(ps if stacked else ps[0], stack=stacked)
     return nest(flat)
 
 
-def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+def flatten_tree(tree: Any, prefix: str = "",
+                 shardings: Any = None) -> dict[str, np.ndarray]:
     """Host arrays of a tree's leaves under their ``'/'``-joined keys:
     tensors copied, numpy leaves as given, a model as the reference's
-    parameter tree."""
-    if isinstance(tree, LM):
-        tree = lm_params_to_numpy(tree)
+    parameter tree. A tensor whose place in ``shardings`` holds a
+    ``Sharding`` is gathered whole first (collective: every rank of its
+    mesh calls this)."""
+    if isinstance(tree, LM):  # a placed model gathers itself
+        tree, shardings = lm_params_to_numpy(tree), None
     if isinstance(tree, dict):
         flat = {}
         for key, sub in tree.items():
-            flat.update(flatten_tree(sub, f"{prefix}{key}/"))
+            flat.update(flatten_tree(
+                sub, f"{prefix}{key}/",
+                None if shardings is None else shardings.get(key)))
         return flat
+    if isinstance(shardings, Sharding):
+        tree = gather(shardings.mesh, tree, shardings.spec)
     leaf = tensor_to_numpy(tree) if torch.is_tensor(tree) else np.asarray(tree)
     return {prefix[:-1]: leaf}
 
 
-def unflatten_into(template: Any, flat: dict, dev, prefix: str = "") -> Any:
+def unflatten_into(template: Any, flat: dict, dev, prefix: str = "",
+                   shardings: Any = None) -> Any:
     """The template's structure with each leaf read from ``flat`` onto
     ``dev``: same shapes and dtypes as the template's leaves (which may be
-    on the meta device), a model rebuilt as a model."""
+    on the meta device; whole shapes), a model rebuilt as a model. Where
+    ``shardings`` holds a ``Sharding`` (for a model: a dict of them by
+    leaf path) the leaf is placed: this rank's block on its mesh's
+    device."""
     if isinstance(template, LM):
         for path in leaf_paths(template):
             if prefix + path not in flat:
                 raise KeyError(f"checkpoint missing leaf {prefix + path!r}")
         sub = {k[len(prefix):]: v for k, v in flat.items()
                if k.startswith(prefix)}
-        model = lm_params_from_numpy(template.cfg, nest(sub), device=dev)
+        model = lm_params_from_numpy(
+            template.cfg, nest(sub),
+            device="cpu" if shardings is not None else dev)
         want = template.final_norm.dtype
         if model.final_norm.dtype != want:
             raise TypeError(f"{prefix[:-1]}: ckpt dtype "
                             f"{model.final_norm.dtype} != {want}")
+        if shardings is not None:
+            mesh = next(iter(shardings.values())).mesh
+            model = place_params(model, mesh, {
+                k: v.spec for k, v in shardings.items()})
         return model
     if isinstance(template, dict):
-        return {key: unflatten_into(sub, flat, dev, f"{prefix}{key}/")
-                for key, sub in template.items()}
+        return {key: unflatten_into(
+            sub, flat, dev, f"{prefix}{key}/",
+            None if shardings is None else shardings.get(key))
+            for key, sub in template.items()}
     key = prefix[:-1]
     if key not in flat:
         raise KeyError(f"checkpoint missing leaf {key!r}")
@@ -347,17 +392,27 @@ def unflatten_into(template: Any, flat: dict, dev, prefix: str = "") -> Any:
     if tuple(arr.shape) != tuple(template.shape):
         raise ValueError(f"{key}: ckpt shape {arr.shape} != "
                          f"{tuple(template.shape)}")
-    out = leaf_tensor(arr, dev)
+    sharded = isinstance(shardings, Sharding)
+    out = leaf_tensor(arr, "cpu" if sharded else dev)
     if out.dtype != template.dtype:
         raise TypeError(f"{key}: ckpt dtype {out.dtype} != {template.dtype}")
-    return out
+    return place(shardings.mesh, out, shardings.spec) if sharded else out
 
 
-def opt_state_to_numpy(state: dict) -> dict:
+def opt_state_to_numpy(state: dict, model: LM | None = None) -> dict:
     """The reference's optimizer tree ``{"step", "m", "v"}`` (nested dicts
     of numpy arrays, leaf paths as the parameters') of the port's state:
-    host copies, a bf16 ``m`` as ``BF16_RECORD``s."""
-    return nest(flatten_tree(state))
+    host copies, a bf16 ``m`` as ``BF16_RECORD``s. The state of a placed
+    ``model`` is gathered whole (collective)."""
+    return nest(flatten_tree(state, shardings=opt_shardings(state, model)))
+
+
+def opt_shardings(state: dict, model: LM | None):
+    """The ``Sharding`` tree of a placed model's optimizer state (None
+    off a mesh)."""
+    if model is None or getattr(model, "mesh", None) is None:
+        return None
+    return to_shardings(model.mesh, state_specs_for(state, model.specs))
 
 
 def opt_state_from_numpy(cfg: OptConfig, tree: dict, model: LM,
@@ -366,9 +421,13 @@ def opt_state_from_numpy(cfg: OptConfig, tree: dict, model: LM,
     ``{"step", "m", "v"}`` (numpy leaves, ``jax.tree.map(np.asarray,
     state)``) on ``device`` (None = the CUDA card), read as a checkpoint
     is: every leaf that ``init_opt_state(model, cfg)`` has, with its shape
-    and dtype."""
-    return unflatten_into(init_opt_state(model, cfg, device="meta"),
-                          flatten_tree(tree), resolve_device(device))
+    and dtype. For a placed ``model``, the rank's blocks."""
+    template = init_opt_state(model, cfg, device="meta")
+    shardings = opt_shardings(template, model)
+    dev = model.mesh.device if shardings is not None else resolve_device(
+        device)
+    return unflatten_into(template, flatten_tree(tree), dev,
+                          shardings=shardings)
 
 
 def lm_cache_to_numpy(cache: list) -> dict:

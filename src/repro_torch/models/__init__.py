@@ -1,6 +1,7 @@
 """LM-family model substrate (dense / MoE / SSM / hybrid / VLM / encoder):
-the serving and training paths of ``repro.models`` on PyTorch. The
-sharding context comes with the mesh slice."""
+the serving and training paths of ``repro.models`` on PyTorch, on one
+device or, with a ``layers.ShardingCtx``, on a mesh."""
+from repro_torch.models.layers import ShardingCtx
 from repro_torch.models.transformer import (
     REMAT_POLICIES,
     chunked_ce_loss,
@@ -15,7 +16,7 @@ from repro_torch.models.transformer import (
 )
 
 __all__ = [
-    "init_params", "forward_logits", "prefill", "decode_step", "init_cache",
+    "ShardingCtx", "init_params", "forward_logits", "prefill", "decode_step", "init_cache",
     "param_count", "leaf_paths", "train_loss", "chunked_ce_loss",
     "REMAT_POLICIES",
 ]

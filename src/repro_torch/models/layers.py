@@ -17,22 +17,52 @@ fused attention or other library kernel stands in for it. The reference has
 no Pallas kernel on this path, so neither has the port. Parameters are
 built frozen (``requires_grad=False``), which serving and the layer-level
 checks read directly; the training step turns on the gradients of the
-model it trains (``runtime.train_loop.make_train_step``). Off the global
-view, the reference's expert-parallel MoE (``_apply_moe_ep``, a
-``shard_map``) has no counterpart here.
+model it trains (``runtime.train_loop.make_train_step``).
+
+``shd`` (:class:`ShardingCtx`) carries the mesh of a sharded run; with it,
+``p`` is a placed module's view (``sharding.partition.Gathered``) and the
+MoE takes the reference's expert-parallel path where its gate lets it
+(``_apply_moe_ep``: two ``all_to_all_single``s over the model group).
+``shd=None`` is the single-device path.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import comm
 
 MASKED = -1e30  # the reference's mask value: finite, so a fully masked row
                 # stays finite through the softmax
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """The mesh of a sharded run, as the layers read it: ``dp`` the data
+    axes, ``tp`` the model axis, ``mesh`` the rank's
+    :class:`~repro_torch.launch.mesh.Mesh` (its groups, sizes and
+    coordinates). ``split`` says whether activations hold the rank's block
+    of the batch (the batch divides the data axes, ``batch_specs``) or the
+    whole batch; the entry points set it."""
+
+    dp: tuple
+    tp: str
+    mesh: Any = None
+    split: bool = True
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.size(self.tp) if self.mesh is not None else 1
+
+    @property
+    def dp_size(self) -> int:
+        return self.mesh.size(self.dp) if self.mesh is not None else 1
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -301,7 +331,7 @@ def _top_k(probs, k):
 
 
 def _moe_dispatch_compute(cfg: ModelConfig, router, xt, capacity: int,
-                          expert_fn):
+                          expert_fn, before=None):
     """Routing + sort-based capacity dispatch on a flat (T, D) token block.
 
     Tokens are ranked within their expert by a stable sort of expert ids; the
@@ -310,6 +340,9 @@ def _moe_dispatch_compute(cfg: ModelConfig, router, xt, capacity: int,
     weighted by the (renormalised) router probabilities. The reference's
     out-of-capacity drop (scatter mode='drop', gather fill 0) is one extra
     row, E*C, that dropped assignments write to and read as zeros.
+    ``before`` (None: zeros) maps this block's per-expert assignment counts
+    (E,) to those of the blocks that precede it in a larger batch, whose
+    ranks within each expert come first.
     """
     T, D = xt.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -326,6 +359,8 @@ def _moe_dispatch_compute(cfg: ModelConfig, router, xt, capacity: int,
     rank_sorted = torch.arange(T * k, device=xt.device) - seg_start
     ranks = torch.empty_like(rank_sorted)
     ranks[order] = rank_sorted
+    if before is not None:
+        ranks = ranks + before(torch.bincount(eid, minlength=E))[eid]
     keep = ranks < C
     dest = torch.where(keep, eid * C + ranks, E * C)  # E*C => dropped
 
@@ -343,16 +378,115 @@ def _expert_ffn(p, buf):
     return torch.bmm(F.silu(g) * h, p.wo)
 
 
-def apply_moe(cfg: ModelConfig, p, x):
+def ep_gate(cfg: ModelConfig, batch: int, seq: int, dp: int, tp: int) -> bool:
+    """The reference's gate of the expert-parallel path (``layers.py:322``)
+    for a global (batch, seq) on a (dp, tp) mesh: the sequence divides
+    16 tp, the experts tp and the batch dp. Decode (seq 1) never takes it."""
+    return (seq % (16 * tp) == 0 and cfg.n_experts % tp == 0
+            and batch % dp == 0)
+
+
+def apply_moe(cfg: ModelConfig, p, x, shd: ShardingCtx | None = None):
     """Top-k MoE with sort-based capacity dispatch (dropping, static
-    shapes), on the reference's global-view path: the one it takes whenever
-    it runs without a mesh."""
+    shapes). Two paths, as the reference's:
+
+    * **expert parallel** (a mesh, and :func:`ep_gate`): each rank routes
+      its own S / tp tokens of its batch block into a local (E, c_loc, D)
+      buffer, one all-to-all over the model group sends them to the ranks
+      that hold their experts, and the reverse one brings the results back
+      (:func:`_apply_moe_ep`);
+    * **global view** (no mesh, decode, shapes the gate refuses): every
+      token of the batch ranked within its expert, capacity
+      ``moe_capacity`` of all B * S tokens. On a mesh whose activations
+      hold the rank's batch block, each data rank dispatches its own tokens
+      with the ranks they have among the whole batch's (the per-expert
+      counts of the blocks before it, gathered over "data").
+    """
     B, S, D = x.shape
+    if shd is None or shd.mesh is None:
+        T = B * S
+        y = _moe_dispatch_compute(cfg, p.router, x.reshape(T, D),
+                                  moe_capacity(cfg, T),
+                                  lambda buf: _expert_ffn(p, buf))
+        return y.reshape(B, S, D)
+    batch = B * shd.dp_size if shd.split else B
+    if ep_gate(cfg, batch, S, shd.dp_size, shd.tp_size):
+        return _apply_moe_ep(cfg, p, x, shd)
+    before = None
+    if shd.split and shd.dp_size > 1:
+        mesh = shd.mesh
+
+        def before(counts):
+            every = comm.all_gather(mesh, "data", counts[None], 0)
+            return every[:mesh.coord("data")].sum(dim=0)
     T = B * S
     y = _moe_dispatch_compute(cfg, p.router, x.reshape(T, D),
-                              moe_capacity(cfg, T),
-                              lambda buf: _expert_ffn(p, buf))
+                              moe_capacity(cfg, batch * S),
+                              lambda buf: _expert_ffn(p, buf), before)
     return y.reshape(B, S, D)
+
+
+def ep_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """``c_loc``, a block's capacity on the expert-parallel path: the
+    reference truncates (``int``) where ``moe_capacity`` rounds up."""
+    k, E = cfg.top_k, cfg.n_experts
+    return max(8, -(-int(cfg.capacity_factor * tokens * k / E) // 8) * 8)
+
+
+def _apply_moe_ep(cfg: ModelConfig, p, x, shd: ShardingCtx):
+    """The expert-parallel MoE on the rank's (B / dp, S, D) activations,
+    the same on every rank of its model group: route this rank's S / tp
+    tokens (a block-local ``c_loc``), send each expert's rows to the rank
+    that holds it, run the local E / tp experts, send the rows back, and
+    join the blocks' outputs over the sequence. The router sees only the
+    block's tokens, so its gradient is summed over "model" (and, as every
+    weight's, over "data"); the experts' come back through the reverse
+    all-to-all and are summed over "data" only."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    mesh, tp = shd.mesh, shd.tp_size
+    e_loc = E // tp
+    xb = comm.slice_block(mesh, shd.tp, x, 1)  # (B/dp, S/tp, D)
+    c_loc = ep_capacity(cfg, xb.shape[0] * xb.shape[1])
+    router = comm.copy_to(mesh, shd.tp, p.router)
+    wi, wg, wo = p.local("wi"), p.local("wg"), p.local("wo")
+
+    def expert_fn(buf):  # (E, c_loc, D): this block's rows for every expert
+        recv = comm.all_to_all(mesh, shd.tp, buf)
+        # block j of recv holds peer j's rows for OUR experts
+        mine = recv.reshape(tp, e_loc, c_loc, D).transpose(0, 1).reshape(
+            e_loc, tp * c_loc, D)
+        h = torch.bmm(mine, wi)
+        g = torch.bmm(mine, wg)
+        yb = torch.bmm(F.silu(g) * h, wo)
+        yb = yb.reshape(e_loc, tp, c_loc, D).transpose(0, 1).reshape(
+            E, c_loc, D)
+        return comm.all_to_all(mesh, shd.tp, yb)
+
+    y = _moe_dispatch_compute(cfg, router, xb.reshape(-1, D), c_loc,
+                              expert_fn)
+    return comm.gather_blocks(mesh, shd.tp, y.reshape(xb.shape), 1)
+
+
+def apply_moe_ep_plain(cfg: ModelConfig, p, x, dp: int, tp: int):
+    """The expert-parallel MoE of a (dp, tp) mesh in one process, with no
+    collective: the global (B, S, D) ``x`` cut into dp x tp blocks (batch
+    over dp, sequence over tp), each block's tokens routed into its own
+    (E, c_loc, D) buffer, the experts run over every block's buffer. The
+    plain version that the sharded path is held against."""
+    B, S, D = x.shape
+    bl, sl = B // dp, S // tp
+    c_loc = ep_capacity(cfg, bl * sl)
+    rows = []
+    for d in range(dp):
+        cols = []
+        for m in range(tp):
+            xb = x[d * bl:(d + 1) * bl, m * sl:(m + 1) * sl]
+            y = _moe_dispatch_compute(cfg, p.router, xb.reshape(-1, D), c_loc,
+                                      lambda buf: _expert_ffn(p, buf))
+            cols.append(y.reshape(bl, sl, D))
+        rows.append(torch.cat(cols, dim=1))
+    return torch.cat(rows, dim=0)
 
 
 # --------------------------------------------------------------------------

@@ -22,11 +22,24 @@ and the cross-entropy in sequence chunks under remat
 (``chunked_ce_loss``), so the (B, S, V) logits never exist. The reference
 also checkpoints each layer of a multi-layer unit (jamba, llama-vision)
 inside the unit's remat; that changes only peak memory, and the port
-does not nest. The mesh pieces (the reference's ``shd``) come in a later
-slice.
+does not nest.
+
+On a mesh (``shd``, a ``layers.ShardingCtx``; the model placed by
+``sharding.partition.place_params``) every entry point takes the global
+batch and computes the rank's block of it (``batch_specs``): a unit
+gathers its weights' blocks before use and frees them after (each
+weight's gradient lands back on its block, summed over "data"); the
+activations between units are held as the rank's S / tp slice of the
+sequence (the reference's sequence-parallel carry), gathered at a unit's
+start and sliced at its end, so remat saves the slice only; the loss is
+the mean over "data" of the blocks' means; the MoE takes the
+expert-parallel path where the reference's gate lets it. Logits come back
+whole; a decode cache is a :class:`PlacedCache` of the rank's blocks
+(``cache_specs``). ``shd=None`` is the single-device path.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -41,6 +54,9 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.config import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.layers import ShardingCtx
+from repro_torch.sharding import comm
+from repro_torch.sharding.partition import Gathered, batch_specs, cache_specs
 
 
 class Layer(nn.Module):
@@ -176,7 +192,8 @@ def leaf_paths(params: nn.Module) -> dict[str, list[str]]:
 # --------------------------------------------------------------------------
 
 def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Layer, x,
-                 positions, vision, collect_cache: bool):
+                 positions, vision, collect_cache: bool,
+                 shd: ShardingCtx | None = None):
     cache = None
     h = L.rms_norm(x, lp.norm1, cfg.rms_eps)
     if mixer == "attn":
@@ -205,25 +222,27 @@ def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Layer, x,
         raise ValueError(mixer)
     x = x + mx
     if ffn != "none":
-        x = x + _apply_ffn(cfg, ffn, lp, L.rms_norm(x, lp.norm2, cfg.rms_eps))
+        x = x + _apply_ffn(cfg, ffn, lp, L.rms_norm(x, lp.norm2, cfg.rms_eps),
+                           shd)
     return x, cache
 
 
-def _apply_ffn(cfg: ModelConfig, ffn: str, lp: Layer, h2):
+def _apply_ffn(cfg: ModelConfig, ffn: str, lp: Layer, h2,
+               shd: ShardingCtx | None = None):
     if ffn == "mlp":
         return L.apply_mlp(lp.mlp, h2)
     if ffn == "moe":
-        return L.apply_moe(cfg, lp.moe, h2)
+        return L.apply_moe(cfg, lp.moe, h2, shd)
     # moe_dense: arctic's dense residual in parallel with the MoE
-    return L.apply_moe(cfg, lp.moe, h2) + L.apply_mlp(lp.dense, h2)
+    return L.apply_moe(cfg, lp.moe, h2, shd) + L.apply_mlp(lp.dense, h2)
 
 
 def _apply_unit(cfg: ModelConfig, up: nn.Module, x, positions, vision,
-                collect_cache: bool):
+                collect_cache: bool, shd: ShardingCtx | None = None):
     caches = {}
     for j, (mixer, ffn) in enumerate(cfg.pattern):
         x, cache = _apply_layer(cfg, mixer, ffn, getattr(up, f"l{j}"), x,
-                                positions, vision, collect_cache)
+                                positions, vision, collect_cache, shd)
         if cache is not None:
             caches[f"l{j}"] = cache
     return x, caches
@@ -250,11 +269,60 @@ def _mamba_final_state(cfg, p, h):
 # forward passes
 # --------------------------------------------------------------------------
 
-def _embed_in(cfg, params: LM, batch):
+def _embed_in(cfg, params: LM, batch, shd: ShardingCtx | None = None):
+    """The input activations; on a mesh (``batch`` already the rank's
+    block, ``params`` the model's gathered view) held as the rank's slice
+    of the sequence (:func:`_seq_block`)."""
     if cfg.embeddings_in:
-        return torch.as_tensor(batch["embeds"], device=params.final_norm.device)
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
-    return _embed_tokens(params, tokens)
+        x = torch.as_tensor(batch["embeds"], device=params.final_norm.device)
+    else:
+        tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
+        x = _embed_tokens(params, tokens)
+    return _seq_block(x, shd)
+
+
+def _sequence_parallel(shd: ShardingCtx | None, seq: int) -> bool:
+    """Whether activations between units are held as the rank's slice of
+    the sequence: the reference pins them to (dp, tp, None) when S is a
+    multiple of 16."""
+    return (shd is not None and shd.tp_size > 1 and seq % 16 == 0
+            and seq % shd.tp_size == 0)
+
+
+def _seq_block(x, shd: ShardingCtx | None):
+    if not _sequence_parallel(shd, x.shape[1]):
+        return x
+    return comm.slice_block(shd.mesh, shd.tp, x, 1)
+
+
+def _seq_whole(x, shd: ShardingCtx | None, seq: int):
+    if not _sequence_parallel(shd, seq):
+        return x
+    return comm.gather_blocks(shd.mesh, shd.tp, x, 1)
+
+
+def _local(shd: ShardingCtx | None, batch: dict):
+    """(shd with ``split`` set, the rank's block of ``batch`` as
+    ``batch_specs`` places it) for the global ``batch``."""
+    if shd is None:
+        return None, batch
+    specs = batch_specs(None, batch, shd.dp, shd.mesh)
+    lead = next(iter(batch.values())).shape[0]
+    split = lead % shd.dp_size == 0
+    mesh = shd.mesh
+    out = {}
+    for name, leaf in batch.items():
+        leaf = torch.as_tensor(leaf, device=mesh.device)
+        out[name] = comm.place(mesh, leaf, specs[name]) if split and any(
+            specs[name]) else leaf
+    return dataclasses.replace(shd, split=split), out
+
+
+def _gather_batch(x, shd: ShardingCtx | None):
+    """The whole batch of a per-block output (logits)."""
+    if shd is None or not shd.split:
+        return x
+    return comm.all_gather(shd.mesh, "data", x, 0)
 
 
 def _embed_tokens(params: LM, tokens):
@@ -267,6 +335,12 @@ def _vision(params: LM, batch):
     if vision is None:
         return None
     return torch.as_tensor(vision, device=params.final_norm.device)
+
+
+def _weights(params: LM, shd: ShardingCtx | None):
+    """What the forward reads the model's own leaves through: the model,
+    or on a mesh its gathered view."""
+    return params if shd is None else Gathered(params, shd.mesh)
 
 
 def _lm_head(cfg, params: LM):
@@ -301,18 +375,26 @@ REMAT_POLICIES = {
 
 
 def _stack(cfg, params: LM, x, positions, vision, remat: bool = False,
-           remat_policy: str = "full"):
+           remat_policy: str = "full", shd: ShardingCtx | None = None):
     """The units in order, no cache (the reference's ``_stack_scan``); with
     ``remat`` each unit runs under ``torch.utils.checkpoint`` with
-    ``REMAT_POLICIES[remat_policy]``."""
+    ``REMAT_POLICIES[remat_policy]``. On a mesh ``x`` comes and goes as
+    the rank's slice of the sequence, and each unit gathers it and its
+    weights at its start (so remat keeps the slice and no weight)."""
     context_fn = REMAT_POLICIES[remat_policy]
+    seq = positions.shape[0]
     for up in params.units:
         def unit_fn(h, up=up):
-            return _apply_unit(cfg, up, h, positions, vision, False)[0]
+            if shd is None:
+                return _apply_unit(cfg, up, h, positions, vision, False)[0]
+            h = _seq_whole(h, shd, seq)
+            y = _apply_unit(cfg, Gathered(up, shd.mesh), h, positions,
+                            vision, False, shd)[0]
+            return _seq_block(y, shd)
 
         x = (checkpoint(unit_fn, x, use_reentrant=False,
                         context_fn=context_fn) if remat else unit_fn(x))
-    return x
+    return _seq_whole(x, shd, seq)
 
 
 def _ce_chunk(cfg, hc, lm_head, lc):
@@ -327,10 +409,13 @@ def _ce_chunk(cfg, hc, lm_head, lc):
     return torch.sum(logz - gold)
 
 
-def chunked_ce_loss(cfg, h, lm_head, labels, chunk: int | None = None):
+def chunked_ce_loss(cfg, h, lm_head, labels, shd: ShardingCtx | None = None,
+                    chunk: int | None = None):
     """Mean next-token cross-entropy; the logits are computed a sequence
     chunk at a time (``cfg.ce_chunk`` positions, one chunk when S is no
-    multiple of it) under remat, so the (B, S, V) tensor never exists."""
+    multiple of it) under remat, so the (B, S, V) tensor never exists. On
+    a mesh ``h`` and ``labels`` are the rank's batch block, and the loss
+    is the mean over "data" of the blocks' means."""
     B, S, _ = h.shape
     chunk = chunk or cfg.ce_chunk
     if S % chunk != 0:
@@ -341,30 +426,44 @@ def chunked_ce_loss(cfg, h, lm_head, labels, chunk: int | None = None):
         total = total + checkpoint(_ce_chunk, cfg, h[:, c:c + chunk], lm_head,
                                    labels[:, c:c + chunk],
                                    use_reentrant=False)
-    return total / (B * S)
+    if shd is None:
+        return total / (B * S)
+    return comm.mean_over(shd.mesh, "data", total / (B * S))
 
 
-def train_loss(cfg: ModelConfig, params: LM, batch, remat: bool = True,
+def train_loss(cfg: ModelConfig, params: LM, batch,
+               shd: ShardingCtx | None = None, remat: bool = True,
                remat_policy: str = "full"):
     """The mean next-token cross-entropy of ``batch`` ({"tokens" or
     "embeds", "labels"[, "vision"]}), differentiable in the parameters that
-    require a gradient (``make_train_step`` turns them on)."""
-    x = _embed_in(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    require a gradient (``make_train_step`` turns them on). On a mesh
+    ``batch`` is the global batch and the loss the global mean, the same
+    on every rank."""
+    shd, batch = _local(shd, batch)
+    # on a mesh the gathered embedding lives for the lookup only; the head
+    # is gathered where the loss needs it
+    x = _embed_in(cfg, _weights(params, shd), batch, shd)
+    S = batch["labels"].shape[1]
+    positions = torch.arange(S, device=x.device)
     x = _stack(cfg, params, x, positions, _vision(params, batch), remat,
-               remat_policy)
-    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
-    return chunked_ce_loss(cfg, x, _lm_head(cfg, params), batch["labels"])
+               remat_policy, shd)
+    w = _weights(params, shd)
+    x = L.rms_norm(x, w.final_norm, cfg.rms_eps)
+    return chunked_ce_loss(cfg, x, _lm_head(cfg, w), batch["labels"], shd)
 
 
 @torch.no_grad()
-def forward_logits(cfg: ModelConfig, params: LM, batch):
+def forward_logits(cfg: ModelConfig, params: LM, batch,
+                   shd: ShardingCtx | None = None):
     """Full logits (B, S, vocab) — smoke tests/small evals only."""
-    x = _embed_in(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x = _stack(cfg, params, x, positions, _vision(params, batch))
-    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
-    return (x @ _lm_head(cfg, params))[..., : cfg.vocab]
+    shd, batch = _local(shd, batch)
+    w = _weights(params, shd)
+    x = _embed_in(cfg, w, batch, shd)
+    S = (batch["embeds"] if cfg.embeddings_in else batch["tokens"]).shape[1]
+    positions = torch.arange(S, device=x.device)
+    x = _stack(cfg, params, x, positions, _vision(params, batch), shd=shd)
+    x = L.rms_norm(x, w.final_norm, cfg.rms_eps)
+    return _gather_batch((x @ _lm_head(cfg, w))[..., : cfg.vocab], shd)
 
 
 # --------------------------------------------------------------------------
@@ -375,25 +474,46 @@ def cache_pad(cfg: ModelConfig) -> int:
     return 64  # decode slots appended after the prefilled prefix
 
 
+class PlacedCache(list):
+    """A decode cache on a mesh: the port's cache (one dict a unit), each
+    leaf the rank's block; ``specs`` its ``cache_specs`` (the batch entry
+    of each leaf's spec is already the rank's block)."""
+
+    def __init__(self, units, specs: dict):
+        super().__init__(units)
+        self.specs = specs
+
+
+def _seq_only(spec: tuple) -> tuple:
+    """A cache spec without its batch entry (the leaf holds the batch
+    block already)."""
+    return (None,) + tuple(spec[1:])
+
+
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params: LM, batch):
+def prefill(cfg: ModelConfig, params: LM, batch,
+            shd: ShardingCtx | None = None):
     """Forward the prompt; returns (last-token logits (B, vocab), cache, pos)
     with ``pos`` = S, a Python int.
 
     Each attention layer's K / V cache is preallocated as (B, S + cache_pad,
     K, dh) in the activation dtype, the prompt's keys (after RoPE) and values
-    in its first S slots.
+    in its first S slots. On a mesh the cache is a :class:`PlacedCache` of
+    the rank's blocks.
     """
     if cfg.encoder_only:
         raise ValueError("encoder-only model has no prefill/decode")
-    x = _embed_in(cfg, params, batch)
+    shd, batch = _local(shd, batch)
+    w = _weights(params, shd)
+    x = _embed_in(cfg, w, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     vision = _vision(params, batch)
     pad = cache_pad(cfg)
     caches = []
     for up in params.units:
-        x, unit_cache = _apply_unit(cfg, up, x, positions, vision, True)
+        uw = up if shd is None else Gathered(up, shd.mesh)
+        x, unit_cache = _apply_unit(cfg, uw, x, positions, vision, True, shd)
         for entry in unit_cache.values():
             for name in ("k", "v"):
                 if name in entry:
@@ -402,9 +522,20 @@ def prefill(cfg: ModelConfig, params: LM, batch):
                     padded[:, :S] = kv
                     entry[name] = padded
         caches.append(unit_cache)
-    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
-    logits = x[:, -1, :] @ _lm_head(cfg, params)
-    return logits[:, : cfg.vocab], caches, S
+    x = L.rms_norm(x, w.final_norm, cfg.rms_eps)
+    logits = x[:, -1, :] @ _lm_head(cfg, w)
+    if shd is not None:
+        # the leaves hold the batch block already: its entry is dp exactly
+        # where the batch divides dp (cache_specs' rule, on the global B)
+        bdp = shd.dp if shd.split else None
+        specs = {ln: {nm: (bdp,) + sp[1:] for nm, sp in e.items()}
+                 for ln, e in cache_specs(cfg, caches, shd.dp,
+                                          shd.mesh).items()}
+        caches = PlacedCache(
+            [{ln: {nm: comm.place(shd.mesh, t, _seq_only(specs[ln][nm]))
+                   for nm, t in entry.items()}
+              for ln, entry in unit.items()} for unit in caches], specs)
+    return _gather_batch(logits[:, : cfg.vocab], shd), caches, S
 
 
 def init_cache(cfg: ModelConfig, batch: int, prefix_len: int,
@@ -434,32 +565,69 @@ def init_cache(cfg: ModelConfig, batch: int, prefix_len: int,
     return caches
 
 
+def _cache_whole(shd, entry: dict, specs: dict) -> dict:
+    """A layer's cache leaves whole over "model" (their batch block kept)."""
+    return {nm: comm.gather_whole(shd.mesh, t, _seq_only(specs[nm]))
+            for nm, t in entry.items()}
+
+
+def _cache_write(shd, entry: dict, whole: dict, specs: dict, pos: int):
+    """Write a decode step's cache back into the rank's blocks: slot
+    ``pos`` of K / V into the block that holds it, a Mamba state's block."""
+    mesh = shd.mesh
+    for nm, t in whole.items():
+        spec = _seq_only(specs[nm])
+        if nm in ("k", "v"):
+            if spec[1] is None:
+                entry[nm][:, pos] = t[:, pos]
+                continue
+            n = entry[nm].shape[1]
+            lo = mesh.coord(spec[1]) * n
+            if lo <= pos < lo + n:
+                entry[nm][:, pos - lo] = t[:, pos]
+        elif nm not in ("xk", "xv"):
+            entry[nm] = comm.place(mesh, t, spec)
+
+
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: LM, tokens, cache, pos: int):
+def decode_step(cfg: ModelConfig, params: LM, tokens, cache, pos: int,
+                shd: ShardingCtx | None = None):
     """One autoregressive step. tokens (B, 1) int; ``pos`` (a Python int) is
     the slot this token writes. Writes slot ``pos`` of each attention cache
     in place and replaces each Mamba layer's state in its dict, so the
     returned cache is the one passed in; returns (logits (B, vocab), cache,
-    pos + 1)."""
-    tokens = torch.as_tensor(tokens, device=params.embed.device)
-    y = _embed_tokens(params, tokens)
+    pos + 1). On a mesh ``cache`` is a :class:`PlacedCache`: each layer
+    gathers its leaves over "model" before use, and slot ``pos`` is written
+    into the block that holds it."""
+    shd, batch = _local(shd, {"tokens": tokens})
+    w = _weights(params, shd)
+    tokens = torch.as_tensor(batch["tokens"], device=w.embed.device)
+    y = _embed_tokens(w, tokens)
     for up, uc in zip(params.units, cache):
+        uw = up if shd is None else Gathered(up, shd.mesh)
         for j, (mixer, ffn) in enumerate(cfg.pattern):
-            lp = getattr(up, f"l{j}")
+            lp = getattr(uw, f"l{j}")
+            entry = uc[f"l{j}"]
+            if shd is not None:
+                specs = cache.specs[f"l{j}"]
+                entry = _cache_whole(shd, entry, specs)
             h = L.rms_norm(y, lp.norm1, cfg.rms_eps)
             if mixer == "attn":
-                mx, _ = L.apply_attention_decode(cfg, lp.attn, h, uc[f"l{j}"],
-                                                 pos)
+                mx, new = L.apply_attention_decode(cfg, lp.attn, h, entry,
+                                                   pos)
             elif mixer == "xattn":
-                mx, _ = L.apply_cross_attention_decode(cfg, lp.xattn, h,
-                                                       uc[f"l{j}"])
+                mx, new = L.apply_cross_attention_decode(cfg, lp.xattn, h,
+                                                         entry)
             else:  # mamba
-                mx, uc[f"l{j}"] = L.apply_mamba_decode(cfg, lp.mamba, h,
-                                                       uc[f"l{j}"])
+                mx, new = L.apply_mamba_decode(cfg, lp.mamba, h, entry)
+            if shd is not None:
+                _cache_write(shd, uc[f"l{j}"], new, specs, pos)
+            elif mixer == "mamba":
+                uc[f"l{j}"] = new
             y = y + mx
             if ffn != "none":
                 y = y + _apply_ffn(cfg, ffn, lp,
-                                   L.rms_norm(y, lp.norm2, cfg.rms_eps))
-    x = L.rms_norm(y, params.final_norm, cfg.rms_eps)
-    logits = x[:, -1, :] @ _lm_head(cfg, params)
-    return logits[:, : cfg.vocab], cache, pos + 1
+                                   L.rms_norm(y, lp.norm2, cfg.rms_eps), shd)
+    x = L.rms_norm(y, w.final_norm, cfg.rms_eps)
+    logits = x[:, -1, :] @ _lm_head(cfg, w)
+    return _gather_batch(logits[:, : cfg.vocab], shd), cache, pos + 1

@@ -1,2 +1,2 @@
-"""The LM substrate's training loop (counterpart of ``repro.runtime``; the
-elastic re-mesh comes with the mesh slice)."""
+"""The LM substrate's training loop and its elastic re-mesh (counterpart
+of ``repro.runtime``)."""

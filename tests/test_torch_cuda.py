@@ -1636,3 +1636,205 @@ def test_lm_train_two_steps_on_the_card(cuda, full_f32, tmp_path):
     assert int(state["opt"]["step"]) == 2
     assert make_batch(dcfg, 0, cfg.vocab)["tokens"].device.type == "cuda"
     assert init_opt_state(state["params"], ocfg)["step"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate on a mesh: one sharded step of qwen3-moe smoke
+# ---------------------------------------------------------------------------
+
+MESH_B, MESH_S = 2, 64  # the expert-parallel gate is on at tp 1 and 2
+
+
+def _plain_ep_loss_grads(cfg, model, batch, dp, tp):
+    """``train_loss`` and its gradients on one device, each MoE layer the
+    one-process twin of the (dp, tp) expert-parallel path."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import train_loss
+
+    def plain(cfg_, p, x, shd=None):
+        if L.ep_gate(cfg_, x.shape[0], x.shape[1], dp, tp):
+            return L.apply_moe_ep_plain(cfg_, p, x, dp, tp)
+        return L.apply_moe(cfg_, p, x)
+
+    saved, L.apply_moe = L.apply_moe, plain
+    try:
+        loss = train_loss(cfg, model, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        L.apply_moe = saved
+    return loss.detach(), grads
+
+
+def _sharded_step_against_plain(mesh, dev):
+    """One sharded step of qwen3-moe smoke on ``mesh`` (FSDP over "data"),
+    its loss and every gathered gradient against the plain twin's on the
+    card; the router's named. Returns the worst gradient share."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime.train_loop import value_and_grad
+    from repro_torch.sharding.partition import gather_param, place_params
+
+    cfg = get_smoke("qwen3_moe_235b")
+    loss_rtol, g_rtol, g_atol = train_tol(cfg)
+    step = build_step(cfg, "train_4k", mesh, fsdp=True, microbatches=1)
+    whole = init_params(cfg, seed=0, device="cpu")
+    plain = copy.deepcopy(whole).to(dev).requires_grad_()
+    model = place_params(whole, mesh, step.param_specs)
+    batch = batch_for(cfg, DataConfig(batch=MESH_B, seq_len=MESH_S), 0,
+                      device=dev)
+    loss, grads = value_and_grad(cfg, model, batch, _shd(mesh))
+    want_loss, want = _plain_ep_loss_grads(cfg, plain, batch,
+                                           mesh.shape["data"],
+                                           mesh.shape["model"])
+    assert loss.device == dev
+    torch.testing.assert_close(loss, want_loss, rtol=loss_rtol, atol=0)
+    names = [n for n, _ in plain.named_parameters()]
+    assert any(n.endswith("moe.router") for n in names)
+    for name, w in zip(names, want):
+        g = gather_param(model, name, grads[name])
+        assert g.device == dev, name
+        torch.testing.assert_close(g, w, rtol=g_rtol,
+                                   atol=g_atol * float(w.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+    state = init_opt_state(model, step.opt_cfg)
+    loss2, gnorm = step.fn(model, state, batch)
+    assert torch.isfinite(loss2) and torch.isfinite(gnorm)
+    assert int(state["step"]) == 1
+
+
+def _shd(mesh):
+    from repro_torch.models.layers import ShardingCtx
+
+    return ShardingCtx(dp=("data",), tp="model", mesh=mesh)
+
+
+def _mesh_rank(rank, world, store):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_group, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, dev = init_group(rank, world, backend="gloo", init_method=store,
+                           device="cuda:0")
+    try:
+        _sharded_step_against_plain(make_mesh(1, world, dev), dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_lm_sharded_step_gloo_world_of_2_on_the_card(cuda, full_f32,
+                                                     tmp_path):
+    """2 gloo ranks sharing cuda:0 as a (1, 2) mesh: the expert-parallel
+    MoE's all-to-alls staged through host memory; the sharded loss and
+    gradients against ``apply_moe_ep_plain(dp=1, tp=2)`` in one process,
+    then one train step of ``build_step``."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_mesh_rank, args=(2, f"file://{tmp_path}/store"), nprocs=2)
+
+
+def test_lm_sharded_step_nccl_world_of_one(cuda, full_f32, tmp_path):
+    """An NCCL world of one, (1, 1): the same step, the gate on at tp 1,
+    against ``apply_moe_ep_plain(dp=1, tp=1)``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_group, make_mesh
+
+    _, _, dev = init_group(0, 1, backend="nccl",
+                           init_method=f"file://{tmp_path}/nccl",
+                           device="cuda:0")
+    try:
+        _sharded_step_against_plain(make_mesh(1, 1, dev), dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _collectives_on_the_card(world, rank, dev):
+    """Every collective of ``launch.collectives`` on CUDA tensors against
+    its whole function, with staging buffers of 4 KiB so that a tensor
+    takes many chunks (odd widths, f32 / int64)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives as coll
+
+    saved, coll.STAGE_BYTES = coll.STAGE_BYTES, 4096
+    try:
+        def mine(r, dtype):
+            gen = torch.Generator().manual_seed(r)
+            return (torch.randn(3, 1001, generator=gen) * 100).to(dtype)
+
+        for dtype in (torch.float32, torch.int64):
+            every = torch.stack([mine(r, dtype) for r in range(world)])
+            x = mine(rank, dtype).to(dev)
+            kept = x.clone()
+            got = coll.all_gather(None, dev, x)
+            assert got.device == dev
+            torch.testing.assert_close(got.cpu(), every, rtol=0, atol=0)
+            got = coll.all_reduce(None, dev, x)
+            torch.testing.assert_close(got.cpu(), every.sum(0), rtol=0,
+                                       atol=1e-3)
+            got = coll.all_reduce(None, dev, x, dist.ReduceOp.MIN)
+            torch.testing.assert_close(got.cpu(), every.amin(0), rtol=0,
+                                       atol=0)
+            got = coll.broadcast(None, dev, x, world - 1)
+            torch.testing.assert_close(got.cpu(), every[-1], rtol=0, atol=0)
+            got = coll.reduce(None, dev, x, 0)
+            if rank == 0:
+                torch.testing.assert_close(got.cpu(), every.sum(0), rtol=0,
+                                           atol=1e-3)
+            rows = torch.stack([x[:, :1000]] * world) + rank
+            got = coll.all_to_all(None, dev, rows)
+            want = every[:, :, :1000] + torch.arange(world).view(
+                world, 1, 1).to(dtype)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+            got = coll.reduce_scatter(None, dev, rows)
+            torch.testing.assert_close(got.cpu(), want.sum(0), rtol=0,
+                                       atol=1e-3)
+            assert torch.equal(x, kept)  # no input is written
+    finally:
+        coll.STAGE_BYTES = saved
+
+
+def _collectives_rank(rank, world, store):
+    import torch.distributed as dist
+
+    from repro_torch.launch.collectives import staged
+    from repro_torch.launch.mesh import init_group
+
+    _, _, dev = init_group(rank, world, backend="gloo", init_method=store,
+                           device="cuda:0")
+    try:
+        assert staged(None, dev)
+        _collectives_on_the_card(world, rank, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_staged_collectives_gloo_world_of_2_on_the_card(cuda, tmp_path):
+    """2 gloo ranks sharing cuda:0: each collective staged through pinned
+    host chunks (the gather and the reduce-scatter as all-to-alls) gives
+    its whole function on the card."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_collectives_rank, args=(2, f"file://{tmp_path}/store"),
+             nprocs=2)
+
+
+def test_collectives_nccl_world_of_one(cuda, tmp_path):
+    """An NCCL world of one: NCCL's own collectives, on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.collectives import staged
+    from repro_torch.launch.mesh import init_group
+
+    _, _, dev = init_group(0, 1, backend="nccl",
+                           init_method=f"file://{tmp_path}/nccl",
+                           device="cuda:0")
+    try:
+        assert not staged(None, dev)
+        _collectives_on_the_card(1, 0, dev)
+    finally:
+        dist.destroy_process_group()

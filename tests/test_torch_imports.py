@@ -55,6 +55,9 @@ def test_port_files_exist():
             pkg / "checkpoint" / "manager.py",
             pkg / "runtime" / "train_loop.py",
             pkg / "launch" / "train.py"} <= set(FILES)
+    assert {pkg / "sharding" / "partition.py", pkg / "sharding" / "comm.py",
+            pkg / "launch" / "steps.py", pkg / "launch" / "collectives.py",
+            pkg / "runtime" / "elastic.py"} <= set(FILES)
     archs = {p.stem for p in (pkg / "configs").glob("*.py")}
     assert len(archs - {"__init__", "base"}) == 10, sorted(archs)
 
@@ -67,11 +70,13 @@ def test_port_files_exist():
     "repro_torch.configs", "repro_torch.models", "repro_torch.interop",
     "repro_torch.optim.adamw", "repro_torch.data.pipeline",
     "repro_torch.checkpoint.manager", "repro_torch.runtime.train_loop",
-    "repro_torch.launch.train"])
+    "repro_torch.launch.train", "repro_torch.sharding.partition",
+    "repro_torch.sharding.comm", "repro_torch.launch.steps",
+    "repro_torch.runtime.elastic", "repro_torch.launch.collectives"])
 def test_new_modules_import_without_jax(module):
     """Each module of the portfolio, fault and resilience tiers, the CLI,
-    the sharded stepper, the launchers and the LM substrate (serving and
-    training) imports in a fresh interpreter that has no ``jax`` or
+    the sharded stepper, the launchers and the LM substrate (serving,
+    training and the mesh) imports in a fresh interpreter that has no ``jax`` or
     ``repro`` module loaded afterwards."""
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
