@@ -324,8 +324,8 @@ def launch_shapes(defines: dict[str, dict[str, int]]) -> dict:
     (``config.RELAX_THREADS``, ``config.CRIT_BLOCKS_PER_SM``).
     ``pack_kernel`` runs at the relax's threads or the scan body's; the
     larger is checked."""
-    g, p, c = (defines["ell_gather.cu"], defines["ell_push.cu"],
-               defines["frontier_crit.cu"])
+    g, p, c, e = (defines["ell_gather.cu"], defines["ell_push.cu"],
+                  defines["frontier_crit.cu"], defines["embed_grad.cu"])
     relax, crit_blocks = kcfg.RELAX_THREADS, kcfg.CRIT_BLOCKS_PER_SM
     scan_smem = (4 * g["SCAN_STAGES"] * 2 * g["SCAN_STAGE_ELEMS"]
                  + 8 * 2 * g["SCAN_STAGES"])
@@ -351,6 +351,7 @@ def launch_shapes(defines: dict[str, dict[str, int]]) -> dict:
         ("ell_push", "push_kernel"): fixed(p["PUSH_THREADS"]),
         ("frontier_crit", "crit_kernel"): fixed(c["CRIT_THREADS"],
                                                 crit_blocks),
+        ("embed_grad", "embed_grad_kernel"): fixed(e["EMBED_THREADS"]),
     }
 
 

@@ -87,8 +87,9 @@ class CheckpointManager:
                 from err
 
     def _barrier(self) -> None:
-        if self._mesh is not None and self._mesh.size(("data", "model")) > 1:
-            dist.barrier(group=self._mesh.world)
+        mesh = self._mesh
+        if mesh is not None and mesh.size(mesh.axis_names) > 1:
+            dist.barrier(group=mesh.world)
 
     def _write_logged(self, step: int, flat: dict) -> None:
         try:

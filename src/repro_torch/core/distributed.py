@@ -134,8 +134,12 @@ class Comm:
 
     ``stats``, a dict or None, gets ``exchange_s`` (host seconds around the
     collectives, the device synchronised on both sides) and
-    ``collectives`` added; None times nothing and adds no sync. Raises for
-    NCCL with a CPU device: nothing switches backend behind the caller.
+    ``collectives`` added, and under ``by_kind`` the bytes of each
+    collective's result by the reference's kind (``launch.collectives.
+    KINDS``: its MINs and SUMs are all-reduces, the ``reduce_scatter``
+    schedule's exchange an all-to-all, as the reference writes them); None
+    times nothing and adds no sync. Raises for NCCL with a CPU device:
+    nothing switches backend behind the caller.
     """
 
     def __init__(self, group, device: torch.device, stats: dict | None = None):
@@ -153,14 +157,16 @@ class Comm:
         self.stats = stats
         self.src0 = 0 if group is None else dist.get_global_rank(group, 0)
 
-    def _clocked(self, fn):
+    def _clocked(self, fn, kind: str, result_bytes: int):
+        coll.count(self.stats, kind, result_bytes)
         return coll.clocked(self.stats, self.device, fn, "exchange_s",
-                            "collectives")
+                            "collectives", self.group)
 
     def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         """``op`` over the group of ``t``."""
         return self._clocked(
-            lambda: coll.all_reduce(self.group, self.device, t, op))
+            lambda: coll.all_reduce(self.group, self.device, t, op),
+            "all-reduce", t.numel() * t.element_size())
 
     def min_(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise f32 MIN over the group, -0 over +0."""
@@ -184,14 +190,16 @@ class Comm:
         # all_to_all it holds rank j's contribution to OUR block
         blocks = img.reshape(r, self.size, n_loc).transpose(0, 1)
         got = self._clocked(
-            lambda: coll.all_to_all(self.group, self.device, blocks))
+            lambda: coll.all_to_all(self.group, self.device, blocks),
+            "all-to-all", img.numel() * img.element_size())
         return _from_ordered(torch.amin(got, dim=0))
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """(..., n_loc) blocks of every rank, joined in rank order on the
         last axis: (..., n_pad) on every rank."""
         parts = self._clocked(
-            lambda: coll.all_gather(self.group, self.device, x))
+            lambda: coll.all_gather(self.group, self.device, x),
+            "all-gather", self.size * x.numel() * x.element_size())
         return torch.cat(parts.unbind(0), dim=-1)
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
@@ -799,17 +807,17 @@ def run_distributed(g: Graph, group, source: int = 0,
 
 
 def make_distributed_sssp(group=None, *, schedule: str = "reduce_scatter",
-                          use_kernels: bool = True):
+                          use_kernels: bool = True, stats: dict | None = None):
     """The legacy single-query program (criterion ``instatic|outstatic``,
     the paper's parallel implementation) over ``group``. Returns
     ``run(sg, cap) -> (dist (n_pad,), phases)``, SPMD, each rank passing
     its :class:`ShardedGraph` block; ``dist`` is gathered on every rank
-    and ``cap`` bounds the phases."""
+    and ``cap`` bounds the phases. ``stats`` is :class:`Comm`'s."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown exchange schedule: {schedule!r}")
 
     def run(sg: ShardedGraph, cap):
-        comm = Comm(group, sg.device)
+        comm = Comm(group, sg.device, stats)
         _check_group(sg, comm)
         coo = (sg.src_local, sg.dst, sg.w)
         d, status = sg.d_init, sg.status_init

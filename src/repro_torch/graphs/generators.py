@@ -25,11 +25,14 @@ from repro_torch.core.graph import Graph, from_coo
 GRAPH500_INITIATOR = 2.5 * np.array([[0.57, 0.19], [0.19, 0.05]])
 
 
+def _weights(m: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed + 0x5EED)
+    return rng.uniform(0.0, 1.0, size=m).astype(np.float32)
+
+
 def _finish(src, dst, n, seed, weights=None, pad_to=None,
             device=None) -> Graph:
-    rng = np.random.default_rng(seed + 0x5EED)
-    w = (rng.uniform(0.0, 1.0, size=len(src)).astype(np.float32)
-         if weights is None else weights)
+    w = _weights(len(src), seed) if weights is None else weights
     return from_coo(src, dst, w, n, pad_to=pad_to, device=device)
 
 
@@ -49,6 +52,14 @@ def uniform_gnp(n: int, p: float, seed: int = 0, pad_to: int | None = None,
 def kronecker(k: int, seed: int = 0, initiator: np.ndarray | None = None,
               pad_to: int | None = None, device=None) -> Graph:
     """Stochastic-Kronecker (R-MAT) graph on n = 2**k vertices."""
+    src, dst, w, n = kronecker_coo(k, seed, initiator)
+    return from_coo(src, dst, w, n, pad_to=pad_to, device=device)
+
+
+def kronecker_coo(k: int, seed: int = 0,
+                  initiator: np.ndarray | None = None) -> tuple:
+    """:func:`kronecker`'s host part: its COO arrays ``(src, dst, w, n)``
+    in numpy, before ``from_coo``."""
     init = (GRAPH500_INITIATOR if initiator is None
             else np.asarray(initiator, np.float64))
     n = 2 ** k
@@ -64,8 +75,8 @@ def kronecker(k: int, seed: int = 0, initiator: np.ndarray | None = None,
         dst = (dst << 1) | (q & 1)
     keep = src != dst
     src, dst = src[keep], dst[keep]
-    return _finish(src.astype(np.int32), dst.astype(np.int32), n, seed,
-                   pad_to=pad_to, device=device)
+    return (src.astype(np.int32), dst.astype(np.int32),
+            _weights(len(src), seed), n)
 
 
 def grid_road(rows: int, cols: int, seed: int = 0, diag_frac: float = 0.05,

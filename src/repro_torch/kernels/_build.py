@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"ell_gather": "ell_gather.cu", "ell_push": "ell_push.cu",
-           "frontier_crit": "frontier_crit.cu"}
+           "frontier_crit": "frontier_crit.cu", "embed_grad": "embed_grad.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

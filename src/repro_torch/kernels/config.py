@@ -97,6 +97,10 @@ CRIT_MAX_KEYS = 8
 # PUSH_THREADS there).
 PUSH_THREADS = 256
 
+# The embedding gradient (csrc/embed_grad.cu): threads per block, one a
+# column (must match EMBED_THREADS there).
+EMBED_THREADS = 256
+
 
 def kernel_mode() -> str:
     """The kernel mode: ``auto`` or ``kernels`` (``REPRO_TORCH_KERNEL_MODE``,
@@ -173,6 +177,7 @@ GEOMETRY_MIRRORS = {
     ("frontier_crit.cu", "CRIT_THREADS"): CRIT_THREADS,
     ("frontier_crit.cu", "CRIT_MIN_BLOCKS"): CRIT_BLOCKS_PER_SM,
     ("frontier_crit.cu", "KMAX"): CRIT_MAX_KEYS,
+    ("embed_grad.cu", "EMBED_THREADS"): EMBED_THREADS,
 }
 
 # The card's limits a launch must keep (H100, sm_90): threads a block,

@@ -379,6 +379,41 @@ def frontier_crit_lanes_batch_ref(d: torch.Tensor, status: torch.Tensor,
     return torch.stack(rows), n_f
 
 
+
+def embed_runs(ids: torch.Tensor, num_rows: int):
+    """``(perm, starts)`` of an embedding gradient's fixed order: ``perm``
+    the flat positions sorted by token id, each token's run in position
+    order (a stable sort), ``starts`` the (num_rows + 1,) int64 offsets of
+    the runs (row v's run is ``perm[starts[v]:starts[v + 1]]``); ids past
+    ``num_rows`` sort after every run and are never read. No step reads a
+    value back to the host (a bincount would, for its length)."""
+    flat = ids.reshape(-1).to(torch.int64)
+    keys, perm = torch.sort(flat, stable=True)
+    rows = torch.arange(num_rows + 1, dtype=torch.int64, device=flat.device)
+    return perm, torch.searchsorted(keys, rows)
+
+
+def embed_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
+                   num_rows: int) -> torch.Tensor:
+    """The gradient of ``table[ids]`` for a ``(num_rows, D)`` table:
+    ``grad`` (N, D) for the N flat ids, summed into each id's row in
+    position order, from +0, each add rounded to ``grad``'s type (the
+    bits of a sequential ``index_add_``); rows no id names are +0. Step k
+    adds the k-th row of every run that has one, so the order is fixed on
+    any device."""
+    grad = grad.reshape(-1, grad.shape[-1])
+    perm, starts = embed_runs(ids, num_rows)
+    counts = starts[1:] - starts[:-1]
+    out = torch.zeros((num_rows, grad.shape[1]), dtype=grad.dtype,
+                      device=grad.device)
+    rows = torch.nonzero(counts).squeeze(1)
+    longest = int(counts.max()) if num_rows else 0
+    for k in range(longest):
+        rows = rows[counts[rows] > k]
+        out[rows] = out[rows] + grad[perm[starts[rows] + k]]
+    return out
+
+
 def register_kernels(reg):
     """Bind each contract's plain twin as its oracle.
 
@@ -425,6 +460,7 @@ def register_kernels(reg):
         ("frontier_crit", frontier_crit_ref),
         ("frontier_crit_batch", frontier_crit_batch_ref),
         ("frontier_crit_lanes_batch", frontier_crit_lanes_batch_ref),
+        ("embed_grad", embed_grad_ref),
         ("relax_settled", twin(ops.relax_settled, use_kernels=False)),
         ("static_thresholds", frontier_crit_ref),
         ("relax_settled_batch", twin(ops.relax_settled_batch,

@@ -23,7 +23,8 @@ pushes ``ell_push_relax_batch`` (#1b) and ``ell_sliced_push_relax_batch``
 (#9b), the sliced in-scan in its push form
 ``ell_sliced_relax_keys_batch_push`` (#10b), the status-gate sweep
 ``ell_key_min_status_batch`` (#5b), the rectangular push of the sharded
-stepper ``ell_push_rect_batch`` (#1b), and the ops layer's push relaxes.
+stepper ``ell_push_rect_batch`` (#1b), the ops layer's push relaxes, and
+the LM's fixed-order embedding gradient ``embed_grad``.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ KERNEL_MODULES = (
     "repro_torch.kernels.ell_relax_keys",
     "repro_torch.kernels.ell_sliced",
     "repro_torch.kernels.frontier_crit",
+    "repro_torch.kernels.embed_grad",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
 )
@@ -149,6 +151,7 @@ SIGNED = (0.0, -0.0, 0.5, 1.0)  # values of the -0 / +0 tie cases
 SRC_GATHER = "ell_gather"
 SRC_PUSH = "ell_push"
 SRC_CRIT = "frontier_crit"
+SRC_EMBED = "embed_grad"
 
 
 def _t(x: np.ndarray) -> torch.Tensor:

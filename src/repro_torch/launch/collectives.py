@@ -11,6 +11,12 @@ so the host holds a few such buffers however large the tensor. Gloo's own
 ``all_to_all_single`` on the same bytes, so over gloo a gather sends its
 rows as an all-to-all, and a reduce-scatter is an all-to-all and a local
 sum (the rows in rank order). NCCL runs its own collectives on the card.
+A ``"fake"`` group (``launch.mesh.join_fake_world``: one rank of a world
+that does not exist) moves nothing: each collective returns at once, an
+in-place one with the rank's own input, the others unwritten.
+
+:data:`KINDS` are the reference's names of the collectives (its dry run's
+``_COLLECTIVES``), under which the callers count what they ask for.
 """
 from __future__ import annotations
 
@@ -20,6 +26,22 @@ import torch.distributed as dist
 from repro_torch.obs.timer import now
 
 STAGE_BYTES = 64 << 20  # the most one pinned staging buffer holds
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+def is_fake(group=None) -> bool:
+    """Whether ``group`` (None: the default group) is the ``"fake"``
+    backend's."""
+    return dist.get_backend(group) == "fake"
+
+
+def count(stats: dict | None, kind: str, nbytes: int) -> None:
+    """Add one collective's result bytes to ``stats["by_kind"][kind]``
+    (one of :data:`KINDS`); None counts nothing."""
+    if stats is not None:
+        by_kind = stats.setdefault("by_kind", dict.fromkeys(KINDS, 0))
+        by_kind[kind] += int(nbytes)
 
 
 def staged(group, device: torch.device) -> bool:
@@ -36,6 +58,11 @@ def _run(fn, src: torch.Tensor, rows: int, group, device: torch.device,
     rows == k)."""
     src = src.detach()
     k, length = src.shape
+    if is_fake(group):
+        src = src.to(device)
+        if inplace:
+            return src.clone(memory_format=torch.contiguous_format)
+        return torch.empty((rows, length), dtype=src.dtype, device=device)
     if not staged(group, device):
         src = src.to(device)
         if inplace:
@@ -119,13 +146,15 @@ def reduce(group, device, x: torch.Tensor, dst: int) -> torch.Tensor:
 
 
 def clocked(stats: dict | None, device: torch.device, fn, seconds: str,
-            count: str):
-    """``fn()``; where ``stats`` is a dict, the host seconds around it (the
-    device synchronised on both sides) added to ``stats[seconds]`` and one
-    to ``stats[count]``. None times nothing and adds no sync."""
+            calls: str, group=None):
+    """``fn()``, a collective over ``group``; where ``stats`` is a dict,
+    the host seconds around it (the device synchronised on both sides, but
+    on a fake group, whose tensors may have no storage) added to
+    ``stats[seconds]`` and one to ``stats[calls]``. None times nothing and
+    adds no sync."""
     if stats is None:
         return fn()
-    cuda = device.type == "cuda"
+    cuda = device.type == "cuda" and not is_fake(group)
     if cuda:
         torch.cuda.synchronize(device)
     t0 = now()
@@ -133,5 +162,5 @@ def clocked(stats: dict | None, device: torch.device, fn, seconds: str,
     if cuda:
         torch.cuda.synchronize(device)
     stats[seconds] = stats.get(seconds, 0.0) + now() - t0
-    stats[count] = stats.get(count, 0) + 1
+    stats[calls] = stats.get(calls, 0) + 1
     return out

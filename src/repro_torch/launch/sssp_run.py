@@ -6,7 +6,10 @@
         --backend gloo --verify
 
 Every rank builds the graph from the seed on its device and runs
-``run_distributed`` from vertex 0; rank 0 prints the phases and the wall
+``run_distributed`` from vertex 0, over the production mesh's ranks
+(``make_production_mesh``, 16 x 16) where the world holds 256 ranks or
+more, as the reference picks it, else over the whole world; rank 0 prints
+the phases and the wall
 time and, with ``--verify``, checks the row against sequential Dijkstra
 (f64, host). Without ``torchrun``, pass ``--rank``, ``--world-size`` and
 ``--init-method`` (e.g. ``file:///tmp/store``) to each process. Exits 1
@@ -23,7 +26,7 @@ import torch.distributed as dist
 from repro_torch.core.distributed import run_distributed
 from repro_torch.core.oracle import dijkstra_numpy
 from repro_torch.graphs import uniform_gnp
-from repro_torch.launch.mesh import BACKENDS, init_group
+from repro_torch.launch.mesh import BACKENDS, init_group, make_production_mesh
 from repro_torch.obs.timer import Stopwatch
 
 
@@ -49,12 +52,16 @@ def main(argv=None) -> int:
                                   init_method=args.init_method,
                                   device=args.device)
     try:
+        group, mesh_note = None, ""
+        if world >= 256:  # the reference's choice; raises past 256 ranks
+            mesh = make_production_mesh(device=dev)
+            group, mesh_note = mesh.world, f", mesh {mesh.shape}"
         g = uniform_gnp(args.n, args.deg / args.n, seed=args.seed, device=dev)
         if rank == 0:
-            print(f"world {world} ({dist.get_backend()}), rank 0 on {dev}; "
-                  f"schedule={args.schedule}", flush=True)
+            print(f"world {world} ({dist.get_backend()}){mesh_note}, rank 0 "
+                  f"on {dev}; schedule={args.schedule}", flush=True)
         with Stopwatch() as sw:
-            dist_row, phases = run_distributed(g, None, 0,
+            dist_row, phases = run_distributed(g, group, 0,
                                                schedule=args.schedule,
                                                device=dev)
             row = dist_row.cpu().numpy()

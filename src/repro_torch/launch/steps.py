@@ -3,10 +3,12 @@ abstract inputs (counterpart of ``repro.launch.steps``).
 
 The ``abstract_*`` functions build shapes on the meta device (no storage),
 as the reference's ``jax.eval_shape`` does. :func:`build_step` is the
-counterpart of ``build_cell`` without the lowering: PyTorch has no
-ahead-of-time lowering of a program for a mesh, so it returns the step
+counterpart of ``build_cell`` without the lowering: it returns the step
 itself, a plain function over the placement it names, for the rank that
-calls it.
+calls it. Where the reference lowers and compiles a cell for a mesh the
+host does not hold, ``launch.dryrun`` runs this step once as one rank of
+a fake world over fake tensors (``make_production_mesh``), which counts
+the same things without storage.
 """
 from __future__ import annotations
 

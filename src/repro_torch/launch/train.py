@@ -8,8 +8,9 @@ Runs ``runtime.train_loop.train`` with the reference's optimizer settings
 line. ``--smoke`` takes the architecture's smoke config. Alone it trains
 on the card (``--device cpu`` for the host). Under ``torchrun`` every rank
 joins the default group (NCCL, one rank a card; gloo with ``--device
-cpu``) and trains on the reference's host mesh, ``(n // tp, tp)`` with
-``tp = min(2, n)``:
+cpu``) and trains on the reference's mesh: the production ``(16, 16)``
+mesh (``make_production_mesh``) where the world holds 256 ranks or more,
+else the host mesh ``(n // tp, tp)`` with ``tp = min(2, n)``:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch \\
         qwen3_moe_235b --smoke --steps 3
@@ -24,7 +25,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data.pipeline import DataConfig
-from repro_torch.launch.mesh import init_group, init_mesh
+from repro_torch.launch.mesh import init_group, init_mesh, make_production_mesh
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.runtime.train_loop import train
 
@@ -47,7 +48,8 @@ def main(argv=None) -> int:
     mesh = rank = None
     if "RANK" in os.environ:  # under torchrun: the reference's host mesh
         rank, n, dev = init_group(device=args.device)
-        mesh = init_mesh(tp=min(2, n), device=dev)
+        mesh = (make_production_mesh(device=dev) if n >= 256
+                else init_mesh(tp=min(2, n), device=dev))
     try:
         res = train(
             cfg, steps=args.steps,

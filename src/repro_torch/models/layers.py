@@ -360,7 +360,11 @@ def _moe_dispatch_compute(cfg: ModelConfig, router, xt, capacity: int,
     ranks = torch.empty_like(rank_sorted)
     ranks[order] = rank_sorted
     if before is not None:
-        ranks = ranks + before(torch.bincount(eid, minlength=E))[eid]
+        # per-expert counts (a bincount of length exactly E: eid < E)
+        counts = torch.zeros(E, dtype=torch.int64, device=eid.device)
+        counts.scatter_add_(0, eid.long(),
+                            torch.ones_like(eid, dtype=torch.int64))
+        ranks = ranks + before(counts)[eid]
     keep = ranks < C
     dest = torch.where(keep, eid * C + ranks, E * C)  # E*C => dropped
 
@@ -400,7 +404,7 @@ def apply_moe(cfg: ModelConfig, p, x, shd: ShardingCtx | None = None):
       ``moe_capacity`` of all B * S tokens. On a mesh whose activations
       hold the rank's batch block, each data rank dispatches its own tokens
       with the ranks they have among the whole batch's (the per-expert
-      counts of the blocks before it, gathered over "data").
+      counts of the blocks before it, gathered over the data axes).
     """
     B, S, D = x.shape
     if shd is None or shd.mesh is None:
@@ -417,8 +421,8 @@ def apply_moe(cfg: ModelConfig, p, x, shd: ShardingCtx | None = None):
         mesh = shd.mesh
 
         def before(counts):
-            every = comm.all_gather(mesh, "data", counts[None], 0)
-            return every[:mesh.coord("data")].sum(dim=0)
+            every = comm.all_gather(mesh, shd.dp, counts[None], 0)
+            return every[:mesh.coord(shd.dp)].sum(dim=0)
     T = B * S
     y = _moe_dispatch_compute(cfg, p.router, x.reshape(T, D),
                               moe_capacity(cfg, batch * S),

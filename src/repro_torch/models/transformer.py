@@ -53,6 +53,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.config import resolve_device
+from repro_torch.kernels.embed_grad import EmbedLookup
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ShardingCtx
 from repro_torch.sharding import comm
@@ -322,12 +323,14 @@ def _gather_batch(x, shd: ShardingCtx | None):
     """The whole batch of a per-block output (logits)."""
     if shd is None or not shd.split:
         return x
-    return comm.all_gather(shd.mesh, "data", x, 0)
+    return comm.all_gather(shd.mesh, shd.dp, x, 0)
 
 
 def _embed_tokens(params: LM, tokens):
-    flat = torch.index_select(params.embed, 0, tokens.reshape(-1))
-    return flat.reshape(*tokens.shape, params.embed.shape[1])
+    """The embedding's rows of ``tokens``; the gradient sums them back in
+    a fixed order (``kernels.embed_grad``), so it has the same bits on
+    every run."""
+    return EmbedLookup.apply(params.embed, tokens)
 
 
 def _vision(params: LM, batch):
@@ -428,7 +431,7 @@ def chunked_ce_loss(cfg, h, lm_head, labels, shd: ShardingCtx | None = None,
                                    use_reentrant=False)
     if shd is None:
         return total / (B * S)
-    return comm.mean_over(shd.mesh, "data", total / (B * S))
+    return comm.mean_over(shd.mesh, shd.dp, total / (B * S))
 
 
 def train_loss(cfg: ModelConfig, params: LM, batch,

@@ -41,7 +41,6 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.config import resolve_device
-from repro_torch.launch.mesh import AXES
 from repro_torch.models import leaf_paths
 from repro_torch.sharding import comm
 from repro_torch.sharding.partition import stacked
@@ -257,7 +256,7 @@ def _counted(mesh, pl) -> bool:
     used = {a for a in pl.dims if a is not None}
     if pl.owner is not None:
         used.add("data")
-    return all(mesh.coords[a] == 0 for a in AXES if a not in used)
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in used)
 
 
 def _apply_sharded(params: nn.Module, mesh, grads: dict, state: dict,

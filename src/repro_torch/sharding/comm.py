@@ -32,9 +32,13 @@ the mesh); one of a single rank is skipped. They run on
 ``launch.collectives`` (under gloo a CUDA tensor goes through pinned host
 memory and back, the same staging as the SSSP stepper's ``Comm``);
 ``mesh.stats``, where set, counts the bytes
-each collective takes from this rank (``bytes``, ``collectives``) and the
-host seconds of the all-to-alls, the device synchronised on both sides
-(``all_to_all_s``, ``all_to_alls``).
+each collective takes from this rank (``bytes``, ``collectives``), the
+bytes of its result by the reference's kind (``by_kind``: a broadcast from
+a unit leaf's owner counts as an all-gather of the leaf, a reduce onto it
+as a reduce-scatter of it, the moves XLA makes for them under the
+reference's FSDP) and the host seconds of the all-to-alls, the device
+synchronised on both sides (``all_to_all_s``, ``all_to_alls``; not on a
+fake group, whose tensors may have no storage).
 """
 from __future__ import annotations
 
@@ -45,18 +49,27 @@ from repro_torch.launch.mesh import Mesh
 
 
 def _group(mesh: Mesh, axis):
-    return mesh.world if axis is None else mesh.groups[axis]
+    return mesh.group(axis)
 
 
 def _size(mesh: Mesh, axis) -> int:
     return mesh.size(tuple(mesh.axis_names) if axis is None else axis)
 
 
-def _count(mesh: Mesh, t: torch.Tensor) -> None:
+def _count(mesh: Mesh, t: torch.Tensor, kind: str, result_bytes: int) -> None:
+    """Count one collective that takes ``t`` from this rank and gives it
+    ``result_bytes``, under the reference's ``kind`` (its dry run's
+    ``_COLLECTIVES``): the collective the program asks for, however the
+    backend stages it."""
     if mesh.stats is not None:
-        mesh.stats["bytes"] = mesh.stats.get("bytes", 0) + (
-            t.numel() * t.element_size())
-        mesh.stats["collectives"] = mesh.stats.get("collectives", 0) + 1
+        st = mesh.stats
+        st["bytes"] = st.get("bytes", 0) + t.numel() * t.element_size()
+        st["collectives"] = st.get("collectives", 0) + 1
+    coll.count(mesh.stats, kind, result_bytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _block(t: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:
@@ -79,9 +92,10 @@ def _join(parts: torch.Tensor, dim: int) -> torch.Tensor:
 def all_gather(mesh: Mesh, axis, x: torch.Tensor, dim: int) -> torch.Tensor:
     """Every rank's ``x`` along ``axis``, joined on ``dim`` in coordinate
     order."""
-    if _size(mesh, axis) == 1:
+    n = _size(mesh, axis)
+    if n == 1:
         return x
-    _count(mesh, x)
+    _count(mesh, x, "all-gather", n * _nbytes(x))
     return _join(coll.all_gather(_group(mesh, axis), mesh.device, x), dim)
 
 
@@ -89,7 +103,7 @@ def all_reduce(mesh: Mesh, axis, x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over ``axis`` (a new tensor)."""
     if _size(mesh, axis) == 1:
         return x.clone()
-    _count(mesh, x)
+    _count(mesh, x, "all-reduce", _nbytes(x))
     return coll.all_reduce(_group(mesh, axis), mesh.device, x)
 
 
@@ -98,7 +112,7 @@ def reduce_scatter(mesh: Mesh, axis, x: torch.Tensor, dim: int) -> torch.Tensor:
     n = _size(mesh, axis)
     if n == 1:
         return x.clone()
-    _count(mesh, x)
+    _count(mesh, x, "reduce-scatter", _nbytes(x) // n)
     rows = x.movedim(dim, 0).unflatten(0, (n, -1))
     out = coll.reduce_scatter(_group(mesh, axis), mesh.device, rows)
     return out.movedim(0, dim).contiguous()
@@ -111,9 +125,10 @@ def broadcast(mesh: Mesh, axis: str, x: torch.Tensor, src: int,
     if mesh.size(axis) == 1:
         return x
     if mesh.coord(axis) == src:
-        _count(mesh, x)
+        _count(mesh, x, "all-gather", _nbytes(x))
     else:
         x = torch.empty(shape, dtype=dtype, device=mesh.device)
+        _count(mesh, x[:0], "all-gather", _nbytes(x))
     return coll.broadcast(_group(mesh, axis), mesh.device, x,
                           mesh.global_rank(**{axis: src}))
 
@@ -123,7 +138,7 @@ def reduce_to(mesh: Mesh, axis: str, x: torch.Tensor, dst: int):
     None elsewhere."""
     if mesh.size(axis) == 1:
         return x.clone()
-    _count(mesh, x)
+    _count(mesh, x, "reduce-scatter", _nbytes(x))
     out = coll.reduce(_group(mesh, axis), mesh.device, x,
                       mesh.global_rank(**{axis: dst}))
     return out if mesh.coord(axis) == dst else None
@@ -135,10 +150,12 @@ def all_to_all_blocks(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     n = mesh.size(axis)
     if n == 1:
         return x
-    _count(mesh, x)
+    _count(mesh, x, "all-to-all", _nbytes(x))
     rows = x.unflatten(0, (n, -1))
-    out = coll.clocked(mesh.stats, mesh.device, lambda: coll.all_to_all(
-        _group(mesh, axis), mesh.device, rows), "all_to_all_s", "all_to_alls")
+    group = _group(mesh, axis)
+    out = coll.clocked(mesh.stats, mesh.device,
+                       lambda: coll.all_to_all(group, mesh.device, rows),
+                       "all_to_all_s", "all_to_alls", group)
     return out.flatten(0, 1)
 
 
@@ -239,7 +256,7 @@ def gather_blocks(mesh: Mesh, axis: str, x: torch.Tensor, dim: int):
     return _GatherBlocks.apply(x, mesh, axis, dim, False)
 
 
-def copy_to(mesh: Mesh, axis: str, x: torch.Tensor):
+def copy_to(mesh: Mesh, axis, x: torch.Tensor):
     """``x`` as the input of work that differs along ``axis`` (backward:
     the gradient summed over it)."""
     if mesh.size(axis) == 1:
@@ -254,7 +271,7 @@ def all_to_all(mesh: Mesh, axis: str, x: torch.Tensor):
     return _AllToAll.apply(x, mesh, axis)
 
 
-def mean_over(mesh: Mesh, axis: str, x: torch.Tensor):
+def mean_over(mesh: Mesh, axis, x: torch.Tensor):
     """The mean over ``axis`` of each rank's ``x`` (backward: the gradient
     over the axis's size)."""
     if mesh.size(axis) == 1:
@@ -267,7 +284,12 @@ def gather_param(mesh: Mesh, x: torch.Tensor, dims: tuple, owner,
     """A parameter of ``shape`` whole, from this rank's block ``x``:
     ``dims`` names the axis of each dim (None, "data" or "model"),
     ``owner`` the data coordinate that holds the leaf where the reference
-    gives a unit stack to "data" (None otherwise)."""
+    gives a unit stack to "data" (None otherwise). A parameter is whole on
+    every "pod" (the reference's FSDP shards over "data" alone), so its
+    gradient is also summed over "pod"."""
+    pods = tuple(a for a in mesh.axis_names if a not in ("data", "model"))
+    if owner is not None or "data" in dims:
+        x = copy_to(mesh, pods, x)
     if owner is not None:
         local = list(shape)
         for i, a in enumerate(dims):
@@ -279,7 +301,7 @@ def gather_param(mesh: Mesh, x: torch.Tensor, dims: tuple, owner,
         if mesh.size("data") > 1:
             x = _GatherBlocks.apply(x, mesh, "data", dims.index("data"), True)
     else:
-        x = copy_to(mesh, "data", x)
+        x = copy_to(mesh, pods + ("data",), x)
     if "model" in dims:
         x = gather_blocks(mesh, "model", x, dims.index("model"))
     return x

@@ -1471,7 +1471,7 @@ def test_analysis_card_checks_find_nothing(cuda):
 
     findings, rows, stats = audit_card()
     assert findings == [], [str(f) for f in findings]
-    assert len(rows) == 10 and stats["poisoned_cells"] == 0
+    assert len(rows) == 11 and stats["poisoned_cells"] == 0
 
 
 # ---- the LM substrate's serving path (no kernel of its own: its products
@@ -1838,3 +1838,57 @@ def test_collectives_nccl_world_of_one(cuda, tmp_path):
         _collectives_on_the_card(1, 0, dev)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,rows,d", [
+    ((2, 5), 7, 3), ((4, 2048), 92672, 64), ((8, 512), 1000, 300),
+    ((1, 4096), 50, 2048), ((0,), 4, 8)])
+def test_embed_grad_matches_twin_and_itself(cuda, shape, rows, d, dtype,
+                                            offset):
+    """The fixed-order embedding gradient against its twin, bit for bit,
+    and two launches against each other: repeated ids (a token that takes
+    a quarter of the positions), ids that never occur, D off the 16-byte
+    width (one column a thread) and on it (16 bytes a thread), a gradient
+    off a 16-byte boundary (``offset``), -0 gradients; f32 and bf16."""
+    from repro_torch.kernels.embed_grad import embed_grad
+
+    rng = np.random.default_rng(rows + d)
+    ids = rng.integers(0, rows, size=shape).astype(np.int32)
+    ids.reshape(-1)[::4] = rows // 2  # a hot token
+    g = rng.standard_normal(shape + (d,)).astype(np.float32)
+    g.reshape(-1, d)[::3, 0] = np.float32(-0.0)
+    flat = _t(np.concatenate([np.zeros(offset, np.float32), g.reshape(-1)]),
+              cuda).to(dtype)
+    g_c, ids_c = flat[offset:].view(g.shape), _t(ids, cuda)
+    before = embed_grad.launches
+    got = embed_grad(g_c, ids_c, rows)
+    again = embed_grad(g_c, ids_c, rows)
+    want = ref.embed_grad_ref(g_c, ids_c, rows)
+    torch.cuda.synchronize()
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(view), want.view(view))
+    assert torch.equal(got.view(view), again.view(view))
+    assert embed_grad.launches == before + (2 if rows else 0)
+
+
+def test_embed_grad_bit_stable_through_a_training_step(cuda):
+    """internlm2's smoke config, f32: two runs of the loss and gradients on
+    one card give every leaf, the embedding's included, in the same
+    bits (the lookup's backward is the fixed-order kernel)."""
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.kernels.embed_grad import embed_grad
+    from repro_torch.models import init_params
+    from repro_torch.runtime.train_loop import value_and_grad
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke("internlm2_1_8b")
+    model = init_params(cfg, seed=0, device=cuda)
+    batch = batch_for(cfg, DataConfig(batch=4, seq_len=64), 0, device=cuda)
+    before = embed_grad.launches
+    l1, g1 = value_and_grad(cfg, model, batch)
+    l2, g2 = value_and_grad(cfg, model, batch)
+    assert embed_grad.launches == before + 2
+    assert torch.equal(l1, l2)
+    assert [n for n in g1 if not torch.equal(g1[n], g2[n])] == []

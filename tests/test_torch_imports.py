@@ -58,6 +58,8 @@ def test_port_files_exist():
     assert {pkg / "sharding" / "partition.py", pkg / "sharding" / "comm.py",
             pkg / "launch" / "steps.py", pkg / "launch" / "collectives.py",
             pkg / "runtime" / "elastic.py"} <= set(FILES)
+    assert {pkg / "launch" / "dryrun.py",
+            pkg / "kernels" / "embed_grad.py"} <= set(FILES)
     archs = {p.stem for p in (pkg / "configs").glob("*.py")}
     assert len(archs - {"__init__", "base"}) == 10, sorted(archs)
 
@@ -72,7 +74,8 @@ def test_port_files_exist():
     "repro_torch.checkpoint.manager", "repro_torch.runtime.train_loop",
     "repro_torch.launch.train", "repro_torch.sharding.partition",
     "repro_torch.sharding.comm", "repro_torch.launch.steps",
-    "repro_torch.runtime.elastic", "repro_torch.launch.collectives"])
+    "repro_torch.runtime.elastic", "repro_torch.launch.collectives",
+    "repro_torch.launch.dryrun", "repro_torch.kernels.embed_grad"])
 def test_new_modules_import_without_jax(module):
     """Each module of the portfolio, fault and resilience tiers, the CLI,
     the sharded stepper, the launchers and the LM substrate (serving,
