@@ -230,11 +230,12 @@ failure raises, exits non-zero and prints no ``ok`` line:
      chunked cross-entropy against ``forward_logits``'s, the three remat
      choices against each other (B = 2 x 1024), the card's gradients
      against the CPU's by relative L2 error (B = 1 x 128); (c) the timed
-     run, ``internlm2-1.8b`` at full depth and width: ``train()`` for 4
-     steps (6 until phase 29 came; the script's time limit), B = 4 x 2048,
-     f32 parameters, m bf16, v factored, full remat, a checkpoint every 2
-     steps (two kept: the disk must hold two, ~11.3 GB each, or the phase
-     fails), then a second ``train()`` resumed from step 2 after step 4's
+     run, ``internlm2-1.8b`` at full width on LM_TRAIN_UNITS of its 24
+     units (all 24 until the tensor-parallel mesh came; the script's time
+     limit): ``train()`` for 4 steps (6 until phase 29 came), B = 4 x
+     2048, f32 parameters, m bf16, v factored, full remat, a checkpoint
+     every 2 steps (two kept: the disk must hold two, ~6 GB each at 12
+     units, ~11.3 GB at 24, or the phase fails), then a second ``train()`` resumed from step 2 after step 4's
      checkpoint is removed, its losses within rtol 1e-4 of the first
      run's; ms a step (median of steps 2-4), tokens/s and
      peak memory beside their bounds, a ``torch.profiler`` split of one
@@ -243,10 +244,11 @@ failure raises, exits non-zero and prints no ``ok`` line:
      ``python -m repro_torch.launch.train --arch internlm2_1_8b --smoke
      --steps 3`` in a subprocess on the card. No SSSP kernel may launch on
      this path.
- 29. The LM substrate on a mesh (``sharding/``, the expert-parallel MoE,
-     the sharded train and serve steps, elastic re-planning; no kernel of
-     ours, f32 with TF32 off). It runs right after phase 1, before any
-     graph is on the card: its ranks need the card's memory.
+ 29. The LM substrate on a mesh (``sharding/``: tensor, sequence and
+     expert parallel compute on the weights' own blocks, the sharded train
+     and serve steps, elastic re-planning; f32 with TF32 off; #12's block
+     form is its kernel). It runs right after phase 1, before any graph is
+     on the card: its ranks need the card's memory.
      The one-card twins of (b) and (c) run first and are freed; then 4
      gloo ranks share this card as a 2 x 2 (data, model) mesh
      (``torch.multiprocessing``, a ``file://`` store; a failed rank fails
@@ -255,8 +257,9 @@ failure raises, exits non-zero and prints no ``ok`` line:
      as ``apply_moe_ep_plain(2, 2)`` wherever the gate is on), one AdamW
      step (bf16 m, factored v) of the placed model and of the one-card
      model on the same gradients, ``build_step``'s whole train step
-     (timed, its gloo bytes), then the sharded prefill and 4 decode steps
-     against one card's, all within ``train_tol``; (b) ``qwen3-moe-235b``
+     (timed, its gloo bytes by kind), run twice and bit-equal in every
+     leaf, then the sharded prefill and 4 decode steps (each rank's slots
+     of the cache) against one card's, all within ``train_tol``; (b) ``qwen3-moe-235b``
      at published widths cut to 1 of 94 units, B = 2 x 1024, expert
      parallel, FSDP: the loss, the router's gradient and one expert's
      against the one-card plain twin, the step's ms, the all-to-alls'
@@ -273,7 +276,8 @@ failure raises, exits non-zero and prints no ``ok`` line:
      ``embed_grad``'s fixed-order sum), and ``qwen3-moe`` smoke against
      ``apply_moe_ep_plain(1, 1)``. One card runs these for correctness
      only: no number here is a sharded speed. No SSSP kernel may launch on
-     any rank; ``embed_grad`` must launch on every rank.
+     any rank; ``embed_grad``'s block form must launch on every rank of
+     the 2 x 2 world (the vocabulary-parallel lookup's gradient).
      After phase 28: ``embed_grad`` (#12, the lookup's gradient in a fixed
      order, the training path's one kernel: phase 28 must launch it and no
      SSSP kernel) at phase 28's shapes, against its twin and itself bit for
@@ -290,7 +294,13 @@ failure raises, exits non-zero and prints no ``ok`` line:
      tensors, then run for real with seeded blocks (never the whole
      model): the predicted peak within 15 % of the measured one, the traced
      FLOPs equal to a ``FlopCounterMode`` count of the real run, the logits'
-     shape (a fake world returns no data: sizes, not values).
+     shape (a fake world returns no data: sizes, not values); (c) #12's
+     block form (a rank's rows [5 V / 16, 6 V / 16) of the table, one data
+     rank's 16 x 4096 ids of the pod's ``train_4k``) against its twin and
+     itself bit for bit, timed beside the twin, ``index_add_`` of the
+     block's rows and its bound.
+
+Every phase's end is logged with its seconds and the run's so far.
 
 Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
 23–24, of 25 and of 26, on every rank, 28, 29 and 30) runs with the launch
@@ -302,7 +312,8 @@ fifth is phase 28's ``lm_training``; the fourth is phase 29's
 ``lm_mesh``; the third is phase 30's ``dry_run``; the second is the
 ``kernels`` JSON line (each row with its ``__global__`` kernels' ptxas
 ``registers``, ``smem_bytes`` and ``spills``; #1b rect and #2 with
-``launches_phase30``); the last line is ``{"ok": true, "device":
+``launches_phase30``; ``embed_grad[block]``, #12's block form, its
+launches rank 0's of phase 29's 2 x 2 world); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -322,6 +333,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+RUN_T0 = time.perf_counter()  # the run's start: every phase's end is logged
 
 # Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -345,6 +357,7 @@ LM_PROMPT_B, LM_PROMPT_S, LM_GEN = 4, 2048, 32  # the bf16 served run
 BF16_OPS_PER_S = 989e12  # bf16 dense, tensor cores
 # LM training (phase 28): the timed run, internlm2-1.8b at full width
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 2048, 4, 2
+LM_TRAIN_UNITS = 12  # (c) of internlm2-1.8b's 24: the script's time limit
 LM_TRAIN_CUT = 2  # layers of the full-width parity checks (b)
 LM_CUT_B, LM_CUT_S = 2, 1024  # (b) on the card: two cross-entropy chunks
 LM_HOST_B, LM_HOST_S = 1, 128  # (b) card against CPU
@@ -629,10 +642,14 @@ def kernel_counters() -> dict:
         ell_push_rect_batch, embed_grad)}
     # #10b: the sliced fused in-scan with the push as its relax sweep
     counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
+    # #12's block form: a rank's rows of the vocabulary-parallel embedding
+    counted[EMBED_BLOCK] = (embed_grad, "block_launches")
     return counted
 
 
-LM_KERNELS = ("embed_grad",)  # the LM's own kernels; the rest are SSSP's
+EMBED_BLOCK = "embed_grad[block]"  # #12 on a rank's block of the table
+# the LM's own kernels; the rest are SSSP's
+LM_KERNELS = ("embed_grad", EMBED_BLOCK)
 
 
 def sssp_launched(counts: dict) -> dict:
@@ -1383,7 +1400,8 @@ def lm_full_width_cut(dev) -> dict:
 def lm_training_phase(dev, run_peak: list) -> dict:
     """Phase 28: LM training. (a) every smoke config, card against CPU;
     (b) internlm2-1.8b at full width on LM_TRAIN_CUT layers; (c) the timed
-    run at full depth and width, its resume, a profiled step and the
+    run at full width on LM_TRAIN_UNITS units, its resume, a profiled
+    step and the
     checkpoint's cost; (d) the launcher in a subprocess."""
     import shutil
     import tempfile
@@ -1425,8 +1443,8 @@ def lm_training_phase(dev, run_peak: list) -> dict:
         f"{LM_HOST_S}) worst gradient relative L2 "
         f"{cut['card_vs_cpu_grad_rel_l2']} (limit {LM_CUT_GRAD_RL2})")
 
-    # (c) the timed run at full depth and width
-    cfg = get_config("internlm2-1.8b")
+    # (c) the timed run at full width, LM_TRAIN_UNITS of the 24 units
+    cfg = lm_cut("internlm2-1.8b", LM_TRAIN_UNITS)
     n_params = param_count(init_params(cfg, device="meta"))
     ocfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS,
                      m_dtype="bfloat16", v_mode="factored")
@@ -1718,6 +1736,17 @@ def lm_mesh_smoke(arch: str, mesh, dev) -> dict:
     torch.cuda.synchronize()
     out["grad_ms"] = (time.perf_counter() - t0) * 1e3
     step_stats, mesh.stats = mesh.stats, None
+    # the tensor-parallel step's bits repeat (every sum over gloo in rank
+    # order, the embedding's gradient in a fixed order): a second run
+    loss2, grads2 = value_and_grad(cfg, model, batch, shd)
+    moved = [n for n in names if not torch.equal(grads[n], grads2[n])]
+    if moved or not torch.equal(loss, loss2):
+        raise SystemExit(f"lm mesh {arch}: a second run of the sharded step "
+                         f"differs in the loss or the leaves {moved}")
+    out["bit_stable"] = True
+    out["step_by_kind"] = dict(step_stats.get("by_kind", {}))
+    out["step_moved"] = dict(step_stats.get("moved", {}))
+    del loss2, grads2
     got = [gather_param(model, n, grads[n]) for n in names]
     one = copy.deepcopy(whole).to(dev)
     if lead:
@@ -2183,9 +2212,9 @@ def lm_mesh_phase(dev, smi: str, run_peak: list) -> dict:
             if ran:
                 raise SystemExit(f"phase 29 rank {rep['rank']} launched SSSP "
                                  f"kernels: {ran}")
-            if rep["launches"]["embed_grad"] <= 0:
+            if rep["launches"][EMBED_BLOCK] <= 0:
                 raise SystemExit(f"phase 29 rank {rep['rank']} never "
-                                 "launched embed_grad")
+                                 "launched embed_grad's block form")
         result["launches"] = reports[0]["launches"]
         result["rank_peak_gib"] = [rep["peak_gib"] for rep in reports]
         result["smoke"] = {arch: reports[0]["smoke"][arch] for arch in ARCHS}
@@ -2440,6 +2469,63 @@ def embed_grad_times(dev) -> dict:
             "longest_run": int(torch.bincount(flat).max())}
 
 
+def embed_block_times(dev) -> dict:
+    """``embed_grad``'s block form (#12 on a rank's rows of the
+    vocabulary-parallel embedding) at the pod's ``train_4k`` shapes for
+    ``EMBED_ARCH``: one data rank's batch block (256 / 16 sequences of
+    4096 tokens of step 0) and model rank 5's block of the table (rows
+    [5 V / 16, 6 V / 16)); an f32 gradient seeded. Against its twin bit
+    for bit and twice against itself, then timed (CUDA events) beside the
+    twin, ``index_add_`` of the block's rows (one PyTorch call, on the
+    rows and ids already selected) and the bound: the block's gradient
+    rows and every id read once, the block's table written once."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embed_grad import embed_grad
+
+    cfg = get_config(EMBED_ARCH)
+    spec = SHAPES["train_4k"]
+    ids = batch_for(cfg, DataConfig(batch=spec.global_batch // 16,
+                                    seq_len=spec.seq_len), 0,
+                    device=dev)["tokens"]
+    rows, d = cfg.vocab_pad // 16, cfg.d_model
+    row0 = 5 * rows
+    gen = torch.Generator(device=dev).manual_seed(12)
+    g = torch.randn(ids.shape + (d,), generator=gen, device=dev)
+    g.view(-1, d)[::3, 0] = -0.0
+    got = embed_grad(g, ids, rows, row0)
+    again = embed_grad(g, ids, rows, row0)
+    want = ref.embed_grad_ref(g, ids, rows, row0)
+    torch.cuda.synchronize()
+    if not (same_bits(got, want) and same_bits(got, again)):
+        raise SystemExit("embed_grad's block form disagrees with its twin "
+                         "or itself")
+    flat = ids.reshape(-1).long() - row0
+    inside = (flat >= 0) & (flat < rows)
+    local, g_in = flat[inside], g.view(-1, d)[inside]
+
+    def library():
+        return torch.zeros((rows, d), device=dev).index_add_(0, local, g_in)
+
+    if not torch.allclose(library(), want, rtol=1e-5, atol=1e-5):
+        raise SystemExit("index_add_ of the block differs from the twin")
+    n, n_in = flat.numel(), int(inside.sum())
+    nbytes = n_in * d * 4 + n * 4 + rows * d * 4
+    b_ms, by = bound(nbytes, n_in * d)
+    return {"ms": time_ms(lambda: embed_grad(g, ids, rows, row0), 20),
+            "plain_ms": time_ms(lambda: ref.embed_grad_ref(g, ids, rows,
+                                                           row0), 3,
+                                warmup=1),
+            "library_ms": time_ms(library, 20), "bound_ms": b_ms,
+            "bound_by": by, "max_abs_err": max_abs_err(got, want),
+            "tokens": n, "tokens_in_block": n_in, "rows": rows,
+            "row0": row0, "d": d,
+            "longest_run": int(torch.bincount(local).max())}
+
+
 def dry_run_phase(dev, smi: str, run_peak: list, counted: dict) -> dict:
     """Phase 30: ``launch.dryrun`` as rank 0 of the fake pod (256 ranks) on
     the card. (a) ``run_sssp``'s cell at its defaults, both schedules: one
@@ -2602,6 +2688,17 @@ def dry_run_phase(dev, smi: str, run_peak: list, counted: dict) -> dict:
     finally:
         tdist.destroy_process_group()
     torch.cuda.synchronize()
+    # (c) #12's block form at the pod's train_4k shapes
+    zero()
+    result["embed_block"] = embed_block_times(dev)
+    eb = result["embed_block"]
+    log(f"embed_grad block form [{smi}] {EMBED_ARCH} train_4k on the pod: "
+        f"{eb['tokens']} ids of a data rank ({eb['tokens_in_block']} in the "
+        f"block, longest run {eb['longest_run']}), rows [{eb['row0']}, "
+        f"{eb['row0'] + eb['rows']}) x {eb['d']} f32: {eb['ms']:.4f} ms (twin "
+        f"{eb['plain_ms']:.3f}, index_add_ of the block's rows "
+        f"{eb['library_ms']:.4f}, bound {eb['bound_ms']:.4f} "
+        f"{eb['bound_by']}); bit-equal to its twin and to itself")
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     result["seconds"] = time.perf_counter() - t30
@@ -2764,6 +2861,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # nothing here multiplies;
     torch.backends.cudnn.allow_tf32 = False  # set so no reader has to ask
 
+    marks = [("1", RUN_T0)]
+
+    def phase_mark(label):
+        """Log the seconds of the phase that ends here (and of the run so
+        far); ``label`` is the next phase's (None: the last ended)."""
+        prev, since = marks[-1]
+        t = time.perf_counter()
+        log(f"phase {prev} ended: {t - since:.1f} s, {t - RUN_T0:.1f} s into "
+            "the run")
+        marks.append((label, t))
+
     # ---- 1. device and build -------------------------------------------
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -2798,6 +2906,7 @@ def main() -> int:
                 f"{r['smem_bytes']} bytes smem, spills {r['spill_stores']} / "
                 f"{r['spill_loads']} bytes ({len(r['instances'])} instances)")
 
+    phase_mark("29")
     # ---- 29. the LM substrate on a mesh, run here: its four ranks share
     # the card's memory, which no graph holds yet ---------------------------
     zero_counts()
@@ -2834,6 +2943,7 @@ def main() -> int:
                   for f in (old, new)]
         return turns, dev_ms
 
+    phase_mark("2")
     # ---- 2. kernel parity at full width ----------------------------------
     t0 = time.perf_counter()
     g = uniform_gnp(N, P, seed=SEED, device=dev)
@@ -2975,6 +3085,7 @@ def main() -> int:
         "shared and per-lane keys]: bits equal")
     del rounds, wants, outs, crit_cases, d, st, k
 
+    phase_mark("3")
     # ---- 3. the main path, serving ---------------------------------------
     sources = np.random.default_rng(1).integers(0, g.n, REQUESTS)
     rows, req_phases, launches, serve_s, steps, trips = serve(
@@ -2993,6 +3104,7 @@ def main() -> int:
     if any(pulled.values()):
         raise SystemExit(f"the main path launched another relax: {pulled}")
 
+    phase_mark("4")
     # ---- 4. end-to-end parity on the card --------------------------------
     src8 = sources[:LANES]
     torch.cuda.synchronize()
@@ -3034,6 +3146,7 @@ def main() -> int:
     log("e2e: the 8 served rows equal the batch solve's rows bit for bit")
     del res_p
 
+    phase_mark("5")
     # ---- 5. independent check against scipy ------------------------------
     import scipy.sparse as sp
     from scipy.sparse.csgraph import dijkstra
@@ -3059,6 +3172,7 @@ def main() -> int:
     if not (same_set and close):
         raise SystemExit("row 0 disagrees with scipy's Dijkstra")
 
+    phase_mark("6")
     # ---- 6. kernel times at the main shape --------------------------------
     # The kernels' inputs of one real phase: phase MID_PHASE of the B = 8
     # solve above, built with the policy's own ops (crit thresholds, the
@@ -3216,6 +3330,7 @@ def main() -> int:
         f"push {dense_push_ms:.4f} ms")
     del st_mid, dmask_mid, settle_mid, d_mid, s_mid, dm8u, dm_mid
 
+    phase_mark("7")
     # ---- 7. the dynamic-key kernels at full width ------------------------
     spec = {k.name: k for k in C.plan_for("insimple|in|outweak|out").keys}
 
@@ -3299,6 +3414,7 @@ def main() -> int:
               ref.ell_keys_dep_batch_ref(gates, dga8, dgb8, dep, cols_o, ws_o))
     del g_dyn, g_weak, gates, dga8, dgb8
 
+    phase_mark("8")
     # ---- 8. in|out, serving ---------------------------------------------
     rows_io, req_phases_io, launches_io, serve_io_s, steps_io, trips_io = \
         serve(StaticBackend(g, criterion="in|out", device=dev), sources)
@@ -3314,6 +3430,7 @@ def main() -> int:
     if launches_io["ell_relax_batch"] != 0:
         raise SystemExit("the in|out path launched ell_relax_batch")
 
+    phase_mark("9")
     # ---- 9. in|out end to end ---------------------------------------------
     io_kw = dict(ell=(cols, ws), ell_out=(cols_o, ws_o), criterion="in|out",
                  device=dev)
@@ -3368,6 +3485,7 @@ def main() -> int:
     log(f"finding: in|out and instatic|outstatic dist rows bit-equal: "
         f"{np.array_equal(dist_io.view(np.int32), dist_k.view(np.int32))}")
 
+    phase_mark("10")
     # ---- 10. insimple|outsimple at full width, DYN_TRIPS trips ------------
     st0 = init_batch_state(g, src8, criterion="insimple|outsimple", device=dev)
     torch.cuda.synchronize()
@@ -3406,6 +3524,7 @@ def main() -> int:
                          "priming read the unsettled gate from status)")
     del st0, st_k, st_p
 
+    phase_mark("11")
     # ---- 11. key kernels' times on one real phase of the in|out solve -----
     st_io = init_batch_state(g, src8, criterion="in|out", device=dev)
     st_io = step_batch(g, st_io, total_io // 2, ell=(cols, ws),
@@ -3610,6 +3729,7 @@ def main() -> int:
     del st_io, d_io, s_io, g_od, dga_io, dgb_io, keys_io, thr_keys, mins_io
     del settle_io, dmask_io, ga_io, gb_io, gc_io, gate_io, row_io
 
+    phase_mark("12")
     # ---- 12. the skewed graph and its sliced views -------------------------
     t0 = time.perf_counter()
     gk = from_coo(*coo_k, device=dev)  # kronecker(KRON_K, device=dev)
@@ -3647,6 +3767,7 @@ def main() -> int:
         padded = kops.pad_lane_batch(vecs.reshape(-1, vecs.shape[-1]))
         return sum(finite_slots(padded, s.cols.long()) for s in view.slices)
 
+    phase_mark("13")
     # ---- 13. sliced kernel parity at full width -----------------------------
     nk = gk.n
     rng = np.random.default_rng(13)
@@ -3820,6 +3941,7 @@ def main() -> int:
                                              zs_out))
     del zs_in, zs_out, zd, zv, zp, zpull, zpush, ztwin
 
+    phase_mark("14")
     # ---- 14. sliced serving on the skewed graph ----------------------------
     has_out = torch.nonzero(out_degrees(gk) >= 1).squeeze(1).cpu().numpy()
     src_k = np.random.default_rng(2).choice(has_out, REQUESTS)
@@ -3855,6 +3977,7 @@ def main() -> int:
         if any(l_s[name] for name in never):
             raise SystemExit(f"sliced {crit} serving launched one of {never}")
 
+    phase_mark("15")
     # ---- 15. end-to-end parity on the sliced layout -------------------------
     src8_k = src_k[:LANES]
     real_k = torch.isfinite(gk.w)
@@ -3973,6 +4096,7 @@ def main() -> int:
         f"field, instatic|outstatic and in|out")
     del sl_g
 
+    phase_mark("16")
     # ---- 16. sliced kernel times on one real phase --------------------------
     # relax sweep: the settle mask of phase total // 2 of the B = 8
     # instatic|outstatic solve; fused scans: phase total // 2 of in|out
@@ -4155,6 +4279,7 @@ def main() -> int:
             f"{REQUESTS / s_s:.2f} queries/s, {np.mean(list(ph_s.values())):.1f}"
             f" phases per request")
     del st_k16, st_kio, relax16, dm16, dmask_io16, ga16, gb16, gc16, gdense
+    phase_mark("17")
     # ---- 17. a sliced view with more buckets than one launch takes --------
     # G(10^5, 10^-3) (in-degrees ~ 100 +- 10) sliced at widths 64, 68, ...,
     # 136: every width has rows, so a pass runs in groups of 16 buckets
@@ -4225,6 +4350,7 @@ def main() -> int:
     del gm, mv_in, mv_out, res_m, res_pad
     log(f"many-bucket phase: {time.perf_counter() - t0:.1f} s")
 
+    phase_mark("18")
     # ---- 18. ContinuousBatcher on G(10^6, 10^-4), padded --------------------
     # (a) the default plan: 40 requests from seed 3, 32 distinct sources and
     # 8 repeats, in 4 bursts of 10 (one before each of the first 4 step()
@@ -4405,6 +4531,7 @@ def main() -> int:
     log(f"in|out points launches: {launches_p}")
     log(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
+    phase_mark("19")
     # ---- 19. run_point_to_point --------------------------------------------
     t19 = time.perf_counter()
 
@@ -4548,6 +4675,7 @@ def main() -> int:
                "point_to_point_sliced": launches_qs["instatic|outstatic"],
                "point_to_point_sliced_in_out": launches_qs["in|out"]}
 
+    phase_mark("20")
     # ---- 20. delta-stepping at full width -----------------------------------
     t20 = time.perf_counter()
     delta_g, delta_k = default_delta(g), default_delta(gk)
@@ -4806,6 +4934,7 @@ def main() -> int:
         f" (default {sliced_solve['instatic|outstatic'][0] / sliced_solve['instatic|outstatic'][1] * 1e3:.3f}, phase 15)")
     log(f"phase 20: {time.perf_counter() - t20:.1f} s")
 
+    phase_mark("21")
     # ---- 21. oracle plans ---------------------------------------------------
     # dist_true: phase 4's kernel solve (the f32 fixed point of these
     # sources); an oracle settle takes d <= dist_true + 1e-6 (1 + |dist_true|)
@@ -4880,6 +5009,7 @@ def main() -> int:
     del rp, lane0, tol_hi
     log(f"phase 21: {time.perf_counter() - t21:.1f} s")
 
+    phase_mark("22")
     # ---- 22. telemetry rings ------------------------------------------------
     t22 = time.perf_counter()
     for plan, base_res, delta in (("instatic|outstatic", res_k, None),
@@ -4944,6 +5074,7 @@ def main() -> int:
         del st_t, res_t, records, obs22
     log(f"phase 22: {time.perf_counter() - t22:.1f} s")
 
+    phase_mark("23")
     # ---- 23. the engine portfolio -------------------------------------------
     t23 = time.perf_counter()
     import repro_torch.serving.backends as backends_mod
@@ -5178,6 +5309,7 @@ def main() -> int:
         log(f"  | {line}")
     log(f"phase 23: {time.perf_counter() - t23:.1f} s")
 
+    phase_mark("24")
     # ---- 24. chaos and recovery -----------------------------------------------
     t24 = time.perf_counter()
     from repro_torch.serving.resilience import _verify_edges
@@ -5393,6 +5525,7 @@ def main() -> int:
     tmp_ctx.cleanup()
     log(f"phase 24: {time.perf_counter() - t24:.1f} s")
 
+    phase_mark("25")
     # ---- 25. the execution config and the analysis gate ---------------------
     t25 = time.perf_counter()
     # (a) the gate in a subprocess: lint, the CPU audit, and the card checks
@@ -5521,6 +5654,7 @@ def main() -> int:
         f"compile_count {compile_count()} in the run")
     log(f"phase 25: {time.perf_counter() - t25:.1f} s")
 
+    phase_mark("26")
     # ---- 26. the sharded stepper over torch.distributed ---------------------
     import tempfile
 
@@ -5739,6 +5873,7 @@ def main() -> int:
     shutil.rmtree(job26, ignore_errors=True)
     log(f"phase 26: {time.perf_counter() - t26:.1f} s")
 
+    phase_mark("27")
     # ---- 27. LM serving ----------------------------------------------------
     zero_counts()
     lm27 = lm_serving_phase(dev, smi, run_peak)
@@ -5747,13 +5882,14 @@ def main() -> int:
         raise SystemExit(f"phase 27 launched SSSP kernels: {lm_counts}")
     by_path["lm serving"] = lm_counts
 
+    phase_mark("28")
     # ---- 28. LM training ---------------------------------------------------
     zero_counts()
     lm28 = lm_training_phase(dev, run_peak)
     lm_counts = read_counts()
     if sssp_launched(lm_counts):  # its one kernel is the lookup's gradient
         raise SystemExit(f"phase 28 launched SSSP kernels: {lm_counts}")
-    must_run(lm_counts, LM_KERNELS, "phase 28")
+    must_run(lm_counts, ("embed_grad",), "phase 28")
     by_path["lm training"] = lm_counts
     embed_row = embed_grad_times(dev)
     log(f"embed_grad [{smi}] {EMBED_ARCH} B={LM_TRAIN_B} x {LM_TRAIN_S} "
@@ -5765,6 +5901,7 @@ def main() -> int:
         f"to its twin and to itself; {lm_counts['embed_grad']} launches in "
         f"phase 28")
 
+    phase_mark("30")
     # ---- 30. the dry run on the card -----------------------------------
     dry30 = dry_run_phase(dev, smi, run_peak, counted)
     by_path["dry run sssp (rank 0 of the fake pod)"] = {
@@ -5772,7 +5909,8 @@ def main() -> int:
         for k in counted}
     tr = lm28["timed"]
     bd = tr["bound"]
-    log(f"lm train internlm2-1.8b [{smi}] f32, B={tr['batch']} x {tr['seq']}, "
+    log(f"lm train internlm2-1.8b ({LM_TRAIN_UNITS} of 24 units) [{smi}] "
+        f"f32, B={tr['batch']} x {tr['seq']}, "
         f"full remat, AdamW (m bf16, v factored): {tr['ms_per_step']:.1f} ms "
         f"a step (median of steps 2-{LM_TRAIN_STEPS}; bound "
         f"{bd['step_ms']:.1f}, {bd['step_by']}: {bd['step_ops']:.3e} f32 "
@@ -5797,7 +5935,9 @@ def main() -> int:
 
     # phase 29 ran after phase 1
     by_path["lm mesh (this process)"] = lm29_counts
-    by_path["lm mesh (rank 0 of the 2 x 2 world)"] = lm29.pop("launches")
+    lm29_rank0 = lm29.pop("launches")
+    by_path["lm mesh (rank 0 of the 2 x 2 world)"] = lm29_rank0
+    eblock = dry30["embed_block"]
 
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
@@ -5943,6 +6083,20 @@ def main() -> int:
          "library_ms": embed_row["library_ms"],
          "shape": [embed_row["tokens"], embed_row["rows"], embed_row["d"]],
          "longest_run": embed_row["longest_run"]},
+        # #12's block form: a rank's rows of the vocabulary-parallel
+        # embedding (phase 29's tensor-parallel steps launch it; its
+        # launches are rank 0's of the 2 x 2 world); timed in phase 30 at
+        # the pod's train_4k shapes
+        {"name": EMBED_BLOCK, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/embed_grad.cu",
+         "replaces": "src/repro/models/transformer.py:211",
+         "launches": lm29_rank0[EMBED_BLOCK],
+         "max_abs_err": eblock["max_abs_err"], "ms": eblock["ms"],
+         "plain_ms": eblock["plain_ms"], "bound_ms": eblock["bound_ms"],
+         "bound_by": eblock["bound_by"], "library_ms": eblock["library_ms"],
+         "shape": [eblock["tokens"], eblock["rows"], eblock["d"]],
+         "row0": eblock["row0"], "tokens_in_block": eblock["tokens_in_block"],
+         "longest_run": eblock["longest_run"]},
     ]
     # phase 30: the dry run's SSSP phase on rank 0 of the fake pod
     for row in kernels:
@@ -5968,7 +6122,8 @@ def main() -> int:
     # their spilled bytes (stores + loads)
     contracts = collect_contracts()
     for row in kernels:
-        name = row["name"].replace("[out_view]", "_push")
+        name = row["name"].replace("[out_view]", "_push").replace(
+            "[block]", "")
         used = {f"{src}.cu:{k}": resources[src][k]
                 for src, k in contracts.get(name).kernels}
         row["registers"] = max(r["registers"] for r in used.values())
@@ -5985,6 +6140,7 @@ def main() -> int:
                     PUSH_IN_SCAN: "sliced"}.get(row["name"])
         if fused_of is not None:  # in|out ms/phase, split against fused
             row["in_out_ms_phase"] = fusion[fused_of][0]
+    phase_mark(None)
     print(json.dumps({"lm_serving": lm27}), flush=True)
     print(json.dumps({"lm_training": lm28}), flush=True)
     print(json.dumps({"lm_mesh": lm29}), flush=True)

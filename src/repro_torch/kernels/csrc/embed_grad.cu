@@ -15,7 +15,11 @@
 // The wrapper (kernels/embed_grad.py) sorts the flat ids with a stable
 // sort and hands over the permutation `perm` (positions in token order,
 // each token's run in position order) and `starts` (rows + 1 offsets of
-// the runs, a binary search of the sorted ids). EMBED_ROW_BLOCKS blocks
+// the runs, a binary search of the sorted ids). The block form (a rank's
+// rows [row0, row0 + rows) of a vocabulary-parallel embedding) sorts the
+// ids less row0: ids before the block sort ahead of run 0 and ids after it
+// behind the last, so the kernel, which reads only the runs, skips them
+// with no test of its own. EMBED_ROW_BLOCKS blocks
 // walk the table's rows (block x owns rows x, x + gridDim.x, ...); a
 // thread owns V neighbouring columns of a row (16 bytes: 4 f32 or 8 bf16,
 // or one column where the row is not 16-byte aligned), walks the row's

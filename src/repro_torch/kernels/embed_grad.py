@@ -11,6 +11,14 @@ order is fixed: the ids are sorted with a stable sort into runs
 (``ref.embed_runs``), and ``csrc/embed_grad.cu`` sums each run in order
 into its row, one thread a column, with no atomics.
 
+The block form (``row0``): a table of ``num_rows`` rows that is the block
+[row0, row0 + num_rows) of a larger one (the rank's block of a
+vocabulary-parallel embedding); ids outside it are skipped. The wrapper
+shifts the ids by ``row0`` before the sort, so the ids before the block
+sort ahead of every run and those after it behind: the kernel reads only
+the runs and needs no change for it. ``embed_grad.block_launches`` counts
+the block form's launches (within ``launches``).
+
 A tensor on the CPU runs the plain twin ``ref.embed_grad_ref`` (the same
 adds in the same order); a CUDA tensor launches the kernel or raises. A
 fake tensor (``FakeTensorMode``: the dry run's, which has no data to sort)
@@ -35,12 +43,14 @@ _SIGNATURES = {
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's table types
 
 
-def embed_grad(grad: torch.Tensor, ids: torch.Tensor,
-               num_rows: int) -> torch.Tensor:
+def embed_grad(grad: torch.Tensor, ids: torch.Tensor, num_rows: int,
+               row0: int | None = None) -> torch.Tensor:
     """Returns the (num_rows, D) gradient of ``table[ids]`` for ``grad``
     of shape ``ids.shape + (D,)`` (or (N, D) for N ids), in ``grad``'s
     dtype (f32 or bf16 on the card). ``ids`` are integers in [0,
-    num_rows), as the lookup took them."""
+    num_rows), as the lookup took them; with ``row0`` the table is rows
+    [row0, row0 + num_rows) of a larger one, the ids index that one, and
+    those outside the block add nowhere."""
     num_rows = int(num_rows)
     if ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"want int32 or int64 ids; got {ids.dtype}")
@@ -55,14 +65,15 @@ def embed_grad(grad: torch.Tensor, ids: torch.Tensor,
     if is_fake(grad):
         flat = ids.reshape(-1).to(torch.int64)
         return grad.new_zeros((num_rows, d)).index_add_(
-            0, flat, grad.reshape(-1, d))
+            0, flat.clamp(0, max(num_rows - 1, 0)), grad.reshape(-1, d))
     if runs_twin(grad):
-        return ref.embed_grad_ref(grad, ids, num_rows)
+        return ref.embed_grad_ref(grad, ids, num_rows, row0)
     if grad.dtype not in DTYPES:
         raise TypeError(f"the kernel sums f32 or bf16 tables; got "
                         f"{grad.dtype}")
     grad = grad.reshape(-1, d).contiguous()
-    perm, starts = ref.embed_runs(ids, num_rows)
+    perm, starts = ref.embed_runs(ids if row0 is None else ids - row0,
+                                  num_rows)
     out = torch.empty((num_rows, d), dtype=grad.dtype, device=grad.device)
     if num_rows == 0 or d == 0:
         return out
@@ -73,27 +84,41 @@ def embed_grad(grad: torch.Tensor, ids: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"embed_grad launch failed: CUDA error {rc}")
     embed_grad.launches += 1
+    if row0 is not None:
+        embed_grad.block_launches += 1
     return out
 
 
 embed_grad.launches = 0  # kernel launches since the last reset
+embed_grad.block_launches = 0  # of which the block form's
 
 
 class EmbedLookup(torch.autograd.Function):
     """``table[ids]`` (``index_select`` over the flat ids), whose gradient
-    is :func:`embed_grad`'s fixed-order sum."""
+    is :func:`embed_grad`'s fixed-order sum. With ``row0`` the table is
+    the block [row0, row0 + rows) of a larger one (a rank's block of a
+    vocabulary-parallel embedding): an id outside it gives a row of zeros
+    and adds to no gradient row."""
 
     @staticmethod
-    def forward(ctx, table: torch.Tensor, ids: torch.Tensor):
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor,
+                row0: int | None = None):
         ctx.save_for_backward(ids)
-        ctx.rows = table.shape[0]
-        return torch.index_select(table, 0, ids.reshape(-1)).reshape(
-            *ids.shape, table.shape[1])
+        ctx.rows, ctx.row0 = table.shape[0], row0
+        flat = ids.reshape(-1)
+        if row0 is None:
+            out = torch.index_select(table, 0, flat)
+        else:
+            local = flat - row0
+            inside = (local >= 0) & (local < table.shape[0])
+            out = torch.index_select(table, 0, torch.where(inside, local, 0))
+            out = torch.where(inside[:, None], out, 0)
+        return out.reshape(*ids.shape, table.shape[1])
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return embed_grad(g, ids, ctx.rows), None
+        return embed_grad(g, ids, ctx.rows, ctx.row0), None, None
 
 
 def register_kernels(reg):
@@ -114,6 +139,11 @@ def register_kernels(reg):
             g = rng.standard_normal(shape + (d,)).astype(np.float32)
             g[..., 0] = np.float32(-0.0)  # -0 rows: the sum starts from +0
             out.append(R.SpecCase(label, (R._t(g), R._t(ids), rows)))
+        # the block form: rows [30, 60) of a 90-row table, ids all over it
+        rng = np.random.default_rng(44)
+        ids = rng.integers(0, 90, size=(3, 40)).astype(np.int32)
+        g = rng.standard_normal((3, 40, 12)).astype(np.float32)
+        out.append(R.SpecCase("block", (R._t(g), R._t(ids), 30, 30)))
         return tuple(out)
 
     reg.register(R.KernelContract(

@@ -385,7 +385,8 @@ def embed_runs(ids: torch.Tensor, num_rows: int):
     the flat positions sorted by token id, each token's run in position
     order (a stable sort), ``starts`` the (num_rows + 1,) int64 offsets of
     the runs (row v's run is ``perm[starts[v]:starts[v + 1]]``); ids past
-    ``num_rows`` sort after every run and are never read. No step reads a
+    ``num_rows`` sort after every run and negative ids before it, and
+    neither is read. No step reads a
     value back to the host (a bincount would, for its length)."""
     flat = ids.reshape(-1).to(torch.int64)
     keys, perm = torch.sort(flat, stable=True)
@@ -394,15 +395,16 @@ def embed_runs(ids: torch.Tensor, num_rows: int):
 
 
 def embed_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
-                   num_rows: int) -> torch.Tensor:
+                   num_rows: int, row0: int | None = None) -> torch.Tensor:
     """The gradient of ``table[ids]`` for a ``(num_rows, D)`` table:
     ``grad`` (N, D) for the N flat ids, summed into each id's row in
     position order, from +0, each add rounded to ``grad``'s type (the
     bits of a sequential ``index_add_``); rows no id names are +0. Step k
     adds the k-th row of every run that has one, so the order is fixed on
-    any device."""
+    any device. With ``row0`` the table is rows [row0, row0 + num_rows)
+    of a larger one that the ids index, and ids outside it are skipped."""
     grad = grad.reshape(-1, grad.shape[-1])
-    perm, starts = embed_runs(ids, num_rows)
+    perm, starts = embed_runs(ids if row0 is None else ids - row0, num_rows)
     counts = starts[1:] - starts[:-1]
     out = torch.zeros((num_rows, grad.shape[1]), dtype=grad.dtype,
                       device=grad.device)

@@ -20,6 +20,8 @@ in-place one with the rank's own input, the others unwritten.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
@@ -73,7 +75,7 @@ def _run(fn, src: torch.Tensor, rows: int, group, device: torch.device,
         fn(src.contiguous(), recv)
         return recv
     out = torch.empty((rows, length), dtype=src.dtype, device=device)
-    step = max(1, STAGE_BYTES // (max(k, rows) * src.element_size()))
+    step = max(1, STAGE_BYTES // (max(k, rows, 1) * src.element_size()))
     for lo in range(0, length, step):
         hi = min(lo + step, length)
         send = torch.empty((k, hi - lo), dtype=src.dtype, pin_memory=True)
@@ -116,6 +118,20 @@ def all_to_all(group, device, x: torch.Tensor) -> torch.Tensor:
     out = _run(lambda s, r: dist.all_to_all_single(r, s, group=group),
                x.reshape(n, -1), n, group, device)
     return out.view(x.shape)
+
+
+def all_to_all_v(group, device, x: torch.Tensor, send: list,
+                 recv: list) -> torch.Tensor:
+    """Rows of ``x`` (axis 0) to the ranks of ``group`` in rank order,
+    ``send[j]`` rows to rank j; the result holds ``recv[j]`` rows from each
+    rank j, in rank order (``all_to_all_single`` with split sizes; a rank
+    may send or take none)."""
+    rows = int(sum(recv))
+    flat = x.reshape(x.shape[0], math.prod(x.shape[1:]))
+    out = _run(lambda s, r: dist.all_to_all_single(
+        r, s, output_split_sizes=list(recv), input_split_sizes=list(send),
+        group=group), flat, rows, group, device)
+    return out.view((rows,) + tuple(x.shape[1:]))
 
 
 def reduce_scatter(group, device, x: torch.Tensor) -> torch.Tensor:

@@ -53,8 +53,10 @@ Each record holds the reference's keys:
 
 ``--no-shd`` maps to nothing: the reference drops its activation sharding
 constraints and lets XLA choose, while the port's step computes the
-rank's block of the batch and the sequence by construction (gather on
-use). It is recorded (``use_shd``) and changes no number.
+reference's partition by construction (tensor parallel over "model" on
+the weights' own blocks, the carry over the sequence, experts and
+vocabulary over "model"; ``models.transformer``). It is recorded
+(``use_shd``) and changes no number.
 
 The SSSP workload (``--workload sssp``) runs the legacy program
 (``core.distributed.make_distributed_sssp``) on real tensors, since it

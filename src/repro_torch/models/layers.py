@@ -20,14 +20,21 @@ checks read directly; the training step turns on the gradients of the
 model it trains (``runtime.train_loop.make_train_step``).
 
 ``shd`` (:class:`ShardingCtx`) carries the mesh of a sharded run; with it,
-``p`` is a placed module's view (``sharding.partition.Gathered``) and the
-MoE takes the reference's expert-parallel path where its gate lets it
-(``_apply_moe_ep``: two ``all_to_all_single``s over the model group).
-``shd=None`` is the single-device path.
+``p`` is a placed module's view (``sharding.partition.Gathered``: each
+weight the rank's block over "model"). Where the model axis has more than
+one rank, ``models.transformer`` runs each unit in the tensor-parallel
+forms at the end of this module (Megatron column -> row pairs: q / k / v,
+``wi`` / ``wg``, ``wz`` / ``wx`` / ``wdt`` column-parallel, ``wo`` and
+``out_proj`` row-parallel; :func:`enter` and :func:`leave` at a region's
+edges), and the MoE runs the rank's experts: the reference's
+expert-parallel path where its gate lets it (:func:`moe_ep_block`: two
+``all_to_all_single``s over the model group), else the global view
+(:func:`moe_tp_core`). ``shd=None`` is the single-device path.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -392,7 +399,8 @@ def ep_gate(cfg: ModelConfig, batch: int, seq: int, dp: int, tp: int) -> bool:
 
 def apply_moe(cfg: ModelConfig, p, x, shd: ShardingCtx | None = None):
     """Top-k MoE with sort-based capacity dispatch (dropping, static
-    shapes). Two paths, as the reference's:
+    shapes), on activations ``x`` replicated over "model" (on a mesh, the
+    rank's batch block). Two paths, as the reference's:
 
     * **expert parallel** (a mesh, and :func:`ep_gate`): each rank routes
       its own S / tp tokens of its batch block into a local (E, c_loc, D)
@@ -404,7 +412,9 @@ def apply_moe(cfg: ModelConfig, p, x, shd: ShardingCtx | None = None):
       ``moe_capacity`` of all B * S tokens. On a mesh whose activations
       hold the rank's batch block, each data rank dispatches its own tokens
       with the ranks they have among the whole batch's (the per-expert
-      counts of the blocks before it, gathered over the data axes).
+      counts of the blocks before it, gathered over the data axes); each
+      model rank runs its own E / tp experts and the outputs are summed
+      over "model" (:func:`moe_tp_core`).
     """
     B, S, D = x.shape
     if shd is None or shd.mesh is None:
@@ -416,17 +426,54 @@ def apply_moe(cfg: ModelConfig, p, x, shd: ShardingCtx | None = None):
     batch = B * shd.dp_size if shd.split else B
     if ep_gate(cfg, batch, S, shd.dp_size, shd.tp_size):
         return _apply_moe_ep(cfg, p, x, shd)
-    before = None
-    if shd.split and shd.dp_size > 1:
+    if shd.tp_size > 1:
         mesh = shd.mesh
-
-        def before(counts):
-            every = comm.all_gather(mesh, shd.dp, counts[None], 0)
-            return every[:mesh.coord(shd.dp)].sum(dim=0)
+        return comm.sum_over(mesh, shd.tp, moe_tp_core(
+            cfg, p, comm.copy_to(mesh, shd.tp, x), shd))
     T = B * S
     y = _moe_dispatch_compute(cfg, p.router, x.reshape(T, D),
                               moe_capacity(cfg, batch * S),
-                              lambda buf: _expert_ffn(p, buf), before)
+                              lambda buf: _expert_ffn(p, buf),
+                              _before(shd))
+    return y.reshape(B, S, D)
+
+
+def _before(shd: ShardingCtx):
+    """The global view's per-expert counts of the data blocks before this
+    rank's (None where the batch is whole on every data rank)."""
+    if not (shd.split and shd.dp_size > 1):
+        return None
+    mesh = shd.mesh
+
+    def before(counts):
+        every = comm.all_gather(mesh, shd.dp, counts[None], 0)
+        return every[:mesh.coord(shd.dp)].sum(dim=0)
+    return before
+
+
+def moe_tp_core(cfg: ModelConfig, p, x, shd: ShardingCtx):
+    """The global view on a mesh of tp > 1 for this rank's own experts:
+    ``x`` (B, S, D), the rank's batch block, whole over "model"; every
+    rank routes every token the same way, runs the E / tp experts it holds
+    on their rows of the buffer and gives zeros for the others' rows. The
+    result is this rank's partial sum of the output (``comm.sum_over`` or
+    ``comm.scatter_seq`` completes it); the router's gradient is partial
+    too, so it is summed over "model"."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    e_loc = E // shd.tp_size
+    e0 = shd.mesh.coord(shd.tp) * e_loc
+    batch = B * shd.dp_size if shd.split else B
+    router = comm.copy_to(shd.mesh, shd.tp, p.router)
+
+    def expert_fn(buf):  # (E, C, D): run rows [e0, e0 + e_loc) only
+        y = _expert_ffn(p, buf[e0:e0 + e_loc])
+        return torch.cat([y.new_zeros((e0,) + y.shape[1:]), y,
+                          y.new_zeros((E - e0 - e_loc,) + y.shape[1:])])
+
+    y = _moe_dispatch_compute(cfg, router, x.reshape(B * S, D),
+                              moe_capacity(cfg, batch * S), expert_fn,
+                              _before(shd))
     return y.reshape(B, S, D)
 
 
@@ -439,21 +486,29 @@ def ep_capacity(cfg: ModelConfig, tokens: int) -> int:
 
 def _apply_moe_ep(cfg: ModelConfig, p, x, shd: ShardingCtx):
     """The expert-parallel MoE on the rank's (B / dp, S, D) activations,
-    the same on every rank of its model group: route this rank's S / tp
-    tokens (a block-local ``c_loc``), send each expert's rows to the rank
-    that holds it, run the local E / tp experts, send the rows back, and
-    join the blocks' outputs over the sequence. The router sees only the
+    the same on every rank of its model group: this rank's S / tp tokens
+    through :func:`moe_ep_block`, the blocks' outputs joined over the
+    sequence."""
+    xb = comm.slice_block(shd.mesh, shd.tp, x, 1)  # (B/dp, S/tp, D)
+    return comm.gather_blocks(shd.mesh, shd.tp, moe_ep_block(cfg, p, xb, shd),
+                              1)
+
+
+def moe_ep_block(cfg: ModelConfig, p, xb, shd: ShardingCtx):
+    """The expert-parallel MoE on this rank's (B / dp, S / tp, D) block of
+    tokens (the sequence-parallel carry): route them (a block-local
+    ``c_loc``), send each expert's rows to the rank that holds it, run the
+    local E / tp experts, send the rows back. The router sees only the
     block's tokens, so its gradient is summed over "model" (and, as every
     weight's, over "data"); the experts' come back through the reverse
     all-to-all and are summed over "data" only."""
-    B, S, D = x.shape
+    D = xb.shape[-1]
     E = cfg.n_experts
     mesh, tp = shd.mesh, shd.tp_size
     e_loc = E // tp
-    xb = comm.slice_block(mesh, shd.tp, x, 1)  # (B/dp, S/tp, D)
     c_loc = ep_capacity(cfg, xb.shape[0] * xb.shape[1])
     router = comm.copy_to(mesh, shd.tp, p.router)
-    wi, wg, wo = p.local("wi"), p.local("wg"), p.local("wo")
+    wi, wg, wo = p.wi, p.wg, p.wo
 
     def expert_fn(buf):  # (E, c_loc, D): this block's rows for every expert
         recv = comm.all_to_all(mesh, shd.tp, buf)
@@ -469,7 +524,7 @@ def _apply_moe_ep(cfg: ModelConfig, p, x, shd: ShardingCtx):
 
     y = _moe_dispatch_compute(cfg, router, xb.reshape(-1, D), c_loc,
                               expert_fn)
-    return comm.gather_blocks(mesh, shd.tp, y.reshape(xb.shape), 1)
+    return y.reshape(xb.shape)
 
 
 def apply_moe_ep_plain(cfg: ModelConfig, p, x, dp: int, tp: int):
@@ -586,25 +641,16 @@ def _chunk_scan(decay, st):
     return torch.stack(out, dim=1)
 
 
-def _ssd(cfg: ModelConfig, p, u):
-    """The chunked SSD forward; returns (out, (x_pre, B_pre, C_pre), final
-    SSM state (B, H, N, P) f32). ``apply_mamba`` keeps the output; prefill
-    also keeps the pre-conv inputs and the state, which the reference gets
-    by running the projections and the scan a second time on the same
-    input."""
-    B, S, _ = u.shape
-    H, Pd, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    d_in = cfg.d_inner
-    f32 = torch.promote_types(u.dtype, torch.float32)  # f64 stays f64
-    z, x_pre, B_pre, C_pre, dt = _mamba_project(cfg, p, u)
-    x0, B0, C0 = _mamba_conv_all(cfg, p, x_pre, B_pre, C_pre)
-    x = x0.reshape(B, S, H, Pd)
-    rep = H // G
-    Bh = B0.reshape(B, S, G, N).repeat_interleave(rep, dim=2)  # (B,S,H,N)
-    Ch = C0.reshape(B, S, G, N).repeat_interleave(rep, dim=2)
-
-    dt = _softplus(dt.to(f32) + p.dt_bias)  # (B,S,H)
-    A = -torch.exp(p.A_log)  # (H,) negative
+def _ssd_core(cfg: ModelConfig, x, Bh, Ch, dt, A_log, Dv, dt_bias, dtype):
+    """The chunked scan of the heads of ``x`` (B, S, h, P) with their B / C
+    (B, S, h, N), raw dt (B, S, h) and per-head ``A_log``, ``D`` and
+    ``dt_bias``: (y (B, S, h * P) in ``dtype``, before the gate, the final
+    state (B, h, N, P)). Every head on its own: a mesh runs its heads."""
+    B, S, H, Pd = x.shape
+    N = Bh.shape[-1]
+    f32 = torch.promote_types(dtype, torch.float32)  # f64 stays f64
+    dt = _softplus(dt.to(f32) + dt_bias)  # (B,S,H)
+    A = -torch.exp(A_log)  # (H,) negative
     la = dt * A[None, None, :]  # log decay per step (B,S,H), <= 0
     xdt = x * dt[..., None].to(x.dtype)  # fold dt into input
 
@@ -622,7 +668,7 @@ def _ssd(cfg: ModelConfig, p, u):
     # cum_j) for i >= j; the mask goes INSIDE the exp (dif > 0 above the
     # diagonal would overflow it)
     dif = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     dec = torch.exp(dif.masked_fill(~mask[None, None, :, :, None], MASKED))
     scores = torch.einsum("bcihn,bcjhn->bcijh", cq, bq)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores * dec, xq)
@@ -637,11 +683,28 @@ def _ssd(cfg: ModelConfig, p, u):
                            cq * torch.exp(cum)[..., None], s_in)
 
     y = (y_intra + y_inter).reshape(B, S, H, Pd)
-    y = y + x.to(f32) * p.D[None, None, :, None]
-    y = y.reshape(B, S, d_in).to(u.dtype)
+    y = y + x.to(f32) * Dv[None, None, :, None]
+    return y.reshape(B, S, H * Pd).to(dtype), sscan[:, -1]
+
+
+def _ssd(cfg: ModelConfig, p, u):
+    """The chunked SSD forward; returns (out, (x_pre, B_pre, C_pre), final
+    SSM state (B, H, N, P) f32). ``apply_mamba`` keeps the output; prefill
+    also keeps the pre-conv inputs and the state, which the reference gets
+    by running the projections and the scan a second time on the same
+    input."""
+    B, S, _ = u.shape
+    H, Pd, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    z, x_pre, B_pre, C_pre, dt = _mamba_project(cfg, p, u)
+    x0, B0, C0 = _mamba_conv_all(cfg, p, x_pre, B_pre, C_pre)
+    rep = H // G
+    Bh = B0.reshape(B, S, G, N).repeat_interleave(rep, dim=2)  # (B,S,H,N)
+    Ch = C0.reshape(B, S, G, N).repeat_interleave(rep, dim=2)
+    y, state = _ssd_core(cfg, x0.reshape(B, S, H, Pd), Bh, Ch, dt, p.A_log,
+                         p.D, p.dt_bias, u.dtype)
     y = y * F.silu(z)
     y = rms_norm(y, p.norm, cfg.rms_eps)
-    return y @ p.out_proj, (x_pre, B_pre, C_pre), sscan[:, -1]
+    return y @ p.out_proj, (x_pre, B_pre, C_pre), state
 
 
 def apply_mamba(cfg: ModelConfig, p, u):
@@ -675,13 +738,28 @@ def _conv_step(seg, state_seg, w, b, window):
     return F.silu(out + b[None, :]), conv_in[:, 1:, :]
 
 
+def _ssd_step(x, Bh, Ch, dt, A_log, Dv, dt_bias, ssm, dtype):
+    """One token of the heads of ``x`` (B, h, P): s <- exp(dt A) s + dt B x;
+    y = C s + D x. Returns (y (B, 1, h * P) in ``dtype``, before the gate,
+    the new state (B, h, N, P))."""
+    B, H, Pd = x.shape
+    f32 = torch.float32
+    dt1 = _softplus(dt.to(f32) + dt_bias)  # (B,H)
+    A = -torch.exp(A_log)
+    decay = torch.exp(dt1 * A[None, :])  # (B,H)
+    xf = x.to(f32) * dt1[..., None]
+    s_new = ssm * decay[..., None, None] \
+        + Bh.to(f32)[..., :, None] * xf[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", Ch.to(f32), s_new)
+    y = y + x.to(f32) * Dv[None, :, None]
+    return y.reshape(B, 1, H * Pd).to(dtype), s_new
+
+
 def apply_mamba_decode(cfg: ModelConfig, p, u, state):
     """Single-token SSD step: s <- exp(dt A) s + dt B x ; y = C s + D x.
     Returns (out (B, 1, D), the new state dict); ``state`` is not written."""
     B = u.shape[0]
     H, Pd, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    d_in = cfg.d_inner
-    f32 = torch.float32
     z, x0, B0, C0, dt = _mamba_project(cfg, p, u)  # (B,1,*)
     x1, new_cx = _conv_step(x0, state["convx"], p.conv_wx, p.conv_bx,
                             cfg.ssm_conv)
@@ -690,21 +768,357 @@ def apply_mamba_decode(cfg: ModelConfig, p, u, state):
     C1, new_cc = _conv_step(C0, state["convc"], p.conv_wc, p.conv_bc,
                             cfg.ssm_conv)
 
-    x = x1.reshape(B, H, Pd)
     rep = H // G
     Bh = B1.reshape(B, G, N).repeat_interleave(rep, dim=1)  # (B,H,N)
     Ch = C1.reshape(B, G, N).repeat_interleave(rep, dim=1)
-    dt1 = _softplus(dt[:, 0, :].to(f32) + p.dt_bias)  # (B,H)
-    A = -torch.exp(p.A_log)
-    decay = torch.exp(dt1 * A[None, :])  # (B,H)
-    xf = x.to(f32) * dt1[..., None]
-    s_new = state["ssm"] * decay[..., None, None] \
-        + Bh.to(f32)[..., :, None] * xf[..., None, :]
-    y = torch.einsum("bhn,bhnp->bhp", Ch.to(f32), s_new)
-    y = y + x.to(f32) * p.D[None, :, None]
-    y = y.reshape(B, 1, d_in).to(u.dtype)
+    y, s_new = _ssd_step(x1.reshape(B, H, Pd), Bh, Ch, dt[:, 0, :], p.A_log,
+                         p.D, p.dt_bias, state["ssm"], u.dtype)
     y = y * F.silu(z)
     y = rms_norm(y, p.norm, cfg.rms_eps)
     out = y @ p.out_proj
+    return out, {"convx": new_cx, "convb": new_cb, "convc": new_cc,
+                 "ssm": s_new}
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism on a mesh (tp > 1): each rank computes its heads, its
+# columns of the FFN and its experts on the rank's blocks of the weights;
+# ``p`` is a placed module's view (``sharding.partition.Gathered``)
+# --------------------------------------------------------------------------
+
+def enter(shd: ShardingCtx, h, seq_split: bool):
+    """The input of a unit's column-parallel products from the carry ``h``:
+    the sequence-parallel block gathered whole (``comm.gather_seq``), or a
+    replicated carry marked as entering partial work (``comm.copy_to``).
+    Either way the backward sums the ranks' partial gradients."""
+    if seq_split:
+        return comm.gather_seq(shd.mesh, shd.tp, h, 1)
+    return comm.copy_to(shd.mesh, shd.tp, h)
+
+
+def leave(shd: ShardingCtx, y, seq_split: bool):
+    """A row-parallel product's partial sums ``y`` back to the carry: this
+    rank's block of their sum over the sequence (``comm.scatter_seq``), or
+    their replicated sum (``comm.sum_over``: decode, a sequence the model
+    axis does not split)."""
+    if seq_split:
+        return comm.scatter_seq(shd.mesh, shd.tp, y, 1)
+    return comm.sum_over(shd.mesh, shd.tp, y)
+
+
+def shared(shd: ShardingCtx, w):
+    """A leaf the reference replicates (a norm's scale, ``A_log``), read by
+    work that differs by model rank: its gradient is summed over
+    "model"."""
+    return comm.copy_to(shd.mesh, shd.tp, w)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """Which attention heads each model rank computes. A rank's block of
+    ``wq``'s columns (and of ``wo``'s rows) is H * dh / tp wide, which cuts
+    a head where dh does not divide it (40 or 56 heads over 16 ranks): a
+    head goes whole to the rank that holds its first column, so ranks
+    compute different numbers of heads, and the cut half of a head's
+    columns moves to that rank (``q_need``). Each rank also takes the K / V
+    heads its q heads read (``kv_need``; 2-10 KV heads over 16 ranks cut
+    them all). ``heads[r]`` / ``kv[r]``: rank r's q and KV heads;
+    ``head_kv[r]``: the index in ``kv[r]`` of each of its q heads."""
+
+    heads: tuple
+    kv: tuple
+    q_need: tuple
+    kv_need: tuple
+    head_kv: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def head_plan(n_heads: int, n_kv: int, d_head: int, tp: int) -> HeadPlan:
+    block = n_heads * d_head // tp
+    heads = tuple(tuple(h for h in range(n_heads) if h * d_head // block == r)
+                  for r in range(tp))
+    group = n_heads // n_kv
+    kv = tuple(tuple(sorted({h // group for h in hs})) for hs in heads)
+
+    def cols(ids):
+        return tuple(c for i in ids for c in range(i * d_head,
+                                                   (i + 1) * d_head))
+
+    return HeadPlan(heads, kv, tuple(cols(hs) for hs in heads),
+                    tuple(cols(k) for k in kv),
+                    tuple(tuple(kv[r].index(h // group) for h in heads[r])
+                          for r in range(tp)))
+
+
+def _rank_kv(k, v, head_kv: tuple):
+    """K / V (B, T, k, dh) of a rank's KV heads as ``_sdpa`` reads them for
+    its q heads: as they are where the q heads fall into equal consecutive
+    groups, else one K / V head a q head."""
+    nh, nk = len(head_kv), k.shape[2]
+    if nh % nk == 0 and head_kv == tuple(i // (nh // nk) for i in range(nh)):
+        return k, v
+    idx = torch.tensor(head_kv, dtype=torch.int64, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def apply_attention_tp(cfg, p, xw, positions, shd: ShardingCtx,
+                       kv_source=None, causal=True):
+    """:func:`apply_attention` for this rank's heads (:func:`head_plan`):
+    ``xw`` (B, S, D), the whole sequence of the rank's batch block; q / k /
+    v column-parallel on the rank's heads' columns, ``wo`` row-parallel on
+    their rows. Returns this rank's partial sum of the output (B, S, D)."""
+    plan = head_plan(cfg.n_heads, cfg.n_kv, cfg.d_head, shd.tp_size)
+    r = shd.mesh.coord(shd.tp)
+    B, S, _ = xw.shape
+    nh, nk, dh = len(plan.heads[r]), len(plan.kv[r]), cfg.d_head
+    # every rank takes its columns, with or without heads of its own: the
+    # exchanges are collectives
+    wq, wo = p.take("wq", 1, plan.q_need), p.take("wo", 0, plan.q_need)
+    wk, wv = p.take("wk", 1, plan.kv_need), p.take("wv", 1, plan.kv_need)
+    src = xw if kv_source is None else kv_source
+    T = src.shape[1]
+    q, k, v = xw @ wq, src @ wk, src @ wv
+    if cfg.qkv_bias:
+        q = q + p.take("bq", 0, plan.q_need)
+        k = k + p.take("bk", 0, plan.kv_need)
+        v = v + p.take("bv", 0, plan.kv_need)
+    if nh == 0:  # no head of its own: zeros, with k and v on the graph so
+        # that the backward runs every exchange's collective on every rank
+        return q @ wo + 0 * (k.sum() + v.sum())
+    q = q.reshape(B, S, nh, dh)
+    k, v = k.reshape(B, T, nk, dh), v.reshape(B, T, nk, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, shared(shd, p.q_norm), cfg.rms_eps)
+        k = rms_norm(k, shared(shd, p.k_norm), cfg.rms_eps)
+    if kv_source is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        k_pos = positions
+    else:
+        k_pos = torch.arange(T, device=xw.device)
+        causal = False
+    k, v = _rank_kv(k, v, plan.head_kv[r])
+    o = _sdpa(cfg, q, k, v, positions, k_pos, causal)
+    return o @ wo
+
+
+def kv_cache_blocks(cfg, p, src, shd: ShardingCtx, t_cache: int,
+                    seq_split: bool, rotate: bool):
+    """This rank's block of a K / V cache of ``t_cache`` slots whose first
+    T hold the keys and values of ``src`` (B, T, D), the whole sequence of
+    the rank's batch block: each rank projects its own block of wk / wv's
+    columns, then an all-to-all over "model" turns (every position, my
+    columns) into (my positions, every column) where the cache's sequence
+    is over "model" (``seq_split``), else an all-gather gives every rank
+    the whole. Then, per whole head, k_norm and (``rotate``) RoPE at the
+    slots' positions. Returns {"k", "v"}: (B, t_cache / tp or t_cache, K,
+    dh), zeros past T."""
+    mesh, tp = shd.mesh, shd.tp_size
+    K, dh = cfg.n_kv, cfg.d_head
+    k, v = src @ p.wk, src @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    B, T, c = k.shape
+    both = torch.stack([k, v], dim=2)  # (B, T, 2, c)
+    if seq_split:
+        n = t_cache // tp
+        me = mesh.coord(shd.tp)
+        cnt = [max(0, min((j + 1) * n, T) - j * n) for j in range(tp)]
+        rows = comm.all_to_all_rows(mesh, shd.tp,
+                                    both.transpose(0, 1).contiguous(), cnt,
+                                    [cnt[me]] * tp)  # (tp * cnt, B, 2, c)
+        whole = rows.reshape(tp, cnt[me], B, 2, c).permute(2, 1, 3, 0, 4)
+        t0, t = me * n, cnt[me]
+    else:
+        n, t0, t = t_cache, 0, T
+        whole = comm.all_gather(mesh, shd.tp, both[:, :, :, None], 3)
+    whole = whole.reshape(B, t, 2, K, dh)
+    k, v = whole[:, :, 0], whole[:, :, 1]
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.rms_eps)
+    if rotate:
+        k = rope(k, t0 + torch.arange(t, device=src.device), cfg.rope_theta)
+    out = {}
+    for name, x in (("k", k), ("v", v)):
+        out[name] = x.new_zeros((B, n, K, dh))
+        out[name][:, :t] = x
+    return out
+
+
+def _decode_qkv(cfg, p, x, shd: ShardingCtx, kv: bool):
+    """q (B, 1, H, dh) of every head, after q_norm, and (``kv``) the new k
+    / v (B, 1, K, dh), after k_norm: each rank projects its own blocks of
+    the columns and one all-gather (a few KB) joins them."""
+    B = x.shape[0]
+    H, K, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    parts = [x @ p.wq + (p.bq if cfg.qkv_bias else 0)]
+    if kv:
+        parts += [x @ p.wk + (p.bk if cfg.qkv_bias else 0),
+                  x @ p.wv + (p.bv if cfg.qkv_bias else 0)]
+    sizes = [t.shape[-1] for t in parts]
+    every = comm.all_gather(shd.mesh, shd.tp, torch.cat(parts, -1)[:, :, None],
+                            2)  # (B, 1, tp, sum of sizes)
+    split = torch.split(every, sizes, dim=-1)
+    q = split[0].reshape(B, 1, H, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.rms_eps)
+    if not kv:
+        return q, None, None
+    k = split[1].reshape(B, 1, K, dh)
+    v = split[2].reshape(B, 1, K, dh)
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.rms_eps)
+    return q, k, v
+
+
+def _decode_attend(cfg, p, q, ck, cv, valid, shd: ShardingCtx,
+                   seq_split: bool):
+    """Every head of ``q`` (B, 1, H, dh) over this rank's slots of ``ck`` /
+    ``cv`` (B, n, K, dh) (``valid``: the slots it may read, None for all),
+    and this rank's rows of ``wo``: its partial sum of the output. Where
+    the slots are the rank's block of the sequence, the blocks' softmax
+    partials (the outputs unnormalised, maxima, sums) are all-gathered and
+    combined by log-sum-exp in rank order; where every rank holds every
+    slot, each computes the reference's softmax whole."""
+    B, n, K, dh = ck.shape
+    H = cfg.n_heads
+    qg = q.reshape(B, 1, K, H // K, dh)
+    s = torch.einsum("bckgd,btkd->bkgct", qg, ck).to(torch.float32)
+    s = s / math.sqrt(dh)
+    if valid is not None:
+        s = s.masked_fill(~valid, MASKED)
+    if not seq_split:
+        a = torch.softmax(s, dim=-1).to(cv.dtype)
+        o = torch.einsum("bkgct,btkd->bckgd", a, cv).reshape(B, 1, H * dh)
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        part = torch.einsum("bkgct,btkd->bckgd", e.to(cv.dtype), cv)
+        pack = torch.cat([part.to(torch.float32).reshape(B, H * dh),
+                          m.reshape(B, H), e.sum(dim=-1).reshape(B, H)], -1)
+        every = comm.all_gather(shd.mesh, shd.tp, pack[None], 0)
+        o_r, m_r, l_r = torch.split(every, [H * dh, H, H], dim=-1)
+        top = m_r.amax(dim=0)
+        num = den = 0
+        for j in range(every.shape[0]):  # fixed rank order
+            w = torch.exp(m_r[j] - top)
+            num = num + w.repeat_interleave(dh, dim=-1) * o_r[j]
+            den = den + w * l_r[j]
+        o = (num / den.repeat_interleave(dh, dim=-1)).to(cv.dtype)
+        o = o.reshape(B, 1, H * dh)
+    c = H * dh // shd.tp_size
+    lo = shd.mesh.coord(shd.tp) * c
+    return o[..., lo:lo + c] @ p.wo
+
+
+def apply_attention_decode_tp(cfg, p, x, cache, pos: int,
+                              shd: ShardingCtx, seq_split: bool):
+    """:func:`apply_attention_decode` on this rank's block of the cache
+    (``seq_split``: the slots [r * n, (r + 1) * n) of the sequence; else
+    the whole): q of every head and the new K / V gathered, slot ``pos``
+    written IN PLACE by the rank that holds it, every head attended over
+    the rank's slots. Returns this rank's partial sum of the output."""
+    q, k_new, v_new = _decode_qkv(cfg, p, x, shd, kv=True)
+    pos_arr = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q = rope(q, pos_arr, cfg.rope_theta)
+    k_new = rope(k_new, pos_arr, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    n = ck.shape[1]
+    lo = shd.mesh.coord(shd.tp) * n if seq_split else 0
+    if lo <= pos < lo + n:
+        ck[:, pos - lo] = k_new[:, 0].to(ck.dtype)
+        cv[:, pos - lo] = v_new[:, 0].to(cv.dtype)
+    valid = lo + torch.arange(n, device=x.device) <= pos
+    return _decode_attend(cfg, p, q, ck, cv, valid, shd, seq_split)
+
+
+def apply_cross_attention_decode_tp(cfg, p, x, cache, shd: ShardingCtx,
+                                    seq_split: bool):
+    """:func:`apply_cross_attention_decode` on this rank's block of the
+    static cross-attention cache: this rank's partial sum of the output."""
+    q, _, _ = _decode_qkv(cfg, p, x, shd, kv=False)
+    return _decode_attend(cfg, p, q, cache["xk"], cache["xv"], None, shd,
+                          seq_split)
+
+
+def _gated_norm_tp(cfg, y, z, scale, shd: ShardingCtx):
+    """``rms_norm(y * silu(z), norm)`` over the whole d_inner, of which this
+    rank holds a block of channels: the sum of squares all-reduced over
+    "model", the rest per channel. Every rank scales its own channels by
+    the sum, so its gradient is summed over "model" too."""
+    y = y * F.silu(z)
+    yf = y.float()
+    ss = comm.sum_over(shd.mesh, shd.tp, (yf * yf).sum(-1))
+    var = shared(shd, ss) / cfg.d_inner
+    inv = torch.rsqrt(var + cfg.rms_eps)[..., None].to(y.dtype)
+    return y * inv * scale.to(y.dtype)
+
+
+def _rank_heads(cfg, shd: ShardingCtx):
+    """(first SSD head, heads) of this rank, and each one's B / C group
+    (a tensor)."""
+    hl = cfg.ssm_heads // shd.tp_size
+    h0 = shd.mesh.coord(shd.tp) * hl
+    per = cfg.ssm_heads // cfg.ssm_groups
+    return h0, hl, [(h0 + i) // per for i in range(hl)]
+
+
+def _group_rows(cfg, bc, groups, dim: int):
+    """The rows of B / C ``bc`` (..., G * N) for heads in ``groups``: (...,
+    h, N), inserted at ``dim``."""
+    shape = bc.shape[:-1] + (cfg.ssm_groups, cfg.ssm_state)
+    idx = torch.tensor(groups, dtype=torch.int64, device=bc.device)
+    return bc.reshape(shape).index_select(dim, idx)
+
+
+def apply_mamba_tp(cfg, p, u, shd: ShardingCtx, collect: bool = False):
+    """:func:`apply_mamba` for this rank's SSD heads: ``u`` (B, S, D), the
+    whole sequence of the rank's batch block; ``wz`` / ``wx`` / ``wdt`` and
+    the convolutions on the rank's channels, ``wb`` / ``wc`` on its block
+    of the B / C columns, whose convolved outputs are all-gathered (the
+    heads read their group's, which a block may cut), the gated norm over
+    the whole d_inner, ``out_proj`` row-parallel. Returns (this rank's
+    partial sum of the output, and with ``collect`` its blocks of the
+    decode state: the last ssm_conv - 1 pre-conv inputs of its channels,
+    its heads' final state)."""
+    B, S, _ = u.shape
+    Pd, k = cfg.ssm_head_dim, cfg.ssm_conv
+    z, x_pre, B_pre, C_pre, dt = _mamba_project(cfg, p, u)
+    x0, B0, C0 = _mamba_conv_all(cfg, p, x_pre, B_pre, C_pre)
+    bc = comm.gather_seq(shd.mesh, shd.tp, torch.stack([B0, C0], 2), 3)
+    h0, hl, groups = _rank_heads(cfg, shd)
+    bc = _group_rows(cfg, bc, groups, 3)  # (B, S, 2, h, N)
+    sl = slice(h0, h0 + hl)
+    y, state = _ssd_core(cfg, x0.reshape(B, S, hl, Pd), bc[:, :, 0],
+                         bc[:, :, 1], dt, shared(shd, p.A_log)[sl],
+                         shared(shd, p.D)[sl], shared(shd, p.dt_bias)[sl],
+                         u.dtype)
+    out = _gated_norm_tp(cfg, y, z, p.norm, shd) @ p.out_proj
+    if not collect:
+        return out, None
+    return out, {"convx": x_pre[:, S - k + 1:].clone(),
+                 "convb": B_pre[:, S - k + 1:].clone(),
+                 "convc": C_pre[:, S - k + 1:].clone(), "ssm": state}
+
+
+def apply_mamba_decode_tp(cfg, p, u, state, shd: ShardingCtx):
+    """:func:`apply_mamba_decode` on this rank's blocks of the state (its
+    channels' conv windows, its heads' SSM state): the new B / C columns
+    all-gathered (a few KB). Returns (this rank's partial sum of the
+    output, its new blocks of the state)."""
+    B = u.shape[0]
+    Pd, k = cfg.ssm_head_dim, cfg.ssm_conv
+    z, x0, B0, C0, dt = _mamba_project(cfg, p, u)  # (B,1,*)
+    x1, new_cx = _conv_step(x0, state["convx"], p.conv_wx, p.conv_bx, k)
+    B1, new_cb = _conv_step(B0, state["convb"], p.conv_wb, p.conv_bb, k)
+    C1, new_cc = _conv_step(C0, state["convc"], p.conv_wc, p.conv_bc, k)
+    bc = comm.all_gather(shd.mesh, shd.tp, torch.stack([B1, C1], 1), 2)
+    h0, hl, groups = _rank_heads(cfg, shd)
+    bc = _group_rows(cfg, bc, groups, 2)  # (B, 2, h, N)
+    sl = slice(h0, h0 + hl)
+    y, s_new = _ssd_step(x1.reshape(B, hl, Pd), bc[:, 0], bc[:, 1],
+                         dt[:, 0, :], p.A_log[sl], p.D[sl], p.dt_bias[sl],
+                         state["ssm"], u.dtype)
+    out = _gated_norm_tp(cfg, y, z, p.norm, shd) @ p.out_proj
     return out, {"convx": new_cx, "convb": new_cb, "convc": new_cc,
                  "ssm": s_new}

@@ -5,7 +5,10 @@ When ranks are lost, the relaunch picks the largest usable mesh from the
 ranks that remain and restores the newest checkpoint onto that topology:
 ``CheckpointManager.restore`` places each rank's block of the whole leaves
 per the new mesh's shardings (``runtime.train_loop.train`` does so on
-start), so a change of topology needs nothing more.
+start), and the step's tensor-parallel forms read the new model axis at
+run time (which heads a rank computes, its block of the vocabulary, of
+the experts and of the cache), so a change of topology needs nothing
+more.
 
 Policy (greedy, model-axis-preserving): keep the model axis at the largest
 power-of-two divisor of the rank count that divides the requested degree;

@@ -2,47 +2,77 @@
 each (the port's own module: the reference leaves them to GSPMD and
 ``shard_map``).
 
-A rank computes most of a unit on the whole of its batch block, the same
-on every rank of its model group: those values are *replicated* over
-"model", and each rank's autograd computes their whole gradient. So:
+The mesh computes as the reference's partition rules say (Megatron-style
+tensor parallelism, sequence parallelism, expert parallelism): a unit's
+weights stay on their blocks over "model" and the activations move. Two
+kinds of value meet there. A *replicated* value is the same on every rank
+of the model group, and each rank's autograd computes its whole gradient;
+a rank's *partial* work (its heads, its columns of the FFN, its block of
+the vocabulary, its experts) gives each rank part of a gradient, which the
+rule at the region's edge sums. So:
 
+  * :func:`gather_seq` (every rank's block -> the whole, which each rank
+    then uses for its own part of the work: the sequence-parallel carry at
+    a unit's products, Mamba's B / C columns) has the backward
+    reduce-scatter, a sum;
+  * :func:`scatter_seq` (a row-parallel product's partial sums -> this
+    rank's block of their sum over the sequence) has the backward
+    all-gather;
+  * :func:`sum_over` (partial sums -> their replicated sum, where the
+    sequence does not split: decode) has the backward identity;
+  * :func:`exchange` moves the columns of a weight's block that another
+    rank's heads read (K / V heads that a block cuts, the half of a q head
+    a block cuts) to that rank; the backward sends their gradients back
+    and sums them onto the block;
   * :func:`slice_block` (a replicated value -> this rank's block) has the
     backward all-gather;
-  * :func:`gather_blocks` (every rank's block -> the replicated whole) has
-    the backward take-my-block, not a sum (a sum would multiply by the
-    axis's size);
-  * :func:`copy_to` (a replicated value entering work that differs by
-    rank, as the router does in the expert-parallel MoE) is the identity
-    with the backward sum over the axis;
+  * :func:`gather_blocks` (every rank's block -> the replicated whole, on
+    which every rank does the same work) has the backward take-my-block,
+    not a sum (a sum would multiply by the axis's size);
+  * :func:`copy_to` (a replicated value entering partial work: a norm on
+    the sequence-parallel carry, the router, a leaf that each rank reads
+    for its own heads) is the identity with the backward sum over the
+    axis;
   * :func:`all_to_all` has the reverse all-to-all as its backward;
   * :func:`mean_over` (the loss: the mean over "data" of the blocks'
     means) divides the gradient by the axis's size;
-  * :func:`gather_param` assembles a parameter from its blocks before use:
-    the blocks over "model" are joined (backward: take my block), the
-    blocks over "data" are joined (backward: the gradient summed over
-    "data" and my block taken), a unit leaf that the reference's FSDP
+  * :func:`gather_param` assembles a parameter from its blocks before
+    use: the blocks over "data" are joined (backward: the gradient summed
+    over "data" and my block taken), a unit leaf that the reference's FSDP
     gives to one data rank is broadcast from it (backward: the gradient
-    summed onto it), and a leaf whole on every data rank is copied
-    (backward: the gradient summed over "data").
+    summed onto it), a leaf whole on every data rank is copied (backward:
+    the gradient summed over "data"), and the blocks over "model" are
+    joined where ``dims`` names that axis (backward: take my block). The
+    mesh's layers name it for no weight: a unit's weights stay on their
+    blocks over "model" (``partition.Gathered``).
 
-Without autograd: :func:`place` cuts a rank's block of a whole tensor and
-:func:`gather_whole` joins the blocks again. Every collective runs over a
+Without autograd: :func:`place` cuts a rank's block of a whole tensor,
+:func:`gather_whole` joins the blocks again, :func:`all_max` takes the
+largest over an axis and :func:`all_to_all_rows` sends a different number
+of rows to each rank. Every collective runs over a
 :class:`~repro_torch.launch.mesh.Mesh` axis group (``None``: every rank of
 the mesh); one of a single rank is skipped. They run on
 ``launch.collectives`` (under gloo a CUDA tensor goes through pinned host
-memory and back, the same staging as the SSSP stepper's ``Comm``);
-``mesh.stats``, where set, counts the bytes
-each collective takes from this rank (``bytes``, ``collectives``), the
-bytes of its result by the reference's kind (``by_kind``: a broadcast from
-a unit leaf's owner counts as an all-gather of the leaf, a reduce onto it
-as a reduce-scatter of it, the moves XLA makes for them under the
-reference's FSDP) and the host seconds of the all-to-alls, the device
-synchronised on both sides (``all_to_all_s``, ``all_to_alls``; not on a
-fake group, whose tensors may have no storage).
+memory and back, the same staging as the SSSP stepper's ``Comm``; no
+sum's order changes from run to run, so a run's bits repeat); ``mesh.stats``, where
+set, counts the bytes each collective takes from this rank (``bytes``,
+``collectives``), the bytes of its result by the reference's kind
+(``by_kind``: a broadcast from a unit leaf's owner counts as an all-gather
+of the leaf, a reduce onto it as a reduce-scatter of it, the moves XLA
+makes for them under the reference's FSDP; an exchange of columns as a
+collective-permute), the bytes of each weight's columns an exchange
+brought to this rank by the weight's name (``moved``) and the host seconds
+of the all-to-alls, the device synchronised on both sides
+(``all_to_all_s``, ``all_to_alls``; not on a fake group, whose tensors may
+have no storage).
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import Mesh
@@ -159,6 +189,27 @@ def all_to_all_blocks(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     return out.flatten(0, 1)
 
 
+def all_max(mesh: Mesh, axis, x: torch.Tensor) -> torch.Tensor:
+    """The largest of ``x`` over ``axis``, elementwise (no gradient)."""
+    if _size(mesh, axis) == 1:
+        return x
+    _count(mesh, x, "all-reduce", _nbytes(x))
+    return coll.all_reduce(_group(mesh, axis), mesh.device, x.detach(),
+                           dist.ReduceOp.MAX)
+
+
+def all_to_all_rows(mesh: Mesh, axis: str, x: torch.Tensor, send,
+                    recv, kind: str = "all-to-all") -> torch.Tensor:
+    """Rows of ``x`` (axis 0) to the ranks along ``axis`` in coordinate
+    order, ``send[j]`` rows to coordinate j; the result holds ``recv[j]``
+    rows from each, in coordinate order. Counted under ``kind``."""
+    if mesh.size(axis) == 1:
+        return x
+    row_bytes = math.prod(x.shape[1:]) * x.element_size()
+    _count(mesh, x, kind, int(sum(recv)) * row_bytes)
+    return coll.all_to_all_v(_group(mesh, axis), mesh.device, x, send, recv)
+
+
 # ---------------------------------------------------------------------------
 # the gradient rules
 # ---------------------------------------------------------------------------
@@ -240,6 +291,109 @@ class _FromOwner(torch.autograd.Function):
         return out, None, None, None, None
 
 
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter(mesh, axis, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(ctx.mesh, ctx.axis, g, ctx.dim), None, None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(mesh, axis, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def exchange_plan(n: int, coord: int, block: int, need: tuple) -> tuple:
+    """What :func:`exchange` moves for the rank at ``coord`` of ``n``, each
+    holding ``block`` consecutive indices of a dim (rank j: [j * block,
+    (j + 1) * block)), where rank j needs the global indices ``need[j]``
+    in that order: ``(own, send, recv, order)``, ``own`` the local indices
+    of this rank's needs that it holds, ``send[j]`` the local indices rank
+    j needs from it, ``recv[j]`` how many it takes from rank j, ``order``
+    the row of ``[own; received in coordinate order]`` each position of
+    the result takes."""
+    lo = coord * block
+    mine = need[coord]
+    own = tuple(i - lo for i in mine if i // block == coord)
+    send = tuple(tuple(i - lo for i in need[j] if i // block == coord)
+                 if j != coord else () for j in range(n))
+    recv = tuple(0 if j == coord else sum(1 for i in mine if i // block == j)
+                 for j in range(n))
+    # where each needed index lands in [own; from rank 0; from rank 1; ...]
+    start, at = [len(own)], {}
+    for j in range(n):
+        start.append(start[-1] + recv[j])
+    nxt = {j: start[j] for j in range(n)}
+    k = 0
+    for i in mine:
+        j = i // block
+        if j == coord:
+            at[i] = k
+            k += 1
+        else:
+            at[i] = nxt[j]
+            nxt[j] += 1
+    return own, send, recv, tuple(at[i] for i in mine)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, plan, tag):
+        own, send, recv, order = plan
+        ctx.mesh, ctx.axis, ctx.dim, ctx.plan = mesh, axis, dim, plan
+        ctx.shape = x.shape
+        xm = x.movedim(dim, 0)
+        dev = x.device
+        idx = [torch.tensor(s, dtype=torch.int64, device=dev) for s in send]
+        out = all_to_all_rows(mesh, axis, torch.cat(
+            [xm.index_select(0, i) for i in idx]), [len(s) for s in send],
+            recv, "collective-permute")
+        if mesh.stats is not None and tag is not None:
+            moved = mesh.stats.setdefault("moved", {})
+            moved[tag] = moved.get(tag, 0) + _nbytes(out)
+        src = torch.cat([xm.index_select(0, torch.tensor(
+            own, dtype=torch.int64, device=dev)), out])
+        return src.index_select(0, torch.tensor(
+            order, dtype=torch.int64, device=dev)).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        own, send, recv, order = ctx.plan
+        dev = g.device
+        gm = g.movedim(ctx.dim, 0)
+        inv = [0] * len(order)
+        for pos, row in enumerate(order):
+            inv[row] = pos
+        gsrc = gm.index_select(0, torch.tensor(inv, dtype=torch.int64,
+                                               device=dev))
+        back = all_to_all_rows(ctx.mesh, ctx.axis, gsrc[len(own):], recv,
+                               [len(s) for s in send], "collective-permute")
+        shape = list(ctx.shape)
+        shape[0], shape[ctx.dim] = shape[ctx.dim], shape[0]
+        gx = g.new_zeros(shape)
+        # the sums in a fixed order: this rank's own use, then each rank's
+        gx.index_add_(0, torch.tensor(own, dtype=torch.int64, device=dev),
+                      gsrc[:len(own)])
+        at = 0
+        for s in send:
+            if s:
+                gx.index_add_(0, torch.tensor(s, dtype=torch.int64,
+                                              device=dev),
+                              back[at:at + len(s)])
+                at += len(s)
+        return gx.movedim(0, ctx.dim), None, None, None, None, None
+
+
 def slice_block(mesh: Mesh, axis: str, x: torch.Tensor, dim: int):
     """This rank's block on ``dim`` of a value replicated over ``axis``
     (backward: all-gather)."""
@@ -277,6 +431,48 @@ def mean_over(mesh: Mesh, axis, x: torch.Tensor):
     if mesh.size(axis) == 1:
         return x
     return _MeanOver.apply(x, mesh, axis)
+
+
+def gather_seq(mesh: Mesh, axis: str, x: torch.Tensor, dim: int):
+    """The whole of a value whose blocks on ``dim`` lie over ``axis``, as
+    the input of each rank's own part of the work (backward: the ranks'
+    gradients summed, my block kept)."""
+    if mesh.size(axis) == 1:
+        return x
+    return _GatherBlocks.apply(x, mesh, axis, dim, True)
+
+
+def scatter_seq(mesh: Mesh, axis: str, x: torch.Tensor, dim: int):
+    """This rank's block on ``dim`` of the sum over ``axis`` of each rank's
+    partial ``x`` (backward: all-gather)."""
+    if mesh.size(axis) == 1:
+        return x
+    return _ScatterSeq.apply(x, mesh, axis, dim)
+
+
+def sum_over(mesh: Mesh, axis, x: torch.Tensor):
+    """The sum over ``axis`` of each rank's partial ``x``, replicated
+    (backward: the identity)."""
+    if _size(mesh, axis) == 1:
+        return x
+    return _SumOver.apply(x, mesh, axis)
+
+
+def exchange(mesh: Mesh, axis: str, x: torch.Tensor, dim: int, need: tuple,
+             tag: str | None = None):
+    """The indices ``need[c]`` of ``dim`` (global, in that order) for the
+    rank at coordinate c of ``axis``, from ``x``, every rank's block of
+    that dim (an all-to-all with split sizes: each rank sends only what
+    another needs from it); ``tag`` names the weight in ``mesh.stats``'s
+    ``moved``. Backward: the gradients sent back and summed onto the
+    blocks, this rank's own use first, then each rank's in coordinate
+    order."""
+    n = mesh.size(axis)
+    if n == 1:
+        return x.index_select(dim, torch.tensor(need[0], dtype=torch.int64,
+                                                device=x.device))
+    plan = exchange_plan(n, mesh.coord(axis), x.shape[dim], need)
+    return _Exchange.apply(x, mesh, axis, dim, plan, tag)
 
 
 def gather_param(mesh: Mesh, x: torch.Tensor, dims: tuple, owner,

@@ -15,8 +15,12 @@ layouts (the optimizer state is stacked as the reference's).
 A rank holds exactly the block of each leaf that the reference's
 ``NamedSharding`` gives the device at its coordinates (:func:`place`);
 :func:`place_params` cuts a model's parameters so, and the model then
-computes by gathering each unit's weights before use
-(``models.transformer``, ``sharding.comm``).
+computes on those blocks as the reference's rules map them: heads, FFN
+columns, the vocabulary and the experts over "model" (tensor and expert
+parallelism), the carry between units over the sequence (sequence
+parallelism). A layer reads a unit through :class:`Gathered`: each leaf's
+block over "model", FSDP's blocks over "data" joined
+(``models.transformer``, ``models.layers``, ``sharding.comm``).
 """
 from __future__ import annotations
 
@@ -287,36 +291,44 @@ def place_like(model: nn.Module, name: str, whole: torch.Tensor):
 
 
 class Gathered:
-    """A placed module as the layer functions read it: each parameter whole
-    (gathered on first use through :func:`comm.gather_param`, with its
-    gradient rule; kept for the view's life), each submodule a view, any
-    other attribute the module's. :meth:`local` gathers over "data" only
-    (the expert-parallel MoE's experts keep their blocks over "model")."""
+    """A placed module as the layer functions read it: each parameter the
+    rank's block over "model" (the tensor-parallel layers compute on it),
+    joined over "data" where FSDP shards it, through
+    :func:`comm.gather_param` with its gradient rule (summed over "data";
+    gathered on first use and kept for the view's life); a leaf the
+    reference replicates is whole, as it is placed. :meth:`take` brings
+    the columns of a weight's block that another rank's heads read
+    (``comm.exchange``). Each submodule is a view, any other attribute the
+    module's."""
 
     def __init__(self, module: nn.Module, mesh: Mesh):
         self._module, self._mesh, self._cache = module, mesh, {}
 
-    def _get(self, name: str, join_model: bool):
-        key = (name, join_model)
-        if key not in self._cache:
+    def _get(self, name: str):
+        if name not in self._cache:
             pl = self._module.placed[name]
-            dims = pl.dims if join_model else tuple(
-                a if a != TP else None for a in pl.dims)
-            shape = pl.shape if join_model else tuple(
-                n // self._mesh.size(TP) if a == TP else n
-                for n, a in zip(pl.shape, pl.dims))
-            self._cache[key] = comm.gather_param(
+            dims = tuple(a if a != TP else None for a in pl.dims)
+            shape = tuple(n // self._mesh.size(TP) if a == TP else n
+                          for n, a in zip(pl.shape, pl.dims))
+            self._cache[name] = comm.gather_param(
                 self._mesh, self._module._parameters[name], dims, pl.owner,
                 shape)
-        return self._cache[key]
+        return self._cache[name]
 
-    def local(self, name: str):
-        return self._get(name, False)
+    def take(self, name: str, dim: int, need: tuple):
+        """Parameter ``name``'s indices ``need[c]`` of ``dim`` for the rank
+        at model coordinate c (``comm.exchange`` over the blocks), counted
+        in ``mesh.stats["moved"]`` under ``name``."""
+        key = (name, dim, need)
+        if key not in self._cache:
+            self._cache[key] = comm.exchange(self._mesh, TP, self._get(name),
+                                             dim, need, name)
+        return self._cache[key]
 
     def __getattr__(self, name: str):
         module = self.__dict__["_module"]
         if name in module._parameters:
-            return self._get(name, True)
+            return self._get(name)
         if name in module._modules:
             return Gathered(module._modules[name], self._mesh)
         return getattr(module, name)

@@ -1873,6 +1873,30 @@ def test_embed_grad_matches_twin_and_itself(cuda, shape, rows, d, dtype,
     assert embed_grad.launches == before + (2 if rows else 0)
 
 
+@pytest.mark.parametrize("row0", [0, 40, 120])
+def test_embed_grad_block_form_matches_twin_and_itself(cuda, row0):
+    """#12's block form (rows [row0, row0 + 40) of a 160-row table): ids
+    before, inside and after the block, a hot id inside it; against its
+    twin bit for bit and two launches against each other, each counted
+    as a launch of the block form."""
+    from repro_torch.kernels.embed_grad import embed_grad
+
+    rng = np.random.default_rng(row0)
+    ids = rng.integers(0, 160, size=(3, 50)).astype(np.int32)
+    ids.reshape(-1)[::5] = row0 + 7
+    g = rng.standard_normal((3, 50, 24)).astype(np.float32)
+    g_c, ids_c = _t(g, cuda), _t(ids, cuda)
+    before = (embed_grad.launches, embed_grad.block_launches)
+    got = embed_grad(g_c, ids_c, 40, row0)
+    again = embed_grad(g_c, ids_c, 40, row0)
+    want = ref.embed_grad_ref(g_c, ids_c, 40, row0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert (embed_grad.launches, embed_grad.block_launches) == (
+        before[0] + 2, before[1] + 2)
+
+
 def test_embed_grad_bit_stable_through_a_training_step(cuda):
     """internlm2's smoke config, f32: two runs of the loss and gradients on
     one card give every leaf, the embedding's included, in the same

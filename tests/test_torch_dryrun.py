@@ -308,13 +308,15 @@ def _cut_cell(arch, shape, layers, probe):
 def test_train_flops_within_the_remat_factor():
     """internlm2-1.8b train_4k at published widths cut to 2 layers: the
     traced FLOPs of one rank against the analytic count. Each rank
-    computes its data block's whole unit (the port gathers each weight
-    before use, so the work is repeated on the 16 model ranks), full remat
-    runs every forward product twice (4 / 3 of 6ND, the chunked
-    cross-entropy's head too), the lookup multiplies nothing (the
-    analytic count takes the embedding as a product), and the attention
-    computes every score under the causal mask (twice the causal half the
-    analytic count takes). Elementwise work is not counted."""
+    computes its share of the step (its data block's tokens, its heads,
+    FFN columns and block of the vocabulary; nothing is repeated on the 16
+    model ranks but the K / V columns its heads share with a neighbour),
+    so the ranks' FLOPs sum to the whole step's; full remat runs every
+    forward product twice (4 / 3 of 6ND, the chunked cross-entropy's head
+    too), the lookup multiplies nothing (the analytic count takes the
+    embedding as a product), and the attention computes every score under
+    the causal mask (twice the causal half the analytic count takes).
+    Elementwise work is not counted."""
     import dataclasses
 
     from benchmarks.roofline import model_flops
@@ -329,9 +331,25 @@ def test_train_flops_within_the_remat_factor():
         cfg.n_heads * cfg.d_head / 2
     lookup = 6 * cfg.vocab_pad * cfg.d_model * tokens
     dense = analytic - lookup - attn_causal
-    per_data_rank = rec["flops"] * rec["chips"] / rec["mesh_shape"]["model"]
+    whole_step = rec["flops"] * rec["chips"]
     # the products alone, remat's factor on them; then the scores too
-    assert 4 / 3 * dense < per_data_rank <= 4 / 3 * (dense + 2 * attn_causal)
+    assert 4 / 3 * dense < whole_step <= 4 / 3 * (dense + 2 * attn_causal)
+
+
+def test_decode_gathers_no_cache_leaf():
+    """internlm2-1.8b decode_32k at published widths cut to 2 layers on
+    the pod: the cache stays on its blocks (each rank attends every head
+    over its slots and the blocks' softmax partials are combined), so a
+    step's all-gathers (q, the new K / V, the partials, the logits) stay
+    below one layer's K / V block, and no weight moves over "model"
+    (internlm2's 8 KV heads over 16 ranks: a rank takes its neighbour's
+    half-head of wk / wv only where it trains; decode gathers the new
+    columns)."""
+    rec = _cut_cell("internlm2-1.8b", "decode_32k", 2, False)
+    assert rec["status"] == "ok", rec.get("error")
+    layer_kv = rec["arguments"]["cache"] / 2  # k and v of one layer
+    assert 0 < rec["collectives"]["all-gather"] < layer_kv / 2
+    assert rec["collectives"]["collective-permute"] == 0
 
 
 def test_extrapolated_equals_the_full_trace():
