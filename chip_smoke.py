@@ -108,18 +108,21 @@ failure raises, exits non-zero and prints no ``ok`` line:
      unreachable by the backward lane), against phase 14's rows;
  20. delta-stepping at full width, ``delta = default_delta(g)``: on the
      inputs of one real delta phase (a trip where some lane runs a light
-     round and another its heavy turn), #2 on bucket ids and the gathers
-     of the light and heavy gates over the weight-gated views (#5 padded,
-     #9 sliced) against their twins, bit for bit, and timed; then on
-     G(10^6, 10^-4), padded, the B = 8 solve with the kernels against the
-     plain twins on every field, row 0 against scipy, two lanes equal to
-     ``run_delta_stepping`` (the COO loop) on the card (a lane that loop
-     stalls on at a bucket edge is shown stalled there and the next lane
-     taken), and
-     ``StaticBackend(policy="delta")`` answering 16 requests: #2 and #5
-     run, no relax kernel (no push, no pull); the same on sliced
-     ``kronecker(20)``, where #9 runs and #5 does not; ms/phase, phases
-     per query, queries/s and the device split beside the default plan's
+     round and another its heavy turn), #2 on bucket ids, the push of both
+     turns along the out-view (#5c padded, #9c sliced on the out-view's
+     buckets) and the parent's two gathers of the light and heavy gates
+     over the weight-gated in-views (#5 padded, #9 sliced) against their
+     twins and #5c / #9c against the gathers, bit for bit, all timed, the
+     views delta holds beside the parent's; then on G(10^6, 10^-4),
+     padded, the B = 8 solve with the kernels against the plain twins on
+     every field, timed in turns with the parent's relax, row 0 against
+     scipy, two lanes equal to ``run_delta_stepping`` (the COO loop) on
+     the card (a lane that loop stalls on at a bucket edge is shown
+     stalled there and the next lane taken), and
+     ``StaticBackend(policy="delta")`` answering 16 requests: #2 and #5c
+     run, no other relax kernel (no gather, no other push, no pull); the
+     same on sliced ``kronecker(20)`` with #9c; ms/phase, phases per
+     query, queries/s and the device split beside the default plan's
      (phases 3, 4, 14, 15);
  21. oracle plans on G(10^6, 10^-4), padded and sliced: ``oracle``,
      ``instatic|outstatic|oracle`` and ``in|out|oracle`` with phase 4's
@@ -522,8 +525,9 @@ def busy_line(fn, wall_s: float, phases: int) -> str:
     summed apart (with the copies and memsets)."""
     parts = device_split(fn, calls=1)
     dev_ms = sum(t for _, t in parts)
-    ours = ("push_kernel", "push_mark_kernel", "crit_", "gather_min_kernel",
-            "scan_kernel", "pack_kernel", "merge_kernel", "short_merge_kernel")
+    ours = ("push_kernel", "push_mark_kernel", "delta_mark_kernel", "crit_",
+            "gather_min_kernel", "scan_kernel", "pack_kernel", "merge_kernel",
+            "short_merge_kernel")
     glue = [(k, t) for k, t in parts if not any(o in k for o in ours)]
     ours = sorted((p for p in parts if p not in glue), key=lambda p: -p[1])
     split = "; ".join(f"{k} {t / phases:.4f}" for k, t in ours)
@@ -615,6 +619,7 @@ def kernel_counters() -> dict:
         ell_key_min_status_batch,
     )
     from repro_torch.kernels.ell_relax import (
+        ell_delta_push_batch,
         ell_push_rect_batch,
         ell_push_relax_batch,
         ell_relax_batch,
@@ -625,6 +630,7 @@ def kernel_counters() -> dict:
         ell_relax_keys_batch,
     )
     from repro_torch.kernels.ell_sliced import (
+        ell_sliced_delta_push_batch,
         ell_sliced_gather_min_batch,
         ell_sliced_keys_dep_batch,
         ell_sliced_push_relax_batch,
@@ -639,7 +645,8 @@ def kernel_counters() -> dict:
         ell_keys_dep_batch, ell_sliced_gather_min_batch,
         ell_sliced_relax_keys_batch, ell_sliced_keys_dep_batch,
         ell_push_relax_batch, ell_sliced_push_relax_batch,
-        ell_push_rect_batch, embed_grad)}
+        ell_push_rect_batch, ell_delta_push_batch,
+        ell_sliced_delta_push_batch, embed_grad)}
     # #10b: the sliced fused in-scan with the push as its relax sweep
     counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
     # #12's block form: a rank's rows of the vocabulary-parallel embedding
@@ -2721,6 +2728,7 @@ def main() -> int:
         to_ell_in,
         to_ell_in_sliced,
         to_ell_out,
+        to_ell_out_buckets,
         to_ell_out_sliced,
     )
     from repro_torch.core import criteria as C
@@ -2743,6 +2751,7 @@ def main() -> int:
         ell_key_min_status_batch,
     )
     from repro_torch.kernels.ell_relax import (
+        ell_delta_push_batch,
         ell_push_relax_batch,
         ell_relax,
         ell_relax_batch,
@@ -2755,6 +2764,7 @@ def main() -> int:
         ell_relax_keys_batch,
     )
     from repro_torch.kernels.ell_sliced import (
+        ell_sliced_delta_push_batch,
         ell_sliced_gather_min_batch,
         ell_sliced_keys_dep_batch,
         ell_sliced_push_relax_batch,
@@ -3947,7 +3957,8 @@ def main() -> int:
     src_k = np.random.default_rng(2).choice(has_out, REQUESTS)
     padded_gathers = ("ell_relax_batch", "ell_key_min_batch",
                       "ell_key_min_status_batch", "ell_gather_min_batch", "ell_relax_keys_batch",
-                      "ell_keys_dep_batch", "ell_push_relax_batch")
+                      "ell_keys_dep_batch", "ell_push_relax_batch",
+                      "ell_delta_push_batch")
     served_k, sliced_serve = {}, {}
     # the default plan relaxes by the sliced push and runs no sliced gather;
     # in|out relaxes in the fused in-scan, whose relax sweep is the push
@@ -4686,23 +4697,23 @@ def main() -> int:
     delta_policy = policy_for("delta")
 
     def delta_phase(graph, ell, srcs, delta, trips):
-        """The kernels' inputs of one real delta phase, from the policy's
-        own ``prepare`` and ``gates``: the first trip from ``trips`` on
-        where some lane runs a light round and another its heavy turn.
-        Returns the state, the bucket ids, the light and heavy gates
-        (B, n), the weight-gated views and the light and heavy
+        """The inputs of one real delta phase, from the policy's own
+        ``gates`` and ``prepare``: the first trip from ``trips`` on where
+        some lane runs a light round and another its heavy turn. Returns
+        the state, the bucket ids, the light and heavy gates (B, n) bool,
+        the out-view the push reads and the light and heavy
         out-degrees."""
         st = init_batch_state(graph, srcs, criterion="delta", delta=delta,
                               device=dev)
         st = step_batch(graph, st, trips, ell=ell)
-        views = delta_policy.prepare(graph, ell, None, st, True)
         for _ in range(64):
             gt_ = delta_policy.gates(st)
             if bool(gt_.cur.any()) and bool(gt_.heavy_from.any()):
                 break
             st = step_batch(graph, st, 1, ell=ell)
-        return (st, gt_.bidx, torch.where(gt_.cur, st.dist, INF),
-                torch.where(gt_.heavy_from, st.dist, INF)) + tuple(views)
+        out = delta_policy.out_view(graph, kops._is_sliced(ell))
+        _, _, dl_, dh_ = delta_policy.prepare(graph, ell, out, st, True)
+        return st, gt_.bidx, gt_.cur, gt_.heavy_from, out, dl_, dh_
 
     def gated_slots(gate_rows, view) -> int:
         """Lane-slots whose gate and gated weight are both finite: the adds
@@ -4718,12 +4729,49 @@ def main() -> int:
                                     & w_fin).sum())
         return total_slots
 
-    delta_rows = {}
+    def delta_bound(graph, d, light, heavy, deg_l,
+                    deg_h) -> tuple[float, str, int]:
+        """The least time of delta's relax on this input: the two bool
+        gates read whole, d read only at the lane-vertices they mark (4
+        bytes each: the gates say where a source may push, so no other d
+        is needed), the out-rows of the live sources (8 bytes a real slot)
+        and upd written once; an add and a min a candidate of a source's
+        turn (its light arcs on a light round, its heavy arcs on the heavy
+        turn). Also returns that count of candidates."""
+        gated = light | heavy
+        live = gated & (d != INF)
+        deg = out_degrees(graph).long()
+        row_bytes = 8 * int(deg[live.any(dim=0)].sum())
+        cand = (int(torch.where(light & live, deg_l.long()[None], 0).sum())
+                + int(torch.where(heavy & live, deg_h.long()[None], 0).sum()))
+        return bound(row_bytes + 4 * int(gated.sum()) + 2 * d.numel()
+                     + 4 * d.numel(), 2.0 * cand) + (cand,)
+
+    def view_bytes(*views) -> int:
+        """Bytes of every tensor the views hold, each storage once."""
+        seen = {}
+
+        def walk(x):
+            if torch.is_tensor(x):
+                seen[x.data_ptr()] = x.numel() * x.element_size()
+            elif isinstance(x, (tuple, list)):
+                for y in x:
+                    walk(y)
+
+        for v in views:
+            walk(v)
+        return sum(seen.values())
+
+    delta_rows, delta_push, delta_bytes = {}, {}, {}
     for what, graph, ell, srcs, delta, trips0 in (
             ("padded", g, (cols, ws), src8, delta_g, 24),
             ("sliced", gk, sl_in, src8_k, delta_k, 24)):
-        st_d, bidx_d, lg_d, hg_d, lv_d, hv_d, dl_d, dh_d = delta_phase(
+        st_d, bidx_d, light_d, heavy_d, out_d, dl_d, dh_d = delta_phase(
             graph, ell, srcs, delta, trips0)
+        d_d = st_d.dist
+        delta_f = float(st_d.delta)  # the f32 width, as prepare holds it
+        lg_d = torch.where(light_d, d_d, INF)
+        hg_d = torch.where(heavy_d, d_d, INF)
         n_light = int((lg_d != INF).sum())
         n_heavy = int((hg_d != INF).sum())
         # #2 on bucket ids: small integers in f32 on the fringe, +inf off it
@@ -4735,7 +4783,10 @@ def main() -> int:
         errs["frontier_crit_lanes_batch"] = max(
             errs["frontier_crit_lanes_batch"],
             max_abs_err(got_b[0], want_b[0]))
-        rows_d = {}
+        # the parent's relax: #5 / #9 over the weight-gated in-views, built
+        # here as its prepare built them and dropped after this phase
+        lv_d, hv_d = kops.weight_gated_ell(ell, st_d.delta)
+        rows_d, gathered = {}, []
         for side, gate_d, view, deg_d in (("light", lg_d, lv_d, dl_d),
                                           ("heavy", hg_d, hv_d, dh_d)):
             if what == "padded":
@@ -4761,6 +4812,7 @@ def main() -> int:
             if not same_bits(got_d, want_d):
                 raise SystemExit(f"{name} on the {what} {side}-gated view "
                                  "disagrees with its twin")
+            gathered.append(got_d)
             errs[name] = max(errs.get(name, 0.0), max_abs_err(got_d, want_d))
             # the function is the relax of the gated vertices' light (heavy)
             # out-arcs, bounded as #1/#9 are (relax_bound); the bound of the
@@ -4770,15 +4822,82 @@ def main() -> int:
             rows_d[side] = (time_ms(kern, 20), time_ms(plain, 2), b_d, by_d,
                             stream_d)
         delta_rows[what] = rows_d
+        pulled = ref.nan_min(*gathered)
+        del lv_d, hv_d, gathered
+        # #5c / #9c: one push of both turns along the out-view
+        if what == "padded":
+            pname = "ell_delta_push_batch"
+
+            def push_d(stats=None):
+                return ell_delta_push_batch(d_d, light_d, heavy_d, *out_d,
+                                            delta_f, stats=stats)
+        else:
+            pname = "ell_sliced_delta_push_batch"
+
+            def push_d(stats=None):
+                return ell_sliced_delta_push_batch(d_d, light_d, heavy_d,
+                                                   out_d, delta_f,
+                                                   stats=stats)
+
+        def push_plain():
+            return ref.ell_delta_push_batch_ref(d_d, light_d, heavy_d, out_d,
+                                                delta_f)
+        stats_d = torch.zeros(2, dtype=torch.int64, device=dev)
+        got_p, want_p = push_d(stats_d), push_plain()
+        if not same_bits(got_p, want_p):
+            raise SystemExit(f"{pname} on the {what} delta phase disagrees "
+                             "with its twin")
+        if not same_bits(got_p, pulled):
+            raise SystemExit(f"{pname} on the {what} delta phase disagrees "
+                             "with the two gathers over the weight-gated "
+                             "in-views")
+        errs[pname] = max_abs_err(got_p, want_p)
+        del got_p, want_p, pulled
+        b_p, by_p, turn_p = delta_bound(graph, d_d, light_d, heavy_d, dl_d,
+                                        dh_d)
+        cand_p, atom_p = stats_d.tolist()
+        delta_push[what] = {
+            "ms": time_ms(push_d, 20), "plain_ms": time_ms(push_plain, 2),
+            "bound_ms": b_p, "bound_by": by_p,
+            "gathers_ms": rows_d["light"][0] + rows_d["heavy"][0],
+            "candidates": cand_p, "atomics": atom_p,
+            # the candidates of a source's own turn; the rest are gated out
+            # (d + inf), formed and filtered
+            "turn_candidates": turn_p,
+            "active_rows": int(((light_d | heavy_d) & (d_d != INF))
+                               .any(dim=0).sum())}
+        # the views delta holds while it serves: the out-view (the sliced
+        # one's buckets) and no in-view, against the parent's in-view and
+        # its two weight-gated copies' weights
+        twin_ws = 2 * sum(s.ws.numel() * 4 for s in (
+            ell.slices if kops._is_sliced(ell) else [EllSlice(None, *ell)]))
+        delta_bytes[what] = {"out_view": view_bytes(out_d),
+                             "parent_in_view": view_bytes(ell),
+                             "parent_gated_weights": twin_ws}
+        dp = delta_push[what]
         log(f"delta kernels, {what}, trip {int(st_d.trips)} of the B={LANES} "
             f"solve: {n_light} light-gate and {n_heavy} heavy-gate lane-"
             f"vertices, lanes on a light round "
-            f"{int((lg_d != INF).any(dim=1).sum())}; #2 on bucket ids and "
-            f"both gated gathers bit-equal to their twins; " + "; ".join(
+            f"{int((lg_d != INF).any(dim=1).sum())}; #2 on bucket ids, both "
+            f"gated gathers and {pname} bit-equal to their twins, and "
+            f"{pname} to the two gathers; {pname} {dp['ms']:.4f} ms (plain "
+            f"{dp['plain_ms']:.2f}, bound {b_p:.4f} {by_p}; {dp['active_rows']}"
+            f" active rows, {cand_p} candidates, {turn_p} of them of their "
+            f"source's turn, {atom_p} atomics) against "
+            f"the parent's two gathers {dp['gathers_ms']:.3f} ms: " + "; ".join(
                 f"{side} {t[0]:.3f} ms (plain {t[1]:.2f}, bound {t[2]:.4f} "
                 f"{t[3]} [in-view stream {t[4]:.4f}])"
                 for side, t in rows_d.items()) + f" [{smi}]")
-        del st_d, bidx_d, lg_d, hg_d, lv_d, hv_d, dl_d, dh_d
+        vb = delta_bytes[what]
+        parent_b = vb["parent_in_view"] + vb["parent_gated_weights"]
+        log(f"delta resident views, {what}: the out-view "
+            f"{vb['out_view'] / 1e9:.4f} GB and no in-view; the parent's "
+            f"in-view {vb['parent_in_view'] / 1e9:.4f} GB + gated weights "
+            f"{vb['parent_gated_weights'] / 1e9:.4f} GB = "
+            f"{parent_b / 1e9:.4f} GB")
+        if vb["out_view"] > parent_b:
+            raise SystemExit(f"delta's {what} views grew")
+        del st_d, bidx_d, lg_d, hg_d, light_d, heavy_d, d_d, dl_d, dh_d
 
     def legacy_lane(graph, source, delta, row, phases):
         """``run_delta_stepping`` against one stepper lane: (source, phases,
@@ -4820,7 +4939,38 @@ def main() -> int:
                       f"{float(t[v] / dl)!r}; {int(wrong.sum())} distances "
                       f"differ, none below t",)
 
-    delta_e2e, delta_serve = {}, {}
+    def no_relax_but(counts: dict, push_name: str, what: str):
+        """Delta's path launches ``push_name`` as its relax: no gather
+        (#5, #9), no other push, no pull, no fused scan."""
+        relax = ("ell_relax_batch", "ell_push_relax_batch",
+                 "ell_sliced_push_relax_batch", "ell_key_min_batch",
+                 "ell_key_min_status_batch", "ell_gather_min_batch",
+                 "ell_sliced_gather_min_batch", PUSH_IN_SCAN,
+                 "ell_relax_keys_batch", "ell_sliced_relax_keys_batch",
+                 "ell_keys_dep_batch", "ell_sliced_keys_dep_batch",
+                 "ell_delta_push_batch", "ell_sliced_delta_push_batch")
+        if any(counts[name] for name in relax if name != push_name):
+            raise SystemExit(f"{what} launched another relax kernel than "
+                             f"{push_name}: "
+                             f"{ {nm: counts[nm] for nm in relax} }")
+
+    def parent_relax(ell):
+        """The parent's relax of the delta policy, for timing it in turns
+        with the push: the two gathers over the weight-gated in-views,
+        held as its ``prepare`` held them."""
+        held = {}
+
+        def relax(d, light, heavy, ell_out, delta, *, use_kernels=True):
+            if delta not in held:
+                held.clear()
+                held[delta] = kops.weight_gated_ell(
+                    ell, torch.tensor(delta, dtype=torch.float32,
+                                      device=dev))
+            return kops.delta_relax_batch(d, light, heavy, *held[delta],
+                                          use_kernels=use_kernels)
+        return relax
+
+    delta_e2e, delta_serve, delta_turns = {}, {}, {}
     for what, graph, ell, srcs8, srcs16, delta, want_row, fin_row in (
             ("padded", g, (cols, ws), src8, sources, delta_g, want, fin),
             ("sliced", gk, sl_in, src8_k, src_k, delta_k, want_k, fin_k)):
@@ -4838,11 +4988,13 @@ def main() -> int:
         log(f"delta e2e {what}: the B={LANES} kernel solve ran "
             f"{int(res_d.total_phases)} trips in {solve_d_s:.3f} s")
         by_path[f"delta_solve_{what}"] = read_counts()
+        push_name = ("ell_delta_push_batch" if what == "padded"
+                     else "ell_sliced_delta_push_batch")
         must_run(by_path[f"delta_solve_{what}"], (
-            "frontier_crit_lanes_batch", "ell_key_min_batch" if what ==
-            "padded" else "ell_sliced_gather_min_batch"),
-            f"the {what} delta solve")
+            "frontier_crit_lanes_batch", push_name), f"the {what} delta solve")
         total_d = int(res_d.total_phases)
+        no_relax_but(by_path[f"delta_solve_{what}"], push_name,
+                     f"the {what} delta solve")
         t0 = time.perf_counter()
         res_dp = run_phased_static_batch(graph, srcs8, use_kernels=False, **kw)
         torch.cuda.synchronize()
@@ -4860,6 +5012,31 @@ def main() -> int:
 
         walls_d = repeat_wall(solve_d, solve_d_s)
         solve_d_s = float(np.median(walls_d))
+        # the parent's relax (#5 / #9 twice a phase) and the push in turns:
+        # parent, push, push, parent, the same solve, wall ms a phase
+        push_relax, parent = kops.delta_push_relax_batch, parent_relax(ell)
+        turns = []
+        for label in ("parent", "push", "push", "parent"):
+            if label == "parent":
+                kops.delta_push_relax_batch = parent
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res_t = solve_d()
+                torch.cuda.synchronize()
+                turns.append((label, (time.perf_counter() - t0) / total_d
+                              * 1e3))
+            finally:
+                kops.delta_push_relax_batch = push_relax
+            if not same_bits(res_t.dist, res_d.dist) or \
+                    int(res_t.total_phases) != total_d:
+                raise SystemExit(f"{what} delta solve with the {label} "
+                                 "relax differs")
+            del res_t
+        delta_turns[what] = turns
+        log(f"delta e2e {what}: ms/phase in turns (wall, B={LANES}): "
+            + ", ".join(f"{lab} {ms:.3f}" for lab, ms in turns)
+            + f" [{smi}]")
         dist_d = res_d.dist.cpu().numpy()
         got = dist_d[0]
         same_set = bool((np.isfinite(got) == fin_row).all())
@@ -4886,23 +5063,21 @@ def main() -> int:
             f"bit-equal on every field; row 0 against scipy: same "
             f"reachable set, rtol 1e-5; run_delta_stepping lanes (source, "
             f"phases, buckets, s, verdict) {legacy} [{smi}]")
-        # serving: #2 and the layout's key-min gather run, no relax kernel
-        rows_ds, ph_ds, l_ds, s_ds, steps_ds, trips_ds = serve(
-            StaticBackend(graph, policy="delta", layout=what, device=dev),
-            srcs16)
-        gather = ("ell_key_min_batch" if what == "padded"
-                  else "ell_sliced_gather_min_batch")
-        other = ("ell_sliced_gather_min_batch" if what == "padded"
-                 else "ell_key_min_batch")
-        for name in (gather, "frontier_crit_lanes_batch"):
-            if l_ds[name] <= 0:
-                raise SystemExit(f"{what} delta serving never launched {name}")
-        relax = ("ell_relax_batch", "ell_push_relax_batch",
-                 "ell_sliced_push_relax_batch", other, PUSH_IN_SCAN,
-                 "ell_relax_keys_batch", "ell_sliced_relax_keys_batch")
-        if any(l_ds[name] for name in relax):
-            raise SystemExit(f"{what} delta serving launched a relax kernel: "
-                             f"{ {nm: l_ds[nm] for nm in relax} }")
+        # serving: #2 and the layout's delta push run, no other relax
+        # kernel and neither gather
+        backend_d = StaticBackend(graph, policy="delta", layout=what,
+                                  device=dev)
+        if backend_d.ell is not None or backend_d.ell_out is not (
+                to_ell_out(graph) if what == "padded"
+                else to_ell_out_buckets(graph)):
+            raise SystemExit(f"the {what} delta server holds other views "
+                             "than the out-view")
+        rows_ds, ph_ds, l_ds, s_ds, steps_ds, trips_ds = serve(backend_d,
+                                                               srcs16)
+        del backend_d
+        must_run(l_ds, (push_name, "frontier_crit_lanes_batch"),
+                 f"{what} delta serving")
+        no_relax_but(l_ds, push_name, f"{what} delta serving")
         for i in range(LANES):
             if not np.array_equal(rows_ds[i].view(np.int32),
                                   dist_d[i].view(np.int32)):
@@ -4932,6 +5107,11 @@ def main() -> int:
         f"{default_ms_phase:.3f}, phase 4), sliced kronecker("
         f"{KRON_K}) {delta_e2e['sliced'][0] / delta_e2e['sliced'][1] * 1e3:.3f}"
         f" (default {sliced_solve['instatic|outstatic'][0] / sliced_solve['instatic|outstatic'][1] * 1e3:.3f}, phase 15)")
+    log("delta against the parent's relax (#5 / #9 twice a phase), ms/phase"
+        " in turns, medians: " + "; ".join(
+            f"{what} push {np.median([t for lab, t in tr if lab == 'push']):.3f}"
+            f" parent {np.median([t for lab, t in tr if lab == 'parent']):.3f}"
+            for what, tr in delta_turns.items()))
     log(f"phase 20: {time.perf_counter() - t20:.1f} s")
 
     phase_mark("21")
@@ -5028,7 +5208,7 @@ def main() -> int:
         by_path[f"telemetry[{plan}]"] = read_counts()
         must_run(by_path[f"telemetry[{plan}]"], (
             "frontier_crit_lanes_batch",
-            {"delta": "ell_key_min_batch", "in|out": "ell_relax_keys_batch"}
+            {"delta": "ell_delta_push_batch", "in|out": "ell_relax_keys_batch"}
             .get(plan, "ell_push_relax_batch")), f"the {plan} telemetry run")
         res_t = harvest(st_t)
         for field in ("dist", "status", "phases", "total_phases"):
@@ -5082,10 +5262,11 @@ def main() -> int:
     def cand_kernels(spec, layout):
         """(kernels a candidate's solves must launch, kernels they must
         not): every candidate runs #2 and no pull relax (#1); a layout
-        runs none of the other layout's kernels."""
+        runs none of the other layout's kernels; delta relaxes by its push
+        (#5c / #9c) and runs neither gather (#5 / #9)."""
         padded = layout == "padded"
-        must = {"delta": ("ell_key_min_batch",) if padded
-                else ("ell_sliced_gather_min_batch",),
+        must = {"delta": ("ell_delta_push_batch",) if padded
+                else ("ell_sliced_delta_push_batch",),
                 "in|out": ("ell_relax_keys_batch", "ell_keys_dep_batch")
                 if padded else (PUSH_IN_SCAN, "ell_sliced_keys_dep_batch"),
                 }.get(spec, ("ell_push_relax_batch",) if padded
@@ -5093,8 +5274,11 @@ def main() -> int:
         # sliced: #10 runs only in its push form (#10b)
         never = ("ell_relax_batch", "ell_sliced_relax_keys_batch") + (
             ("ell_sliced_gather_min_batch", PUSH_IN_SCAN,
-             "ell_sliced_keys_dep_batch", "ell_sliced_push_relax_batch")
+             "ell_sliced_keys_dep_batch", "ell_sliced_push_relax_batch",
+             "ell_sliced_delta_push_batch")
             if padded else padded_gathers)
+        if spec == "delta":
+            never += ("ell_key_min_batch", "ell_sliced_gather_min_batch")
         return ("frontier_crit_lanes_batch",) + must, never
 
     def check_launches(counts, spec, layout, what):
@@ -6055,6 +6239,30 @@ def main() -> int:
          "densest_phase_ms": dense_turns_k[1:3],
          "active_rows_median": int(np.median(act_rows_k)),
          "active_rows_max": int(act_rows_k.max())},
+    ] + [
+        # #5c / #9c: delta's relax, both turns in one push along the
+        # out-view, on phase 20's delta phase; launches: delta serving's.
+        # Each replaces the two gathers of #5 / #9 a delta phase ran
+        {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_push.cu",
+         "replaces": replaces, "launches": by_path[f"delta_serving_{what}"][
+             name],
+         "max_abs_err": errs[name], "ms": delta_push[what]["ms"],
+         "plain_ms": delta_push[what]["plain_ms"],
+         "bound_ms": delta_push[what]["bound_ms"],
+         "bound_by": delta_push[what]["bound_by"], "library_ms": None,
+         "gathers_ms": delta_push[what]["gathers_ms"],
+         "active_rows": delta_push[what]["active_rows"],
+         "candidates": delta_push[what]["candidates"],
+         "atomics": delta_push[what]["atomics"],
+         "turn_candidates": delta_push[what]["turn_candidates"],
+         "delta_ms_phase_turns": delta_turns[what],
+         "resident_view_bytes": delta_bytes[what]}
+        for name, replaces, what in (
+            ("ell_delta_push_batch", "src/repro/kernels/ell_key_min.py:86",
+             "padded"),
+            ("ell_sliced_delta_push_batch",
+             "src/repro/kernels/ell_relax_keys.py:311", "sliced"))
     ] + [
         # #1b in its rectangular form, the sharded stepper's relax and key
         # scans; it stands for the reference's shard-local XLA segment_min

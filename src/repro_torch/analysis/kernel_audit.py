@@ -349,6 +349,8 @@ def launch_shapes(defines: dict[str, dict[str, int]]) -> dict:
         ("ell_gather", "short_merge_kernel"): fixed(g["MERGE_THREADS"]),
         ("ell_push", "push_mark_kernel"): fixed(p["PUSH_THREADS"]),
         ("ell_push", "push_kernel"): fixed(p["PUSH_THREADS"]),
+        ("ell_push", "delta_mark_kernel"): fixed(p["PUSH_THREADS"]),
+        ("ell_push", "delta_push_kernel"): fixed(p["PUSH_THREADS"]),
         ("frontier_crit", "crit_kernel"): fixed(c["CRIT_THREADS"],
                                                 crit_blocks),
         ("embed_grad", "embed_grad_kernel"): fixed(e["EMBED_THREADS"]),

@@ -286,6 +286,22 @@ class SlicedEll(NamedTuple):
         return sum(int(s.rows.shape[0]) for s in self.slices)
 
 
+class SlicedBuckets(NamedTuple):
+    """The buckets of a degree-sliced view without its merge plan: what a
+    push along an outgoing view reads (each row lands its candidates at
+    their targets through an atomic min, so nothing merges the rows of a
+    split vertex). :func:`to_ell_out_buckets` builds one that shares its
+    buckets with :func:`to_ell_out_sliced`'s view; the merge plan's
+    ``merge_idx`` alone is (n, most rows a vertex) int32, 3.1 GB for
+    ``kronecker(20)``'s out-hubs."""
+
+    slices: tuple[EllSlice, ...]
+
+    @property
+    def padded_slots(self) -> int:
+        return sum(int(s.cols.numel()) for s in self.slices)
+
+
 def sliced_ell(slices, merge_idx: torch.Tensor) -> SlicedEll:
     """A :class:`SlicedEll` from its slices and ``merge_idx``, with the
     compact merge form derived once. Raises when a ``merge_idx`` entry lies
@@ -347,8 +363,8 @@ def default_slice_boundaries(deg: np.ndarray, pad_multiple: int = 8,
     return tuple(widths)
 
 
-def _build_ell_sliced(from_ids, to_ids, w, n, pad_multiple, boundaries,
-                      split) -> SlicedEll:
+def _build_slices(from_ids, to_ids, w, n, pad_multiple, boundaries,
+                  split) -> tuple[EllSlice, ...]:
     """Slice rows keyed by ``to_ids`` into per-degree-bucket ELL tiles, on
     the edges' device; the reference's arrays element for element."""
     dev = w.device
@@ -408,8 +424,14 @@ def _build_ell_sliced(from_ids, to_ids, w, n, pad_multiple, boundaries,
             ws=torch.full((0, widths[0]), INF, dtype=torch.float32,
                           device=dev),
         ))
-    # gather-based merge plan: position of each vertex's slice-rows in the
-    # row-major concatenation (sentinel = total rows -> the +inf slot)
+    return tuple(slices)
+
+
+def _merge_plan(slices, n: int) -> SlicedEll:
+    """The view of ``slices`` with its gather-based merge plan: the
+    position of each vertex's slice-rows in the row-major concatenation
+    (sentinel = total rows -> the +inf slot)."""
+    dev = slices[0].cols.device
     all_rows = torch.cat([s.rows for s in slices]).long()
     total = all_rows.numel()
     order, srt, rank = _rank_in_group(all_rows, n)
@@ -420,22 +442,31 @@ def _build_ell_sliced(from_ids, to_ids, w, n, pad_multiple, boundaries,
     return sliced_ell(slices, merge_idx)
 
 
-def _sliced_view(g: Graph, side: str, pad_multiple, boundaries, split):
-    """The memoised sliced view of one side. With no ``boundaries``, the
-    tuning ledger's for (side, n) on the graph's device come first; the
-    memo is keyed by the resolved boundaries, so a view built before a
-    tuning run is not returned after it."""
+def _sliced_view(g: Graph, side: str, pad_multiple, boundaries, split,
+                 plan: bool = True):
+    """The memoised sliced view of one side (``plan``: a ``SlicedEll``,
+    else its buckets alone, a :class:`SlicedBuckets`; the two share their
+    bucket tensors). With no ``boundaries``, the tuning ledger's for
+    (side, n) on the graph's device come first; the memo is keyed by the
+    resolved boundaries, so a view built before a tuning run is not
+    returned after it."""
     if boundaries is None:
         boundaries = resolve_slice_boundaries(side, g.n, g.device)
-    cache = g.__dict__.setdefault(f"_ell_{side}_sliced_cache", {})
     key = (pad_multiple,
            None if boundaries is None else tuple(int(b) for b in boundaries),
            None if split is None else int(split))
+    buckets = g.__dict__.setdefault(f"_ell_{side}_buckets_cache", {})
+    slices = buckets.get(key)
+    if slices is None:
+        from_ids, to_ids = (g.src, g.dst) if side == "in" else (g.dst, g.src)
+        slices = buckets[key] = SlicedBuckets(_build_slices(
+            from_ids, to_ids, g.w, g.n, pad_multiple, boundaries, split))
+    if not plan:
+        return slices
+    cache = g.__dict__.setdefault(f"_ell_{side}_sliced_cache", {})
     hit = cache.get(key)
     if hit is None:
-        from_ids, to_ids = (g.src, g.dst) if side == "in" else (g.dst, g.src)
-        hit = cache[key] = _build_ell_sliced(from_ids, to_ids, g.w, g.n,
-                                             pad_multiple, boundaries, split)
+        hit = cache[key] = _merge_plan(slices.slices, g.n)
     return hit
 
 
@@ -464,6 +495,15 @@ def to_ell_out_sliced(g: Graph, pad_multiple: int = 8, boundaries=None,
     return _sliced_view(g, "out", pad_multiple, boundaries, split)
 
 
+def to_ell_out_buckets(g: Graph, pad_multiple: int = 8, boundaries=None,
+                       split: int | None = None) -> SlicedBuckets:
+    """The buckets of :func:`to_ell_out_sliced` without its merge plan,
+    memoised per Graph instance and sharing their tensors with it: the
+    out-view of a policy that only pushes along it (delta-stepping)."""
+    return _sliced_view(g, "out", pad_multiple, boundaries, split,
+                        plan=False)
+
+
 def transpose(g: Graph) -> Graph:
     """The reverse graph (incoming edges become outgoing).
 
@@ -479,7 +519,8 @@ def transpose(g: Graph) -> Graph:
         n=g.n, m=g.m, src=g.dst, dst=g.src, w=g.w,
         in_min_static=g.out_min_static, out_min_static=g.in_min_static,
     )
-    for a, b in (("in", "out"), ("in_sliced", "out_sliced")):
+    for a, b in (("in", "out"), ("in_sliced", "out_sliced"),
+                 ("in_buckets", "out_buckets")):
         gt.__dict__[f"_ell_{a}_cache"] = g.__dict__.setdefault(
             f"_ell_{b}_cache", {})
         gt.__dict__[f"_ell_{b}_cache"] = g.__dict__.setdefault(

@@ -34,12 +34,16 @@ attribution ring, the settle mask is built member by member and each
 settled vertex is credited to the first member that proved it.
 
 :class:`DeltaPolicy` is delta-stepping (Meyer & Sanders) on the same
-stepper. ``prepare`` splits the incoming view into light (w <= delta) and
-heavy (w > delta) +inf-gated views (``ops.weight_gated_ell``); a phase
-reduces the bucket id ``floor(d / delta)`` over the fringe with
-``frontier_crit_lanes_batch`` and relaxes once through
-``ops.delta_relax_batch`` (two key-min gathers: ``ell_key_min_batch``, or
-``ell_sliced_gather_min_batch`` on the sliced layout). The carried stack
+stepper. A phase reduces the bucket id ``floor(d / delta)`` over the fringe
+with ``frontier_crit_lanes_batch`` and relaxes once, by a push along the
+OUTGOING view (``ops.delta_push_relax_batch``: ``ell_delta_push_batch``, or
+``ell_sliced_delta_push_batch`` on the sliced layout, whose out-view is
+its buckets alone, ``to_ell_out_buckets``): the light sources push their
+arcs of weight <= delta, the heavy ones the others, the weight gate formed
+as each arc is read. The reference gathers twice over light and heavy
+weight-gated copies of the incoming view (``ops.delta_relax_batch``); the
+push gives the same bits and holds no such copy, and delta reads no
+in-view at all (its ``in_view`` is None). The carried stack
 holds the drain bookkeeping: slot 0 the ``last_processed`` tentative
 distance, slot 1 the removed-from-bucket flag. A lane is on a light round
 while a bucket vertex has ``d < last_processed``; otherwise the phase is
@@ -56,7 +60,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import criteria as C
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import (
+    Graph,
+    to_ell_in,
+    to_ell_in_sliced,
+    to_ell_out,
+    to_ell_out_buckets,
+    to_ell_out_sliced,
+)
 from repro_torch.kernels import ops as kops
 
 INF = float("inf")
@@ -115,9 +126,23 @@ class PhasePolicy:
         """Once-per-chunk invariant repair before entering the loop."""
         return state
 
+    def in_view(self, g: Graph, sliced: bool):
+        """The incoming view :meth:`prime` and :meth:`phase` read, padded
+        or degree-sliced (``sliced``), memoised on the graph; None when
+        they read none."""
+        return to_ell_in_sliced(g) if sliced else to_ell_in(g)
+
+    def out_view(self, g: Graph, sliced: bool):
+        """The outgoing view :meth:`phase` reads, in the layout of the
+        in-view (``sliced``), memoised on the graph; None when it reads
+        none."""
+        if not self.needs_out_adjacency:
+            return None
+        return to_ell_out_sliced(g) if sliced else to_ell_out(g)
+
     def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
         """Loop-invariant operands of :meth:`phase`, once a ``step_batch``
-        call."""
+        call (``ell_in`` is None for a policy that reads no in-view)."""
         raise NotImplementedError
 
     def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
@@ -406,10 +431,20 @@ class DeltaPolicy(PhasePolicy):
 
     spec = DELTA_SPEC
     uses_delta = True
-    needs_out_adjacency = False
+    needs_out_adjacency = True  # the relax pushes along it
 
     def attribution_terms(self) -> tuple[str, ...]:
         return ("light", "heavy", "bucket")
+
+    def in_view(self, g: Graph, sliced: bool):
+        """None: nothing reads the incoming view, the relax pushes."""
+        return None
+
+    def out_view(self, g: Graph, sliced: bool):
+        """``to_ell_out(g)``, or on the sliced layout the out-view's
+        buckets without its merge plan (``to_ell_out_buckets``): the push
+        reads nothing else."""
+        return to_ell_out_buckets(g) if sliced else to_ell_out(g)
 
     def share_terms(self) -> tuple[str, ...]:
         return ("light", "heavy")  # the bucket id is not a count
@@ -430,25 +465,26 @@ class DeltaPolicy(PhasePolicy):
         return 4 * n + 16
 
     def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
-        """``(ell_light, ell_heavy, deg_light, deg_heavy)`` for ``ell_in``
-        and the state's delta, memoised on the graph for one (view, delta)
-        pair at a time: a server stepping in chunks builds them once, and
-        the graph holds the two copies of the view's weights while it lives
-        or until another pair replaces them."""
+        """``(ell_out, delta, deg_light, deg_heavy)``: the out-view the
+        push reads, the state's f32 delta as a Python float (read back once
+        here, handed to the kernel by value every phase) and the light and
+        heavy out-degrees of the relax counters, memoised on the graph for
+        one (out-view, delta) pair at a time: a server stepping in chunks
+        counts them once."""
         delta = float(state.delta)
         hit = g.__dict__.get("_delta_prepare_cache")
-        if (hit is not None and hit[1] == delta and len(hit[0]) == len(ell_in)
-                and all(a is b for a, b in zip(hit[0], ell_in))):
+        if (hit is not None and hit[1] == delta
+                and len(hit[0]) == len(ell_out)
+                and all(a is b for a, b in zip(hit[0], ell_out))):
             return hit[2]
-        ell_light, ell_heavy = kops.weight_gated_ell(ell_in, state.delta)
         # light and heavy out-degrees for the relax counters (the COO
         # padding carries w = +inf, which `isfinite` drops)
         light = torch.isfinite(g.w) & (g.w <= state.delta)
         deg_light = torch.zeros((g.n,), dtype=torch.int32,
                                 device=g.device).index_add_(
             0, g.src.long(), light.to(torch.int32))
-        aux = (ell_light, ell_heavy, deg_light, state.out_deg - deg_light)
-        g.__dict__["_delta_prepare_cache"] = (ell_in, delta, aux)
+        aux = (ell_out, delta, deg_light, state.out_deg - deg_light)
+        g.__dict__["_delta_prepare_cache"] = (ell_out, delta, aux)
         return aux
 
     @staticmethod
@@ -474,14 +510,16 @@ class DeltaPolicy(PhasePolicy):
         return DeltaGates(bidx, b_lane, n_f, cur, heavy_turn, heavy_from)
 
     def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
-        ell_light, ell_heavy, deg_light, deg_heavy = aux
+        ell_out, delta, deg_light, deg_heavy = aux
         d, status = s.dist, s.status
         last_proc = s.crit_keys[0]
         removed = s.crit_keys[1] > 0.5
         _, b_lane, n_f, cur, heavy_turn, heavy_from = self.gates(s,
                                                                  use_kernels)
-        upd = kops.delta_relax_batch(d, cur, heavy_from, ell_light,
-                                     ell_heavy, use_kernels=use_kernels)
+        # one push: light arcs from this round's work set, heavy arcs from
+        # the removed set on the heavy turn
+        upd = kops.delta_push_relax_batch(d, cur, heavy_from, ell_out, delta,
+                                          use_kernels=use_kernels)
         settle = heavy_from  # the bucket settles on its heavy turn
         # d >= +0 and upd = d + w >= +0: no -0 reaches this min
         new_d = torch.minimum(d, upd)

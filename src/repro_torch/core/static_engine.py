@@ -367,30 +367,32 @@ def step_batch(
     Returns after ``k_phases`` trips, or earlier when every lane's fringe is
     empty (possibly at once), or, with ``stop_on_lane_finish``, as soon as
     a lane that was live on entry terminates. ``ell`` is the incoming view
-    (default ``to_ell_in(g)``); ``ell_out`` the outgoing one, read by the
+    (default the policy's padded ``in_view``: ``to_ell_in(g)``, None for
+    delta, which reads none); ``ell_out`` the outgoing one, read by the
     plans whose phase reads it (``needs_out_adjacency``: out-side dynamic
     keys, or the push relax of every plan without in-side keys, the default
-    among them; default the memoised ``to_ell_out(g)``, or
-    ``to_ell_out_sliced(g)`` when ``ell`` is sliced). Either may be the
-    padded ``(cols, ws)`` pair or a degree-sliced ``SlicedEll``: results
+    and delta among them; default the policy's memoised ``out_view``:
+    ``to_ell_out(g)``, or ``to_ell_out_sliced(g)`` when ``ell`` is sliced,
+    its buckets alone for delta). Either may be the padded ``(cols, ws)``
+    pair or a degree-sliced ``SlicedEll``: results
     are bit-identical between layouts. Before the loop, even one that runs
     no trip, the policy re-primes carried keys that admission made stale.
     ``use_kernels=False`` runs the plain twins: bit-identical results.
     """
-    if ell is None:
-        ell = to_ell_in(g)
     if state.device != g.device:
         raise ValueError(
             f"state lives on {state.device}, the graph on {g.device}"
         )
     policy = P.policy_for(state.criterion)
+    if ell is None:
+        ell = policy.in_view(g, False)
     if not policy.needs_out_adjacency:
         ell_out = None
     elif ell_out is None:
-        ell_out = to_ell_out_sliced(g) if _is_sliced(ell) else to_ell_out(g)
+        ell_out = policy.out_view(g, ell is not None and _is_sliced(ell))
     live0 = torch.any(state.status == 1, dim=1)  # (B,) lanes live at entry
     s = policy.prime(g, ell, state, use_kernels)
-    # loop-invariant operands, once a call (delta's weight-gated views)
+    # loop-invariant operands, once a call (delta's degree counts)
     aux = policy.prepare(g, ell, ell_out, s, use_kernels)
     for _ in range(max(int(k_phases), 0)):
         live = torch.any(s.status == 1, dim=1)  # lanes never revive
@@ -575,15 +577,19 @@ def harvest(state: BatchState) -> BatchedResult:
     )
 
 
-def _resolve_layout(g: Graph, ell, layout: str):
-    """The incoming view: ``ell`` as passed, else the one ``layout`` names.
-    The outgoing view is left to :func:`step_batch`, which builds one in the
-    same layout only for plans that read it."""
+def _resolve_views(g: Graph, criterion: str, ell, ell_out, layout: str):
+    """The incoming and outgoing views of a solve: each as passed, else the
+    one ``layout`` names where the policy reads it (None where it reads
+    none; a passed in-view's layout decides the out-view's)."""
     if layout not in ("padded", "sliced"):
         raise ValueError(f"layout must be 'padded' or 'sliced'; got {layout!r}")
+    policy = P.policy_for(criterion)
+    sliced = layout == "sliced" if ell is None else _is_sliced(ell)
     if ell is None:
-        ell = to_ell_in_sliced(g) if layout == "sliced" else to_ell_in(g)
-    return ell
+        ell = policy.in_view(g, sliced)
+    if ell_out is None:
+        ell_out = policy.out_view(g, sliced)
+    return ell, ell_out
 
 
 def run_phased_static(
@@ -613,7 +619,7 @@ def run_phased_static(
     only ``dist[target]`` (bit-exact against the full solve) and the
     vertices nearer than it are final on the returned row.
     """
-    ell = _resolve_layout(g, ell, layout)
+    ell, ell_out = _resolve_views(g, criterion, ell, ell_out, layout)
     policy = P.policy_for(criterion)
     cap = int(max_phases) if max_phases is not None else policy.phase_cap(g.n)
     if not 0 <= int(source) < g.n:
@@ -664,12 +670,13 @@ def run_phased_static_batch(
     ``dist_true`` (B, n), ``delta`` and ``telemetry`` are as in
     :func:`init_batch_state`; ``device`` (None = the
     CUDA card) must be the graph's device; ``layout`` ("padded" or
-    "sliced") names the incoming view built when ``ell`` is None;
-    ``ell_out`` is the outgoing view (default: one in ``ell``'s layout, for
-    the plans that read it, see :func:`step_batch`); ``targets`` (B,) gives
+    "sliced") names the views built when ``ell`` is None, each only where
+    the policy reads it; ``ell_out`` is the outgoing view (default: one in
+    ``ell``'s layout, for the plans that read it, see :func:`step_batch`,
+    and delta's ``out_view``); ``targets`` (B,) gives
     per-lane s->t targets (-1 = full solve), as in :func:`init_batch_state`.
     """
-    ell = _resolve_layout(g, ell, layout)
+    ell, ell_out = _resolve_views(g, criterion, ell, ell_out, layout)
     src_np = validate_sources(sources, g.n, 0, f"in [0, {g.n})")
     policy = P.policy_for(criterion)
     cap = int(max_phases) if max_phases is not None else policy.phase_cap(g.n)

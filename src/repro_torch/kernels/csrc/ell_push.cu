@@ -85,6 +85,40 @@
 // reference's shard-local jax.ops.segment_min (XLA, no Pallas kernel) in
 // repro/core/distributed.py (:536-539, :590-593). The square form is the
 // rectangular one with n_rows == n_targets == n.
+//
+// The delta form (ell_delta_push_launch) is delta-stepping's relax, both
+// turns in one push over the outgoing view:
+//
+//   upd[b, v] = nan_min(min over out-arcs (u -> v, w), light[b, u], of
+//                           d[b, u] + (w <= delta ? w : +inf),
+//                       min over out-arcs (u -> v, w), heavy[b, u], of
+//                           d[b, u] + (w >  delta ? w : +inf))
+//
+// It replaces, on the delta policy's relax, the two dense gathers over the
+// light and heavy weight-gated incoming views that stand for these TPU
+// kernels of the JAX package as its delta_relax_batch
+// (repro/kernels/ops.py:303) runs them:
+//   * repro/kernels/ell_key_min.py::ell_key_min_batch (:86, pallas_call at
+//     :108), on the padded layout;
+//   * repro/kernels/ell_relax_keys.py::ell_sliced_gather_min_batch (:311,
+//     pallas_call at :334), on the degree-sliced layout.
+// Under delta a gate is one bucket's vertices, so a pull reads the whole
+// view (1.2 GB on G(10^6, 10^-4)) to find a few slots, twice a phase; the
+// function's bound is that of this push: the out-rows of the light and
+// heavy sources, d, the two gates and upd once. What the design does:
+//  * the mark pass writes two words per vertex and lane tile, the light
+//    sources and the heavy ones (a source with d = +inf pushes nothing, as
+//    in the square form), so a row read once serves both turns of every
+//    lane; the two sets may overlap (the policy keeps them disjoint within
+//    a lane; the function does not need it);
+//  * the weight gate is formed in the kernel from the slot's weight and
+//    the f32 delta, with the compare of the reference's weight_gated_ell,
+//    so no gated copy of the view's weights is held in memory. Each
+//    candidate is the reference's add on the reference's operands, d + w or
+//    d + inf: a NaN or -inf source gives NaN at the neighbours its turn
+//    gates out, as the reference's gather does. A lane's two candidates
+//    fold by nan_min and land through the same filtered atomic min, so a
+//    +inf candidate issues none.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -124,6 +158,12 @@ __device__ __forceinline__ void atomic_min_f32(float* p, float x) {
   }
 }
 
+// min(m, x) as the pull's fold takes it: x where it is below m, NaN, or -0
+// beside a +0; m otherwise.
+__device__ __forceinline__ float fold_min(float m, float x) {
+  return (x < m || x != x || (x == m && signbit(x))) ? x : m;
+}
+
 // Mark: mask[t, u] bit k set iff dmask[t * 32 + k, u] != +inf, for the n
 // owners u; upd = +inf on its nt targets. Grid: (blocks over max(n, nt),
 // lane tiles).
@@ -145,14 +185,44 @@ __global__ void push_mark_kernel(const float* __restrict__ dmask, long long n,
   if (u < n) mask[(long long)t * n + u] = bits;
 }
 
+// Mark of the delta form: mask[t, u] = (light word, heavy word), bit k of
+// the light word set iff light[b, u] != 0 and d[b, u] != +inf (b = t * 32 +
+// k), of the heavy word likewise; upd = +inf. Grid: (blocks over n, lane
+// tiles).
+__global__ void delta_mark_kernel(const float* __restrict__ d,
+                                  const unsigned char* __restrict__ light,
+                                  const unsigned char* __restrict__ heavy,
+                                  long long n, int lanes,
+                                  uint2* __restrict__ mask,
+                                  float* __restrict__ upd) {
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= n) return;
+  const int t = blockIdx.y;
+  const int b1 = min(lanes, t * 32 + 32);
+  unsigned lw = 0, hw = 0;
+  for (int b = t * 32; b < b1; ++b) {
+    const long long i = (long long)b * n + u;
+    const unsigned char l = light[i], h = heavy[i];
+    if ((l | h) != 0 && d[i] != CUDART_INF_F) {
+      const unsigned bit = 1u << (b - t * 32);
+      if (l != 0) lw |= bit;
+      if (h != 0) hw |= bit;
+    }
+    upd[i] = CUDART_INF_F;
+  }
+  mask[(long long)t * n + u] = make_uint2(lw, hw);
+}
+
 // The rows of warp task `task` of bucket `bk`, for lane tile `tile`: rows
 // task * rt + [0, rt), one lane each for the mask read. Owners lie in
-// [0, n) (dmask and mask rows), ids in [0, nt) (upd rows).
-template <int G>
+// [0, n) (dmask and mask rows), ids in [0, nt) (upd rows). DELTA: `mask`
+// holds the delta mark's (light, heavy) word pairs, `dmask` is d, and a
+// slot's weight is gated by `delta` for each turn.
+template <int G, bool DELTA>
 __device__ __forceinline__ void push_task(
     const PushBucket& bk, long long task, int tile,
     const float* __restrict__ dmask, long long n, long long nt,
-    const unsigned* __restrict__ mask, float* upd,
+    const unsigned* __restrict__ mask, float delta, float* upd,
     unsigned long long& n_cand, unsigned long long& n_atomic) {
   constexpr int RPW = 32 / G;  // rows in flight a warp
   constexpr int SPAN = PUSH_UNROLL * G;  // slots of a row a pass covers
@@ -161,13 +231,22 @@ __device__ __forceinline__ void push_task(
   const unsigned low = G == 32 ? FULL_MASK : (1u << (G % 32)) - 1u;
   const unsigned gmask = low << (gid * G);
   const long long r = task * bk.rt + lane;
-  unsigned m = 0;
+  unsigned m = 0, mh = 0;  // the row's lane word (DELTA: light, heavy)
   int owner = 0;
   if (lane < bk.rt && r < bk.n_rows) {
     owner = bk.rows != nullptr ? bk.rows[r] : (int)r;
-    if (owner >= 0 && owner < n) m = mask[(long long)tile * n + owner];
+    if (owner >= 0 && owner < n) {
+      if (DELTA) {
+        const uint2 pair =
+            reinterpret_cast<const uint2*>(mask)[(long long)tile * n + owner];
+        m = pair.x;
+        mh = pair.y;
+      } else {
+        m = mask[(long long)tile * n + owner];
+      }
+    }
   }
-  unsigned rest = __ballot_sync(FULL_MASK, m != 0);  // warp-uniform
+  unsigned rest = __ballot_sync(FULL_MASK, (m | mh) != 0);  // warp-uniform
   while (rest != 0) {
     // group gid takes the gid-th lowest active row of what is left
     unsigned pick = rest;
@@ -175,7 +254,10 @@ __device__ __forceinline__ void push_task(
     const int src = pick != 0 ? __ffs(pick) - 1 : -1;
 #pragma unroll
     for (int q = 0; q < RPW; ++q) rest &= rest - 1;
-    const unsigned rm = __shfl_sync(FULL_MASK, m, src < 0 ? 0 : src);
+    const unsigned rl = __shfl_sync(FULL_MASK, m, src < 0 ? 0 : src);
+    const unsigned rh = DELTA ? __shfl_sync(FULL_MASK, mh, src < 0 ? 0 : src)
+                              : 0u;
+    const unsigned rm = rl | rh;
     const int u = __shfl_sync(FULL_MASK, owner, src < 0 ? 0 : src);
     if (src < 0) continue;  // only on the last pass: rest is now 0
     const long long row = task * bk.rt + src;
@@ -202,8 +284,10 @@ __device__ __forceinline__ void push_task(
         if (e != 0 && end == SPAN) end = q * G + __ffs(e) - 1;
       }
       for (unsigned bits = rm; bits != 0; bits &= bits - 1) {
-        const long long b = (long long)tile * 32 + __ffs(bits) - 1;
+        const int k = __ffs(bits) - 1;
+        const long long b = (long long)tile * 32 + k;
         const float du = __ldg(dmask + b * n + u);
+        const bool lt = ((rl >> k) & 1u) != 0, hv = ((rh >> k) & 1u) != 0;
         float* urow = upd + b * nt;
         float cur[PUSH_UNROLL];
 #pragma unroll
@@ -214,7 +298,15 @@ __device__ __forceinline__ void push_task(
 #pragma unroll
         for (int q = 0; q < PUSH_UNROLL; ++q) {
           if (q * G + sub >= end) continue;
-          const float cand = du + w[q];
+          float cand;
+          if (DELTA) {
+            // the reference's gated weight for each turn, then its add
+            const bool le = w[q] <= delta;
+            cand = lt ? du + (le ? w[q] : CUDART_INF_F) : CUDART_INF_F;
+            if (hv) cand = fold_min(cand, du + (le ? CUDART_INF_F : w[q]));
+          } else {
+            cand = du + w[q];
+          }
           ++n_cand;
           if (!PUSH_FILTER ||
               (cand != cand ? cur[q] == cur[q]
@@ -231,14 +323,14 @@ __device__ __forceinline__ void push_task(
   }
 }
 
-// Push: each warp walks warp tasks of the bucket table (grid-stride), the
-// lane tile is blockIdx.y. `stats`, when not null, gets [candidates, atomics
-// issued] added.
-__global__ void __launch_bounds__(PUSH_THREADS)
-    push_kernel(PushTable tab, long long tasks,
-                const float* __restrict__ dmask, long long n, long long nt,
-                const unsigned* __restrict__ mask, float* upd,
-                unsigned long long* stats) {
+// The push pass of one launch: each warp walks warp tasks of the bucket
+// table (grid-stride), the lane tile is blockIdx.y. `stats`, when not null,
+// gets [candidates, atomics issued] added.
+template <bool DELTA>
+__device__ __forceinline__ void push_pass(
+    const PushTable& tab, long long tasks, const float* __restrict__ dmask,
+    long long n, long long nt, const unsigned* __restrict__ mask,
+    float delta, float* upd, unsigned long long* stats) {
   constexpr int WARPS = PUSH_THREADS / 32;
   const int tile = blockIdx.y;
   unsigned long long n_cand = 0, n_atomic = 0;
@@ -252,14 +344,14 @@ __global__ void __launch_bounds__(PUSH_THREADS)
     }
     const long long task = gw - bk.first_task;
     if (bk.g == 8) {
-      push_task<8>(bk, task, tile, dmask, n, nt, mask, upd, n_cand,
-                     n_atomic);
+      push_task<8, DELTA>(bk, task, tile, dmask, n, nt, mask, delta, upd,
+                          n_cand, n_atomic);
     } else if (bk.g == 16) {
-      push_task<16>(bk, task, tile, dmask, n, nt, mask, upd, n_cand,
-                     n_atomic);
+      push_task<16, DELTA>(bk, task, tile, dmask, n, nt, mask, delta, upd,
+                           n_cand, n_atomic);
     } else {
-      push_task<32>(bk, task, tile, dmask, n, nt, mask, upd, n_cand,
-                     n_atomic);
+      push_task<32, DELTA>(bk, task, tile, dmask, n, nt, mask, delta, upd,
+                           n_cand, n_atomic);
     }
   }
   if (stats != nullptr) {
@@ -272,6 +364,25 @@ __global__ void __launch_bounds__(PUSH_THREADS)
       atomicAdd(stats + 1, n_atomic);
     }
   }
+}
+
+// Push: dmask's candidates along the table's rows (push_pass).
+__global__ void __launch_bounds__(PUSH_THREADS)
+    push_kernel(PushTable tab, long long tasks,
+                const float* __restrict__ dmask, long long n, long long nt,
+                const unsigned* __restrict__ mask, float* upd,
+                unsigned long long* stats) {
+  push_pass<false>(tab, tasks, dmask, n, nt, mask, 0.0f, upd, stats);
+}
+
+// Push of the delta form: d's light and heavy candidates, gated by delta,
+// along the table's rows (push_pass), `mask` the delta mark's word pairs.
+__global__ void __launch_bounds__(PUSH_THREADS)
+    delta_push_kernel(PushTable tab, long long tasks,
+                      const float* __restrict__ d, long long n,
+                      const unsigned* __restrict__ mask, float delta,
+                      float* upd, unsigned long long* stats) {
+  push_pass<true>(tab, tasks, d, n, n, mask, delta, upd, stats);
 }
 
 // Threads a row for a bucket of width d_pad.
@@ -314,12 +425,19 @@ static int next_group(const long long* table, int n_buckets, int* i,
 }
 
 // The push, dmask (lanes, n) f32 -> upd (lanes, nt) f32 (see the entry
-// points below).
-static int push_launch(const float* dmask, long long n, long long nt,
-                       int lanes, const long long* table, int n_buckets,
-                       unsigned* mask, float* upd, unsigned long long* stats,
-                       void* stream) {
+// points below). With `light` not null it is the delta form: dmask is d,
+// `light` and `heavy` (lanes, n) bytes, nt == n, and `mask` holds two words
+// a vertex and lane tile.
+static int push_launch(const float* dmask, const unsigned char* light,
+                       const unsigned char* heavy, float delta, long long n,
+                       long long nt, int lanes, const long long* table,
+                       int n_buckets, unsigned* mask, float* upd,
+                       unsigned long long* stats, void* stream) {
   if (n < 1 || nt < 1 || lanes < 1 || n_buckets < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool delta_form = light != nullptr;
+  if (delta_form && (heavy == nullptr || nt != n)) {
     return (int)cudaErrorInvalidValue;
   }
   const int tiles = (lanes + 31) / 32;
@@ -334,8 +452,13 @@ static int push_launch(const float* dmask, long long n, long long nt,
   const long long span = n > nt ? n : nt;
   const dim3 mark_grid((unsigned)((span + PUSH_THREADS - 1) / PUSH_THREADS),
                        (unsigned)tiles);
-  push_mark_kernel<<<mark_grid, PUSH_THREADS, 0, s>>>(dmask, n, nt, lanes,
-                                                      mask, upd);
+  if (delta_form) {
+    delta_mark_kernel<<<mark_grid, PUSH_THREADS, 0, s>>>(
+        dmask, light, heavy, n, lanes, reinterpret_cast<uint2*>(mask), upd);
+  } else {
+    push_mark_kernel<<<mark_grid, PUSH_THREADS, 0, s>>>(dmask, n, nt, lanes,
+                                                        mask, upd);
+  }
   int rc = (int)cudaGetLastError();
   for (int i = 0; rc == 0 && i < n_buckets;) {
     next_group(table, n_buckets, &i, &tab, &tasks);
@@ -343,8 +466,14 @@ static int push_launch(const float* dmask, long long n, long long nt,
     constexpr long long WARPS = PUSH_THREADS / 32;
     long long blocks = (tasks + WARPS - 1) / WARPS;
     if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-    push_kernel<<<dim3((unsigned)blocks, (unsigned)tiles), PUSH_THREADS, 0,
-                  s>>>(tab, tasks, dmask, n, nt, mask, upd, stats);
+    const dim3 grid((unsigned)blocks, (unsigned)tiles);
+    if (delta_form) {
+      delta_push_kernel<<<grid, PUSH_THREADS, 0, s>>>(
+          tab, tasks, dmask, n, mask, delta, upd, stats);
+    } else {
+      push_kernel<<<grid, PUSH_THREADS, 0, s>>>(tab, tasks, dmask, n, nt,
+                                                mask, upd, stats);
+    }
     rc = (int)cudaGetLastError();
   }
   return rc;
@@ -365,8 +494,8 @@ extern "C" int ell_push_relax_launch(const float* dmask, long long n,
                                      int n_buckets, unsigned* mask,
                                      float* upd, unsigned long long* stats,
                                      void* stream) {
-  return push_launch(dmask, n, n, lanes, table, n_buckets, mask, upd, stats,
-                     stream);
+  return push_launch(dmask, nullptr, nullptr, 0.0f, n, n, lanes, table,
+                     n_buckets, mask, upd, stats, stream);
 }
 
 // ell_push_rect_batch: the rectangular form, dmask (lanes, n_rows) f32 ->
@@ -378,6 +507,24 @@ extern "C" int ell_push_rect_launch(const float* dmask, long long n_rows,
                                     const long long* table, int n_buckets,
                                     unsigned* mask, float* upd,
                                     unsigned long long* stats, void* stream) {
-  return push_launch(dmask, n_rows, n_targets, lanes, table, n_buckets, mask,
-                     upd, stats, stream);
+  return push_launch(dmask, nullptr, nullptr, 0.0f, n_rows, n_targets, lanes,
+                     table, n_buckets, mask, upd, stats, stream);
+}
+
+// ell_delta_push_batch: d (lanes, n) f32, light and heavy (lanes, n) bytes
+// (0 or 1: torch.bool) -> upd (lanes, n) f32, the delta form (see the note
+// at the top): light sources push their arcs of weight <= delta, heavy ones
+// the others, each gated-out arc's candidate d + inf. `delta` is the f32
+// bucket width. `table`, `stats` and the return code as for
+// ell_push_relax_launch; scratch: `mask` 2 * ceil(lanes / 32) * n words.
+extern "C" int ell_delta_push_launch(const float* d, const unsigned char* light,
+                                     const unsigned char* heavy, float delta,
+                                     long long n, int lanes,
+                                     const long long* table, int n_buckets,
+                                     unsigned* mask, float* upd,
+                                     unsigned long long* stats,
+                                     void* stream) {
+  if (light == nullptr) return (int)cudaErrorInvalidValue;
+  return push_launch(d, light, heavy, delta, n, n, lanes, table, n_buckets,
+                     mask, upd, stats, stream);
 }

@@ -3,7 +3,7 @@
     upd[b, v] = min over edges (u, v, w) of dmask[b, u] + w
 
 where ``dmask[b, u]`` is ``d[b, u]`` if u was settled this phase in lane b
-and +inf otherwise. Two kernels compute it:
+and +inf otherwise. The kernels of this module:
 
   * :func:`ell_relax_batch`, the pull over the incoming ELL,
     ``min_j dmask[b, cols[v, j]] + ws[v, j]`` (the ops layer masks and pads
@@ -20,6 +20,11 @@ and +inf otherwise. Two kernels compute it:
     global ids, so ``dmask`` is (B, n_rows) and ``upd`` (B, n_targets). The
     sharded stepper's relax and dynamic key scans
     (``core/distributed.py``).
+  * :func:`ell_delta_push_batch`, delta-stepping's relax as one push over
+    the padded outgoing ELL: the light sources push their arcs of weight
+    ``<= delta``, the heavy ones the others, with the weight gate formed in
+    the kernel (``csrc/ell_push.cu``, its delta form). The same bits as the
+    reference's two gathers over the weight-gated incoming views.
 
 Each source's note says what bounds its kernel on the card and how the
 design answers. A tensor on the CPU runs the plain twin in
@@ -35,10 +40,13 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.config import runs_twin
 from repro_torch.kernels.ell_relax_keys import check_inputs, gather_rows, launch
 
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
 PUSH_SIGNATURES = {
     "ell_push_relax_launch": ([_P, _LL, _I, _P, _I, _P, _P, _P, _P], _I),
     "ell_push_rect_launch": ([_P, _LL, _LL, _I, _P, _I, _P, _P, _P, _P], _I),
+    "ell_delta_push_launch": ([_P, _P, _P, _F, _LL, _I, _P, _I, _P, _P, _P,
+                               _P], _I),
 }
 MAX_PUSH_LANES = 32 * 65535  # lane tiles ride the grid's second axis
 
@@ -86,25 +94,21 @@ def push_library():
     return _build.load("ell_push", PUSH_SIGNATURES)
 
 
-def push_rows(dmask: torch.Tensor, out_view, stats=None,
-              lib=None, n_targets: int | None = None) -> torch.Tensor:
-    """Launch the push (``csrc/ell_push.cu``) along ``out_view``, a padded
-    ``(cols, ws)`` pair or a ``SlicedEll``, already checked; returns upd
-    (B, n), or (B, n_targets) through the rectangular entry point when
-    ``n_targets`` is given. ``stats``, a (2,) int64 tensor on the card or
-    None, gets [candidates, atomics issued] added. ``lib`` is a build of
-    the source with the same C interface (default :func:`push_library`)."""
-    b, n = dmask.shape
-    dev = dmask.device
-    m = n if n_targets is None else int(n_targets)
+def _push_setup(b: int, m: int, dev, stats):
+    """The output ``upd`` (B, m) of a push launch, after the checks every
+    form shares."""
     upd = torch.empty((b, m), dtype=torch.float32, device=dev)
-    if upd.numel() == 0:
-        return upd
-    if b > MAX_PUSH_LANES:
+    if upd.numel() and b > MAX_PUSH_LANES:
         raise ValueError(f"{b} lanes; the push takes at most {MAX_PUSH_LANES}")
     if stats is not None and (stats.device != dev or stats.dtype != torch.int64
                               or stats.shape != (2,)):
         raise ValueError("want stats as a (2,) int64 tensor on the card")
+    return upd
+
+
+def _push_table(out_view):
+    """The host bucket table of ``out_view`` (five int64 a bucket: cols,
+    ws, rows or 0, row count, width) and its bucket count."""
     buckets = ([(s.rows, s.cols, s.ws) for s in out_view.slices]
                if hasattr(out_view, "slices") else [(None, *out_view)])
     entries = []
@@ -112,7 +116,24 @@ def push_rows(dmask: torch.Tensor, out_view, stats=None,
         entries += [cols.data_ptr(), ws.data_ptr(),
                     0 if rows is None else rows.data_ptr(), cols.shape[0],
                     cols.shape[1]]
-    table = (ctypes.c_longlong * max(len(entries), 1))(*entries)
+    return (ctypes.c_longlong * max(len(entries), 1))(*entries), len(buckets)
+
+
+def push_rows(dmask: torch.Tensor, out_view, stats=None,
+              lib=None, n_targets: int | None = None) -> torch.Tensor:
+    """Launch the push (``csrc/ell_push.cu``) along ``out_view``, a padded
+    ``(cols, ws)`` pair or a sliced view, already checked; returns upd
+    (B, n), or (B, n_targets) through the rectangular entry point when
+    ``n_targets`` is given. ``stats``, a (2,) int64 tensor on the card or
+    None, gets [candidates, atomics issued] added. ``lib`` is a build of
+    the source with the same C interface (default :func:`push_library`)."""
+    b, n = dmask.shape
+    dev = dmask.device
+    m = n if n_targets is None else int(n_targets)
+    upd = _push_setup(b, m, dev, stats)
+    if upd.numel() == 0:
+        return upd
+    table, n_buckets = _push_table(out_view)
     mask = torch.empty((-(-b // 32), n), dtype=torch.int32, device=dev)
     sizes = ((n,) if n_targets is None else (n, m))
     launch("ell_push_relax_batch" if n_targets is None
@@ -120,10 +141,48 @@ def push_rows(dmask: torch.Tensor, out_view, stats=None,
            "ell_push_relax_launch" if n_targets is None
            else "ell_push_rect_launch", dev,
            dmask.data_ptr(), *sizes, b, ctypes.addressof(table),
-           len(buckets), mask.data_ptr(), upd.data_ptr(),
+           n_buckets, mask.data_ptr(), upd.data_ptr(),
            None if stats is None else stats.data_ptr(),
            lib=push_library() if lib is None else lib)
     return upd
+
+
+def delta_push_rows(d: torch.Tensor, light: torch.Tensor,
+                    heavy: torch.Tensor, out_view, delta: float,
+                    stats=None, lib=None) -> torch.Tensor:
+    """Launch the delta form of the push along ``out_view`` (padded or
+    sliced, already checked): returns upd (B, n). ``delta`` is rounded to
+    f32 once, here. ``stats`` and ``lib`` as in :func:`push_rows`."""
+    b, n = d.shape
+    dev = d.device
+    upd = _push_setup(b, n, dev, stats)
+    if upd.numel() == 0:
+        return upd
+    table, n_buckets = _push_table(out_view)
+    mask = torch.empty((-(-b // 32), 2 * n), dtype=torch.int32, device=dev)
+    launch("ell_delta_push_batch", "ell_delta_push_launch", dev,
+           d.data_ptr(), light.data_ptr(), heavy.data_ptr(), float(delta),
+           n, b, ctypes.addressof(table), n_buckets, mask.data_ptr(),
+           upd.data_ptr(), None if stats is None else stats.data_ptr(),
+           lib=push_library() if lib is None else lib)
+    return upd
+
+
+def check_gates(d: torch.Tensor, light: torch.Tensor, heavy: torch.Tensor):
+    """The delta push's checks on its lane inputs: (B, n) f32 ``d`` and
+    bool ``light`` / ``heavy`` of its shape, one device, contiguous."""
+    if d.dim() != 2:
+        raise ValueError(f"want d (B, n); got {tuple(d.shape)}")
+    for name, gate in (("light_from", light), ("heavy_from", heavy)):
+        if gate.dtype != torch.bool or gate.shape != d.shape:
+            raise ValueError(f"want a bool {name} of d's shape "
+                             f"{tuple(d.shape)}; got {gate.dtype} "
+                             f"{tuple(gate.shape)}")
+        if gate.device != d.device:
+            raise ValueError(f"inputs on different devices: d on {d.device}, "
+                             f"{name} on {gate.device}")
+        if not gate.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def ell_push_relax_batch(dmask: torch.Tensor, cols: torch.Tensor,
@@ -191,6 +250,43 @@ def ell_push_rect_batch(dmask: torch.Tensor, cols: torch.Tensor,
 ell_push_rect_batch.launches = 0  # kernel launches since the last reset
 
 
+def ell_delta_push_batch(d: torch.Tensor, light_from: torch.Tensor,
+                         heavy_from: torch.Tensor, cols: torch.Tensor,
+                         ws: torch.Tensor, delta: float, *,
+                         stats=None) -> torch.Tensor:
+    """Returns upd (B, n) f32, delta-stepping's relax pushed along the
+    padded outgoing ELL: the nan_min of ``d[b, u] + (w <= delta ? w :
+    +inf)`` over the out-arcs (u, v, w) with ``light_from[b, u]`` and of
+    ``d[b, u] + (w > delta ? w : +inf)`` over those with
+    ``heavy_from[b, u]``; +inf where v has no candidate. The reference's
+    ``delta_relax_batch`` over the ``weight_gated_ell`` twins of the
+    incoming view, bit for bit (every NaN taken as one value).
+
+    ``d`` is (B, n) f32; ``light_from`` / ``heavy_from`` (B, n) bool, which
+    may overlap; ``cols`` / ``ws`` ``to_ell_out``'s view (rows end at their
+    first id outside [0, n)). ``delta`` is a Python float, rounded to f32
+    as the reference's ``jnp.float32(delta)`` is; a source whose ``d`` is
+    +inf pushes nothing. ``stats``: see :func:`push_rows` (the kernel
+    only).
+    """
+    check_gates(d, light_from, heavy_from)
+    check_inputs({"d": d}, cols, ws)
+    if cols.shape[0] != d.shape[1]:
+        raise ValueError(
+            f"the padded out-view needs one row per vertex: cols has "
+            f"{cols.shape[0]} rows for n = {d.shape[1]}"
+        )
+    if runs_twin(d):
+        return ref.ell_delta_push_batch_ref(d, light_from, heavy_from,
+                                            (cols, ws), delta)
+    upd = delta_push_rows(d, light_from, heavy_from, (cols, ws), delta, stats)
+    ell_delta_push_batch.launches += 1
+    return upd
+
+
+ell_delta_push_batch.launches = 0  # kernel launches since the last reset
+
+
 def register_kernels(reg):
     """Register this module's kernel contracts (``kernels/registry.py``)."""
     from repro_torch.kernels import registry as R
@@ -250,6 +346,22 @@ def register_kernels(reg):
         wrapper=ell_push_relax_batch, make_cases=cases_push, kernels=push,
         notes="#1b: the relax pushed along the outgoing ELL (f32 atomic "
               "min)"))
+    def cases_delta_push():
+        return (
+            R.SpecCase("ref", (*R.fixture_delta_gates(), *R.fixture_out_ell(),
+                               R.FIXTURE_DELTA)),
+            *R.wide(lambda b, n, seed, signed: R.SpecCase(
+                f"b{b}_n{n}",
+                (*R.fixture_delta_gates(b, n, seed, signed),
+                 *R.fixture_out_ell(n, seed, signed), R.FIXTURE_DELTA))),
+        )
+
+    reg.register(R.KernelContract(
+        name="ell_delta_push_batch", module=__name__,
+        wrapper=ell_delta_push_batch, make_cases=cases_delta_push,
+        kernels=R.DELTA_PUSH,
+        notes="#5c: delta's relax, both turns, pushed along the outgoing "
+              "ELL"))
     reg.register(R.KernelContract(
         name="ell_push_rect_batch", module=__name__,
         wrapper=ell_push_rect_batch, make_cases=cases_rect, kernels=push,

@@ -1,7 +1,7 @@
 """Gather-min, the fused scans and the push relax over a degree-sliced
 adjacency (CUDA kernels).
 
-Four kernels over a :class:`~repro_torch.core.graph.SlicedEll`, each with
+Five kernels over a :class:`~repro_torch.core.graph.SlicedEll`, each with
 a ``.launches`` count (one per call that launched its kernels):
 
   * :func:`ell_sliced_gather_min_batch`: V vectors x B lanes,
@@ -18,6 +18,10 @@ a ``.launches`` count (one per call that launched its kernels):
     *outgoing* view, the sliced twin of ``ell_push_relax_batch``
     (``csrc/ell_push.cu``); it needs no merge, since the atomic min lands
     each split row's candidates in the vertex's slot directly.
+  * :func:`ell_sliced_delta_push_batch`: delta-stepping's relax pushed
+    along a sliced outgoing view, the sliced twin of
+    ``ell_delta_push_batch``; it reads only the buckets, so it also takes
+    a view without a merge plan (``to_ell_out_buckets``).
 
 Vectors come unpadded, ``(..., n)``: the sentinel id n reads +inf. The
 gather, and the in-scan's relax sweep where no push takes its place, run
@@ -48,7 +52,11 @@ from repro_torch.kernels.config import (
     relax_threads_per_row,
     runs_twin,
 )
-from repro_torch.kernels.ell_relax import push_rows
+from repro_torch.kernels.ell_relax import (
+    check_gates,
+    delta_push_rows,
+    push_rows,
+)
 from repro_torch.kernels.ell_relax_keys import (
     check_inputs,
     lane_tile,
@@ -60,12 +68,12 @@ from repro_torch.kernels.ell_relax_keys import (
 MAX_GRID_Y = 65535  # lanes of one merge launch (its grid's second axis)
 
 
-def check_sliced(vecs: dict, sliced, n: int):
-    """:func:`check_inputs` for every bucket of ``sliced``, plus its merge
-    plan: ``merge_idx`` (n, C) int32 with its compact form and write-through
-    plan, on the vectors' device."""
+def check_buckets(vecs: dict, sliced):
+    """:func:`check_inputs` for every bucket of ``sliced``, and its rows:
+    (R,) int32 owner ids on the vectors' device."""
     if not sliced.slices:
         raise ValueError("a sliced view needs at least one bucket")
+    dev = next(iter(vecs.values())).device
     for s in sliced.slices:
         check_inputs(vecs, s.cols, s.ws)
         if s.rows.dtype != torch.int32 or s.rows.shape != s.cols.shape[:1]:
@@ -73,6 +81,16 @@ def check_sliced(vecs: dict, sliced, n: int):
                 f"want int32 rows ({s.cols.shape[0]},); got "
                 f"{tuple(s.rows.shape)} {s.rows.dtype}"
             )
+        if s.rows.device != dev:
+            raise ValueError("a bucket's rows and the vectors are on "
+                             "different devices")
+
+
+def check_sliced(vecs: dict, sliced, n: int):
+    """:func:`check_buckets`, plus the view's merge plan: ``merge_idx``
+    (n, C) int32 with its compact form and write-through plan, on the
+    vectors' device."""
+    check_buckets(vecs, sliced)
     midx = sliced.merge_idx
     if midx.dim() != 2 or midx.shape[0] != n or midx.dtype != torch.int32:
         raise ValueError(
@@ -91,7 +109,7 @@ def check_sliced(vecs: dict, sliced, n: int):
                          "(R_total,) int32 row_owner, (S,) int32 merge_short")
     plan = (midx, ptr, pos, owner, short)
     dev = next(iter(vecs.values())).device
-    if any(t.device != dev for t in (*plan, *(s.rows for s in sliced.slices))):
+    if any(t.device != dev for t in plan):
         raise ValueError("the merge plan and the vectors are on different "
                          "devices")
 
@@ -392,6 +410,30 @@ def ell_sliced_push_relax_batch(dmask: torch.Tensor, sliced, *,
 ell_sliced_push_relax_batch.launches = 0  # kernel launches since the last reset
 
 
+def ell_sliced_delta_push_batch(d: torch.Tensor, light_from: torch.Tensor,
+                                heavy_from: torch.Tensor, sliced,
+                                delta: float, *, stats=None) -> torch.Tensor:
+    """Returns upd (B, n) f32: ``ell_delta_push_batch``'s function pushed
+    along a sliced outgoing view (``to_ell_out_sliced``, or its buckets
+    alone, ``to_ell_out_buckets``): the light sources' arcs of weight
+    ``<= delta`` and the heavy sources' others, over every bucket's rows i
+    (owner ``rows[i]``) and slots j, +inf where v has no candidate. No
+    merge plan is read. ``stats``: see ``ell_relax.push_rows`` (the kernel
+    only).
+    """
+    check_gates(d, light_from, heavy_from)
+    check_buckets({"d": d}, sliced)
+    if runs_twin(d):
+        return ref.ell_delta_push_batch_ref(d, light_from, heavy_from,
+                                            sliced, delta)
+    upd = delta_push_rows(d, light_from, heavy_from, sliced, delta, stats)
+    ell_sliced_delta_push_batch.launches += 1
+    return upd
+
+
+ell_sliced_delta_push_batch.launches = 0  # kernel launches since the last reset
+
+
 def register_kernels(reg):
     """Register this module's kernel contracts (``kernels/registry.py``)."""
     from repro_torch.kernels import registry as R
@@ -478,3 +520,17 @@ def register_kernels(reg):
         wrapper=ell_sliced_push_relax_batch, make_cases=cases_push,
         kernels=push,
         notes="#9b: the relax pushed along a sliced outgoing view"))
+
+    def cases_delta_push():
+        return tuple(
+            R.SpecCase(lab, (*R.fixture_delta_gates(b, n, 22 + i,
+                                                    signed=i % 2 == 1),
+                             sl_out, R.FIXTURE_DELTA))
+            for i, (lab, b, n, _, sl_out) in enumerate(views()))
+
+    reg.register(R.KernelContract(
+        name="ell_sliced_delta_push_batch", module=__name__,
+        wrapper=ell_sliced_delta_push_batch, make_cases=cases_delta_push,
+        kernels=R.DELTA_PUSH,
+        notes="#9c: delta's relax, both turns, pushed along a sliced "
+              "outgoing view"))

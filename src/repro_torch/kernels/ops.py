@@ -14,7 +14,10 @@ the incoming view (:func:`relax_settled_batch`,
 :func:`relax_settled_batch_sliced`), and the push the engines run
 (:func:`push_settled_batch`, :func:`push_settled_batch_sliced`), which
 takes the *outgoing* view (``to_ell_out[_sliced]``), reads only the
-settled vertices' out-rows and needs no sentinel pad.
+settled vertices' out-rows and needs no sentinel pad. Delta-stepping's
+relax has the same two forms: the reference's two gathers over the
+weight-gated incoming views (:func:`delta_relax_batch`) and the push the
+delta policy runs (:func:`delta_push_relax_batch`).
 
 The bound-gated wrappers (``*_gated_batch``) are the reference's surface
 for s->t target lanes: the same kernels over a settle mask with the
@@ -35,6 +38,7 @@ from repro_torch.kernels.ell_key_min import (
     ell_key_min_status_batch,
 )
 from repro_torch.kernels.ell_relax import (
+    ell_delta_push_batch,
     ell_push_relax_batch,
     ell_relax,
     ell_relax_batch,
@@ -45,6 +49,7 @@ from repro_torch.kernels.ell_relax_keys import (
     ell_relax_keys_batch,
 )
 from repro_torch.kernels.ell_sliced import (
+    ell_sliced_delta_push_batch,
     ell_sliced_gather_min_batch,
     ell_sliced_keys_dep_batch,
     ell_sliced_push_relax_batch,
@@ -252,42 +257,56 @@ def key_min_batch_for(kind, status, make_gate, ell, *, use_kernels=True):
 
 def weight_gated_ell(ell, delta):
     """Light and heavy weight-gated twins of an adjacency view, the
-    delta-stepping lowering: ``light`` keeps the weights ``w <= delta`` and
-    masks the rest to +inf (min-neutral, as padding is), ``heavy`` keeps
-    ``w > delta``. ``delta`` is a 0-dim f32 tensor (an f32 compare). The
-    twins share every index array with ``ell`` and replace only the
-    weights: ``(cols, ws)`` pairs on the padded layout, and on a
+    reference's delta-stepping lowering: ``light`` keeps the weights
+    ``w <= delta`` and masks the rest to +inf (min-neutral, as padding is),
+    ``heavy`` keeps ``w > delta``. ``delta`` is a 0-dim f32 tensor (an f32
+    compare). The twins share every index array with ``ell`` and replace
+    only the weights: ``(cols, ws)`` pairs on the padded layout, and on a
     ``SlicedEll`` each bucket's ``ws`` (``cols``, ``rows``, the merge and
     write-through plans are the view's own). Padding (+inf) lands in the
-    heavy twin unchanged.
+    heavy twin unchanged. No delta path builds them: the delta policy's
+    push (:func:`delta_push_relax_batch`) gates each weight as it reads it.
     """
-    def gate(ws, keep_light: bool):
-        return torch.where((ws <= delta) == keep_light, ws, INF)
-
-    if _is_sliced(ell):
-        return tuple(
-            ell._replace(slices=tuple(s._replace(ws=gate(s.ws, light))
-                                      for s in ell.slices))
-            for light in (True, False))
-    cols, ws = ell
-    return (cols, gate(ws, True)), (cols, gate(ws, False))
+    return kref.weight_gated(ell, delta)
 
 
 def delta_relax_batch(d, light_from, heavy_from, ell_light, ell_heavy, *,
                       use_kernels=True):
-    """Delta-stepping candidate updates (B, n): the light relax of
-    ``light_from`` over ``ell_light`` and the heavy relax of ``heavy_from``
-    over ``ell_heavy`` (:func:`weight_gated_ell`), min-merged. Each is a
-    key-min gather of the +inf-masked ``d`` (``ell_key_min_batch``, or
+    """Delta-stepping candidate updates (B, n), the reference's contract:
+    the light relax of ``light_from`` over ``ell_light`` and the heavy
+    relax of ``heavy_from`` over ``ell_heavy`` (:func:`weight_gated_ell`
+    of the incoming view), min-merged. Each is a key-min gather of the
+    +inf-masked ``d`` (``ell_key_min_batch``, or
     ``ell_sliced_gather_min_batch`` on the sliced layout), with the
-    gathers of all-+inf columns not skipped, as the reference computes it;
-    a lane on a light round gathers an all-+inf heavy gate, and the other
-    way round."""
+    gathers of all-+inf columns not skipped, as the reference computes it.
+    No engine path calls it: the delta policy relaxes by
+    :func:`delta_push_relax_batch`, the same bits."""
     upd_light = key_min_batch_any(torch.where(light_from, d, INF), ell_light,
                                   use_kernels=use_kernels)
     upd_heavy = key_min_batch_any(torch.where(heavy_from, d, INF), ell_heavy,
                                   use_kernels=use_kernels)
     return kref.nan_min(upd_light, upd_heavy)
+
+
+def delta_push_relax_batch(d, light_from, heavy_from, ell_out, delta, *,
+                           use_kernels=True):
+    """The relax of :func:`delta_relax_batch` in one push along the
+    OUTGOING view of either layout (``to_ell_out``, or a sliced out-view
+    with or without its merge plan): the light sources push their arcs of
+    weight ``<= delta``, the heavy ones the others, each weight gated as
+    it is read (``ell_delta_push_batch`` / ``ell_sliced_delta_push_batch``:
+    one launch of each pass, the light and heavy sets of every lane
+    together). ``delta`` is the f32 bucket width as a Python float (the
+    kernel takes it by value: no read-back). The same bits as the two
+    gathers over the weight-gated incoming views."""
+    if not use_kernels:
+        return kref.ell_delta_push_batch_ref(d, light_from, heavy_from,
+                                             ell_out, delta)
+    if _is_sliced(ell_out):
+        return ell_sliced_delta_push_batch(d, light_from, heavy_from, ell_out,
+                                           delta)
+    return ell_delta_push_batch(d, light_from, heavy_from, ell_out[0],
+                                ell_out[1], delta)
 
 
 def in_scan_relax_keys_batch(d, settle_mask, gate_parts, ell, *,
@@ -467,6 +486,15 @@ def register_kernels(reg):
             R.SpecCase("sliced", (d, light, heavy, sl_l, sl_h)),
         )
 
+    def cases_delta_push():
+        gates = R.fixture_delta_gates(b, n, 73, signed=True)
+        return (
+            R.SpecCase("padded", (*gates, R.fixture_out_ell(signed=True),
+                                  R.FIXTURE_DELTA)),
+            R.SpecCase("sliced", (*gates, R.fixture_sliced(side="out"),
+                                  R.FIXTURE_DELTA)),
+        )
+
     def cases_relax_gated():
         d, st = rows((b, n), 80), settle((b, n), 81)
         bound = rows((b,), 82, inf_frac=0.4)
@@ -516,6 +544,8 @@ def register_kernels(reg):
         ("key_min_batch", key_min_batch, cases_key_min, ()),
         ("key_min_batch_any", key_min_batch_any, cases_key_min_any, ()),
         ("delta_relax_batch", delta_relax_batch, cases_delta_relax, ()),
+        ("delta_push_relax_batch", delta_push_relax_batch, cases_delta_push,
+         ()),
         ("relax_settled_gated_batch", relax_settled_gated_batch,
          cases_relax_gated, ()),
         ("in_scan_relax_keys_gated_batch", in_scan_relax_keys_gated_batch,

@@ -124,6 +124,43 @@ def ell_push_relax_batch_ref(dmask: torch.Tensor, out_view) -> torch.Tensor:
     return upd[:, :n].contiguous()
 
 
+def weight_gated(view, delta):
+    """The light and heavy weight-gated twins of an adjacency view: the
+    light one keeps the weights ``w <= delta`` and puts +inf elsewhere, the
+    heavy one keeps ``w > delta`` (a NaN weight and the +inf padding land
+    there). ``delta`` is a float or a 0-dim f32 tensor, compared in f32.
+    Only the weights are copied: a padded ``(cols, ws)`` pair keeps its
+    ``cols``, a sliced view (anything with ``slices``) every field but its
+    buckets' ``ws``."""
+    if not torch.is_tensor(delta):
+        delta = torch.tensor(delta, dtype=torch.float32)
+
+    def gate(ws, keep_light: bool):
+        return torch.where((ws <= delta) == keep_light, ws, INF)
+
+    if hasattr(view, "slices"):
+        return tuple(
+            view._replace(slices=tuple(s._replace(ws=gate(s.ws, light))
+                                       for s in view.slices))
+            for light in (True, False))
+    cols, ws = view
+    return (cols, gate(ws, True)), (cols, gate(ws, False))
+
+
+def ell_delta_push_batch_ref(d: torch.Tensor, light_from: torch.Tensor,
+                             heavy_from: torch.Tensor, out_view,
+                             delta) -> torch.Tensor:
+    """Delta-stepping's relax as a push: :func:`ell_push_relax_batch_ref`
+    of the light sources over the out-view's light twin and of the heavy
+    sources over its heavy twin (:func:`weight_gated`), folded by
+    :func:`nan_min`, the reference's ``delta_relax_batch`` min. Each
+    candidate is ``d + w`` or ``d + inf``, the reference's add."""
+    light, heavy = weight_gated(out_view, delta)
+    return nan_min(
+        ell_push_relax_batch_ref(torch.where(light_from, d, INF), light),
+        ell_push_relax_batch_ref(torch.where(heavy_from, d, INF), heavy))
+
+
 def push_coo_batch_ref(dmask: torch.Tensor, rows: torch.Tensor,
                        cols: torch.Tensor, ws: torch.Tensor,
                        n_targets: int) -> torch.Tensor:
@@ -436,6 +473,9 @@ def register_kernels(reg):
     def push_ref(dmask, cols, ws):
         return ell_push_relax_batch_ref(dmask, (cols, ws))
 
+    def delta_push_ref(d, light, heavy, cols, ws, delta):
+        return ell_delta_push_batch_ref(d, light, heavy, (cols, ws), delta)
+
     def keys_dep_ref(gates, dga, dgb, cols, ws, dep_idx=0):
         return ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws)
 
@@ -459,6 +499,8 @@ def register_kernels(reg):
         ("ell_sliced_relax_keys_batch_push", ell_sliced_relax_keys_batch_ref),
         ("ell_sliced_keys_dep_batch", sliced_keys_dep_ref),
         ("ell_sliced_push_relax_batch", ell_push_relax_batch_ref),
+        ("ell_delta_push_batch", delta_push_ref),
+        ("ell_sliced_delta_push_batch", ell_delta_push_batch_ref),
         ("frontier_crit", frontier_crit_ref),
         ("frontier_crit_batch", frontier_crit_batch_ref),
         ("frontier_crit_lanes_batch", frontier_crit_lanes_batch_ref),
@@ -480,6 +522,8 @@ def register_kernels(reg):
         ("key_min_batch", twin(ops.key_min_batch, use_kernels=False)),
         ("key_min_batch_any", twin(ops.key_min_batch_any, use_kernels=False)),
         ("delta_relax_batch", twin(ops.delta_relax_batch, use_kernels=False)),
+        ("delta_push_relax_batch", twin(ops.delta_push_relax_batch,
+                                        use_kernels=False)),
         ("relax_settled_gated_batch",
          twin(ops.relax_settled_gated_batch, use_kernels=False)),
         ("in_scan_relax_keys_gated_batch",

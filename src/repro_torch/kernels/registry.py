@@ -23,8 +23,10 @@ pushes ``ell_push_relax_batch`` (#1b) and ``ell_sliced_push_relax_batch``
 (#9b), the sliced in-scan in its push form
 ``ell_sliced_relax_keys_batch_push`` (#10b), the status-gate sweep
 ``ell_key_min_status_batch`` (#5b), the rectangular push of the sharded
-stepper ``ell_push_rect_batch`` (#1b), the ops layer's push relaxes, and
-the LM's fixed-order embedding gradient ``embed_grad``.
+stepper ``ell_push_rect_batch`` (#1b), delta's pushes
+``ell_delta_push_batch`` (#5c) and ``ell_sliced_delta_push_batch`` (#9c),
+the ops layer's push relaxes, and the LM's fixed-order embedding gradient
+``embed_grad``.
 """
 from __future__ import annotations
 
@@ -152,6 +154,9 @@ SRC_GATHER = "ell_gather"
 SRC_PUSH = "ell_push"
 SRC_CRIT = "frontier_crit"
 SRC_EMBED = "embed_grad"
+# the delta form of the push: its mark and push passes
+DELTA_PUSH = ((SRC_PUSH, "delta_mark_kernel"), (SRC_PUSH, "delta_push_kernel"))
+FIXTURE_DELTA = 0.5  # a bucket width the signed cases' weights tie with
 
 
 def _t(x: np.ndarray) -> torch.Tensor:
@@ -196,6 +201,19 @@ def fixture_lane_batch(b: int = FIXTURE_B, n: int = FIXTURE_N,
     layer's padding, ``ops.pad_lane_batch``)."""
     v = fixture_rows((b, n), seed=seed, **kw)
     return torch.cat([v, torch.full((b, 1), float("inf"))], dim=1)
+
+
+def fixture_delta_gates(b: int = FIXTURE_B, n: int = FIXTURE_N,
+                        seed: int = 12, signed: bool = False):
+    """``(d, light_from, heavy_from)`` of the delta push: d (B, n) with
+    +inf on a fifth of the slots, a NaN and a -inf in the last lane; the
+    gates on about a third of the slots each, overlapping in places."""
+    rng = np.random.default_rng(seed)
+    d = fixture_rows((b, n), seed=seed, nan=True, signed=signed).numpy()
+    d[-1, rng.integers(0, n)] = -np.inf
+    light = rng.random((b, n)) < 0.35
+    heavy = rng.random((b, n)) < 0.35
+    return _t(d), _t(light), _t(heavy)
 
 
 def fixture_status(shape, seed: int = 4) -> torch.Tensor:

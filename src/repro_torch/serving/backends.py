@@ -37,10 +37,6 @@ from repro_torch.core.delta_stepping import default_delta
 from repro_torch.core.graph import (
     Graph,
     out_degrees,
-    to_ell_in,
-    to_ell_in_sliced,
-    to_ell_out,
-    to_ell_out_sliced,
     to_numpy_csr,
 )
 from repro_torch.core.static_engine import (
@@ -118,7 +114,9 @@ class StaticBackend:
     the :class:`EngineBackend` seam and changes nothing: the port's stepper
     never aliases the state it is given. Plans that read the outgoing ELL
     (out-side dynamic keys, or the push relax of every plan without in-side
-    keys, the default among them) build it once, here. ``layout="sliced"``
+    keys, the default and delta among them) build it once, here; delta
+    builds no in-view (``ell`` stays None), since its push reads none.
+    ``layout="sliced"``
     builds the degree-sliced in- and out-views instead of the padded ones
     (the same bits). ``point_queries=True`` initialises target-capable lane
     state, so a scheduler can mix full solves and early-exiting s->t lanes
@@ -149,13 +147,10 @@ class StaticBackend:
         self.device = graph_device(g, device)
         self.g = g
         sliced = layout == "sliced"
-        if ell is None:
-            ell = to_ell_in_sliced(g) if sliced else to_ell_in(g)
-        self.ell = ell
-        # built once: rebuilding per step would re-sort every arc per chunk
-        self.ell_out = None
-        if pol.needs_out_adjacency:
-            self.ell_out = to_ell_out_sliced(g) if sliced else to_ell_out(g)
+        # built once, each where the policy reads it (delta reads no
+        # in-view): rebuilding per step would re-sort every arc per chunk
+        self.ell = pol.in_view(g, sliced) if ell is None else ell
+        self.ell_out = pol.out_view(g, sliced)
         self.use_kernels = bool(use_kernels)
         self.criterion = pol.spec
         self.point_queries = bool(point_queries)

@@ -37,10 +37,6 @@ import torch
 from repro_torch.core.delta_stepping import default_delta
 from repro_torch.core.graph import (
     Graph,
-    to_ell_in,
-    to_ell_in_sliced,
-    to_ell_out,
-    to_ell_out_sliced,
     transpose,
 )
 from repro_torch.core.static_engine import (
@@ -149,13 +145,9 @@ class PointBackend:
         self._bwd_views = None  # (gt, ell, ell_out) built on first use
 
     def _views(self, g: Graph):
-        """The in-view, and the out-view where the policy reads it."""
+        """The in-view and the out-view, each where the policy reads it."""
         sliced = self.layout == "sliced"
-        ell = to_ell_in_sliced(g) if sliced else to_ell_in(g)
-        ell_out = None
-        if self._pol.needs_out_adjacency:
-            ell_out = to_ell_out_sliced(g) if sliced else to_ell_out(g)
-        return ell, ell_out
+        return self._pol.in_view(g, sliced), self._pol.out_view(g, sliced)
 
     def _backward(self):
         if self._bwd_views is None:

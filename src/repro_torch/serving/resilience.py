@@ -69,14 +69,16 @@ INF = float("inf")
 def _resident_in_view(g: Graph):
     """An in-view the graph already holds: padded first, then sliced.
     With none, the in-view of the layout whose out-view it holds (padded
-    when it holds neither): a padded view of a skewed graph can be far
-    larger than its sliced one."""
+    when it holds neither; a sliced out-view's buckets alone, as delta
+    holds them, count as sliced): a padded view of a skewed graph can be
+    far larger than its sliced one."""
     for name in ("_ell_in_cache", "_ell_in_sliced_cache"):
         memo = g.__dict__.get(name)
         if memo:
             return next(iter(memo.values()))
-    if g.__dict__.get("_ell_out_sliced_cache") and \
-            not g.__dict__.get("_ell_out_cache"):
+    d = g.__dict__
+    if (d.get("_ell_out_sliced_cache") or d.get("_ell_out_buckets_cache")) \
+            and not d.get("_ell_out_cache"):
         return to_ell_in_sliced(g)
     return to_ell_in(g)
 

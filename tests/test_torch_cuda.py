@@ -24,6 +24,7 @@ from repro_torch.core import (
     to_ell_in,
     to_ell_in_sliced,
     to_ell_out,
+    to_ell_out_buckets,
     to_ell_out_sliced,
 )
 from repro_torch.graphs import kronecker, uniform_gnp
@@ -34,6 +35,7 @@ from repro_torch.kernels.ell_key_min import (
     ell_key_min_status_batch,
 )
 from repro_torch.kernels.ell_relax import (
+    ell_delta_push_batch,
     ell_push_rect_batch,
     ell_push_relax_batch,
     ell_relax,
@@ -46,6 +48,7 @@ from repro_torch.kernels.ell_relax_keys import (
     ell_relax_keys_batch,
 )
 from repro_torch.kernels.ell_sliced import (
+    ell_sliced_delta_push_batch,
     ell_sliced_gather_min_batch,
     ell_sliced_keys_dep_batch,
     ell_sliced_push_relax_batch,
@@ -1286,6 +1289,87 @@ def test_weight_gated_gathers_match_twins(cuda, layout, b):
         assert _same_bits(got, want)
 
 
+def _delta_inputs(rng, b, n, overlap):
+    """d with NaN, -inf, +inf, +0 and -0 slots; light and heavy sets of a
+    few percent, disjoint within a lane unless ``overlap``."""
+    d = rng.uniform(0, 2, (b, n)).astype(np.float32)
+    for value, share in ((np.inf, 0.2), (np.nan, 0.01), (-np.inf, 0.01),
+                         (0.0, 0.01), (-0.0, 0.01)):
+        d[rng.random((b, n)) < share] = value
+    light = rng.random((b, n)) < 0.05
+    heavy = rng.random((b, n)) < 0.05
+    if not overlap:
+        heavy &= ~light
+    return d, light, heavy
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("b", [1, 8, 40])
+@pytest.mark.parametrize("layout", ["padded", "sliced", "groups"])
+def test_delta_push_matches_twin_and_gated_gathers(cuda, layout, b, overlap):
+    """#5c / #9c against their twin and the reference's two gathers (#5 /
+    #9) over the weight-gated in-views, with weights tied to delta, signed
+    zeros, NaN and -inf sources; the sliced push on the out-view's buckets
+    and on the full view, and on a view of more than 16 buckets."""
+    g = (uniform_gnp(3000, 3e-3, seed=5, device="cpu") if layout == "padded"
+         else kronecker(12 if layout == "sliced" else 10, seed=6,
+                        device="cpu"))
+    # weights on {+0, -0, 0.5, 1}: delta = 0.5 ties with a quarter of them
+    g = from_coo(g.src, g.dst, _signed_weights(g.w), g.n, device=cuda)
+    kw = (dict(pad_multiple=1, boundaries=tuple(range(1, 25)))
+          if layout == "groups" else {})
+    if layout == "padded":
+        ell_in, views = to_ell_in(g), [to_ell_out(g)]
+        kern, gather = ell_delta_push_batch, ell_key_min_batch
+    else:
+        ell_in = to_ell_in_sliced(g, **kw)
+        views = [to_ell_out_sliced(g, **kw), to_ell_out_buckets(g, **kw)]
+        kern, gather = ell_sliced_delta_push_batch, ell_sliced_gather_min_batch
+        if layout == "groups":
+            assert len(views[0].slices) > 16  # two launch groups
+    rng = np.random.default_rng(b + 7 * overlap + len(layout))
+    d, light, heavy = (_t(x, cuda) for x in _delta_inputs(rng, b, g.n,
+                                                          overlap))
+    for delta in (0.5, 0.7):
+        for view in views:
+            args = (d, light, heavy, *(view if layout == "padded"
+                                       else (view,)), delta)
+            before = kern.launches
+            got = kern(*args)
+            assert kern.launches == before + 1  # the kernel, never the twin
+            want = ref.ell_delta_push_batch_ref(d, light, heavy, view, delta)
+            assert _same_bits(got, want)
+        gated = ops.weight_gated_ell(ell_in, torch.tensor(delta,
+                                                          device=cuda))
+        before = gather.launches
+        assert _same_bits(got, ops.delta_relax_batch(d, light, heavy,
+                                                     *gated))
+        assert gather.launches == before + 2
+
+
+def _signed_weights(w):
+    """w in [0, 1) onto {+0, -0, 0.5, 1} by value; +inf stays."""
+    table = torch.tensor([0.0, -0.0, 0.5, 1.0], device=w.device)
+    q = (w.clamp(0.0, 0.999) * 4).long()
+    return torch.where(torch.isfinite(w), table[q], w).contiguous()
+
+
+def test_delta_push_cuda_tensors_never_fall_back(cuda):
+    d = torch.zeros((2, 4), device=cuda)
+    on = torch.zeros((2, 4), dtype=torch.bool, device=cuda)
+    cols = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    ws = torch.zeros((4, 2), dtype=torch.float32)  # on the host: refused
+    with pytest.raises(ValueError, match="different devices"):
+        ell_delta_push_batch(d, on, on, cols, ws, 0.5)
+    with pytest.raises(ValueError, match="different devices"):
+        ell_delta_push_batch(d, on.cpu(), on, cols, ws.to(cuda), 0.5)
+    view = _sliced_view("split", cuda)
+    n = view.merge_idx.shape[0]
+    d0, on0 = torch.zeros((2, n)), torch.zeros((2, n), dtype=torch.bool)
+    with pytest.raises(ValueError, match="different devices"):
+        ell_sliced_delta_push_batch(d0, on0, on0, view, 0.5)
+
+
 @pytest.mark.parametrize("n", [4096, 4097, 4099])
 def test_frontier_crit_on_bucket_ids(cuda, n):
     rng = np.random.default_rng(n)
@@ -1308,7 +1392,14 @@ def test_delta_solves_match_plain_host_and_legacy(cuda, layout):
     sources = [0, 5, 9, 17]
     kw = dict(criterion="delta", layout=layout, trace_len=600,
               telemetry=True)
+    push = (ell_sliced_delta_push_batch if layout == "sliced"
+            else ell_delta_push_batch)
+    gathers = (ell_key_min_batch, ell_sliced_gather_min_batch)
+    before = [push.launches] + [k.launches for k in gathers]
     got = run_phased_static_batch(g, sources, **kw)
+    # the relax is the delta push, one launch a trip; no gather runs
+    assert push.launches - before[0] == int(got.total_phases)
+    assert [k.launches for k in gathers] == before[1:]
     _results_same(got, run_phased_static_batch(g, sources, use_kernels=False,
                                                **kw))
     _results_same(got, run_phased_static_batch(g_cpu, sources, device="cpu",
@@ -1471,7 +1562,7 @@ def test_analysis_card_checks_find_nothing(cuda):
 
     findings, rows, stats = audit_card()
     assert findings == [], [str(f) for f in findings]
-    assert len(rows) == 11 and stats["poisoned_cells"] == 0
+    assert len(rows) == 13 and stats["poisoned_cells"] == 0
 
 
 # ---- the LM substrate's serving path (no kernel of its own: its products

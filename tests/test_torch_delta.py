@@ -260,38 +260,42 @@ def test_chunked_stepping_and_lane_reset(graphs):
 
 @pytest.mark.parametrize("layout", ["padded", "sliced"])
 def test_delta_prepare_is_memoised_per_view_and_delta(layout):
-    """``prepare`` builds the gated views and degrees once for a (view,
-    delta) pair and hands the same objects to later calls; another delta
-    or view rebuilds them. The degrees count the light and heavy real arcs
-    (the COO padding and w == delta ties included)."""
+    """``prepare`` counts the light and heavy degrees once for an
+    (out-view, delta) pair and hands the same objects to later calls;
+    another delta or out-view counts them again. The degrees count the
+    light and heavy real arcs (the COO padding and w == delta ties
+    included). The aux holds the out-view itself and the f32 delta: no
+    weight-gated copy of any view."""
     src, dst = [0, 0, 1, 2, 2, 3], [1, 2, 3, 3, 0, 1]
     w = np.float32([0.1, 0.3, 0.1, 0.25, -0.0, 0.2])
     gt = t_from_coo(src, dst, w, 4, pad_to=9, device="cpu")
     pol = TS.P.policy_for("delta")
     ell = TS.to_ell_in_sliced(gt) if layout == "sliced" else TS.to_ell_in(gt)
+    out = pol.out_view(gt, layout == "sliced")
 
-    def prep(delta, view=ell):
+    def prep(delta, view=out):
         st = TS.init_batch_state(gt, [0], criterion="delta", delta=delta,
                                  device="cpu")
-        return pol.prepare(gt, view, None, st, True)
+        return pol.prepare(gt, ell, view, st, True)
 
     first = prep(0.1)
     assert all(a is b for a, b in zip(first, prep(0.1)))
     np.testing.assert_array_equal(first[2].numpy(), [1, 1, 1, 0])
     np.testing.assert_array_equal(first[3].numpy(), [1, 0, 1, 1])
     other = prep(0.25)
-    assert other[0] is not first[0]
+    assert other is not first and other[2] is not first[2]
     np.testing.assert_array_equal(other[2].numpy(), [1, 1, 2, 1])
     if layout == "padded":  # the same arrays in a new tuple still hit
-        assert prep(0.25, (ell[0], ell[1]))[0] is other[0]
-        assert prep(0.25, (ell[0], ell[1].clone()))[0] is not other[0]
-    for vt, want in zip(other[:2], tops.weight_gated_ell(
-            ell, torch.tensor(0.25, dtype=torch.float32))):
-        flat = ([s.ws for s in vt.slices] if layout == "sliced" else [vt[1]])
-        ref_ = ([s.ws for s in want.slices] if layout == "sliced"
-                else [want[1]])
-        for a, b in zip(flat, ref_):
-            assert_bits(b, a)
+        assert prep(0.25, (out[0], out[1]))[2] is other[2]
+        assert prep(0.25, (out[0], out[1].clone()))[2] is not other[2]
+    for aux, delta in ((first, 0.1), (other, 0.25)):
+        assert aux[0] is out  # the out-view itself, weights ungated
+        assert aux[1] == float(np.float32(delta))
+    if layout == "sliced":  # the buckets of the sliced out-view, no plan
+        full = TS.to_ell_out_sliced(gt)
+        assert not hasattr(out, "merge_idx")
+        for s_b, s_f in zip(out.slices, full.slices):
+            assert s_b.cols is s_f.cols and s_b.ws is s_f.ws
 
 
 def test_delta_gates_are_the_phase_decision(graphs):
