@@ -234,11 +234,12 @@ failure raises, exits non-zero and prints no ``ok`` line:
      choices against each other (B = 2 x 1024), the card's gradients
      against the CPU's by relative L2 error (B = 1 x 128); (c) the timed
      run, ``internlm2-1.8b`` at full width on LM_TRAIN_UNITS of its 24
-     units (all 24 until the tensor-parallel mesh came; the script's time
-     limit): ``train()`` for 4 steps (6 until phase 29 came), B = 4 x
-     2048, f32 parameters, m bf16, v factored, full remat, a checkpoint
-     every 2 steps (two kept: the disk must hold two, ~6 GB each at 12
-     units, ~11.3 GB at 24, or the phase fails), then a second ``train()`` resumed from step 2 after step 4's
+     units (all 24 until the tensor-parallel mesh came, 12 until phase 31
+     came; the script's time limit): ``train()`` for 4 steps (6 until
+     phase 29 came), B = 4 x 2048, f32 parameters, m bf16, v factored,
+     full remat, a checkpoint every 2 steps (two kept: the disk must hold
+     two, ~4.5 GB each at 6 units, ~11.3 GB at 24, or the phase fails),
+     then a second ``train()`` resumed from step 2 after step 4's
      checkpoint is removed, its losses within rtol 1e-4 of the first
      run's; ms a step (median of steps 2-4), tokens/s and
      peak memory beside their bounds, a ``torch.profiler`` split of one
@@ -302,18 +303,36 @@ failure raises, exits non-zero and prints no ``ok`` line:
      rank's 16 x 4096 ids of the pod's ``train_4k``) against its twin and
      itself bit for bit, timed beside the twin, ``index_add_`` of the
      block's rows and its bound.
+ 31. The entry points (``repro_torch.examples``, the twins of the
+     reference's ``examples/``), each called in this process as ``python
+     -m`` runs it (``EXAMPLE_RUNS``): quickstart; sssp_pipeline at n =
+     2^18 (the 512 x 512 road grid, DIMACS USA-road-d.NY's size; the web
+     graph and ``kronecker(18)`` on degree-sliced views, G(2^18, 10/n)),
+     every engine against Dijkstra; batch_serving on the 512 x 512 grid
+     (B = 16, 2 requests); continuous_serving on the 128 x 128 grid with
+     ``--trace`` / ``--report`` and under ``--chaos 0``; distributed_serving
+     in a gloo world of 2 sharing the card; serve_lm and train_lm (3
+     steps, a checkpoint in a temporary directory) on ``internlm2-1.8b``
+     at full width. Every printed verdict must hold, and each run's
+     launches are read around it: #1b (or #9b on sliced views) and #2 on
+     every static solve and no pull, #5 under ``--chaos``
+     (``verify_row``), the rectangular push on the sharded path, no SSSP
+     kernel on the LM paths.
 
 Every phase's end is logged with its seconds and the run's so far.
 
 Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
-23–24, of 25 and of 26, on every rank, 28, 29 and 30) runs with the launch
-counts set to 0 just before and read just after, and fails if one of its
-kernels never ran.
+23–24, of 25 and of 26, on every rank, 28, 29, 30 and 31) runs with the
+launch counts set to 0 just before and read just after, and fails if one
+of its kernels never ran.
 
-The sixth line from the end is phase 27's ``lm_serving`` JSON line; the
-fifth is phase 28's ``lm_training``; the fourth is phase 29's
-``lm_mesh``; the third is phase 30's ``dry_run``; the second is the
-``kernels`` JSON line (each row with its ``__global__`` kernels' ptxas
+The seventh line from the end is phase 27's ``lm_serving`` JSON line; the
+sixth is phase 28's ``lm_training``; the fifth is phase 29's
+``lm_mesh``; the fourth is phase 30's ``dry_run``; the third is phase
+31's ``examples`` (each run's seconds, launches and figures: phases,
+queries/s, the views chosen and their bytes); the second is the
+``kernels`` JSON line (each row's ``launches_by_path`` with
+``examples``, phase 31's sum; each row with its ``__global__`` kernels' ptxas
 ``registers``, ``smem_bytes`` and ``spills``; #1b rect and #2 with
 ``launches_phase30``; ``embed_grad[block]``, #12's block form, its
 launches rank 0's of phase 29's 2 x 2 world); the last line is ``{"ok": true, "device":
@@ -360,7 +379,7 @@ LM_PROMPT_B, LM_PROMPT_S, LM_GEN = 4, 2048, 32  # the bf16 served run
 BF16_OPS_PER_S = 989e12  # bf16 dense, tensor cores
 # LM training (phase 28): the timed run, internlm2-1.8b at full width
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 2048, 4, 2
-LM_TRAIN_UNITS = 12  # (c) of internlm2-1.8b's 24: the script's time limit
+LM_TRAIN_UNITS = 6  # (c) of internlm2-1.8b's 24: the script's time limit
 LM_TRAIN_CUT = 2  # layers of the full-width parity checks (b)
 LM_CUT_B, LM_CUT_S = 2, 1024  # (b) on the card: two cross-entropy chunks
 LM_HOST_B, LM_HOST_S = 1, 128  # (b) card against CPU
@@ -2711,6 +2730,156 @@ def dry_run_phase(dev, smi: str, run_peak: list, counted: dict) -> dict:
     result["seconds"] = time.perf_counter() - t30
     log(f"phase 30: {result['seconds']:.1f} s")
     return result
+
+
+# phase 31: each entry point of repro_torch.examples and its arguments on
+# the card (``{tmp}`` is a temporary directory, removed after the phase):
+# the 512 x 512 road grid (DIMACS USA-road-d.NY's size) and the web graph,
+# G and kronecker at 2^18 vertices; continuous_serving on the 128 x 128
+# grid (each completion also costs a solo solve: 256 x 256 took 80 s for
+# the two runs, the script's time limit)
+EXAMPLE_RUNS = (
+    ("quickstart", []),
+    ("sssp_pipeline", ["--n", "262144"]),
+    ("batch_serving", ["--n", "262144", "--batch", "16", "--requests", "2"]),
+    ("continuous_serving", ["--n", "16384", "--lanes", "8", "--queries",
+                            "16", "--trace", "{tmp}/trace.json", "--report",
+                            "{tmp}/report.json"]),
+    ("continuous_serving", ["--n", "16384", "--lanes", "8", "--queries",
+                            "16", "--chaos", "0"]),
+    ("distributed_serving", ["--ranks", "2", "--n", "4096", "--queries",
+                             "16", "--lanes", "4"]),
+    ("serve_lm", ["--arch", "internlm2-1.8b"]),
+    ("train_lm", ["--arch", "internlm2-1.8b", "--steps", "3", "--ckpt-dir",
+                  "{tmp}/ckpt"]),
+)
+STATIC_SOLVE = ("ell_push_relax_batch", "frontier_crit_lanes_batch")
+
+
+def examples_phase(dev, smi: str, counted: dict) -> tuple[dict, dict]:
+    """Phase 31: every entry point of ``repro_torch.examples`` on the card
+    (:data:`EXAMPLE_RUNS`), called in this process as a user's
+    ``python -m`` would run it, its printed verdicts checked and each
+    kernel's launches read around it. Returns the ``examples`` JSON line's
+    dict and the launches of each run."""
+    import importlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    t31 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    summary, launches = {}, {}
+    try:
+        for name, args in EXAMPLE_RUNS:
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            argv = [a.format(tmp=tmp) for a in args] + ["--device", str(dev)]
+            label = name + (" --chaos" if "--chaos" in args else
+                            " --trace" if "--trace" in args else "")
+            for f, attr in counted.values():
+                setattr(f, attr, 0)
+            torch.cuda.synchronize(dev)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rec = mod.main(argv)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            counts = {k: getattr(f, attr) for k, (f, attr) in counted.items()}
+            launches[label] = counts
+            for line in rec.lines:
+                log(f"  [{label}] {line}")
+            if rec.lines != buf.getvalue().splitlines():
+                raise SystemExit(f"{label}: its record differs from what "
+                                 "it printed")
+            row = examples_checks(name, rec, counts, label)
+            row.update(seconds=wall, argv=argv[:-2],
+                       launches={k: v for k, v in counts.items() if v})
+            summary[label] = row
+            log(f"phase 31 {label} [{smi}]: {wall:.1f} s; launches "
+                f"{row['launches']}")
+            if name == "sssp_pipeline":
+                torch.cuda.empty_cache()  # its graphs are gone
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t31
+    log(f"phase 31: {summary['seconds']:.1f} s")
+    return summary, launches
+
+
+def examples_checks(name: str, rec, counts: dict, label: str) -> dict:
+    """Phase 31's checks of one entry point's run (its printed verdicts
+    and its launches) and the figures the ``examples`` line keeps."""
+    f = rec.fields
+
+    def fail(why):
+        raise SystemExit(f"phase 31 {label}: {why}")
+
+    def static_path(*also):
+        for k in STATIC_SOLVE[1:] + also:
+            if counts[k] <= 0:
+                fail(f"never launched {k}")
+        if counts["ell_relax_batch"]:
+            fail("launched the pull relax")
+
+    if name == "quickstart":
+        verdicts = [line.split()[-1] for line in rec.lines[2:8]]
+        if verdicts != ["True"] * 6:
+            fail(f"a criterion's distances are wrong: {rec.lines}")
+        if sssp_launched(counts):  # the COO reference loops run no kernel
+            fail(f"launched {sssp_launched(counts)}")
+        return {"phases": f["phases"]}
+    if name == "sssp_pipeline":
+        row = {}
+        for fam, r in f["families"].items():
+            if not all(e["correct"] for e in r["engines"].values()):
+                fail(f"{fam}: an engine's distances are wrong")
+            row[fam] = {k: r[k] for k in ("n", "m", "view", "view_bytes",
+                                          "graph_s", "view_s",
+                                          "dijkstra_s")}
+            row[fam]["engines"] = r["engines"]
+        views = {r["view"] for r in f["families"].values()}
+        static_path(*(("ell_push_relax_batch",) if "padded" in views
+                      else ()),
+                    *(("ell_sliced_push_relax_batch",) if "sliced" in views
+                      else ()))
+        return {"families": row}
+    if name == "batch_serving":
+        static_path("ell_push_relax_batch")
+        phases = f["phases"]
+        return {"n": f["n"], "m": f["m"], "phases": phases,
+                "queries_per_s": f["queries_per_s"],
+                "ms_per_phase": 1e3 * f["seconds"] / sum(phases),
+                "view": "padded", "view_bytes": f["view_bytes"]}
+    if name in ("continuous_serving", "distributed_serving"):
+        m = f["metrics"]
+        if len(f["completions"]) != m["queries_completed"]:
+            fail("not every completion was checked")
+        if name == "distributed_serving":
+            if counts["ell_push_rect_batch"] <= 0:
+                fail("never launched ell_push_rect_batch")
+        elif "--chaos" in label:
+            if counts["ell_key_min_batch"] <= 0:  # verify_row's gather
+                fail("never launched ell_key_min_batch")
+        else:
+            static_path("ell_push_relax_batch")
+        return {"n": f["n"], "m": f["m"],
+                "queries": m["queries_completed"],
+                "queries_per_s": m["throughput_qps"],
+                "latency_p50_s": m["latency_p50_s"],
+                "latency_p99_s": m["latency_p99_s"],
+                "phases_per_query_mean": m["phases_per_query_mean"],
+                "engine_trips": m["engine_trips"],
+                **({"ranks": f["ranks"]} if "ranks" in f else {})}
+    if sssp_launched(counts):  # the LM paths launch no SSSP kernel
+        fail(f"launched {sssp_launched(counts)}")
+    if name == "serve_lm":
+        return {k: f[k] for k in ("prefill_s", "decode_s", "tokens_per_s")}
+    if not np.isfinite(f["losses"]).all():
+        fail(f"losses {f['losses']}")
+    return {"losses": f["losses"], "mesh": f["mesh"]}
 
 
 def main() -> int:
@@ -6123,6 +6292,12 @@ def main() -> int:
     by_path["lm mesh (rank 0 of the 2 x 2 world)"] = lm29_rank0
     eblock = dry30["embed_block"]
 
+    phase_mark("31")
+    # ---- 31. the entry points (repro_torch.examples) --------------------
+    ex31, ex31_launches = examples_phase(dev, smi, counted)
+    by_path["examples"] = {k: sum(c[k] for c in ex31_launches.values())
+                           for k in counted}
+
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")
     log(f"card: {smi}")
@@ -6353,6 +6528,7 @@ def main() -> int:
     print(json.dumps({"lm_training": lm28}), flush=True)
     print(json.dumps({"lm_mesh": lm29}), flush=True)
     print(json.dumps({"dry_run": dry30}), flush=True)
+    print(json.dumps({"examples": ex31}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -19,6 +19,9 @@ on the padded and the degree-sliced layouts; ``core.distributed`` shards
 it over a ``torch.distributed`` group. ``configs`` and ``models`` hold the
 LM substrate (the ten architectures; ``prefill``, ``decode_step``,
 ``forward_logits``, ``train_loss``), and ``optim``, ``data``,
-``checkpoint``, ``runtime`` and ``launch.train`` its training on one
-device; its mesh pieces are not ported yet (ROADMAP Queue 1).
+``checkpoint``, ``runtime`` and ``launch.train`` its training, on one
+device or on a mesh (``launch.mesh``, ``sharding``: tensor, sequence and
+expert parallel; ``launch.dryrun`` sizes the production meshes).
+``examples`` holds the entry points, one for each script of the
+reference's ``examples/``: ``python -m repro_torch.examples.<name>``.
 """
