@@ -181,9 +181,11 @@ failure raises, exits non-zero and prints no ``ok`` line:
      on every ``BatchedResult`` field, ms/phase of each; ``measure_launch``
      on #2 and #1b at phase 6's inputs, CUDA events beside the host clock;
      a ledger tagged ``cpu`` routes the card to the first candidate;
-     ``TraceGuard`` counts 0 compiles over 16 warmed ``StaticBackend``
-     requests. The script stops at its start unless
-     ``REPRO_TORCH_KERNEL_MODE`` resolves to ``auto``.
+     ``TraceGuard`` counts 0 compiles and 0 graph captures over 16
+     warmed ``StaticBackend`` requests (one step warms the key first),
+     and a ``ContinuousBatcher`` captures nothing after its first step.
+     The script stops at its start unless ``REPRO_TORCH_KERNEL_MODE``
+     resolves to ``auto``.
  26. the sharded stepper over ``torch.distributed``: (a) the rectangular
      push (#1b, ``ell_push_rect_batch``) on each block of G(10^6, 10^-4)
      at P = 2 against its twin, bit for bit (sparse and dense dmask, B =
@@ -318,13 +320,31 @@ failure raises, exits non-zero and prints no ``ok`` line:
      every static solve and no pull, #5 under ``--chaos``
      (``verify_row``), the rectangular push on the sharded path, no SSSP
      kernel on the LM paths.
+ 32. The chunk loop (``chunk_loop_phase``): ``step_batch`` replays a
+     captured CUDA graph of ``PHASES_PER_REPLAY`` gated phases; on the
+     default plan on G(10^6, 10^-4) (B = 8) and on sliced
+     ``kronecker(20)``, ``delta@x4:sliced`` on both graphs, ``in|out``
+     padded and the 512 x 512 road grid at B = 16 (also with target lanes
+     under ``stop_on_lane_finish``), the replayed graph against the same
+     chunk run eagerly, every state field bit for bit over two calls of 3
+     j + 2 phases, and the launch counts of a replayed solve against its
+     ``torch.profiler`` trace (#2, #1b / #9b's and Δ's push, one kernel of
+     each a launch: ``TRACE_SIGNATURES``); where timed, ms a phase of the
+     graph and the eager chunk loop in turns over ``CHUNK_TIMED_PHASES``
+     phases, each one's busy share (``torch.profiler``), host reads a
+     solve, a dead phase's device ms, the captures' seconds and their
+     pool's size (a key's own where no other capture lives), and the chunk
+     lengths of ``CHUNK_J_SWEEP`` in turns.
 
 Every phase's end is logged with its seconds and the run's so far.
 
 Every path (phases 3, 8, 14, 18, 19, the solves and serving of 20–22, of
-23–24, of 25 and of 26, on every rank, 28, 29, 30 and 31) runs with the
-launch counts set to 0 just before and read just after, and fails if one
-of its kernels never ran.
+23–24, of 25 and of 26, on every rank, 28, 29, 30, 31 and 32) runs with
+the launch counts set to 0 just before and read just after, and fails if
+one of its kernels never ran. A replayed chunk makes no Python call: each
+replay adds the launches its capture recorded, those of the phases a
+chunk ran past its loop's end included; the served paths (phases 3, 8,
+14, 25, 31, 32) also log these dead phases' launches apart.
 
 The seventh line from the end is phase 27's ``lm_serving`` JSON line; the
 sixth is phase 28's ``lm_training``; the fifth is phase 29's
@@ -346,6 +366,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -556,6 +577,50 @@ def busy_line(fn, wall_s: float, phases: int) -> str:
             f"{len(glue)} kinds) {sum(t for _, t in glue) / phases:.4f})")
 
 
+# kernel -> the wrappers each of whose launches puts it in the trace once:
+# the SSSP kernels whose count in a torch.profiler trace checks the
+# wrappers' launch counts (the scans' kernels are shared by several
+# wrappers, some a variable number of times a call, and are not checked)
+TRACE_SIGNATURES = {
+    "crit_kernel": ("frontier_crit_lanes_batch",),
+    "push_mark_kernel": ("ell_push_relax_batch", "ell_sliced_push_relax_batch",
+                         "ell_push_rect_batch", PUSH_IN_SCAN),
+    "delta_mark_kernel": ("ell_delta_push_batch",
+                          "ell_sliced_delta_push_batch"),
+}
+
+
+def traced_launches(fn, zero_counts, read_counts) -> tuple[dict, dict]:
+    """One call of ``fn`` under ``torch.profiler``, after an untraced one
+    and a warm-up step: ``(kernel -> its instances in the trace, kernel ->
+    the launches its wrappers counted in that call)`` for each kernel of
+    :data:`TRACE_SIGNATURES` (the counts set to 0 just before the traced
+    call and read just after it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        zero_counts()
+        fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        prof.step()
+    seen = dict.fromkeys(TRACE_SIGNATURES, 0)
+    for e in prof.key_averages():
+        for kernel in seen:
+            if re.search(rf"\b{kernel}\b", e.key):
+                seen[kernel] += e.count
+    return seen, {kernel: sum(counts.get(w, 0) for w in wrappers)
+                  for kernel, wrappers in TRACE_SIGNATURES.items()}
+
+
 def finite_slots(rows, cols_long) -> int:
     """Lane-slots ``rows[l, cols[r, j]]`` that are finite, over every lane:
     the adds and mins the data needs (a NaN or +inf slot needs none)."""
@@ -632,42 +697,13 @@ def signed_vec(rng, shape, dev, inf_frac=0.2, nan=True):
 
 def kernel_counters() -> dict:
     """name -> (wrapper, its launch-count attribute) of every kernel the
-    script counts."""
-    from repro_torch.kernels.ell_key_min import (
-        ell_key_min_batch,
-        ell_key_min_status_batch,
-    )
-    from repro_torch.kernels.ell_relax import (
-        ell_delta_push_batch,
-        ell_push_rect_batch,
-        ell_push_relax_batch,
-        ell_relax_batch,
-    )
-    from repro_torch.kernels.ell_relax_keys import (
-        ell_gather_min_batch,
-        ell_keys_dep_batch,
-        ell_relax_keys_batch,
-    )
-    from repro_torch.kernels.ell_sliced import (
-        ell_sliced_delta_push_batch,
-        ell_sliced_gather_min_batch,
-        ell_sliced_keys_dep_batch,
-        ell_sliced_push_relax_batch,
-        ell_sliced_relax_keys_batch,
-    )
+    script counts: the SSSP wrappers' (``kernels.launch_counters``) and
+    #12's."""
+    from repro_torch.kernels import launch_counters
     from repro_torch.kernels.embed_grad import embed_grad
-    from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
 
-    counted = {f.__name__: (f, "launches") for f in (
-        ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
-        ell_key_min_status_batch, ell_gather_min_batch, ell_relax_keys_batch,
-        ell_keys_dep_batch, ell_sliced_gather_min_batch,
-        ell_sliced_relax_keys_batch, ell_sliced_keys_dep_batch,
-        ell_push_relax_batch, ell_sliced_push_relax_batch,
-        ell_push_rect_batch, ell_delta_push_batch,
-        ell_sliced_delta_push_batch, embed_grad)}
-    # #10b: the sliced fused in-scan with the push as its relax sweep
-    counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
+    counted = launch_counters()
+    counted["embed_grad"] = (embed_grad, "launches")
     # #12's block form: a rank's rows of the vocabulary-parallel embedding
     counted[EMBED_BLOCK] = (embed_grad, "block_launches")
     return counted
@@ -2769,6 +2805,8 @@ def examples_phase(dev, smi: str, counted: dict) -> tuple[dict, dict]:
 
     import torch
 
+    from repro_torch.core import static_engine as TS
+
     t31 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
     summary, launches = {}, {}
@@ -2780,6 +2818,7 @@ def examples_phase(dev, smi: str, counted: dict) -> tuple[dict, dict]:
                             " --trace" if "--trace" in args else "")
             for f, attr in counted.values():
                 setattr(f, attr, 0)
+            TS.reset_chunk_stats()
             torch.cuda.synchronize(dev)
             buf = io.StringIO()
             t0 = time.perf_counter()
@@ -2795,11 +2834,20 @@ def examples_phase(dev, smi: str, counted: dict) -> tuple[dict, dict]:
                 raise SystemExit(f"{label}: its record differs from what "
                                  "it printed")
             row = examples_checks(name, rec, counts, label)
+            st = TS.chunk_stats()
             row.update(seconds=wall, argv=argv[:-2],
-                       launches={k: v for k, v in counts.items() if v})
+                       launches={k: v for k, v in counts.items() if v},
+                       chunks={"chunks": st.chunks, "replays": st.replays,
+                               "captures": st.captures,
+                               "host_reads": st.host_reads,
+                               "live_phases": st.live_phases,
+                               "dead_phases": st.dead_phases,
+                               "dead_launches": dict(st.dead_launches)})
             summary[label] = row
             log(f"phase 31 {label} [{smi}]: {wall:.1f} s; launches "
-                f"{row['launches']}")
+                f"{row['launches']} (of them by the chunks' dead phases: "
+                f"{row['chunks']['dead_launches']}); chunk loop "
+                f"{row['chunks']}")
             if name == "sssp_pipeline":
                 torch.cuda.empty_cache()  # its graphs are gone
     finally:
@@ -2882,6 +2930,258 @@ def examples_checks(name: str, rec, counts: dict, label: str) -> dict:
     return {"losses": f["losses"], "mesh": f["mesh"]}
 
 
+CHUNK_TIMED_PHASES = 256  # phases of each timed solve of phase 32
+CHUNK_J_SWEEP = (4, 8, 16)  # the chunk lengths phase 32 times in turns
+
+
+def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
+                     must_run, chunk_line, run_peak: list) -> dict:
+    """Phase 32: ``step_batch``'s replayed CUDA graph against the same
+    chunk run eagerly (``static_engine._step(capture=False)``), bit for bit
+    on every state field over two calls of 3 j + 2 phases, on each case of
+    ``cases`` below, and the wrappers' launch counts of a replayed solve
+    against the kernels in its ``torch.profiler`` trace
+    (:func:`traced_launches`); then, where timed, ms a phase of the graph
+    and the eager chunk loop in turns (graph, eager, eager, graph) over
+    :data:`CHUNK_TIMED_PHASES` phases from the sources, the device's busy
+    share from ``torch.profiler`` (the graph's, and the eager loop's on
+    the default plan's two padded cases), host reads a solve, a dead
+    phase's device ms (a replay on a state of empty lanes, CUDA events),
+    each capture's seconds and its pool's size, and the chunk lengths of
+    :data:`CHUNK_J_SWEEP` in turns on the road grid and G(10^6, 10^-4).
+    Returns each graph run's launches by path."""
+    import torch
+
+    from repro_torch.core import static_engine as TS
+    from repro_torch.core.delta_stepping import default_delta
+    from repro_torch.core.graph import to_ell_out_buckets
+    from repro_torch.core.static_engine import init_batch_state
+    from repro_torch.graphs import grid_road
+
+    t32 = time.perf_counter()
+    g, gk = views["g"], views["gk"]
+    road = grid_road(512, 512, seed=SEED, device=dev)
+    rng = np.random.default_rng(32)
+    road_src = rng.integers(0, road.n, 16)
+    road_tgt = np.where(np.arange(16) % 2 == 0, rng.integers(0, road.n, 16),
+                        -1)
+    crit = "frontier_crit_lanes_batch"
+    default = "instatic|outstatic"
+    # name -> (graph, sources, criterion, init kwargs, step kwargs, stop,
+    #   the kernels its path must launch, timed: None, "graph" or
+    #   "graph+eager", the loops whose busy share is profiled)
+    cases = {
+        "default G(10^6, 10^-4) B=8": (
+            g, views["src8"], default, {}, views["padded"], False,
+            (crit, "ell_push_relax_batch"), "graph+eager"),
+        "default kronecker(20) sliced B=8": (
+            gk, views["src8_k"], default, {}, views["sliced"], False,
+            (crit, "ell_sliced_push_relax_batch"), "graph"),
+        "delta@x4:sliced G(10^6, 10^-4) B=8": (
+            g, views["src8"], "delta", {"delta": 4 * default_delta(g)},
+            {"ell_out": to_ell_out_buckets(g)}, False,
+            (crit, "ell_sliced_delta_push_batch"), "graph"),
+        "delta@x4:sliced kronecker(20) B=8": (
+            gk, views["src8_k"], "delta", {"delta": 4 * default_delta(gk)},
+            {"ell_out": to_ell_out_buckets(gk)}, False,
+            (crit, "ell_sliced_delta_push_batch"), "graph"),
+        "in|out G(10^6, 10^-4) padded B=8": (
+            g, views["src8"], "in|out", {}, views["padded"], False,
+            (crit, "ell_relax_keys_batch", "ell_keys_dep_batch"), None),
+        "default grid_road(512, 512) B=16": (
+            road, road_src, default, {}, {}, False,
+            (crit, "ell_push_relax_batch"), "graph+eager"),
+        "grid_road(512, 512) B=16 targets, stop_on_lane_finish": (
+            road, road_src, default, {"targets": road_tgt}, {}, True,
+            (crit, "ell_push_relax_batch"), None),
+    }
+    j = TS.PHASES_PER_REPLAY
+    by_path = {}
+
+    def differs(a, b) -> list:
+        return [f.name for f in dataclasses.fields(a)
+                if not (getattr(a, f.name) is None is getattr(b, f.name)
+                        or (torch.is_tensor(getattr(a, f.name))
+                            and same_bits(getattr(a, f.name),
+                                          getattr(b, f.name)))
+                        or getattr(a, f.name) == getattr(b, f.name))]
+
+    def runner(graph, st0, kw, stop, k, mode):
+        if mode == "graph":
+            return lambda: TS.step_batch(graph, st0, k,
+                                         stop_on_lane_finish=stop, **kw)
+        return lambda: TS._step(graph, st0, k, kw.get("ell"), True, stop,
+                                kw.get("ell_out"), capture=False)
+
+    def pool_now() -> tuple:
+        """The id of the memory pool the card's captures go to now (None
+        before the first) and the MiB of its segments."""
+        entry = TS._POOLS.get(torch.cuda.current_device())
+        if entry is None:
+            return None, 0.0
+        pool = tuple(entry[0])
+        return pool, sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool) / 2**20
+
+    def timed(fn) -> tuple[float, object]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    # (case, captures, their seconds, the pool's MiB, whether the pool is
+    # the key's own). A capture shares the pool of the graphs captured
+    # before it while one of them lives; every case frees its chunks at
+    # its end, so where no other capture lives on the card a case's key
+    # gets a pool of its own, whose size is then the key's
+    captures = []
+    for graph in (g, gk):
+        TS.forget_chunks(graph)
+    for name, (graph, srcs, crit_spec, ikw, skw, stop, must, timed_as) in \
+            cases.items():
+        TS.forget_chunks(graph)
+        pool0, _ = pool_now()
+        st0 = init_batch_state(graph, srcs, criterion=crit_spec, device=dev,
+                               **ikw)
+        # (a) the bits: two calls of 3 j + 2 phases, graph against eager
+        TS.reset_chunk_stats()
+        sg = se = st0
+        for call in range(2):
+            sg = runner(graph, sg, skw, stop, 3 * j + 2, "graph")()
+            se = runner(graph, se, skw, stop, 3 * j + 2, "eager")()
+            bad = differs(sg, se)
+            if bad:
+                raise SystemExit(f"phase 32 {name}: the replayed graph "
+                                 f"differs from the eager chunk in {bad} "
+                                 f"(call {call + 1})")
+        st = TS.chunk_stats()
+        pool1, pool_mib = pool_now()
+        captures.append((name, st.captures, st.capture_s, pool_mib,
+                         pool1 != pool0))
+        chunk = next(reversed(graph.__dict__["_chunk_memo"].values()))
+        bufs = [getattr(chunk.buf, f.name)
+                for f in dataclasses.fields(chunk.buf)]
+        buf_mib = sum(t.numel() * t.element_size() for t in bufs
+                      if torch.is_tensor(t)) / 2**20
+        log(f"phase 32 {name}: the replayed graph bit-equal to the eager "
+            f"chunk on every state field over two calls of {3 * j + 2} "
+            f"phases ({int(sg.trips)} trips); the chunk's state buffers "
+            f"{buf_mib:.1f} MiB, the capture pool {pool_mib:.1f} MiB ("
+            + ("its own" if pool1 != pool0 else "shared with earlier "
+               "captures") + ")")
+        # the launch counts against the trace: a replayed solve of 3 j + 2
+        # phases from the sources under torch.profiler, each kernel of
+        # TRACE_SIGNATURES as often in the trace as its wrappers counted (a
+        # replay adds its capture's counts). The profiler may drop records,
+        # never add them, and the solve is the same each time: one of up to
+        # three traces must match, none may show fewer counts than kernels
+        traced = runner(graph, st0, skw, stop, 3 * j + 2, "graph")
+        for attempt in range(1, 4):
+            seen, said = traced_launches(traced, zero_counts, read_counts)
+            if any(seen[kk] > said[kk] for kk in seen):
+                raise SystemExit(f"phase 32 {name}: the trace holds more "
+                                 f"kernels than the wrappers counted: trace "
+                                 f"{seen}, counts {said}")
+            if seen == said:
+                break
+        else:
+            raise SystemExit(f"phase 32 {name}: no trace of three matches "
+                             f"the wrappers' counts: last trace {seen}, "
+                             f"counts {said}")
+        st = TS.chunk_stats()
+        if st.replays == 0 or st.captures or seen["crit_kernel"] == 0:
+            raise SystemExit(f"phase 32 {name}: the traced solve replayed "
+                             f"no graph ({st.replays} replays, "
+                             f"{st.captures} captures, trace {seen})")
+        log(f"phase 32 {name}: a traced replayed solve ({st.chunks} chunks, "
+            f"{st.replays} replayed, {st.dead_phases} dead phases): "
+            + ", ".join(f"{kk} {seen[kk]} in the trace = {said[kk]} counted"
+                        for kk in seen if said[kk])
+            + f" (trace {attempt})")
+        if timed_as is None:
+            zero_counts()
+            runner(graph, st0, skw, stop, 3 * j + 2, "graph")()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            must_run(counts, must, f"phase 32 {name}")
+            by_path[f"chunk loop {name}"] = counts
+            log(chunk_line(f"phase 32 {name}, graph"))
+            TS.forget_chunks(graph)
+            continue
+        # (b) ms a phase in turns: graph, eager, eager, graph
+        k = CHUNK_TIMED_PHASES
+        turns = []
+        for mode in ("graph", "eager", "eager", "graph"):
+            zero_counts()
+            wall, res = timed(runner(graph, st0, skw, False, k, mode))
+            counts = read_counts()
+            trips = int(res.trips)
+            turns.append((mode, wall / trips * 1e3, TS.chunk_stats().host_reads,
+                          trips))
+            if mode == "graph" and len(turns) == 1:
+                must_run(counts, must, f"phase 32 {name}")
+                by_path[f"chunk loop {name}"] = counts
+                log(chunk_line(f"phase 32 {name}, graph"))
+        trips = turns[0][3]
+        busy = {mode: busy_line(runner(graph, st0, skw, False, k, mode),
+                                float(np.mean([t[1] for t in turns
+                                               if t[0] == mode]))
+                                * trips / 1e3, trips)
+                for mode in timed_as.split("+")}
+        log(f"phase 32 {name} [{smi}]: {trips} phases from the sources, ms a "
+            f"phase in turns (graph, eager, eager, graph): "
+            + ", ".join(f"{t[1]:.4f}" for t in turns)
+            + f"; host reads: graph {turns[0][2]}, eager {turns[1][2]}")
+        for mode, line in busy.items():
+            log(f"phase 32 {name} {mode}: {line}")
+        # (c) a dead phase: replays on a state of empty lanes
+        empty = init_batch_state(graph, [-1] * len(srcs),
+                                 criterion=crit_spec, device=dev, **{
+                                     kk: v for kk, v in ikw.items()
+                                     if kk == "delta"})
+        TS.step_batch(graph, empty, j, **skw)
+        chunk = next(reversed(graph.__dict__["_chunk_memo"].values()))
+        dead_ms = time_ms(chunk.graph.replay, reps=20) / j
+        log(f"phase 32 {name} [{smi}]: a dead phase {dead_ms:.4f} ms on the "
+            f"device (a replay of {j} on empty lanes, CUDA events, median "
+            f"of 20); the tail of a chunk costs at most {j - 1} of them")
+        TS.forget_chunks(graph)
+    log(f"phase 32: {sum(c[1] for c in captures)} captures (one a key), "
+        f"their seconds, and the segments of the pool each went to after "
+        f"it: " + "; ".join(
+            f"{case} {n} in {sec:.3f} s, pool {mib:.1f} MiB ("
+            + ("its own" if own else "shared") + ")"
+            for case, n, sec, mib, own in captures))
+    # (d) the chunk length: each of CHUNK_J_SWEEP in turns, forwards then
+    # backwards, on the road grid and G(10^6, 10^-4), default plan
+    sweep = {}
+    for name in ("default grid_road(512, 512) B=16",
+                 "default G(10^6, 10^-4) B=8"):
+        graph, srcs, crit_spec, ikw, skw, _, _, _ = cases[name]
+        st0 = init_batch_state(graph, srcs, criterion=crit_spec, device=dev)
+        for jj in CHUNK_J_SWEEP + CHUNK_J_SWEEP[::-1]:
+            TS.PHASES_PER_REPLAY = jj
+            try:
+                TS.forget_chunks(graph)
+                run = runner(graph, st0, skw, False, CHUNK_TIMED_PHASES,
+                             "graph")
+                run()  # the capture
+                wall, res = timed(run)
+            finally:
+                TS.PHASES_PER_REPLAY = j
+            sweep.setdefault(name, {}).setdefault(jj, []).append(
+                wall / int(res.trips) * 1e3)
+        TS.forget_chunks(graph)
+        log(f"phase 32 j sweep {name} [{smi}]: ms a phase "
+            + "; ".join(f"j={jj} " + ", ".join(f"{x:.4f}" for x in v)
+                        for jj, v in sweep[name].items()))
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+    log(f"phase 32: {time.perf_counter() - t32:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -2904,6 +3204,7 @@ def main() -> int:
     from repro_torch.core import default_delta, run_delta_stepping, run_phased
     from repro_torch.core.graph import from_coo
     from repro_torch.core.policies import policy_for
+    from repro_torch.core import static_engine as TS
     from repro_torch.core.static_engine import (
         harvest,
         init_batch_state,
@@ -2948,7 +3249,7 @@ def main() -> int:
         trace_phase_telemetry,
         validate_events,
     )
-    from repro_torch.analysis import TraceGuard, compile_count
+    from repro_torch.analysis import TraceGuard, capture_count, compile_count
     from repro_torch.kernels import config as kcfg
     from repro_torch.kernels.config import TuningLedger
     from repro_torch.kernels.registry import collect as collect_contracts
@@ -2980,6 +3281,18 @@ def main() -> int:
     def zero_counts():
         for f, attr in counted.values():
             setattr(f, attr, 0)
+        TS.reset_chunk_stats()  # the chunk loop's counts go with them
+
+    def chunk_line(what: str) -> str:
+        """The chunk loop's counts since the last zero_counts(): chunks,
+        replays and captures, host reads, live and dead phases, and the
+        launches of the dead phases (counted in the launches too)."""
+        st = TS.chunk_stats()
+        return (f"{what}: {st.chunks} chunks of {TS.PHASES_PER_REPLAY} "
+                f"phases ({st.replays} replayed, {st.captures} captured in "
+                f"{st.capture_s:.3f} s), {st.host_reads} host reads, "
+                f"{st.live_phases} live and {st.dead_phases} dead phases; "
+                f"the dead phases' launches {st.dead_launches}")
 
     def read_counts() -> dict:
         return {name: getattr(f, attr) for name, (f, attr) in counted.items()}
@@ -3023,6 +3336,7 @@ def main() -> int:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         counts = read_counts()
+        log(chunk_line(f"{backend.criterion} serving"))
         trips = int(state.trips)
         if len(rows) != REQUESTS:
             raise SystemExit(f"{backend.criterion} serving did not answer "
@@ -5183,12 +5497,17 @@ def main() -> int:
         solve_d_s = float(np.median(walls_d))
         # the parent's relax (#5 / #9 twice a phase) and the push in turns:
         # parent, push, push, parent, the same solve, wall ms a phase
+        # (the memoised captures replay the relax they were captured with:
+        # they are freed on each side of a swap, and a warm-up solve
+        # captures before the timed one)
         push_relax, parent = kops.delta_push_relax_batch, parent_relax(ell)
         turns = []
         for label in ("parent", "push", "push", "parent"):
             if label == "parent":
                 kops.delta_push_relax_batch = parent
             try:
+                TS.forget_chunks(graph)
+                solve_d()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res_t = solve_d()
@@ -5197,6 +5516,7 @@ def main() -> int:
                               * 1e3))
             finally:
                 kops.delta_push_relax_batch = push_relax
+                TS.forget_chunks(graph)
             if not same_bits(res_t.dist, res_d.dist) or \
                     int(res_t.total_phases) != total_d:
                 raise SystemExit(f"{what} delta solve with the {label} "
@@ -5916,8 +6236,14 @@ def main() -> int:
     for layout, (graph, srcs, kw) in io_views.items():
         runs = []
         for mode in ("fused", "split", "split", "fused"):
+            # the memoised captures replay the scans they were captured
+            # with: freed on each side of the swap, and a warm-up solve
+            # captures before the timed one
+            TS.forget_chunks(graph)
             with (split_tool.split_scans() if mode == "split"
                   else contextlib.nullcontext()):
+                run_phased_static_batch(graph, srcs, criterion="in|out",
+                                        device=dev, **kw)
                 torch.cuda.synchronize()
                 zero_counts()
                 t0 = time.perf_counter()
@@ -5926,6 +6252,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = read_counts()
+            TS.forget_chunks(graph)
             if mode == "split":
                 must_run(counts, split_runs[layout], f"split in|out {layout}")
                 if any(counts[nm] for nm in fused_kernels):
@@ -5991,10 +6318,13 @@ def main() -> int:
         f"candidate ({on_card.ledger_policy}:{on_card.layout}), the cpu to "
         f"its argmax ({on_cpu.ledger_policy}:{on_cpu.layout})")
 
-    # (e) the build sentinel over 16 warmed StaticBackend requests
+    # (e) the build sentinel over 16 warmed StaticBackend requests: one
+    # step warms the backend's key (its capture, where the memo freed it)
+    backend25 = StaticBackend(g, device=dev)
+    backend25.step(backend25.reset_lanes(backend25.init(LANES), src8),
+                   CHUNK, stop_on_lane_finish=True)
     with TraceGuard(label="warmed StaticBackend") as guard:
-        rows25, _, launches25, serve25, _, _ = serve(
-            StaticBackend(g, device=dev), sources)
+        rows25, _, launches25, serve25, _, _ = serve(backend25, sources)
     must_run(launches25, ("ell_push_relax_batch",
                           "frontier_crit_lanes_batch"), "guarded serving")
     by_path["guarded serving"] = launches25
@@ -6002,9 +6332,26 @@ def main() -> int:
         if not np.array_equal(rows25[r].view(np.int32),
                               rows[r].view(np.int32)):
             raise SystemExit(f"guarded serving row {r} differs from phase 3")
-    log(f"TraceGuard: {guard.compiles} compiles over 16 warmed StaticBackend "
-        f"requests ({serve25:.3f} s; rows equal to phase 3's); "
-        f"compile_count {compile_count()} in the run")
+    log(f"TraceGuard: {guard.compiles} compiles and {guard.captures} "
+        f"captures over 16 warmed StaticBackend requests ({serve25:.3f} s; "
+        f"rows equal to phase 3's); compile_count {compile_count()}, "
+        f"capture_count {capture_count()} in the run")
+    # a ContinuousBatcher captures at its first step at most, and nothing
+    # after it: 16 requests of phase 3, the steps after the first guarded
+    cb25 = ContinuousBatcher(g, lanes=LANES, phases_per_step=CHUNK)
+    for src in sources[:REQUESTS]:
+        cb25.submit(int(src))
+    before25 = capture_count()
+    done25 = list(cb25.step())
+    first25 = capture_count() - before25
+    with TraceGuard(label="warmed ContinuousBatcher") as guard_cb:
+        done25 += cb25.drain()
+    if len(done25) != REQUESTS:
+        raise SystemExit(f"the guarded ContinuousBatcher answered "
+                         f"{len(done25)} of {REQUESTS} requests")
+    log(f"TraceGuard: a ContinuousBatcher captured {first25} chunk(s) at "
+        f"its first step and {guard_cb.captures} (with {guard_cb.compiles} "
+        f"compiles) over its other steps, {REQUESTS} requests")
     log(f"phase 25: {time.perf_counter() - t25:.1f} s")
 
     phase_mark("26")
@@ -6297,6 +6644,15 @@ def main() -> int:
     ex31, ex31_launches = examples_phase(dev, smi, counted)
     by_path["examples"] = {k: sum(c[k] for c in ex31_launches.values())
                            for k in counted}
+
+    phase_mark("32")
+    # ---- 32. the replayed chunk loop against the eager chunk ----------------
+    chunk32 = chunk_loop_phase(dev, smi, {
+        "g": g, "gk": gk, "src8": src8, "src8_k": src8_k,
+        "padded": dict(ell=(cols, ws), ell_out=(cols_o, ws_o)),
+        "sliced": dict(ell=sl_in, ell_out=sl_out)},
+        zero_counts, read_counts, must_run, chunk_line, run_peak)
+    by_path.update(chunk32)
 
     run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory: {run_peak[0] / 2**30:.2f} GiB for the run")

@@ -9,7 +9,7 @@
     write coverage of every case on a poisoned caching allocator.
   * :mod:`repro_torch.analysis.trace_guard` — a build sentinel: a context
     manager that holds the steady state of a serving loop or stepper to
-    zero kernel builds and first loads.
+    zero kernel builds, first loads and graph captures.
   * :mod:`repro_torch.analysis.lint` — the port's AST rules: its layering,
     the one config module, and no import of JAX or of the reference.
 """
@@ -27,6 +27,7 @@ from repro_torch.analysis.lint import LintFinding, lint_paths, lint_source
 from repro_torch.analysis.trace_guard import (
     RetraceError,
     TraceGuard,
+    capture_count,
     compile_count,
 )
 
@@ -44,5 +45,6 @@ __all__ = [
     "lint_source",
     "RetraceError",
     "TraceGuard",
+    "capture_count",
     "compile_count",
 ]

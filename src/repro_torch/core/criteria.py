@@ -24,6 +24,7 @@ from repro_torch.kernels import ref as kref
 
 INF = float("inf")
 U, F, S = 0, 1, 2
+_EPS_F32 = float(torch.tensor(1e-6, dtype=torch.float32))  # 1e-6 in f32
 
 # Every registered criterion, in the fixed canonical order (IN family, OUT
 # family, oracle): ``parse`` sorts by it so every spelling of one
@@ -68,8 +69,10 @@ def oracle_tolerance(dist_true: torch.Tensor) -> torch.Tensor:
     rounding; an eager two-step f32 form differs in about a quarter of the
     values). The product of two f32 is exact in f64; the f64 sum is made
     round-to-odd from its exact error, so rounding it to f32 once gives the
-    FMA's bits on any device."""
-    eps = torch.tensor(1e-6, dtype=torch.float32).double().to(dist_true.device)
+    FMA's bits on any device. ``eps`` rides as a Python float (the f32
+    value of 1e-6, exact in f64), so nothing is copied to the device: the
+    stepper captures this in a CUDA graph."""
+    eps = _EPS_F32
     p = eps * torch.abs(dist_true).double()  # exact
     s = p + eps
     bv = s - p

@@ -128,14 +128,13 @@ def from_coo(src, dst, w, n: int, pad_to: int | None = None,
 
 
 def to_numpy_csr(g: Graph):
-    """(indptr, indices, weights) CSR over outgoing edges; drops padding."""
-    src = g.src.cpu().numpy()
-    dst = g.dst.cpu().numpy()
-    w = g.w.cpu().numpy()
-    real = np.isfinite(w)
-    src, dst, w = src[real], dst[real], w[real]
-    order = np.argsort(src, kind="stable")
-    src, dst, w = src[order], dst[order], w[order]
+    """(indptr, indices, weights) CSR over outgoing edges; drops padding.
+    The stable sort by source runs on the graph's device (on the card, a
+    few milliseconds for 10^8 arcs, where numpy's takes tens of seconds)."""
+    real = torch.isfinite(g.w)
+    src, dst, w = g.src[real], g.dst[real], g.w[real]
+    order = torch.sort(src, stable=True).indices
+    src, dst, w = (x[order].cpu().numpy() for x in (src, dst, w))
     indptr = np.zeros(g.n + 1, np.int64)
     np.add.at(indptr, src + 1, 1)
     indptr = np.cumsum(indptr)

@@ -84,6 +84,9 @@ class PhaseOutcome(NamedTuple):
     n_fringe: torch.Tensor  # (B,) int32 |F| at phase entry (the live gauge)
     n_settled: torch.Tensor  # (B,) int32 vertices settled this phase
     relax_inc: torch.Tensor  # (B,) int64 out-edges relaxed this phase
+    go: torch.Tensor  # 0-dim bool: the loop predicate this phase ran under
+    #   (false: the phase wrote nothing, ``dist``/``status``/``crit_keys``
+    #   are the state's own bits and ``relax_inc`` / ``n_settled`` are 0)
     attr_counts: torch.Tensor | None = None  # (B, T) int32 attribution
     #   slots, only when the state carries an attribution ring
 
@@ -145,9 +148,31 @@ class PhasePolicy:
         call (``ell_in`` is None for a policy that reads no in-view)."""
         raise NotImplementedError
 
-    def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
-        """Advance state ``s`` by one phase on :meth:`prepare`'s ``aux``."""
+    def chunk_key(self, aux) -> tuple:
+        """What a captured chunk of this policy's phases depends on in
+        :meth:`prepare`'s ``aux``: views and tensors by identity, scalars
+        by value (the stepper keys its memo of captures on it)."""
+        return _operand_key(aux)
+
+    def phase(self, g: Graph, aux, s, use_kernels: bool,
+              go_of) -> PhaseOutcome:
+        """Advance state ``s`` by one phase on :meth:`prepare`'s ``aux``,
+        gated on the loop predicate ``go_of(n_fringe)`` (a 0-dim bool
+        tensor from the (B,) fringe sizes at the phase's entry): where it
+        is false the phase settles and relaxes nothing, so ``dist``,
+        ``status`` and ``crit_keys`` come back bit for bit."""
         raise NotImplementedError
+
+
+def _operand_key(x):
+    """A phase operand as a memo key: a scalar by value, a plain tuple
+    element by element, anything else (a tensor, a sliced view) by
+    identity, which the memo's entry keeps alive."""
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if type(x) is tuple:
+        return tuple(_operand_key(e) for e in x)
+    return id(x)
 
 
 def _spec_by_name(plan: C.CritPlan, name: str) -> C.KeySpec:
@@ -295,7 +320,8 @@ class CriterionPolicy(PhasePolicy):
     def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
         return ell_in, ell_out
 
-    def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
+    def phase(self, g: Graph, aux, s, use_kernels: bool,
+              go_of) -> PhaseOutcome:
         plan = self.plan
         ell_in, ell_out = aux
         b = s.num_lanes
@@ -332,6 +358,10 @@ class CriterionPolicy(PhasePolicy):
             dijk = fringe & (d <= mins[0][:, None])
             settle = torch.where(torch.any(settle, dim=1, keepdim=True),
                                  settle, dijk)
+        # the loop predicate gates the settle mask: a dead phase settles
+        # and relaxes nothing, so dist and status stay its entry's bits
+        go = go_of(n_f)
+        settle = settle & go
         # --- the s->t bound (target lanes only): the target's current
         # tentative distance. A settled source at or beyond it can never
         # improve the target, so the gated relax drops it; the settle
@@ -398,12 +428,17 @@ class CriterionPolicy(PhasePolicy):
             attr_counts = torch.stack(counts, dim=1)
         crit_keys = s.crit_keys
         if plan.keys:
-            crit_keys = torch.stack([keys[k.name] for k in plan.keys])
+            # a dead phase keeps the carried stack: its out-side slots were
+            # scanned from an earlier status, and its in-side slots need not
+            # be what the in-scan re-emits from the unchanged status (a
+            # target lane's demoted fringe, the sign of a zero gate)
+            slots = [keys[k.name] for k in plan.keys]
             for j, i in enumerate(in_slots):
-                crit_keys[i] = next_in[j]
+                slots[i] = next_in[j]
+            crit_keys = torch.where(go, torch.stack(slots), s.crit_keys)
         return PhaseOutcome(
             dist=new_d, status=new_status, crit_keys=crit_keys,
-            n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc,
+            n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc, go=go,
             attr_counts=attr_counts,
         )
 
@@ -487,6 +522,11 @@ class DeltaPolicy(PhasePolicy):
         g.__dict__["_delta_prepare_cache"] = (ell_out, delta, aux)
         return aux
 
+    def chunk_key(self, aux) -> tuple:
+        """The out-view by identity and delta by value: the degree counts
+        follow from them (``prepare`` may remake them for the same pair)."""
+        return _operand_key(aux[:2])
+
     @staticmethod
     def gates(s, use_kernels: bool = True) -> DeltaGates:
         """The settle decision of one phase on state ``s``: the bucket ids
@@ -509,13 +549,20 @@ class DeltaPolicy(PhasePolicy):
         heavy_from = heavy_turn[:, None] & (s.crit_keys[1] > 0.5)
         return DeltaGates(bidx, b_lane, n_f, cur, heavy_turn, heavy_from)
 
-    def phase(self, g: Graph, aux, s, use_kernels: bool) -> PhaseOutcome:
+    def phase(self, g: Graph, aux, s, use_kernels: bool,
+              go_of) -> PhaseOutcome:
         ell_out, delta, deg_light, deg_heavy = aux
         d, status = s.dist, s.status
         last_proc = s.crit_keys[0]
         removed = s.crit_keys[1] > 0.5
-        _, b_lane, n_f, cur, heavy_turn, heavy_from = self.gates(s,
-                                                                 use_kernels)
+        _, b_lane, n_f, cur, heavy_turn, _ = self.gates(s, use_kernels)
+        # the loop predicate gates the work set and the heavy turn: a dead
+        # phase relaxes nothing and keeps the drain bookkeeping, so every
+        # field stays its entry's bits without a select
+        go = go_of(n_f)
+        cur = cur & go
+        heavy_turn = heavy_turn & go
+        heavy_from = heavy_turn[:, None] & removed
         # one push: light arcs from this round's work set, heavy arcs from
         # the removed set on the heavy turn
         upd = kops.delta_push_relax_batch(d, cur, heavy_from, ell_out, delta,
@@ -546,7 +593,7 @@ class DeltaPolicy(PhasePolicy):
         return PhaseOutcome(
             dist=new_d, status=new_status,
             crit_keys=torch.stack([new_last, new_removed.to(torch.float32)]),
-            n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc,
+            n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc, go=go,
             attr_counts=attr_counts,
         )
 

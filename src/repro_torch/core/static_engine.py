@@ -33,24 +33,49 @@ What differs from the reference, and why:
   * **Counters** are int64 tensors. The reference's two-limb u32/i32
     counters exist only because ``jax_enable_x64`` is off; ``harvest``
     returns the same int64 values.
-  * **The trip loop runs on the host**, one device sync per trip (the
-    reference runs a ``lax.while_loop`` on the device). It reproduces the
-    reference's loop condition exactly: ``trips`` advances only while some
-    lane is live, ``stop_on_lane_finish`` ends the chunk on the trip an
-    entry-live lane dies, and ``phases``, the counters and the ring slot
-    advance only for lanes with a non-empty fringe.
-  * **State is never written in place**: every phase makes new tensors, so
-    a state handed to :func:`step_batch` stays valid, as a JAX array does.
+  * **The trip loop is a replayed chunk of gated phases** where the
+    reference runs a ``lax.while_loop`` on the device. Each phase computes
+    the reference's loop predicate on the device from the state at its
+    entry (some lane live, trips left in the call's ``budget`` and, under
+    ``stop_on_lane_finish``, no entry-live lane finished) and gates every
+    write on it: a phase under a false predicate is a fixed point, bit for
+    bit, ``trips`` included. :data:`PHASES_PER_REPLAY` such phases form a
+    chunk over static state buffers, and the host reads one flag a chunk
+    (whether the next phase would run) to decide on the next. On the card
+    with the kernels the chunk is a CUDA graph, captured once per
+    :func:`_chunk_key` after one eager chunk on a side stream and replayed
+    from then on; on the CPU, and with ``use_kernels=False``, the same
+    chunk function runs eagerly. A failed capture raises. The chunks are
+    memoised on the graph (:data:`CHUNKS_PER_GRAPH` of them, the oldest
+    freed first), which keeps the views whose addresses a capture baked in;
+    the captures of a device share one memory pool, so one call at a time
+    may step a device's states. A capture replays the ops-layer functions
+    it called: code that swaps one of them frees the chunks of the graphs
+    it steps (:func:`forget_chunks`) on each side of the swap.
+    A replay makes no Python call, so it adds the launch counts its capture
+    recorded to the wrappers' ``launches``; the launches of the phases a
+    chunk ran past the loop's end are counted there too, and also apart
+    (:func:`chunk_stats`).
+  * **A caller's state is never written in place**: a call copies it into
+    the chunk's buffers (whose rings the phases write in place) and
+    returns clones, so a state handed to :func:`step_batch` stays valid,
+    as a JAX array does.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.core import criteria as C
 from repro_torch.core import policies as P
+from repro_torch.kernels import launch_counters
+from repro_torch.kernels.frontier_crit import capture_scratch
+from repro_torch.obs.timer import Stopwatch
 from repro_torch.core.graph import (
     Graph,
     f32_rows,
@@ -71,6 +96,15 @@ EMPTY_LANE = -1  # sentinel source id: lane holds no query
 KEEP_LANE = -2  # sentinel source id for reset_lanes: leave the lane untouched
 
 DEFAULT_CRITERION = "instatic|outstatic"  # the paper's parallel implementation
+
+# Phases of one chunk: one graph replay on the card, one host read of the
+# loop flag. Chosen on an H100 (PERF.md: the ms a phase of the replayed
+# loop against the device ms of the dead phases past a loop's end).
+PHASES_PER_REPLAY = 8
+# Chunks (captures on the card) memoised on one graph, the oldest freed
+# first: a server steps a few keys at a time, and each chunk holds a copy
+# of its state's buffers (the captures share one pool, ``_POOLS``).
+CHUNKS_PER_GRAPH = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,29 +336,46 @@ def init_batch_state(
     )
 
 
+def _go(live, budget, live0, stop_on_lane_finish: bool) -> torch.Tensor:
+    """The reference's loop predicate (its ``cond``) as a 0-dim bool on the
+    device: some lane live and trips left in the call's ``budget``, and
+    under ``stop_on_lane_finish`` every lane live at entry still live
+    (lanes never revive)."""
+    go = torch.any(live) & (budget > 0)
+    if stop_on_lane_finish:
+        go = go & torch.all(live == live0)
+    return go
+
+
 def _phase(g: Graph, aux, s: BatchState, policy: P.PhasePolicy,
-           use_kernels: bool) -> BatchState:
-    """One trip of the loop: the policy's phase plus the chassis' ring and
-    counter writes, gated per lane on ``n_fringe > 0``. On a target lane,
-    the phase its target settles demotes the remaining fringe to status 0:
-    the lane is then a fixed point, and the phase itself still counts."""
-    out = policy.phase(g, aux, s, use_kernels)
+           use_kernels: bool, budget, live0, stop_on_lane_finish: bool):
+    """One trip of the loop, the reference's ``body`` gated on its
+    ``cond``: the policy's phase plus the chassis' ring and counter
+    writes, gated per lane on ``n_fringe > 0`` and every one on the loop
+    predicate, which the policy computes from the fringe sizes its
+    reduction found at the phase's entry. On a target lane, the phase its
+    target settles demotes the remaining fringe to status 0: the lane is
+    then a fixed point, and the phase itself still counts. Returns the
+    next state and the budget left."""
+    out = policy.phase(g, aux, s, use_kernels, lambda n_f: _go(
+        n_f > 0, budget, live0, stop_on_lane_finish))
     rows = torch.arange(s.num_lanes, device=s.device)
     status = out.status
     if s.target is not None:
         tcol = s.target.clamp(0, s.n - 1).long()
         hit = (s.target >= 0) & (status[rows, tcol] == 2)
         status = torch.where(hit[:, None] & (status == 1), 0, status)
-    lane_on = out.n_fringe > 0  # finished/empty lanes stop counting
+    # finished/empty lanes stop counting, and every lane in a dead phase
+    lane_on = (out.n_fringe > 0) & out.go
     idx = (s.phases % s.settled_trace.shape[1]).long()
 
     def write(ring, vals):
-        # dead lanes must not write: their stuck slot may hold a wrapped
-        # entry
-        new = ring.clone()
+        # in place: the rings are the chunk's own buffers (a ring may be as
+        # long as the phase cap). Dead lanes must not write: their stuck
+        # slot may hold a wrapped entry
         on = lane_on.reshape((-1,) + (1,) * (vals.dim() - 1))
-        new[rows, idx] = torch.where(on, vals, ring[rows, idx])
-        return new
+        ring[rows, idx] = torch.where(on, vals, ring[rows, idx])
+        return ring
 
     fringe_trace, relax_trace, attr_trace = (
         s.fringe_trace, s.relax_trace, s.attr_trace)
@@ -332,12 +383,14 @@ def _phase(g: Graph, aux, s: BatchState, policy: P.PhasePolicy,
         fringe_trace = write(fringe_trace, out.n_fringe)
         relax_trace = write(relax_trace, out.relax_inc.to(torch.int32))
         attr_trace = write(attr_trace, out.attr_counts)
+    go = out.go.to(torch.int32)
     return BatchState(
         dist=out.dist,
         status=status,
-        trips=s.trips + 1,
+        trips=s.trips + go,
         phases=s.phases + lane_on.to(torch.int32),
-        sum_fringe=s.sum_fringe + out.n_fringe.to(torch.int64),
+        sum_fringe=s.sum_fringe
+        + torch.where(lane_on, out.n_fringe, 0).to(torch.int64),
         relax_edges=s.relax_edges + out.relax_inc,
         out_deg=s.out_deg,
         crit_keys=out.crit_keys,
@@ -350,7 +403,271 @@ def _phase(g: Graph, aux, s: BatchState, policy: P.PhasePolicy,
         delta=s.delta,
         target=s.target,
         criterion=s.criterion,
+    ), budget - go
+
+
+# the state fields the phases rewrite, and those they only read
+_CARRIED = ("dist", "status", "trips", "phases", "sum_fringe", "relax_edges",
+            "crit_keys", "settled_trace", "fringe_trace", "relax_trace",
+            "attr_trace")
+_READ = ("out_deg", "dist_true", "delta", "target")
+
+
+@dataclasses.dataclass
+class ChunkStats:
+    """What the chunk loop did since :func:`reset_chunk_stats`."""
+
+    chunks: int = 0  # chunks run, eager or replayed
+    replays: int = 0  # of them, graph replays
+    captures: int = 0  # graph captures
+    capture_s: float = 0.0  # host seconds of the captures (warm-up apart)
+    host_reads: int = 0  # reads of the loop flag: one a chunk
+    live_phases: int = 0  # phases run under a true predicate (trips)
+    dead_phases: int = 0  # phases a chunk ran past its loop's end
+    dead_launches: dict = dataclasses.field(default_factory=dict)  # wrapper
+    #   name -> launches of the dead phases (also in the wrappers' counts)
+
+
+_STATS = ChunkStats()
+_CAPTURES = [0]  # graph captures in this process (never reset)
+_SIDE_STREAMS: dict = {}  # device index -> the warm-up and capture stream
+# device index -> the private memory pool every capture shares: a chunk's
+# intermediates die within it (its results land in its own buffers, #2's
+# scratch is held), and the replays run one at a time in stream order, so
+# the pool holds the largest chunk's intermediates, not their sum. Kept
+# beside the graphs captured into it (weakly): PyTorch's allocators free a
+# pool once its last graph is gone and refuse its id after that, so a
+# capture takes a new pool when none of them lives
+_POOLS: dict = {}  # device index -> (pool id, weakref.WeakSet of graphs)
+_COUNTERS: dict = {}
+
+
+def chunk_stats() -> ChunkStats:
+    """The chunk loop's counts since the last :func:`reset_chunk_stats`."""
+    return _STATS
+
+
+def reset_chunk_stats():
+    """Zero :func:`chunk_stats` (``capture_count`` keeps counting)."""
+    global _STATS
+    _STATS = ChunkStats()
+
+
+def capture_count() -> int:
+    """Graph captures of the stepper's chunk in this process so far."""
+    return _CAPTURES[0]
+
+
+def _counts() -> dict:
+    if not _COUNTERS:
+        _COUNTERS.update(launch_counters())
+    return {nm: getattr(f, a) for nm, (f, a) in _COUNTERS.items()}
+
+
+def _chunk_key(policy, s: BatchState, aux, use_kernels: bool,
+               stop_on_lane_finish: bool) -> tuple:
+    """What a chunk's capture depends on: the operands ``prepare`` hands
+    the phase (``policy.chunk_key``: the views by identity, delta's f32
+    width by value), the state's shapes and optional fields, the loop
+    options and the device."""
+    return (
+        policy.chunk_key(aux), s.num_lanes, s.n, s.criterion,
+        s.target is not None, s.dist_true is not None,
+        s.attr_trace is not None, s.settled_trace.shape[1],
+        bool(stop_on_lane_finish), str(s.device), bool(use_kernels),
     )
+
+
+class _Chunk:
+    """:data:`PHASES_PER_REPLAY` gated phases over static state buffers:
+    eager on the CPU and under ``use_kernels=False``, else one eager run on
+    a side stream, then a CUDA graph captured once and replayed."""
+
+    def __init__(self, policy, aux, s: BatchState, use_kernels: bool,
+                 stop_on_lane_finish: bool, capture: bool = True):
+        self.policy, self.aux = policy, aux  # the aux keeps the views alive
+        self.use_kernels = use_kernels
+        self.stop = stop_on_lane_finish
+        dev = s.device
+        self.buf = dataclasses.replace(s, **{
+            nm: torch.empty_like(getattr(s, nm)) for nm in _CARRIED + _READ
+            if getattr(s, nm) is not None})
+        self.budget = torch.zeros((), dtype=torch.int32, device=dev)
+        self.live0 = torch.zeros((s.num_lanes,), dtype=torch.bool, device=dev)
+        # [the predicate of the next phase, the live phases of the chunk]
+        self.info = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.cuda = dev.type == "cuda"
+        # the device decides: on the card with the kernels, a graph
+        self.capture = capture and self.cuda and use_kernels
+        self.info_host = (torch.zeros((2,), dtype=torch.int32,
+                                      pin_memory=True) if self.cuda else None)
+        self.label = (f"{s.criterion} B={s.num_lanes} n={s.n}"
+                      + (" target" if s.target is not None else "")
+                      + (" telemetry" if s.attr_trace is not None else ""))
+        self.graph = None
+        self.scratch = None  # #2's scratch the graph baked in
+        self.replay_counts: dict = {}  # launches a replay adds
+
+    def load(self, s: BatchState, live0, k: int):
+        for nm in _CARRIED + _READ:
+            dst = getattr(self.buf, nm)
+            if dst is not None:
+                dst.copy_(getattr(s, nm))
+        self.live0.copy_(live0)
+        self.budget.fill_(min(k, 2**31 - 1))
+
+    def body(self, g: Graph):
+        """The chunk: its phases, the flag, the buffers written back."""
+        s, budget = self.buf, self.budget
+        for _ in range(PHASES_PER_REPLAY):
+            s, budget = _phase(g, self.aux, s, self.policy, self.use_kernels,
+                               budget, self.live0, self.stop)
+        go = _go(torch.any(s.status == 1, dim=1), budget, self.live0,
+                 self.stop)
+        self.info.copy_(torch.stack([go.to(torch.int32),
+                                     s.trips - self.buf.trips]))
+        self.budget.copy_(budget)
+        for nm in _CARRIED:
+            dst, src = getattr(self.buf, nm), getattr(s, nm)
+            if dst is not None:
+                dst.copy_(src)
+
+    def run(self, g: Graph) -> bool:
+        """One chunk; returns whether the loop goes on."""
+        if self.graph is not None:
+            self.graph.replay()
+            for nm, n in self.replay_counts.items():
+                f, a = _COUNTERS[nm]
+                setattr(f, a, getattr(f, a) + n)
+            launched = self.replay_counts
+            _STATS.replays += 1
+        elif self.capture:
+            # the first chunk of a key runs eagerly on a side stream (it
+            # also builds and loads the libraries), then the capture
+            side = _side_stream(self.buf.dist.device)
+            side.wait_stream(torch.cuda.current_stream(side.device))
+            with torch.cuda.stream(side):
+                launched = self._eager(g)
+            torch.cuda.current_stream(side.device).wait_stream(side)
+        else:
+            launched = self._eager(g)
+        go, live = self._read()
+        if self.graph is None and self.capture:
+            self._capture(g)
+        dead = PHASES_PER_REPLAY - live
+        _STATS.chunks += 1
+        _STATS.live_phases += live
+        _STATS.dead_phases += dead
+        for nm, n in launched.items():
+            _STATS.dead_launches[nm] = (_STATS.dead_launches.get(nm, 0)
+                                        + n // PHASES_PER_REPLAY * dead)
+        return bool(go)
+
+    def _eager(self, g: Graph) -> dict:
+        before = _counts()
+        self.body(g)
+        return {nm: n - before[nm] for nm, n in _counts().items()
+                if n != before[nm]}
+
+    def _read(self) -> tuple[int, int]:
+        """The one host read of a chunk: the flag, copied to pinned memory
+        behind the chunk and read once the copy is done."""
+        _STATS.host_reads += 1
+        if self.info_host is None:
+            return tuple(self.info.tolist())
+        self.info_host.copy_(self.info, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return tuple(self.info_host.tolist())
+
+    def _capture(self, g: Graph):
+        dev = self.buf.dist.device
+        side = _side_stream(dev)
+        before = _counts()
+        # a capture cannot free cached blocks to grow its pool: hand them
+        # back to the device first
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        index = side.device.index
+        pool, live = _POOLS.get(index, (None, ()))
+        # a live graph of the pool, held until the capture has begun, keeps
+        # the pool's id valid
+        anchor = next(iter(live), None)
+        if anchor is None:
+            pool, live = _POOLS[index] = (torch.cuda.graph_pool_handle(),
+                                          weakref.WeakSet())
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with Stopwatch() as sw, torch.cuda.stream(side), \
+                    capture_scratch() as scratch:
+                began = False
+                try:
+                    graph.capture_begin(pool=pool,
+                                        capture_error_mode="thread_local")
+                    began = True
+                    del anchor
+                    self.body(g)
+                    began = False
+                    graph.capture_end()
+                except Exception as exc:
+                    if began:
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                    # the allocators may still route the stream to the
+                    # failed capture's pool: later chunks take new ones
+                    _SIDE_STREAMS.pop(index, None)
+                    _POOLS.pop(index, None)
+                    raise RuntimeError(
+                        f"capturing the stepper's chunk ({self.label}) "
+                        f"failed: {exc}") from exc
+            after = _counts()
+        finally:
+            # the capture launched nothing: its calls' counts come back
+            # with each replay
+            for nm, (f, a) in _COUNTERS.items():
+                setattr(f, a, before[nm])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        live.add(graph)
+        self.graph, self.scratch = graph, scratch
+        self.replay_counts = {nm: n - before[nm] for nm, n in after.items()
+                              if n != before[nm]}
+        _CAPTURES[0] += 1
+        _STATS.captures += 1
+        _STATS.capture_s += sw.elapsed
+
+    def result(self, s: BatchState) -> BatchState:
+        """A fresh state: clones of the buffers, the caller's read-only
+        fields."""
+        return dataclasses.replace(s, **{
+            nm: getattr(self.buf, nm).clone() for nm in _CARRIED
+            if getattr(self.buf, nm) is not None})
+
+
+def _side_stream(dev):
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = _SIDE_STREAMS.get(index)
+    if stream is None:
+        stream = _SIDE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
+
+
+def _chunk_for(g: Graph, policy, aux, s: BatchState, use_kernels: bool,
+               stop_on_lane_finish: bool) -> _Chunk:
+    """The memoised chunk of this key on ``g`` (made on a miss, the oldest
+    of more than :data:`CHUNKS_PER_GRAPH` freed)."""
+    key = _chunk_key(policy, s, aux, use_kernels, stop_on_lane_finish)
+    memo = g.__dict__.setdefault("_chunk_memo", collections.OrderedDict())
+    chunk = memo.get(key)
+    if chunk is None:
+        chunk = memo[key] = _Chunk(policy, aux, s, use_kernels,
+                                   stop_on_lane_finish)
+        while len(memo) > CHUNKS_PER_GRAPH:
+            memo.popitem(last=False)
+    else:
+        memo.move_to_end(key)
+    return chunk
 
 
 def step_batch(
@@ -378,7 +695,19 @@ def step_batch(
     are bit-identical between layouts. Before the loop, even one that runs
     no trip, the policy re-primes carried keys that admission made stale.
     ``use_kernels=False`` runs the plain twins: bit-identical results.
+    The loop runs in chunks of :data:`PHASES_PER_REPLAY` gated phases, a
+    replayed CUDA graph on the card (see the module docstring), with one
+    host read a chunk.
     """
+    return _step(g, state, k_phases, ell, use_kernels, stop_on_lane_finish,
+                 ell_out, capture=True)
+
+
+def _step(g: Graph, state: BatchState, k_phases: int, ell, use_kernels: bool,
+          stop_on_lane_finish: bool, ell_out, capture: bool) -> BatchState:
+    """:func:`step_batch`'s body. ``capture=False`` runs every chunk
+    eagerly in a chunk of its own, never memoised or captured: the card's
+    checks hold the replayed graph against it."""
     if state.device != g.device:
         raise ValueError(
             f"state lives on {state.device}, the graph on {g.device}"
@@ -394,15 +723,25 @@ def step_batch(
     s = policy.prime(g, ell, state, use_kernels)
     # loop-invariant operands, once a call (delta's degree counts)
     aux = policy.prepare(g, ell, ell_out, s, use_kernels)
-    for _ in range(max(int(k_phases), 0)):
-        live = torch.any(s.status == 1, dim=1)  # lanes never revive
-        go = torch.any(live)
-        if stop_on_lane_finish:
-            go = go & torch.all(live == live0)
-        if not bool(go):  # the one host sync of a trip
+    k = max(int(k_phases), 0)
+    if k == 0:
+        return s
+    chunk = (_chunk_for(g, policy, aux, s, use_kernels, stop_on_lane_finish)
+             if capture else _Chunk(policy, aux, s, use_kernels,
+                                    stop_on_lane_finish, capture=False))
+    chunk.load(s, live0, k)
+    for _ in range(-(-k // PHASES_PER_REPLAY)):
+        if not chunk.run(g):
             break
-        s = _phase(g, aux, s, policy, use_kernels)
-    return s
+    return chunk.result(s)
+
+
+def forget_chunks(g: Graph):
+    """Free the chunks memoised on ``g`` and their captures. Call it
+    before and after swapping a function of ``kernels.ops`` that ``g``'s
+    steps reach: a memoised capture replays the functions it was captured
+    with."""
+    g.__dict__.pop("_chunk_memo", None)
 
 
 def reset_lanes(state: BatchState, sources, dist_true=None,

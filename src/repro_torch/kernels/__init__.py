@@ -20,7 +20,54 @@ from repro_torch.kernels.ops import (
     static_thresholds_batch,
 )
 
+PUSH_IN_SCAN = "ell_sliced_relax_keys_batch[out_view]"  # #10b's count
+
+
+def launch_counters() -> dict:
+    """name -> (wrapper, attribute) of every SSSP kernel wrapper's launch
+    count: one a call that launched its kernel on the card (the sliced
+    in-scan counts its push form apart, under :data:`PUSH_IN_SCAN`). The
+    stepper reads them around a graph capture, which launches nothing, and
+    adds a capture's counts at each replay."""
+    from repro_torch.kernels.ell_key_min import (
+        ell_key_min_batch,
+        ell_key_min_status_batch,
+    )
+    from repro_torch.kernels.ell_relax import (
+        ell_delta_push_batch,
+        ell_push_rect_batch,
+        ell_push_relax_batch,
+        ell_relax_batch,
+    )
+    from repro_torch.kernels.ell_relax_keys import (
+        ell_gather_min_batch,
+        ell_keys_dep_batch,
+        ell_relax_keys_batch,
+    )
+    from repro_torch.kernels.ell_sliced import (
+        ell_sliced_delta_push_batch,
+        ell_sliced_gather_min_batch,
+        ell_sliced_keys_dep_batch,
+        ell_sliced_push_relax_batch,
+        ell_sliced_relax_keys_batch,
+    )
+    from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
+
+    counted = {f.__name__: (f, "launches") for f in (
+        ell_relax_batch, frontier_crit_lanes_batch, ell_key_min_batch,
+        ell_key_min_status_batch, ell_gather_min_batch, ell_relax_keys_batch,
+        ell_keys_dep_batch, ell_sliced_gather_min_batch,
+        ell_sliced_relax_keys_batch, ell_sliced_keys_dep_batch,
+        ell_push_relax_batch, ell_sliced_push_relax_batch,
+        ell_push_rect_batch, ell_delta_push_batch,
+        ell_sliced_delta_push_batch)}
+    counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
+    return counted
+
+
 __all__ = [
+    "PUSH_IN_SCAN",
+    "launch_counters",
     "crit_thresholds_batch",
     "gather_min_batch_sliced",
     "in_scan_relax_keys_batch",

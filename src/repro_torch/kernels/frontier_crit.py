@@ -13,14 +13,16 @@ plan), per-lane ``(K, B, n)`` (dynamic keys) or None (K = 0). The kernel is
 partials into the result through a ticket (the last block to finish folds
 them all); its note says what bounds it on the card. The partials and the
 ticket are scratch this module allocates once per device and stream and
-reuses. A tensor on the CPU runs the plain twin in ``kernels/ref.py``; a
-CUDA tensor launches the kernel or raises.
+reuses; a CUDA graph capture takes its own (:func:`capture_scratch`). A
+tensor on the CPU runs the plain twin in ``kernels/ref.py``; a CUDA tensor
+launches the kernel or raises.
 
 ``frontier_crit_lanes``/``frontier_crit``/``frontier_crit_batch`` are the
 reference's thin wrappers over the lane reduction.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -78,6 +80,22 @@ def scratch(dev, stream: int, n_min: int, n_cnt: int):
     if buf[1].numel() < n_cnt:
         buf[1] = torch.empty(n_cnt, dtype=torch.int32, device=dev)
     return buf
+
+
+@contextlib.contextmanager
+def capture_scratch():
+    """Inside the block, :func:`scratch` serves a table of its own, which
+    the block yields: the stepper wraps a CUDA graph capture in it, so the
+    partials and the ticket a graph bakes in are allocated in the captures'
+    private pool and kept by the caller with the graph, and no eager call
+    can grow (and so free) a buffer a graph still reads. The ticket's
+    zeroing is captured too; every launch leaves it 0 anyway."""
+    global _scratch
+    saved, _scratch = _scratch, {}
+    try:
+        yield _scratch
+    finally:
+        _scratch = saved
 
 
 def _check(d, status, keys):

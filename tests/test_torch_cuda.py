@@ -2007,3 +2007,118 @@ def test_embed_grad_bit_stable_through_a_training_step(cuda):
     assert embed_grad.launches == before + 2
     assert torch.equal(l1, l2)
     assert [n for n in g1 if not torch.equal(g1[n], g2[n])] == []
+
+
+def _states_same_bits(a, b) -> list:
+    """The fields of two stepper states that differ (NaN as one value)."""
+    import dataclasses
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if torch.is_tensor(x) and torch.is_tensor(y):
+            if not _same_bits(x, y):
+                bad.append(f.name)
+        elif x != y:
+            bad.append(f.name)
+    return bad
+
+
+CHUNK_CASES = {
+    # name -> (criterion, layout, init kwargs, stop_on_lane_finish)
+    "default_padded": ("instatic|outstatic", "padded", {}, False),
+    "default_sliced": ("instatic|outstatic", "sliced", {}, False),
+    "in_out": ("in|out", "padded", {}, False),
+    "delta_sliced": ("delta", "sliced", {}, False),
+    "targets_stop": ("instatic|outstatic", "padded",
+                     {"targets": [900, -1, 17, 2500]}, True),
+    "telemetry_wraps": ("in|out", "sliced",
+                        {"telemetry": True, "trace_len": 5}, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunk_graph_replay_matches_the_eager_chunk(cuda, case):
+    """``step_batch`` on the card replays its captured chunk; the same
+    chunk run eagerly (never captured) gives every state field in the same
+    bits, call after call; the key captures once, then only replays."""
+    from repro_torch.core import static_engine as TS
+    from repro_torch.core.graph import to_ell_out_buckets
+
+    crit, layout, kw, stop = CHUNK_CASES[case]
+    g = uniform_gnp(3000, 0.003, seed=4, device=cuda)
+    sources = [0, 5, 1200, 2999]
+    step_kw = {}
+    if layout == "sliced":
+        step_kw = ({"ell_out": to_ell_out_buckets(g)} if crit == "delta"
+                   else {"ell": to_ell_in_sliced(g)})
+    TS.forget_chunks(g)
+    TS.reset_chunk_stats()
+    graph_st = eager_st = TS.init_batch_state(g, sources, criterion=crit,
+                                              device=cuda, **kw)
+    j = TS.PHASES_PER_REPLAY
+    for k in (1, j, 3 * j + 2, 1, 4 * g.n, 4 * g.n):
+        graph_st = TS.step_batch(g, graph_st, k, stop_on_lane_finish=stop,
+                                 **step_kw)
+        eager_st = TS._step(g, eager_st, k, step_kw.get("ell"), True, stop,
+                            step_kw.get("ell_out"), capture=False)
+        torch.cuda.synchronize()
+        assert _states_same_bits(graph_st, eager_st) == [], (case, k)
+    stats = TS.chunk_stats()
+    assert stats.captures == 1 and stats.replays > 0
+    assert not TS.lanes_active(graph_st).any() or stop
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A chunk whose capture fails (here a host read inside the phase,
+    legal eagerly, refused while capturing) raises: nothing goes back to
+    an eager loop."""
+    from repro_torch.core import static_engine as TS
+
+    real = ops.crit_thresholds_batch
+
+    def host_read(*a, **kw):
+        out = real(*a, **kw)
+        out[1].sum().item()
+        return out
+
+    monkeypatch.setattr(ops, "crit_thresholds_batch", host_read)
+    g = uniform_gnp(500, 0.01, seed=2, device=cuda)
+    st = TS.init_batch_state(g, [0, 1], device=cuda)
+    with pytest.raises(RuntimeError, match="capturing the stepper's chunk"):
+        TS.step_batch(g, st, 3 * TS.PHASES_PER_REPLAY)
+    monkeypatch.undo()
+    # the stepper captures and replays again after the failure
+    res = TS.step_batch(g, st, 4 * g.n)
+    want = TS.step_batch(g, st, 4 * g.n, use_kernels=False)
+    assert _states_same_bits(res, want) == []
+
+
+def test_a_capture_after_its_pools_graphs_are_freed(cuda, monkeypatch):
+    """The captures share a memory pool while a graph captured into it
+    lives; once every such graph is freed with its chunk, PyTorch frees the
+    pool and refuses its id, so the next capture takes a new pool, and
+    replays the same bits."""
+    import gc
+
+    from repro_torch.core import static_engine as TS
+
+    monkeypatch.setattr(TS, "_POOLS", {})  # a pool of this test's own
+    index = torch.cuda.current_device()
+    pools = []
+    for seed in (5, 6):
+        g = uniform_gnp(400, 0.01, seed=seed, device=cuda)
+        st = TS.init_batch_state(g, [0, 3], device=cuda)
+        before = TS.capture_count()
+        res = TS.step_batch(g, st, 4 * g.n)
+        assert TS.capture_count() == before + 1
+        want = TS.step_batch(g, st, 4 * g.n, use_kernels=False)
+        assert _states_same_bits(res, want) == []
+        pool, live = TS._POOLS[index]
+        assert len(live) == 1
+        pools.append(pool)
+        TS.forget_chunks(g)
+        del g, st, res, want
+        gc.collect()
+        assert len(live) == 0
+    assert pools[0] != pools[1]

@@ -397,4 +397,7 @@ def test_sliced_in_out_phase_hands_the_out_view_to_the_in_scan(monkeypatch):
         st = TS.step_batch(gt, st, 1, ell=tv[0], ell_out=tv[1])
         assert_bits(np.asarray(sj.crit_keys), st.crit_keys)
         assert_bits(np.asarray(sj.dist), st.dist)
-    assert len(seen) == 3 and all(v is tv[1] for v in seen)
+    # each call runs one chunk: its live phase and the gated phases after
+    # it each call the in-scan once
+    assert len(seen) == 3 * TS.PHASES_PER_REPLAY
+    assert all(v is tv[1] for v in seen)

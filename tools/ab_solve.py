@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the default B = 8 solves of two checkouts of the port in turns.
+"""Time the solves of two checkouts of the port in turns.
 
     python3 tools/ab_solve.py A_ROOT B_ROOT [--pairs 2] [--reps 5] [--out FILE]
 
@@ -7,23 +7,31 @@ Run on a machine with an NVIDIA H100 and ``nvcc``. ``A_ROOT`` and
 ``B_ROOT`` are roots of two checkouts (for example the parent commit from
 ``git archive``, unpacked into the git-ignored ``build/``, and this tree).
 Each run is a fresh process that imports ``repro_torch`` from its root's
-``src/`` and builds that root's kernels there, then times the default
-criterion's B = 8 solve (``run_phased_static_batch``) after one warm-up
-solve, ``--reps`` times, each ending in a ``torch.cuda.synchronize()``:
+``src/`` and builds that root's kernels there, then times one workload's
+solve (``run_phased_static_batch``) after one warm-up solve, ``--reps``
+times, each ending in a ``torch.cuda.synchronize()``. Every run takes
+each of the workloads (:data:`WORKLOADS`):
 
-  * ``padded``: G(10^6, 10^-4), seed 0, over the padded in-ELL, on the
-    sources of ``chip_smoke.py`` phase 4;
-  * ``sliced``: ``kronecker(20)``, seed 0, ``layout="sliced"``, on the
-    sources of ``chip_smoke.py`` phase 15.
+  * ``padded``: the default criterion, B = 8, on G(10^6, 10^-4), seed 0,
+    over the padded in-ELL, on the sources of ``chip_smoke.py`` phase 4;
+  * ``sliced``: the default criterion, B = 8, on ``kronecker(20)``, seed
+    0, ``layout="sliced"``, on the sources of ``chip_smoke.py`` phase 15;
+  * ``delta_gnp`` / ``delta_kron``: the portfolio's routed engine on both
+    graphs, ``delta@x4:sliced`` (Δ at 4 x ``default_delta``, the sliced
+    out-view's buckets), B = 8, the same sources;
+  * ``road``: the default criterion, B = 16, on ``grid_road(512, 512)``,
+    seed 0 (the high-diameter family of ``chip_smoke.py`` phase 31), its
+    first ``ROAD_PHASES`` phases from 16 seeded sources.
 
-Each graph gets ``--pairs`` pairs of runs, alternating which side runs
-first (A B, B A, A B, ...). Both graphs are generated once and their COO
+Each workload gets ``--pairs`` pairs of runs, alternating which side runs
+first (A B, B A, A B, ...). Each graph is generated once and its COO
 arrays kept in a temporary directory for the later runs (the generators
-and ``from_coo`` are the same in both checkouts). Prints each run's ms a
-phase and, per graph, the pairs B won (its run's median below A's), the
-median over all solves of each side, and the quartiles of each side's run
-medians; writes them as JSON to ``--out``. Exits non-zero without a card,
-or when the two checkouts' results differ in a bit.
+and ``from_coo`` are the same in both checkouts). Prints the card's name
+and power limit, each run's ms a phase and, per workload, the pairs B won
+(its run's median below A's), the median over all solves of each side,
+and the quartiles of each side's run medians; writes them as JSON to
+``--out``. Exits non-zero without a card, or when the two checkouts'
+results differ in a bit.
 """
 from __future__ import annotations
 
@@ -38,9 +46,20 @@ from pathlib import Path
 import numpy as np
 
 N, P, SEED, KRON_K, LANES, REQUESTS = 1_000_000, 1e-4, 0, 20, 8, 16
+ROAD_SIDE, ROAD_LANES, ROAD_PHASES = 512, 16, 1024
+# workload -> (graph, criterion, layout, delta as a multiple of
+#   default_delta or None, lanes, max_phases or None for the whole solve)
+WORKLOADS = {
+    "padded": ("gnp", "instatic|outstatic", "padded", None, LANES, None),
+    "sliced": ("kron", "instatic|outstatic", "sliced", None, LANES, None),
+    "delta_gnp": ("gnp", "delta", "sliced", 4.0, LANES, None),
+    "delta_kron": ("kron", "delta", "sliced", 4.0, LANES, None),
+    "road": ("road", "instatic|outstatic", "padded", None, ROAD_LANES,
+             ROAD_PHASES),
+}
 
 
-def worker(root: str, graph: str, cache: str, reps: int) -> dict:
+def worker(root: str, workload: str, cache: str, reps: int) -> dict:
     """One run: the solve's ms a phase on one checkout, and a digest of its
     result."""
     import hashlib
@@ -49,7 +68,8 @@ def worker(root: str, graph: str, cache: str, reps: int) -> dict:
     sys.path.insert(0, str(Path(root) / "src"))
     import torch
 
-    from repro_torch.core.graph import from_coo, out_degrees, to_ell_in
+    from repro_torch.core.delta_stepping import default_delta
+    from repro_torch.core.graph import from_coo, out_degrees
     from repro_torch.core.static_engine import run_phased_static_batch
     from repro_torch.graphs import generators
     from repro_torch.kernels import _build
@@ -60,8 +80,9 @@ def worker(root: str, graph: str, cache: str, reps: int) -> dict:
         raise SystemExit(f"repro_torch imported from {generators.__file__}")
     dev = torch.device("cuda", 0)
     _build.build()
+    graph, crit, layout, delta_x, lanes, cap = WORKLOADS[workload]
     coo = Path(cache) / f"{graph}.npz"
-    n = N if graph == "padded" else 2 ** KRON_K
+    n = {"gnp": N, "kron": 2 ** KRON_K, "road": ROAD_SIDE ** 2}[graph]
     if coo.exists():
         z = np.load(coo)
         g = from_coo(z["src"], z["dst"], z["w"], n, device=dev)
@@ -73,17 +94,24 @@ def worker(root: str, graph: str, cache: str, reps: int) -> dict:
             return real(src, dst, w, n_, pad_to=pad_to, device=device)
 
         generators.from_coo = keep
-        g = (generators.uniform_gnp(N, P, seed=SEED, device=dev)
-             if graph == "padded" else
-             generators.kronecker(KRON_K, seed=SEED, device=dev))
+        g = {"gnp": lambda: generators.uniform_gnp(N, P, seed=SEED,
+                                                   device=dev),
+             "kron": lambda: generators.kronecker(KRON_K, seed=SEED,
+                                                  device=dev),
+             "road": lambda: generators.grid_road(ROAD_SIDE, ROAD_SIDE,
+                                                  seed=SEED, device=dev),
+             }[graph]()
         generators.from_coo = real
-    if graph == "padded":
+    if graph == "gnp":
         srcs = np.random.default_rng(1).integers(0, g.n, REQUESTS)[:LANES]
-        kw = dict(ell=to_ell_in(g))
-    else:
+    elif graph == "kron":
         has_out = torch.nonzero(out_degrees(g) >= 1).squeeze(1).cpu().numpy()
         srcs = np.random.default_rng(2).choice(has_out, REQUESTS)[:LANES]
-        kw = dict(layout="sliced")
+    else:
+        srcs = np.random.default_rng(3).integers(0, g.n, lanes)
+    kw = dict(layout=layout, criterion=crit, max_phases=cap)
+    if delta_x is not None:
+        kw["delta"] = delta_x * default_delta(g)
 
     def solve():
         res = run_phased_static_batch(g, srcs, device=dev, **kw)
@@ -102,7 +130,7 @@ def worker(root: str, graph: str, cache: str, reps: int) -> dict:
         x = getattr(res, field)
         digest.update((x.cpu().numpy() if torch.is_tensor(x)
                        else np.asarray(x)).tobytes())
-    return {"graph": graph, "phases": total,
+    return {"workload": workload, "phases": total,
             "ms_phase": [w / total * 1e3 for w in walls],
             "digest": digest.hexdigest()}
 
@@ -114,7 +142,7 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out")
-    ap.add_argument("--worker", choices=("padded", "sliced"))
+    ap.add_argument("--worker", choices=tuple(WORKLOADS))
     ap.add_argument("--cache")
     args = ap.parse_args()
     if args.worker:
@@ -125,9 +153,14 @@ def main() -> int:
         ap.error("give two checkouts")
     roots = {"A": str(Path(args.a_root).resolve()),
              "B": str(Path(args.b_root).resolve())}
-    summary = {}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    summary = {"card": smi}
     with tempfile.TemporaryDirectory() as cache:
-        for graph in ("padded", "sliced"):
+        for graph in WORKLOADS:
             runs = []
             order = [side for i in range(args.pairs)
                      for side in (("A", "B") if i % 2 == 0 else ("B", "A"))]
