@@ -85,7 +85,10 @@ failure raises, exits non-zero and prints no ``ok`` line:
  17. more buckets than one launch takes: G(10^5, 10^-3) sliced into 19
      buckets with rows (each pass runs in two groups): every sliced kernel
      and the sliced push against its twin, and the sliced default and
-     ``in|out`` solves against the padded ones, bit for bit;
+     ``in|out`` solves against the padded ones, bit for bit; then an
+     out-view sliced at every width 50..150 (more buckets with rows than
+     the settle mark aggregates in shared memory): the pair against its
+     twins and the default solve through it against the padded one;
  18. ``ContinuousBatcher`` on G(10^6, 10^-4), padded: (a) the default plan,
      8 lanes, 32 phases a step, a 64-row ``DistCache``: 40 requests from
      seed 3 (32 distinct sources, 8 repeats that coalesce) in 4 bursts of
@@ -137,7 +140,9 @@ failure raises, exits non-zero and prints no ``ok`` line:
      fringe ring summing to ``sum_fringe``, the relax ring to
      ``relax_edges`` and the attribution's settle slots to the settled
      ring; ``phase_telemetry`` decodes every lane, and the tracer's events
-     pass ``validate_events``.
+     pass ``validate_events``; the default plan's run commits through the
+     pair (the attribution ring's counts from the mark) and launches no
+     PR 15 push.
 
  23. the engine portfolio on both graphs: ``measure_portfolio`` over the
      eight default candidates on G(10^6, 10^-4) (the five sliced ones and
@@ -567,7 +572,8 @@ def busy_line(fn, wall_s: float, phases: int) -> str:
     dev_ms = sum(t for _, t in parts)
     ours = ("push_kernel", "push_mark_kernel", "delta_mark_kernel", "crit_",
             "gather_min_kernel", "scan_kernel", "pack_kernel", "merge_kernel",
-            "short_merge_kernel")
+            "short_merge_kernel", "settle_mark_kernel", "settle_push_kernel",
+            "settle_tail_kernel")
     glue = [(k, t) for k, t in parts if not any(o in k for o in ours)]
     ours = sorted((p for p in parts if p not in glue), key=lambda p: -p[1])
     split = "; ".join(f"{k} {t / phases:.4f}" for k, t in ours)
@@ -587,15 +593,32 @@ TRACE_SIGNATURES = {
                          "ell_push_rect_batch", PUSH_IN_SCAN),
     "delta_mark_kernel": ("ell_delta_push_batch",
                           "ell_sliced_delta_push_batch"),
+    # the push plans' phase-committing pair (one launch of each a phase; a
+    # sliced view of more than 16 buckets would launch its push per group)
+    "settle_mark_kernel": ("ell_settle_mark_batch",),
+    "settle_push_kernel": ("ell_settle_push_batch",
+                           "ell_sliced_settle_push_batch"),
+    "settle_tail_kernel": ("ell_settle_tail_batch",),
 }
+# the wrappers of the pair's three launches on each layout
+PAIR = {"padded": ("ell_settle_mark_batch", "ell_settle_push_batch",
+                   "ell_settle_tail_batch"),
+        "sliced": ("ell_settle_mark_batch", "ell_sliced_settle_push_batch",
+                   "ell_settle_tail_batch")}
+# the kernels of a replayed default phase on the padded layout: #2 and the
+# pair, nothing else (phase 32 holds the trace to it)
+PHASE_KERNELS = ("crit_kernel", "settle_mark_kernel", "settle_push_kernel",
+                 "settle_tail_kernel")
 
 
-def traced_launches(fn, zero_counts, read_counts) -> tuple[dict, dict]:
+def traced_launches(fn, zero_counts, read_counts,
+                    kinds: dict | None = None) -> tuple[dict, dict]:
     """One call of ``fn`` under ``torch.profiler``, after an untraced one
     and a warm-up step: ``(kernel -> its instances in the trace, kernel ->
     the launches its wrappers counted in that call)`` for each kernel of
     :data:`TRACE_SIGNATURES` (the counts set to 0 just before the traced
-    call and read just after it)."""
+    call and read just after it). ``kinds``, a dict, gets every device
+    kernel of the trace (copies and fills apart) with its instances."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -617,6 +640,9 @@ def traced_launches(fn, zero_counts, read_counts) -> tuple[dict, dict]:
         for kernel in seen:
             if re.search(rf"\b{kernel}\b", e.key):
                 seen[kernel] += e.count
+        if kinds is not None and e.device_time_total > 0 and not \
+                e.key.startswith(("Memcpy", "Memset", "ProfilerStep")):
+            kinds[e.key] = kinds.get(e.key, 0) + e.count
     return seen, {kernel: sum(counts.get(w, 0) for w in wrappers)
                   for kernel, wrappers in TRACE_SIGNATURES.items()}
 
@@ -647,6 +673,142 @@ def relax_bound(dmask, out_deg) -> tuple[float, str]:
     once, an add and a min a candidate."""
     _, cand, row_bytes = push_load(dmask, out_deg)
     return bound(row_bytes + 2 * dmask.numel() * 4, 2.0 * cand)
+
+
+def pair_check(args, kw, label: str) -> float:
+    """The phase-committing pair (``settle_phase_batch``: the settle mark,
+    the worklist push and the tail) on one phase's inputs ``args`` /
+    ``kw`` against its twins, every field it writes bit for bit; returns
+    the max abs error of its distances."""
+    import torch
+
+    from repro_torch.kernels.settle_push import settle_phase_batch
+
+    got = settle_phase_batch(*args, **kw)
+    want = settle_phase_batch(*args, **kw, use_kernels=False)
+    torch.cuda.synchronize()
+    bad = [f for f in got._fields
+           if (getattr(got, f) is None) != (getattr(want, f) is None)
+           or (getattr(got, f) is not None
+               and not same_bits(getattr(got, f), getattr(want, f)))]
+    moved = int((got.dist.view(torch.int32)
+                 != args[0].view(torch.int32)).sum())
+    log(f"parity settle pair [{label}]: "
+        + ("bits equal" if not bad else f"DIFFER in {bad}")
+        + f" on every field it writes ({int(got.settled_trace[:, 0].sum())} "
+        f"settled, {moved} distances lowered, trips {int(got.trips)})")
+    if bad:
+        raise SystemExit(f"the settle pair disagrees with its twins: {label}")
+    return max_abs_err(got.dist, want.dist)
+
+
+PAIR_KERNELS = ("settle_mark_kernel", "settle_push_kernel",
+                "settle_tail_kernel")
+
+
+def pair_times(args, kw, old_push, label: str, smi: str) -> dict:
+    """The pair on one real phase's entry state (``settle_phase_batch``'s
+    ``args`` / ``kw``): each kernel's device ms a call (``torch.profiler``)
+    in turns with the PR 15 push ``old_push`` on the same phase (its mark
+    and push passes; pair, old, old, pair), each twin's ms, and each
+    kernel's bound from this input: the mark reads status whole, d only in
+    the 32-byte sectors that hold a fringe slot (it reads a lane's d where
+    its status is 1), the static key, the out-degrees of the settled and
+    (sliced) the row table of the sources, and writes status and d_src at
+    the settled and the sources and the worklist's entries; the push reads the entries, the sources'
+    out-rows and d_src and writes each touched target's d and status once
+    (an add and a min a candidate); the tail its B-sized counters."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.settle_push import settle_phase_batch
+
+    d, st, mins, nf, live0, view, deg, in_key = args
+    b, n = d.shape
+    target = kw.get("target")
+
+    def pair():
+        return settle_phase_batch(*args, **kw)
+
+    def kernel_ms(split, name):
+        return sum(t for k, t in split if name in k)
+
+    splits = [device_split(f, calls=5)
+              for f in (pair, old_push, old_push, pair)]
+    ms = {nm: (kernel_ms(splits[0], nm) + kernel_ms(splits[3], nm)) / 2
+          for nm in PAIR_KERNELS}
+    old = [kernel_ms(s, "push_mark_kernel") + kernel_ms(s, "push_kernel")
+           - kernel_ms(s, "settle_push_kernel") for s in splits[1:3]]
+    # the twins, timed alone, and the counts the bounds read
+    one = torch.ones((), dtype=torch.int32, device=d.device)
+    mark_args = (d, st, mins, nf, live0, one)
+    mark_kw = dict(zero=kw.get("zero", True), in_key=in_key,
+                   stop=kw.get("stop", False), target=target, out_deg=deg)
+    mk = ref.settle_mark_ref(*mark_args, **mark_kw)
+    st2 = torch.where(mk.settle, 2, st).to(torch.int32)
+    zeros = [torch.zeros(s, dtype=t, device=d.device) for s, t in (
+        ((), torch.int32), ((b,), torch.int32), ((b,), torch.int64),
+        ((b,), torch.int64), ((b, 3), torch.int32))]
+    plain = {
+        "settle_mark_kernel": time_ms(
+            lambda: ref.settle_mark_ref(*mark_args, **mark_kw), reps=5,
+            warmup=1),
+        "settle_push_kernel": time_ms(
+            lambda: ref.settle_push_ref(d, st2, mk.sources, view), reps=3,
+            warmup=1),
+        "settle_tail_kernel": time_ms(
+            lambda: ref.settle_tail_ref(st2, nf, mk, target, *zeros, one),
+            reps=5, warmup=1)}
+    new_d, new_st = ref.settle_push_ref(d, st2, mk.sources, view)
+    touched = int(((new_d.view(torch.int32) != d.view(torch.int32))
+                   | (new_st != st2)).sum())
+    dm = torch.where(mk.sources, d, INF)
+    active, cand, row_bytes = push_load(dm, deg)
+    vrows = kw.get("vrows")
+    act = mk.sources.any(dim=0)
+    entries = (-(-b // 32)) * (int(vrows[act, 2].sum()) if vrows is not None
+                               else active)
+    settled, src_lanes = int(mk.settle.sum()), int(mk.sources.sum())
+    relax_v = int((mk.settle.any(dim=0)).sum())
+    fringe = (st == 1).reshape(-1)
+    n_fringe = int(fringe.sum())
+    fringe = torch.cat([fringe, fringe.new_zeros((-fringe.numel()) % 8)])
+    sectors = int(fringe.view(-1, 8).any(dim=1).sum())
+    terms = (int(kw.get("zero", True)) + (in_key is not None)
+             + mins.shape[0] - 1)
+    bounds = {
+        "settle_mark_kernel": bound(
+            4 * d.numel() + 32 * sectors
+            + (4 * n if in_key is not None else 0) + 4 * relax_v
+            + (16 * int(act.sum()) if vrows is not None else 0)
+            + 4 * settled + 4 * src_lanes + 8 * entries,
+            float(d.numel() + terms * n_fringe)),
+        "settle_push_kernel": bound(
+            row_bytes + 8 * entries + 4 * src_lanes + 8 * touched,
+            2.0 * cand),
+        "settle_tail_kernel": bound(40 * b, 0.0)}
+    log(f"settle pair [{label}] [{smi}]: {n_fringe} fringe lane-slots in "
+        f"{sectors} of {-(-d.numel() // 8)} 32-byte sectors of d, {settled} "
+        f"settled, {active} source "
+        f"vertices ({src_lanes} lane-sources, {entries} worklist entries), "
+        f"{cand} candidates, {touched} targets touched; device ms a call "
+        f"(pair, PR 15 push, PR 15 push, pair): mark "
+        f"{kernel_ms(splits[0], PAIR_KERNELS[0]):.4f} / "
+        f"{kernel_ms(splits[3], PAIR_KERNELS[0]):.4f}, push "
+        f"{kernel_ms(splits[0], PAIR_KERNELS[1]):.4f} / "
+        f"{kernel_ms(splits[3], PAIR_KERNELS[1]):.4f}, tail "
+        f"{kernel_ms(splits[0], PAIR_KERNELS[2]):.4f} / "
+        f"{kernel_ms(splits[3], PAIR_KERNELS[2]):.4f}; the pair "
+        f"{sum(ms.values()):.4f} against the PR 15 push's mark + push "
+        + ", ".join(f"{x:.4f}" for x in old) + "; bounds "
+        + ", ".join(f"{nm.split('_')[1]} {bounds[nm][0]:.4f} "
+                    f"({bounds[nm][1]})" for nm in PAIR_KERNELS)
+        + "; twins " + ", ".join(f"{nm.split('_')[1]} {plain[nm]:.4f}"
+                                 for nm in PAIR_KERNELS) + " ms")
+    return {"ms": ms, "plain_ms": plain, "bounds": bounds,
+            "old_push_ms": float(np.mean(old)), "settled": settled,
+            "fringe": n_fringe, "sectors": sectors,
+            "entries": entries, "candidates": cand, "touched": touched}
 
 
 def seeded_push_dmask(rng, b: int, n: int, live: float, dev):
@@ -2789,7 +2951,10 @@ EXAMPLE_RUNS = (
     ("train_lm", ["--arch", "internlm2-1.8b", "--steps", "3", "--ckpt-dir",
                   "{tmp}/ckpt"]),
 )
-STATIC_SOLVE = ("ell_push_relax_batch", "frontier_crit_lanes_batch")
+# a static solve of the default plan: #2 and the pair's mark and tail (its
+# push by the layout, PAIR), and no PR 15 push
+STATIC_SOLVE = ("frontier_crit_lanes_batch", "ell_settle_mark_batch",
+                "ell_settle_tail_batch")
 
 
 def examples_phase(dev, smi: str, counted: dict) -> tuple[dict, dict]:
@@ -2866,11 +3031,14 @@ def examples_checks(name: str, rec, counts: dict, label: str) -> dict:
         raise SystemExit(f"phase 31 {label}: {why}")
 
     def static_path(*also):
-        for k in STATIC_SOLVE[1:] + also:
+        for k in STATIC_SOLVE + also:
             if counts[k] <= 0:
                 fail(f"never launched {k}")
-        if counts["ell_relax_batch"]:
-            fail("launched the pull relax")
+        for k in ("ell_relax_batch", "ell_push_relax_batch",
+                  "ell_sliced_push_relax_batch"):
+            if counts[k]:
+                fail(f"launched {k} (the pull, or the PR 15 push the pair "
+                     "replaces)")
 
     if name == "quickstart":
         verdicts = [line.split()[-1] for line in rec.lines[2:8]]
@@ -2889,13 +3057,11 @@ def examples_checks(name: str, rec, counts: dict, label: str) -> dict:
                                           "dijkstra_s")}
             row[fam]["engines"] = r["engines"]
         views = {r["view"] for r in f["families"].values()}
-        static_path(*(("ell_push_relax_batch",) if "padded" in views
-                      else ()),
-                    *(("ell_sliced_push_relax_batch",) if "sliced" in views
-                      else ()))
+        static_path(*(PAIR["padded"][1:2] if "padded" in views else ()),
+                    *(PAIR["sliced"][1:2] if "sliced" in views else ()))
         return {"families": row}
     if name == "batch_serving":
-        static_path("ell_push_relax_batch")
+        static_path(PAIR["padded"][1])
         phases = f["phases"]
         return {"n": f["n"], "m": f["m"], "phases": phases,
                 "queries_per_s": f["queries_per_s"],
@@ -2912,7 +3078,7 @@ def examples_checks(name: str, rec, counts: dict, label: str) -> dict:
             if counts["ell_key_min_batch"] <= 0:  # verify_row's gather
                 fail("never launched ell_key_min_batch")
         else:
-            static_path("ell_push_relax_batch")
+            static_path(PAIR["padded"][1])
         return {"n": f["n"], "m": f["m"],
                 "queries": m["queries_completed"],
                 "queries_per_s": m["throughput_qps"],
@@ -2973,10 +3139,10 @@ def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
     cases = {
         "default G(10^6, 10^-4) B=8": (
             g, views["src8"], default, {}, views["padded"], False,
-            (crit, "ell_push_relax_batch"), "graph+eager"),
+            (crit, *PAIR["padded"]), "graph+eager"),
         "default kronecker(20) sliced B=8": (
             gk, views["src8_k"], default, {}, views["sliced"], False,
-            (crit, "ell_sliced_push_relax_batch"), "graph"),
+            (crit, *PAIR["sliced"]), "graph"),
         "delta@x4:sliced G(10^6, 10^-4) B=8": (
             g, views["src8"], "delta", {"delta": 4 * default_delta(g)},
             {"ell_out": to_ell_out_buckets(g)}, False,
@@ -2990,10 +3156,10 @@ def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
             (crit, "ell_relax_keys_batch", "ell_keys_dep_batch"), None),
         "default grid_road(512, 512) B=16": (
             road, road_src, default, {}, {}, False,
-            (crit, "ell_push_relax_batch"), "graph+eager"),
+            (crit, *PAIR["padded"]), "graph+eager"),
         "grid_road(512, 512) B=16 targets, stop_on_lane_finish": (
             road, road_src, default, {"targets": road_tgt}, {}, True,
-            (crit, "ell_push_relax_batch"), None),
+            (crit, *PAIR["padded"]), None),
     }
     j = TS.PHASES_PER_REPLAY
     by_path = {}
@@ -3079,7 +3245,9 @@ def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
         # three traces must match, none may show fewer counts than kernels
         traced = runner(graph, st0, skw, stop, 3 * j + 2, "graph")
         for attempt in range(1, 4):
-            seen, said = traced_launches(traced, zero_counts, read_counts)
+            kinds = {}
+            seen, said = traced_launches(traced, zero_counts, read_counts,
+                                         kinds)
             if any(seen[kk] > said[kk] for kk in seen):
                 raise SystemExit(f"phase 32 {name}: the trace holds more "
                                  f"kernels than the wrappers counted: trace "
@@ -3100,6 +3268,26 @@ def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
             + ", ".join(f"{kk} {seen[kk]} in the trace = {said[kk]} counted"
                         for kk in seen if said[kk])
             + f" (trace {attempt})")
+        if name.startswith("default") and "sliced" not in name:
+            # a replayed phase of the default plan on the padded layout is
+            # #2 and the pair: the kernels the trace holds once a phase or
+            # more are those four; the rest are the chunk's own (its flag
+            # and the copies), fewer than one a phase
+            phases = st.chunks * j
+            per_phase = sorted(kk for kk, c in kinds.items() if c >= phases)
+            if len(per_phase) != len(PHASE_KERNELS) or any(
+                    sum(kern in kk for kk in per_phase) != 1
+                    for kern in PHASE_KERNELS) or any(
+                    seen[kern] != phases for kern in PHASE_KERNELS[1:]):
+                raise SystemExit(
+                    f"phase 32 {name}: a replayed phase launched other "
+                    f"kernels than #2 and the pair: {per_phase} at least "
+                    f"{phases} times in {phases} phases (trace {kinds})")
+            log(f"phase 32 {name}: {len(per_phase)} kernels a replayed "
+                f"phase ({', '.join(per_phase)}), each {phases} times in "
+                f"{phases} phases; the chunk's own: " + ", ".join(
+                    f"{kk} {c}" for kk, c in sorted(kinds.items())
+                    if kk not in per_phase))
         if timed_as is None:
             zero_counts()
             runner(graph, st0, skw, stop, 3 * j + 2, "graph")()
@@ -3202,7 +3390,7 @@ def main() -> int:
     )
     from repro_torch.core import criteria as C
     from repro_torch.core import default_delta, run_delta_stepping, run_phased
-    from repro_torch.core.graph import from_coo
+    from repro_torch.core.graph import from_coo, vertex_row_table
     from repro_torch.core.policies import policy_for
     from repro_torch.core import static_engine as TS
     from repro_torch.core.static_engine import (
@@ -3241,6 +3429,7 @@ def main() -> int:
         ell_sliced_relax_keys_batch,
     )
     from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
+    from repro_torch.kernels.settle_push import settle_phase_batch
     from repro_torch.obs import (
         Observability,
         attribution_terms,
@@ -3550,6 +3739,46 @@ def main() -> int:
                to_ell_out(gr), ell_relax_batch(pad(dm13u), cols_r, ws_r),
                out_degrees(gr))
     del push_cases, dm13u
+    # the phase-committing pair (#1b redesigned): the settle mark, the
+    # worklist push and the tail on seeded states at full width, #2's
+    # thresholds for the default plan (one with its OUT lane at +inf, so a
+    # third of the slots settle), a NaN on a lane's fringe, target lanes,
+    # the three terms with the attribution ring, the road grid at B = 13
+    mins8, nf8 = frontier_crit_lanes_batch(d8, st8, keys_shared)
+    mins_all = mins8.clone()
+    mins_all[1] = INF
+    tg8 = torch.from_numpy(np.where(np.arange(LANES) % 2 == 0,
+                                    rng.integers(0, n, LANES), -1).astype(
+                                        np.int32)).to(dev)
+    mins_nan, nf_nan = frontier_crit_lanes_batch(d_nan, st8, keys_shared)
+    mins13, nf13 = frontier_crit_lanes_batch(d13, st13,
+                                             gr.out_min_static[None])
+    pair_cases = {
+        "gnp B=8, #2's thresholds": (
+            (d8, st8, mins8, nf8, nf8 > 0, (cols_o, ws_o), out_deg,
+             g.in_min_static), {"zero": False}),
+        "gnp B=8, the OUT lane +inf (a third settle)": (
+            (d8, st8, mins_all, nf8, nf8 > 0, (cols_o, ws_o), out_deg,
+             g.in_min_static), {"zero": False}),
+        "gnp B=8, a NaN on lane 2's fringe, targets": (
+            (d_nan, st8, mins_nan, nf_nan, nf_nan > 0, (cols_o, ws_o),
+             out_deg, g.in_min_static), {"zero": False, "target": tg8}),
+        "gnp B=8, DIJK, INSTATIC and OUTSTATIC, telemetry": (
+            (d8, st8, mins8, nf8, nf8 > 0, (cols_o, ws_o), out_deg,
+             g.in_min_static), {"zero": True, "telemetry": True}),
+        "gnp B=1, stop": (
+            (d1, st1, mins8[:, :1].contiguous(), nf8[:1], nf8[:1] > 0,
+             (cols_o, ws_o), out_deg, g.in_min_static),
+            {"zero": False, "stop": True}),
+        "grid_road B=13": (
+            (d13, st13, mins13, nf13, nf13 > 0, to_ell_out(gr),
+             out_degrees(gr), gr.in_min_static), {"zero": False}),
+    }
+    for label, (pargs, pkw) in pair_cases.items():
+        errs["ell_settle_commit_batch"] = max(
+            errs.get("ell_settle_commit_batch", 0.0),
+            pair_check(pargs, pkw, label))
+    del pair_cases, mins_all, tg8, mins_nan, nf_nan, mins13, nf13
     for label, (d, st, k) in crit_cases.items():
         mins, cnt = frontier_crit_lanes_batch(d, st, k)
         w_mins, w_cnt = ref.frontier_crit_lanes_batch_ref(d, st, k)
@@ -3588,12 +3817,14 @@ def main() -> int:
         f"{trips} trips; phases per request "
         f"{[req_phases[r] for r in range(REQUESTS)]}")
     log(f"serving launches: {launches}")
-    for name in ("ell_push_relax_batch", "frontier_crit_lanes_batch"):
+    for name in ("frontier_crit_lanes_batch", *PAIR["padded"]):
         if launches[name] <= 0:
             raise SystemExit(f"the main path never launched {name}")
     pulled = {nm: launches[nm] for nm in ("ell_relax_batch",
                                           "ell_sliced_gather_min_batch",
-                                          "ell_sliced_push_relax_batch")}
+                                          "ell_push_relax_batch",
+                                          "ell_sliced_push_relax_batch",
+                                          "ell_sliced_settle_push_batch")}
     if any(pulled.values()):
         raise SystemExit(f"the main path launched another relax: {pulled}")
 
@@ -3721,6 +3952,17 @@ def main() -> int:
         f"+ dmask + upd) {b_r:.4f} ms ({by_r}), the pull's stream of the "
         f"whole in-ELL {stream_b_r:.4f} ms; plain push twin "
         f"{push_plain_ms:.4f} ms, plain pull twin {plain_ms_r:.4f} ms")
+    # the pair that commits this phase on the main path (#1b redesigned),
+    # from the phase's entry state and #2's thresholds, in turns with the
+    # PR 15 push on the same phase's settle mask
+    pair_args = (d_mid, s_mid, mins_mid, nf_mid, nf_mid > 0, (cols_o, ws_o),
+                 out_deg, g.in_min_static)
+    errs["ell_settle_commit_batch"] = max(
+        errs["ell_settle_commit_batch"],
+        pair_check(pair_args, {"zero": False}, f"phase {MID_PHASE}"))
+    pair6 = pair_times(pair_args, {"zero": False},
+                       lambda: ell_push_relax_batch(dm_mid, cols_o, ws_o),
+                       f"phase {MID_PHASE}, G(10^6, 10^-4) padded B=8", smi)
 
     def phase_profile(graph, srcs, ell_in, ell_out, push, pull, pull_prep,
                       deg, label):
@@ -3821,7 +4063,7 @@ def main() -> int:
     log(f"relax on the seeded parity input (a third of dmask finite, "
         f"{push_load(dm8u, out_deg)[0]} active rows): pull {dense_ms:.4f} ms, "
         f"push {dense_push_ms:.4f} ms")
-    del st_mid, dmask_mid, settle_mid, d_mid, s_mid, dm8u, dm_mid
+    del st_mid, dmask_mid, settle_mid, d_mid, s_mid, dm8u, dm_mid, pair_args
 
     phase_mark("7")
     # ---- 7. the dynamic-key kernels at full width ------------------------
@@ -4300,6 +4542,38 @@ def main() -> int:
         check_push("ell_sliced_push_relax_batch", label, dm, sl_out,
                    ell_sliced_gather_min_batch(dm[None], sl_in,
                                                sparse=True)[0], out_deg_k)
+    # the pair (#9b redesigned) along the sliced out-view: #2's thresholds
+    # for the default plan on the seeded state, and with the OUT lane at
+    # +inf (a third of the slots settle, the hubs' rows among them), B = 8
+    # and B = 40 (two lane tiles) with target lanes
+    vrows_k = vertex_row_table(gk, sl_out)
+    mins_k, nf_k = frontier_crit_lanes_batch(dk, stk,
+                                             gk.out_min_static[None])
+    mins_k_all = mins_k.clone()
+    mins_k_all[1] = INF
+    d40, st40 = seeded_state(rng, 40, nk, dev)
+    mins40, nf40 = frontier_crit_lanes_batch(d40, st40,
+                                             gk.out_min_static[None])
+    tg40 = torch.from_numpy(np.where(np.arange(40) % 3 == 0,
+                                     rng.integers(0, nk, 40), -1).astype(
+                                         np.int32)).to(dev)
+    for label, (pargs, pkw) in {
+        "out-view B=8, #2's thresholds": (
+            (dk, stk, mins_k, nf_k, nf_k > 0, sl_out, out_deg_k,
+             gk.in_min_static), {"zero": False, "vrows": vrows_k}),
+        "out-view B=8, the OUT lane +inf (a third settle)": (
+            (dk, stk, mins_k_all, nf_k, nf_k > 0, sl_out, out_deg_k,
+             gk.in_min_static), {"zero": False, "vrows": vrows_k}),
+        "out-view B=40, targets, telemetry": (
+            (d40, st40, mins40, nf40, nf40 > 0, sl_out, out_deg_k,
+             gk.in_min_static),
+            {"zero": False, "vrows": vrows_k, "target": tg40,
+             "telemetry": True}),
+    }.items():
+        errs["ell_sliced_settle_commit_batch"] = max(
+            errs.get("ell_sliced_settle_commit_batch", 0.0),
+            pair_check(pargs, pkw, label))
+    del mins_k_all, d40, st40, mins40, nf40, tg40
     kparts = [C.in_scan_gate_parts(kspec[nm], stk, settle_k,
                                    gk.in_min_static[None])
               for nm in ("in_full", "in_dyn")]
@@ -4441,18 +4715,21 @@ def main() -> int:
     padded_gathers = ("ell_relax_batch", "ell_key_min_batch",
                       "ell_key_min_status_batch", "ell_gather_min_batch", "ell_relax_keys_batch",
                       "ell_keys_dep_batch", "ell_push_relax_batch",
-                      "ell_delta_push_batch")
+                      "ell_delta_push_batch", "ell_settle_push_batch")
     served_k, sliced_serve = {}, {}
-    # the default plan relaxes by the sliced push and runs no sliced gather;
-    # in|out relaxes in the fused in-scan, whose relax sweep is the push
-    # along the out-view it holds (#10b), and runs no other push
+    # the default plan commits through the pair along the sliced out-view
+    # and runs no sliced gather and no PR 15 push; in|out relaxes in the
+    # fused in-scan, whose relax sweep is the push along the out-view it
+    # holds (#10b), and runs no other push
     for crit, must, never in (
-            ("instatic|outstatic", ("ell_sliced_push_relax_batch",),
+            ("instatic|outstatic", PAIR["sliced"],
              ("ell_sliced_gather_min_batch", "ell_sliced_relax_keys_batch",
-              PUSH_IN_SCAN, "ell_sliced_keys_dep_batch")),
+              PUSH_IN_SCAN, "ell_sliced_keys_dep_batch",
+              "ell_sliced_push_relax_batch")),
             ("in|out", ("ell_sliced_gather_min_batch", PUSH_IN_SCAN,
                         "ell_sliced_keys_dep_batch"),
-             ("ell_sliced_push_relax_batch", "ell_sliced_relax_keys_batch"))):
+             ("ell_sliced_push_relax_batch", "ell_sliced_relax_keys_batch",
+              *PAIR["sliced"]))):
         rows_s, ph_s, l_s, s_s, steps_s, trips_s = serve(
             StaticBackend(gk, criterion=crit, layout="sliced", device=dev),
             src_k)
@@ -4650,6 +4927,19 @@ def main() -> int:
     push_ms_k = (relax_turns_k[1] + relax_turns_k[2]) / 2
     push_plain_ms_k = time_ms(
         lambda: ref.ell_push_relax_batch_ref(dm16, sl_out), reps=3, warmup=1)
+    # the pair along the sliced out-view (#9b redesigned) from the same
+    # phase's entry state, in turns with the PR 15 sliced push
+    pair_args16 = (st_k16.dist, st_k16.status, mins16, nf16, nf16 > 0,
+                   sl_out, out_deg_k, gk.in_min_static)
+    pair_kw16 = {"zero": False, "vrows": vrows_k}
+    errs["ell_sliced_settle_commit_batch"] = max(
+        errs["ell_sliced_settle_commit_batch"],
+        pair_check(pair_args16, pair_kw16, f"phase {int(st_k16.trips)}, "
+                   "kronecker(20) sliced"))
+    pair16 = pair_times(pair_args16, pair_kw16,
+                        lambda: ell_sliced_push_relax_batch(dm16, sl_out),
+                        f"phase {int(st_k16.trips)}, kronecker(20) sliced B=8",
+                        smi)
     b_rk, by_rk = relax_bound(dm16, out_deg_k)
     stream_b_rk, _ = bound(sl_bytes + merge_bytes(sl_in) + 2 * bk, 2.0 * fs_r)
     log(f"sliced relax at phase {int(st_k16.trips)}: {active16} active rows "
@@ -4841,7 +5131,38 @@ def main() -> int:
         log(f"many-bucket sliced {crit} on {mlabel}: B={LANES} solve "
             f"({int(res_m.total_phases)} phases) bit-equal to the padded "
             "solve on every BatchedResult field")
-    del gm, mv_in, mv_out, res_m, res_pad
+        if crit == "instatic|outstatic":
+            res_default = res_pad
+    # the pair over more buckets than its mark aggregates in shared memory
+    # (SETTLE_SHARED_BUCKETS = 64 in csrc/ell_push.cu)
+    mv_w = to_ell_out_sliced(gm, pad_multiple=1,
+                             boundaries=tuple(range(50, 151)))
+    live_w = sum(1 for s_ in mv_w.slices if s_.rows.shape[0])
+    if live_w <= 64:
+        raise SystemExit(f"the width-by-width out-view has {live_w} buckets "
+                         "with rows, not more than 64")
+    wd, wst = seeded_state(mrng, LANES, nm_, dev)
+    wmins, wnf = frontier_crit_lanes_batch(wd, wst, gm.out_min_static[None])
+    wlabel = f"G(1e5, 1e-3), {live_w} buckets with rows"
+    errs["ell_sliced_settle_commit_batch"] = max(
+        errs.get("ell_sliced_settle_commit_batch", 0.0),
+        pair_check((wd, wst, wmins, wnf, wnf > 0, mv_w, out_degrees(gm),
+                    gm.in_min_static),
+                   {"zero": False, "vrows": vertex_row_table(gm, mv_w)},
+                   wlabel))
+    res_w = run_phased_static_batch(gm, msrc, ell=mv_in, ell_out=mv_w,
+                                    device=dev)
+    for field in ("dist", "status", "phases", "total_phases", "sum_fringe",
+                  "relax_edges"):
+        a_, b_ = getattr(res_w, field), getattr(res_default, field)
+        if not (same_bits(a_, b_) if torch.is_tensor(a_)
+                else np.array_equal(a_, b_)):
+            raise SystemExit(f"the default solve on {wlabel} differs from "
+                             f"the padded solve in {field}")
+    log(f"many-bucket default solve on {wlabel}: B={LANES} "
+        f"({int(res_w.total_phases)} phases) bit-equal to the padded solve "
+        "on every BatchedResult field")
+    del gm, mv_in, mv_out, res_m, res_pad, mv_w, wd, wst, res_w, res_default
     log(f"many-bucket phase: {time.perf_counter() - t0:.1f} s")
 
     phase_mark("18")
@@ -4895,10 +5216,11 @@ def main() -> int:
         raise SystemExit(f"batcher classification {rep['coalesced']} "
                          f"coalesced / {rep['cache_hits']} hits / "
                          f"{rep['engine_served']} on lanes, not 8 / 0 / 32")
-    for name in ("ell_push_relax_batch", "frontier_crit_lanes_batch"):
+    for name in ("frontier_crit_lanes_batch", *PAIR["padded"]):
         if launches_b[name] <= 0:
             raise SystemExit(f"the batcher never launched {name}")
     if any(launches_b[nm] for nm in ("ell_relax_batch", "ell_relax_keys_batch",
+                                     "ell_push_relax_batch",
                                      "ell_sliced_push_relax_batch")):
         raise SystemExit(f"the batcher launched another relax: {launches_b}")
     # the rows against B = 8 kernel solves of the same sources (4 batches;
@@ -5104,7 +5426,7 @@ def main() -> int:
     for s, t in pairs19:
         p19 += point_pair(g, s, t, full[s][t], "padded")
     launches_q = read_counts()
-    for name in ("ell_push_relax_batch", "frontier_crit_lanes_batch"):
+    for name in ("frontier_crit_lanes_batch", *PAIR["padded"]):
         if launches_q[name] <= 0:
             raise SystemExit(f"point queries never launched {name}")
     held_shared(g)
@@ -5153,7 +5475,7 @@ def main() -> int:
                     f"{sliced_serve[crit][2][i]}), certified unreachable "
                     f"{res.unreachable_certified}, {q_ms:.1f} ms [{smi}]")
         launches_qs[crit] = read_counts()
-        must = (("ell_sliced_push_relax_batch",)
+        must = (PAIR["sliced"]
                 if crit == "instatic|outstatic"
                 else (PUSH_IN_SCAN, "ell_sliced_keys_dep_batch",
                       "ell_sliced_gather_min_batch"))
@@ -5431,7 +5753,9 @@ def main() -> int:
                  "ell_sliced_gather_min_batch", PUSH_IN_SCAN,
                  "ell_relax_keys_batch", "ell_sliced_relax_keys_batch",
                  "ell_keys_dep_batch", "ell_sliced_keys_dep_batch",
-                 "ell_delta_push_batch", "ell_sliced_delta_push_batch")
+                 "ell_delta_push_batch", "ell_sliced_delta_push_batch",
+                 "ell_settle_mark_batch", "ell_settle_push_batch",
+                 "ell_sliced_settle_push_batch", "ell_settle_tail_batch")
         if any(counts[name] for name in relax if name != push_name):
             raise SystemExit(f"{what} launched another relax kernel than "
                              f"{push_name}: "
@@ -5697,8 +6021,13 @@ def main() -> int:
         by_path[f"telemetry[{plan}]"] = read_counts()
         must_run(by_path[f"telemetry[{plan}]"], (
             "frontier_crit_lanes_batch",
-            {"delta": "ell_delta_push_batch", "in|out": "ell_relax_keys_batch"}
-            .get(plan, "ell_push_relax_batch")), f"the {plan} telemetry run")
+            *{"delta": ("ell_delta_push_batch",),
+              "in|out": ("ell_relax_keys_batch",)}
+            .get(plan, PAIR["padded"])), f"the {plan} telemetry run")
+        if plan == "instatic|outstatic" and \
+                by_path[f"telemetry[{plan}]"]["ell_push_relax_batch"]:
+            raise SystemExit("the default plan's telemetry run launched the "
+                             "PR 15 push")
         res_t = harvest(st_t)
         for field in ("dist", "status", "phases", "total_phases"):
             if not same_bits(getattr(res_t, field), getattr(base_res, field)):
@@ -5740,6 +6069,27 @@ def main() -> int:
             f"ring; {len(records)} records decoded, "
             f"{len(obs22.tracer.events())} trace events valid; attribution "
             f"totals {shares}")
+        if plan == "instatic|outstatic":
+            # what the rings cost a phase on the pair: solves with and
+            # without them in turns (on, off, off, on), each key captured
+            def ms_a_phase(telemetry: bool) -> float:
+                st_x = init_batch_state(g, src8, criterion=plan,
+                                        trace_len=st_t.settled_trace.shape[1],
+                                        telemetry=telemetry, device=dev)
+                torch.cuda.synchronize()
+                t0_ = time.perf_counter()
+                st_x = step_batch(g, st_x, 4 * g.n + 16, ell=(cols, ws),
+                                  ell_out=(cols_o, ws_o))
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0_) * 1e3 / int(st_x.trips)
+
+            ms_a_phase(False)  # the key's capture
+            turns = [ms_a_phase(t_) for t_ in (True, False, False, True)]
+            log(f"telemetry {plan}: ms a phase with the rings / without, in "
+                f"turns (on, off, off, on): "
+                + ", ".join(f"{x:.4f}" for x in turns)
+                + f"; on {(turns[0] + turns[3]) / 2:.4f}, off "
+                f"{(turns[1] + turns[2]) / 2:.4f} [{smi}]")
         del st_t, res_t, records, obs22
     log(f"phase 22: {time.perf_counter() - t22:.1f} s")
 
@@ -5752,7 +6102,9 @@ def main() -> int:
         """(kernels a candidate's solves must launch, kernels they must
         not): every candidate runs #2 and no pull relax (#1); a layout
         runs none of the other layout's kernels; delta relaxes by its push
-        (#5c / #9c) and runs neither gather (#5 / #9)."""
+        (#5c / #9c) and runs neither gather (#5 / #9); a push plan commits
+        through the pair, its probe (telemetry on) too, and launches no
+        PR 15 push."""
         padded = layout == "padded"
         must = {"delta": ("ell_delta_push_batch",) if padded
                 else ("ell_sliced_delta_push_batch",),
@@ -5760,14 +6112,19 @@ def main() -> int:
                 if padded else (PUSH_IN_SCAN, "ell_sliced_keys_dep_batch"),
                 }.get(spec, ("ell_push_relax_batch",) if padded
                       else ("ell_sliced_push_relax_batch",))
+        commits = getattr(policy_for(spec), "commits", False)
+        if commits:
+            must = PAIR[layout]
         # sliced: #10 runs only in its push form (#10b)
         never = ("ell_relax_batch", "ell_sliced_relax_keys_batch") + (
             ("ell_sliced_gather_min_batch", PUSH_IN_SCAN,
              "ell_sliced_keys_dep_batch", "ell_sliced_push_relax_batch",
-             "ell_sliced_delta_push_batch")
+             "ell_sliced_delta_push_batch", "ell_sliced_settle_push_batch")
             if padded else padded_gathers)
         if spec == "delta":
             never += ("ell_key_min_batch", "ell_sliced_gather_min_batch")
+        if commits:
+            never += ("ell_push_relax_batch", "ell_sliced_push_relax_batch")
         return ("frontier_crit_lanes_batch",) + must, never
 
     def check_launches(counts, spec, layout, what):
@@ -6012,7 +6369,7 @@ def main() -> int:
     chaos_s = time.perf_counter() - t0
     by_path["resilient (6 faults)"] = read_counts()
     must_run(by_path["resilient (6 faults)"],
-             ("ell_push_relax_batch", "frontier_crit_lanes_batch"),
+             ("frontier_crit_lanes_batch", *PAIR["padded"]),
              "the resilient batcher")
     m24 = srv24.metrics
     fired = sorted(f.kind for f in be24.fired)
@@ -6286,12 +6643,18 @@ def main() -> int:
     settle25 = C.plan_union_mask(st25.plan, d25, s25 == 1, mins25, {},
                                  g.in_min_static, None)
     dm25 = torch.where(settle25, d25, INF)
+    nf25 = (s25 == 1).sum(dim=1, dtype=torch.int32)
     timer_rows = {}
     for name, fn in (
             ("frontier_crit_lanes_batch",
              lambda: frontier_crit_lanes_batch(d25, s25, keys_shared)),
             ("ell_push_relax_batch",
-             lambda: ell_push_relax_batch(dm25, cols_o, ws_o))):
+             lambda: ell_push_relax_batch(dm25, cols_o, ws_o)),
+            # the pair's three launches, with settle_phase_batch's copies
+            ("ell_settle_commit_batch",
+             lambda: settle_phase_batch(d25, s25, mins25, nf25, nf25 > 0,
+                                        (cols_o, ws_o), out_deg,
+                                        g.in_min_static, zero=False))):
         ev = kcfg.measure_launch(f"smoke.{name}", fn, reps=50) * 1e3
         host = kcfg.measure_launch(f"smoke.{name}.host", fn, reps=50,
                                    clock="host") * 1e3
@@ -6299,7 +6662,7 @@ def main() -> int:
         log(f"measure_launch {name} at phase {MID_PHASE}: CUDA events "
             f"{ev:.4f} ms, host clock {host:.4f} ms (median of 50; host / "
             f"events {host / ev:.2f})")
-    del st25, d25, s25, mins25, settle25, dm25
+    del st25, d25, s25, mins25, settle25, dm25, nf25
 
     # (d) a ledger probed on the CPU twins never routes the card
     fam = graph_family(g)
@@ -6325,8 +6688,8 @@ def main() -> int:
                    CHUNK, stop_on_lane_finish=True)
     with TraceGuard(label="warmed StaticBackend") as guard:
         rows25, _, launches25, serve25, _, _ = serve(backend25, sources)
-    must_run(launches25, ("ell_push_relax_batch",
-                          "frontier_crit_lanes_batch"), "guarded serving")
+    must_run(launches25, ("frontier_crit_lanes_batch", *PAIR["padded"]),
+             "guarded serving")
     by_path["guarded serving"] = launches25
     for r in range(REQUESTS):
         if not np.array_equal(rows25[r].view(np.int32),
@@ -6771,6 +7134,39 @@ def main() -> int:
          "active_rows_median": int(np.median(act_rows_k)),
          "active_rows_max": int(act_rows_k.max())},
     ] + [
+        # the pair that redesigns #1b / #9b on the push plans' path (the
+        # main path): each of its three launches timed by kernel on phase
+        # 6's real phase (padded) or phase 16's (sliced), in turns with the
+        # PR 15 push's two passes; launches: phase 3's serving (padded),
+        # phase 14's (sliced). The mark and the tail serve both layouts:
+        # their sliced phase's times ride beside
+        {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_push.cu",
+         "replaces": replaces, "kernel": kern,
+         "launches": counts_of[name], "max_abs_err": errs[contract],
+         "ms": pt["ms"][kern], "plain_ms": pt["plain_ms"][kern],
+         "bound_ms": pt["bounds"][kern][0], "bound_by": pt["bounds"][kern][1],
+         "library_ms": None, "pair_ms": sum(pt["ms"].values()),
+         "pr15_push_ms": pt["old_push_ms"], "settled": pt["settled"],
+         "worklist_entries": pt["entries"], "candidates": pt["candidates"],
+         **({"sliced_phase_ms": pair16["ms"][kern],
+             "sliced_phase_bound_ms": pair16["bounds"][kern][0]}
+            if kern != "settle_push_kernel" else {})}
+        for name, kern, pt, contract, replaces, counts_of in (
+            ("ell_settle_mark_batch", "settle_mark_kernel", pair6,
+             "ell_settle_commit_batch", "src/repro/kernels/ell_relax.py:97",
+             launches),
+            ("ell_settle_push_batch", "settle_push_kernel", pair6,
+             "ell_settle_commit_batch", "src/repro/kernels/ell_relax.py:97",
+             launches),
+            ("ell_sliced_settle_push_batch", "settle_push_kernel", pair16,
+             "ell_sliced_settle_commit_batch",
+             "src/repro/kernels/ell_relax_keys.py:311",
+             sliced_serve["instatic|outstatic"][0]),
+            ("ell_settle_tail_batch", "settle_tail_kernel", pair6,
+             "ell_settle_commit_batch", "src/repro/kernels/ell_relax.py:97",
+             launches))
+    ] + [
         # #5c / #9c: delta's relax, both turns in one push along the
         # out-view, on phase 20's delta phase; launches: delta serving's.
         # Each replaces the two gathers of #5 / #9 a delta phase ran
@@ -6860,11 +7256,16 @@ def main() -> int:
     # resources: the most registers and static shared bytes among them and
     # their spilled bytes (stores + loads)
     contracts = collect_contracts()
+    pair_contract = {"ell_sliced_settle_push_batch":
+                     "ell_sliced_settle_commit_batch"}
     for row in kernels:
         name = row["name"].replace("[out_view]", "_push").replace(
             "[block]", "")
+        if "kernel" in row:  # one launch of the pair: its contract's kernel
+            name = pair_contract.get(name, "ell_settle_commit_batch")
         used = {f"{src}.cu:{k}": resources[src][k]
-                for src, k in contracts.get(name).kernels}
+                for src, k in contracts.get(name).kernels
+                if row.get("kernel", k) == k}
         row["registers"] = max(r["registers"] for r in used.values())
         row["smem_bytes"] = max(r["smem_bytes"] for r in used.values())
         row["spills"] = sum(r["spill_stores"] + r["spill_loads"]

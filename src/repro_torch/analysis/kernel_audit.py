@@ -11,8 +11,9 @@ On the CPU (:func:`audit_registry`):
   * **dtype** — every tensor a contract's cases pass or get back: floats
     exactly f32 (the +inf padding and the -0 / NaN rules are f32's), index
     and count tensors int32, uint8 or bool (a sliced view's ``merge_ptr``
-    offsets are int64 by design: a hub's edges may pass 2^31), and the
-    ``counter_outputs`` integers.
+    offsets are int64 by design: a hub's edges may pass 2^31; so are the
+    stepper's ``sum_fringe`` / ``relax_edges``, which the phase-committing
+    pair writes), and the ``counter_outputs`` integers.
   * **oracle** — the wrapper's output tree equals its oracle's in shape
     and dtype, leaf for leaf, and in bits (every NaN one value; on the CPU
     the wrapper runs the twins, so this holds the ops layer's padding and
@@ -58,7 +59,9 @@ from repro_torch.kernels import config as kcfg
 from repro_torch.kernels import registry as kreg
 
 ALLOWED_INT = frozenset((torch.int32, torch.uint8, torch.bool))
-WIDE_FIELDS = frozenset(("merge_ptr",))  # int64 offsets (see docstring)
+# int64 by design (see docstring): offsets, and the stepper's cumulative
+# counters a committed phase writes
+WIDE_FIELDS = frozenset(("merge_ptr", "sum_fringe", "relax_edges"))
 COUNTERS = ("sum_fringe", "relax_edges")
 POISON = 0x7FA5A5A5  # a NaN payload the card's arithmetic never makes
 RUNS = 3  # coverage runs a case
@@ -351,6 +354,9 @@ def launch_shapes(defines: dict[str, dict[str, int]]) -> dict:
         ("ell_push", "push_kernel"): fixed(p["PUSH_THREADS"]),
         ("ell_push", "delta_mark_kernel"): fixed(p["PUSH_THREADS"]),
         ("ell_push", "delta_push_kernel"): fixed(p["PUSH_THREADS"]),
+        ("ell_push", "settle_mark_kernel"): fixed(p["SETTLE_THREADS"]),
+        ("ell_push", "settle_push_kernel"): fixed(p["PUSH_THREADS"]),
+        ("ell_push", "settle_tail_kernel"): fixed(p["SETTLE_TAIL_THREADS"]),
         ("frontier_crit", "crit_kernel"): fixed(c["CRIT_THREADS"],
                                                 crit_blocks),
         ("embed_grad", "embed_grad_kernel"): fixed(e["EMBED_THREADS"]),

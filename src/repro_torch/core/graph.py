@@ -503,6 +503,42 @@ def to_ell_out_buckets(g: Graph, pad_multiple: int = 8, boundaries=None,
                         plan=False)
 
 
+def vertex_row_table(g: Graph, view) -> torch.Tensor:
+    """(n, 4) int32 row table of a sliced outgoing view, for the worklist
+    push (``kernels/settle_push.py``): per vertex (bucket, first row, rows,
+    the bucket's first row in the view's row order), ``bucket`` counting
+    only the buckets with rows in order, and rows 0 for a vertex with
+    none. A vertex's rows are contiguous in one bucket
+    (:func:`_build_slices` repeats each vertex's id over its chunks);
+    raises for a view where they are not. Memoised per graph and view
+    (keyed by the buckets' ``rows`` tensors, which the memo keeps)."""
+    key = tuple(id(s.rows) for s in view.slices)
+    memo = g.__dict__.setdefault("_vertex_rows_cache", {})
+    hit = memo.get(key)
+    if hit is not None:
+        return hit[1]
+    dev = view.slices[0].rows.device
+    table = torch.zeros((g.n, 4), dtype=torch.int32, device=dev)
+    seen = torch.zeros((g.n,), dtype=torch.int64, device=dev)
+    k = row0 = 0
+    for s in view.slices:
+        if not s.rows.shape[0]:
+            continue
+        verts, count = torch.unique_consecutive(s.rows.long(),
+                                                return_counts=True)
+        table[verts, 0] = k
+        table[verts, 1] = (torch.cumsum(count, 0) - count).to(torch.int32)
+        table[verts, 2] = count.to(torch.int32)
+        table[verts, 3] = row0
+        seen.index_add_(0, verts, torch.ones_like(verts))
+        k += 1
+        row0 += s.rows.shape[0]
+    if bool((seen > 1).any()):
+        raise ValueError("a vertex's rows are not contiguous in one bucket")
+    memo[key] = (view.slices, table)
+    return table
+
+
 def transpose(g: Graph) -> Graph:
     """The reverse graph (incoming edges become outgoing).
 

@@ -20,13 +20,26 @@ oracle) included. Per phase:
   * plans with in-side keys relax through the fused in-scan
     (``ell_relax_keys_batch``), which also emits the next phase's in-side
     keys; the others, the default ``instatic|outstatic`` among them, relax
-    by a push along the OUTGOING view (``ell_push_relax_batch``), which
-    reads only the out-rows of the vertices settled this phase, so they
-    read the outgoing view too (``needs_out_adjacency``).
+    by a push along the OUTGOING view, which reads only the out-rows of
+    the vertices settled this phase, so they read the outgoing view too
+    (``needs_out_adjacency``);
+  * those push plans, without the oracle (:attr:`CriterionPolicy.commits`),
+    commit the phase through
+    the settle mark and the worklist push (``kernels/settle_push.py``,
+    ``ops.commit_phase``): after #2 the mark decides the settle set from
+    #2's per-lane thresholds and the loop predicate, the push lowers
+    ``dist`` and sets status in place, and a tail does the stepper's
+    counters and rings (the attribution ring's first-true counts included),
+    so the phase is #2 and three launches with no pass of PyTorch over
+    (B, n) (plans with out-side dynamic keys keep their key scan and the
+    carried stack's select). The oracle plans (the bare oracle's DIJK
+    fallback needs a per-lane any of the settle mask) keep the phase body
+    below, which relaxes by ``ell_push_relax_batch``.
 
 On the degree-sliced layout each of these runs its sliced kernel instead
 (``ell_sliced_keys_dep_batch``, ``ell_sliced_relax_keys_batch``,
-``ell_sliced_push_relax_batch``); the ops layer picks it by the view's type.
+``ell_sliced_push_relax_batch``, ``ell_sliced_settle_push_batch``); the
+ops layer picks it by the view's type.
 
 Carried in-side keys are re-primed (``ell_key_min_batch``) once per
 ``step_batch`` call after admission touched a lane. On a state with the
@@ -67,6 +80,7 @@ from repro_torch.core.graph import (
     to_ell_out,
     to_ell_out_buckets,
     to_ell_out_sliced,
+    vertex_row_table,
 )
 from repro_torch.kernels import ops as kops
 
@@ -89,6 +103,10 @@ class PhaseOutcome(NamedTuple):
     #   are the state's own bits and ``relax_inc`` / ``n_settled`` are 0)
     attr_counts: torch.Tensor | None = None  # (B, T) int32 attribution
     #   slots, only when the state carries an attribution ring
+    committed: bool = False  # the phase wrote the state's buffers in place,
+    #   the chassis' counters, rings and target demotion included, and
+    #   spent the budget (the pair, ``CriterionPolicy.commits``):
+    #   ``n_settled``, ``relax_inc`` and ``go`` are then None
 
 
 class PhasePolicy:
@@ -158,8 +176,9 @@ class PhasePolicy:
               go_of) -> PhaseOutcome:
         """Advance state ``s`` by one phase on :meth:`prepare`'s ``aux``,
         gated on the loop predicate ``go_of(n_fringe)`` (a 0-dim bool
-        tensor from the (B,) fringe sizes at the phase's entry): where it
-        is false the phase settles and relaxes nothing, so ``dist``,
+        tensor from the (B,) fringe sizes at the phase's entry; ``go_of``
+        also carries its operands ``budget``, ``live0`` and ``stop``): where
+        it is false the phase settles and relaxes nothing, so ``dist``,
         ``status`` and ``crit_keys`` come back bit for bit."""
         raise NotImplementedError
 
@@ -317,13 +336,27 @@ class CriterionPolicy(PhasePolicy):
                                                 ell_in, use_kernels)
         return dataclasses.replace(state, crit_keys=keys, keys_valid=True)
 
+    @property
+    def commits(self) -> bool:
+        """Whether the plan's phase commits through the settle mark and the
+        worklist push: it relaxes by the push (no in-side keys) and reads no
+        oracle."""
+        return not self.plan.in_scan_keys and not self.plan.needs_oracle
+
     def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
-        return ell_in, ell_out
+        """``(ell_in, ell_out, vrows)``: the views, and for the pair on a
+        sliced out-view its vertex row table (memoised on the graph)."""
+        vrows = (vertex_row_table(g, ell_out) if self.commits
+                 and ell_out is not None and kops._is_sliced(ell_out)
+                 else None)
+        return ell_in, ell_out, vrows
 
     def phase(self, g: Graph, aux, s, use_kernels: bool,
               go_of) -> PhaseOutcome:
+        if self.commits:
+            return self._commit(g, aux, s, use_kernels, go_of)
         plan = self.plan
-        ell_in, ell_out = aux
+        ell_in, ell_out, _ = aux
         b = s.num_lanes
         in_slots = _in_slot_indices(plan)
         d, status = s.dist, s.status
@@ -441,6 +474,46 @@ class CriterionPolicy(PhasePolicy):
             n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc, go=go,
             attr_counts=attr_counts,
         )
+
+    def _commit(self, g: Graph, aux, s, use_kernels: bool,
+                go_of) -> PhaseOutcome:
+        """The phase through the pair: #2, then the mark, the push and the
+        tail (``ops.commit_phase``), which write ``s``'s buffers, the
+        chassis' counters and rings included, and ``go_of.budget`` in
+        place."""
+        plan = self.plan
+        _, ell_out, vrows = aux
+        d, status = s.dist, s.status
+        keys = _compute_out_keys(plan, g, status, ell_out, use_kernels)
+        mins, n_f = kops.crit_thresholds_batch(
+            d, status, _threshold_keys(plan, g, keys, s.num_lanes),
+            use_kernels=use_kernels,
+        )
+        crit_keys = s.crit_keys
+        if plan.keys:
+            # out-side keys only (the plan has no in-side ones); a dead
+            # phase keeps the carried stack. The predicate is read before
+            # the tail spends the budget
+            crit_keys = torch.where(go_of(n_f), torch.stack(
+                [keys[k.name] for k in plan.keys]), s.crit_keys)
+        kops.commit_phase(
+            kops.CommitBuffers(
+                dist=d, status=status, trips=s.trips, phases=s.phases,
+                sum_fringe=s.sum_fringe, relax_edges=s.relax_edges,
+                settled_trace=s.settled_trace, budget=go_of.budget,
+                live0=go_of.live0, out_deg=s.out_deg, target=s.target,
+                fringe_trace=s.fringe_trace, relax_trace=s.relax_trace,
+                attr_trace=s.attr_trace),
+            mins, n_f,
+            kops.SettleRule(
+                zero="zero" in plan.in_terms,
+                in_key=g.in_min_static if "static" in plan.in_terms
+                else None,
+                stop=go_of.stop),
+            ell_out, vrows, use_kernels=use_kernels)
+        return PhaseOutcome(
+            dist=d, status=status, crit_keys=crit_keys, n_fringe=n_f,
+            n_settled=None, relax_inc=None, go=None, committed=True)
 
 
 class DeltaGates(NamedTuple):

@@ -67,6 +67,7 @@ import collections
 import contextlib
 import dataclasses
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -75,6 +76,9 @@ from repro_torch.core import criteria as C
 from repro_torch.core import policies as P
 from repro_torch.kernels import launch_counters
 from repro_torch.kernels.frontier_crit import capture_scratch
+from repro_torch.kernels.settle_push import (
+    capture_scratch as capture_settle_scratch,
+)
 from repro_torch.obs.timer import Stopwatch
 from repro_torch.core.graph import (
     Graph,
@@ -336,6 +340,21 @@ def init_batch_state(
     )
 
 
+class LoopGate(NamedTuple):
+    """The loop predicate's operands of a phase, callable on the phase's
+    fringe sizes (the policies' ``go_of``): the budget of trips left, the
+    lanes live at the call's entry and ``stop_on_lane_finish``. A policy
+    that commits its phase in place (``PhaseOutcome.committed``) reads
+    them itself and spends ``budget`` in place."""
+
+    budget: torch.Tensor  # 0-dim int32
+    live0: torch.Tensor  # (B,) bool
+    stop: bool
+
+    def __call__(self, n_fringe) -> torch.Tensor:
+        return _go(n_fringe > 0, self.budget, self.live0, self.stop)
+
+
 def _go(live, budget, live0, stop_on_lane_finish: bool) -> torch.Tensor:
     """The reference's loop predicate (its ``cond``) as a 0-dim bool on the
     device: some lane live and trips left in the call's ``budget``, and
@@ -355,10 +374,14 @@ def _phase(g: Graph, aux, s: BatchState, policy: P.PhasePolicy,
     predicate, which the policy computes from the fringe sizes its
     reduction found at the phase's entry. On a target lane, the phase its
     target settles demotes the remaining fringe to status 0: the lane is
-    then a fixed point, and the phase itself still counts. Returns the
-    next state and the budget left."""
-    out = policy.phase(g, aux, s, use_kernels, lambda n_f: _go(
-        n_f > 0, budget, live0, stop_on_lane_finish))
+    then a fixed point, and the phase itself still counts. A policy's
+    committed phase (the push plans' pair) did all of that in place on
+    ``s``'s buffers and ``budget``. Returns the next state and the budget
+    left."""
+    out = policy.phase(g, aux, s, use_kernels,
+                       LoopGate(budget, live0, stop_on_lane_finish))
+    if out.committed:
+        return dataclasses.replace(s, crit_keys=out.crit_keys), budget
     rows = torch.arange(s.num_lanes, device=s.device)
     status = out.status
     if s.target is not None:
@@ -505,7 +528,7 @@ class _Chunk:
                       + (" target" if s.target is not None else "")
                       + (" telemetry" if s.attr_trace is not None else ""))
         self.graph = None
-        self.scratch = None  # #2's scratch the graph baked in
+        self.scratch = None  # #2's and the pair's scratch the graph baked in
         self.replay_counts: dict = {}  # launches a replay adds
 
     def load(self, s: BatchState, live0, k: int):
@@ -517,15 +540,17 @@ class _Chunk:
         self.budget.fill_(min(k, 2**31 - 1))
 
     def body(self, g: Graph):
-        """The chunk: its phases, the flag, the buffers written back."""
+        """The chunk: its phases, the flag, the buffers written back (a
+        committed phase writes them in place: the trips at the chunk's
+        entry are kept apart)."""
         s, budget = self.buf, self.budget
+        trips0 = self.buf.trips.clone()
         for _ in range(PHASES_PER_REPLAY):
             s, budget = _phase(g, self.aux, s, self.policy, self.use_kernels,
                                budget, self.live0, self.stop)
         go = _go(torch.any(s.status == 1, dim=1), budget, self.live0,
                  self.stop)
-        self.info.copy_(torch.stack([go.to(torch.int32),
-                                     s.trips - self.buf.trips]))
+        self.info.copy_(torch.stack([go.to(torch.int32), s.trips - trips0]))
         self.budget.copy_(budget)
         for nm in _CARRIED:
             dst, src = getattr(self.buf, nm), getattr(s, nm)
@@ -601,7 +626,8 @@ class _Chunk:
         side.wait_stream(torch.cuda.current_stream(dev))
         try:
             with Stopwatch() as sw, torch.cuda.stream(side), \
-                    capture_scratch() as scratch:
+                    capture_scratch() as scratch, \
+                    capture_settle_scratch() as settle_scratch:
                 began = False
                 try:
                     graph.capture_begin(pool=pool,
@@ -630,7 +656,7 @@ class _Chunk:
                 setattr(f, a, before[nm])
         torch.cuda.current_stream(dev).wait_stream(side)
         live.add(graph)
-        self.graph, self.scratch = graph, scratch
+        self.graph, self.scratch = graph, (scratch, settle_scratch)
         self.replay_counts = {nm: n - before[nm] for nm, n in after.items()
                               if n != before[nm]}
         _CAPTURES[0] += 1

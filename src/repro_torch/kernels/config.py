@@ -97,6 +97,12 @@ CRIT_MAX_KEYS = 8
 # PUSH_THREADS there).
 PUSH_THREADS = 256
 
+# The phase-committing pair (csrc/ell_push.cu, kernels/settle_push.py): the
+# OUT lanes its mark takes and the words between two lanes' counters (must
+# match SETTLE_MAX_OUT and SETTLE_PAD there).
+SETTLE_MAX_OUT = 8
+SETTLE_PAD = 32
+
 # The embedding gradient (csrc/embed_grad.cu): threads per block, one a
 # column (must match EMBED_THREADS there).
 EMBED_THREADS = 256
@@ -174,6 +180,8 @@ GEOMETRY_MIRRORS = {
     ("ell_gather.cu", "LANE_TILE"): LANE_TILE,
     ("ell_push.cu", "PUSH_MAX_BUCKETS"): SLICED_GROUP_BUCKETS,
     ("ell_push.cu", "PUSH_THREADS"): PUSH_THREADS,
+    ("ell_push.cu", "SETTLE_MAX_OUT"): SETTLE_MAX_OUT,
+    ("ell_push.cu", "SETTLE_PAD"): SETTLE_PAD,
     ("frontier_crit.cu", "CRIT_THREADS"): CRIT_THREADS,
     ("frontier_crit.cu", "CRIT_MIN_BLOCKS"): CRIT_BLOCKS_PER_SM,
     ("frontier_crit.cu", "KMAX"): CRIT_MAX_KEYS,

@@ -528,3 +528,570 @@ extern "C" int ell_delta_push_launch(const float* d, const unsigned char* light,
   return push_launch(d, light, heavy, delta, n, n, lanes, table, n_buckets,
                      mask, upd, stats, stream);
 }
+
+// ---------------------------------------------------------------------------
+// The phase-committing pair: the settle mark and the worklist push.
+//
+// On every criterion plan that relaxes by the push (no in-side dynamic keys,
+// no oracle; the default instatic|outstatic among them), with the
+// attribution ring or without, one phase of the stepper is #2 (the
+// thresholds, frontier_crit.cu), then these three launches:
+//
+//  1. settle_mark_kernel: per (vertex, lane tile) it computes the loop
+//     predicate `go` from the per-lane fringe sizes (#2's count), live0
+//     and the call's budget, then the plan's settle terms with the
+//     reference's f32 ops (d <= min_F d; d - in_min_static <= min_F d;
+//     d <= L_k), writes status 2 where a vertex settles, and appends each
+//     relax source's out-rows, with its lane word, to a worklist (one list
+//     a lane tile and bucket). It adds the per-lane settle counts and the
+//     out-degrees of the relax sources (the reference's n_settled and
+//     relax_inc) to per-lane counters, exact sums in any order; on a
+//     state with telemetry also each settled vertex to its first true
+//     term's count (the attribution ring's first-true claim, terms in the
+//     plan's order: d <= min_F d, the in_min_static term, then L_1..L_k).
+//  2. settle_push_kernel: a persistent grid walks the worklist by the
+//     counts the mark left in device memory and lowers the next `dist`
+//     in place through atomic_min_f32 (the place of the upd = +inf fill
+//     and torch.minimum(d, upd)), and sets status 0 -> 1 where a
+//     candidate below +inf lands (the reference's (status == 0) &
+//     (upd < INF), see the rule below).
+//  3. settle_tail_kernel: the stepper's B-sized bookkeeping of the phase
+//     (trips, the budget, phases, sum_fringe, relax_edges, the settled
+//     ring, and with telemetry the fringe, relax and attribution rings) and, on a state with target lanes, the demotion of a lane's
+//     fringe in the phase its target settles; it zeroes the counters and
+//     the worklist counts for the next phase, inside the captured graph.
+//
+// A dead phase (go false): the mark's blocks return after computing go
+// (block (0, 0) records it), the push's blocks find empty lists and the
+// tail's blocks read the record and return, so the phase writes nothing.
+//
+// It replaces #1b / #9b (push_mark_kernel and push_kernel above, with the
+// PyTorch passes over B x n around them) on that path: the same TPU kernels
+// as those, repro/kernels/ell_relax.py::ell_relax_batch (:97, pallas_call
+// at :114) on the padded layout and repro/kernels/ell_relax_keys.py::
+// ell_sliced_gather_min_batch (:311, pallas_call at :334) on the sliced one.
+//
+// What bounds it on an H100: memory. status read once by the mark (B * n *
+// 4 bytes) and d in the sectors that hold a fringe slot (up to as much
+// again), the static key (n * 4), the settled out-rows, the worklist, and
+// the touched targets written once; ~0.03-0.05 ms at n =
+// 1e6, B = 8 on the default solve. The phase it replaces spent ~0.47 ms
+// of 0.615 in some fifteen PyTorch passes over B x n (PERF.md), and a dead
+// phase ran them all.
+//
+// Design decisions:
+//  * in place. The push lowers `dist` itself. A candidate may land on a
+//    vertex settled in the same phase (the criteria compare in f32, where
+//    d - in_min_static rounds), so a source must push from its ENTRY
+//    distance: the mark copies d[b, u] of each relax source into a dense
+//    scratch d_src (B, n), written only at those slots and read only
+//    there. It costs B * n * 4 bytes of memory, and saves the fill and the
+//    copy of a separate next buffer (B * n * 8 bytes moved a phase).
+//  * the filter read before the atomic is part of the commit here, not a
+//    tuning choice: a NaN that `dist` held at the phase's entry (a fault
+//    row) must stay, as torch.minimum(d, upd) keeps it, and atomic_min_f32
+//    compares a positive NaN as the largest int. No candidate of the
+//    engine is NaN: a NaN distance never settles (every settle compare is
+//    false for it) and the builders' views hold finite weights only.
+//  * the status rule. A candidate c < +inf that issues its atomic, or that
+//    reads a NaN entry, sets status 0 -> 1. Every candidate that lowers
+//    `dist` issues one, so a vertex of status 0 turns 1 iff upd < +inf
+//    and upd lowers its entry distance or the entry is NaN. That is the
+//    reference's (status == 0) & (upd < INF) on every state the stepper
+//    makes: a vertex of status 0 holds +inf or NaN (fresh rows; a relax
+//    that lands makes it 1; the target lanes' demotion leaves its lane
+//    without fringe, so nothing lands there again). It saves a read of
+//    status for each of the millions of candidates a phase.
+//  * the worklist. The mark appends entries (row of the bucket, lane word)
+//    to list (tile, bucket); a sliced vertex's rows are contiguous in one
+//    bucket, found through a per-vertex (bucket, first row, rows, the
+//    bucket's first worklist row) table built with the view (core/graph.py).
+//    Up to SETTLE_SHARED_BUCKETS buckets the appends are block-aggregated:
+//    shared-memory atomics within a block, then one global atomic a block
+//    and bucket; a view with more buckets (tuned slice boundaries) appends
+//    with one global atomic a source vertex, so any number of buckets runs. The push walks the lists with the geometry of push_task
+//    (G threads a row by the bucket's width, up to PUSH_TASK_SLOTS slots a
+//    warp task), so its work scales with the settled rows, not with n.
+//  * the mark reads a lane's d only where its status is 1; issuing eight
+//    lanes' status and d loads before any test (as #2 does) was measured
+//    5 % slower a phase on G(10^6, 10^-4) and the road grid (PERF.md);
+//  * the counters are exact integer sums (atomics in any order), kept one
+//    per lane at a 128-byte stride so the lanes' atomics do not share a
+//    line; the tail folds them into the state and zeroes them.
+//  * the operands ride as __grid_constant__ kernel parameters: the mark
+//    and the push index the row offsets and the bucket table at run time
+//    and read them in parameter space, without a local copy;
+//  * capture: every size is fixed by the view and the lane count, the grid
+//    of the push is persistent (sized once by the view), and the counters
+//    live in scratch the wrapper allocates (a capture takes its own) and
+//    that every live phase leaves zeroed: the stepper captures the pair in
+//    its chunk's CUDA graph.
+//
+// Build flags: no --use_fast_math and no flush-to-zero (_build.py), so
+// d - in_min_static <= min_F d is the reference's compare, bit for bit.
+
+#define SETTLE_THREADS 256
+#define SETTLE_MAX_OUT 8         // OUT lanes (#2's mins rows 1..) the mark takes
+#define SETTLE_MAX_TERMS 10      // settle terms: d <= min_F d, in_min_static, OUT
+#define SETTLE_SHARED_BUCKETS 64 // buckets whose appends a block aggregates
+#define SETTLE_PAD 32            // words between two lanes' counters
+#define SETTLE_ATTR 4            // a lane's first first-true count in its words
+#define SETTLE_TAIL_THREADS 256
+#define SETTLE_TAIL_SPAN 4096    // vertices of a lane's row a tail block demotes
+
+// The operands of a phase (shared by the three kernels).
+struct SettleArgs {
+  float* d;                      // (B, n) the distances, lowered in place
+  int* status;                   // (B, n) in place
+  const float* mins;             // (1 + k_out, B) #2's thresholds
+  const int* n_fringe;           // (B,) #2's fringe sizes
+  const unsigned char* live0;    // (B,) bool: live at the call's entry
+  int* budget;                   // 0-dim: trips left in the call
+  const float* in_key;           // (n,) in_min_static, or null: no such term
+  const int* target;             // (B,) s->t targets (-1: none), or null
+  const int* out_deg;            // (n,) out-degrees, for relax_inc
+  const int4* vrows;             // (n,) (bucket, first row, rows, the
+                                 //   bucket's first worklist row); null:
+                                 //   the padded view, row u of bucket 0
+  int* go;                       // scratch: the phase's predicate
+  unsigned* counts;              // scratch (tiles, nb): entries of each list
+  unsigned* acc;                 // scratch (B, SETTLE_PAD): [0] settled,
+                                 //   [2, 3] relax_inc as a u64, [SETTLE_ATTR
+                                 //   + t] term t's first-true count
+  float* d_src;                  // scratch (B, n): the relax sources' entry d
+  uint2* work;                   // scratch (tiles, total_rows): (row, word)
+  // the state's counters (the tail)
+  int* trips;                    // 0-dim
+  int* phases;                   // (B,)
+  long long* sum_fringe;         // (B,)
+  long long* relax_edges;        // (B,)
+  int* ring;                     // (B, ring_len) settled counts
+  int* fringe_ring;              // (B, ring_len) telemetry, or null (none
+  int* relax_ring;               //   of the three): fringe sizes, relax_inc,
+  int* attr_ring;                //   (B, ring_len, n_terms) first-true counts
+  long long n;
+  long long total_rows;          // rows of the view (every bucket)
+  int lanes;
+  int nb;                        // buckets with rows
+  int k_out;                     // OUT lanes: mins rows 1..k_out
+  int zero;                      // the DIJK term d <= min_F d
+  int stop;                      // stop_on_lane_finish
+  int ring_len;
+  int n_terms;                   // zero + (in_key != null) + k_out
+};
+
+// The reference's loop predicate from the phase's fringe sizes: some lane
+// live, trips left, and under stop_on_lane_finish every lane live at entry
+// still live. Every thread of the block gets it.
+__device__ __forceinline__ bool settle_go(const SettleArgs& a) {
+  int any_live = 0, differ = 0;
+  for (int b = threadIdx.x; b < a.lanes; b += blockDim.x) {
+    const bool live = a.n_fringe[b] > 0;
+    any_live |= live;
+    differ |= live != (a.live0[b] != 0);
+  }
+  any_live = __syncthreads_or(any_live);
+  differ = __syncthreads_or(differ);
+  return any_live != 0 && *a.budget > 0 && !(a.stop && differ != 0);
+}
+
+// The mark. Grid: (blocks over n, lane tiles); a thread is a vertex u of
+// its block's tile of 32 lanes.
+__global__ void __launch_bounds__(SETTLE_THREADS)
+    settle_mark_kernel(const __grid_constant__ SettleArgs a) {
+  __shared__ float s_min[1 + SETTLE_MAX_OUT][32];
+  __shared__ float s_bound[32];
+  __shared__ unsigned s_cnt[32];
+  __shared__ unsigned long long s_deg[32];
+  __shared__ unsigned s_attr[SETTLE_MAX_TERMS][32];
+  __shared__ unsigned s_wcnt[SETTLE_SHARED_BUCKETS];
+  __shared__ unsigned s_wbase[SETTLE_SHARED_BUCKETS];
+  const bool go = settle_go(a);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *a.go = go;
+  if (!go) return;
+  const long long n = a.n;
+  const int tile = blockIdx.y;
+  const int b0 = tile * 32;
+  const int nl = min(32, a.lanes - b0);
+  const bool attr = a.attr_ring != nullptr;
+  const bool agg = a.nb <= SETTLE_SHARED_BUCKETS;
+  if (threadIdx.x < nl) {
+    const int b = b0 + threadIdx.x;
+    for (int k = 0; k <= a.k_out; ++k) {
+      s_min[k][threadIdx.x] = a.mins[(long long)k * a.lanes + b];
+    }
+    // the s->t bound: the target's entry distance (+inf on a full-solve
+    // lane, where it gates nothing but the +inf sources)
+    float bd = CUDART_INF_F;
+    if (a.target != nullptr && a.target[b] >= 0) {
+      bd = a.d[(long long)b * n + a.target[b]];
+    }
+    s_bound[threadIdx.x] = bd;
+    s_cnt[threadIdx.x] = 0;
+    s_deg[threadIdx.x] = 0;
+    for (int t = 0; attr && t < a.n_terms; ++t) s_attr[t][threadIdx.x] = 0;
+  }
+  for (int k = threadIdx.x; agg && k < a.nb; k += blockDim.x) s_wcnt[k] = 0;
+  __syncthreads();
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned pword = 0;  // lanes u pushes in: relax sources with d < +inf
+  int bucket = 0, first = 0, rows = 0, base = 0;
+  unsigned off = 0;
+  if (u < n) {
+    const float ik = a.in_key != nullptr ? a.in_key[u] : 0.0f;
+    int deg = -1;
+    for (int k = 0; k < nl; ++k) {
+      const long long i = (long long)(b0 + k) * n + u;
+      if (a.status[i] != 1) continue;
+      const float dv = a.d[i];
+      const float m0 = s_min[0][k];
+      // the first true term, in the plan's order (t counts the terms)
+      int term = -1, t = 0;
+      if (a.zero) {
+        if (dv <= m0) term = 0;
+        t = 1;
+      }
+      if (a.in_key != nullptr) {
+        if (term < 0 && dv - ik <= m0) term = t;
+        ++t;
+      }
+      for (int j = 1; j <= a.k_out && term < 0; ++j, ++t) {
+        if (dv <= s_min[j][k]) term = t;
+      }
+      if (term < 0) continue;
+      a.status[i] = 2;
+      atomicAdd(&s_cnt[k], 1u);
+      if (attr) atomicAdd(&s_attr[term][k], 1u);
+      // the relax sources: every settled vertex, or on a target state those
+      // nearer than the bound (relax_from)
+      if (a.target != nullptr && !(dv < s_bound[k])) continue;
+      if (deg < 0) deg = a.out_deg[u];
+      atomicAdd(&s_deg[k], (unsigned long long)deg);
+      if (dv != CUDART_INF_F) {  // a +inf source pushes nothing
+        pword |= 1u << k;
+        a.d_src[i] = dv;
+      }
+    }
+    if (pword != 0) {
+      if (a.vrows != nullptr) {
+        const int4 t = a.vrows[u];
+        bucket = t.x;
+        first = t.y;
+        rows = t.z;
+        base = t.w;
+      } else {
+        first = (int)u;
+        rows = 1;
+      }
+      if (rows > 0) {
+        off = agg ? atomicAdd(&s_wcnt[bucket], (unsigned)rows)
+                  : atomicAdd(&a.counts[(long long)tile * a.nb + bucket],
+                              (unsigned)rows);
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; agg && k < a.nb; k += blockDim.x) {
+    const unsigned c = s_wcnt[k];
+    s_wbase[k] = c != 0 ? atomicAdd(&a.counts[(long long)tile * a.nb + k], c)
+                        : 0u;
+  }
+  if (threadIdx.x < nl) {
+    unsigned* acc = a.acc + (long long)(b0 + threadIdx.x) * SETTLE_PAD;
+    if (s_cnt[threadIdx.x] != 0) atomicAdd(acc, s_cnt[threadIdx.x]);
+    if (s_deg[threadIdx.x] != 0) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(acc + 2),
+                s_deg[threadIdx.x]);
+    }
+    for (int t = 0; attr && t < a.n_terms; ++t) {
+      if (s_attr[t][threadIdx.x] != 0) {
+        atomicAdd(acc + SETTLE_ATTR + t, s_attr[t][threadIdx.x]);
+      }
+    }
+  }
+  __syncthreads();
+  if (pword != 0 && rows > 0) {
+    uint2* list = a.work + (long long)tile * a.total_rows + base +
+                  (agg ? s_wbase[bucket] : 0u) + off;
+    for (int r = 0; r < rows; ++r) {
+      list[r] = make_uint2((unsigned)(first + r), pword);
+    }
+  }
+}
+
+// One bucket of the worklist push: its rows, its width's geometry, its
+// global index (counts and the mark's row offsets).
+struct SettleBucket {
+  const int* cols;
+  const float* ws;
+  const int* rows;     // owner ids; null: row r belongs to vertex r
+  long long row_off;   // its lists' first row (the rows of the buckets before)
+  int d_pad;
+  int g;
+  int rt;
+  int gidx;
+};
+
+struct SettleTable {
+  SettleBucket e[PUSH_MAX_BUCKETS];
+  int count;
+};
+
+// Warp task `task` of bucket `bk`'s list for lane tile `tile`: entries
+// task * rt + [0, rt) of the list's `cnt`, one lane each. push_task's walk
+// with the commit: each candidate d_src[b, u] + w lowers d[b, v] through the
+// filtered atomic min and sets status 0 -> 1 (see the rule above).
+template <int G>
+__device__ __forceinline__ void settle_push_task(
+    const SettleBucket& bk, const uint2* list, unsigned cnt, long long task,
+    int tile, const SettleArgs& a) {
+  constexpr int RPW = 32 / G;
+  constexpr int SPAN = PUSH_UNROLL * G;
+  const long long n = a.n;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane / G, sub = lane % G;
+  const unsigned low = G == 32 ? FULL_MASK : (1u << (G % 32)) - 1u;
+  const unsigned gmask = low << (gid * G);
+  const long long e = task * bk.rt + lane;
+  unsigned m = 0;
+  int owner = 0, row = 0;
+  if (lane < bk.rt && e < (long long)cnt) {
+    const uint2 ent = list[e];
+    row = (int)ent.x;
+    owner = bk.rows != nullptr ? bk.rows[row] : row;
+    if (owner >= 0 && owner < n) m = ent.y;
+  }
+  unsigned left = __ballot_sync(FULL_MASK, m != 0);
+  while (left != 0) {
+    unsigned pick = left;
+    for (int q = 0; q < gid && pick != 0; ++q) pick &= pick - 1;
+    const int src = pick != 0 ? __ffs(pick) - 1 : -1;
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) left &= left - 1;
+    const int s0 = src < 0 ? 0 : src;
+    const unsigned rm = __shfl_sync(FULL_MASK, m, s0);
+    const int u = __shfl_sync(FULL_MASK, owner, s0);
+    const long long r = __shfl_sync(FULL_MASK, row, s0);
+    if (src < 0) continue;
+    const int* cp = bk.cols + r * bk.d_pad;
+    const float* wp = bk.ws + r * bk.d_pad;
+    for (int j0 = 0; j0 < bk.d_pad; j0 += SPAN) {
+      int v[PUSH_UNROLL];
+      float w[PUSH_UNROLL];
+#pragma unroll
+      for (int q = 0; q < PUSH_UNROLL; ++q) {
+        const int j = j0 + q * G + sub;
+        v[q] = j < bk.d_pad ? __ldcs(cp + j) : -1;
+        w[q] = j < bk.d_pad ? __ldcs(wp + j) : 0.0f;
+      }
+      int end = SPAN;
+#pragma unroll
+      for (int q = 0; q < PUSH_UNROLL; ++q) {
+        const unsigned x =
+            (__ballot_sync(gmask, v[q] < 0 || v[q] >= n) >> (gid * G)) & low;
+        if (x != 0 && end == SPAN) end = q * G + __ffs(x) - 1;
+      }
+      for (unsigned lb = rm; lb != 0; lb &= lb - 1) {
+        const long long b = (long long)tile * 32 + (__ffs(lb) - 1);
+        const float du = __ldg(a.d_src + b * n + u);
+        float* drow = a.d + b * n;
+        int* srow = a.status + b * n;
+        float cur[PUSH_UNROLL];
+#pragma unroll
+        for (int q = 0; q < PUSH_UNROLL; ++q) {
+          cur[q] = q * G + sub < end ? __ldcg(drow + v[q]) : CUDART_NAN_F;
+        }
+#pragma unroll
+        for (int q = 0; q < PUSH_UNROLL; ++q) {
+          if (q * G + sub >= end) continue;
+          const float cand = du + w[q];
+          const bool lowers =
+              cand != cand ? cur[q] == cur[q]
+                           : cand < cur[q] || (cand == cur[q] &&
+                                               signbit(cand) &&
+                                               !signbit(cur[q]));
+          if (lowers) atomic_min_f32(drow + v[q], cand);
+          if (cand < CUDART_INF_F && (lowers || cur[q] != cur[q]) &&
+              __ldcg(srow + v[q]) == 0) {
+            srow[v[q]] = 1;
+          }
+        }
+      }
+      if (end < SPAN) break;
+    }
+  }
+}
+
+// The worklist push over one group of buckets. Grid: (a persistent count
+// of blocks, lane tiles); each block reads its tile's list counts, and its
+// warps walk the warp tasks of the group's lists (grid-stride).
+__global__ void __launch_bounds__(PUSH_THREADS)
+    settle_push_kernel(const __grid_constant__ SettleTable tab,
+                       const __grid_constant__ SettleArgs a) {
+  __shared__ unsigned s_cnt[PUSH_MAX_BUCKETS];
+  __shared__ long long s_first[PUSH_MAX_BUCKETS + 1];
+  constexpr int WARPS = PUSH_THREADS / 32;
+  const int tile = blockIdx.y;
+  if (threadIdx.x == 0) {
+    long long t = 0;
+    for (int i = 0; i < tab.count; ++i) {
+      const unsigned c = __ldcg(a.counts + (long long)tile * a.nb +
+                                tab.e[i].gidx);
+      s_cnt[i] = c;
+      s_first[i] = t;
+      t += ((long long)c + tab.e[i].rt - 1) / tab.e[i].rt;
+    }
+    s_first[tab.count] = t;
+  }
+  __syncthreads();
+  const long long tasks = s_first[tab.count];
+  for (long long gw = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+       gw < tasks; gw += (long long)gridDim.x * WARPS) {
+    int i = 0;
+    while (i + 1 < tab.count && gw >= s_first[i + 1]) ++i;
+    const SettleBucket& bk = tab.e[i];
+    const uint2* list = a.work + (long long)tile * a.total_rows + bk.row_off;
+    const long long task = gw - s_first[i];
+    if (bk.g == 8) {
+      settle_push_task<8>(bk, list, s_cnt[i], task, tile, a);
+    } else if (bk.g == 16) {
+      settle_push_task<16>(bk, list, s_cnt[i], task, tile, a);
+    } else {
+      settle_push_task<32>(bk, list, s_cnt[i], task, tile, a);
+    }
+  }
+}
+
+// The tail. Grid: (1, 1) on a state without targets, else (blocks over
+// the row in SETTLE_TAIL_SPAN chunks, lanes). Block (0, 0) folds the
+// counters into the state and zeroes them and the list counts; block
+// (x, b) demotes chunk x of lane b's fringe (status 1 -> 0) when lane b's
+// target settled: status[b, target] == 2 after the push on a lane whose
+// fringe was not empty at the phase's entry (the reference demotes where
+// the target's status is 2; a lane that entered without fringe has no
+// status 1 to demote).
+__global__ void __launch_bounds__(SETTLE_TAIL_THREADS)
+    settle_tail_kernel(const __grid_constant__ SettleArgs a, int n_counts) {
+  if (*a.go == 0) return;
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    for (int b = threadIdx.x; b < a.lanes; b += blockDim.x) {
+      unsigned* acc = a.acc + (long long)b * SETTLE_PAD;
+      const int nf = a.n_fringe[b];
+      const unsigned long long inc =
+          *reinterpret_cast<unsigned long long*>(acc + 2);
+      if (nf > 0) {
+        const long long slot =
+            (long long)b * a.ring_len + a.phases[b] % a.ring_len;
+        a.ring[slot] = (int)acc[0];
+        if (a.attr_ring != nullptr) {
+          a.fringe_ring[slot] = nf;
+          a.relax_ring[slot] = (int)(unsigned)inc;  // the int32 cast's wrap
+          for (int t = 0; t < a.n_terms; ++t) {
+            a.attr_ring[slot * a.n_terms + t] = (int)acc[SETTLE_ATTR + t];
+          }
+        }
+        a.phases[b] += 1;
+        a.sum_fringe[b] += nf;
+      }
+      a.relax_edges[b] += (long long)inc;
+      acc[0] = 0u;
+      *reinterpret_cast<unsigned long long*>(acc + 2) = 0ull;
+      for (int t = 0; a.attr_ring != nullptr && t < a.n_terms; ++t) {
+        acc[SETTLE_ATTR + t] = 0u;
+      }
+    }
+    if (threadIdx.x == 0) {
+      *a.trips += 1;
+      *a.budget -= 1;
+    }
+    for (int i = threadIdx.x; i < n_counts; i += blockDim.x) a.counts[i] = 0u;
+  }
+  if (a.target == nullptr) return;
+  const int b = blockIdx.y;
+  const int t = a.target[b];
+  if (t < 0 || a.n_fringe[b] <= 0) return;
+  int* srow = a.status + (long long)b * a.n;
+  if (__ldcg(srow + t) != 2) return;
+  const long long v1 = min(a.n, (long long)(blockIdx.x + 1) * SETTLE_TAIL_SPAN);
+  for (long long v = (long long)blockIdx.x * SETTLE_TAIL_SPAN + threadIdx.x;
+       v < v1; v += blockDim.x) {
+    if (srow[v] == 1) srow[v] = 0;
+  }
+}
+
+// Blocks a lane tile of the worklist push: enough warps for the most warp
+// tasks the view can give, at most PUSH_PERSIST_BLOCKS (a fixed grid, so a
+// CUDA graph can capture it).
+#define PUSH_PERSIST_BLOCKS 1056  // 8 blocks of 256 threads on each of 132 SMs
+
+// One phase's mark, push or tail (`which`: 0, 1, 2) on `stream`. `args`
+// is the host-filled SettleArgs (its scratch zeroed once and left zeroed by
+// every tail); `table` the host bucket table (5 int64 a bucket, as for
+// ell_push_relax_launch: cols, ws, rows or 0, row count, width; buckets
+// without rows left out, which is the mark's bucket numbering). Returns 0,
+// cudaErrorInvalidValue for sizes the kernels do not take (checked before
+// any launch), or the launch's error.
+extern "C" int settle_phase_launch(int which, const SettleArgs* args,
+                                   const long long* table, int n_buckets,
+                                   void* stream) {
+  const SettleArgs& a = *args;
+  const bool attr = a.attr_ring != nullptr;
+  if (a.n < 1 || a.lanes < 1 || a.nb < 0 || n_buckets != a.nb ||
+      a.k_out < 0 || a.k_out > SETTLE_MAX_OUT || a.ring_len < 1 ||
+      (a.vrows == nullptr && a.nb != 1) ||
+      a.n_terms != (a.zero != 0) + (a.in_key != nullptr) + a.k_out ||
+      attr != (a.fringe_ring != nullptr) || attr != (a.relax_ring != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tiles = (a.lanes + 31) / 32;
+  if (tiles > 65535 || a.lanes > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (which == 0) {
+    const dim3 grid((unsigned)((a.n + SETTLE_THREADS - 1) / SETTLE_THREADS),
+                    (unsigned)tiles);
+    settle_mark_kernel<<<grid, SETTLE_THREADS, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (which == 2) {
+    const dim3 grid(
+        a.target == nullptr
+            ? 1u
+            : (unsigned)((a.n + SETTLE_TAIL_SPAN - 1) / SETTLE_TAIL_SPAN),
+        a.target == nullptr ? 1u : (unsigned)a.lanes);
+    settle_tail_kernel<<<grid, SETTLE_TAIL_THREADS, 0, s>>>(a, tiles * a.nb);
+    return (int)cudaGetLastError();
+  }
+  if (which != 1) return (int)cudaErrorInvalidValue;
+  // the push: one launch a group of PUSH_MAX_BUCKETS buckets, in order (a
+  // view without rows launches one that finds no list)
+  SettleTable tab;
+  long long row_off = 0;  // the bucket's first row of a worklist
+  for (int i0 = 0; i0 < a.nb || i0 == 0; i0 += PUSH_MAX_BUCKETS) {
+    tab.count = 0;
+    long long tasks = 0;
+    for (int i = i0; i < a.nb && i < i0 + PUSH_MAX_BUCKETS; ++i) {
+      const long long* t = table + 5 * i;
+      if (t[3] < 1 || t[4] < 1) return (int)cudaErrorInvalidValue;
+      SettleBucket& e = tab.e[tab.count++];
+      e.cols = (const int*)t[0];
+      e.ws = (const float*)t[1];
+      e.rows = (const int*)t[2];
+      e.d_pad = (int)t[4];
+      e.g = push_threads_per_row(e.d_pad);
+      e.rt = push_rows_per_task(e.d_pad);
+      e.gidx = i;
+      e.row_off = row_off;
+      row_off += t[3];
+      tasks += (t[3] + e.rt - 1) / e.rt;
+    }
+    constexpr long long WARPS = PUSH_THREADS / 32;
+    long long blocks = (tasks + WARPS - 1) / WARPS;
+    if (blocks > PUSH_PERSIST_BLOCKS) blocks = PUSH_PERSIST_BLOCKS;
+    if (blocks < 1) blocks = 1;
+    const dim3 grid((unsigned)blocks, (unsigned)tiles);
+    settle_push_kernel<<<grid, PUSH_THREADS, 0, s>>>(tab, a);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
+}

@@ -47,6 +47,8 @@ PUSH_SIGNATURES = {
     "ell_push_rect_launch": ([_P, _LL, _LL, _I, _P, _I, _P, _P, _P, _P], _I),
     "ell_delta_push_launch": ([_P, _P, _P, _F, _LL, _I, _P, _I, _P, _P, _P,
                                _P], _I),
+    # the phase-committing pair (kernels/settle_push.py)
+    "settle_phase_launch": ([_I, _P, _P, _I, _P], _I),
 }
 MAX_PUSH_LANES = 32 * 65535  # lane tiles ride the grid's second axis
 

@@ -19,6 +19,12 @@ relax has the same two forms: the reference's two gathers over the
 weight-gated incoming views (:func:`delta_relax_batch`) and the push the
 delta policy runs (:func:`delta_push_relax_batch`).
 
+The push plans' phase itself commits through the settle mark and the
+worklist push (:func:`commit_phase`, ``kernels/settle_push.py``), which
+take #2's thresholds and write ``dist`` and ``status`` in place; the
+``push_settled_batch*`` functions stay for the callers that need ``upd``
+(the oracle plans, the sharded stepper's rectangular form, the tools).
+
 The bound-gated wrappers (``*_gated_batch``) are the reference's surface
 for s->t target lanes: the same kernels over a settle mask with the
 sources at or beyond the lane's bound removed (:func:`_bound_gate`). The
@@ -59,6 +65,11 @@ from repro_torch.kernels.frontier_crit import (
     frontier_crit,
     frontier_crit_batch,
     frontier_crit_lanes_batch,
+)
+from repro_torch.kernels.settle_push import (  # noqa: F401 (the ops surface)
+    CommitBuffers,
+    SettleRule,
+    commit_phase,
 )
 
 INF = float("inf")

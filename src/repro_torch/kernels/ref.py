@@ -12,6 +12,8 @@ the kernels read the int32 ``cols``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels.config import lane_tile
@@ -159,6 +161,153 @@ def ell_delta_push_batch_ref(d: torch.Tensor, light_from: torch.Tensor,
     return nan_min(
         ell_push_relax_batch_ref(torch.where(light_from, d, INF), light),
         ell_push_relax_batch_ref(torch.where(heavy_from, d, INF), heavy))
+
+
+class SettleMark(NamedTuple):
+    """What the settle mark of one phase decides (:func:`settle_mark_ref`)."""
+
+    go: torch.Tensor  # 0-dim bool: the loop predicate of the phase
+    settle: torch.Tensor  # (B, n) bool: the vertices settled (status 2)
+    sources: torch.Tensor  # (B, n) bool: the worklist, the relax sources
+    #   below +inf (a +inf source pushes nothing)
+    n_settled: torch.Tensor  # (B,) int32
+    relax_inc: torch.Tensor  # (B,) int64: out-edges of the relax sources
+    attr_counts: torch.Tensor | None = None  # (B, T) int32: the settled
+    #   vertices each term claims first (``attr``)
+
+
+def settle_mark_ref(d, status, mins, n_fringe, live0, budget, *, zero: bool,
+                    in_key, stop: bool, target, out_deg,
+                    attr: bool = False) -> SettleMark:
+    """The settle mark (``csrc/ell_push.cu``, ``settle_mark_kernel``): the
+    reference's loop predicate from #2's fringe sizes ``n_fringe``, the
+    call's ``budget`` and ``live0``; the plan's settle terms on the fringe
+    with its f32 ops (``zero``: d <= min_F d; ``in_key``: d - in_key <=
+    min_F d; one ``d <= mins[k]`` an OUT lane k >= 1), gated on it; the
+    relax sources (on a ``target`` state those below the target's entry
+    distance) and the two counters; with ``attr`` the settled vertices each
+    term claims first, terms in that order (the attribution ring's
+    first-true claim)."""
+    b, n = d.shape
+    live = n_fringe > 0
+    go = torch.any(live) & (budget > 0)
+    if stop:
+        go = go & torch.all(live == live0)
+    min_fd = mins[0][:, None]
+    terms = []
+    if zero:
+        terms.append(d <= min_fd)
+    if in_key is not None:
+        terms.append(d - in_key <= min_fd)
+    for k in range(1, mins.shape[0]):
+        terms.append(d <= mins[k][:, None])
+    hit = torch.zeros_like(status, dtype=torch.bool)
+    for m in terms:
+        hit = hit | m
+    settle = (status == 1) & hit & go
+    attr_counts = None
+    if attr:
+        claimed = torch.zeros_like(settle)
+        counts = []
+        for m in terms:
+            take = m & settle & ~claimed
+            counts.append(take.sum(dim=1, dtype=torch.int32))
+            claimed = claimed | take
+        attr_counts = (torch.stack(counts, dim=1) if counts else
+                       torch.zeros((b, 0), dtype=torch.int32,
+                                   device=d.device))
+    relax_from = settle
+    if target is not None:
+        rows = torch.arange(b, device=d.device)
+        bound = torch.where(target >= 0,
+                            d[rows, target.clamp(0, n - 1).long()], INF)
+        relax_from = settle & (d < bound[:, None])
+    return SettleMark(
+        go=go, settle=settle, sources=relax_from & (d != INF),
+        n_settled=settle.sum(dim=1, dtype=torch.int32),
+        relax_inc=torch.where(relax_from, out_deg[None], 0).sum(
+            dim=1, dtype=torch.int64),
+        attr_counts=attr_counts)
+
+
+def settle_push_ref(d, status, sources, out_view):
+    """The worklist push's commit (``settle_push_kernel``): ``(dist,
+    status)`` after the relax of ``sources`` (their entry ``d``) pushed
+    along ``out_view`` lands. A candidate lowers d as the kernel's atomic
+    min does (a NaN entry stays, -0 over +0); a vertex of status 0 turns 1
+    where upd < +inf lowers its entry or the entry is NaN, which is the
+    reference's ``(status == 0) & (upd < INF)`` on every state the stepper
+    makes (a vertex of status 0 holds +inf or NaN there)."""
+    upd = ell_push_relax_batch_ref(torch.where(sources, d, INF), out_view)
+    nan_d = torch.isnan(d)
+    lowers = ~nan_d & ((upd < d) | torch.isnan(upd)
+                       | ((upd == d) & torch.signbit(upd)
+                          & ~torch.signbit(d)))
+    new_status = torch.where((status == 0) & (upd < INF) & (lowers | nan_d),
+                             1, status).to(status.dtype)
+    return torch.where(lowers, upd, d), new_status
+
+
+class SettleTail(NamedTuple):
+    """The state after a phase's tail (:func:`settle_tail_ref`)."""
+
+    status: torch.Tensor
+    trips: torch.Tensor
+    phases: torch.Tensor
+    sum_fringe: torch.Tensor
+    relax_edges: torch.Tensor
+    settled_trace: torch.Tensor
+    budget: torch.Tensor
+    fringe_trace: torch.Tensor | None = None
+    relax_trace: torch.Tensor | None = None
+    attr_trace: torch.Tensor | None = None
+
+
+def settle_tail_ref(status, n_fringe, mark: SettleMark, target, trips, phases,
+                    sum_fringe, relax_edges, settled_trace, budget,
+                    fringe_trace=None, relax_trace=None,
+                    attr_trace=None) -> SettleTail:
+    """The tail (``settle_tail_kernel``): the stepper's bookkeeping of the
+    phase, gated per lane on a fringe at its entry and every write on
+    ``mark.go``, and on a ``target`` state the demotion of the fringe of a
+    lane whose target settled (a lane without fringe at entry has none to
+    demote). With telemetry (``attr_trace`` and the two (B, L) rings) the
+    fringe size, ``relax_inc`` (cast to int32) and ``mark.attr_counts``
+    go into the slot of the settled ring."""
+    b = status.shape[0]
+    rows = torch.arange(b, device=status.device)
+    go = mark.go
+    lane_on = (n_fringe > 0) & go
+    if target is not None:
+        tcol = target.clamp(0, status.shape[1] - 1).long()
+        hit = lane_on & (target >= 0) & (status[rows, tcol] == 2)
+        status = torch.where(hit[:, None] & (status == 1), 0, status).to(
+            status.dtype)
+    idx = (phases % settled_trace.shape[1]).long()
+
+    def write(ring, vals):
+        if ring is None:
+            return None
+        ring = ring.clone()
+        on = lane_on.reshape((-1,) + (1,) * (vals.dim() - 1))
+        ring[rows, idx] = torch.where(on, vals, ring[rows, idx])
+        return ring
+
+    ring = write(settled_trace, mark.n_settled)
+    telemetry = {}
+    if attr_trace is not None:
+        telemetry = dict(
+            fringe_trace=write(fringe_trace, n_fringe),
+            relax_trace=write(relax_trace, mark.relax_inc.to(torch.int32)),
+            attr_trace=write(attr_trace, mark.attr_counts))
+    gi = go.to(torch.int32)
+    return SettleTail(
+        status=status, trips=trips + gi,
+        phases=phases + lane_on.to(torch.int32),
+        sum_fringe=sum_fringe + torch.where(lane_on, n_fringe, 0).to(
+            torch.int64),
+        relax_edges=relax_edges + mark.relax_inc, settled_trace=ring,
+        budget=budget - gi, **telemetry)
 
 
 def push_coo_batch_ref(dmask: torch.Tensor, rows: torch.Tensor,
@@ -479,6 +628,11 @@ def register_kernels(reg):
     def keys_dep_ref(gates, dga, dgb, cols, ws, dep_idx=0):
         return ell_keys_dep_batch_ref(gates, dga, dgb, dep_idx, cols, ws)
 
+    def settle_ref(*args, **kwargs):
+        from repro_torch.kernels.settle_push import settle_phase_batch
+
+        return settle_phase_batch(*args, **kwargs, use_kernels=False)
+
     def sliced_keys_dep_ref(gates, dga, dgb, sliced, dep_idx=0):
         return ell_sliced_keys_dep_batch_ref(gates, dga, dgb, dep_idx, sliced)
 
@@ -501,6 +655,8 @@ def register_kernels(reg):
         ("ell_sliced_push_relax_batch", ell_push_relax_batch_ref),
         ("ell_delta_push_batch", delta_push_ref),
         ("ell_sliced_delta_push_batch", ell_delta_push_batch_ref),
+        ("ell_settle_commit_batch", settle_ref),
+        ("ell_sliced_settle_commit_batch", settle_ref),
         ("frontier_crit", frontier_crit_ref),
         ("frontier_crit_batch", frontier_crit_batch_ref),
         ("frontier_crit_lanes_batch", frontier_crit_lanes_batch_ref),

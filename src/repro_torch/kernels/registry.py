@@ -25,8 +25,10 @@ pushes ``ell_push_relax_batch`` (#1b) and ``ell_sliced_push_relax_batch``
 ``ell_key_min_status_batch`` (#5b), the rectangular push of the sharded
 stepper ``ell_push_rect_batch`` (#1b), delta's pushes
 ``ell_delta_push_batch`` (#5c) and ``ell_sliced_delta_push_batch`` (#9c),
-the ops layer's push relaxes, and the LM's fixed-order embedding gradient
-``embed_grad``.
+the ops layer's push relaxes, the phase-committing pair that redesigns #1b
+and #9b on the push plans' path (``ell_settle_commit_batch``,
+``ell_sliced_settle_commit_batch``: the settle mark, the worklist push and
+the tail), and the LM's fixed-order embedding gradient ``embed_grad``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ KERNEL_MODULES = (
     "repro_torch.kernels.ell_relax_keys",
     "repro_torch.kernels.ell_sliced",
     "repro_torch.kernels.frontier_crit",
+    "repro_torch.kernels.settle_push",
     "repro_torch.kernels.embed_grad",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
@@ -297,6 +300,47 @@ def fixture_rect(b: int = FIXTURE_B, n: int = FIXTURE_N, seed: int = 6,
     dmask = fixture_rows((b, rows), seed=seed + 1, inf_frac=0.5, nan=True,
                          signed=signed)
     return dmask, _t(cols), _t(ws), m
+
+
+def fixture_settle(b: int = FIXTURE_B, n: int = FIXTURE_N, seed: int = 200,
+                   *, sliced: bool = False, signed: bool = False,
+                   target: bool = False, stop: bool = False,
+                   telemetry: bool = False):
+    """``(args, kwargs)`` of one committed phase (``settle_phase_batch``)
+    on :func:`fixture_graph`: a seeded U/F/S state with +inf holes and a
+    NaN in the last lane, #2's thresholds for the default plan (the shared
+    ``out_min_static``) from the twin, ``live0`` the live lanes, the padded
+    out-view or a sliced one (boundaries (2, 4), split 4) with its vertex
+    row table, (``target``) s->t targets on every other lane, and
+    (``telemetry``) the fringe, relax and attribution rings."""
+    from repro_torch.core.graph import (
+        out_degrees,
+        to_ell_out,
+        to_ell_out_sliced,
+        vertex_row_table,
+    )
+    from repro_torch.kernels import ref
+
+    g = fixture_graph(n, seed, signed)
+    d = fixture_rows((b, n), seed=seed + 1, nan=True, signed=signed)
+    status = fixture_status((b, n), seed + 2)
+    mins, n_f = ref.frontier_crit_lanes_batch_ref(d, status,
+                                                  g.out_min_static[None])
+    kwargs = {"zero": False, "stop": stop, "telemetry": telemetry}
+    if sliced:
+        view = to_ell_out_sliced(g, pad_multiple=2, boundaries=(2, 4),
+                                 split=4)
+        kwargs["vrows"] = vertex_row_table(g, view)
+    else:
+        view = to_ell_out(g, pad_multiple=2)
+    if target:
+        rng = np.random.default_rng(seed + 3)
+        tg = rng.integers(0, n, b).astype(np.int32)
+        tg[1::2] = -1
+        kwargs["target"] = _t(tg)
+    args = (d, status, mins, n_f, n_f > 0, view, out_degrees(g),
+            g.in_min_static)
+    return args, kwargs
 
 
 def wide(make: Callable[[int, int, int, bool], SpecCase]):

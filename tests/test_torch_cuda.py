@@ -81,6 +81,18 @@ def _same_bits(a, b):
     return bool(torch.equal(a, b))
 
 
+def _fields_that_differ(got, want) -> list[str]:
+    """The fields of two results (NamedTuples of tensors or None) that are
+    not the same bits, or that one of them lacks."""
+    bad = []
+    for nm in got._fields:
+        a, b = getattr(got, nm), getattr(want, nm)
+        if (a is None) != (b is None) or (a is not None
+                                          and not _same_bits(a, b)):
+            bad.append(nm)
+    return bad
+
+
 def _ell(rng, n, d, n_pad):
     cols = rng.integers(0, n_pad, size=(n, d)).astype(np.int32)
     ws = rng.uniform(0, 1, size=(n, d)).astype(np.float32)
@@ -1562,7 +1574,7 @@ def test_analysis_card_checks_find_nothing(cuda):
 
     findings, rows, stats = audit_card()
     assert findings == [], [str(f) for f in findings]
-    assert len(rows) == 13 and stats["poisoned_cells"] == 0
+    assert len(rows) == 16 and stats["poisoned_cells"] == 0
 
 
 # ---- the LM substrate's serving path (no kernel of its own: its products
@@ -2034,6 +2046,8 @@ CHUNK_CASES = {
                      {"targets": [900, -1, 17, 2500]}, True),
     "telemetry_wraps": ("in|out", "sliced",
                         {"telemetry": True, "trace_len": 5}, False),
+    "outsimple_sliced": ("outsimple", "sliced", {}, False),
+    "dijk_targets": ("dijk", "padded", {"targets": [40, 2999, -1, 5]}, False),
 }
 
 
@@ -2122,3 +2136,160 @@ def test_a_capture_after_its_pools_graphs_are_freed(cuda, monkeypatch):
         gc.collect()
         assert len(live) == 0
     assert pools[0] != pools[1]
+
+
+SETTLE_SHAPES = [(3, 10), (1, 13), (8, 11), (13, 13), (40, 11), (8, 3000),
+                 (33, 700)]
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("i,shape", list(enumerate(SETTLE_SHAPES)))
+def test_settle_pair_matches_its_twins(cuda, sliced, i, shape):
+    """The settle mark, the worklist push and the tail against the plain
+    twins, every field a phase writes bit for bit: signed zeros, NaN fault
+    rows, target lanes, stop_on_lane_finish, the telemetry rings, 1 to 40
+    lanes (two tiles)."""
+    from repro_torch.kernels import registry as R
+    from repro_torch.kernels import settle_push as SP
+    from repro_torch.analysis.kernel_audit import to_device
+
+    b, n = shape
+    args, kw = R.fixture_settle(b, n, 300 + i, sliced=sliced,
+                                signed=bool(i % 2), target=i % 2 == 0,
+                                stop=i == 3, telemetry=i % 3 == 1)
+    args, kw = to_device(args, cuda), to_device(kw, cuda)
+    counts = [f.launches for f in (
+        SP.ell_settle_mark_batch, SP.ell_sliced_settle_push_batch if sliced
+        else SP.ell_settle_push_batch, SP.ell_settle_tail_batch)]
+    got = SP.settle_phase_batch(*args, **kw)
+    torch.cuda.synchronize()
+    want = SP.settle_phase_batch(*args, **kw, use_kernels=False)
+    assert _fields_that_differ(got, want) == []
+    assert [f.launches for f in (
+        SP.ell_settle_mark_batch, SP.ell_sliced_settle_push_batch if sliced
+        else SP.ell_settle_push_batch, SP.ell_settle_tail_batch)] == [
+            c + 1 for c in counts]
+    # a dead phase (no budget left) writes nothing
+    dead = SP.settle_phase_batch(*args, **kw, budget=0)
+    assert _same_bits(dead.dist, args[0]) and _same_bits(dead.status, args[1])
+    assert int(dead.trips) == 0 and int(dead.phases.sum()) == 0
+
+
+def test_settle_pair_on_many_buckets_and_a_default_solve(cuda):
+    """The sliced pair over more than 16 buckets (two push launches a
+    call), and the default plan's solve on G(3000, 0.003): its phases
+    launch #2 and the pair once each and no PR 15 push."""
+    from repro_torch.core import out_degrees
+    from repro_torch.core import static_engine as TS
+    from repro_torch.core.graph import vertex_row_table
+    from repro_torch.kernels import launch_counters
+    from repro_torch.kernels import registry as R
+    from repro_torch.kernels import settle_push as SP
+
+    cpu = R.fixture_groups_graph()
+    g = from_coo(cpu.src.numpy(), cpu.dst.numpy(), cpu.w.numpy(), cpu.n,
+                 device=cuda)
+    view = to_ell_out_sliced(g, pad_multiple=1, boundaries=tuple(range(1, 25)))
+    assert sum(1 for s in view.slices if s.rows.shape[0]) > 16
+    rng = np.random.default_rng(8)
+    d = _t(rng.uniform(0, 4, (8, g.n)).astype(np.float32), cuda)
+    st = _t(rng.integers(0, 3, (8, g.n)).astype(np.int32), cuda)
+    mins, n_f = ref.frontier_crit_lanes_batch_ref(d, st,
+                                                  g.out_min_static[None])
+    args = (d, st, mins, n_f, n_f > 0, view, out_degrees(g), g.in_min_static)
+    kw = {"zero": False, "vrows": vertex_row_table(g, view)}
+    got = SP.settle_phase_batch(*args, **kw)
+    want = SP.settle_phase_batch(*args, **kw, use_kernels=False)
+    assert _fields_that_differ(got, want) == []
+
+    graph = uniform_gnp(3000, 0.003, seed=11, device=cuda)
+    state = TS.init_batch_state(graph, [0, 9, 2000, 2999], device=cuda)
+    names = ("frontier_crit_lanes_batch", "ell_settle_mark_batch",
+             "ell_settle_push_batch", "ell_settle_tail_batch",
+             "ell_push_relax_batch")
+    counters = launch_counters()
+    before = {nm: getattr(*counters[nm]) for nm in names}
+    TS.reset_chunk_stats()
+    res = TS.step_batch(graph, state, 4 * graph.n)
+    torch.cuda.synchronize()
+    ran = {nm: getattr(*counters[nm]) - before[nm] for nm in names}
+    stats = TS.chunk_stats()
+    phases = stats.live_phases + stats.dead_phases
+    assert ran == {**dict.fromkeys(names[:4], phases),
+                   "ell_push_relax_batch": 0}
+    want = TS.step_batch(graph, state, 4 * graph.n, use_kernels=False)
+    assert _states_same_bits(res, want) == []
+
+
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_settle_pair_over_more_buckets_than_the_mark_aggregates(cuda,
+                                                               telemetry):
+    """An out-view with 90 buckets with rows (the mark aggregates the
+    appends of at most 64 in shared memory and appends straight to the
+    list counts beyond): the pair against its twins on 40 lanes, and a
+    captured solve through ``step_batch(..., ell_out=)`` against the plain
+    stepper, bit for bit."""
+    from repro_torch.core import out_degrees
+    from repro_torch.core import static_engine as TS
+    from repro_torch.core.graph import vertex_row_table
+    from repro_torch.kernels import settle_push as SP
+
+    rng = np.random.default_rng(13)
+    n = 400
+    src, dst = [], []
+    for v in range(n):
+        to = rng.choice(n - 1, v % 90 + 1, replace=False)
+        src += [v] * len(to)
+        dst += list(to + (to >= v))
+    w = rng.uniform(0.0, 1.0, len(src)).astype(np.float32)
+    g = from_coo(np.array(src, np.int32), np.array(dst, np.int32), w, n,
+                 device=cuda)
+    view = to_ell_out_sliced(g, pad_multiple=1, boundaries=tuple(range(1, 91)))
+    assert sum(1 for s in view.slices if s.rows.shape[0]) == 90
+    d = _t(rng.uniform(0, 4, (40, n)).astype(np.float32), cuda)
+    st = _t(rng.integers(0, 3, (40, n)).astype(np.int32), cuda)
+    mins, n_f = ref.frontier_crit_lanes_batch_ref(d, st,
+                                                  g.out_min_static[None])
+    args = (d, st, mins, n_f, n_f > 0, view, out_degrees(g), g.in_min_static)
+    kw = {"zero": True, "vrows": vertex_row_table(g, view),
+          "telemetry": telemetry}
+    got = SP.settle_phase_batch(*args, **kw)
+    want = SP.settle_phase_batch(*args, **kw, use_kernels=False)
+    assert _fields_that_differ(got, want) == []
+    extra = {"telemetry": True, "trace_len": 5} if telemetry else {}
+    state = TS.init_batch_state(g, [0, 89, 200, 399], device=cuda, **extra)
+    res = TS.step_batch(g, state, 4 * n, ell_out=view)
+    torch.cuda.synchronize()
+    plain = TS.step_batch(g, state, 4 * n, ell_out=view, use_kernels=False)
+    assert _states_same_bits(res, plain) == []
+
+
+def test_settle_dead_chunk_launches_only_the_pair_and_crit(cuda):
+    """A finished state's replayed chunk: every phase is dead, the state
+    keeps every bit, and the kernels a phase launches are #2 and the
+    pair's three, which return early (each J times in a replay's trace);
+    anything else in the trace is the chunk's own, fewer than J times
+    (the copies in and out of the chunk's buffers apart)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import static_engine as TS
+
+    g = uniform_gnp(3000, 0.003, seed=12, device=cuda)
+    st = TS.step_batch(g, TS.init_batch_state(g, [0, 7], device=cuda),
+                       4 * g.n)
+    assert not TS.lanes_active(st).any()
+    j = TS.PHASES_PER_REPLAY
+    TS.step_batch(g, st, j)  # the key's capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = TS.step_batch(g, st, j)
+        torch.cuda.synchronize()
+    assert _states_same_bits(st, again) == []
+    per_phase = sorted(e.key for e in prof.key_averages()
+                       if e.device_time_total > 0 and e.count >= j
+                       and not e.key.startswith(("Memcpy", "Memset")))
+    kernels = ("crit_kernel", "settle_mark_kernel", "settle_push_kernel",
+               "settle_tail_kernel")
+    assert len(per_phase) == 4, per_phase
+    assert all(sum(k in key for key in per_phase) == 1 for k in kernels), \
+        per_phase
