@@ -115,18 +115,21 @@ failure raises, exits non-zero and prints no ``ok`` line:
      turns along the out-view (#5c padded, #9c sliced on the out-view's
      buckets) and the parent's two gathers of the light and heavy gates
      over the weight-gated in-views (#5 padded, #9 sliced) against their
-     twins and #5c / #9c against the gathers, bit for bit, all timed, the
-     views delta holds beside the parent's; then on G(10^6, 10^-4),
-     padded, the B = 8 solve with the kernels against the plain twins on
-     every field, timed in turns with the parent's relax, row 0 against
-     scipy, two lanes equal to ``run_delta_stepping`` (the COO loop) on
-     the card (a lane that loop stalls on at a bucket edge is shown
-     stalled there and the next lane taken), and
-     ``StaticBackend(policy="delta")`` answering 16 requests: #2 and #5c
-     run, no other relax kernel (no gather, no other push, no pull); the
-     same on sliced ``kronecker(20)`` with #9c; ms/phase, phases per
-     query, queries/s and the device split beside the default plan's
-     (phases 3, 4, 14, 15);
+     twins and #5c / #9c against the gathers, bit for bit, all timed, and
+     delta's committed phase (the threshold, the mark, the push, the tail)
+     against its twins and the parent's phase body (#2, #5c / #9c and the
+     glue), timed by kernel in turns with it beside each kernel's bound
+     (``delta_pair_times``); the views delta holds beside the parent's;
+     then on G(10^6, 10^-4), padded, the B = 8 solve with the kernels
+     against the plain twins on every field, timed in turns with the
+     parent's phase, row 0 against scipy, two lanes equal to
+     ``run_delta_stepping`` (the COO loop) on the card (a lane that loop
+     stalls on at a bucket edge is shown stalled there and the next lane
+     taken), and ``StaticBackend(policy="delta")`` answering 16 requests:
+     delta's four run, no other relax kernel (no #2, no gather, no
+     #5c / #9c, no pull); the same on sliced ``kronecker(20)`` with the
+     sliced push; ms/phase, phases per query, queries/s and the device
+     split beside the default plan's (phases 3, 4, 14, 15);
  21. oracle plans on G(10^6, 10^-4), padded and sliced: ``oracle``,
      ``instatic|outstatic|oracle`` and ``in|out|oracle`` with phase 4's
      rows as ``dist_true``, kernels against plain twins on every field,
@@ -333,8 +336,10 @@ failure raises, exits non-zero and prints no ``ok`` line:
      under ``stop_on_lane_finish``), the replayed graph against the same
      chunk run eagerly, every state field bit for bit over two calls of 3
      j + 2 phases, and the launch counts of a replayed solve against its
-     ``torch.profiler`` trace (#2, #1b / #9b's and Δ's push, one kernel of
-     each a launch: ``TRACE_SIGNATURES``); where timed, ms a phase of the
+     ``torch.profiler`` trace (#2, #1b / #9b's push, the pair and Δ's
+     four, one kernel of each a launch: ``TRACE_SIGNATURES``), a replayed
+     default phase on the padded layout held to #2 and the pair, and a
+     replayed Δ phase to its four kernels; where timed, ms a phase of the
      graph and the eager chunk loop in turns over ``CHUNK_TIMED_PHASES``
      phases, each one's busy share (``torch.profiler``), host reads a
      solve, a dead phase's device ms, the captures' seconds and their
@@ -598,17 +603,33 @@ TRACE_SIGNATURES = {
     "settle_mark_kernel": ("ell_settle_mark_batch",),
     "settle_push_kernel": ("ell_settle_push_batch",
                            "ell_sliced_settle_push_batch"),
-    "settle_tail_kernel": ("ell_settle_tail_batch",),
+    "settle_tail_kernel": ("ell_settle_tail_batch",
+                           "ell_delta_settle_tail_batch"),
+    # delta's committed phase: its threshold, mark and push (the tail is
+    # the pair's kernel, above)
+    "delta_crit_kernel": ("delta_thresholds_batch",),
+    "delta_settle_mark_kernel": ("ell_delta_settle_mark_batch",),
+    "delta_settle_push_kernel": ("ell_delta_settle_push_batch",
+                                 "ell_sliced_delta_settle_push_batch"),
 }
 # the wrappers of the pair's three launches on each layout
 PAIR = {"padded": ("ell_settle_mark_batch", "ell_settle_push_batch",
                    "ell_settle_tail_batch"),
         "sliced": ("ell_settle_mark_batch", "ell_sliced_settle_push_batch",
                    "ell_settle_tail_batch")}
+# the wrappers of a delta phase's four launches on each layout
+DELTA_PAIR = {
+    layout: ("delta_thresholds_batch", "ell_delta_settle_mark_batch", push,
+             "ell_delta_settle_tail_batch")
+    for layout, push in (("padded", "ell_delta_settle_push_batch"),
+                         ("sliced", "ell_sliced_delta_settle_push_batch"))}
 # the kernels of a replayed default phase on the padded layout: #2 and the
-# pair, nothing else (phase 32 holds the trace to it)
+# pair, nothing else (phase 32 holds the trace to it); of a replayed delta
+# phase, on either layout: its four
 PHASE_KERNELS = ("crit_kernel", "settle_mark_kernel", "settle_push_kernel",
                  "settle_tail_kernel")
+DELTA_PHASE_KERNELS = ("delta_crit_kernel", "delta_settle_mark_kernel",
+                       "delta_settle_push_kernel", "settle_tail_kernel")
 
 
 def traced_launches(fn, zero_counts, read_counts,
@@ -809,6 +830,242 @@ def pair_times(args, kw, old_push, label: str, smi: str) -> dict:
             "old_push_ms": float(np.mean(old)), "settled": settled,
             "fringe": n_fringe, "sectors": sectors,
             "entries": entries, "candidates": cand, "touched": touched}
+
+
+def parent_delta_phase(s, aux, go_of, use_kernels: bool = True):
+    """The parent's delta phase (the tree before delta committed its
+    phase): ``DeltaPolicy.gates`` (the bucket ids and #2 on them), the
+    push #5c / #9c (``ops.delta_push_relax_batch``) and the PyTorch passes
+    over B x n around them, as a policy phase's ``PhaseOutcome`` (not
+    committed) on state ``s`` and ``prepare``'s ``aux``. Phase 20 times it
+    in turns with the committed phase and holds the two to each other."""
+    import torch
+
+    from repro_torch.core.policies import DeltaPolicy, PhaseOutcome
+    from repro_torch.kernels import ops
+
+    ell_out, delta, deg_light, deg_heavy = aux[:4]
+    d, status = s.dist, s.status
+    last_proc, removed = s.crit_keys[0], s.crit_keys[1] > 0.5
+    _, b_lane, n_f, cur, heavy_turn, _ = DeltaPolicy.gates(s, use_kernels)
+    go = go_of(n_f)
+    cur = cur & go
+    heavy_turn = heavy_turn & go
+    heavy_from = heavy_turn[:, None] & removed
+    upd = ops.delta_push_relax_batch(d, cur, heavy_from, ell_out, delta,
+                                     use_kernels=use_kernels)
+    new_d = torch.minimum(d, upd)
+    new_status = torch.where(
+        heavy_from, 2, torch.where((status == 0) & (upd < INF), 1, status)
+    ).to(torch.int32)
+    new_last = torch.where(heavy_turn[:, None], INF,
+                           torch.where(cur, d, last_proc))
+    new_removed = ~heavy_turn[:, None] & (removed | cur)
+    n_settled = heavy_from.sum(dim=1, dtype=torch.int32)
+    relax_inc = (torch.where(cur, deg_light[None], 0).sum(
+        dim=1, dtype=torch.int64)
+        + torch.where(heavy_from, deg_heavy[None], 0).sum(
+            dim=1, dtype=torch.int64))
+    attr = None
+    if s.attr_trace is not None:
+        bucket_id = torch.where(n_f > 0, b_lane, 0.0).to(torch.int32)
+        attr = torch.stack([cur.sum(dim=1, dtype=torch.int32), n_settled,
+                            bucket_id], dim=1)
+    return PhaseOutcome(
+        dist=new_d, status=new_status,
+        crit_keys=torch.stack([new_last, new_removed.to(torch.float32)]),
+        n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc, go=go,
+        attr_counts=attr)
+
+
+def kernel_named(split, name: str) -> float:
+    """The device ms of kernel ``name`` in a ``device_split``, by whole
+    name (``settle_push_kernel`` is not ``delta_settle_push_kernel``)."""
+    return sum(t for k, t in split if re.search(rf"\b{name}\b", k))
+
+
+def delta_pair_times(st, aux, label: str, smi: str) -> dict:
+    """Delta's committed phase on one real phase's entry state ``st``
+    (``prepare``'s ``aux``): the four kernels (``delta_phase_batch``)
+    against their twins and against the parent's phase body
+    (:func:`parent_delta_phase`, #5c / #9c and its glue) on every field
+    they write, bit for bit (every NaN one value); each kernel's device ms
+    a call (``torch.profiler``) in turns with the parent's phase (pair,
+    parent, parent, pair), the parent's split into #2, #5c / #9c and the
+    PyTorch glue; each twin's ms; and each kernel's bound from this input:
+    the threshold reads d, status and last_proc whole; the mark reads
+    status whole, on a lane of a light round d in the 32-byte sectors that
+    hold a fringe slot and last_proc in those that hold a fringe slot of
+    the lane's bucket, on a lane of the heavy turn removed in the sectors
+    that hold a fringe slot and d in those that hold a removed one, the
+    sources' degrees and (sliced) row-table entries, and writes status at the settled, last_proc and removed where they change,
+    d_src at the sources and the worklist's entries; the push reads the
+    entries, the sources' out-rows and d_src and writes each touched
+    target's d and status once (an add and a min a candidate of its
+    source's turn, as ``delta_bound`` counts them); the tail its B-sized
+    counters."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.settle_push import delta_phase_batch
+
+    out, delta, dl, dh, vrows = aux
+    d, status, keys = st.dist, st.status, st.crit_keys
+    b, n = d.shape
+    mins, counts = ref.delta_thresholds_ref(d, status, keys[0], delta)
+    live0 = counts[0] > 0
+    kw = dict(vrows=vrows, telemetry=True)
+    args = (d, status, keys, live0, out, st.out_deg, dl, dh, delta)
+    got = delta_phase_batch(*args, **kw)
+    want = delta_phase_batch(*args, **kw, use_kernels=False)
+    torch.cuda.synchronize()
+    bad = [f for f in got._fields
+           if (getattr(got, f) is None) != (getattr(want, f) is None)
+           or (getattr(got, f) is not None
+               and not same_bits(getattr(got, f), getattr(want, f)))]
+
+    def always(n_f):
+        return torch.ones((), dtype=torch.bool, device=d.device)
+
+    # the parent's attribution slots are formed where the state has rings
+    par = parent_delta_phase(dataclasses.replace(
+        st, attr_trace=torch.zeros((b, 1, 3), dtype=torch.int32,
+                                   device=d.device)), aux, always)
+    attr = torch.where(live0[:, None], par.attr_counts, 0)
+    par_bad = [nm for nm, x, y in (
+        ("dist", got.dist, par.dist), ("status", got.status, par.status),
+        ("crit_keys", got.crit_keys, par.crit_keys),
+        ("settled", got.settled_trace[:, 0],
+         torch.where(live0, par.n_settled, 0)),
+        ("relax_edges", got.relax_edges, par.relax_inc),
+        ("attribution", got.attr_trace[:, 0], attr))
+        if not same_bits(x, y)]
+    mark = ref.delta_mark_ref(d, status, keys, mins, counts, live0,
+                              torch.ones((), dtype=torch.int32,
+                                         device=d.device), delta,
+                              stop=False, deg_light=dl, deg_heavy=dh)
+    n_light, n_heavy = int(mark.cur.sum()), int(mark.heavy_from.sum())
+    log(f"parity delta pair [{label}]: "
+        + ("bits equal" if not bad else f"DIFFER in {bad}")
+        + " to its twins on every field it writes, and "
+        + ("equal" if not par_bad else f"DIFFERENT in {par_bad}")
+        + f" to the parent's phase body ({n_light} light and {n_heavy} "
+        f"heavy lane-vertices, lanes on a light round "
+        f"{int(ref.delta_light_lanes(mins, counts).sum())} of {b})")
+    if bad or par_bad:
+        raise SystemExit(f"the delta pair disagrees with its twins or the "
+                         f"parent's phase: {label}")
+
+    def pair():
+        return delta_phase_batch(*args, vrows=vrows)
+
+    def parent():
+        return parent_delta_phase(st, aux, always)
+
+    splits = [device_split(f, calls=5) for f in (pair, parent, parent, pair)]
+    ms = {nm: (kernel_named(splits[0], nm) + kernel_named(splits[3], nm)) / 2
+          for nm in DELTA_PHASE_KERNELS}
+    parent_parts = []
+    for sp in splits[1:3]:
+        total = sum(t for _, t in sp)
+        crit = kernel_named(sp, "crit_kernel")
+        push = (kernel_named(sp, "delta_mark_kernel")
+                + kernel_named(sp, "delta_push_kernel"))
+        parent_parts.append((total, crit, push, total - crit - push))
+    parent_ms = [float(np.mean([p[i] for p in parent_parts]))
+                 for i in range(4)]
+    # the twins, timed alone, and the counts the bounds read
+    one = torch.ones((), dtype=torch.int32, device=d.device)
+    st2 = torch.where(mark.heavy_from, 2, status).to(torch.int32)
+    zeros = [torch.zeros(sh, dtype=t, device=d.device) for sh, t in (
+        ((), torch.int32), ((b,), torch.int32), ((b,), torch.int64),
+        ((b,), torch.int64), ((b, 3), torch.int32))]
+    plain = {
+        "delta_crit_kernel": time_ms(
+            lambda: ref.delta_thresholds_ref(d, status, keys[0], delta),
+            reps=3, warmup=1),
+        "delta_settle_mark_kernel": time_ms(
+            lambda: ref.delta_mark_ref(d, status, keys, mins, counts, live0,
+                                       one, delta, stop=False, deg_light=dl,
+                                       deg_heavy=dh), reps=3, warmup=1),
+        "delta_settle_push_kernel": time_ms(
+            lambda: ref.delta_settle_push_ref(d, st2, mark.light_src,
+                                              mark.heavy_src, out, delta),
+            reps=3, warmup=1),
+        "settle_tail_kernel": time_ms(
+            lambda: ref.settle_tail_ref(st2, counts[0], mark, None, *zeros,
+                                        one), reps=5, warmup=1)}
+    new_d, new_st = ref.delta_settle_push_ref(d, st2, mark.light_src,
+                                              mark.heavy_src, out, delta)
+    touched = int(((new_d.view(torch.int32) != d.view(torch.int32))
+                   | (new_st != st2)).sum())
+    src = mark.light_src | mark.heavy_src
+    act = src.any(dim=0)
+    deg = st.out_deg.long()
+    row_bytes = 8 * int(deg[act].sum())
+    entries = (-(-b // 32)) * (int(vrows[act, 2].sum()) if vrows is not None
+                               else int(act.sum()))
+    cand = (int(torch.where(mark.light_src, dl.long()[None], 0).sum())
+            + int(torch.where(mark.heavy_src, dh.long()[None], 0).sum()))
+    src_lanes = int(src.sum())
+    relax_v = int((mark.cur | mark.heavy_from).any(dim=0).sum())
+
+    def sectors_of(mask):
+        m = mask.reshape(-1)
+        m = torch.cat([m, m.new_zeros((-m.numel()) % 8)])
+        return int(m.view(-1, 8).any(dim=1).sum())
+
+    fringe = status == 1
+    n_fringe = int(fringe.sum())
+    sectors = sectors_of(fringe)
+    # the mark's reads by each lane's turn: d and (in the lane's bucket)
+    # last_proc on a light round, removed and (at removed) d on the heavy
+    light = ref.delta_light_lanes(mins, counts)[:, None]
+    sec = {"light d": sectors_of(fringe & light),
+           "light last_proc": sectors_of(
+               fringe & light
+               & (ref.delta_bucket_ids(d, delta) == mins[0][:, None])),
+           "heavy removed": sectors_of(fringe & ~light),
+           "heavy d": sectors_of(fringe & ~light & (keys[1] > 0.5))}
+    bounds = {
+        "delta_crit_kernel": bound(12 * d.numel(), 2.0 * d.numel()),
+        "delta_settle_mark_kernel": bound(
+            4 * d.numel() + 32 * sum(sec.values()) + 4 * relax_v
+            + (16 * int(act.sum()) if vrows is not None else 0)
+            + 4 * n_heavy + 8 * (n_light + n_heavy) + 4 * src_lanes
+            + 8 * entries, float(d.numel() + 2 * n_fringe)),
+        "delta_settle_push_kernel": bound(
+            row_bytes + 8 * entries + 4 * src_lanes + 8 * touched,
+            2.0 * cand),
+        "settle_tail_kernel": bound(40 * b, 0.0)}
+    log(f"delta pair [{label}] [{smi}]: {n_fringe} fringe lane-slots in "
+        f"{sectors} of {-(-d.numel() // 8)} 32-byte sectors (the mark "
+        f"reads " + ", ".join(f"{k} in {v}" for k, v in sec.items())
+        + f"), {n_light} "
+        f"light and {n_heavy} heavy lane-vertices, {int(act.sum())} source "
+        f"vertices ({src_lanes} lane-sources, {entries} worklist entries), "
+        f"{cand} candidates of their turn, {touched} targets touched; "
+        f"device ms a call (pair, parent, parent, pair): "
+        + ", ".join(f"{nm.replace('_kernel', '')} "
+                    f"{kernel_named(splits[0], nm):.4f} / "
+                    f"{kernel_named(splits[3], nm):.4f}"
+                    for nm in DELTA_PHASE_KERNELS)
+        + f"; the pair {sum(ms.values()):.4f} against the parent's phase "
+        + ", ".join(f"{p[0]:.4f} (#2 {p[1]:.4f}, #5c/#9c {p[2]:.4f}, glue "
+                    f"{p[3]:.4f})" for p in parent_parts)
+        + "; bounds " + ", ".join(
+            f"{nm.replace('_kernel', '')} {bounds[nm][0]:.4f} "
+            f"({bounds[nm][1]})" for nm in DELTA_PHASE_KERNELS)
+        + "; twins " + ", ".join(f"{nm.replace('_kernel', '')} "
+                                 f"{plain[nm]:.4f}"
+                                 for nm in DELTA_PHASE_KERNELS) + " ms")
+    return {"ms": ms, "plain_ms": plain, "bounds": bounds,
+            "parent_ms": parent_ms[0], "parent_crit_ms": parent_ms[1],
+            "parent_push_ms": parent_ms[2], "parent_glue_ms": parent_ms[3],
+            "max_abs_err": max_abs_err(got.dist, want.dist),
+            "light": n_light, "heavy": n_heavy, "entries": entries,
+            "candidates": cand, "touched": touched, "sectors": sectors,
+            "mark_sectors": sec}
 
 
 def seeded_push_dmask(rng, b: int, n: int, live: float, dev):
@@ -3146,11 +3403,11 @@ def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
         "delta@x4:sliced G(10^6, 10^-4) B=8": (
             g, views["src8"], "delta", {"delta": 4 * default_delta(g)},
             {"ell_out": to_ell_out_buckets(g)}, False,
-            (crit, "ell_sliced_delta_push_batch"), "graph"),
+            DELTA_PAIR["sliced"], "graph"),
         "delta@x4:sliced kronecker(20) B=8": (
             gk, views["src8_k"], "delta", {"delta": 4 * default_delta(gk)},
             {"ell_out": to_ell_out_buckets(gk)}, False,
-            (crit, "ell_sliced_delta_push_batch"), "graph"),
+            DELTA_PAIR["sliced"], "graph"),
         "in|out G(10^6, 10^-4) padded B=8": (
             g, views["src8"], "in|out", {}, views["padded"], False,
             (crit, "ell_relax_keys_batch", "ell_keys_dep_batch"), None),
@@ -3259,7 +3516,9 @@ def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
                              f"the wrappers' counts: last trace {seen}, "
                              f"counts {said}")
         st = TS.chunk_stats()
-        if st.replays == 0 or st.captures or seen["crit_kernel"] == 0:
+        first = DELTA_PHASE_KERNELS[0] if crit_spec == "delta" else \
+            PHASE_KERNELS[0]
+        if st.replays == 0 or st.captures or seen[first] == 0:
             raise SystemExit(f"phase 32 {name}: the traced solve replayed "
                              f"no graph ({st.replays} replays, "
                              f"{st.captures} captures, trace {seen})")
@@ -3268,20 +3527,25 @@ def chunk_loop_phase(dev, smi: str, views: dict, zero_counts, read_counts,
             + ", ".join(f"{kk} {seen[kk]} in the trace = {said[kk]} counted"
                         for kk in seen if said[kk])
             + f" (trace {attempt})")
-        if name.startswith("default") and "sliced" not in name:
+        phase_kernels = (DELTA_PHASE_KERNELS if crit_spec == "delta" else
+                         PHASE_KERNELS if name.startswith("default")
+                         and "sliced" not in name else None)
+        if phase_kernels is not None:
             # a replayed phase of the default plan on the padded layout is
-            # #2 and the pair: the kernels the trace holds once a phase or
-            # more are those four; the rest are the chunk's own (its flag
+            # #2 and the pair, one of delta on either layout its threshold,
+            # mark, push and tail: the kernels the trace holds once a phase
+            # or more are those four; the rest are the chunk's own (its flag
             # and the copies), fewer than one a phase
             phases = st.chunks * j
             per_phase = sorted(kk for kk, c in kinds.items() if c >= phases)
-            if len(per_phase) != len(PHASE_KERNELS) or any(
-                    sum(kern in kk for kk in per_phase) != 1
-                    for kern in PHASE_KERNELS) or any(
-                    seen[kern] != phases for kern in PHASE_KERNELS[1:]):
+            if len(per_phase) != len(phase_kernels) or any(
+                    sum(re.search(rf"\b{kern}\b", kk) is not None
+                        for kk in per_phase) != 1
+                    for kern in phase_kernels) or any(
+                    seen[kern] != phases for kern in phase_kernels[1:]):
                 raise SystemExit(
                     f"phase 32 {name}: a replayed phase launched other "
-                    f"kernels than #2 and the pair: {per_phase} at least "
+                    f"kernels than its four: {per_phase} at least "
                     f"{phases} times in {phases} phases (trace {kinds})")
             log(f"phase 32 {name}: {len(per_phase)} kernels a replayed "
                 f"phase ({', '.join(per_phase)}), each {phases} times in "
@@ -3391,7 +3655,7 @@ def main() -> int:
     from repro_torch.core import criteria as C
     from repro_torch.core import default_delta, run_delta_stepping, run_phased
     from repro_torch.core.graph import from_coo, vertex_row_table
-    from repro_torch.core.policies import policy_for
+    from repro_torch.core.policies import DeltaPolicy, policy_for
     from repro_torch.core import static_engine as TS
     from repro_torch.core.static_engine import (
         harvest,
@@ -4715,7 +4979,8 @@ def main() -> int:
     padded_gathers = ("ell_relax_batch", "ell_key_min_batch",
                       "ell_key_min_status_batch", "ell_gather_min_batch", "ell_relax_keys_batch",
                       "ell_keys_dep_batch", "ell_push_relax_batch",
-                      "ell_delta_push_batch", "ell_settle_push_batch")
+                      "ell_delta_push_batch", "ell_settle_push_batch",
+                      "ell_delta_settle_push_batch")
     served_k, sliced_serve = {}, {}
     # the default plan commits through the pair along the sliced out-view
     # and runs no sliced gather and no PR 15 push; in|out relaxes in the
@@ -5506,8 +5771,8 @@ def main() -> int:
         ``gates`` and ``prepare``: the first trip from ``trips`` on where
         some lane runs a light round and another its heavy turn. Returns
         the state, the bucket ids, the light and heavy gates (B, n) bool,
-        the out-view the push reads and the light and heavy
-        out-degrees."""
+        the out-view the push reads, the light and heavy out-degrees and
+        ``prepare``'s whole aux."""
         st = init_batch_state(graph, srcs, criterion="delta", delta=delta,
                               device=dev)
         st = step_batch(graph, st, trips, ell=ell)
@@ -5517,8 +5782,9 @@ def main() -> int:
                 break
             st = step_batch(graph, st, 1, ell=ell)
         out = delta_policy.out_view(graph, kops._is_sliced(ell))
-        _, _, dl_, dh_ = delta_policy.prepare(graph, ell, out, st, True)
-        return st, gt_.bidx, gt_.cur, gt_.heavy_from, out, dl_, dh_
+        aux_ = delta_policy.prepare(graph, ell, out, st, True)
+        return (st, gt_.bidx, gt_.cur, gt_.heavy_from, out, aux_[2], aux_[3],
+                aux_)
 
     def gated_slots(gate_rows, view) -> int:
         """Lane-slots whose gate and gated weight are both finite: the adds
@@ -5567,12 +5833,12 @@ def main() -> int:
             walk(v)
         return sum(seen.values())
 
-    delta_rows, delta_push, delta_bytes = {}, {}, {}
+    delta_rows, delta_push, delta_bytes, dpair = {}, {}, {}, {}
     for what, graph, ell, srcs, delta, trips0 in (
             ("padded", g, (cols, ws), src8, delta_g, 24),
             ("sliced", gk, sl_in, src8_k, delta_k, 24)):
-        st_d, bidx_d, light_d, heavy_d, out_d, dl_d, dh_d = delta_phase(
-            graph, ell, srcs, delta, trips0)
+        st_d, bidx_d, light_d, heavy_d, out_d, dl_d, dh_d, aux_d = \
+            delta_phase(graph, ell, srcs, delta, trips0)
         d_d = st_d.dist
         delta_f = float(st_d.delta)  # the f32 width, as prepare holds it
         lg_d = torch.where(light_d, d_d, INF)
@@ -5658,6 +5924,13 @@ def main() -> int:
                              "in-views")
         errs[pname] = max_abs_err(got_p, want_p)
         del got_p, want_p, pulled
+        # delta's committed phase on the same entry state: the threshold,
+        # the mark, the push and the tail against their twins and the
+        # parent's phase body (#2 on the bucket ids, #5c / #9c and the glue
+        # around them), and timed in turns with it
+        dpair[what] = delta_pair_times(st_d, aux_d, what, smi)
+        for name in DELTA_PAIR[what]:
+            errs[name] = max(errs.get(name, 0.0), dpair[what]["max_abs_err"])
         b_p, by_p, turn_p = delta_bound(graph, d_d, light_d, heavy_d, dl_d,
                                         dh_d)
         cand_p, atom_p = stats_d.tolist()
@@ -5694,15 +5967,19 @@ def main() -> int:
                 f"{t[3]} [in-view stream {t[4]:.4f}])"
                 for side, t in rows_d.items()) + f" [{smi}]")
         vb = delta_bytes[what]
+        vb["vertex_row_table"] = (0 if aux_d[4] is None
+                                  else view_bytes(aux_d[4]))
         parent_b = vb["parent_in_view"] + vb["parent_gated_weights"]
         log(f"delta resident views, {what}: the out-view "
-            f"{vb['out_view'] / 1e9:.4f} GB and no in-view; the parent's "
+            f"{vb['out_view'] / 1e9:.4f} GB (the worklist push's vertex row "
+            f"table beside it {vb['vertex_row_table'] / 1e9:.4f} GB) and no "
+            f"in-view; the parent's "
             f"in-view {vb['parent_in_view'] / 1e9:.4f} GB + gated weights "
             f"{vb['parent_gated_weights'] / 1e9:.4f} GB = "
             f"{parent_b / 1e9:.4f} GB")
         if vb["out_view"] > parent_b:
             raise SystemExit(f"delta's {what} views grew")
-        del st_d, bidx_d, lg_d, hg_d, light_d, heavy_d, d_d, dl_d, dh_d
+        del st_d, bidx_d, lg_d, hg_d, light_d, heavy_d, d_d, dl_d, dh_d, aux_d
 
     def legacy_lane(graph, source, delta, row, phases):
         """``run_delta_stepping`` against one stepper lane: (source, phases,
@@ -5744,38 +6021,29 @@ def main() -> int:
                       f"{float(t[v] / dl)!r}; {int(wrong.sum())} distances "
                       f"differ, none below t",)
 
-    def no_relax_but(counts: dict, push_name: str, what: str):
-        """Delta's path launches ``push_name`` as its relax: no gather
-        (#5, #9), no other push, no pull, no fused scan."""
-        relax = ("ell_relax_batch", "ell_push_relax_batch",
-                 "ell_sliced_push_relax_batch", "ell_key_min_batch",
-                 "ell_key_min_status_batch", "ell_gather_min_batch",
-                 "ell_sliced_gather_min_batch", PUSH_IN_SCAN,
-                 "ell_relax_keys_batch", "ell_sliced_relax_keys_batch",
-                 "ell_keys_dep_batch", "ell_sliced_keys_dep_batch",
-                 "ell_delta_push_batch", "ell_sliced_delta_push_batch",
-                 "ell_settle_mark_batch", "ell_settle_push_batch",
-                 "ell_sliced_settle_push_batch", "ell_settle_tail_batch")
-        if any(counts[name] for name in relax if name != push_name):
-            raise SystemExit(f"{what} launched another relax kernel than "
-                             f"{push_name}: "
-                             f"{ {nm: counts[nm] for nm in relax} }")
+    def no_relax_but(counts: dict, layout: str, what: str):
+        """Delta's path launches its four (``DELTA_PAIR[layout]``): no #2,
+        no gather (#5, #9), no #5c / #9c, no other push, no pull, no fused
+        scan, not the criterion plans' pair."""
+        relax = ("frontier_crit_lanes_batch", "ell_relax_batch",
+                 "ell_push_relax_batch", "ell_sliced_push_relax_batch",
+                 "ell_key_min_batch", "ell_key_min_status_batch",
+                 "ell_gather_min_batch", "ell_sliced_gather_min_batch",
+                 PUSH_IN_SCAN, "ell_relax_keys_batch",
+                 "ell_sliced_relax_keys_batch", "ell_keys_dep_batch",
+                 "ell_sliced_keys_dep_batch", "ell_delta_push_batch",
+                 "ell_sliced_delta_push_batch", "ell_settle_mark_batch",
+                 "ell_settle_push_batch", "ell_sliced_settle_push_batch",
+                 "ell_settle_tail_batch") + DELTA_PAIR[
+                     "sliced" if layout == "padded" else "padded"][2:3]
+        if any(counts[name] for name in relax):
+            raise SystemExit(f"{what} launched another kernel than delta's "
+                             f"four: {[nm for nm in relax if counts[nm]]}")
 
-    def parent_relax(ell):
-        """The parent's relax of the delta policy, for timing it in turns
-        with the push: the two gathers over the weight-gated in-views,
-        held as its ``prepare`` held them."""
-        held = {}
+    delta_phase_of = DeltaPolicy.phase
 
-        def relax(d, light, heavy, ell_out, delta, *, use_kernels=True):
-            if delta not in held:
-                held.clear()
-                held[delta] = kops.weight_gated_ell(
-                    ell, torch.tensor(delta, dtype=torch.float32,
-                                      device=dev))
-            return kops.delta_relax_batch(d, light, heavy, *held[delta],
-                                          use_kernels=use_kernels)
-        return relax
+    def parent_method(self, graph, aux, s, use_kernels, go_of):
+        return parent_delta_phase(s, aux, go_of, use_kernels)
 
     delta_e2e, delta_serve, delta_turns = {}, {}, {}
     for what, graph, ell, srcs8, srcs16, delta, want_row, fin_row in (
@@ -5795,12 +6063,10 @@ def main() -> int:
         log(f"delta e2e {what}: the B={LANES} kernel solve ran "
             f"{int(res_d.total_phases)} trips in {solve_d_s:.3f} s")
         by_path[f"delta_solve_{what}"] = read_counts()
-        push_name = ("ell_delta_push_batch" if what == "padded"
-                     else "ell_sliced_delta_push_batch")
-        must_run(by_path[f"delta_solve_{what}"], (
-            "frontier_crit_lanes_batch", push_name), f"the {what} delta solve")
+        must_run(by_path[f"delta_solve_{what}"], DELTA_PAIR[what],
+                 f"the {what} delta solve")
         total_d = int(res_d.total_phases)
-        no_relax_but(by_path[f"delta_solve_{what}"], push_name,
+        no_relax_but(by_path[f"delta_solve_{what}"], what,
                      f"the {what} delta solve")
         t0 = time.perf_counter()
         res_dp = run_phased_static_batch(graph, srcs8, use_kernels=False, **kw)
@@ -5819,16 +6085,15 @@ def main() -> int:
 
         walls_d = repeat_wall(solve_d, solve_d_s)
         solve_d_s = float(np.median(walls_d))
-        # the parent's relax (#5 / #9 twice a phase) and the push in turns:
-        # parent, push, push, parent, the same solve, wall ms a phase
-        # (the memoised captures replay the relax they were captured with:
-        # they are freed on each side of a swap, and a warm-up solve
-        # captures before the timed one)
-        push_relax, parent = kops.delta_push_relax_batch, parent_relax(ell)
+        # the parent's phase (#2 on the bucket ids, #5c / #9c and the
+        # PyTorch glue) and the committed pair in turns: parent, pair, pair,
+        # parent, the same solve, wall ms a phase (the memoised captures
+        # replay the phase they were captured with: they are freed on each
+        # side of a swap, and a warm-up solve captures before the timed one)
         turns = []
-        for label in ("parent", "push", "push", "parent"):
+        for label in ("parent", "pair", "pair", "parent"):
             if label == "parent":
-                kops.delta_push_relax_batch = parent
+                DeltaPolicy.phase = parent_method
             try:
                 TS.forget_chunks(graph)
                 solve_d()
@@ -5839,7 +6104,7 @@ def main() -> int:
                 turns.append((label, (time.perf_counter() - t0) / total_d
                               * 1e3))
             finally:
-                kops.delta_push_relax_batch = push_relax
+                DeltaPolicy.phase = delta_phase_of
                 TS.forget_chunks(graph)
             if not same_bits(res_t.dist, res_d.dist) or \
                     int(res_t.total_phases) != total_d:
@@ -5888,9 +6153,8 @@ def main() -> int:
         rows_ds, ph_ds, l_ds, s_ds, steps_ds, trips_ds = serve(backend_d,
                                                                srcs16)
         del backend_d
-        must_run(l_ds, (push_name, "frontier_crit_lanes_batch"),
-                 f"{what} delta serving")
-        no_relax_but(l_ds, push_name, f"{what} delta serving")
+        must_run(l_ds, DELTA_PAIR[what], f"{what} delta serving")
+        no_relax_but(l_ds, what, f"{what} delta serving")
         for i in range(LANES):
             if not np.array_equal(rows_ds[i].view(np.int32),
                                   dist_d[i].view(np.int32)):
@@ -5920,9 +6184,9 @@ def main() -> int:
         f"{default_ms_phase:.3f}, phase 4), sliced kronecker("
         f"{KRON_K}) {delta_e2e['sliced'][0] / delta_e2e['sliced'][1] * 1e3:.3f}"
         f" (default {sliced_solve['instatic|outstatic'][0] / sliced_solve['instatic|outstatic'][1] * 1e3:.3f}, phase 15)")
-    log("delta against the parent's relax (#5 / #9 twice a phase), ms/phase"
-        " in turns, medians: " + "; ".join(
-            f"{what} push {np.median([t for lab, t in tr if lab == 'push']):.3f}"
+    log("delta against the parent's phase (#2, #5c / #9c and the glue), "
+        "ms/phase in turns, medians: " + "; ".join(
+            f"{what} pair {np.median([t for lab, t in tr if lab == 'pair']):.3f}"
             f" parent {np.median([t for lab, t in tr if lab == 'parent']):.3f}"
             for what, tr in delta_turns.items()))
     log(f"phase 20: {time.perf_counter() - t20:.1f} s")
@@ -6019,11 +6283,11 @@ def main() -> int:
         torch.cuda.synchronize()
         tel_s = time.perf_counter() - t0
         by_path[f"telemetry[{plan}]"] = read_counts()
-        must_run(by_path[f"telemetry[{plan}]"], (
-            "frontier_crit_lanes_batch",
-            *{"delta": ("ell_delta_push_batch",),
-              "in|out": ("ell_relax_keys_batch",)}
-            .get(plan, PAIR["padded"])), f"the {plan} telemetry run")
+        must_run(by_path[f"telemetry[{plan}]"], {
+            "delta": DELTA_PAIR["padded"],
+            "in|out": ("frontier_crit_lanes_batch", "ell_relax_keys_batch")}
+            .get(plan, ("frontier_crit_lanes_batch", *PAIR["padded"])),
+            f"the {plan} telemetry run")
         if plan == "instatic|outstatic" and \
                 by_path[f"telemetry[{plan}]"]["ell_push_relax_batch"]:
             raise SystemExit("the default plan's telemetry run launched the "
@@ -6100,15 +6364,14 @@ def main() -> int:
 
     def cand_kernels(spec, layout):
         """(kernels a candidate's solves must launch, kernels they must
-        not): every candidate runs #2 and no pull relax (#1); a layout
-        runs none of the other layout's kernels; delta relaxes by its push
-        (#5c / #9c) and runs neither gather (#5 / #9); a push plan commits
-        through the pair, its probe (telemetry on) too, and launches no
-        PR 15 push."""
+        not): every criterion candidate runs #2 and no pull relax (#1); a
+        layout runs none of the other layout's kernels; delta commits its
+        phase through its four (the threshold, the mark, the push, the
+        tail) and runs neither #2, the gathers (#5 / #9) nor #5c / #9c; a
+        push plan commits through the pair, its probe (telemetry on) too,
+        and launches neither #1b's nor #9b's push."""
         padded = layout == "padded"
-        must = {"delta": ("ell_delta_push_batch",) if padded
-                else ("ell_sliced_delta_push_batch",),
-                "in|out": ("ell_relax_keys_batch", "ell_keys_dep_batch")
+        must = {"in|out": ("ell_relax_keys_batch", "ell_keys_dep_batch")
                 if padded else (PUSH_IN_SCAN, "ell_sliced_keys_dep_batch"),
                 }.get(spec, ("ell_push_relax_batch",) if padded
                       else ("ell_sliced_push_relax_batch",))
@@ -6119,10 +6382,14 @@ def main() -> int:
         never = ("ell_relax_batch", "ell_sliced_relax_keys_batch") + (
             ("ell_sliced_gather_min_batch", PUSH_IN_SCAN,
              "ell_sliced_keys_dep_batch", "ell_sliced_push_relax_batch",
-             "ell_sliced_delta_push_batch", "ell_sliced_settle_push_batch")
+             "ell_sliced_delta_push_batch", "ell_sliced_settle_push_batch",
+             "ell_sliced_delta_settle_push_batch")
             if padded else padded_gathers)
         if spec == "delta":
-            never += ("ell_key_min_batch", "ell_sliced_gather_min_batch")
+            return DELTA_PAIR[layout], never + (
+                "frontier_crit_lanes_batch", "ell_key_min_batch",
+                "ell_sliced_gather_min_batch", "ell_delta_push_batch",
+                "ell_sliced_delta_push_batch")
         if commits:
             never += ("ell_push_relax_batch", "ell_sliced_push_relax_batch")
         return ("frontier_crit_lanes_batch",) + must, never
@@ -7191,6 +7458,50 @@ def main() -> int:
             ("ell_sliced_delta_push_batch",
              "src/repro/kernels/ell_relax_keys.py:311", "sliced"))
     ] + [
+        # delta's committed phase, which redesigns #5c / #9c and #2 on
+        # delta's path: each of its four launches timed by kernel on phase
+        # 20's real delta phase, in turns with the parent's phase (#2 on the
+        # bucket ids, #5c / #9c and the PyTorch glue); launches: phase 20's
+        # delta serving, padded (the sliced serving's beside the layouts'
+        # shared threshold, mark and tail)
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "kernel": kern,
+         "launches": by_path[f"delta_serving_{what}"][name],
+         "max_abs_err": errs[name], "ms": dpair[what]["ms"][kern],
+         "plain_ms": dpair[what]["plain_ms"][kern],
+         "bound_ms": dpair[what]["bounds"][kern][0],
+         "bound_by": dpair[what]["bounds"][kern][1], "library_ms": None,
+         "pair_ms": sum(dpair[what]["ms"].values()),
+         "parent_phase_ms": dpair[what]["parent_ms"],
+         "parent_crit_ms": dpair[what]["parent_crit_ms"],
+         "parent_push_ms": dpair[what]["parent_push_ms"],
+         "parent_glue_ms": dpair[what]["parent_glue_ms"],
+         "light": dpair[what]["light"], "heavy": dpair[what]["heavy"],
+         "worklist_entries": dpair[what]["entries"],
+         "candidates": dpair[what]["candidates"],
+         "delta_ms_phase_turns": delta_turns[what],
+         **({"sliced_launches": by_path["delta_serving_sliced"][name],
+             "sliced_phase_ms": dpair["sliced"]["ms"][kern],
+             "sliced_phase_bound_ms": dpair["sliced"]["bounds"][kern][0]}
+            if what == "padded" else {})}
+        for name, kern, what, source, replaces in (
+            ("delta_thresholds_batch", "delta_crit_kernel", "padded",
+             "src/repro_torch/kernels/csrc/frontier_crit.cu",
+             "src/repro/kernels/frontier_crit.py:94"),
+            ("ell_delta_settle_mark_batch", "delta_settle_mark_kernel",
+             "padded", "src/repro_torch/kernels/csrc/ell_push.cu",
+             "src/repro/kernels/ell_key_min.py:86"),
+            ("ell_delta_settle_push_batch", "delta_settle_push_kernel",
+             "padded", "src/repro_torch/kernels/csrc/ell_push.cu",
+             "src/repro/kernels/ell_key_min.py:86"),
+            ("ell_sliced_delta_settle_push_batch",
+             "delta_settle_push_kernel", "sliced",
+             "src/repro_torch/kernels/csrc/ell_push.cu",
+             "src/repro/kernels/ell_relax_keys.py:311"),
+            ("ell_delta_settle_tail_batch", "settle_tail_kernel", "padded",
+             "src/repro_torch/kernels/csrc/ell_push.cu",
+             "src/repro/kernels/ell_key_min.py:86"))
+    ] + [
         # #1b in its rectangular form, the sharded stepper's relax and key
         # scans; it stands for the reference's shard-local XLA segment_min
         # (no pallas_call). Launches: rank 0's, the default reduce_scatter
@@ -7256,8 +7567,13 @@ def main() -> int:
     # resources: the most registers and static shared bytes among them and
     # their spilled bytes (stores + loads)
     contracts = collect_contracts()
-    pair_contract = {"ell_sliced_settle_push_batch":
-                     "ell_sliced_settle_commit_batch"}
+    pair_contract = {
+        "ell_sliced_settle_push_batch": "ell_sliced_settle_commit_batch",
+        "delta_thresholds_batch": "delta_thresholds_batch",
+        "ell_delta_settle_mark_batch": "ell_delta_commit_batch",
+        "ell_delta_settle_push_batch": "ell_delta_commit_batch",
+        "ell_sliced_delta_settle_push_batch": "ell_sliced_delta_commit_batch",
+        "ell_delta_settle_tail_batch": "ell_delta_commit_batch"}
     for row in kernels:
         name = row["name"].replace("[out_view]", "_push").replace(
             "[block]", "")

@@ -357,8 +357,12 @@ def launch_shapes(defines: dict[str, dict[str, int]]) -> dict:
         ("ell_push", "settle_mark_kernel"): fixed(p["SETTLE_THREADS"]),
         ("ell_push", "settle_push_kernel"): fixed(p["PUSH_THREADS"]),
         ("ell_push", "settle_tail_kernel"): fixed(p["SETTLE_TAIL_THREADS"]),
+        ("ell_push", "delta_settle_mark_kernel"): fixed(p["SETTLE_THREADS"]),
+        ("ell_push", "delta_settle_push_kernel"): fixed(p["PUSH_THREADS"]),
         ("frontier_crit", "crit_kernel"): fixed(c["CRIT_THREADS"],
                                                 crit_blocks),
+        ("frontier_crit", "delta_crit_kernel"): fixed(c["CRIT_THREADS"],
+                                                      crit_blocks),
         ("embed_grad", "embed_grad_kernel"): fixed(e["EMBED_THREADS"]),
     }
 

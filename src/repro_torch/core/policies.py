@@ -47,22 +47,26 @@ attribution ring, the settle mask is built member by member and each
 settled vertex is credited to the first member that proved it.
 
 :class:`DeltaPolicy` is delta-stepping (Meyer & Sanders) on the same
-stepper. A phase reduces the bucket id ``floor(d / delta)`` over the fringe
-with ``frontier_crit_lanes_batch`` and relaxes once, by a push along the
-OUTGOING view (``ops.delta_push_relax_batch``: ``ell_delta_push_batch``, or
-``ell_sliced_delta_push_batch`` on the sliced layout, whose out-view is
-its buckets alone, ``to_ell_out_buckets``): the light sources push their
-arcs of weight <= delta, the heavy ones the others, the weight gate formed
-as each arc is read. The reference gathers twice over light and heavy
-weight-gated copies of the incoming view (``ops.delta_relax_batch``); the
-push gives the same bits and holds no such copy, and delta reads no
-in-view at all (its ``in_view`` is None). The carried stack
-holds the drain bookkeeping: slot 0 the ``last_processed`` tentative
-distance, slot 1 the removed-from-bucket flag. A lane is on a light round
-while a bucket vertex has ``d < last_processed``; otherwise the phase is
-its heavy turn, on which the removed vertices relax their heavy edges and
-settle. The bucket is the per-vertex index compare, as in the reference
-(its docstring says why the interval compare could livelock in f32).
+stepper, and commits its phase the same way (``ops.commit_delta_phase``):
+delta's threshold launch (``ops.delta_thresholds``: the bucket id
+``floor(d / delta)`` reduced over the fringe, the fringe size, and the
+witness of a light round) and then delta's mark, the worklist push along
+the OUTGOING view (the padded one, or on the sliced layout its buckets
+alone, ``to_ell_out_buckets``) with the light sources pushing their arcs
+of weight <= delta and the heavy ones the others, the weight gate formed as
+each arc is read, and the tail: four launches that write ``dist``,
+``status``, the carried stack, the counters and the rings in place, with no
+pass of PyTorch over (B, n). The reference gathers twice over light and
+heavy weight-gated copies of the incoming view (``ops.delta_relax_batch``);
+the push gives the same bits and holds no such copy, and delta reads no
+in-view at all (its ``in_view`` is None). The carried stack holds the
+drain bookkeeping: slot 0 the ``last_processed`` tentative distance, slot 1
+the removed-from-bucket flag. A lane is on a light round while a bucket
+vertex has ``d < last_processed``; otherwise the phase is its heavy turn,
+on which the removed vertices relax their heavy edges and settle. The
+bucket is the per-vertex index compare, as in the reference (its docstring
+says why the interval compare could livelock in f32).
+:meth:`DeltaPolicy.gates` is the plain decision of one phase.
 """
 from __future__ import annotations
 
@@ -75,6 +79,7 @@ import torch
 from repro_torch.core import criteria as C
 from repro_torch.core.graph import (
     Graph,
+    out_degrees,
     to_ell_in,
     to_ell_in_sliced,
     to_ell_out,
@@ -105,8 +110,8 @@ class PhaseOutcome(NamedTuple):
     #   slots, only when the state carries an attribution ring
     committed: bool = False  # the phase wrote the state's buffers in place,
     #   the chassis' counters, rings and target demotion included, and
-    #   spent the budget (the pair, ``CriterionPolicy.commits``):
-    #   ``n_settled``, ``relax_inc`` and ``go`` are then None
+    #   spent the budget (the pair, ``CriterionPolicy.commits``, and
+    #   delta): ``n_settled``, ``relax_inc`` and ``go`` are then None
 
 
 class PhasePolicy:
@@ -516,6 +521,19 @@ class CriterionPolicy(PhasePolicy):
             n_settled=None, relax_inc=None, go=None, committed=True)
 
 
+def delta_degrees(g: Graph, delta) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n,) int32 ``(deg_light, deg_heavy)``: each vertex's out-arcs of
+    weight ``<= delta`` (f32) and the others (the COO padding carries w =
+    +inf, which ``isfinite`` drops)."""
+    if not torch.is_tensor(delta):
+        delta = torch.tensor(delta, dtype=torch.float32, device=g.device)
+    light = torch.isfinite(g.w) & (g.w <= delta)
+    deg_light = torch.zeros((g.n,), dtype=torch.int32,
+                            device=g.device).index_add_(
+        0, g.src.long(), light.to(torch.int32))
+    return deg_light, out_degrees(g) - deg_light
+
+
 class DeltaGates(NamedTuple):
     """One delta phase's settle decision (:meth:`DeltaPolicy.gates`)."""
 
@@ -573,25 +591,22 @@ class DeltaPolicy(PhasePolicy):
         return 4 * n + 16
 
     def prepare(self, g: Graph, ell_in, ell_out, state, use_kernels: bool):
-        """``(ell_out, delta, deg_light, deg_heavy)``: the out-view the
-        push reads, the state's f32 delta as a Python float (read back once
-        here, handed to the kernel by value every phase) and the light and
-        heavy out-degrees of the relax counters, memoised on the graph for
-        one (out-view, delta) pair at a time: a server stepping in chunks
-        counts them once."""
+        """``(ell_out, delta, deg_light, deg_heavy, vrows)``: the out-view
+        the push reads, the state's f32 delta as a Python float (read back
+        once here, handed to the kernels by value every phase), the light
+        and heavy out-degrees of the relax counters and, on a sliced
+        out-view, its vertex row table (memoised on the graph), memoised on
+        the graph for one (out-view, delta) pair at a time: a server
+        stepping in chunks counts them once."""
         delta = float(state.delta)
         hit = g.__dict__.get("_delta_prepare_cache")
         if (hit is not None and hit[1] == delta
                 and len(hit[0]) == len(ell_out)
                 and all(a is b for a, b in zip(hit[0], ell_out))):
             return hit[2]
-        # light and heavy out-degrees for the relax counters (the COO
-        # padding carries w = +inf, which `isfinite` drops)
-        light = torch.isfinite(g.w) & (g.w <= state.delta)
-        deg_light = torch.zeros((g.n,), dtype=torch.int32,
-                                device=g.device).index_add_(
-            0, g.src.long(), light.to(torch.int32))
-        aux = (ell_out, delta, deg_light, state.out_deg - deg_light)
+        vrows = (vertex_row_table(g, ell_out) if kops._is_sliced(ell_out)
+                 else None)
+        aux = (ell_out, delta, *delta_degrees(g, state.delta), vrows)
         g.__dict__["_delta_prepare_cache"] = (ell_out, delta, aux)
         return aux
 
@@ -624,51 +639,28 @@ class DeltaPolicy(PhasePolicy):
 
     def phase(self, g: Graph, aux, s, use_kernels: bool,
               go_of) -> PhaseOutcome:
-        ell_out, delta, deg_light, deg_heavy = aux
-        d, status = s.dist, s.status
-        last_proc = s.crit_keys[0]
-        removed = s.crit_keys[1] > 0.5
-        _, b_lane, n_f, cur, heavy_turn, _ = self.gates(s, use_kernels)
-        # the loop predicate gates the work set and the heavy turn: a dead
-        # phase relaxes nothing and keeps the drain bookkeeping, so every
-        # field stays its entry's bits without a select
-        go = go_of(n_f)
-        cur = cur & go
-        heavy_turn = heavy_turn & go
-        heavy_from = heavy_turn[:, None] & removed
-        # one push: light arcs from this round's work set, heavy arcs from
-        # the removed set on the heavy turn
-        upd = kops.delta_push_relax_batch(d, cur, heavy_from, ell_out, delta,
-                                          use_kernels=use_kernels)
-        settle = heavy_from  # the bucket settles on its heavy turn
-        # d >= +0 and upd = d + w >= +0: no -0 reaches this min
-        new_d = torch.minimum(d, upd)
-        new_status = torch.where(
-            settle, 2, torch.where((status == 0) & (upd < INF), 1, status)
-        ).to(torch.int32)
-        # drain bookkeeping: light rounds record the processed tentatives
-        # and extend `removed`; the heavy turn resets both for the next
-        # bucket (an idle lane is a fixed point: both are fresh already)
-        new_last = torch.where(heavy_turn[:, None], INF,
-                               torch.where(cur, d, last_proc))
-        new_removed = ~heavy_turn[:, None] & (removed | cur)
-        n_settled = settle.sum(dim=1, dtype=torch.int32)
-        relax_inc = (torch.where(cur, deg_light[None], 0).sum(
-            dim=1, dtype=torch.int64)
-            + torch.where(heavy_from, deg_heavy[None], 0).sum(
-                dim=1, dtype=torch.int64))
-        attr_counts = None
-        if s.attr_trace is not None:
-            bucket_id = torch.where(n_f > 0, b_lane, 0.0).to(torch.int32)
-            attr_counts = torch.stack(
-                [cur.sum(dim=1, dtype=torch.int32), n_settled, bucket_id],
-                dim=1)
+        """The phase through delta's threshold and its committing pair
+        (``ops.commit_delta_phase``), which write ``s``'s buffers, the
+        carried stack, the chassis' counters and rings included, and
+        ``go_of.budget`` in place."""
+        ell_out, delta, deg_light, deg_heavy, vrows = aux
+        d, status, keys = s.dist, s.status, s.crit_keys
+        mins, counts = kops.delta_thresholds(d, status, keys[0], delta,
+                                             use_kernels=use_kernels)
+        kops.commit_delta_phase(
+            kops.CommitBuffers(
+                dist=d, status=status, trips=s.trips, phases=s.phases,
+                sum_fringe=s.sum_fringe, relax_edges=s.relax_edges,
+                settled_trace=s.settled_trace, budget=go_of.budget,
+                live0=go_of.live0, out_deg=s.out_deg, target=s.target,
+                fringe_trace=s.fringe_trace, relax_trace=s.relax_trace,
+                attr_trace=s.attr_trace, crit_keys=keys),
+            mins, counts,
+            kops.DeltaRule(delta, deg_light, deg_heavy, go_of.stop),
+            ell_out, vrows, use_kernels=use_kernels)
         return PhaseOutcome(
-            dist=new_d, status=new_status,
-            crit_keys=torch.stack([new_last, new_removed.to(torch.float32)]),
-            n_fringe=n_f, n_settled=n_settled, relax_inc=relax_inc, go=go,
-            attr_counts=attr_counts,
-        )
+            dist=d, status=status, crit_keys=keys, n_fringe=counts[0],
+            n_settled=None, relax_inc=None, go=None, committed=True)
 
 
 def canonical_spec(spec: str) -> str:

@@ -51,11 +51,18 @@ def launch_counters() -> dict:
         ell_sliced_push_relax_batch,
         ell_sliced_relax_keys_batch,
     )
-    from repro_torch.kernels.frontier_crit import frontier_crit_lanes_batch
+    from repro_torch.kernels.frontier_crit import (
+        delta_thresholds_batch,
+        frontier_crit_lanes_batch,
+    )
     from repro_torch.kernels.settle_push import (
+        ell_delta_settle_mark_batch,
+        ell_delta_settle_push_batch,
+        ell_delta_settle_tail_batch,
         ell_settle_mark_batch,
         ell_settle_push_batch,
         ell_settle_tail_batch,
+        ell_sliced_delta_settle_push_batch,
         ell_sliced_settle_push_batch,
     )
 
@@ -68,7 +75,9 @@ def launch_counters() -> dict:
         ell_push_rect_batch, ell_delta_push_batch,
         ell_sliced_delta_push_batch, ell_settle_mark_batch,
         ell_settle_push_batch, ell_sliced_settle_push_batch,
-        ell_settle_tail_batch)}
+        ell_settle_tail_batch, delta_thresholds_batch,
+        ell_delta_settle_mark_batch, ell_delta_settle_push_batch,
+        ell_sliced_delta_settle_push_batch, ell_delta_settle_tail_batch)}
     counted[PUSH_IN_SCAN] = (ell_sliced_relax_keys_batch, "push_launches")
     return counted
 

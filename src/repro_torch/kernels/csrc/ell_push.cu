@@ -629,6 +629,59 @@ extern "C" int ell_delta_push_launch(const float* d, const unsigned char* light,
 //
 // Build flags: no --use_fast_math and no flush-to-zero (_build.py), so
 // d - in_min_static <= min_F d is the reference's compare, bit for bit.
+//
+// Delta's form (delta_mode; kernels/settle_push.py's commit_delta_phase).
+// Delta-stepping's phase is four launches: its threshold (frontier_crit.cu,
+// delta_crit_kernel: each lane's bucket, |F| and the witness of a light
+// round), then
+//
+//  1. delta_settle_mark_kernel: on each lane on its light round, each
+//     fringe vertex of the lane's bucket below its last_proc (the work set
+//     `cur`, its bucket id the same f32 divide and floorf as the
+//     threshold's) gets last_proc := d and removed := 1 and is a source;
+//     on each lane on its heavy turn, each removed fringe vertex settles
+//     (status 2), gets last_proc := +inf and removed := 0 and is a source.
+//     Its counters: the settled, the light ones (the attribution ring's
+//     first slot) and relax_inc (the light out-degree of a light source,
+//     the heavy one of a heavy source), as settle_mark_kernel's;
+//  2. delta_settle_push_kernel: the worklist push, each slot's weight gated
+//     by the lane's turn against the f32 delta: a lane on its light round
+//     pushes d + w where w <= delta and d + inf elsewhere, one on its heavy
+//     turn the other way round (the reference's add on its gated weights;
+//     a gated-out slot of a finite source gives +inf and is not read);
+//  3. settle_tail_kernel, with delta's attribution triple (light, heavy, the
+//     lane's bucket id cast by __float2int_rz, as the card casts it: a NaN
+//     to 0, beyond the range to its end).
+//
+// It replaces, on the delta policy's phase, #5c / #9c (delta_mark_kernel
+// and delta_push_kernel above) and the dozen PyTorch passes over B x n
+// around them (the bucket ids, cur, the drain bookkeeping, the min and the
+// status select, the re-stacked keys, the counters): the same TPU kernels
+// as those, repro/kernels/ell_key_min.py::ell_key_min_batch (:86,
+// pallas_call at :108) on the padded layout and repro/kernels/
+// ell_relax_keys.py::ell_sliced_gather_min_batch (:311, pallas_call at
+// :334) on the sliced one, and #2 (frontier_crit.py:94, pallas_call at
+// :136) for the threshold.
+//
+// What bounds it: memory, as the pair. The mark reads status whole and d,
+// last_proc and removed in the sectors that hold a fringe slot; the push
+// the sources' out-rows. Design decisions beside the pair's:
+//  * the heavy gate is per lane: a lane's turn follows from the whole
+//    lane's work set, which the mark cannot see from one vertex, so the
+//    threshold gives the witness and the mark and the push read each lane's
+//    turn from it; a worklist entry keeps one lane word, (row, word), the
+//    turn of each of its lanes coming from the lane;
+//  * the drain bookkeeping is written only where it changes: on a heavy
+//    turn at the removed slots, which is the reference's whole-lane reset
+//    because every state the stepper makes holds last_proc != +inf =>
+//    removed => status 1 (tests/test_torch_delta_commit.py); a lane
+//    without fringe then has nothing to reset;
+//  * same-phase hazards: a light candidate may land on another source of
+//    the phase, a heavy one on a vertex settled this phase or earlier (the
+//    reference's min(d, upd) lowers those too), so sources push from d_src,
+//    their entry distance, as the pair's do. A NaN candidate comes only from
+//    a NaN or -inf source, which no state of the stepper holds (a NaN d is
+//    never below last_proc, so it never enters the drain).
 
 #define SETTLE_THREADS 256
 #define SETTLE_MAX_OUT 8         // OUT lanes (#2's mins rows 1..) the mark takes
@@ -669,6 +722,12 @@ struct SettleArgs {
   int* fringe_ring;              // (B, ring_len) telemetry, or null (none
   int* relax_ring;               //   of the three): fringe sizes, relax_inc,
   int* attr_ring;                //   (B, ring_len, n_terms) first-true counts
+  // delta's form (delta_mode): mins is the threshold's (2, B), n_fringe its
+  // first count row
+  float* keys;                   // (2, B, n) last_proc and removed, in place
+  const int* deg_light;          // (n,) out-arcs of weight <= delta
+  const int* deg_heavy;          // (n,) the others
+  const int* n_cur;              // (B,) the threshold's second count row
   long long n;
   long long total_rows;          // rows of the view (every bucket)
   int lanes;
@@ -677,7 +736,9 @@ struct SettleArgs {
   int zero;                      // the DIJK term d <= min_F d
   int stop;                      // stop_on_lane_finish
   int ring_len;
-  int n_terms;                   // zero + (in_key != null) + k_out
+  int n_terms;                   // zero + (in_key != null) + k_out; delta: 3
+  float delta;                   // delta's f32 bucket width
+  int delta_mode;                // 1: delta's form
 };
 
 // The reference's loop predicate from the phase's fringe sizes: some lane
@@ -695,10 +756,16 @@ __device__ __forceinline__ bool settle_go(const SettleArgs& a) {
   return any_live != 0 && *a.budget > 0 && !(a.stop && differ != 0);
 }
 
-// The mark. Grid: (blocks over n, lane tiles); a thread is a vertex u of
-// its block's tile of 32 lanes.
-__global__ void __launch_bounds__(SETTLE_THREADS)
-    settle_mark_kernel(const __grid_constant__ SettleArgs a) {
+// Whether lane b is on delta's heavy turn: no work set (the threshold's
+// witness, see frontier_crit.cu).
+__device__ __forceinline__ bool delta_heavy(const SettleArgs& a, int b) {
+  return !(a.n_cur[b] > 0 && a.mins[a.lanes + b] == a.mins[b]);
+}
+
+// The mark (DELTA: delta's). Grid: (blocks over n, lane tiles); a thread is
+// a vertex u of its block's tile of 32 lanes.
+template <bool DELTA>
+__device__ __forceinline__ void settle_mark_body(const SettleArgs& a) {
   __shared__ float s_min[1 + SETTLE_MAX_OUT][32];
   __shared__ float s_bound[32];
   __shared__ unsigned s_cnt[32];
@@ -706,6 +773,7 @@ __global__ void __launch_bounds__(SETTLE_THREADS)
   __shared__ unsigned s_attr[SETTLE_MAX_TERMS][32];
   __shared__ unsigned s_wcnt[SETTLE_SHARED_BUCKETS];
   __shared__ unsigned s_wbase[SETTLE_SHARED_BUCKETS];
+  __shared__ unsigned s_heavy;  // DELTA: bit k, lane b0 + k's heavy turn
   const bool go = settle_go(a);
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *a.go = go;
   if (!go) return;
@@ -723,13 +791,18 @@ __global__ void __launch_bounds__(SETTLE_THREADS)
     // the s->t bound: the target's entry distance (+inf on a full-solve
     // lane, where it gates nothing but the +inf sources)
     float bd = CUDART_INF_F;
-    if (a.target != nullptr && a.target[b] >= 0) {
+    if (!DELTA && a.target != nullptr && a.target[b] >= 0) {
       bd = a.d[(long long)b * n + a.target[b]];
     }
     s_bound[threadIdx.x] = bd;
     s_cnt[threadIdx.x] = 0;
     s_deg[threadIdx.x] = 0;
     for (int t = 0; attr && t < a.n_terms; ++t) s_attr[t][threadIdx.x] = 0;
+  }
+  if (DELTA && threadIdx.x < 32) {
+    const bool h = threadIdx.x < nl && delta_heavy(a, b0 + threadIdx.x);
+    const unsigned hw = __ballot_sync(FULL_MASK, h);
+    if (threadIdx.x == 0) s_heavy = hw;
   }
   for (int k = threadIdx.x; agg && k < a.nb; k += blockDim.x) s_wcnt[k] = 0;
   __syncthreads();
@@ -738,11 +811,43 @@ __global__ void __launch_bounds__(SETTLE_THREADS)
   int bucket = 0, first = 0, rows = 0, base = 0;
   unsigned off = 0;
   if (u < n) {
-    const float ik = a.in_key != nullptr ? a.in_key[u] : 0.0f;
-    int deg = -1;
+    const float ik = !DELTA && a.in_key != nullptr ? a.in_key[u] : 0.0f;
+    int deg = -1, deg_h = -1;  // DELTA: the light and heavy degrees
     for (int k = 0; k < nl; ++k) {
       const long long i = (long long)(b0 + k) * n + u;
       if (a.status[i] != 1) continue;
+      if (DELTA) {
+        float* removed = a.keys + (long long)a.lanes * n;
+        float dv;
+        if ((s_heavy >> k) & 1u) {
+          // the heavy turn: the removed fringe vertices settle
+          if (!(removed[i] > 0.5f)) continue;
+          a.status[i] = 2;
+          a.keys[i] = CUDART_INF_F;
+          removed[i] = 0.0f;
+          atomicAdd(&s_cnt[k], 1u);
+          if (deg_h < 0) deg_h = a.deg_heavy[u];
+          atomicAdd(&s_deg[k], (unsigned long long)deg_h);
+          dv = a.d[i];
+        } else {
+          // a light round: the bucket's vertices below their last_proc
+          dv = a.d[i];
+          if (!(floorf(__fdiv_rn(dv, a.delta)) == s_min[0][k] &&
+                dv < a.keys[i])) {
+            continue;
+          }
+          a.keys[i] = dv;
+          removed[i] = 1.0f;
+          if (attr) atomicAdd(&s_attr[0][k], 1u);
+          if (deg < 0) deg = a.deg_light[u];
+          atomicAdd(&s_deg[k], (unsigned long long)deg);
+        }
+        if (dv != CUDART_INF_F) {  // a +inf source pushes nothing
+          pword |= 1u << k;
+          a.d_src[i] = dv;
+        }
+        continue;
+      }
       const float dv = a.d[i];
       const float m0 = s_min[0][k];
       // the first true term, in the plan's order (t counts the terms)
@@ -819,6 +924,16 @@ __global__ void __launch_bounds__(SETTLE_THREADS)
   }
 }
 
+__global__ void __launch_bounds__(SETTLE_THREADS)
+    settle_mark_kernel(const __grid_constant__ SettleArgs a) {
+  settle_mark_body<false>(a);
+}
+
+__global__ void __launch_bounds__(SETTLE_THREADS)
+    delta_settle_mark_kernel(const __grid_constant__ SettleArgs a) {
+  settle_mark_body<true>(a);
+}
+
 // One bucket of the worklist push: its rows, its width's geometry, its
 // global index (counts and the mark's row offsets).
 struct SettleBucket {
@@ -840,11 +955,13 @@ struct SettleTable {
 // Warp task `task` of bucket `bk`'s list for lane tile `tile`: entries
 // task * rt + [0, rt) of the list's `cnt`, one lane each. push_task's walk
 // with the commit: each candidate d_src[b, u] + w lowers d[b, v] through the
-// filtered atomic min and sets status 0 -> 1 (see the rule above).
-template <int G>
+// filtered atomic min and sets status 0 -> 1 (see the rule above). DELTA:
+// `heavy` holds the tile's lanes on their heavy turn, and each slot's
+// weight is gated by its lane's turn (delta's form above).
+template <int G, bool DELTA>
 __device__ __forceinline__ void settle_push_task(
     const SettleBucket& bk, const uint2* list, unsigned cnt, long long task,
-    int tile, const SettleArgs& a) {
+    int tile, const SettleArgs& a, unsigned heavy) {
   constexpr int RPW = 32 / G;
   constexpr int SPAN = PUSH_UNROLL * G;
   const long long n = a.n;
@@ -891,20 +1008,39 @@ __device__ __forceinline__ void settle_push_task(
             (__ballot_sync(gmask, v[q] < 0 || v[q] >= n) >> (gid * G)) & low;
         if (x != 0 && end == SPAN) end = q * G + __ffs(x) - 1;
       }
+      // DELTA: bit q set where slot q's weight is light (w <= delta, the
+      // reference's compare; a NaN weight is heavy)
+      unsigned light = 0;
+#pragma unroll
+      for (int q = 0; DELTA && q < PUSH_UNROLL; ++q) {
+        light |= (unsigned)(w[q] <= a.delta) << q;
+      }
       for (unsigned lb = rm; lb != 0; lb &= lb - 1) {
-        const long long b = (long long)tile * 32 + (__ffs(lb) - 1);
+        const int k = __ffs(lb) - 1;
+        const long long b = (long long)tile * 32 + k;
         const float du = __ldg(a.d_src + b * n + u);
         float* drow = a.d + b * n;
         int* srow = a.status + b * n;
+        // DELTA: bit q set where slot q is of the lane's turn; a slot of the
+        // other turn gives d + inf, which is +inf and is not read unless
+        // the source is NaN or -inf
+        const unsigned turn =
+            !DELTA ? ~0u : ((heavy >> k) & 1u) != 0 ? ~light : light;
+        const unsigned take =
+            DELTA && du > -CUDART_INF_F && du < CUDART_INF_F ? turn : ~0u;
         float cur[PUSH_UNROLL];
 #pragma unroll
         for (int q = 0; q < PUSH_UNROLL; ++q) {
-          cur[q] = q * G + sub < end ? __ldcg(drow + v[q]) : CUDART_NAN_F;
+          cur[q] = q * G + sub < end && ((take >> q) & 1u) != 0
+                       ? __ldcg(drow + v[q])
+                       : CUDART_NAN_F;
         }
 #pragma unroll
         for (int q = 0; q < PUSH_UNROLL; ++q) {
-          if (q * G + sub >= end) continue;
-          const float cand = du + w[q];
+          if (q * G + sub >= end || ((take >> q) & 1u) == 0) continue;
+          // the reference's add on its gated weight
+          const float cand =
+              du + (((turn >> q) & 1u) != 0 ? w[q] : CUDART_INF_F);
           const bool lowers =
               cand != cand ? cur[q] == cur[q]
                            : cand < cur[q] || (cand == cur[q] &&
@@ -922,16 +1058,24 @@ __device__ __forceinline__ void settle_push_task(
   }
 }
 
-// The worklist push over one group of buckets. Grid: (a persistent count
-// of blocks, lane tiles); each block reads its tile's list counts, and its
-// warps walk the warp tasks of the group's lists (grid-stride).
-__global__ void __launch_bounds__(PUSH_THREADS)
-    settle_push_kernel(const __grid_constant__ SettleTable tab,
-                       const __grid_constant__ SettleArgs a) {
+// The worklist push over one group of buckets (DELTA: delta's). Grid: (a
+// persistent count of blocks, lane tiles); each block reads its tile's list
+// counts (DELTA: and its lanes' turns), and its warps walk the warp tasks of
+// the group's lists (grid-stride).
+template <bool DELTA>
+__device__ __forceinline__ void settle_push_body(const SettleTable& tab,
+                                                 const SettleArgs& a) {
   __shared__ unsigned s_cnt[PUSH_MAX_BUCKETS];
   __shared__ long long s_first[PUSH_MAX_BUCKETS + 1];
+  __shared__ unsigned s_heavy;
   constexpr int WARPS = PUSH_THREADS / 32;
   const int tile = blockIdx.y;
+  if (DELTA && threadIdx.x < 32) {
+    const int b = tile * 32 + threadIdx.x;
+    const bool h = b < a.lanes && delta_heavy(a, b);
+    const unsigned hw = __ballot_sync(FULL_MASK, h);
+    if (threadIdx.x == 0) s_heavy = hw;
+  }
   if (threadIdx.x == 0) {
     long long t = 0;
     for (int i = 0; i < tab.count; ++i) {
@@ -952,14 +1096,27 @@ __global__ void __launch_bounds__(PUSH_THREADS)
     const SettleBucket& bk = tab.e[i];
     const uint2* list = a.work + (long long)tile * a.total_rows + bk.row_off;
     const long long task = gw - s_first[i];
+    const unsigned heavy = DELTA ? s_heavy : 0u;
     if (bk.g == 8) {
-      settle_push_task<8>(bk, list, s_cnt[i], task, tile, a);
+      settle_push_task<8, DELTA>(bk, list, s_cnt[i], task, tile, a, heavy);
     } else if (bk.g == 16) {
-      settle_push_task<16>(bk, list, s_cnt[i], task, tile, a);
+      settle_push_task<16, DELTA>(bk, list, s_cnt[i], task, tile, a, heavy);
     } else {
-      settle_push_task<32>(bk, list, s_cnt[i], task, tile, a);
+      settle_push_task<32, DELTA>(bk, list, s_cnt[i], task, tile, a, heavy);
     }
   }
+}
+
+__global__ void __launch_bounds__(PUSH_THREADS)
+    settle_push_kernel(const __grid_constant__ SettleTable tab,
+                       const __grid_constant__ SettleArgs a) {
+  settle_push_body<false>(tab, a);
+}
+
+__global__ void __launch_bounds__(PUSH_THREADS)
+    delta_settle_push_kernel(const __grid_constant__ SettleTable tab,
+                             const __grid_constant__ SettleArgs a) {
+  settle_push_body<true>(tab, a);
 }
 
 // The tail. Grid: (1, 1) on a state without targets, else (blocks over
@@ -986,8 +1143,16 @@ __global__ void __launch_bounds__(SETTLE_TAIL_THREADS)
         if (a.attr_ring != nullptr) {
           a.fringe_ring[slot] = nf;
           a.relax_ring[slot] = (int)(unsigned)inc;  // the int32 cast's wrap
-          for (int t = 0; t < a.n_terms; ++t) {
-            a.attr_ring[slot * a.n_terms + t] = (int)acc[SETTLE_ATTR + t];
+          if (a.delta_mode) {
+            // delta's (light, heavy, the lane's bucket id)
+            int* at = a.attr_ring + slot * a.n_terms;
+            at[0] = (int)acc[SETTLE_ATTR];
+            at[1] = (int)acc[0];
+            at[2] = __float2int_rz(a.mins[b]);
+          } else {
+            for (int t = 0; t < a.n_terms; ++t) {
+              a.attr_ring[slot * a.n_terms + t] = (int)acc[SETTLE_ATTR + t];
+            }
           }
         }
         a.phases[b] += 1;
@@ -1039,17 +1204,29 @@ extern "C" int settle_phase_launch(int which, const SettleArgs* args,
   if (a.n < 1 || a.lanes < 1 || a.nb < 0 || n_buckets != a.nb ||
       a.k_out < 0 || a.k_out > SETTLE_MAX_OUT || a.ring_len < 1 ||
       (a.vrows == nullptr && a.nb != 1) ||
-      a.n_terms != (a.zero != 0) + (a.in_key != nullptr) + a.k_out ||
       attr != (a.fringe_ring != nullptr) || attr != (a.relax_ring != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  // delta's form: the threshold's two rows, its operands, three slots
+  const bool terms_ok =
+      a.delta_mode
+          ? a.k_out == 1 && a.zero == 0 && a.in_key == nullptr &&
+                a.n_terms == 3 && a.keys != nullptr &&
+                a.deg_light != nullptr && a.deg_heavy != nullptr &&
+                a.n_cur != nullptr
+          : a.n_terms == (a.zero != 0) + (a.in_key != nullptr) + a.k_out;
+  if (!terms_ok) return (int)cudaErrorInvalidValue;
   const int tiles = (a.lanes + 31) / 32;
   if (tiles > 65535 || a.lanes > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (which == 0) {
     const dim3 grid((unsigned)((a.n + SETTLE_THREADS - 1) / SETTLE_THREADS),
                     (unsigned)tiles);
-    settle_mark_kernel<<<grid, SETTLE_THREADS, 0, s>>>(a);
+    if (a.delta_mode) {
+      delta_settle_mark_kernel<<<grid, SETTLE_THREADS, 0, s>>>(a);
+    } else {
+      settle_mark_kernel<<<grid, SETTLE_THREADS, 0, s>>>(a);
+    }
     return (int)cudaGetLastError();
   }
   if (which == 2) {
@@ -1089,7 +1266,11 @@ extern "C" int settle_phase_launch(int which, const SettleArgs* args,
     if (blocks > PUSH_PERSIST_BLOCKS) blocks = PUSH_PERSIST_BLOCKS;
     if (blocks < 1) blocks = 1;
     const dim3 grid((unsigned)blocks, (unsigned)tiles);
-    settle_push_kernel<<<grid, PUSH_THREADS, 0, s>>>(tab, a);
+    if (a.delta_mode) {
+      delta_settle_push_kernel<<<grid, PUSH_THREADS, 0, s>>>(tab, a);
+    } else {
+      settle_push_kernel<<<grid, PUSH_THREADS, 0, s>>>(tab, a);
+    }
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }

@@ -50,6 +50,24 @@
 //    in use; the shared and the per-lane key stacks differ only in their
 //    strides.
 //
+// The delta threshold (delta_thresholds_launch, delta_crit_kernel) is a
+// second entry point of the same body, for delta-stepping's phase:
+//
+//   mins[0, b] = min_{v in F_b} x[b, v]         (the lane's bucket)
+//   mins[1, b] = min_{v in W_b} x[b, v]         cnt[0, b] = |F_b|
+//   cnt[1, b]  = |W_b|        W_b = {v in F_b : d[b, v] < last_proc[b, v]}
+//
+// with the bucket ids x = floorf(d / delta), an IEEE f32 divide
+// (__fdiv_rn; no __fdividef, no fast math) done in registers, delta the
+// bits of the state's f32 width. It stands for the same TPU kernel (#2),
+// which the reference's delta phase runs on x after a PyTorch pass builds
+// x over B x n, and adds the witness of a light round: a lane has one iff
+// cnt[1] > 0 and mins[1] == mins[0] (no d in W is NaN, so W's least id is
+// attained, and the count tells an empty W from an attained +inf id, which
+// a d / delta that overflows gives). It reads last_proc beside d and
+// status (B * n * 12 bytes, ~0.03 ms at n = 1e6, B = 8). The criterion
+// plans' #2 keeps its function and its launch.
+//
 // Min semantics: the fold keeps a NaN, as jnp.min does, and takes -0 over
 // +0 on a tie in either order, as XLA's min does (the card's min.f32,
 // min.NaN.f32 and fminf all give -0 on that tie). CRIT_NAN_FLAG picks the
@@ -76,16 +94,20 @@ __device__ __forceinline__ float nan_min(float m, float v) {
 
 // The running minima of one thread (or block) for lanes l < 1 + K, with
 // the NaN flags of the CRIT_NAN_FLAG form (bit l: lane l met a NaN).
-template <int K>
+// DELTA (K = 1, the key last_proc): lane 0 folds the bucket ids of F,
+// lane 1 those of W, and cnt1 counts W.
+template <int K, bool DELTA = false>
 struct Acc {
   float m[1 + K];
   unsigned nan;
   int cnt;
+  int cnt1;  // delta only
   __device__ __forceinline__ void init() {
 #pragma unroll
     for (int l = 0; l <= K; ++l) m[l] = CUDART_INF_F;
     nan = 0u;
     cnt = 0;
+    if constexpr (DELTA) cnt1 = 0;
   }
   __device__ __forceinline__ void fold(int l, float x) {
 #if CRIT_NAN_FLAG
@@ -103,10 +125,19 @@ struct Acc {
     return m[l];
 #endif
   }
-  // one vertex: its status, d and keys
-  __device__ __forceinline__ void vertex(int s, float dv, const float* kv) {
+  // one vertex: its status, d and keys (DELTA: kv[0] is last_proc)
+  __device__ __forceinline__ void vertex(int s, float dv, const float* kv,
+                                         float delta) {
     const bool f = s == 1;
     cnt += f;
+    if (DELTA) {
+      const float x = floorf(__fdiv_rn(dv, delta));
+      const bool w = f && dv < kv[0];
+      cnt1 += w;
+      fold(0, f ? x : CUDART_INF_F);
+      fold(1, w ? x : CUDART_INF_F);
+      return;
+    }
     fold(0, f ? dv : CUDART_INF_F);
 #pragma unroll
     for (int k = 0; k < K; ++k) fold(1 + k, f ? dv + kv[k] : CUDART_INF_F);
@@ -120,6 +151,7 @@ struct Acc {
         fold(l, __shfl_xor_sync(0xffffffffu, m[l], off));
       }
       cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+      if constexpr (DELTA) cnt1 += __shfl_xor_sync(0xffffffffu, cnt1, off);
     }
 #if CRIT_NAN_FLAG
     nan = __reduce_or_sync(0xffffffffu, nan);
@@ -153,10 +185,11 @@ struct CritArgs {
   long long key_sk;
   long long key_sb;
   float* part_min;       // (1 + K, B, blocks_x)
-  int* part_cnt;         // (B, blocks_x)
+  int* part_cnt;         // (B, blocks_x); delta: (2, B, blocks_x)
   unsigned* ticket;      // 0 between launches
   float* mins;           // (1 + K, B)
-  int* cnt;              // (B,)
+  int* cnt;              // (B,); delta: (2, B)
+  float delta;           // delta's bucket width (the delta form only)
 };
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -174,14 +207,28 @@ __device__ __forceinline__ void load4(const T* p, bool vec, T* out) {
   }
 }
 
+// The per-warp counts of delta's W in shared memory; the criterion forms
+// declare none, so their kernels keep the shared memory they had.
+template <bool DELTA>
+__device__ __forceinline__ int* delta_counts() {
+  if constexpr (DELTA) {
+    __shared__ int sc1[CRIT_THREADS / 32];
+    return sc1;
+  } else {
+    return nullptr;
+  }
+}
+
 // K keys; the key form is in the strides (a shared (K, n) stack has
 // key_sb = 0). ALIGNED: every row of every stream starts on a 16-byte
 // boundary (n % 4 == 0 and aligned tensors, as at n = 1e6), so the head,
-// the tail and the scalar forms go.
-template <int K, bool ALIGNED>
-__global__ void __launch_bounds__(CRIT_THREADS, CRIT_MIN_BLOCKS)
-crit_kernel(const CritArgs a) {
-  constexpr int U = Unroll<K, ALIGNED>::value;
+// the tail and the scalar forms go. DELTA: the delta threshold (K = 1, the
+// key last_proc; see the note at the top).
+template <int K, bool ALIGNED, bool DELTA>
+__device__ __forceinline__ void crit_body(const CritArgs& a) {
+  // the delta form holds three streams and a divide: 2 groups (4 spilled
+  // 112 bytes under CRIT_MIN_BLOCKS 4)
+  constexpr int U = DELTA ? 2 : Unroll<K, ALIGNED>::value;
   const int b = blockIdx.y;
   const int lanes = gridDim.y;
   const int bx = gridDim.x;
@@ -203,7 +250,7 @@ crit_kernel(const CritArgs a) {
   bool kvec[K > 0 ? K : 1];
 #pragma unroll
   for (int k = 0; k < K; ++k) kvec[k] = ALIGNED || aligned16(krow[k] + h);
-  Acc<K> acc;
+  Acc<K, DELTA> acc;
   acc.init();
   const long long chunk = (long long)U * CRIT_THREADS;
   for (long long g0 = (long long)blockIdx.x * chunk + threadIdx.x;
@@ -234,7 +281,7 @@ crit_kernel(const CritArgs a) {
         float ki[K > 0 ? K : 1];
 #pragma unroll
         for (int k = 0; k < K; ++k) ki[k] = kv[u][k][i];
-        acc.vertex(s[u][i], dv[u][i], ki);
+        acc.vertex(s[u][i], dv[u][i], ki, a.delta);
       }
     }
   }
@@ -246,13 +293,14 @@ crit_kernel(const CritArgs a) {
       float ki[K > 0 ? K : 1];
 #pragma unroll
       for (int k = 0; k < K; ++k) ki[k] = krow[k][v];
-      acc.vertex(srow[v], drow[v], ki);
+      acc.vertex(srow[v], drow[v], ki, a.delta);
     }
   }
 
   // the block's partial: warps, then warp 0 over the warps' values
   __shared__ float sm[1 + K][CRIT_THREADS / 32];
   __shared__ int sc[CRIT_THREADS / 32];
+  int* const sc1 = delta_counts<DELTA>();  // delta's count of W
   __shared__ unsigned sn[CRIT_THREADS / 32];
   __shared__ bool last;
   const int warp = threadIdx.x >> 5;
@@ -263,16 +311,18 @@ crit_kernel(const CritArgs a) {
 #pragma unroll
     for (int l = 0; l <= K; ++l) sm[l][warp] = acc.m[l];
     sc[warp] = acc.cnt;
+    if constexpr (DELTA) sc1[warp] = acc.cnt1;
     sn[warp] = acc.nan;
   }
   __syncthreads();
   if (warp == 0) {
-    Acc<K> w;
+    Acc<K, DELTA> w;
     w.init();
     if (wl < WARPS) {
 #pragma unroll
       for (int l = 0; l <= K; ++l) w.m[l] = sm[l][wl];
       w.cnt = sc[wl];
+      if constexpr (DELTA) w.cnt1 = sc1[wl];
       w.nan = sn[wl];
     }
     w.warp_fold();
@@ -282,6 +332,9 @@ crit_kernel(const CritArgs a) {
         a.part_min[((long long)l * lanes + b) * bx + blockIdx.x] = w.value(l);
       }
       a.part_cnt[(long long)b * bx + blockIdx.x] = w.cnt;
+      if (DELTA) {
+        a.part_cnt[((long long)lanes + b) * bx + blockIdx.x] = w.cnt1;
+      }
       __threadfence();  // the partials before the ticket
       const unsigned t = atomicAdd(a.ticket, 1u);
       last = t == (unsigned)(bx * lanes) - 1u;
@@ -294,7 +347,7 @@ crit_kernel(const CritArgs a) {
   // other SMs)
   __threadfence();
   for (int lb = warp; lb < lanes; lb += WARPS) {
-    Acc<K> f;
+    Acc<K, DELTA> f;
     f.init();
     for (int x = wl; x < bx; x += 32) {
 #pragma unroll
@@ -302,6 +355,9 @@ crit_kernel(const CritArgs a) {
         f.fold(l, __ldcg(a.part_min + ((long long)l * lanes + lb) * bx + x));
       }
       f.cnt += __ldcg(a.part_cnt + (long long)lb * bx + x);
+      if (DELTA) {
+        f.cnt1 += __ldcg(a.part_cnt + ((long long)lanes + lb) * bx + x);
+      }
     }
     f.warp_fold();
     if (wl == 0) {
@@ -310,9 +366,23 @@ crit_kernel(const CritArgs a) {
         a.mins[(long long)l * lanes + lb] = f.value(l);
       }
       a.cnt[lb] = f.cnt;
+      if (DELTA) a.cnt[lanes + lb] = f.cnt1;
     }
   }
   if (threadIdx.x == 0) *a.ticket = 0u;  // for the next launch on the stream
+}
+
+template <int K, bool ALIGNED>
+__global__ void __launch_bounds__(CRIT_THREADS, CRIT_MIN_BLOCKS)
+crit_kernel(const CritArgs a) {
+  crit_body<K, ALIGNED, false>(a);
+}
+
+// The delta threshold: the body with the key last_proc and the bucket ids.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(CRIT_THREADS, CRIT_MIN_BLOCKS)
+delta_crit_kernel(const CritArgs a) {
+  crit_body<1, ALIGNED, true>(a);
 }
 
 template <int K>
@@ -359,7 +429,7 @@ extern "C" int frontier_crit_lanes_launch(
     return (int)cudaErrorInvalidValue;
   }
   const CritArgs a{d, status, keys, n, key_sk, key_sb, part_min, part_cnt,
-                   ticket, mins, cnt};
+                   ticket, mins, cnt, 0.0f};
   auto al = [](const void* p) { return ((unsigned long long)p & 15ull) == 0; };
   const bool aligned = n % 4 == 0 && al(d) && al(status) &&
                        (nkeys == 0 || (al(keys) && key_sk % 4 == 0 &&
@@ -367,4 +437,31 @@ extern "C" int frontier_crit_lanes_launch(
   const cudaStream_t s = (cudaStream_t)stream;
   if (nkeys == 0) return launch_k<0>(a, lanes, blocks_x, aligned, s);
   return launch_keys(a, nkeys, lanes, blocks_x, aligned, s);
+}
+
+// The delta threshold on `stream` (see the note at the top): d, status and
+// last_proc (lanes, n), delta the f32 bucket width. Scratch: part_min 2 *
+// lanes * blocks_x floats, part_cnt 2 * lanes * blocks_x ints, the ticket as
+// above. Writes mins (2, lanes) and cnt (2, lanes). Returns as
+// frontier_crit_lanes_launch does.
+extern "C" int delta_thresholds_launch(
+    const float* d, const int* status, const float* last_proc, float delta,
+    long long n, int lanes, int blocks_x, float* part_min, int* part_cnt,
+    unsigned* ticket, float* mins, int* cnt, void* stream) {
+  if (n < 1 || lanes < 1 || lanes > 65535 || blocks_x < 1 ||
+      last_proc == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CritArgs a{d, status, last_proc, n, 0, n, part_min, part_cnt,
+                   ticket, mins, cnt, delta};
+  auto al = [](const void* p) { return ((unsigned long long)p & 15ull) == 0; };
+  const bool aligned = n % 4 == 0 && al(d) && al(status) && al(last_proc);
+  const dim3 grid((unsigned)blocks_x, (unsigned)lanes);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (aligned) {
+    delta_crit_kernel<true><<<grid, CRIT_THREADS, 0, s>>>(a);
+  } else {
+    delta_crit_kernel<false><<<grid, CRIT_THREADS, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
 }

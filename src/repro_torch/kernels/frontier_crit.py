@@ -19,6 +19,13 @@ launches the kernel or raises.
 
 ``frontier_crit_lanes``/``frontier_crit``/``frontier_crit_batch`` are the
 reference's thin wrappers over the lane reduction.
+
+:func:`delta_thresholds_batch` is delta-stepping's threshold, a second
+entry point of the same source: one pass over ``d``, ``status`` and
+``last_proc`` that divides by the bucket width in registers and gives each
+lane its bucket, its fringe size and the witness of a light round (the
+count and the least bucket id of the fringe vertices below their
+``last_proc``).
 """
 from __future__ import annotations
 
@@ -40,6 +47,10 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "frontier_crit_lanes_launch": (
         [_P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P, _P, _P, _P, _P, _P],
+        _I,
+    ),
+    "delta_thresholds_launch": (
+        [_P, _P, _P, ctypes.c_float, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
         _I,
     ),
 }
@@ -182,6 +193,57 @@ def frontier_crit_lanes_batch(d: torch.Tensor, status: torch.Tensor,
 frontier_crit_lanes_batch.launches = 0  # kernel launches since the last reset
 
 
+def delta_thresholds_batch(d: torch.Tensor, status: torch.Tensor,
+                           last_proc: torch.Tensor, delta: float):
+    """Delta's threshold of one phase: ``(mins (2, B) f32, counts (2, B)
+    int32)``, ``mins[0]`` each lane's bucket ``min_F floor(d / delta)``
+    (NaN kept, as #2 keeps it), ``mins[1]`` the least bucket id of the
+    fringe vertices with ``d < last_proc``, ``counts`` the two sets' sizes
+    (``ref.delta_thresholds_ref``). ``delta`` is the f32 width as a Python
+    float; the divide is the reference's IEEE f32 one."""
+    _check(d, status, None)
+    if last_proc.shape != d.shape or last_proc.dtype != torch.float32 or \
+            last_proc.device != d.device or not last_proc.is_contiguous():
+        raise ValueError(f"want a contiguous f32 last_proc {tuple(d.shape)} "
+                         f"on {d.device}; got {last_proc.dtype} "
+                         f"{tuple(last_proc.shape)} on {last_proc.device}")
+    if not isinstance(delta, float):
+        raise TypeError(f"want the f32 delta as a Python float; got "
+                        f"{type(delta).__name__}")
+    if runs_twin(d):
+        return ref.delta_thresholds_ref(d, status, last_proc, delta)
+    b, n = d.shape
+    dev = d.device
+    # mins and counts share one allocation: 2 * B f32 words, then 2 * B i32
+    out = torch.empty((4 * b,), dtype=torch.int32, device=dev)
+    mins = out[:2 * b].view(torch.float32).view(2, b)
+    counts = out[2 * b:].view(2, b)
+    if b == 0:
+        return mins, counts
+    if b > MAX_LANES:
+        raise ValueError(f"at most {MAX_LANES} lanes per launch; got {b}")
+    lib = _build.load("frontier_crit", _SIGNATURES)
+    bx = blocks_per_lane(dev, b, n)
+
+    def call(stream):
+        part_min, part_cnt, ticket = scratch(dev, stream, 2 * b * bx,
+                                             2 * b * bx)
+        return lib.delta_thresholds_launch(
+            d.data_ptr(), status.data_ptr(), last_proc.data_ptr(), delta, n,
+            b, bx, part_min.data_ptr(), part_cnt.data_ptr(),
+            ticket.data_ptr(), mins.data_ptr(), counts.data_ptr(), stream)
+
+    rc = on_stream(dev, call)
+    if rc != 0:
+        raise RuntimeError(
+            f"delta_thresholds_batch launch failed: CUDA error {rc}")
+    delta_thresholds_batch.launches += 1
+    return mins, counts
+
+
+delta_thresholds_batch.launches = 0  # kernel launches since the last reset
+
+
 def frontier_crit_lanes(d: torch.Tensor, status: torch.Tensor,
                         keys: torch.Tensor | None):
     """1-D entry point: returns (mins (1+K,) f32, fringe_count i32 scalar)."""
@@ -253,6 +315,24 @@ def register_kernels(reg):
         counter_outputs=(1,), kernels=crit, notes=notes,
         spills_ok={f"crit_kernel<{k},0>": unused.format(k)
                    for k in (7, 8)}))
+
+    def cases_delta():
+        out = []
+        for i, (b, n) in enumerate(((R.FIXTURE_B, R.FIXTURE_N),)
+                                   + R.WIDE_SHAPES):
+            args, _ = R.fixture_delta(b, n, 400 + i, signed=bool(i % 2))
+            d, status, keys = args[:3]
+            out.append(R.SpecCase(f"b{b}_n{n}" if i else "ref",
+                                  (d, status, keys[0].contiguous(),
+                                   args[-1])))
+        return tuple(out)
+
+    reg.register(R.KernelContract(
+        name="delta_thresholds_batch", module=__name__,
+        wrapper=delta_thresholds_batch, make_cases=cases_delta,
+        counter_outputs=(1,), kernels=((R.SRC_CRIT, "delta_crit_kernel"),),
+        notes="delta's threshold: #2's one launch on the bucket ids of d "
+              "divided in registers, with the light round's witness"))
     reg.register(R.KernelContract(
         name="frontier_crit", module=__name__, wrapper=frontier_crit,
         make_cases=cases_scalar, counter_outputs=(2,), kernels=crit,

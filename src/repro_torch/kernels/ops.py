@@ -24,6 +24,10 @@ worklist push (:func:`commit_phase`, ``kernels/settle_push.py``), which
 take #2's thresholds and write ``dist`` and ``status`` in place; the
 ``push_settled_batch*`` functions stay for the callers that need ``upd``
 (the oracle plans, the sharded stepper's rectangular form, the tools).
+Delta's phase commits the same way after its own threshold
+(:func:`delta_thresholds`, then :func:`commit_delta_phase`);
+:func:`delta_push_relax_batch` stays as the counterpart of the reference's
+``delta_relax_batch``, off the engine path.
 
 The bound-gated wrappers (``*_gated_batch``) are the reference's surface
 for s->t target lanes: the same kernels over a settle mask with the
@@ -62,13 +66,16 @@ from repro_torch.kernels.ell_sliced import (
     ell_sliced_relax_keys_batch,
 )
 from repro_torch.kernels.frontier_crit import (
+    delta_thresholds_batch,
     frontier_crit,
     frontier_crit_batch,
     frontier_crit_lanes_batch,
 )
 from repro_torch.kernels.settle_push import (  # noqa: F401 (the ops surface)
     CommitBuffers,
+    DeltaRule,
     SettleRule,
+    commit_delta_phase,
     commit_phase,
 )
 
@@ -297,6 +304,17 @@ def delta_relax_batch(d, light_from, heavy_from, ell_light, ell_heavy, *,
     upd_heavy = key_min_batch_any(torch.where(heavy_from, d, INF), ell_heavy,
                                   use_kernels=use_kernels)
     return kref.nan_min(upd_light, upd_heavy)
+
+
+def delta_thresholds(d, status, last_proc, delta: float, *,
+                     use_kernels=True):
+    """Delta's threshold of one phase, ``(mins (2, B), counts (2, B))``
+    (``frontier_crit.delta_thresholds_batch``, one launch): each lane's
+    bucket, the least bucket id below ``last_proc``, and the two sets'
+    sizes; the first count is |F|."""
+    if not use_kernels:
+        return kref.delta_thresholds_ref(d, status, last_proc, delta)
+    return delta_thresholds_batch(d, status, last_proc, delta)
 
 
 def delta_push_relax_batch(d, light_from, heavy_from, ell_out, delta, *,
@@ -535,6 +553,11 @@ def register_kernels(reg):
                                       R.fixture_sliced(side="out"))),
         )
 
+    def cases_delta_thresholds():
+        args, _ = R.fixture_delta()
+        d, st, keys = args[:3]
+        return (R.SpecCase("ref", (d, st, keys[0].contiguous(), args[-1])),)
+
     for name, fn, cases, counters in (
         ("relax_settled", relax_settled, cases_relax_settled, ()),
         ("static_thresholds", static_thresholds, cases_static_thresholds,
@@ -552,6 +575,7 @@ def register_kernels(reg):
          cases_static_thresholds_batch, (2,)),
         ("crit_thresholds_batch", crit_thresholds_batch,
          cases_crit_thresholds, (1,)),
+        ("delta_thresholds", delta_thresholds, cases_delta_thresholds, (1,)),
         ("key_min_batch", key_min_batch, cases_key_min, ()),
         ("key_min_batch_any", key_min_batch_any, cases_key_min_any, ()),
         ("delta_relax_batch", delta_relax_batch, cases_delta_relax, ()),

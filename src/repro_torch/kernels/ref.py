@@ -238,7 +238,14 @@ def settle_push_ref(d, status, sources, out_view):
     where upd < +inf lowers its entry or the entry is NaN, which is the
     reference's ``(status == 0) & (upd < INF)`` on every state the stepper
     makes (a vertex of status 0 holds +inf or NaN there)."""
-    upd = ell_push_relax_batch_ref(torch.where(sources, d, INF), out_view)
+    return _commit_upd(
+        d, status, ell_push_relax_batch_ref(torch.where(sources, d, INF),
+                                            out_view))
+
+
+def _commit_upd(d, status, upd):
+    """``(dist, status)`` once the candidates ``upd`` land as the worklist
+    push lands them (:func:`settle_push_ref`)."""
     nan_d = torch.isnan(d)
     lowers = ~nan_d & ((upd < d) | torch.isnan(upd)
                        | ((upd == d) & torch.signbit(upd)
@@ -308,6 +315,123 @@ def settle_tail_ref(status, n_fringe, mark: SettleMark, target, trips, phases,
             torch.int64),
         relax_edges=relax_edges + mark.relax_inc, settled_trace=ring,
         budget=budget - gi, **telemetry)
+
+
+def f32_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """``x.astype(int32)`` as XLA and the card convert: toward zero, a NaN
+    to 0, and beyond the range to its end (the CPU's ``.to(torch.int32)``
+    gives INT_MIN for all three)."""
+    x = torch.where(torch.isnan(x), 0.0, x.double())
+    return x.clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
+
+
+def delta_bucket_ids(d: torch.Tensor, delta) -> torch.Tensor:
+    """``floor(d / delta)`` with the f32 divide of the reference; ``delta``
+    a float holding f32 bits or a 0-dim f32 tensor."""
+    if not torch.is_tensor(delta):
+        delta = torch.tensor(delta, dtype=torch.float32, device=d.device)
+    return torch.floor(d / delta)
+
+
+def delta_thresholds_ref(d, status, last_proc, delta):
+    """Delta's threshold (``delta_crit_kernel``): ``(mins (2, B) f32,
+    counts (2, B) int32)`` over each lane's fringe F and its part W = F ∩
+    {d < last_proc}, with the bucket ids x = ``floor(d / delta)``:
+    ``mins[0]`` the lane's bucket ``min_F x`` (#2's fold: a NaN wins),
+    ``mins[1]`` = ``min_W x``, ``counts`` = (|F|, |W|). The lane has work
+    on a light round iff ``counts[1] > 0`` and ``mins[1] == mins[0]``
+    (:func:`delta_light_lanes`): W holds no NaN id (a NaN d is never below
+    ``last_proc``), so its min is attained, and the count tells an empty W
+    from an attained +inf id."""
+    fringe = status == 1
+    x = delta_bucket_ids(d, delta)
+    w = fringe & (d < last_proc)
+    mins = torch.stack([amin(torch.where(fringe, x, INF), dim=1),
+                        amin(torch.where(w, x, INF), dim=1)])
+    counts = torch.stack([fringe.sum(dim=1, dtype=torch.int32),
+                          w.sum(dim=1, dtype=torch.int32)])
+    return mins, counts
+
+
+def delta_light_lanes(mins, counts) -> torch.Tensor:
+    """(B,) bool: the lanes on a light round, ``any(cur)`` of the
+    reference from :func:`delta_thresholds_ref`'s witness."""
+    return (counts[1] > 0) & (mins[1] == mins[0])
+
+
+class DeltaMark(NamedTuple):
+    """What delta's mark decides in one phase (:func:`delta_mark_ref`); the
+    last four fields are those :func:`settle_tail_ref` reads."""
+
+    cur: torch.Tensor  # (B, n) bool: the light round's work set
+    heavy_from: torch.Tensor  # (B, n) bool: the removed set on the heavy
+    #   turn, settled this phase
+    last_proc: torch.Tensor  # (B, n) f32: the carried slots after the phase
+    removed: torch.Tensor  # (B, n) f32
+    light_src: torch.Tensor  # (B, n) bool: cur below +inf (it pushes)
+    heavy_src: torch.Tensor  # (B, n) bool: heavy_from below +inf
+    go: torch.Tensor  # 0-dim bool: the loop predicate
+    n_settled: torch.Tensor  # (B,) int32
+    relax_inc: torch.Tensor  # (B,) int64
+    attr_counts: torch.Tensor | None = None  # (B, 3) int32: (light, heavy,
+    #   bucket id) with ``attr``
+
+
+def delta_mark_ref(d, status, keys, mins, counts, live0, budget, delta, *,
+                   stop: bool, deg_light, deg_heavy,
+                   attr: bool = False) -> DeltaMark:
+    """Delta's mark (``delta_settle_mark_kernel``): the loop predicate from
+    the fringe sizes ``counts[0]``, ``budget`` and ``live0``; then on each
+    lane with a fringe under it, a light round (:func:`delta_light_lanes`)
+    takes the work set ``cur`` = F ∩ {x == the lane's bucket, d <
+    last_proc} (x the bucket id), records ``last_proc := d`` and
+    ``removed := 1`` there; a heavy turn settles the removed fringe
+    vertices and resets both slots there. ``keys`` is the carried (2, B, n)
+    stack (``last_proc``, ``removed``).
+
+    The reference resets the slots of the whole lane on its heavy turn and
+    lets a lane without fringe take one; both are the same bits because
+    every state the stepper makes holds ``last_proc != inf => removed`` and
+    ``removed => status 1`` (``tests/test_torch_delta_commit.py``)."""
+    live = counts[0] > 0
+    go = torch.any(live) & (budget > 0)
+    if stop:
+        go = go & torch.all(live == live0)
+    lane = live & go
+    light = delta_light_lanes(mins, counts)
+    fringe = status == 1
+    last_proc, removed = keys[0], keys[1]
+    cur = ((lane & light)[:, None] & fringe
+           & (delta_bucket_ids(d, delta) == mins[0][:, None])
+           & (d < last_proc))
+    heavy_from = (lane & ~light)[:, None] & fringe & (removed > 0.5)
+    n_settled = heavy_from.sum(dim=1, dtype=torch.int32)
+    attr_counts = None
+    if attr:
+        bucket = f32_to_int32(torch.where(live, mins[0], 0.0))
+        attr_counts = torch.stack([cur.sum(dim=1, dtype=torch.int32),
+                                   n_settled, bucket], dim=1)
+    return DeltaMark(
+        cur=cur, heavy_from=heavy_from,
+        last_proc=torch.where(cur, d, torch.where(heavy_from, INF,
+                                                  last_proc)),
+        removed=torch.where(cur, 1.0, torch.where(heavy_from, 0.0, removed)),
+        light_src=cur & (d != INF), heavy_src=heavy_from & (d != INF),
+        go=go, n_settled=n_settled,
+        relax_inc=(torch.where(cur, deg_light[None], 0).sum(
+            dim=1, dtype=torch.int64)
+            + torch.where(heavy_from, deg_heavy[None], 0).sum(
+                dim=1, dtype=torch.int64)),
+        attr_counts=attr_counts)
+
+
+def delta_settle_push_ref(d, status, light_src, heavy_src, out_view, delta):
+    """Delta's worklist push (``settle_push_kernel`` in its delta form):
+    ``(dist, status)`` after the light sources push their arcs of weight
+    ``<= delta`` and the heavy ones the others (:func:`ell_delta_push_batch_ref`
+    from their entry ``d``), landed as :func:`settle_push_ref` lands them."""
+    return _commit_upd(d, status, ell_delta_push_batch_ref(
+        d, light_src, heavy_src, out_view, delta))
 
 
 def push_coo_batch_ref(dmask: torch.Tensor, rows: torch.Tensor,
@@ -633,6 +757,11 @@ def register_kernels(reg):
 
         return settle_phase_batch(*args, **kwargs, use_kernels=False)
 
+    def delta_commit_ref(*args, **kwargs):
+        from repro_torch.kernels.settle_push import delta_phase_batch
+
+        return delta_phase_batch(*args, **kwargs, use_kernels=False)
+
     def sliced_keys_dep_ref(gates, dga, dgb, sliced, dep_idx=0):
         return ell_sliced_keys_dep_batch_ref(gates, dga, dgb, dep_idx, sliced)
 
@@ -657,6 +786,9 @@ def register_kernels(reg):
         ("ell_sliced_delta_push_batch", ell_delta_push_batch_ref),
         ("ell_settle_commit_batch", settle_ref),
         ("ell_sliced_settle_commit_batch", settle_ref),
+        ("ell_delta_commit_batch", delta_commit_ref),
+        ("ell_sliced_delta_commit_batch", delta_commit_ref),
+        ("delta_thresholds_batch", delta_thresholds_ref),
         ("frontier_crit", frontier_crit_ref),
         ("frontier_crit_batch", frontier_crit_batch_ref),
         ("frontier_crit_lanes_batch", frontier_crit_lanes_batch_ref),
@@ -675,6 +807,7 @@ def register_kernels(reg):
          twin(ops.gather_min_batch_sliced, use_kernels=False)),
         ("static_thresholds_batch", frontier_crit_batch_ref),
         ("crit_thresholds_batch", frontier_crit_lanes_batch_ref),
+        ("delta_thresholds", twin(ops.delta_thresholds, use_kernels=False)),
         ("key_min_batch", twin(ops.key_min_batch, use_kernels=False)),
         ("key_min_batch_any", twin(ops.key_min_batch_any, use_kernels=False)),
         ("delta_relax_batch", twin(ops.delta_relax_batch, use_kernels=False)),

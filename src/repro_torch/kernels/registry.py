@@ -28,7 +28,11 @@ stepper ``ell_push_rect_batch`` (#1b), delta's pushes
 the ops layer's push relaxes, the phase-committing pair that redesigns #1b
 and #9b on the push plans' path (``ell_settle_commit_batch``,
 ``ell_sliced_settle_commit_batch``: the settle mark, the worklist push and
-the tail), and the LM's fixed-order embedding gradient ``embed_grad``.
+the tail), its delta form that redesigns #5c and #9c on delta's path
+(``ell_delta_commit_batch``, ``ell_sliced_delta_commit_batch``: delta's
+threshold ``delta_thresholds_batch``, its mark, the worklist push with
+delta's weight gate and the tail), and the LM's fixed-order embedding
+gradient ``embed_grad``.
 """
 from __future__ import annotations
 
@@ -340,6 +344,68 @@ def fixture_settle(b: int = FIXTURE_B, n: int = FIXTURE_N, seed: int = 200,
         kwargs["target"] = _t(tg)
     args = (d, status, mins, n_f, n_f > 0, view, out_degrees(g),
             g.in_min_static)
+    return args, kwargs
+
+
+def fixture_delta(b: int = FIXTURE_B, n: int = FIXTURE_N, seed: int = 300,
+                  *, sliced: bool = False, signed: bool = False,
+                  target: bool = False, stop: bool = False,
+                  telemetry: bool = False):
+    """``(args, kwargs)`` of one committed delta phase
+    (``settle_push.delta_phase_batch``) on :func:`fixture_graph` at
+    :data:`FIXTURE_DELTA`: a seeded U/F/S state with +inf holes, the
+    carried ``(last_proc, removed)`` stack as the stepper keeps it (removed
+    vertices are fringe vertices of the lane's bucket, ``last_proc`` is
+    +inf off them and their ``d`` on the odd lanes, a heavy turn where the
+    whole bucket is removed, or up to 0.25 above it on the even ones, a
+    light round), NaNs in the last lane at a vertex of status 0 and at a
+    fringe vertex that is not removed (the lane's bucket is then NaN), the
+    light and heavy out-degrees, ``live0`` the live lanes, the padded
+    out-view or a sliced one (boundaries (2, 4), split 4) with its vertex
+    row table, (``target``) s->t targets on every other lane, and
+    (``telemetry``) the rings."""
+    from repro_torch.core.graph import (
+        out_degrees,
+        to_ell_out,
+        to_ell_out_sliced,
+        vertex_row_table,
+    )
+    from repro_torch.core.policies import delta_degrees
+    from repro_torch.kernels import ref
+
+    g = fixture_graph(n, seed, signed)
+    rng = np.random.default_rng(seed + 3)
+    d = fixture_rows((b, n), seed=seed + 1, signed=signed).numpy().copy()
+    status = fixture_status((b, n), seed + 2).numpy()
+    x = ref.delta_bucket_ids(_t(d), FIXTURE_DELTA).numpy()
+    fringe = status == 1
+    bucket = np.where(fringe, x, np.inf).min(axis=1, keepdims=True)
+    in_b = fringe & (x == bucket) & np.isfinite(d)
+    heavy = (np.arange(b) % 2 == 1)[:, None]
+    removed = in_b & (heavy | (rng.random((b, n)) < 0.5))
+    lift = np.where(heavy, 0.0, rng.choice([0.0, 0.25], (b, n)))
+    last = np.where(removed, d + lift.astype(np.float32), np.inf)
+    zero = np.flatnonzero(status[-1] == 0)
+    free = np.flatnonzero(fringe[-1] & ~removed[-1])
+    for pool in (zero, free):
+        if pool.size:
+            d[-1, rng.choice(pool)] = np.nan
+    keys = np.stack([last, removed]).astype(np.float32)
+    deg_light, deg_heavy = delta_degrees(g, FIXTURE_DELTA)
+    kwargs = {"stop": stop, "telemetry": telemetry}
+    if sliced:
+        view = to_ell_out_sliced(g, pad_multiple=2, boundaries=(2, 4),
+                                 split=4)
+        kwargs["vrows"] = vertex_row_table(g, view)
+    else:
+        view = to_ell_out(g, pad_multiple=2)
+    if target:
+        tg = rng.integers(0, n, b).astype(np.int32)
+        tg[1::2] = -1
+        kwargs["target"] = _t(tg)
+    live0 = _t((status == 1).any(axis=1))
+    args = (_t(d), _t(status), _t(keys), live0, view, out_degrees(g),
+            deg_light, deg_heavy, FIXTURE_DELTA)
     return args, kwargs
 
 

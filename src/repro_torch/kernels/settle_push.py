@@ -29,10 +29,30 @@ the pair as a function of its inputs (it copies what the phase writes),
 the form the contracts, the tests and ``chip_smoke.py`` hold against the
 plain twins.
 
+Delta-stepping commits its phase the same way (:func:`commit_delta_phase`),
+after its own threshold launch (``frontier_crit.delta_thresholds_batch``:
+each lane's bucket, its fringe size and the witness of a light round):
+
+  * :func:`ell_delta_settle_mark_batch` takes, on a lane's light round, its
+    work set (the bucket's fringe vertices below their ``last_proc``),
+    records ``last_proc := d`` and ``removed := 1`` there, and on its heavy
+    turn settles the removed vertices (status 2) and resets both slots
+    there, in the carried ``crit_keys`` stack in place; it appends each
+    source to the worklist and counts the settled vertices, the light
+    ones and the relaxed out-edges (light arcs of the light sources, heavy
+    arcs of the heavy ones);
+  * :func:`ell_delta_settle_push_batch` / :func:`ell_sliced_delta_settle_push_batch`
+    is the worklist push with delta's weight gate: a lane on its light
+    round pushes the arcs of weight ``<= delta``, one on its heavy turn the
+    others;
+  * :func:`ell_delta_settle_tail_batch` is the tail with delta's
+    attribution triple (light, heavy, the lane's bucket id).
+
 A tensor on the CPU runs the plain twins in ``kernels/ref.py``
 (``settle_mark_ref``, ``settle_push_ref``, ``settle_tail_ref``: a mark
 that returns the settle mask, the worklist and the counters, then a push
-that commits); a CUDA tensor launches the kernels or raises.
+that commits; delta's ``delta_mark_ref`` and ``delta_settle_push_ref``);
+a CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -49,11 +69,13 @@ from repro_torch.kernels.ell_relax_keys import on_stream
 
 MAX_LANES = 65535  # the tail's grid takes a lane a row
 MARK, PUSH, TAIL = 0, 1, 2  # settle_phase_launch's `which`
+DELTA_TERMS = 3  # delta's attribution slots: light, heavy, bucket id
 
 _POINTERS = ("d", "status", "mins", "n_fringe", "live0", "budget", "in_key",
              "target", "out_deg", "vrows", "go", "counts", "acc", "d_src",
              "work", "trips", "phases", "sum_fringe", "relax_edges", "ring",
-             "fringe_ring", "relax_ring", "attr_ring")
+             "fringe_ring", "relax_ring", "attr_ring", "keys", "deg_light",
+             "deg_heavy", "n_cur")
 
 
 class _SettleArgs(ctypes.Structure):
@@ -63,7 +85,8 @@ class _SettleArgs(ctypes.Structure):
                 + [("n", ctypes.c_longlong), ("total_rows", ctypes.c_longlong)]
                 + [(nm, ctypes.c_int) for nm in ("lanes", "nb", "k_out",
                                                   "zero", "stop",
-                                                  "ring_len", "n_terms")])
+                                                  "ring_len", "n_terms")]
+                + [("delta", ctypes.c_float), ("delta_mode", ctypes.c_int)])
 
 
 class CommitBuffers(NamedTuple):
@@ -85,7 +108,9 @@ class CommitBuffers(NamedTuple):
     fringe_trace: torch.Tensor | None = None  # (B, L) int32 ring
     relax_trace: torch.Tensor | None = None  # (B, L) int32 ring
     attr_trace: torch.Tensor | None = None  # (B, L, T) int32 ring, T the
-    #   plan's settle terms (SettleRule.n_terms)
+    #   plan's settle terms (SettleRule.n_terms; delta: DELTA_TERMS)
+    crit_keys: torch.Tensor | None = None  # (2, B, n) f32: delta's carried
+    #   last_proc and removed, in place (a delta phase only)
 
 
 class SettleRule(NamedTuple):
@@ -101,6 +126,15 @@ class SettleRule(NamedTuple):
         return int(self.zero) + (self.in_key is not None) + mins.shape[0] - 1
 
 
+class DeltaRule(NamedTuple):
+    """Delta's operands of a committed phase (``DeltaPolicy.prepare``)."""
+
+    delta: float  # the f32 bucket width, as a Python float of its bits
+    deg_light: torch.Tensor  # (n,) int32 out-arcs of weight <= delta
+    deg_heavy: torch.Tensor  # (n,) int32 the others
+    stop: bool  # the loop's stop_on_lane_finish
+
+
 class SettleWork(NamedTuple):
     """What the mark hands the push and the tail: on the card the launch
     operands (the scratch they point into), on the CPU the twin's
@@ -110,7 +144,8 @@ class SettleWork(NamedTuple):
     table: object  # the host bucket table, or None
     nb: int  # buckets with rows
     scratch: dict | None  # keeps the scratch alive with the launch operands
-    mark: ref.SettleMark | None  # the twin's decision
+    mark: ref.SettleMark | ref.DeltaMark | None  # the twin's decision
+    delta: float = 0.0  # delta's f32 bucket width (the twin's push reads it)
 
 
 # (device index, stream) -> scratch: the counters (zeroed once, left zeroed
@@ -167,7 +202,10 @@ def _buckets(out_view):
     return [(out_view[0], out_view[1], None)]
 
 
-def _check(buf: CommitBuffers, mins, n_fringe, rule: SettleRule):
+def _check_state(buf: CommitBuffers, extra: dict, n_terms: int):
+    """The buffers' shapes, types and devices, ``extra`` (name -> (tensor
+    or None, shape, dtype)) beside them, and the telemetry rings' depth
+    ``n_terms``."""
     d = buf.dist
     if d.dim() != 2 or d.dtype != torch.float32:
         raise ValueError(f"want f32 dist (B, n); got {d.dtype} "
@@ -177,13 +215,16 @@ def _check(buf: CommitBuffers, mins, n_fringe, rule: SettleRule):
             "phases": ((b,), torch.int32), "sum_fringe": ((b,), torch.int64),
             "relax_edges": ((b,), torch.int64), "budget": ((), torch.int32),
             "live0": ((b,), torch.bool), "out_deg": ((n,), torch.int32),
-            "target": ((b,), torch.int32)}
-    named = dict(buf._asdict(), n_fringe=n_fringe, mins=mins,
-                 in_key=rule.in_key)
-    want.update(n_fringe=((b,), torch.int32), in_key=((n,), torch.float32))
+            "target": ((b,), torch.int32),
+            "crit_keys": ((2, b, n), torch.float32)}
+    named = buf._asdict()
+    for name, (t, shape, dtype) in extra.items():
+        named[name] = t
+        want[name] = (shape, dtype)
+    optional = {"target", "crit_keys", *extra}
     for name, (shape, dtype) in want.items():
         t = named[name]
-        if t is None and name in ("target", "in_key"):
+        if t is None and name in optional:
             continue
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"want {name} {dtype} {shape}; got {t.dtype} "
@@ -193,22 +234,16 @@ def _check(buf: CommitBuffers, mins, n_fringe, rule: SettleRule):
             ring.dtype != torch.int32:
         raise ValueError(f"want an int32 settled ring (B, L); got "
                          f"{ring.dtype} {tuple(ring.shape)}")
-    if mins.dim() != 2 or mins.shape[1] != b or mins.dtype != torch.float32 \
-            or not 1 <= mins.shape[0] <= 1 + SETTLE_MAX_OUT:
-        raise ValueError(f"want f32 mins (1 + K, {b}), K <= "
-                         f"{SETTLE_MAX_OUT}; got {mins.dtype} "
-                         f"{tuple(mins.shape)}")
     rings = (buf.fringe_trace, buf.relax_trace, buf.attr_trace)
     if any(r is not None for r in rings):
-        shapes = [tuple(ring.shape)] * 2 + [tuple(ring.shape)
-                                            + (rule.n_terms(mins),)]
+        shapes = [tuple(ring.shape)] * 2 + [tuple(ring.shape) + (n_terms,)]
         if any(r is None or tuple(r.shape) != sh or r.dtype != torch.int32
                for r, sh in zip(rings, shapes)):
             got = [None if r is None else (r.dtype, tuple(r.shape))
                    for r in rings]
             raise ValueError(f"want the telemetry rings int32 {shapes}; "
                              f"got {got}")
-    tensors = [t for t in (*buf, mins, n_fringe, rule.in_key)
+    tensors = [t for t in (*buf, *(e[0] for e in extra.values()))
                if t is not None]
     if any(t.device != d.device for t in tensors):
         raise ValueError(
@@ -217,6 +252,35 @@ def _check(buf: CommitBuffers, mins, n_fringe, rule: SettleRule):
         raise ValueError("the phase's operands must be contiguous")
     if b > MAX_LANES:
         raise ValueError(f"{b} lanes; the pair takes at most {MAX_LANES}")
+
+
+def _check(buf: CommitBuffers, mins, n_fringe, rule: SettleRule):
+    b, n = buf.dist.shape
+    if mins.dim() != 2 or mins.shape[1] != b or mins.dtype != torch.float32 \
+            or not 1 <= mins.shape[0] <= 1 + SETTLE_MAX_OUT:
+        raise ValueError(f"want f32 mins (1 + K, {b}), K <= "
+                         f"{SETTLE_MAX_OUT}; got {mins.dtype} "
+                         f"{tuple(mins.shape)}")
+    if buf.crit_keys is not None:
+        raise ValueError("a criterion plan's phase carries no delta keys")
+    _check_state(buf, {
+        "mins": (mins, tuple(mins.shape), torch.float32),
+        "n_fringe": (n_fringe, (b,), torch.int32),
+        "in_key": (rule.in_key, (n,), torch.float32)}, rule.n_terms(mins))
+
+
+def _check_delta(buf: CommitBuffers, mins, counts, rule: DeltaRule):
+    b, n = buf.dist.shape
+    if buf.crit_keys is None:
+        raise ValueError("a delta phase needs its (2, B, n) crit_keys")
+    if not isinstance(rule.delta, float):
+        raise TypeError(f"want the f32 delta as a Python float; got "
+                        f"{type(rule.delta).__name__}")
+    _check_state(buf, {
+        "mins": (mins, (2, b), torch.float32),
+        "counts": (counts, (2, b), torch.int32),
+        "deg_light": (rule.deg_light, (n,), torch.int32),
+        "deg_heavy": (rule.deg_heavy, (n,), torch.int32)}, DELTA_TERMS)
 
 
 def _check_view(out_view, vrows, n: int, dev):
@@ -250,9 +314,26 @@ def _mark_twin(buf: CommitBuffers, mins, n_fringe, rule: SettleRule):
     return SettleWork(None, None, 0, None, mark)
 
 
+def _delta_mark_twin(buf: CommitBuffers, mins, counts, rule: DeltaRule):
+    mark = ref.delta_mark_ref(
+        buf.dist, buf.status, buf.crit_keys, mins, counts, buf.live0,
+        buf.budget, rule.delta, stop=rule.stop, deg_light=rule.deg_light,
+        deg_heavy=rule.deg_heavy, attr=buf.attr_trace is not None)
+    buf.status.copy_(torch.where(mark.heavy_from, 2, buf.status))
+    buf.crit_keys[0].copy_(mark.last_proc)
+    buf.crit_keys[1].copy_(mark.removed)
+    return SettleWork(None, None, 0, None, mark, rule.delta)
+
+
 def _push_twin(buf: CommitBuffers, work: SettleWork, out_view):
-    d, status = ref.settle_push_ref(buf.dist, buf.status, work.mark.sources,
-                                    out_view)
+    mark = work.mark
+    if isinstance(mark, ref.DeltaMark):
+        d, status = ref.delta_settle_push_ref(
+            buf.dist, buf.status, mark.light_src, mark.heavy_src, out_view,
+            work.delta)
+    else:
+        d, status = ref.settle_push_ref(buf.dist, buf.status, mark.sources,
+                                        out_view)
     buf.dist.copy_(d)
     buf.status.copy_(status)
 
@@ -275,25 +356,14 @@ def _launch(name: str, which: int, work: SettleWork, dev):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def ell_settle_mark_batch(buf: CommitBuffers, mins: torch.Tensor,
-                          n_fringe: torch.Tensor, rule: SettleRule, out_view,
-                          vrows: torch.Tensor | None = None) -> SettleWork:
-    """The settle mark of one phase, in place on ``buf``: writes status 2
-    where the plan settles a fringe vertex under the loop predicate, and
-    returns the worklist and counters the push and the tail read.
-
-    ``mins`` (1 + K, B) f32 and ``n_fringe`` (B,) int32 are #2's output
-    for the phase's entry state; ``rule`` the plan's terms; ``out_view``
-    the padded ``(cols, ws)`` of ``to_ell_out`` or a sliced outgoing view
-    (its buckets with rows number the lists), ``vrows`` the sliced view's
-    :func:`~repro_torch.core.graph.vertex_row_table`.
-    """
-    _check(buf, mins, n_fringe, rule)
+def _launch_mark(name: str, buf: CommitBuffers, out_view, vrows, ptrs: dict,
+                 **scalars) -> SettleWork:
+    """The mark's launch (the criterion's or delta's, by ``delta_mode`` in
+    ``scalars``) over the scratch of its stream: ``ptrs`` the operands
+    beside ``buf``'s, ``scalars`` the int fields beside the sizes."""
     b, n = buf.dist.shape
     dev = buf.dist.device
-    buckets = _check_view(out_view, vrows, n, dev)
-    if runs_twin(buf.dist):
-        return _mark_twin(buf, mins, n_fringe, rule)
+    buckets = _buckets(out_view)
     rows = [int(c.shape[0]) for c, _, _ in buckets]
     tiles = -(-b // 32)
     entries = []
@@ -308,31 +378,53 @@ def ell_settle_mark_batch(buf: CommitBuffers, mins: torch.Tensor,
     def call(stream):
         sc = held["sc"] = scratch(dev, stream, b, n, tiles * len(buckets),
                                   tiles * sum(rows))
-        ptr = {"d": buf.dist, "status": buf.status, "mins": mins,
-               "n_fringe": n_fringe, "live0": buf.live0,
-               "budget": buf.budget, "in_key": rule.in_key,
-               "target": buf.target, "out_deg": buf.out_deg, "vrows": vrows,
-               "trips": buf.trips, "phases": buf.phases,
-               "sum_fringe": buf.sum_fringe, "relax_edges": buf.relax_edges,
-               "ring": buf.settled_trace, "fringe_ring": buf.fringe_trace,
+        ptr = {"d": buf.dist, "status": buf.status, "live0": buf.live0,
+               "budget": buf.budget, "target": buf.target,
+               "out_deg": buf.out_deg, "vrows": vrows, "trips": buf.trips,
+               "phases": buf.phases, "sum_fringe": buf.sum_fringe,
+               "relax_edges": buf.relax_edges, "ring": buf.settled_trace,
+               "fringe_ring": buf.fringe_trace,
                "relax_ring": buf.relax_trace, "attr_ring": buf.attr_trace,
-               **sc}
+               "keys": buf.crit_keys, **ptrs, **sc}
         args = held["args"] = _SettleArgs(
-            **{nm: (None if ptr[nm] is None else ptr[nm].data_ptr())
+            **{nm: (None if ptr.get(nm) is None else ptr[nm].data_ptr())
                for nm in _POINTERS},
             n=n, total_rows=sum(rows), lanes=b, nb=len(buckets),
-            k_out=mins.shape[0] - 1, zero=int(rule.zero),
-            stop=int(rule.stop), ring_len=buf.settled_trace.shape[1],
-            n_terms=rule.n_terms(mins))
+            ring_len=buf.settled_trace.shape[1], **scalars)
         return lib.settle_phase_launch(MARK, ctypes.byref(args), table,
                                        len(buckets), stream)
 
     rc = on_stream(dev, call)
     if rc != 0:
-        raise RuntimeError(f"ell_settle_mark_batch launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return SettleWork(held["args"], table, len(buckets), held["sc"], None,
+                      float(scalars["delta"]))
+
+
+def ell_settle_mark_batch(buf: CommitBuffers, mins: torch.Tensor,
+                          n_fringe: torch.Tensor, rule: SettleRule, out_view,
+                          vrows: torch.Tensor | None = None) -> SettleWork:
+    """The settle mark of one phase, in place on ``buf``: writes status 2
+    where the plan settles a fringe vertex under the loop predicate, and
+    returns the worklist and counters the push and the tail read.
+
+    ``mins`` (1 + K, B) f32 and ``n_fringe`` (B,) int32 are #2's output
+    for the phase's entry state; ``rule`` the plan's terms; ``out_view``
+    the padded ``(cols, ws)`` of ``to_ell_out`` or a sliced outgoing view
+    (its buckets with rows number the lists), ``vrows`` the sliced view's
+    :func:`~repro_torch.core.graph.vertex_row_table`.
+    """
+    _check(buf, mins, n_fringe, rule)
+    _check_view(out_view, vrows, buf.dist.shape[1], buf.dist.device)
+    if runs_twin(buf.dist):
+        return _mark_twin(buf, mins, n_fringe, rule)
+    work = _launch_mark(
+        "ell_settle_mark_batch", buf, out_view, vrows,
+        {"mins": mins, "n_fringe": n_fringe, "in_key": rule.in_key},
+        k_out=mins.shape[0] - 1, zero=int(rule.zero), stop=int(rule.stop),
+        n_terms=rule.n_terms(mins), delta=0.0, delta_mode=0)
     ell_settle_mark_batch.launches += 1
-    return SettleWork(held["args"], table, len(buckets), held["sc"], None)
+    return work
 
 
 ell_settle_mark_batch.launches = 0  # kernel launches since the last reset
@@ -408,6 +500,106 @@ def commit_phase(buf: CommitBuffers, mins, n_fringe, rule: SettleRule,
     ell_settle_tail_batch(buf, work, n_fringe)
 
 
+def ell_delta_settle_mark_batch(buf: CommitBuffers, mins: torch.Tensor,
+                                counts: torch.Tensor, rule: DeltaRule,
+                                out_view, vrows: torch.Tensor | None = None
+                                ) -> SettleWork:
+    """Delta's mark of one phase, in place on ``buf`` (its ``crit_keys``
+    included): from the threshold's ``mins`` / ``counts`` (2, B)
+    (``frontier_crit.delta_thresholds_batch``) it takes each live lane's
+    light round or heavy turn (``ref.delta_mark_ref``), writes status 2 at
+    the settled, ``last_proc`` and ``removed`` where they change, and
+    returns the worklist and counters the push and the tail read.
+    ``out_view`` and ``vrows`` as for :func:`ell_settle_mark_batch`."""
+    _check_delta(buf, mins, counts, rule)
+    _check_view(out_view, vrows, buf.dist.shape[1], buf.dist.device)
+    if runs_twin(buf.dist):
+        return _delta_mark_twin(buf, mins, counts, rule)
+    work = _launch_mark(
+        "ell_delta_settle_mark_batch", buf, out_view, vrows,
+        {"mins": mins, "n_fringe": counts[0], "n_cur": counts[1],
+         "deg_light": rule.deg_light, "deg_heavy": rule.deg_heavy},
+        k_out=1, zero=0, stop=int(rule.stop), n_terms=DELTA_TERMS,
+        delta=rule.delta, delta_mode=1)
+    ell_delta_settle_mark_batch.launches += 1
+    return work
+
+
+ell_delta_settle_mark_batch.launches = 0  # kernel launches since the last reset
+
+
+def ell_delta_settle_push_batch(buf: CommitBuffers, work: SettleWork,
+                                cols: torch.Tensor, ws: torch.Tensor) -> None:
+    """Delta's worklist push along the padded outgoing ELL, in place on
+    ``buf``: a source of a lane on its light round lowers ``dist`` over its
+    arcs of weight ``<= delta``, one of a lane on its heavy turn over the
+    others, each candidate the reference's ``d + w`` from the source's
+    entry distance; status 0 turns 1 where a candidate below +inf lands
+    (``ref.delta_settle_push_ref``). ``work`` is delta's mark's."""
+    if runs_twin(buf.dist):
+        _push_twin(buf, work, (cols, ws))
+        return
+    _launch("ell_delta_settle_push_batch", PUSH, work, buf.dist.device)
+    ell_delta_settle_push_batch.launches += 1
+
+
+ell_delta_settle_push_batch.launches = 0  # kernel launches since the last reset
+
+
+def ell_sliced_delta_settle_push_batch(buf: CommitBuffers, work: SettleWork,
+                                       sliced) -> None:
+    """:func:`ell_delta_settle_push_batch` along a sliced outgoing view
+    (delta's ``to_ell_out_buckets``): one launch a group of 16 buckets,
+    counted once a call."""
+    if runs_twin(buf.dist):
+        _push_twin(buf, work, sliced)
+        return
+    _launch("ell_sliced_delta_settle_push_batch", PUSH, work,
+            buf.dist.device)
+    ell_sliced_delta_settle_push_batch.launches += 1
+
+
+ell_sliced_delta_settle_push_batch.launches = 0  # kernel launches since the last reset
+
+
+def ell_delta_settle_tail_batch(buf: CommitBuffers, work: SettleWork,
+                                n_fringe: torch.Tensor) -> None:
+    """Delta's tail: :func:`ell_settle_tail_batch` (the same kernel) with
+    delta's attribution triple: the light vertices, the settled ones and
+    the lane's bucket id, cast as the reference casts it (a NaN to 0, out
+    of range to the range's end)."""
+    if runs_twin(buf.dist):
+        _tail_twin(buf, work, n_fringe)
+        return
+    _launch("ell_delta_settle_tail_batch", TAIL, work, buf.dist.device)
+    ell_delta_settle_tail_batch.launches += 1
+
+
+ell_delta_settle_tail_batch.launches = 0  # kernel launches since the last reset
+
+
+def commit_delta_phase(buf: CommitBuffers, mins, counts, rule: DeltaRule,
+                       out_view, vrows=None, *,
+                       use_kernels: bool = True) -> None:
+    """One committed delta phase after its threshold launch (``mins``,
+    ``counts``): the mark, the push along ``out_view`` and the tail, in
+    place on ``buf``. ``use_kernels=False`` runs the plain twins on any
+    device."""
+    if not use_kernels:
+        _check_delta(buf, mins, counts, rule)
+        work = _delta_mark_twin(buf, mins, counts, rule)
+        _push_twin(buf, work, out_view)
+        _tail_twin(buf, work, counts[0])
+        return
+    work = ell_delta_settle_mark_batch(buf, mins, counts, rule, out_view,
+                                       vrows)
+    if hasattr(out_view, "slices"):
+        ell_sliced_delta_settle_push_batch(buf, work, out_view)
+    else:
+        ell_delta_settle_push_batch(buf, work, *out_view)
+    ell_delta_settle_tail_batch(buf, work, counts[0])
+
+
 class PhaseResult(NamedTuple):
     """The state fields one committed phase writes (:func:`settle_phase_batch`)."""
 
@@ -422,6 +614,34 @@ class PhaseResult(NamedTuple):
     fringe_trace: torch.Tensor | None = None  # with telemetry
     relax_trace: torch.Tensor | None = None
     attr_trace: torch.Tensor | None = None
+    crit_keys: torch.Tensor | None = None  # delta's carried stack
+
+
+def _phase_buffers(d, status, live0, out_deg, target, budget: int,
+                   ring_len: int, n_terms: int | None,
+                   crit_keys=None) -> CommitBuffers:
+    """Fresh buffers of one phase: copies of ``d``, ``status`` and
+    ``crit_keys``, zero counters, a ``ring_len`` ring (with ``n_terms``,
+    also the fringe, relax and attribution rings) and the budget."""
+    b, _ = d.shape
+    dev = d.device
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    rings = {}
+    if n_terms is not None:
+        rings = dict(fringe_trace=zeros((b, ring_len), torch.int32),
+                     relax_trace=zeros((b, ring_len), torch.int32),
+                     attr_trace=zeros((b, ring_len, n_terms), torch.int32))
+    return CommitBuffers(
+        dist=d.clone(), status=status.clone(), trips=zeros((), torch.int32),
+        phases=zeros((b,), torch.int32), sum_fringe=zeros((b,), torch.int64),
+        relax_edges=zeros((b,), torch.int64),
+        settled_trace=zeros((b, ring_len), torch.int32),
+        budget=torch.full((), budget, dtype=torch.int32, device=dev),
+        live0=live0, out_deg=out_deg, target=target,
+        crit_keys=None if crit_keys is None else crit_keys.clone(), **rings)
 
 
 def settle_phase_batch(d, status, mins, n_fringe, live0, out_view, out_deg,
@@ -435,28 +655,38 @@ def settle_phase_batch(d, status, mins, n_fringe, live0, out_view, out_deg,
     through :func:`commit_phase` (the three kernels on the card, the twins
     on the CPU or with ``use_kernels=False``); returns what the phase
     wrote."""
-    b, n = d.shape
-    dev = d.device
-
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
     rule = SettleRule(zero, in_key, stop)
-    rings = {}
-    if telemetry:
-        rings = dict(fringe_trace=zeros((b, ring_len), torch.int32),
-                     relax_trace=zeros((b, ring_len), torch.int32),
-                     attr_trace=zeros((b, ring_len, rule.n_terms(mins)),
-                                      torch.int32))
-    buf = CommitBuffers(
-        dist=d.clone(), status=status.clone(), trips=zeros((), torch.int32),
-        phases=zeros((b,), torch.int32), sum_fringe=zeros((b,), torch.int64),
-        relax_edges=zeros((b,), torch.int64),
-        settled_trace=zeros((b, ring_len), torch.int32),
-        budget=torch.full((), budget, dtype=torch.int32, device=dev),
-        live0=live0, out_deg=out_deg, target=target, **rings)
+    buf = _phase_buffers(d, status, live0, out_deg, target, budget, ring_len,
+                         rule.n_terms(mins) if telemetry else None)
     commit_phase(buf, mins, n_fringe, rule, out_view, vrows,
                  use_kernels=use_kernels)
+    return PhaseResult(*(getattr(buf, nm) for nm in PhaseResult._fields))
+
+
+def delta_phase_batch(d, status, crit_keys, live0, out_view, out_deg,
+                      deg_light, deg_heavy, delta: float, *,
+                      stop: bool = False, target=None, vrows=None,
+                      budget: int = 1, ring_len: int = 3,
+                      telemetry: bool = False,
+                      use_kernels: bool = True) -> PhaseResult:
+    """One committed delta phase as a function of its inputs: delta's
+    threshold launch on ``d``, ``status`` and ``crit_keys[0]``, then
+    :func:`commit_delta_phase` on fresh buffers (:func:`settle_phase_batch`'s,
+    with a copy of the carried ``crit_keys`` (2, B, n)); the four kernels on
+    the card, the twins on the CPU or with ``use_kernels=False``. Returns
+    what the phase wrote, ``crit_keys`` included."""
+    from repro_torch.kernels.frontier_crit import delta_thresholds_batch
+
+    buf = _phase_buffers(d, status, live0, out_deg, target, budget, ring_len,
+                         DELTA_TERMS if telemetry else None, crit_keys)
+    if use_kernels:
+        mins, counts = delta_thresholds_batch(d, status, crit_keys[0], delta)
+    else:
+        mins, counts = ref.delta_thresholds_ref(d, status, crit_keys[0],
+                                                delta)
+    commit_delta_phase(buf, mins, counts,
+                       DeltaRule(float(delta), deg_light, deg_heavy, stop),
+                       out_view, vrows, use_kernels=use_kernels)
     return PhaseResult(*(getattr(buf, nm) for nm in PhaseResult._fields))
 
 
@@ -488,4 +718,32 @@ def register_kernels(reg):
         reg.register(R.KernelContract(
             name=name, module=__name__, wrapper=settle_phase_batch,
             make_cases=lambda s=sliced: cases(s), kernels=pair,
+            counter_outputs=(2, 3, 4, 5, 6), notes=notes))
+
+    delta_pair = ((R.SRC_CRIT, "delta_crit_kernel"),
+                  (R.SRC_PUSH, "delta_settle_mark_kernel"),
+                  (R.SRC_PUSH, "delta_settle_push_kernel"),
+                  (R.SRC_PUSH, "settle_tail_kernel"))
+
+    def delta_cases(sliced: bool):
+        out = []
+        for i, (b, n) in enumerate(((R.FIXTURE_B, R.FIXTURE_N),)
+                                   + R.WIDE_SHAPES):
+            out.append(R.SpecCase(
+                f"b{b}_n{n}" if i else "ref",
+                *R.fixture_delta(b, n, 300 + i, sliced=sliced,
+                                 signed=bool(i % 2), target=i % 2 == 0,
+                                 stop=i == 3, telemetry=i % 3 == 1)))
+        return tuple(out)
+
+    for name, sliced, notes in (
+            ("ell_delta_commit_batch", False,
+             "#5c / #9c redesigned on delta's path: the threshold, the "
+             "mark, the worklist push with delta's weight gate along the "
+             "padded out-ELL and the tail, committing the phase in place"),
+            ("ell_sliced_delta_commit_batch", True,
+             "the same along the sliced out-view's buckets")):
+        reg.register(R.KernelContract(
+            name=name, module=__name__, wrapper=delta_phase_batch,
+            make_cases=lambda s=sliced: delta_cases(s), kernels=delta_pair,
             counter_outputs=(2, 3, 4, 5, 6), notes=notes))

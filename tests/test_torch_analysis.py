@@ -34,7 +34,8 @@ PORT_ONLY = {"ell_push_relax_batch", "ell_sliced_push_relax_batch",
              "ell_sliced_relax_keys_batch_push", "ell_key_min_status_batch",
              "ell_push_rect_batch", "embed_grad", "ell_delta_push_batch",
              "ell_sliced_delta_push_batch", "ell_settle_commit_batch",
-             "ell_sliced_settle_commit_batch"}
+             "ell_sliced_settle_commit_batch", "delta_thresholds_batch",
+             "ell_delta_commit_batch", "ell_sliced_delta_commit_batch"}
 
 
 @pytest.fixture(scope="module")
@@ -79,12 +80,12 @@ def test_every_reference_contract_has_a_port_contract(reg):
     assert PORT_ONLY <= set(reg.names())
     assert set(reg.names()) - ref_names - PORT_ONLY == {
         "push_settled_batch", "push_settled_batch_sliced",
-        "delta_push_relax_batch"}
+        "delta_push_relax_batch", "delta_thresholds"}
     for c in reg.contracts():
         assert c.oracle is not None and c.make_cases()
     # every __global__ kernel of csrc/ is launched by some contract
     claimed = {k for c in reg.contracts() for k in c.kernels}
-    assert len(claimed) == 16
+    assert len(claimed) == 19
 
 
 def test_the_cases_cover_the_ports_shapes(reg):

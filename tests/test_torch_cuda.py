@@ -1404,14 +1404,28 @@ def test_delta_solves_match_plain_host_and_legacy(cuda, layout):
     sources = [0, 5, 9, 17]
     kw = dict(criterion="delta", layout=layout, trace_len=600,
               telemetry=True)
-    push = (ell_sliced_delta_push_batch if layout == "sliced"
-            else ell_delta_push_batch)
-    gathers = (ell_key_min_batch, ell_sliced_gather_min_batch)
-    before = [push.launches] + [k.launches for k in gathers]
+    from repro_torch.core import static_engine as TS
+    from repro_torch.kernels import frontier_crit as FC
+    from repro_torch.kernels import settle_push as SP
+
+    pair = (FC.delta_thresholds_batch, SP.ell_delta_settle_mark_batch,
+            SP.ell_sliced_delta_settle_push_batch if layout == "sliced"
+            else SP.ell_delta_settle_push_batch,
+            SP.ell_delta_settle_tail_batch)
+    others = (ell_key_min_batch, ell_sliced_gather_min_batch,
+              ell_delta_push_batch, ell_sliced_delta_push_batch,
+              frontier_crit_lanes_batch)
+    before = [k.launches for k in pair + others]
+    TS.reset_chunk_stats()
     got = run_phased_static_batch(g, sources, **kw)
-    # the relax is the delta push, one launch a trip; no gather runs
-    assert push.launches - before[0] == int(got.total_phases)
-    assert [k.launches for k in gathers] == before[1:]
+    torch.cuda.synchronize()
+    # a phase is delta's four launches, the dead phases of the last chunk
+    # too; no gather, no #5c / #9c and no #2 runs
+    stats = TS.chunk_stats()
+    phases = stats.live_phases + stats.dead_phases
+    assert stats.live_phases == int(got.total_phases)
+    assert [k.launches - n for k, n in zip(pair + others, before)] == (
+        [phases] * len(pair) + [0] * len(others))
     _results_same(got, run_phased_static_batch(g, sources, use_kernels=False,
                                                **kw))
     _results_same(got, run_phased_static_batch(g_cpu, sources, device="cpu",
@@ -1574,7 +1588,7 @@ def test_analysis_card_checks_find_nothing(cuda):
 
     findings, rows, stats = audit_card()
     assert findings == [], [str(f) for f in findings]
-    assert len(rows) == 16 and stats["poisoned_cells"] == 0
+    assert len(rows) == 19 and stats["poisoned_cells"] == 0
 
 
 # ---- the LM substrate's serving path (no kernel of its own: its products
@@ -2042,6 +2056,10 @@ CHUNK_CASES = {
     "default_sliced": ("instatic|outstatic", "sliced", {}, False),
     "in_out": ("in|out", "padded", {}, False),
     "delta_sliced": ("delta", "sliced", {}, False),
+    "delta_padded_targets_telemetry": ("delta", "padded",
+                                       {"targets": [900, -1, 17, 2500],
+                                        "telemetry": True, "trace_len": 5},
+                                       True),
     "targets_stop": ("instatic|outstatic", "padded",
                      {"targets": [900, -1, 17, 2500]}, True),
     "telemetry_wraps": ("in|out", "sliced",
@@ -2290,6 +2308,162 @@ def test_settle_dead_chunk_launches_only_the_pair_and_crit(cuda):
                        and not e.key.startswith(("Memcpy", "Memset")))
     kernels = ("crit_kernel", "settle_mark_kernel", "settle_push_kernel",
                "settle_tail_kernel")
+    assert len(per_phase) == 4, per_phase
+    assert all(sum(k in key for key in per_phase) == 1 for k in kernels), \
+        per_phase
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("i,shape", list(enumerate(SETTLE_SHAPES)))
+def test_delta_pair_matches_its_twins(cuda, sliced, i, shape):
+    """Delta's threshold, mark, worklist push and tail against the plain
+    twins, every field a phase writes bit for bit (``crit_keys`` too):
+    light rounds and heavy turns, signed zeros with weights tied to delta,
+    a NaN lane, target lanes, stop_on_lane_finish, the telemetry rings, 1
+    to 40 lanes (two tiles); a dead phase writes nothing."""
+    from repro_torch.analysis.kernel_audit import to_device
+    from repro_torch.kernels import frontier_crit as FC
+    from repro_torch.kernels import registry as R
+    from repro_torch.kernels import settle_push as SP
+
+    b, n = shape
+    args, kw = R.fixture_delta(b, n, 500 + i, sliced=sliced,
+                               signed=bool(i % 2), target=i % 2 == 0,
+                               stop=i == 3, telemetry=i % 3 == 1)
+    args, kw = to_device(args, cuda), to_device(kw, cuda)
+    wrappers = (FC.delta_thresholds_batch, SP.ell_delta_settle_mark_batch,
+                SP.ell_sliced_delta_settle_push_batch if sliced
+                else SP.ell_delta_settle_push_batch,
+                SP.ell_delta_settle_tail_batch)
+    counts = [f.launches for f in wrappers]
+    got = SP.delta_phase_batch(*args, **kw)
+    torch.cuda.synchronize()
+    want = SP.delta_phase_batch(*args, **kw, use_kernels=False)
+    assert _fields_that_differ(got, want) == []
+    assert [f.launches for f in wrappers] == [c + 1 for c in counts]
+    d, status, keys = args[:3]
+    thr = FC.delta_thresholds_batch(d, status, keys[0], args[-1])
+    assert all(_same_bits(x, y) for x, y in zip(
+        thr, ref.delta_thresholds_ref(d, status, keys[0], args[-1])))
+    dead = SP.delta_phase_batch(*args, **kw, budget=0)
+    assert _same_bits(dead.dist, d) and _same_bits(dead.status, status)
+    assert _same_bits(dead.crit_keys, keys)
+    assert int(dead.trips) == 0 and int(dead.phases.sum()) == 0
+
+
+@pytest.mark.parametrize("b,n", [(1, 13), (8, 4096), (13, 1001), (40, 777)])
+def test_delta_thresholds_matches_twin_on_edges(cuda, b, n):
+    """The threshold on rows off 16-byte boundaries and aligned ones: ids
+    that overflow to +inf, a NaN lane, -0 and +0 ids, empty lanes, widths
+    whose multiples fall on bucket edges."""
+    from repro_torch.kernels import frontier_crit as FC
+
+    rng = np.random.default_rng(b * 7 + n)
+    big = np.finfo(np.float32).max
+    d = rng.choice(np.array([0.0, -0.0, 0.1, 0.3, 0.7, 1.3, big, np.inf],
+                            np.float32), (b, n))
+    d = np.where(rng.random((b, n)) < 0.5,
+                 rng.integers(0, 40, (b, n)) * np.float32(0.1), d)
+    d = d.astype(np.float32)
+    status = rng.integers(0, 3, (b, n)).astype(np.int32)
+    last = np.where(rng.random((b, n)) < 0.5, d, np.inf).astype(np.float32)
+    d[b - 1, rng.integers(0, n)] = np.nan
+    status[0, : n // 2] = 0
+    if b > 2:
+        status[1] = 0
+    for delta in (0.1, 1e-38, 0.5, 3.0):
+        args = (_t(d, cuda), _t(status, cuda), _t(last, cuda), delta)
+        got = FC.delta_thresholds_batch(*args)
+        want = ref.delta_thresholds_ref(*args)
+        assert all(_same_bits(x, y) for x, y in zip(got, want)), delta
+    view = _t(np.concatenate([d, d], axis=1), cuda)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        FC.delta_thresholds_batch(view, _t(status, cuda), _t(last, cuda),
+                                  0.5)
+
+
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_delta_pair_over_more_buckets_than_the_mark_aggregates(cuda,
+                                                              telemetry):
+    """Delta's pair on the buckets of an out-view of 90 buckets with rows
+    (the mark appends straight to the list counts beyond 64; the push runs
+    in six groups): against its twins on 40 lanes, and a captured solve
+    through ``step_batch(..., ell_out=)`` against the eager and the plain
+    stepper, bit for bit."""
+    from repro_torch.core import out_degrees
+    from repro_torch.core import static_engine as TS
+    from repro_torch.core.graph import vertex_row_table
+    from repro_torch.core.policies import delta_degrees
+    from repro_torch.kernels import settle_push as SP
+
+    rng = np.random.default_rng(17)
+    n = 400
+    src, dst = [], []
+    for v in range(n):
+        to = rng.choice(n - 1, v % 90 + 1, replace=False)
+        src += [v] * len(to)
+        dst += list(to + (to >= v))
+    w = rng.uniform(0.0, 1.0, len(src)).astype(np.float32)
+    g = from_coo(np.array(src, np.int32), np.array(dst, np.int32), w, n,
+                 device=cuda)
+    view = to_ell_out_buckets(g, pad_multiple=1,
+                              boundaries=tuple(range(1, 91)))
+    assert sum(1 for s in view.slices if s.rows.shape[0]) == 90
+    d = rng.uniform(0, 4, (40, n)).astype(np.float32)
+    st = rng.integers(0, 3, (40, n)).astype(np.int32)
+    delta = 0.25
+    x = np.floor(d / np.float32(delta))
+    bucket = np.where(st == 1, x, np.inf).min(axis=1, keepdims=True)
+    removed = (st == 1) & (x == bucket) & (rng.random((40, n)) < 0.7)
+    removed[1::2] = ((st == 1) & (x == bucket))[1::2]  # heavy turns
+    keys = np.stack([np.where(removed, d, np.inf), removed]).astype(
+        np.float32)
+    dl, dh = delta_degrees(g, delta)
+    args = (_t(d, cuda), _t(st, cuda), _t(keys, cuda),
+            _t((st == 1).any(axis=1), cuda), view, out_degrees(g), dl, dh,
+            delta)
+    kw = {"vrows": vertex_row_table(g, view), "telemetry": telemetry}
+    got = SP.delta_phase_batch(*args, **kw)
+    want = SP.delta_phase_batch(*args, **kw, use_kernels=False)
+    assert _fields_that_differ(got, want) == []
+    extra = {"telemetry": True, "trace_len": 5} if telemetry else {}
+    state = TS.init_batch_state(g, [0, 89, 200, 399], criterion="delta",
+                                device=cuda, **extra)
+    res = TS.step_batch(g, state, 4 * n, ell_out=view)
+    eager = TS._step(g, state, 4 * n, None, True, False, view, capture=False)
+    torch.cuda.synchronize()
+    plain = TS.step_batch(g, state, 4 * n, ell_out=view, use_kernels=False)
+    assert _states_same_bits(res, eager) == []
+    assert _states_same_bits(res, plain) == []
+
+
+@pytest.mark.parametrize("layout", ["padded", "sliced"])
+def test_delta_dead_chunk_launches_only_its_four_kernels(cuda, layout):
+    """A finished delta state's replayed chunk: every phase is dead, the
+    state keeps every bit, and the kernels a phase launches are delta's
+    four (the threshold, the mark, the push, the tail), each J times in a
+    replay's trace; anything else is the chunk's own, fewer than J times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import static_engine as TS
+
+    g = uniform_gnp(3000, 0.003, seed=12, device=cuda)
+    kw = {"ell_out": to_ell_out_buckets(g)} if layout == "sliced" else {}
+    st = TS.step_batch(g, TS.init_batch_state(g, [0, 7], criterion="delta",
+                                              device=cuda), 4 * g.n, **kw)
+    assert not TS.lanes_active(st).any()
+    j = TS.PHASES_PER_REPLAY
+    TS.step_batch(g, st, j, **kw)  # the key's capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = TS.step_batch(g, st, j, **kw)
+        torch.cuda.synchronize()
+    assert _states_same_bits(st, again) == []
+    per_phase = sorted(e.key for e in prof.key_averages()
+                       if e.device_time_total > 0 and e.count >= j
+                       and not e.key.startswith(("Memcpy", "Memset")))
+    kernels = ("delta_crit_kernel", "delta_settle_mark_kernel",
+               "delta_settle_push_kernel", "settle_tail_kernel")
     assert len(per_phase) == 4, per_phase
     assert all(sum(k in key for key in per_phase) == 1 for k in kernels), \
         per_phase

@@ -1,9 +1,11 @@
 """Delta-stepping's relax as one push over the outgoing view, against the
 JAX reference's two gathers over the weight-gated incoming views.
 
-The port's delta policy relaxes by ``ops.delta_push_relax_batch``
-(``ell_delta_push_batch`` on the padded out-view, ``ell_sliced_delta_push_batch``
-on the sliced one's buckets); the reference gathers ``where(light, d, inf)``
+``ops.delta_push_relax_batch`` (``ell_delta_push_batch`` on the padded
+out-view, ``ell_sliced_delta_push_batch`` on the sliced one's buckets) is
+the port's counterpart of the reference's relax and runs on no engine path:
+the port's delta policy commits its phase through ``ops.commit_delta_phase``
+(a mark, a worklist push and a tail). The reference gathers ``where(light, d, inf)``
 over the light twin of its incoming view and ``where(heavy, d, inf)`` over
 the heavy twin (``delta_relax_batch`` over ``weight_gated_ell``). Min is
 exact and every candidate is the reference's one f32 add on the reference's
@@ -226,10 +228,12 @@ def test_wrappers_check_their_inputs(grid):
 
 @pytest.fixture
 def push_only(monkeypatch):
-    """Counts the delta push's calls; the reference's gathers and gated
-    views must not run on a delta path."""
+    """Counts the calls of delta's committed phase
+    (``ops.commit_delta_phase``; ``delta_push_relax_batch`` is off the
+    engine path); the reference's gathers and gated views must not run on a
+    delta path."""
     calls = []
-    real = tops.delta_push_relax_batch
+    real = tops.commit_delta_phase
 
     def counted(*args, **kw):
         calls.append(kw.get("use_kernels", True))
@@ -238,7 +242,7 @@ def push_only(monkeypatch):
     def refused(*args, **kw):
         raise AssertionError("a delta path ran the reference's gathers")
 
-    monkeypatch.setattr(tops, "delta_push_relax_batch", counted)
+    monkeypatch.setattr(tops, "commit_delta_phase", counted)
     for name in ("delta_relax_batch", "weight_gated_ell",
                  "key_min_batch_any"):
         monkeypatch.setattr(tops, name, refused)
